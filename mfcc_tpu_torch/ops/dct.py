@@ -1,0 +1,31 @@
+"""DCT-II cepstral projection with the lifter folded into the matrix
+(twin of ``mfcc_tpu/ops/dct.py``)."""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..config import FeatureConfig
+from .. import backend, oracle
+
+
+@functools.lru_cache(maxsize=32)
+def _dct_matrix_cached(key) -> np.ndarray:
+    n_mfcc, n_mels, lifter = key
+    mat = oracle.dct_matrix(n_mfcc, n_mels).T  # (n_mels, n_mfcc)
+    return (mat * oracle.lifter_coeffs(n_mfcc, lifter)[None, :]).copy()
+
+
+def dct_matrix(cfg: FeatureConfig) -> np.ndarray:
+    """(n_mels, n_mfcc) float64 lifter-folded DCT-II projection."""
+    return _dct_matrix_cached((cfg.n_mfcc, cfg.n_mels, cfg.lifter))
+
+
+def cepstra(logmel: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """(..., T, n_mels) log-mel -> (..., T, n_mfcc) liftered cepstra."""
+    mat = torch.from_numpy(dct_matrix(cfg).astype(np.float32)).to(
+        logmel.device)
+    return backend.matmul(logmel, mat)

@@ -1,0 +1,109 @@
+"""Pre-emphasis, centred framing and frame energy (twin of
+``mfcc_tpu/ops/framing.py``).
+
+Centre mode (Kaldi snip_edges=false) becomes a reflect pad followed by the
+exact "valid" pipeline, as in the reference, so every later stage and the
+kernel are unchanged by it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import FeatureConfig
+from . import xmath
+
+
+def center_reflect_indices(n: int, cfg: FeatureConfig) -> np.ndarray:
+    """(L,) int64 indices into an n-sample signal realizing the centred
+    symmetric (edge-duplicating) reflect pad, L = (T-1)*hop + frame_len."""
+    T = cfg.num_frames(n)  # center-mode count
+    if T == 0:
+        return np.zeros((0,), np.int64)
+    s = np.arange((T - 1) * cfg.hop_len + cfg.frame_len,
+                  dtype=np.int64) - cfg.center_left_pad
+    m = np.mod(s, 2 * n)
+    return np.minimum(m, 2 * n - 1 - m)
+
+
+def center_pad_static(x: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """(..., N) -> (..., L) centred reflect pad of the whole signal."""
+    idx = center_reflect_indices(x.shape[-1], cfg)
+    return x[..., torch.from_numpy(idx).to(x.device)]
+
+
+def center_pad_batch(x: torch.Tensor, lengths: torch.Tensor,
+                     cfg: FeatureConfig):
+    """Ragged batch centred reflect pad.
+
+    (B, N) rows with true ``lengths`` -> ((B, W) padded rows, (B,) int32
+    "valid" lengths L_i whose valid framing emits exactly the centre-mode
+    frame count of row i).  Left pad: the first left_pad samples flipped.
+    Right pad: the last ceil(frame_len/2) samples of each row flipped and
+    written at the row's true end (single-bounce reflection is exact because
+    shorter rows emit 0 frames).
+    """
+    B, N = x.shape
+    fl, hop = cfg.frame_len, cfg.hop_len
+    P_l, R = cfg.center_left_pad, cfg.center_min_samples
+    if N < R:
+        # batch narrower than the minimum emitting length: every row has
+        # 0 frames, but the tail slice below needs R columns
+        x = torch.cat([x, x.new_zeros((B, R - N))], dim=-1)
+        N = R
+    T_cap = (N + hop // 2) // hop
+    W = max((T_cap - 1) * hop + fl, fl, P_l + N + R)
+    lengths = lengths.to(device=x.device, dtype=torch.int64)
+    left = torch.flip(x[:, :P_l], dims=(-1,))
+    padded = torch.cat([left, x, x.new_zeros((B, W - P_l - N))], dim=-1)
+    start = torch.clamp(lengths - R, min=0)
+    r = torch.arange(R, device=x.device)
+    tail = torch.gather(x, 1, start[:, None] + (R - 1 - r)[None, :])
+    pos = torch.clamp(P_l + lengths, max=W - R)[:, None] + r[None, :]
+    padded = padded.scatter(1, pos, tail)
+    T = torch.where(lengths >= R, (lengths + hop // 2) // hop,
+                    torch.zeros_like(lengths))
+    L = torch.where(T > 0, (T - 1) * hop + fl, torch.zeros_like(T))
+    return padded, L.to(torch.int32)
+
+
+def resolve_frame_mode(x: torch.Tensor, sample_lengths: torch.Tensor,
+                       cfg: FeatureConfig):
+    """Batch entry hook: (x', sample_lengths', cfg') with cfg' in "valid"
+    mode (centre mode reflect-pads first)."""
+    if cfg.frame_mode == "valid":
+        return x, sample_lengths, cfg
+    xp, L = center_pad_batch(x, sample_lengths, cfg)
+    return xp, L, cfg.replace(frame_mode="valid")
+
+
+def resolve_frame_mode_static(x: torch.Tensor, cfg: FeatureConfig):
+    """Single-utterance twin of resolve_frame_mode."""
+    if cfg.frame_mode == "valid":
+        return x, cfg
+    return center_pad_static(x, cfg), cfg.replace(frame_mode="valid")
+
+
+def preemphasize(x: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """Whole-signal pre-emphasis y[n] = x[n] - a*x[n-1], y[0] = (1-a)x[0]
+    (the HTK x[-1] := x[0] rule, once per row at the signal start)."""
+    if cfg.preemph == 0.0:
+        return x
+    prev = torch.cat([x[..., :1], x[..., :-1]], dim=-1)
+    a = torch.tensor(cfg.preemph, dtype=x.dtype, device=x.device)
+    return x - a * prev
+
+
+def frames(y: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """(..., N) -> (..., T, frame_len) "valid" frames as a strided view."""
+    T = cfg.num_frames(y.shape[-1])
+    if T == 0:
+        return y.new_zeros((*y.shape[:-1], 0, cfg.frame_len))
+    return y.unfold(-1, cfg.frame_len, cfg.hop_len)
+
+
+def log_energy(fr: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """(..., T, frame_len) -> (..., T) floored log frame energy."""
+    e = torch.sum(fr * fr, dim=-1)
+    return xmath.floored_log(e.to(torch.float32), cfg.log_floor)

@@ -1,0 +1,231 @@
+"""Float64 NumPy oracle: the MFCC slice of ``mfcc_tpu.oracle``.
+
+The port's source of every constant matrix (DFT bases, mel filterbank,
+DCT and lifter) and its accuracy reference on the card.  It is a copy,
+not an import, because the reference module imports jax through its
+package; ``tests/test_torch_ops.py`` holds every function here equal to
+its reference twin.  Conventions (framing, HTK pre-emphasis x[-1] :=
+x[0], symmetric windows, |X|^2 without scaling, continuous mel triangles,
+orthonormal DCT-II, regression deltas) are documented on the reference.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .config import FeatureConfig
+
+
+# --------------------------------------------------------------------------
+# Building blocks (all float64)
+# --------------------------------------------------------------------------
+
+def window_fn(kind: str, n: int) -> np.ndarray:
+    """Symmetric analysis window of length n, float64."""
+    t = np.arange(n, dtype=np.float64)
+    if kind == "hamming":
+        return 0.54 - 0.46 * np.cos(2.0 * np.pi * t / (n - 1))
+    if kind == "hann":
+        return 0.5 - 0.5 * np.cos(2.0 * np.pi * t / (n - 1))
+    if kind == "povey":  # Kaldi's default: hann ** 0.85
+        return (0.5 - 0.5 * np.cos(2.0 * np.pi * t / (n - 1))) ** 0.85
+    if kind == "rect":
+        return np.ones(n, dtype=np.float64)
+    raise ValueError(f"unknown window {kind!r}")
+
+
+def hz_to_mel(f, scale: str = "htk"):
+    f = np.asarray(f, dtype=np.float64)
+    if scale == "htk":
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+    if scale == "slaney":
+        f_sp = 200.0 / 3.0
+        min_log_hz = 1000.0
+        min_log_mel = min_log_hz / f_sp
+        logstep = np.log(6.4) / 27.0
+        return np.where(
+            f < min_log_hz, f / f_sp,
+            min_log_mel + np.log(np.maximum(f, min_log_hz) / min_log_hz) / logstep)
+    raise ValueError(f"unknown mel scale {scale!r}")
+
+
+def mel_to_hz(m, scale: str = "htk"):
+    m = np.asarray(m, dtype=np.float64)
+    if scale == "htk":
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+    if scale == "slaney":
+        f_sp = 200.0 / 3.0
+        min_log_hz = 1000.0
+        min_log_mel = min_log_hz / f_sp
+        logstep = np.log(6.4) / 27.0
+        return np.where(
+            m < min_log_mel, m * f_sp,
+            min_log_hz * np.exp(logstep * (m - min_log_mel)))
+    raise ValueError(f"unknown mel scale {scale!r}")
+
+
+def vtln_warp_freq(f, cfg: FeatureConfig) -> np.ndarray:
+    """Piecewise-linear VTLN frequency warp W(f), float64 (three segments
+    with knees vtln_low*max(1,a) and vtln_high*min(1,a); band edges
+    fixed)."""
+    f = np.asarray(f, np.float64)
+    a = cfg.vtln_warp
+    if a == 1.0:
+        return f
+    lo, hi = cfg.fmin, cfg.fmax_hz
+    l = cfg.vtln_low * max(1.0, a)
+    h = cfg.vtln_high_hz * min(1.0, a)
+    s = 1.0 / a
+    scale_left = (s * l - lo) / (l - lo)
+    scale_right = (hi - s * h) / (hi - h)
+    w = np.where(f < l, lo + scale_left * (f - lo),
+                 np.where(f <= h, s * f, hi + scale_right * (f - hi)))
+    return np.where((f < lo) | (f > hi), f, w)
+
+
+def mel_filterbank(cfg: FeatureConfig) -> np.ndarray:
+    """(n_mels, n_bins) triangular filterbank, float64, evaluated at the
+    FFT-bin centre frequencies; VTLN warps the filter edges."""
+    n_bins = cfg.n_bins
+    bin_hz = np.arange(n_bins, dtype=np.float64) * cfg.sample_rate / cfg.n_fft
+    bin_mel = hz_to_mel(bin_hz, cfg.mel_scale)
+    edges = np.linspace(
+        hz_to_mel(cfg.fmin, cfg.mel_scale),
+        hz_to_mel(cfg.fmax_hz, cfg.mel_scale),
+        cfg.n_mels + 2,
+    )
+    if cfg.vtln_warp != 1.0:
+        edges = hz_to_mel(
+            vtln_warp_freq(mel_to_hz(edges, cfg.mel_scale), cfg),
+            cfg.mel_scale)
+    lo, ctr, hi = edges[:-2], edges[1:-1], edges[2:]
+    up = (bin_mel[None, :] - lo[:, None]) / (ctr - lo)[:, None]
+    down = (hi[:, None] - bin_mel[None, :]) / (hi - ctr)[:, None]
+    fb = np.maximum(0.0, np.minimum(up, down))
+    if cfg.mel_scale == "slaney":
+        hz_edges = mel_to_hz(edges, "slaney")
+        enorm = 2.0 / (hz_edges[2:] - hz_edges[:-2])
+        fb = fb * enorm[:, None]
+    return fb
+
+
+def dct_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """(n_out, n_in) orthonormal DCT-II matrix, float64."""
+    j = np.arange(n_in, dtype=np.float64)
+    i = np.arange(n_out, dtype=np.float64)
+    mat = np.cos(np.pi * i[:, None] * (2.0 * j[None, :] + 1.0) / (2.0 * n_in))
+    mat *= np.sqrt(2.0 / n_in)
+    mat[0] *= 1.0 / np.sqrt(2.0)
+    return mat
+
+
+def lifter_coeffs(n_mfcc: int, lifter: int) -> np.ndarray:
+    """Sinusoidal cepstral lifter weights (HTK), float64; ones if lifter==0."""
+    if lifter <= 0:
+        return np.ones(n_mfcc, dtype=np.float64)
+    i = np.arange(n_mfcc, dtype=np.float64)
+    return 1.0 + (lifter / 2.0) * np.sin(np.pi * i / lifter)
+
+
+# --------------------------------------------------------------------------
+# Stages
+# --------------------------------------------------------------------------
+
+def frame_signal(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """(T, frame_len) frames with per-frame pre-emphasis, float64.  The
+    predecessor comes from the signal (x[-1] := x[0] at the start); center
+    mode reflect-pads first and then frames the padded signal."""
+    x = np.asarray(x, dtype=np.float64)
+    if cfg.frame_mode == "center":
+        T = cfg.num_frames(len(x))
+        if T == 0:
+            x = x[:0]
+        else:
+            n = len(x)
+            s = np.arange((T - 1) * cfg.hop_len + cfg.frame_len,
+                          dtype=np.int64) - cfg.center_left_pad
+            m = np.mod(s, 2 * n)
+            x = x[np.minimum(m, 2 * n - 1 - m)]
+        cfg = cfg.replace(frame_mode="valid")
+    T = cfg.num_frames(len(x))
+    fl, hop = cfg.frame_len, cfg.hop_len
+    out = np.empty((T, fl), dtype=np.float64)
+    for t in range(T):
+        s = t * hop
+        fr = x[s:s + fl].copy()
+        if cfg.preemph > 0.0:
+            prev = x[s - 1] if s > 0 else x[0]
+            fr = fr - cfg.preemph * np.concatenate(([prev], x[s:s + fl - 1]))
+        out[t] = fr
+    return out
+
+
+def power_spectrum(frames: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """(T, n_bins) power spectrum |rfft(window * frame, n_fft)|^2."""
+    w = window_fn(cfg.window, cfg.frame_len)
+    spec = np.fft.rfft(frames * w[None, :], n=cfg.n_fft, axis=-1)
+    return (spec.real ** 2 + spec.imag ** 2).astype(np.float64)
+
+
+def log_mel_energies(power: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """(T, n_mels) log mel filterbank energies."""
+    fb = mel_filterbank(cfg)
+    energies = power @ fb.T
+    floor = np.asarray(cfg.log_floor)
+    if cfg.dynamic_range_db is not None:
+        rel = energies.max(axis=-1, keepdims=True) * (
+            10.0 ** (-cfg.dynamic_range_db / 10.0))
+        floor = np.maximum(floor, rel)
+    return np.log(np.maximum(energies, floor))
+
+
+def cepstra(logmel: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """(T, n_mfcc) DCT-II cepstra with optional liftering."""
+    dct = dct_matrix(cfg.n_mfcc, cfg.n_mels)
+    c = logmel @ dct.T
+    return c * lifter_coeffs(cfg.n_mfcc, cfg.lifter)[None, :]
+
+
+def log_energy(frames: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """(T,) log of total (pre-windowing) frame energy, floored."""
+    e = np.sum(frames * frames, axis=-1)
+    return np.log(np.maximum(e, cfg.log_floor))
+
+
+def deltas(feat: np.ndarray, window: int = 2) -> np.ndarray:
+    """Regression deltas over time axis 0, edge frames replicated."""
+    T = feat.shape[0]
+    denom = 2.0 * sum(n * n for n in range(1, window + 1))
+    padded = np.concatenate(
+        [np.repeat(feat[:1], window, axis=0), feat,
+         np.repeat(feat[-1:], window, axis=0)], axis=0)
+    out = np.zeros_like(feat)
+    for n in range(1, window + 1):
+        out += n * (padded[window + n: window + n + T]
+                    - padded[window - n: window - n + T])
+    return out / denom
+
+
+# --------------------------------------------------------------------------
+# End-to-end
+# --------------------------------------------------------------------------
+
+def mfcc(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """Full float64 MFCC pipeline: (n_samples,) -> (T, n_feats)."""
+    if cfg.dither > 0.0:
+        raise NotImplementedError(
+            "dither is not ported yet (ROADMAP.md, modules to port, item 2: "
+            "ops/dither)")
+    frames = frame_signal(x, cfg)
+    if frames.shape[0] == 0:
+        return np.zeros((0, cfg.n_feats), dtype=np.float64)
+    power = power_spectrum(frames, cfg)
+    logmel = log_mel_energies(power, cfg)
+    feat = cepstra(logmel, cfg)
+    if cfg.append_energy:
+        feat[:, 0] = log_energy(frames, cfg)
+    if cfg.deltas:
+        d1 = deltas(feat, cfg.delta_window)
+        d2 = deltas(d1, cfg.delta_window)
+        feat = np.concatenate([feat, d1, d2], axis=-1)
+    return feat
