@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch / CUDA port's main paths once on one NVIDIA GPU.
 
 Run from the repository root, with one card visible:
 
@@ -9,25 +9,44 @@ Phases, one status line each; any failure raises and exits non-zero:
 
 1. device: torch / CUDA versions, the card, and its name and power limit
    as nvidia-smi reports them.  No card: exit 1, no CPU fallback.
-2. build: compile ``mfcc_tpu_torch/ops/kernels/csrc/fused_raw_dit.cu``
-   from this checkout with nvcc.
-3. kernel vs plain: the CUDA kernel against its plain PyTorch version on
-   the card, same inputs, max abs diff <= 2e-5 (cepstra compared
-   unliftered, as the repository's kernel tests do).
-4. main path: ``models.mfcc.mfcc_batch`` on ragged int16 and float32
+2. build: compile ``fused_raw_dit.cu``, ``fused_nccf.cu`` and
+   ``fused_viterbi.cu`` (``mfcc_tpu_torch/ops/kernels/csrc/``) from this
+   checkout with nvcc, one process per source, all at once; print ptxas's
+   registers and spills.
+3. MFCC kernel vs plain: ``fused_raw_dit`` against its plain PyTorch
+   version on the card, same inputs, max abs diff <= 2e-5 (cepstra
+   compared unliftered, as the repository's kernel tests do).
+4. MFCC main path: ``models.mfcc.mfcc_batch`` on ragged int16 and float32
    batches and on the golden WAV, with the kernel's launch counter reset
    just before and read just after.  Frame counts, masks and zeroed padding
    are exact; features are within 1e-4 of the float64 oracle and of the
    committed goldens.
-5. timing (information, not a claim): kernel and plain path at 64 x 10 s,
-   CUDA events, median of 30 calls after warm-up.
-6. one JSON line describing the kernels, then the final JSON status line.
+5. NCCF kernel vs plain: ``fused_nccf`` against the correlation-theorem
+   ``ops.pitch.nccf`` given the same ballast, <= 2e-5 on valid frames, on
+   stationary signals (the bench batch, ragged noise, four other configs,
+   a frame count that is no tile multiple).
+6. Viterbi kernel vs plain: ``fused_viterbi`` against ``ops.pitch.viterbi``
+   on seeded random scores with zero-emission tails, paths exactly equal,
+   for B in {1, 3, 64, 200} x T in {1, 2, 64, 65, 150, 996}, and
+   ``viterbi_blocked`` on one 6-minute stream.
+7. pitch main path: ``models.pitch.pitch_batch`` on the ragged int16
+   64 x 10 s batch and on the golden WAV, and the MFCC + pitch composition
+   (mfcc_batch, pitch_batch, align_pitch, mask, concatenation), with the
+   pitch kernels' launch counters reset just before and read just after.
+   Frame counts, masks and zeroed padding are exact; pitch columns meet the
+   per-column contract (pov 1e-4, norm 3e-4, delta 1e-4) against the
+   float64 oracle and ``pitch3.npy``, MFCC columns 1e-4.
+8. timing (information, not a claim): each kernel and its plain version,
+   ``mfcc_batch`` and ``pitch_batch`` through the kernels and through plain
+   PyTorch, at 64 x 10 s, CUDA events, median over two passes.
+9. one JSON line describing the kernels, then the final JSON status line.
 
 Imports nothing of JAX and nothing of the JAX package ``mfcc_tpu``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -41,10 +60,26 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden")
 KERNEL_TOL = 2e-5     # kernel vs XLA bound of tests/test_kernels.py
 ORACLE_TOL = 1e-4     # feature contract vs the float64 oracle
+PITCH_TOL = (1e-4, 3e-4, 1e-4)   # pov, norm, delta (tests/test_pitch.py)
+KERNELS = ("fused_raw_dit", "fused_nccf", "fused_viterbi")
+
+# sizes of the main paths and of the checks
+BATCH, SECONDS = 64, 10.0
+TIMING_CALLS = 30
+VITERBI_BATCHES = (1, 3, 64, 200)
+VITERBI_STEPS = (1, 2, 64, 65, 150, 996)
+LONG_SECONDS = 360.0
 
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 def _bench_audio(batch: int, seconds: float, sr: int) -> np.ndarray:
@@ -59,7 +94,11 @@ def _bench_audio(batch: int, seconds: float, sr: int) -> np.ndarray:
     return audio
 
 
-def _time_ms(torch, fn, warmup: int = 5, calls: int = 30) -> list[float]:
+def _int16(audio: np.ndarray) -> np.ndarray:
+    return np.round(np.clip(audio, -1.0, 32767 / 32768) * 32768).astype(np.int16)
+
+
+def _time_ms(torch, fn, warmup: int = 3, calls: int = 30) -> list[float]:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -75,51 +114,44 @@ def _time_ms(torch, fn, warmup: int = 5, calls: int = 30) -> list[float]:
     return out
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "needs an NVIDIA GPU", file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
-    from mfcc_tpu_torch import FeatureConfig, oracle
-    from mfcc_tpu_torch.models import mfcc as mfcc_model
-    from mfcc_tpu_torch.ops.kernels import _build, fused_raw_dit
-    from mfcc_tpu_torch.utils import wav
+def _columns_err(got: np.ndarray, want: np.ndarray, tols) -> list[float]:
+    assert got.shape == want.shape, (got.shape, want.shape)
+    errs = [float(np.abs(got[..., i] - want[..., i]).max()) if got.size
+            else 0.0 for i in range(len(tols))]
+    assert all(e <= t for e, t in zip(errs, tols)), (errs, tols)
+    return errs
 
-    # ---- 1. device ----
-    dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    _log(f"[1 device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-         f"{kind}, device_count {torch.cuda.device_count()}")
-    print(smi, flush=True)
 
-    # ---- 2. build ----
+def _fmt(errs) -> str:
+    return "/".join(f"{e:.2e}" for e in errs)
+
+
+def _build_all(_build) -> None:
+    """nvcc for every kernel source at once (one process each)."""
     t0 = time.perf_counter()
-    _build.load("fused_raw_dit")
-    build_s = time.perf_counter() - t0
-    log = _build.library_path("fused_raw_dit").with_suffix(".log")
-    ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-              if "registers" in ln or "spill" in ln] if log.exists() else [])
-    _log(f"[2 build] fused_raw_dit.cu built and loaded in {build_s:.2f} s")
-    for ln in ptxas:
-        _log(f"  ptxas: {ln}")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.load, KERNELS))
+    _log(f"[2 build] {', '.join(k + '.cu' for k in KERNELS)} built and "
+         f"loaded in {time.perf_counter() - t0:.2f} s")
+    for name in KERNELS:
+        log = _build.library_path(name).with_suffix(".log")
+        for ln in (log.read_text().splitlines() if log.exists() else []):
+            if "registers" in ln or "spill" in ln:
+                _log(f"  ptxas {name}: {ln.strip()}")
 
-    # ---- 3. kernel vs plain ----
+
+def _mfcc_kernel_vs_plain(torch, dev, bench) -> float:
+    from mfcc_tpu_torch import FeatureConfig, oracle
+    from mfcc_tpu_torch.ops.kernels import fused_raw_dit
     cfg = FeatureConfig().validate()
     sr = cfg.sample_rate
-    bench = _bench_audio(64, 10.0, sr)
     rng = np.random.default_rng(1)
     ragged_lens = (sr, 12345, 4000)
     ragged = np.zeros((3, sr), np.float32)
     for i, n in enumerate(ragged_lens):
         ragged[i, :n] = 0.3 * rng.standard_normal(n)
     cases = [
-        ("bench 64 x 10 s", cfg, bench),
+        (f"bench {bench.shape[0]} x {bench.shape[1] / sr:g} s", cfg, bench),
         ("B=3 ragged (frames inside each length)", cfg, ragged),
         ("N not a tile multiple (T=207)",
          cfg, 0.3 * rng.standard_normal((2, 33360)).astype(np.float32)),
@@ -156,18 +188,26 @@ def main() -> int:
             diff = diff[keep]
         err = float(diff.abs().max()) if diff.numel() else 0.0
         assert bool(torch.isfinite(got).all()), name
-        _log(f"[3 kernel vs plain] {name}: shape {tuple(got.shape)}, "
+        _log(f"[3 MFCC kernel vs plain] {name}: shape {tuple(got.shape)}, "
              f"max abs diff {err:.3e} (all frames {raw:.3e})")
         assert err <= KERNEL_TOL, (name, err)
         kernel_err = max(kernel_err, err)
+    return kernel_err
 
-    # ---- 4. main path ----
-    lens = np.array([160000, 151234, 100000, 48000, 16000, 8001, 400, 399],
-                    np.int32)
+
+def _mfcc_main_path(torch, dev, bench) -> int:
+    from mfcc_tpu_torch import FeatureConfig, oracle
+    from mfcc_tpu_torch.models import mfcc as mfcc_model
+    from mfcc_tpu_torch.ops.kernels import fused_raw_dit
+    from mfcc_tpu_torch.utils import wav
+    cfg = FeatureConfig().validate()
+    sr = cfg.sample_rate
+    lens = np.minimum([160000, 151234, 100000, 48000, 16000, 8001, 400, 399],
+                      bench.shape[1]).astype(np.int32)
     audio = bench[: len(lens)].copy()
     for i, n in enumerate(lens):
         audio[i, n:] = 0.0
-    x16 = np.round(np.clip(audio, -1.0, 32767 / 32768) * 32768).astype(np.int16)
+    x16 = _int16(audio)
     speech, speech_sr = wav.read_wav(os.path.join(GOLDEN, "speech2s.wav"))
     assert speech_sr == sr
     goldens = [
@@ -190,8 +230,9 @@ def main() -> int:
         gold_out.append(f)
     torch.cuda.synchronize()
     launches = fused_raw_dit.LAUNCHES
-    _log(f"[4 main path] mfcc_batch calls launched the kernel {launches} times")
-    assert launches > 0, "the main path did not go through the kernel"
+    _log(f"[4 MFCC main path] mfcc_batch calls launched the kernel "
+         f"{launches} times")
+    assert launches > 0, "the MFCC main path did not go through the kernel"
 
     for tag, (feat, flens, mask) in outs.items():
         T = cfg.num_frames(audio.shape[1])
@@ -206,46 +247,303 @@ def main() -> int:
                else audio[0].astype(np.float64))
         ref = oracle.mfcc(src[: lens[0]], cfg)
         err = float(np.abs(f[0, : ref.shape[0]] - ref).max())
-        _log(f"[4 main path] {tag} ragged batch {tuple(f.shape)}: flens, mask, "
-             f"zero padding exact; utterance 0 vs float64 oracle {err:.3e}")
+        _log(f"[4 MFCC main path] {tag} ragged batch {tuple(f.shape)}: flens, "
+             f"mask, zero padding exact; utterance 0 vs float64 oracle "
+             f"{err:.3e}")
         assert err <= ORACLE_TOL, (tag, err)
     for (fname, c, lift), f in zip(goldens, gold_out):
         want = np.load(os.path.join(GOLDEN, fname))
         got = f[0].cpu().numpy()
         assert got.shape == want.shape, (fname, got.shape, want.shape)
         err = float(np.abs(got / lift - want / lift).max())
-        _log(f"[4 main path] speech2s.wav vs {fname}: {err:.3e}")
+        _log(f"[4 MFCC main path] speech2s.wav vs {fname}: {err:.3e}")
         assert err <= ORACLE_TOL, (fname, err)
+    return launches
 
-    # ---- 5. timing (information) ----
+
+def _nccf_inputs(torch, dev, pcfg, audio, lens):
+    """Work-rate rows, valid frame counts and the wrapper-side ballast of a
+    (B, N) batch, on the card."""
+    from mfcc_tpu_torch.ops import pitch as pitch_op, resample
+    x = torch.from_numpy(np.ascontiguousarray(audio)).to(dev)
+    xw = resample.resample(x, pcfg.sample_rate, pcfg.work_rate)
+    T = pcfg.num_frames(audio.shape[1])
+    flens = np.array([pcfg.num_frames(int(n)) for n in lens])
+    mask = torch.from_numpy(np.arange(T)[None, :] < flens[:, None]).to(dev)
+    mean_e = pitch_op.mean_frame_energy(xw, pcfg, mask)
+    return xw, pcfg.ballast * mean_e * mean_e, T, flens
+
+
+def _nccf_kernel_vs_plain(torch, dev, bench) -> float:
+    from mfcc_tpu_torch import PitchConfig
+    from mfcc_tpu_torch.ops.kernels import fused_nccf
+    pcfg = PitchConfig().validate()
+    sr = pcfg.sample_rate
+    rng = np.random.default_rng(2)
+    ragged_lens = (2 * sr, 23456, 4000)
+    ragged = np.zeros((3, 2 * sr), np.float32)
+    for i, n in enumerate(ragged_lens):
+        ragged[i, :n] = 0.3 * rng.standard_normal(n)
+    short = bench[:4, :3 * sr]
+    full = [bench.shape[1]] * bench.shape[0]
+    cases = [
+        (f"bench {bench.shape[0]} x {bench.shape[1] / sr:g} s", pcfg, bench,
+         full),
+        ("B=3 ragged noise", pcfg, ragged, ragged_lens),
+        ("work_rate=2000", pcfg.replace(work_rate=2000), short, [3 * sr] * 4),
+        ("min_f0=60, max_f0=300", pcfg.replace(min_f0=60.0, max_f0=300.0),
+         short, [3 * sr] * 4),
+        ("hop_ms=15.25", pcfg.replace(hop_ms=15.25), short, [3 * sr] * 4),
+        ("T=205, not a tile multiple", pcfg,
+         0.3 * rng.standard_normal((2, 33360)).astype(np.float32), [33360] * 2),
+    ]
+    worst = 0.0
+    for name, c, audio, lens in cases:
+        xw, ball, T, flens = _nccf_inputs(torch, dev, c.validate(), audio, lens)
+        got = fused_nccf.fused_nccf(xw, ball, c, T=T)
+        torch.cuda.synchronize()
+        want = fused_nccf.plain_nccf(xw, ball, c, T)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want):
+            assert g.shape == w.shape == (audio.shape[0], T, c.n_lags)
+            assert bool(torch.isfinite(g).all()), name
+            for i, v in enumerate(flens):
+                if v:
+                    err = max(err, float((g[i, :v] - w[i, :v]).abs().max()))
+        _log(f"[5 NCCF kernel vs plain] {name}: shape "
+             f"{tuple(got[0].shape)}, max abs diff {err:.3e} on valid frames")
+        assert err <= KERNEL_TOL, (name, err)
+        worst = max(worst, err)
+    return worst
+
+
+def _viterbi_kernel_vs_plain(torch, dev) -> int:
+    from mfcc_tpu_torch import PitchConfig
+    from mfcc_tpu_torch.ops import pitch as pitch_op
+    from mfcc_tpu_torch.ops.kernels import fused_viterbi
+    pcfg = PitchConfig()
+    rng = np.random.default_rng(3)
+
+    def scores(B, T):
+        s = (0.5 * rng.standard_normal((B, T, pcfg.n_lags))).astype(np.float32)
+        s[1::2, T * 2 // 3:] = 0.0           # zero-emission tails
+        return torch.from_numpy(s).to(dev)
+
+    bad = 0
+    for B in VITERBI_BATCHES:
+        for T in VITERBI_STEPS:
+            s = scores(B, T)
+            got = fused_viterbi.fused_viterbi(s, pcfg)
+            torch.cuda.synchronize()
+            want = pitch_op.viterbi(s, pcfg)
+            assert got.dtype == want.dtype == torch.int32
+            assert got.shape == want.shape == (B, T)
+            bad += int((got != want).sum())
+    _log(f"[6 Viterbi kernel vs plain] B in {VITERBI_BATCHES} x T in "
+         f"{VITERBI_STEPS}: {bad} path entries differ")
+    n = int(LONG_SECONDS * pcfg.sample_rate)
+    s = scores(1, pcfg.num_frames(n))
+    got = pitch_op.viterbi_blocked(s, pcfg, backend="cuda")
+    torch.cuda.synchronize()
+    want = pitch_op.viterbi_blocked(s, pcfg, backend="torch")
+    long_bad = int((got != want).sum())
+    _log(f"[6 Viterbi kernel vs plain] viterbi_blocked, B=1 x "
+         f"{LONG_SECONDS:g} s (T={s.shape[1]}): {long_bad} path entries "
+         f"differ")
+    bad += long_bad
+    assert bad == 0, bad
+    return bad
+
+
+def _pitch_for(cfg):
+    """The PitchConfig the MFCC + pitch composition uses with a
+    FeatureConfig: the same frame and hop (align_pitch pastes pitch frame t
+    onto main frame t) and a work rate capped at the input rate."""
+    from mfcc_tpu_torch import PitchConfig
+    return PitchConfig(sample_rate=cfg.sample_rate, frame_ms=cfg.frame_ms,
+                       hop_ms=cfg.hop_ms,
+                       work_rate=min(4000, cfg.sample_rate)).validate()
+
+
+def _mfcc_plus_pitch(torch, x, lens, cfg):
+    """(B, N), (B,) -> ((B, T, n_mfcc + 3), flens, mask): MFCC with the
+    aligned pitch features appended, padded frames zero."""
+    from mfcc_tpu_torch.models import mfcc as mfcc_model, pitch as pitch_model
+    feat, flens, mask = mfcc_model.mfcc_batch(x, lens, cfg)
+    pf, pl, _ = pitch_model.pitch_batch(x, lens, _pitch_for(cfg))
+    pf = pitch_model.align_pitch(pf, pl, feat.shape[1])
+    pf = torch.where(mask[..., None], pf, 0.0)
+    return torch.cat([feat, pf], dim=-1), flens, mask
+
+
+def _pitch_main_path(torch, dev, bench) -> dict:
+    from mfcc_tpu_torch import FeatureConfig, PitchConfig, oracle
+    from mfcc_tpu_torch.models import pitch as pitch_model
+    from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_viterbi
+    from mfcc_tpu_torch.utils import wav
+    pcfg = PitchConfig().validate()
+    cfg = FeatureConfig().validate()
+    B, N = bench.shape
+    lens = np.maximum(N - np.arange(B) * (N // (B + 6)), 0).astype(np.int32)
+    lens[-2:] = (720, 715)                   # 1 pitch frame, 0 pitch frames
+    audio = bench.copy()
+    for i, n in enumerate(lens):
+        audio[i, n:] = 0.0
+    x16 = _int16(audio)
+    speech, _ = wav.read_wav(os.path.join(GOLDEN, "speech2s.wav"))
+    xd = torch.from_numpy(x16).to(dev)
+    ld = torch.from_numpy(lens).to(dev)
+
+    fused_nccf.LAUNCHES = fused_viterbi.LAUNCHES = 0
+    feat, flens, mask = pitch_model.pitch_batch(xd, ld, pcfg)
+    gold, gold_fl, _ = pitch_model.pitch_batch(
+        torch.from_numpy(speech[None]).to(dev),
+        torch.tensor([len(speech)], dtype=torch.int32, device=dev), pcfg)
+    comb, cfl, cmask = _mfcc_plus_pitch(torch, xd, ld, cfg)
+    torch.cuda.synchronize()
+    launches = {"fused_nccf": fused_nccf.LAUNCHES,
+                "fused_viterbi": fused_viterbi.LAUNCHES}
+    _log(f"[7 pitch main path] pitch_batch and the MFCC + pitch composition "
+         f"launched {launches}")
+    assert all(v > 0 for v in launches.values()), \
+        "the pitch main path did not go through both kernels"
+
+    T = pcfg.num_frames(N)
+    want_fl = np.array([pcfg.num_frames(int(n)) for n in lens])
+    f, m = feat.cpu().numpy(), mask.cpu().numpy()
+    assert f.shape == (B, T, 3), f.shape
+    assert (flens.cpu().numpy() == want_fl).all(), flens
+    assert (m == (np.arange(T)[None] < want_fl[:, None])).all()
+    assert np.isfinite(f).all()
+    assert (f[~m] == 0.0).all(), "padded frames not zero"
+    xf = x16.astype(np.float64) / 32768.0
+    for i in (0, B // 2, B - 2):
+        want = oracle.pitch(xf[i, : lens[i]], pcfg)
+        errs = _columns_err(f[i, : want.shape[0]], want, PITCH_TOL)
+        _log(f"[7 pitch main path] int16 ragged batch {f.shape}, row {i} "
+             f"({want.shape[0]} frames) vs float64 oracle, pov/norm/delta "
+             f"{_fmt(errs)}")
+    want = np.load(os.path.join(GOLDEN, "pitch3.npy"))
+    assert int(gold_fl[0]) == want.shape[0]
+    errs = _columns_err(gold[0].cpu().numpy(), want, PITCH_TOL)
+    _log(f"[7 pitch main path] speech2s.wav vs pitch3.npy, pov/norm/delta "
+         f"{_fmt(errs)}")
+
+    c, cm = comb.cpu().numpy(), cmask.cpu().numpy()
+    Tm = cfg.num_frames(N)
+    assert c.shape == (B, Tm, cfg.n_mfcc + 3), c.shape
+    assert (cfl.cpu().numpy() == [cfg.num_frames(int(n)) for n in lens]).all()
+    assert np.isfinite(c).all() and (c[~cm] == 0.0).all()
+    assert (c[B - 1, :, cfg.n_mfcc:] == 0.0).all(), "no pitch frames -> 0"
+    for i in (0, B - 2):
+        ref = oracle.mfcc(xf[i, : lens[i]], cfg)
+        pw = oracle.pitch(xf[i, : lens[i]], _pitch_for(cfg))
+        pw = pw[np.minimum(np.arange(ref.shape[0]), pw.shape[0] - 1)]
+        got = c[i, : ref.shape[0]]
+        merr = float(np.abs(got[:, : cfg.n_mfcc] - ref).max())
+        assert merr <= ORACLE_TOL, merr
+        errs = _columns_err(got[:, cfg.n_mfcc:], pw, PITCH_TOL)
+        _log(f"[7 pitch main path] MFCC + pitch {c.shape}, row {i} vs "
+             f"float64 oracles: MFCC {merr:.3e}, pov/norm/delta {_fmt(errs)}")
+    return launches
+
+
+def _timing(torch, dev, bench, smi) -> dict:
+    from mfcc_tpu_torch import FeatureConfig, PitchConfig
+    from mfcc_tpu_torch.models import mfcc as mfcc_model, pitch as pitch_model
+    from mfcc_tpu_torch.ops import pitch as pitch_op
+    from mfcc_tpu_torch.ops.kernels import (fused_nccf, fused_raw_dit,
+                                            fused_viterbi)
+    cfg, pcfg = FeatureConfig(), PitchConfig()
+    B, N = bench.shape
     xb = torch.from_numpy(bench).to(dev)
-    lb = torch.full((bench.shape[0],), bench.shape[1], dtype=torch.int32,
-                    device=dev)
-    audio_s = bench.shape[0] * bench.shape[1] / sr
-    runs = {"kernel": lambda: fused_raw_dit.fused_features_raw_dit(xb, cfg),
-            "plain": lambda: fused_raw_dit.plain_features(xb, cfg),
-            "mfcc_batch cuda": lambda: mfcc_model.mfcc_batch(xb, lb, cfg, "cuda"),
-            "mfcc_batch torch": lambda: mfcc_model.mfcc_batch(xb, lb, cfg, "torch")}
+    lb = torch.full((B,), N, dtype=torch.int32, device=dev)
+    xw, ball, T, _ = _nccf_inputs(torch, dev, pcfg, bench, [N] * B)
+    scores = fused_nccf.plain_nccf(xw, ball, pcfg, T)[0]   # every frame valid
+    slow = max(2, TIMING_CALLS // 3)     # the plain Viterbi's T-step loop
+    runs = {
+        "fused_raw_dit": (lambda: fused_raw_dit.fused_features_raw_dit(xb, cfg),
+                          TIMING_CALLS),
+        "fused_raw_dit plain": (lambda: fused_raw_dit.plain_features(xb, cfg),
+                                TIMING_CALLS),
+        "fused_nccf": (lambda: fused_nccf.fused_nccf(xw, ball, pcfg, T=T),
+                       TIMING_CALLS),
+        "fused_nccf plain": (lambda: fused_nccf.plain_nccf(xw, ball, pcfg, T),
+                             TIMING_CALLS),
+        "fused_viterbi": (lambda: fused_viterbi.fused_viterbi(scores, pcfg),
+                          TIMING_CALLS),
+        "fused_viterbi plain": (lambda: pitch_op.viterbi(scores, pcfg), slow),
+        "mfcc_batch cuda": (lambda: mfcc_model.mfcc_batch(xb, lb, cfg, "cuda"),
+                            TIMING_CALLS),
+        "mfcc_batch torch": (lambda: mfcc_model.mfcc_batch(xb, lb, cfg, "torch"),
+                             TIMING_CALLS),
+        "pitch_batch cuda": (lambda: pitch_model.pitch_batch(xb, lb, pcfg,
+                                                             "cuda"),
+                             TIMING_CALLS),
+        "pitch_batch torch": (lambda: pitch_model.pitch_batch(xb, lb, pcfg,
+                                                              "torch"), slow),
+    }
     times = {k: [] for k in runs}
     for order in (list(runs), list(runs)[::-1]):
         for k in order:
-            times[k] += _time_ms(torch, runs[k])
+            fn, calls = runs[k]
+            times[k] += _time_ms(torch, fn, calls=calls)
     med = {k: statistics.median(v) for k, v in times.items()}
+    audio_s = B * N / cfg.sample_rate
     for k, ms in med.items():
-        _log(f"[5 timing] {k}: {ms:.4f} ms per 64 x 10 s batch = "
-             f"{audio_s / (ms / 1e3):,.0f} audio-sec/s "
+        _log(f"[8 timing] {k}: {ms:.4f} ms per {B} x {N / cfg.sample_rate:g} s "
+             f"batch = {audio_s / (ms / 1e3):,.0f} audio-sec/s "
              f"(median of {len(times[k])}; {smi})")
+    return med
 
-    # ---- 6. summary ----
+
+def run(torch, dev) -> list[dict]:
+    """Phases 1-8 on device ``dev``; -> the kernels' JSON records."""
+    from mfcc_tpu_torch.ops.kernels import _build
+
+    # ---- 1. device ----
+    smi = _smi()
+    _log(f"[1 device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+         f"{torch.cuda.get_device_name(0)}, "
+         f"device_count {torch.cuda.device_count()}")
+    print(smi, flush=True)
+
+    _build_all(_build)                                      # 2
+    bench = _bench_audio(BATCH, SECONDS, 16000)
+    mfcc_err = _mfcc_kernel_vs_plain(torch, dev, bench)     # 3
+    mfcc_launches = _mfcc_main_path(torch, dev, bench)      # 4
+    nccf_err = _nccf_kernel_vs_plain(torch, dev, bench)     # 5
+    viterbi_bad = _viterbi_kernel_vs_plain(torch, dev)      # 6
+    pitch_launches = _pitch_main_path(torch, dev, bench)    # 7
+    med = _timing(torch, dev, bench, smi)                   # 8
+
+    src = "mfcc_tpu_torch/ops/kernels/csrc/{}.cu".format
+    launches = {"fused_raw_dit": mfcc_launches, **pitch_launches}
+    errs = {"fused_raw_dit": mfcc_err, "fused_nccf": nccf_err,
+            "fused_viterbi": viterbi_bad}
+    replaces = {"fused_raw_dit": "mfcc_tpu/ops/kernels/fused_raw_dit.py:555",
+                "fused_nccf": "mfcc_tpu/ops/kernels/fused_nccf.py:249",
+                "fused_viterbi": "mfcc_tpu/ops/kernels/fused_viterbi.py:149"}
+    return [{"name": k, "route": "cuda", "source": src(k),
+             "replaces": replaces[k], "launches": launches[k],
+             "max_abs_err": errs[k], "ms": med[k],
+             "plain_ms": med[f"{k} plain"]} for k in KERNELS]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    kernels = run(torch, torch.device("cuda", 0))
+    # ---- 9. summary ----
     assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
-    print(json.dumps({"kernels": [{
-        "name": "fused_raw_dit", "route": "cuda",
-        "source": "mfcc_tpu_torch/ops/kernels/csrc/fused_raw_dit.cu",
-        "replaces": "mfcc_tpu/ops/kernels/fused_raw_dit.py:555",
-        "launches": launches, "max_abs_err": kernel_err,
-        "ms": med["kernel"], "plain_ms": med["plain"]}]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -2,10 +2,11 @@
 
 The port cannot import the JAX package at run time (importing anything
 under ``mfcc_tpu`` imports jax), so it carries its own copy of the frozen
-numerical contract.  The fields, their order and their defaults are the
-reference's, so ``to_json`` and ``config_hash`` give the same string and
-the same hash for the same contract; ``tests/test_torch_config.py`` holds
-the two equal.  Field notes live on the reference class.
+numerical contracts: :class:`FeatureConfig` and :class:`PitchConfig`.  The
+fields, their order and their defaults are the reference's, so ``to_json``
+and ``config_hash`` give the same string and the same hash for the same
+contract; ``tests/test_torch_config.py`` and ``tests/test_torch_pitch.py``
+hold the two equal.  Field notes live on the reference classes.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 from typing import Optional
 
 WINDOWS = ("hamming", "hann", "povey", "rect")
@@ -206,17 +208,100 @@ class FeatureConfig:
         return dataclasses.replace(self, **kw)
 
 
-def from_jax(cfg_or_dict) -> FeatureConfig:
-    """The port's FeatureConfig for a JAX ``FeatureConfig`` or its
-    ``dataclasses.asdict``.  Unknown or missing fields raise, so a contract
-    that grew on one side cannot be carried over silently."""
-    d = (dict(cfg_or_dict) if isinstance(cfg_or_dict, dict)
-         else dataclasses.asdict(cfg_or_dict))
-    names = [f.name for f in dataclasses.fields(FeatureConfig)]
+@dataclasses.dataclass(frozen=True)
+class PitchConfig:
+    """Frozen numerical contract for the Kaldi-style pitch front end
+    (NCCF + Viterbi; ``models/pitch.py``).  Defaults: 16 kHz input, 4 kHz
+    work rate, 25 ms / 10 ms frames, f0 in 50..400 Hz."""
+
+    sample_rate: int = 16_000
+    work_rate: int = 4_000
+    frame_ms: float = 25.0
+    hop_ms: float = 10.0
+    min_f0: float = 50.0
+    max_f0: float = 400.0
+    penalty: float = 0.35
+    ballast: float = 1.0
+    norm_window: int = 151
+    delta_window: int = 2
+
+    @property
+    def frame_len_w(self) -> int:
+        return int(round(self.work_rate * self.frame_ms / 1000.0))
+
+    @property
+    def hop_len_w(self) -> int:
+        return int(round(self.work_rate * self.hop_ms / 1000.0))
+
+    @property
+    def min_lag(self) -> int:
+        return max(2, math.ceil(self.work_rate / self.max_f0))
+
+    @property
+    def max_lag(self) -> int:
+        return int(self.work_rate // self.min_f0)
+
+    @property
+    def n_lags(self) -> int:
+        return self.max_lag - self.min_lag + 1
+
+    @property
+    def n_feats(self) -> int:
+        return 3                   # [pov, normalized log pitch, delta]
+
+    def num_frames(self, n_samples: int) -> int:
+        """Pitch frames for an ``n_samples``-long signal at sample_rate:
+        "valid" framing at the work rate, each frame spanning frame_len_w
+        + max_lag work samples, tail dropped."""
+        from .ops.resample import resampled_length
+        nw = resampled_length(n_samples, self.sample_rate, self.work_rate)
+        need = self.frame_len_w + self.max_lag
+        if nw < need:
+            return 0
+        return 1 + (nw - need) // self.hop_len_w
+
+    def validate(self) -> "PitchConfig":
+        if self.work_rate > self.sample_rate:
+            raise ValueError("work_rate must be <= sample_rate")
+        if not (0 < self.min_f0 < self.max_f0):
+            raise ValueError("need 0 < min_f0 < max_f0")
+        if self.max_f0 > self.work_rate / 2:
+            raise ValueError("max_f0 must be <= work_rate / 2")
+        if self.min_lag >= self.max_lag:
+            raise ValueError("empty lag grid (raise work_rate or widen "
+                             "the f0 band)")
+        if self.norm_window < 1 or self.norm_window % 2 == 0:
+            raise ValueError("norm_window must be odd and >= 1")
+        return self
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), sort_keys=True)
+
+    def config_hash(self) -> str:
+        return hashlib.sha256(self.to_json().encode()).hexdigest()[:12]
+
+    def replace(self, **kw) -> "PitchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def from_jax(cfg_or_dict):
+    """The port's FeatureConfig or PitchConfig for a JAX config of that
+    name or its ``dataclasses.asdict`` (a dict is matched by its field
+    set).  Unknown or missing fields raise, so a contract that grew on one
+    side cannot be carried over silently."""
+    if isinstance(cfg_or_dict, dict):
+        d = dict(cfg_or_dict)
+        # the class whose fields the dict covers best
+        cls = max((FeatureConfig, PitchConfig), key=lambda c: len(
+            set(d) & {f.name for f in dataclasses.fields(c)}))
+    else:
+        d = dataclasses.asdict(cfg_or_dict)
+        cls = (PitchConfig if type(cfg_or_dict).__name__ == "PitchConfig"
+               else FeatureConfig)
+    names = [f.name for f in dataclasses.fields(cls)]
     if sorted(d) != sorted(names):
         raise ValueError(
-            "config fields differ from the port's FeatureConfig: "
+            f"config fields differ from the port's {cls.__name__}: "
             f"extra {sorted(set(d) - set(names))}, "
             f"missing {sorted(set(names) - set(d))}")
-    return FeatureConfig(**d)
-
+    return cls(**d)

@@ -1,0 +1,103 @@
+"""Pitch NCCF in one hand-written CUDA kernel (the Hopper twin of
+``mfcc_tpu/ops/kernels/fused_nccf.py``).
+
+- :func:`plain_nccf` — the plain PyTorch version: ``ops.pitch.nccf`` (the
+  correlation-theorem form) with the given ballast.  The CPU path and the
+  kernel's differential twin.
+- :func:`fused_nccf` — the wrapper: checks its input and launches
+  ``csrc/fused_nccf.cu`` for a CUDA tensor (a build or launch failure
+  raises; a config the kernel does not take raises NotImplementedError),
+  or runs :func:`plain_nccf` for a CPU tensor.
+- ``LAUNCHES`` — how many times the wrapper launched the kernel.
+
+The kernel computes the numerators by direct time-domain correlation, not
+by the TPU kernel's DFT factorization; its design note heads the CUDA
+source.  The TPU eligibility rule (lane phases, K <= 128) is a lane-layout
+rule and does not carry over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...config import PitchConfig
+from .. import pitch as pitch_op
+from . import _build
+
+# kernel launches by fused_nccf (reset by callers that count)
+LAUNCHES = 0
+
+# extended-window samples (frame_len_w + max_lag) the kernel can stage:
+# one window in the 227 KB of shared memory a Hopper block may opt into
+MAX_WINDOW = 58_000
+
+
+def kernel_supports(pcfg: PitchConfig) -> bool:
+    """Whether the CUDA kernel takes this config."""
+    return pcfg.frame_len_w + pcfg.max_lag <= MAX_WINDOW
+
+
+def plain_nccf(xw: torch.Tensor, ball: torch.Tensor, pcfg: PitchConfig,
+               T: int):
+    """(B, Nw) work-rate rows + (B,) ballast -> the (B, T, n_lags)
+    ballasted and plain NCCF, plain PyTorch."""
+    mask = torch.ones((xw.shape[0], T), dtype=torch.bool, device=xw.device)
+    return pitch_op.nccf(xw, pcfg, mask, ball=ball)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_nccf")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mfcc_fused_nccf.argtypes = [ptr, i64, i64, ptr, ptr, ptr,
+                                    i32, i32, i32, i32, i32, i32, ptr]
+    lib.mfcc_fused_nccf.restype = i32
+    lib.mfcc_error_string.argtypes = [i32]
+    lib.mfcc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def fused_nccf(xw: torch.Tensor, ball: torch.Tensor, pcfg: PitchConfig, *,
+               T: int):
+    """(B, Nw) float32 work-rate rows + (B,) ballast (ballast *
+    mean_energy^2) -> ((B, T, n_lags) ballasted NCCF, (B, T, n_lags) plain
+    NCCF).  Frames whose window runs past a row's end read zeros there;
+    they are invalid and every caller masks them."""
+    if xw.dim() != 2 or ball.shape != (xw.shape[0],):
+        raise ValueError(f"(B, Nw) rows and (B,) ballast expected, got "
+                         f"{tuple(xw.shape)} and {tuple(ball.shape)}")
+    if not xw.is_cuda:
+        return plain_nccf(xw, ball, pcfg, T)
+    if not kernel_supports(pcfg):
+        raise NotImplementedError(
+            f"the NCCF kernel stages one {pcfg.frame_len_w + pcfg.max_lag}-"
+            f"sample window, more than its {MAX_WINDOW} (ROADMAP.md, TPU "
+            "kernels to port, item 5: windows beyond shared memory)")
+    if xw.dtype != torch.float32 or ball.dtype != torch.float32:
+        raise TypeError(f"float32 rows and ballast expected, got {xw.dtype} "
+                        f"and {ball.dtype}")
+    if xw.stride(1) != 1 or not ball.is_contiguous():
+        raise ValueError("rows with unit sample stride and a contiguous "
+                         "ballast expected")
+    if ball.device != xw.device:
+        raise ValueError(f"ballast on {ball.device}, rows on {xw.device}")
+    B, Nw = xw.shape
+    out_b = torch.empty((B, T, pcfg.n_lags), dtype=torch.float32,
+                        device=xw.device)
+    out_p = torch.empty_like(out_b)
+    if B == 0 or T == 0:
+        return out_b, out_p
+    lib = _lib()
+    with torch.cuda.device(xw.device):
+        err = lib.mfcc_fused_nccf(
+            xw.data_ptr(), xw.stride(0), Nw, ball.data_ptr(),
+            out_b.data_ptr(), out_p.data_ptr(), B, T, pcfg.frame_len_w,
+            pcfg.hop_len_w, pcfg.min_lag, pcfg.n_lags,
+            torch.cuda.current_stream(xw.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("fused_nccf kernel launch failed: "
+                           f"{lib.mfcc_error_string(err).decode()} ({err})")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out_b, out_p

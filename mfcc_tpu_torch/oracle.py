@@ -1,4 +1,4 @@
-"""Float64 NumPy oracle: the MFCC slice of ``mfcc_tpu.oracle``.
+"""Float64 NumPy oracle: the MFCC and pitch slices of ``mfcc_tpu.oracle``.
 
 The port's source of every constant matrix (DFT bases, mel filterbank,
 DCT and lifter) and its accuracy reference on the card.  It is a copy,
@@ -6,7 +6,9 @@ not an import, because the reference module imports jax through its
 package; ``tests/test_torch_ops.py`` holds every function here equal to
 its reference twin.  Conventions (framing, HTK pre-emphasis x[-1] :=
 x[0], symmetric windows, |X|^2 without scaling, continuous mel triangles,
-orthonormal DCT-II, regression deltas) are documented on the reference.
+orthonormal DCT-II, regression deltas, the NCCF + Viterbi pitch) are
+documented on the reference; ``tests/test_torch_pitch.py`` holds the pitch
+twins equal to theirs.
 """
 
 from __future__ import annotations
@@ -229,3 +231,117 @@ def mfcc(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
         d2 = deltas(d1, cfg.delta_window)
         feat = np.concatenate([feat, d1, d2], axis=-1)
     return feat
+
+
+# --------------------------------------------------------------------------
+# Pitch (NCCF + Viterbi, Kaldi-style)
+# --------------------------------------------------------------------------
+
+def nccf(xw: np.ndarray, pcfg) -> tuple[np.ndarray, np.ndarray]:
+    """Work-rate signal -> (nccf_ballasted, nccf_plain), each (T, n_lags).
+
+    Frame t starts at t*hop_w; numerator(t, L) = sum_j w[j] * w[j+L] over
+    the frame_len_w-sample window w at that start.  Denominator is
+    sqrt(e0 * eL [+ ballast * mean_e^2]) where e0/eL are the energies of
+    the two windows and mean_e is the mean frame energy of the utterance.
+    """
+    w, hop = pcfg.frame_len_w, pcfg.hop_len_w
+    lags = np.arange(pcfg.min_lag, pcfg.max_lag + 1)
+    T = 0
+    need = w + pcfg.max_lag
+    if xw.shape[0] >= need:
+        T = 1 + (xw.shape[0] - need) // hop
+    num = np.zeros((T, lags.size))
+    e_lag = np.zeros((T, lags.size))
+    e0 = np.zeros((T,))
+    for t in range(T):
+        a = xw[t * hop: t * hop + w]
+        e0[t] = (a * a).sum()
+        for i, L in enumerate(lags):
+            b = xw[t * hop + L: t * hop + L + w]
+            num[t, i] = (a * b).sum()
+            e_lag[t, i] = (b * b).sum()
+    mean_e = e0.mean() if T else 0.0
+    denom_plain = np.sqrt(np.maximum(e0[:, None] * e_lag, 1e-30))
+    denom_ball = np.sqrt(np.maximum(
+        e0[:, None] * e_lag + pcfg.ballast * mean_e * mean_e, 1e-30))
+    return num / denom_ball, num / denom_plain
+
+
+def pitch_viterbi(nccf_b: np.ndarray, pcfg) -> np.ndarray:
+    """(T, n_lags) ballasted NCCF -> (T,) chosen lag indices.
+    Min-sum Viterbi: state cost = -nccf, transition cost =
+    penalty * (log lag_i - log lag_j)^2."""
+    T, n = nccf_b.shape
+    lags = np.arange(pcfg.min_lag, pcfg.max_lag + 1, dtype=np.float64)
+    dlog = np.log(lags)[:, None] - np.log(lags)[None, :]
+    trans = pcfg.penalty * dlog * dlog          # (from j, to i) symmetric
+    cost = -nccf_b[0]
+    back = np.zeros((T, n), dtype=np.int64)
+    for t in range(1, T):
+        tot = cost[:, None] + trans             # (j, i)
+        back[t] = np.argmin(tot, axis=0)
+        cost = tot[back[t], np.arange(n)] - nccf_b[t]
+    path = np.zeros((T,), dtype=np.int64)
+    path[-1] = int(np.argmin(cost))
+    for t in range(T - 1, 0, -1):
+        path[t - 1] = back[t, path[t]]
+    return path
+
+
+def _parabolic_lag(nccf_row: np.ndarray, i: int) -> float:
+    """Sub-sample lag refinement around integer argmax i (clamped)."""
+    n = nccf_row.shape[0]
+    if i == 0 or i == n - 1:
+        return 0.0
+    ym, y0, yp = nccf_row[i - 1], nccf_row[i], nccf_row[i + 1]
+    denom = ym - 2.0 * y0 + yp
+    if abs(denom) < 1e-12:
+        return 0.0
+    d = 0.5 * (ym - yp) / denom
+    return float(np.clip(d, -0.5, 0.5))
+
+
+def pov_feature(c: np.ndarray) -> np.ndarray:
+    """Kaldi's NCCF -> POV-feature nonlinearity: 2*((1.0001 - c)^0.15 - 1)."""
+    return 2.0 * (np.power(1.0001 - np.clip(c, -1.0, 1.0), 0.15) - 1.0)
+
+
+def weighted_sliding_mean(v: np.ndarray, wgt: np.ndarray,
+                          window: int) -> np.ndarray:
+    """Centered wgt-weighted sliding mean of v (edges shrink the window)."""
+    T = v.shape[0]
+    half = window // 2
+    out = np.zeros_like(v)
+    for t in range(T):
+        lo, hi = max(0, t - half), min(T, t + half + 1)
+        ww = wgt[lo:hi]
+        sw = ww.sum()
+        out[t] = (v[lo:hi] * ww).sum() / sw if sw > 1e-12 else v[t]
+    return out
+
+
+def pitch(x: np.ndarray, pcfg) -> np.ndarray:
+    """Full float64 pitch pipeline: (n_samples,) at pcfg.sample_rate ->
+    (T, 3) features [pov_feature, normalized log pitch, delta log pitch].
+    """
+    from .ops.resample import resample_poly_numpy
+    xw = (resample_poly_numpy(np.asarray(x, np.float64), pcfg.sample_rate,
+                              pcfg.work_rate)
+          if pcfg.work_rate != pcfg.sample_rate else np.asarray(x, np.float64))
+    nccf_b, nccf_p = nccf(xw, pcfg)
+    T = nccf_b.shape[0]
+    if T == 0:
+        return np.zeros((0, pcfg.n_feats))
+    path = pitch_viterbi(nccf_b, pcfg)
+    idx = np.arange(T)
+    c = nccf_p[idx, path]                       # plain NCCF along the path
+    dlag = np.array([_parabolic_lag(nccf_p[t], int(path[t]))
+                     for t in range(T)])
+    lag = pcfg.min_lag + path + dlag
+    log_f0 = np.log(pcfg.work_rate / lag)
+    pov = pov_feature(c)
+    w = np.clip(c, 0.0, 1.0) ** 2               # POV^2 normalization weight
+    norm_log_f0 = log_f0 - weighted_sliding_mean(log_f0, w, pcfg.norm_window)
+    d = deltas(log_f0[:, None], pcfg.delta_window)[:, 0]
+    return np.stack([pov, norm_log_f0, d], axis=-1)

@@ -1,6 +1,7 @@
-"""Cases that need an NVIDIA GPU: the CUDA kernel against its plain PyTorch
-version on the card, the wrapper's checks, and the main path through the
-kernel.  All are marked ``cuda`` and skip without a card.
+"""Cases that need an NVIDIA GPU: each CUDA kernel against its plain
+PyTorch version on the card, the wrappers' checks, and the main paths
+(MFCC, pitch) through the kernels.  All are marked ``cuda`` and skip
+without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
 there without the repository's conftest:
@@ -14,15 +15,17 @@ import numpy as np
 import pytest
 import torch
 
-from mfcc_tpu_torch import FeatureConfig, oracle
-from mfcc_tpu_torch.models import mfcc as mfcc_model
-from mfcc_tpu_torch.ops.kernels import fused_raw_dit
+from mfcc_tpu_torch import FeatureConfig, PitchConfig, oracle
+from mfcc_tpu_torch.models import mfcc as mfcc_model, pitch as pitch_model
+from mfcc_tpu_torch.ops import pitch as pitch_op, resample
+from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_raw_dit, fused_viterbi
 from mfcc_tpu_torch.utils import wav
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 TOL = 2e-5   # kernel vs XLA bound of tests/test_kernels.py
 TINY = dict(sample_rate=2000, frame_ms=40, hop_ms=16, n_fft=128, n_mels=8,
             n_mfcc=4)
+PITCH_TOL = (1e-4, 3e-4, 1e-4)   # pov, norm, delta (tests/test_pitch.py)
 
 
 @pytest.fixture()
@@ -120,3 +123,152 @@ def test_goldens_on_the_card(cuda, fname, kw):
     want = np.load(os.path.join(GOLDEN, fname))
     lift = oracle.lifter_coeffs(cfg.n_mfcc, cfg.lifter)
     assert np.abs(feat.cpu().numpy() / lift - want / lift).max() <= 1e-4
+
+
+def _vibrato(gen, n, f0=180.0):
+    t = np.arange(n) / 16000
+    phase = 2 * np.pi * f0 * (t + 0.1 / (2 * np.pi * 4.0)
+                              * np.sin(2 * np.pi * 4.0 * t))
+    x = sum(a * np.sin(h * phase) for h, a in ((1, 0.5), (2, 0.25), (3, 0.12)))
+    return (x + 0.02 * gen.standard_normal(n)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,shape", [
+    (dict(), (64, 160000)),                 # the main path's batch
+    (dict(), (2, 33360)),                   # T=205, not a tile multiple
+    (dict(work_rate=2000), (3, 32000)),
+    (dict(min_f0=60.0, max_f0=300.0), (3, 32000)),
+    (dict(hop_ms=15.25), (3, 32000)),
+    (dict(sample_rate=8000), (2, 16000)),
+    # frame tiles of 8 and of 1 (a 32-frame span exceeds shared memory)
+    (dict(sample_rate=48000, work_rate=48000, hop_ms=40.0), (2, 144000)),
+    (dict(sample_rate=48000, work_rate=48000, hop_ms=200.0), (2, 144000)),
+])
+def test_nccf_kernel_matches_plain(cuda, gen, kw, shape):
+    pcfg = PitchConfig(**kw).validate()
+    x = torch.from_numpy(np.stack([_vibrato(gen, shape[1], 100.0 + 20 * i)
+                                   for i in range(shape[0])])).to(cuda)
+    xw = resample.resample(x, pcfg.sample_rate, pcfg.work_rate)
+    T = pcfg.num_frames(shape[1])
+    ball = torch.rand(shape[0], device=cuda)
+    before = fused_nccf.LAUNCHES
+    got = fused_nccf.fused_nccf(xw, ball, pcfg, T=T)
+    torch.cuda.synchronize()
+    assert fused_nccf.LAUNCHES == before + 1
+    want = fused_nccf.plain_nccf(xw, ball, pcfg, T)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (shape[0], T, pcfg.n_lags)
+        assert float((g - w).abs().max()) <= TOL    # every frame is valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,kw", [
+    (1, 1, {}), (3, 2, {}), (3, 65, {}), (64, 996, {}), (200, 150, {}),
+    # 1,027 lags: more states than threads, transitions read from global
+    (2, 65, dict(work_rate=16000, min_f0=15.0)),
+])
+def test_viterbi_kernel_exactly_equal(cuda, gen, B, T, kw):
+    pcfg = PitchConfig(**kw).validate()
+    s = (0.5 * gen.standard_normal((B, T, pcfg.n_lags))).astype(np.float32)
+    s[1::2, T * 2 // 3:] = 0.0
+    s = torch.from_numpy(s).to(cuda)
+    before = fused_viterbi.LAUNCHES
+    got = fused_viterbi.fused_viterbi(s, pcfg)
+    torch.cuda.synchronize()
+    assert fused_viterbi.LAUNCHES == before + 1
+    assert torch.equal(got, pitch_op.viterbi(s, pcfg))
+    blocked = pitch_op.viterbi_blocked(s, pcfg, block=32, warm=16)
+    assert torch.equal(blocked, pitch_op.viterbi_blocked(
+        s, pcfg, block=32, warm=16, backend="torch"))
+
+
+@pytest.mark.cuda
+def test_pitch_wrappers_raise_instead_of_falling_back(cuda):
+    pcfg = PitchConfig()
+    xw = torch.zeros((1, 4000), device=cuda)
+    with pytest.raises(TypeError):
+        fused_nccf.fused_nccf(xw.double(), torch.zeros(1, device=cuda),
+                              pcfg, T=90)
+    with pytest.raises(TypeError):
+        fused_viterbi.fused_viterbi(
+            torch.zeros((1, 5, pcfg.n_lags), dtype=torch.float64,
+                        device=cuda), pcfg)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pitch_model.pitch_batch(torch.zeros((1, 16000)),
+                                torch.tensor([16000]), pcfg, "cuda")
+    # a window the kernel cannot stage raises on the card; the plain
+    # version is not run here (its DFT matrices would be tens of GB)
+    big = PitchConfig(work_rate=16000, min_f0=0.25).validate()
+    assert not fused_nccf.kernel_supports(big)
+    x = torch.zeros((1, 70000), device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pitch_model.pitch_batch(x, torch.tensor([70000], device=cuda), big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_pitch_batch_goes_through_the_kernels(cuda, gen, dtype):
+    pcfg = PitchConfig()
+    lens = np.asarray([32000, 21333, 4800, 715], np.int32)
+    x = np.zeros((4, 32000), np.float32)
+    for i, n in enumerate(lens):
+        x[i, :n] = _vibrato(gen, n, 110.0 + 40 * i)
+    if dtype == "int16":
+        x = np.round(x * 32767).astype(np.int16)
+    before = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+    gf, gfl, gm = pitch_model.pitch_batch(torch.from_numpy(x).to(cuda),
+                                          torch.from_numpy(lens).to(cuda),
+                                          pcfg)
+    torch.cuda.synchronize()
+    assert (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    cf, cfl, cm = pitch_model.pitch_batch(torch.from_numpy(x),
+                                          torch.from_numpy(lens), pcfg)
+    assert torch.equal(gfl.cpu(), cfl) and torch.equal(gm.cpu(), cm)
+    assert bool((gf[~gm] == 0).all())
+    xf = x.astype(np.float64) / (32768.0 if dtype == "int16" else 1.0)
+    for i, n in enumerate(lens):
+        want = oracle.pitch(xf[i, :n], pcfg)
+        got = gf[i, : want.shape[0]].cpu().numpy()
+        for c, tol in enumerate(PITCH_TOL):
+            assert np.abs(got[:, c] - want[:, c]).max(initial=0.0) < tol
+
+
+@pytest.mark.cuda
+def test_pitch_golden_on_the_card(cuda):
+    x, _ = wav.read_wav(os.path.join(GOLDEN, "speech2s.wav"))
+    feat = pitch_model.pitch(torch.from_numpy(x).to(cuda), PitchConfig())
+    want = np.load(os.path.join(GOLDEN, "pitch3.npy"))
+    got = feat.cpu().numpy()
+    assert got.shape == want.shape
+    for c, tol in enumerate(PITCH_TOL):
+        assert np.abs(got[:, c] - want[:, c]).max() < tol
+
+
+class _FailingLib:
+    """A kernel library whose launches report cudaErrorInvalidValue."""
+
+    def __getattr__(self, name):
+        if name == "mfcc_error_string":
+            return lambda err: b"invalid argument"
+        return lambda *args: 1
+
+
+@pytest.mark.cuda
+def test_pitch_kernel_launch_failure_raises(cuda, monkeypatch):
+    pcfg = PitchConfig()
+    monkeypatch.setattr(fused_nccf, "_lib", _FailingLib)
+    monkeypatch.setattr(fused_viterbi, "_lib", _FailingLib)
+    before = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+    with pytest.raises(RuntimeError, match="fused_nccf kernel launch failed"):
+        fused_nccf.fused_nccf(torch.zeros((1, 4000), device=cuda),
+                              torch.zeros(1, device=cuda), pcfg, T=90)
+    with pytest.raises(RuntimeError,
+                       match="fused_viterbi kernel launch failed"):
+        fused_viterbi.fused_viterbi(
+            torch.zeros((1, 5, pcfg.n_lags), device=cuda), pcfg)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pitch_model.pitch_batch(torch.zeros((1, 16000), device=cuda),
+                                torch.tensor([16000], device=cuda), pcfg)
+    assert (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES) == before

@@ -148,3 +148,22 @@ def test_plain_power_spectrum_matches_oracle(rng):
                                   cfg).numpy()
     want = jax_oracle.power_spectrum(fr, JaxConfig())
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_nccf",
+                                  "fused_viterbi"])
+def test_build_failure_raises(monkeypatch, tmp_path, name):
+    """A kernel whose nvcc build fails raises (nothing falls back), and a
+    missing toolkit is named."""
+    import shutil
+    from mfcc_tpu_torch.ops.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: shutil.which("false"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.load.__wrapped__(name)
+    assert not list(tmp_path.glob("*.so"))
+    monkeypatch.undo()
+    monkeypatch.setattr(shutil, "which", lambda _: None)
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()

@@ -1,0 +1,499 @@
+"""The port's pitch slice against the JAX package on the same inputs: the
+PitchConfig twin, the resampler, the pitch stages and their constants, the
+NCCF and Viterbi kernels' plain versions (and numpy emulations of the CUDA
+kernels' arithmetic), the pitch model, the golden and the float64 oracle.
+The cases that need the card are in tests/test_torch_cuda.py.
+
+Per-column contract of the pitch features (docs/conventions.md,
+tests/test_pitch.py): pov 1e-4, normalized log pitch 3e-4, delta 1e-4.
+"""
+
+import dataclasses
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mfcc_tpu import config as jax_config, oracle as jax_oracle
+from mfcc_tpu.models import pitch as jax_pitch_model
+from mfcc_tpu.ops import pitch as jax_pitch, resample as jax_resample
+from mfcc_tpu.ops.kernels import fused_nccf as jax_nccf_kernel
+from mfcc_tpu.ops.kernels import fused_viterbi as jax_viterbi_kernel
+from mfcc_tpu_torch import PitchConfig, from_jax, oracle
+from mfcc_tpu_torch.models import pitch as pitch_model
+from mfcc_tpu_torch.ops import pitch as pitch_op, resample
+from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_viterbi
+from mfcc_tpu_torch.utils import wav
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+SR = 16000
+KERNEL_TOL = 2e-5     # NCCF kernel vs XLA bound of tests/test_pitch.py
+ATOL = (1e-4, 3e-4, 1e-4)   # pov, norm, delta
+
+CONFIGS = [
+    dict(),
+    dict(work_rate=2000),
+    dict(min_f0=60.0, max_f0=300.0),
+    dict(hop_ms=15.25),
+    dict(sample_rate=8000),
+]
+
+
+def _tone_silence(rng, seconds=1):
+    n = seconds * SR
+    t = np.arange(n) / SR
+    voiced = (0.4 * np.sin(2 * np.pi * 220 * t)
+              + 0.2 * np.sin(2 * np.pi * 440 * t)
+              + 0.01 * rng.standard_normal(n))
+    sil = 0.001 * rng.standard_normal(n)
+    return np.concatenate([voiced, sil]).astype(np.float32)
+
+
+def _vibrato(rng, n=SR, f0=180.0, depth=0.1, rate=4.0):
+    t = np.arange(n) / SR
+    phase = 2 * np.pi * f0 * (t + depth / (2 * np.pi * rate)
+                              * np.sin(2 * np.pi * rate * t))
+    x = np.zeros(n)
+    for h, a in ((1, 0.5), (2, 0.25), (3, 0.12)):
+        x += a * np.sin(h * phase)
+    return (x + 0.02 * rng.standard_normal(n)).astype(np.float32)
+
+
+def _ragged(rng):
+    """(3, 2 s) zero-padded batch: tone+silence, vibrato 1.5 s, 0.3 s."""
+    x = np.zeros((3, 2 * SR), np.float32)
+    lens = np.asarray([2 * SR, 24000, 4800], np.int32)
+    x[0] = _tone_silence(rng)
+    x[1, :24000] = _vibrato(rng, n=24000)
+    x[2, :4800] = _vibrato(rng, n=4800, f0=120.0)
+    return x, lens
+
+
+def _check_columns(got, want):
+    assert got.shape == want.shape, (got.shape, want.shape)
+    for i, tol in enumerate(ATOL):
+        err = float(np.abs(got[..., i] - want[..., i]).max()) \
+            if got.size else 0.0
+        assert err < tol, (i, err)
+
+
+def _jcfg(kw):
+    return jax_config.PitchConfig(**kw).validate()
+
+
+def _flens_mask(lens, pcfg, T):
+    flens = np.minimum(np.asarray(jax_pitch.pitch_frame_counts(
+        jnp.asarray(lens), pcfg)), T)
+    return flens, np.arange(T)[None, :] < flens[:, None]
+
+
+# --------------------------------------------------------------- config --
+
+def test_pitch_config_fields_and_defaults_match():
+    jf = [(f.name, f.default) for f in dataclasses.fields(jax_config.PitchConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(PitchConfig)]
+    assert tf == jf
+
+
+@pytest.mark.parametrize("kw", CONFIGS)
+def test_pitch_config_twin(kw):
+    j = _jcfg(kw)
+    t = PitchConfig(**kw).validate()
+    assert t.to_json() == j.to_json()
+    assert t.config_hash() == j.config_hash()
+    for name in ("frame_len_w", "hop_len_w", "min_lag", "max_lag", "n_lags",
+                 "n_feats"):
+        assert getattr(t, name) == getattr(j, name), name
+    for n in (0, 1, 719, 720, 721, 723, 1000, 16000, 16001, 160000):
+        assert t.num_frames(n) == j.num_frames(n), n
+    assert from_jax(j) == t
+    assert from_jax(dataclasses.asdict(j)) == t
+    assert from_jax(dataclasses.asdict(j)).config_hash() == j.config_hash()
+
+
+def test_from_jax_rejects_unknown_pitch_fields():
+    d = dataclasses.asdict(jax_config.PitchConfig())
+    with pytest.raises(ValueError, match="PitchConfig"):
+        from_jax({**d, "new_field": 1})
+    d.pop("penalty")
+    with pytest.raises(ValueError, match="PitchConfig"):
+        from_jax(d)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(work_rate=32000),
+    dict(min_f0=500.0, max_f0=400.0),
+    dict(max_f0=3000.0),
+    dict(work_rate=200, min_f0=80.0, max_f0=100.0),
+    dict(norm_window=150),
+])
+def test_pitch_validate_errors_match(bad):
+    with pytest.raises(ValueError) as je:
+        jax_config.PitchConfig(**bad).validate()
+    with pytest.raises(ValueError) as te:
+        PitchConfig(**bad).validate()
+    assert str(te.value) == str(je.value)
+
+
+# ------------------------------------------------------------- resample --
+
+@pytest.mark.parametrize("sr_in,sr_out,n", [
+    (16000, 4000, 3001), (8000, 4000, 1200), (44100, 16000, 4410),
+    (16000, 2000, 999), (4000, 16000, 50), (16000, 4000, 3)])
+def test_resample_poly_numpy_equal(rng, sr_in, sr_out, n):
+    x = rng.standard_normal(n)
+    np.testing.assert_array_equal(
+        resample.resample_poly_numpy(x, sr_in, sr_out),
+        jax_resample.resample_poly_numpy(x, sr_in, sr_out))
+    assert resample.resampled_length(n, sr_in, sr_out) == \
+        jax_resample.resampled_length(n, sr_in, sr_out)
+
+
+@pytest.mark.parametrize("fold", [resample._FOLD_COLUMNS, 1])
+@pytest.mark.parametrize("sr_in,sr_out", [(16000, 4000), (8000, 4000),
+                                          (44100, 16000)])
+def test_resample_matches_jax(rng, monkeypatch, fold, sr_in, sr_out):
+    """Within 1e-6 of the JAX resampler, with the bank super-blocked (the
+    shipped layout) and as it is (R = 1)."""
+    monkeypatch.setattr(resample, "_FOLD_COLUMNS", fold)
+    x = (0.5 * rng.standard_normal((2, sr_in // 4 + 7))).astype(np.float32)
+    want = np.asarray(jax_resample.resample(jnp.asarray(x), sr_in, sr_out))
+    got = resample.resample(torch.from_numpy(x), sr_in, sr_out)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    f64 = resample.resample_poly_numpy(x[0].astype(np.float64), sr_in, sr_out)
+    np.testing.assert_allclose(got[0].numpy(), f64, atol=1e-6, rtol=0)
+    assert tuple(resample.resample(torch.zeros((2, 0)), sr_in,
+                                   sr_out).shape) == (2, 0)
+
+
+# ------------------------------------------------------------ constants --
+
+@pytest.mark.parametrize("kw", CONFIGS)
+def test_pitch_constants_equal(kw):
+    j, t = _jcfg(kw), PitchConfig(**kw).validate()
+    for a, b in zip(pitch_op._corr_matrices(t), jax_pitch._corr_matrices(j)):
+        np.testing.assert_array_equal(a, b)
+    want = jax_pitch._trans_matrix(j)
+    np.testing.assert_array_equal(pitch_op._trans_matrix(t), want)
+    # the Viterbi kernels' matrices: the CUDA kernel uploads this one
+    # (page-locked); the Pallas kernel reads it as transition columns
+    n = t.n_lags
+    np.testing.assert_array_equal(
+        jax_viterbi_kernel._trans_cols(j, -(-n // 8) * 8)[:, :n, 0], want.T)
+
+
+# ----------------------------------------------------------------- NCCF --
+
+def _work_rate_rows(rng, pcfg, seconds=2):
+    x = np.stack([_vibrato(rng, n=seconds * SR),
+                  np.pad(_tone_silence(rng), (0, SR))[: seconds * SR]])
+    x = x[:, : seconds * pcfg.sample_rate]
+    xw = np.array(jax_resample.resample(jnp.asarray(x), pcfg.sample_rate,
+                                        pcfg.work_rate))
+    lens = np.asarray([x.shape[1], x.shape[1] * 3 // 4], np.int32)
+    return x, xw, lens
+
+
+@pytest.mark.parametrize("kw", CONFIGS[:3])
+def test_plain_nccf_matches_jax_and_pallas(rng, kw):
+    """Plain nccf against the JAX XLA nccf and against the Pallas kernel in
+    interpret mode given the same ballast, on valid frames, as
+    tests/test_pitch.py runs the kernel: the ballasted NCCF on every row,
+    the plain NCCF on the voiced row.  (Row 1 steps from a tone into
+    near-silence; there the correlation-theorem form's rounding, which
+    scales with the whole extended window, is divided by a small lag-window
+    energy, and the plain NCCF of both packages is up to ~2e-3 off the
+    float64 oracle; see test_nccf_kernel_arithmetic_matches_plain.)"""
+    j, t = _jcfg(kw), PitchConfig(**kw).validate()
+    x, xw, lens = _work_rate_rows(rng, j)
+    T = j.num_frames(x.shape[1])
+    flens, mask = _flens_mask(lens, j, T)
+    want_b, want_p = jax_pitch.nccf(jnp.asarray(xw), j, jnp.asarray(mask))
+    got_b, got_p = pitch_op.nccf(torch.from_numpy(xw), t,
+                                 torch.from_numpy(mask))
+    jball = j.ballast * jax_pitch.mean_frame_energy(
+        jnp.asarray(xw), j, jnp.asarray(mask)) ** 2
+    ball = t.ballast * pitch_op.mean_frame_energy(
+        torch.from_numpy(xw), t, torch.from_numpy(mask)) ** 2
+    np.testing.assert_allclose(ball.numpy(), np.asarray(jball), rtol=1e-5)
+    kb, kp = jax_nccf_kernel.fused_nccf(jnp.asarray(xw), jball, j, T=T,
+                                        interpret=True)
+    pb, pp = fused_nccf.plain_nccf(torch.from_numpy(xw),
+                                   torch.from_numpy(np.array(jball)), t, T)
+    pairs = [(got_b, want_b, (0, 1)), (pb, kb, (0, 1)),
+             (got_p, want_p, (0,)), (pp, kp, (0,))]
+    for got, want, rows in pairs:
+        for i in rows:
+            v = flens[i]
+            np.testing.assert_allclose(got.numpy()[i, :v],
+                                       np.asarray(want)[i, :v],
+                                       atol=KERNEL_TOL, rtol=0)
+
+
+def _emulate_nccf_kernel(xw, ball, pcfg, T):
+    """The CUDA kernel's arithmetic in float32 numpy: direct correlation,
+    samples past each row's end read 0 (tiling does not change a value)."""
+    w, hop, lo, nl = pcfg.frame_len_w, pcfg.hop_len_w, pcfg.min_lag, pcfg.n_lags
+    n = w + pcfg.max_lag
+    z = np.zeros((xw.shape[0], (T - 1) * hop + n), np.float32)
+    m = min(z.shape[1], xw.shape[1])
+    z[:, :m] = xw[:, :m]
+    E = z[:, (np.arange(T) * hop)[:, None] + np.arange(n)[None, :]]
+    A = E[..., :w]
+    e0 = (A * A).sum(-1, dtype=np.float32)
+    num = np.empty(E.shape[:2] + (nl,), np.float32)
+    el = np.empty_like(num)
+    for k in range(nl):
+        Ek = E[..., lo + k: lo + k + w]
+        num[..., k] = (A * Ek).sum(-1, dtype=np.float32)
+        el[..., k] = (Ek * Ek).sum(-1, dtype=np.float32)
+    prod = np.maximum(e0[..., None] * el, np.float32(1e-30))
+    ball = ball.astype(np.float32)[:, None, None]
+    return num / np.sqrt(prod + ball), num / np.sqrt(prod)
+
+
+@pytest.mark.parametrize("kw", CONFIGS)
+def test_nccf_kernel_arithmetic_matches_plain(rng, kw):
+    """The kernel's direct correlation against the plain correlation-
+    theorem version, within the 2e-5 kernel bound on valid frames (the
+    ballasted NCCF on every row, the plain NCCF on the voiced row), and
+    its plain NCCF within the same bound of the float64 oracle on every
+    valid frame, the tone-to-silence step included.  Every config runs,
+    hop_ms=15.25 too, which the Pallas kernel could not take."""
+    t = PitchConfig(**kw).validate()
+    x, xw, lens = _work_rate_rows(rng, t)
+    T = t.num_frames(x.shape[1])
+    flens, mask = _flens_mask(lens, t, T)
+    ball = t.ballast * pitch_op.mean_frame_energy(
+        torch.from_numpy(xw), t, torch.from_numpy(mask)) ** 2
+    pb, pp = fused_nccf.plain_nccf(torch.from_numpy(xw), ball, t, T)
+    kb, kp = _emulate_nccf_kernel(xw, ball.numpy(), t, T)
+    assert np.isfinite(kb).all() and np.isfinite(kp).all()
+    n = t.frame_len_w + t.max_lag
+    for i, v in enumerate(flens):
+        np.testing.assert_allclose(kb[i, :v], pb.numpy()[i, :v],
+                                   atol=KERNEL_TOL, rtol=0)
+        if i == 0:
+            np.testing.assert_allclose(kp[i, :v], pp.numpy()[i, :v],
+                                       atol=KERNEL_TOL, rtol=0)
+        _, want_p = oracle.nccf(
+            xw[i, : (v - 1) * t.hop_len_w + n].astype(np.float64), t)
+        np.testing.assert_allclose(kp[i, :v], want_p, atol=KERNEL_TOL,
+                                   rtol=0)
+
+
+def test_nccf_wrapper_on_cpu_runs_the_plain_version(rng):
+    t = PitchConfig()
+    xw = torch.from_numpy((0.3 * rng.standard_normal((2, 4000)))
+                          .astype(np.float32))
+    ball = torch.tensor([0.5, 0.25])
+    before = fused_nccf.LAUNCHES
+    got = fused_nccf.fused_nccf(xw, ball, t, T=90)
+    want = fused_nccf.plain_nccf(xw, ball, t, 90)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert fused_nccf.LAUNCHES == before
+    with pytest.raises(ValueError):
+        fused_nccf.fused_nccf(xw, ball[:1], t, T=90)
+    assert fused_nccf.kernel_supports(t)
+    assert not fused_nccf.kernel_supports(
+        PitchConfig(work_rate=16000, min_f0=0.25).validate())
+
+
+# -------------------------------------------------------------- Viterbi --
+
+def _scores(rng, B, T, n):
+    s = (0.5 * rng.standard_normal((B, T, n))).astype(np.float32)
+    s[min(1, B - 1), T * 2 // 3:] = 0.0      # zero-emission tail
+    return s
+
+
+def _emulate_viterbi_kernel(s, trans):
+    """The CUDA kernel's loop in float32 numpy, vectorized over the
+    destination states (the kernel's threads): strict-< running argmin."""
+    B, T, n = s.shape
+    path = np.zeros((B, T), np.int32)
+    for b in range(B):
+        cur = -s[b, 0]
+        bp = np.zeros((T, n), np.int32)
+        for t in range(1, T):
+            best, arg = cur[0] + trans[0], np.zeros(n, np.int32)
+            for j in range(1, n):
+                c = cur[j] + trans[j]
+                upd = c < best
+                best = np.where(upd, c, best)
+                arg = np.where(upd, j, arg)
+            cur, bp[t] = best - s[b, t], arg
+        k = int(np.argmin(cur))
+        path[b, T - 1] = k
+        for t in range(T - 1, 0, -1):
+            k = bp[t, k]
+            path[b, t - 1] = k
+    return path
+
+
+@pytest.mark.parametrize("T", [1, 2, 64, 65, 150])
+def test_viterbi_exactly_equal(rng, T):
+    """Plain viterbi, the Pallas kernel (interpret mode), the JAX scan and
+    an emulation of the CUDA kernel's loop give the same paths, exactly."""
+    j = jax_config.PitchConfig().validate()
+    t = PitchConfig()
+    s = _scores(rng, 3, T, t.n_lags)
+    got = pitch_op.viterbi(torch.from_numpy(s), t)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (3, T)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_pitch.viterbi(jnp.asarray(s), j)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jax_viterbi_kernel.viterbi_pallas(jnp.asarray(s), j, interpret=True)))
+    np.testing.assert_array_equal(
+        got.numpy(), _emulate_viterbi_kernel(s, pitch_op._trans_matrix(t)))
+    np.testing.assert_array_equal(
+        fused_viterbi.fused_viterbi(torch.from_numpy(s), t).numpy(),
+        got.numpy())
+
+
+@pytest.mark.parametrize("T,block,warm", [(150, 32, 16), (100, 256, 128),
+                                          (900, 256, 128)])
+def test_viterbi_blocked_exactly_equal(rng, T, block, warm):
+    j = jax_config.PitchConfig().validate()
+    t = PitchConfig()
+    s = _scores(rng, 2, T, t.n_lags)
+    got = pitch_op.viterbi_blocked(torch.from_numpy(s), t, block=block,
+                                   warm=warm)
+    want = np.asarray(jax_pitch.viterbi_blocked(jnp.asarray(s), j,
+                                                block=block, warm=warm))
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pitch_op.viterbi_blocked(torch.from_numpy(s), t, block=block,
+                                 warm=warm, backend="cuda")
+
+
+def test_viterbi_wrapper_on_cpu_runs_the_plain_version(rng):
+    t = PitchConfig(min_f0=60.0, max_f0=300.0)
+    s = torch.from_numpy(_scores(rng, 2, 40, t.n_lags))
+    before = fused_viterbi.LAUNCHES
+    assert torch.equal(fused_viterbi.fused_viterbi(s, t),
+                       pitch_op.viterbi(s, t))
+    assert fused_viterbi.LAUNCHES == before
+    with pytest.raises(ValueError):
+        fused_viterbi.fused_viterbi(s[..., :-1], t)
+    assert tuple(fused_viterbi.fused_viterbi(s[:, :0], t).shape) == (2, 0)
+
+
+# ---------------------------------------------------------------- model --
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("kw", [dict(), dict(work_rate=2000),
+                                dict(hop_ms=15.25)])
+def test_pitch_batch_matches_jax_and_oracle(rng, dtype, kw):
+    j, t = _jcfg(kw), PitchConfig(**kw).validate()
+    x, lens = _ragged(rng)
+    if dtype == "int16":
+        x = np.round(np.clip(x, -1, 32767 / 32768) * 32768).astype(np.int16)
+    jf, jfl, jm = jax_pitch_model.pitch_batch_jit(
+        jnp.asarray(x), jnp.asarray(lens), j, "xla")
+    tf, tfl, tm = pitch_model.pitch_batch(torch.from_numpy(x),
+                                          torch.from_numpy(lens), t)
+    assert tf.dtype == torch.float32 and tfl.dtype == torch.int32
+    assert tm.dtype == torch.bool
+    np.testing.assert_array_equal(tfl.numpy(), np.asarray(jfl))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    # against the JAX pipeline on the rows without a tone-to-silence step:
+    # at that step each f32 pipeline is up to ~2.4e-4 off the oracle in
+    # the norm column (its correlation-theorem NCCF), in opposite
+    # directions, so row 0 is held to the oracle alone (below)
+    _check_columns(tf.numpy()[1:], np.asarray(jf)[1:])
+    assert (tf.numpy()[~tm.numpy()] == 0.0).all()
+    xf = x.astype(np.float64) / (32768.0 if dtype == "int16" else 1.0)
+    for i in range(len(lens)):
+        want = oracle.pitch(xf[i, : lens[i]], t)
+        assert want.shape[0] == int(tfl[i])
+        _check_columns(tf.numpy()[i, : want.shape[0]], want)
+
+
+def test_pitch_track_matches_jax(rng):
+    j, t = _jcfg({}), PitchConfig()
+    x, lens = _ragged(rng)
+    jf0, jv, jm = jax_pitch_model.pitch_track_batch_jit(
+        jnp.asarray(x), jnp.asarray(lens), j)
+    f0, v, m = pitch_model.pitch_track_batch(torch.from_numpy(x),
+                                             torch.from_numpy(lens), t)
+    np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
+    # f0 = work_rate / lag: 1e-4 of log pitch is ~1e-4 relative
+    np.testing.assert_allclose(f0.numpy(), np.asarray(jf0), rtol=1e-4,
+                               atol=0)
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=KERNEL_TOL)
+
+
+def test_pitch_golden_and_oracle_twin():
+    x, sr = wav.read_wav(os.path.join(GOLDEN, "speech2s.wav"))
+    assert sr == SR
+    t = PitchConfig()
+    want = np.load(os.path.join(GOLDEN, "pitch3.npy"))
+    np.testing.assert_allclose(oracle.pitch(x.astype(np.float64), t), want,
+                               atol=1e-12, rtol=0)
+    np.testing.assert_array_equal(
+        oracle.pitch(x.astype(np.float64), t),
+        jax_oracle.pitch(x.astype(np.float64), jax_config.PitchConfig()))
+    _check_columns(pitch_model.pitch(torch.from_numpy(x), t).numpy(), want)
+    feat, flens, _ = pitch_model.pitch_batch(
+        torch.from_numpy(x[None]), torch.tensor([len(x)]), t)
+    assert int(flens[0]) == want.shape[0]
+    _check_columns(feat[0].numpy(), want)
+
+
+@pytest.mark.parametrize("n", [0, 500, 715])
+def test_pitch_batch_no_frames(n):
+    j, t = _jcfg({}), PitchConfig()
+    x = np.zeros((2, n), np.float32)
+    lens = np.asarray([n, n // 2], np.int32)
+    jf, jfl, jm = jax_pitch_model.pitch_batch(jnp.asarray(x),
+                                              jnp.asarray(lens), j)
+    tf, tfl, tm = pitch_model.pitch_batch(torch.from_numpy(x),
+                                          torch.from_numpy(lens), t)
+    assert tuple(tf.shape) == jf.shape == (2, 0, 3)
+    assert tuple(tm.shape) == jm.shape == (2, 0)
+    np.testing.assert_array_equal(tfl.numpy(), np.asarray(jfl))
+    f0, v, m = pitch_model.pitch_track_batch(torch.from_numpy(x),
+                                             torch.from_numpy(lens), t)
+    assert tuple(f0.shape) == tuple(m.shape) == (2, 0)
+
+
+@pytest.mark.parametrize("flens,T", [([4, 2], 6), ([0, 1], 3), ([4, 3], 2),
+                                     ([4, 4], 4)])
+def test_align_pitch_exactly_equal(rng, flens, T):
+    fp = rng.standard_normal((2, 4, 3)).astype(np.float32)
+    want = np.asarray(jax_pitch_model.align_pitch(
+        jnp.asarray(fp), jnp.asarray(flens, jnp.int32), T))
+    got = pitch_model.align_pitch(torch.from_numpy(fp),
+                                  torch.tensor(flens, dtype=torch.int32), T)
+    np.testing.assert_array_equal(got.numpy(), want)
+    empty = pitch_model.align_pitch(torch.zeros((2, 0, 3)),
+                                    torch.zeros(2, dtype=torch.int32), T)
+    assert tuple(empty.shape) == (2, T, 3) and not empty.any()
+
+
+def test_pitch_backend_resolution_and_unported_options(rng):
+    t = PitchConfig()
+    x = torch.from_numpy(_tone_silence(rng)[None])
+    lens = torch.tensor([x.shape[1]])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pitch_model.pitch_batch(x, lens, t, "cuda")
+    with pytest.raises(ValueError, match="backend"):
+        pitch_model.pitch_batch(x, lens, t, "pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pitch_op.pitch_features(x, lens, t, nccf_chunk=128)
+    counts = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+    a = pitch_model.pitch_batch(x, lens, t, "auto")[0]
+    b = pitch_model.pitch_batch(x, lens, t, "torch")[0]
+    assert torch.equal(a, b)
+    assert (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES) == counts
+    # the opt-in blocked Viterbi stays inside the contract on voiced audio
+    xv = _vibrato(rng, n=5 * SR)
+    want = oracle.pitch(xv.astype(np.float64), t)
+    got, _, _ = pitch_op.pitch_features(
+        torch.from_numpy(xv[None]), torch.tensor([xv.size]), t,
+        viterbi_block=128, viterbi_warm=64)
+    _check_columns(got[0].numpy(), want)
