@@ -7,10 +7,14 @@
   tensor.  The choice is made from the tensor's device alone, never by
   catching a failure.
 
-Mirrors ``mfcc_tpu/backend.py``.  The reference's Mosaic limits
-(``kernel_precision_supported``, ``raw_dit_kernel_eligible``) are TPU
-lane-layout rules and do not carry over: the Hopper kernel takes every
-valid-mode MFCC config.  Configs the port has not reached yet raise
+Mirrors ``mfcc_tpu/backend.py``.  On "cuda" the spectral features follow
+the reference's kernel route (``ops/kernels/routes.py``: its eligibility
+predicates, which are Mosaic lane-layout rules, plus its <= 50 dB accuracy
+rule), so that each config reaches the counterpart of the kernel the
+reference gives it.  The rules decide the route only: they are no capacity
+limits, and every Hopper kernel takes every valid-mode config.  Where the
+route changes the numerical form on the card, and where it does not, is
+set out in ``routes.py``.  Configs the port has not reached yet raise
 ``NotImplementedError`` here, naming the ROADMAP item.
 """
 

@@ -5,10 +5,14 @@
   lengths -> (features, true frame counts, frame validity mask).  Padded
   frames are computed, then zeroed, so masked reductions stay exact.
 
-On a CUDA tensor the spectral chain is one launch of the hand-written
-kernel (``ops/kernels/fused_raw_dit``); deltas run after it.  The
-reference's > 4096-frame blocked route is not ported: it works around a
-TPU relayout fault, and a long row goes straight through the kernel.
+On a CUDA tensor the spectral chain is one launch of a hand-written kernel,
+picked by the reference's route (``ops/kernels/routes.py``): cepstra and
+log-mel bounded to <= 50 dB go to ``fused_raw_dit``, other log-mel to
+``fused_raw``, and what neither raw kernel takes is pre-emphasized on the
+host and goes to ``fused_dit`` or ``fused_mfcc``.  Deltas run after it.
+On a CPU tensor the chain is the plain direct form.  The reference's
+> 4096-frame blocked route is not ported: it works around a TPU relayout
+fault, and a long row goes straight through the kernel.
 """
 
 from __future__ import annotations
@@ -18,19 +22,35 @@ import torch
 from ..config import FeatureConfig
 from .. import backend as backend_lib
 from ..ops import deltas as deltas_op, framing
-from ..ops.kernels import fused_raw_dit
+from ..ops.kernels import (fused_dit, fused_mfcc, fused_raw, fused_raw_dit,
+                           routes)
+
+
+def _spectral_features(xb: torch.Tensor, cfg: FeatureConfig,
+                       apply_dct: bool, backend: str) -> torch.Tensor:
+    """(B, N) valid-mode float32 audio -> (B, T, n_mfcc or n_mels)."""
+    if backend_lib.resolve(backend, xb) != "cuda":
+        return fused_raw_dit.plain_features(xb, cfg, apply_dct)
+    route = routes.spectral_route(cfg, apply_dct)
+    if route == "fused_raw_dit":
+        return fused_raw_dit.fused_features_raw_dit(xb, cfg,
+                                                    apply_dct=apply_dct)
+    if route == "fused_raw":
+        return fused_raw.fused_features_raw(xb, cfg, apply_dct=apply_dct)
+    yb = framing.preemphasize(xb, cfg)
+    if route == "fused_dit":
+        return fused_dit.fused_features_dit(yb, cfg, apply_dct=apply_dct)
+    return fused_mfcc.fused_features(yb, cfg, apply_dct=apply_dct)
 
 
 def _features_from_audio(x: torch.Tensor, cfg: FeatureConfig,
                          lengths: torch.Tensor | None = None,
-                         backend: str = "auto") -> torch.Tensor:
+                         backend: str = "auto",
+                         apply_dct: bool = True) -> torch.Tensor:
     """(B, N) or (N,) valid-mode audio -> features (deltas appended)."""
     squeeze = x.dim() == 1
     xb = (x[None, :] if squeeze else x).to(torch.float32).contiguous()
-    if backend_lib.resolve(backend, xb) == "cuda":
-        feat = fused_raw_dit.fused_features_raw_dit(xb, cfg)
-    else:
-        feat = fused_raw_dit.plain_features(xb, cfg)
+    feat = _spectral_features(xb, cfg, apply_dct, backend)
     if squeeze:
         feat = feat[0]
     if cfg.deltas:
@@ -65,14 +85,11 @@ def frame_mask(T: int, flens: torch.Tensor) -> torch.Tensor:
     return t[None, :] < flens[:, None]
 
 
-def mfcc_batch(x: torch.Tensor, sample_lengths: torch.Tensor,
-               cfg: FeatureConfig, backend: str = "auto"):
-    """(B, N_pad), (B,) -> ((B, T, n_feats), (B,) int32 frame counts,
-    (B, T) bool mask).
-
-    x may be int16 PCM (cast to [-1, 1) on the device — half the
-    host-to-device bytes) or float in [-1, 1].
-    """
+def features_batch(x: torch.Tensor, sample_lengths: torch.Tensor,
+                   cfg: FeatureConfig, backend: str = "auto",
+                   apply_dct: bool = True):
+    """The batch entry of :func:`mfcc_batch` and ``logmel.log_mel_batch``:
+    int16 cast, centre mode, frame counts, features, mask and zeroing."""
     backend_lib.check_config(cfg)
     if x.dtype == torch.int16:
         x = x.to(torch.float32) * (1.0 / 32768.0)
@@ -82,8 +99,19 @@ def mfcc_batch(x: torch.Tensor, sample_lengths: torch.Tensor,
     flens = frame_lengths(sample_lengths, cfg)
     feat = _features_from_audio(x, cfg,
                                 lengths=flens if cfg.deltas else None,
-                                backend=backend)
+                                backend=backend, apply_dct=apply_dct)
     mask = frame_mask(feat.shape[-2], flens)
     feat = torch.where(mask[..., None], feat, torch.zeros((), dtype=feat.dtype,
                                                           device=feat.device))
     return feat, flens, mask
+
+
+def mfcc_batch(x: torch.Tensor, sample_lengths: torch.Tensor,
+               cfg: FeatureConfig, backend: str = "auto"):
+    """(B, N_pad), (B,) -> ((B, T, n_feats), (B,) int32 frame counts,
+    (B, T) bool mask).
+
+    x may be int16 PCM (cast to [-1, 1) on the device — half the
+    host-to-device bytes) or float in [-1, 1].
+    """
+    return features_batch(x, sample_lengths, cfg, backend)

@@ -2,9 +2,20 @@
 mfcc_tpu.ops.kernels (same file name).  CUDA sources live in ``csrc/`` and
 are built at first use (``_build.py``); importing a module builds nothing.
 
-- :mod:`fused_raw_dit` — raw audio -> MFCC (the main path).
+- :mod:`fused_raw_dit` — raw audio -> MFCC, or log-mel bounded to <= 50 dB.
+- :mod:`fused_raw` — raw audio -> unbounded-range log-mel (direct form).
+- :mod:`fused_dit` — pre-emphasized audio -> features by the radix-2 DIT.
+- :mod:`fused_mfcc` — pre-emphasized audio -> features, direct form (the
+  last route, e.g. an odd hop).
+- :mod:`routes` — which of those four a config reaches (the reference's
+  route, ``mfcc_tpu/models/mfcc.py:78-95``).
 - :mod:`fused_nccf` — work-rate audio -> ballasted and plain NCCF (pitch).
 - :mod:`fused_viterbi` — NCCF scores -> Viterbi lag path (pitch).
+
+The four spectral kernels share ``csrc/spectral.cuh`` (accurate log,
+direct DFT tile, epilogue) and ``_spectral.py`` (plain chain, constants,
+launch).
 """
 
-from . import fused_nccf, fused_raw_dit, fused_viterbi  # noqa: F401
+from . import (fused_dit, fused_mfcc, fused_nccf, fused_raw,  # noqa: F401
+               fused_raw_dit, fused_viterbi, routes)

@@ -1,0 +1,179 @@
+"""Host side shared by the four spectral kernel modules (``fused_raw_dit``,
+``fused_raw``, ``fused_mfcc``, ``fused_dit``), whose CUDA sources share
+``csrc/spectral.cuh``.
+
+- :func:`plain_features` — the plain PyTorch spectral chain from audio the
+  caller has pre-emphasized: frames, DFT power (direct or radix-2 DIT),
+  mel, floors, accurate log, then the lifter-folded DCT with the optional
+  log energy in c0, or the log-mel energies.
+- :func:`direct_matrices` — the direct tile's float32 constants.
+- :func:`pinned` — constants in page-locked memory, so that each call's
+  upload is an asynchronous copy on the launch stream.
+- :func:`check_input`, :func:`epilogue_args`, :func:`raise_on_error` — the
+  wrappers' common checks and launch arguments.
+- :func:`launch_direct` — one launch of a direct-tile entry
+  (``fused_raw_dit``, ``fused_raw``, ``fused_mfcc``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ... import backend
+from ...config import FeatureConfig
+from .. import dct as dct_op, framing, mel as mel_op, spectrum
+from . import _build
+
+BINS_PER_BLOCK = 256   # must match spectral::kBins in csrc/spectral.cuh
+
+
+def n_out(cfg: FeatureConfig, apply_dct: bool) -> int:
+    return cfg.n_mfcc if apply_dct else cfg.n_mels
+
+
+def plain_features(y: torch.Tensor, cfg: FeatureConfig, apply_dct: bool,
+                   power=spectrum.power_spectrum) -> torch.Tensor:
+    """(B, N) pre-emphasized audio -> (B, T, n_mfcc or n_mels), plain
+    PyTorch; ``power`` maps frames to |X|^2 in natural bin order."""
+    backend.check_config(cfg)
+    B, N = y.shape
+    T = cfg.num_frames(N)
+    if T == 0:
+        return y.new_zeros((B, 0, n_out(cfg, apply_dct)), dtype=torch.float32)
+    fr = framing.frames(y.to(torch.float32), cfg)
+    logmel = mel_op.log_mel_energies(power(fr, cfg), cfg)
+    if not apply_dct:
+        return logmel
+    feat = dct_op.cepstra(logmel, cfg)
+    if cfg.append_energy:
+        e = framing.log_energy(fr, cfg)
+        feat = torch.cat([e[..., None], feat[..., 1:]], dim=-1)
+    return feat
+
+
+@functools.lru_cache(maxsize=16)
+def direct_matrices(cfg: FeatureConfig):
+    """Float32 constants of the direct tile, from the float64 twins.
+
+    basis (nbb, frame_len, 512): block k holds the window-folded cos (cols
+      0..255) and sin (cols 256..511) of bins 256k .. 256k+255, zero past
+      bin n_bins-2;
+    last (frame_len, 2): cos and sin of the last bin n_bins-1 (the Nyquist
+      for even n_fft), kept out of the blocks so they stay 256 wide;
+    mel (n_bins, n_mels); dct (n_mels, n_mfcc), lifter folded in.
+    """
+    cos_m, sin_m = spectrum.dft_matrices(cfg)
+    fl, nb = cfg.frame_len, cfg.n_bins - 1
+    nbb = -(-nb // BINS_PER_BLOCK)
+    basis = np.zeros((nbb, fl, 2 * BINS_PER_BLOCK), np.float32)
+    for k in range(nbb):
+        lo, hi = k * BINS_PER_BLOCK, min(nb, (k + 1) * BINS_PER_BLOCK)
+        basis[k, :, : hi - lo] = cos_m[:, lo:hi]
+        basis[k, :, BINS_PER_BLOCK: BINS_PER_BLOCK + hi - lo] = sin_m[:, lo:hi]
+    last = np.stack([cos_m[:, nb], sin_m[:, nb]], axis=1).astype(np.float32)
+    return (basis, np.ascontiguousarray(last),
+            mel_op.mel_matrix(cfg).astype(np.float32),
+            dct_op.dct_matrix(cfg).astype(np.float32))
+
+
+def pinned(arrays) -> tuple:
+    """numpy constants -> page-locked CPU tensors (cache the result per
+    config; each call then uploads with ``to(device, non_blocking=True)``)."""
+    return tuple(torch.from_numpy(a).pin_memory() for a in arrays)
+
+
+@functools.lru_cache(maxsize=16)
+def _pinned_direct_matrices(cfg: FeatureConfig):
+    return pinned(direct_matrices(cfg))
+
+
+def check_input(x: torch.Tensor, cfg: FeatureConfig) -> None:
+    """The checks every spectral wrapper makes before it picks a path."""
+    backend.check_config(cfg)
+    if x.dim() != 2:
+        raise ValueError(f"batch input (B, N) expected, got {tuple(x.shape)}")
+    if cfg.frame_mode != "valid":
+        raise ValueError("resolve frame_mode='center' to 'valid' first "
+                         "(ops.framing.resolve_frame_mode)")
+
+
+def check_cuda_input(x: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"float32 audio expected, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("contiguous audio expected")
+
+
+def epilogue_args(cfg: FeatureConfig, apply_dct: bool) -> tuple:
+    """(n_mels, n_out, log_floor, rel_floor, append_energy, apply_dct) as
+    the C entries take them; the energy column is a cepstral feature (c0),
+    so it is gated on apply_dct as the reference gates it."""
+    return (cfg.n_mels, n_out(cfg, apply_dct), cfg.log_floor,
+            mel_op.relative_floor(cfg),
+            int(cfg.append_energy and apply_dct), int(apply_dct))
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (n_mels, n_out, log_floor, rel_floor, append_energy, apply_dct)
+EPILOGUE_ARGTYPES = [_I, _I, _F, _F, _I, _I]
+# the direct entries: (x, B, N, T, basis, nbb, last, melw, dctm, out,
+# frame_len, hop, n_bins[, preemph], *epilogue, stream)
+DIRECT_ARGTYPES = [_P, _I, ctypes.c_longlong, _I, _P, _I, _P, _P, _P, _P,
+                   _I, _I, _I]
+
+
+def bind(name: str, entry: str, argtypes) -> ctypes.CDLL:
+    """Build and load ``csrc/<name>.cu`` and declare the C types of its
+    entry and of the error-string and acc_log entries that every spectral
+    source exports."""
+    lib = _build.load(name)
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.mfcc_error_string.argtypes = [ctypes.c_int]
+    lib.mfcc_error_string.restype = ctypes.c_char_p
+    lib.mfcc_acc_log.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_longlong, ctypes.c_void_p]
+    lib.mfcc_acc_log.restype = ctypes.c_int
+    return lib
+
+
+def raise_on_error(err: int, lib, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.mfcc_error_string(err).decode()} ({err})")
+
+
+def launch_direct(lib_fn, entry: str, name: str, x: torch.Tensor,
+                  cfg: FeatureConfig, apply_dct: bool,
+                  preemph: float | None):
+    """Launch a direct-tile entry on x's device and current stream.
+
+    lib_fn() loads the library (not called for an empty output); preemph
+    is passed to entries that pre-emphasize in the kernel (None for
+    fused_mfcc).  -> (out, launched).
+    """
+    B, N = x.shape
+    T = cfg.num_frames(N)
+    out = torch.empty((B, T, n_out(cfg, apply_dct)), dtype=torch.float32,
+                      device=x.device)
+    if B == 0 or T == 0:
+        return out, False
+    lib = lib_fn()
+    with torch.cuda.device(x.device):
+        basis, last, melw, dctm = (t.to(x.device, non_blocking=True)
+                                   for t in _pinned_direct_matrices(cfg))
+        args = [x.data_ptr(), B, N, T, basis.data_ptr(), basis.shape[0],
+                last.data_ptr(), melw.data_ptr(), dctm.data_ptr(),
+                out.data_ptr(), cfg.frame_len, cfg.hop_len, cfg.n_bins]
+        if preemph is not None:
+            args.append(preemph)
+        err = getattr(lib, entry)(
+            *args, *epilogue_args(cfg, apply_dct),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    raise_on_error(err, lib, name)
+    return out, True

@@ -7,7 +7,12 @@ plain path materializes frames with ``Tensor.unfold`` and runs ONE fp32
 matmul against the concatenated [cos | sin] basis: the reference's "no
 frame materialization" rule was an XLA-on-TPU measurement and does not
 bind here.  The float64 bases are the single source of the DFT constants
-for the plain path and the CUDA kernel alike.
+for the plain path and the CUDA kernels alike.
+
+``power_spectrum_dit`` is the radix-2 decimation-in-time form of the same
+power spectrum (two half-length DFTs of the parity streams and a twiddle
+combine): the plain twin of the DIT kernel, numerically the form the
+reference's DIT routes take.
 """
 
 from __future__ import annotations
@@ -46,6 +51,76 @@ def power_spectrum(fr: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     spec = backend.matmul(fr.to(torch.float32), basis)
     re, im = spec[..., :cfg.n_bins], spec[..., cfg.n_bins:]
     return re * re + im * im
+
+
+@functools.lru_cache(maxsize=32)
+def _dit_matrices_cached(key):
+    frame_len, n_fft, window = key
+    nb2 = n_fft // 4         # half-DFT bins 0..nb2-1; bin nb2 is rank-1
+    w = oracle.window_fn(window, frame_len)
+    streams = []
+    for s in (0, 1):
+        ws = w[s::2]
+        m = np.arange(ws.shape[0], dtype=np.float64)[:, None]
+        j = np.arange(nb2, dtype=np.float64)[None, :]
+        ang = 2.0 * np.pi * m * j / (n_fft // 2)
+        basis = np.concatenate(
+            [ws[:, None] * np.cos(ang), ws[:, None] * np.sin(ang)], axis=1)
+        # bin nb2 of the half DFT: e^{-2 pi i m nb2 / (n_fft/2)} = (-1)^m
+        last = (ws * np.cos(np.pi * m[:, 0]))[:, None]
+        streams.append((basis, last))
+    th = 2.0 * np.pi * np.arange(nb2, dtype=np.float64) / n_fft
+    return streams[0], streams[1], np.cos(th), np.sin(th)
+
+
+def dit_matrices(cfg: FeatureConfig):
+    """Radix-2 DIT constants, float64: per sample-parity stream the
+    window-folded n_fft/2-point real-DFT basis packed [cos | sin]
+    (ceil or floor of frame_len/2 rows, n_fft/2 columns) and its bin
+    n_fft/4 column (the window times (-1)^m), then the twiddles
+    cos, sin of 2 pi j / n_fft for j < n_fft/4:
+    ((even, even_last), (odd, odd_last), cos, sin)."""
+    return _dit_matrices_cached((cfg.frame_len, cfg.n_fft, cfg.window))
+
+
+def dit_supported(cfg: FeatureConfig) -> bool:
+    """The radix-2 split needs a half-length DFT with a real bin n_fft/4
+    (n_fft % 4 == 0) and a sample in each parity stream."""
+    return cfg.n_fft % 4 == 0 and cfg.frame_len >= 2
+
+
+def power_spectrum_dit(fr: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+    """(..., T, frame_len) pre-emphasized frames -> (..., T, n_bins) |X|^2
+    in natural bin order by the radix-2 split: one fp32 matmul per parity
+    stream against its packed [cos | sin | bin n_fft/4] half-DFT basis,
+    then the twiddle combine (twin of the reference's
+    power_spectrum_dit_split and _dit_combine)."""
+    if not dit_supported(cfg):
+        raise ValueError("the radix-2 DIT needs n_fft % 4 == 0 and "
+                         "frame_len >= 2")
+    (be, bel), (bo, bol), ct, st = dit_matrices(cfg)
+    nb2 = cfg.n_fft // 4
+    fr = fr.to(torch.float32)
+    outs = []
+    for s, basis, last in ((0, be, bel), (1, bo, bol)):
+        mat = torch.from_numpy(np.concatenate([basis, last], axis=1)
+                               .astype(np.float32)).to(fr.device)
+        outs.append(backend.matmul(fr[..., s::2], mat))
+    (E, O) = outs
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(fr.device)
+    ctj, stj = f32(ct), f32(st)
+    e_re, e_im, e_last = E[..., :nb2], E[..., nb2:2 * nb2], E[..., 2 * nb2:]
+    o_re, o_im, o_last = O[..., :nb2], O[..., nb2:2 * nb2], O[..., 2 * nb2:]
+    # B = W^j O[j] with the products giving (sum x cos, sum x sin) pairs:
+    # E[j] = e_re - i e_im, O[j] = o_re - i o_im, W^j = cos - i sin
+    b_re = ctj * o_re - stj * o_im
+    b_im = ctj * o_im + stj * o_re
+    ar, ai = e_re + b_re, e_im + b_im
+    dr, di = e_re - b_re, e_im - b_im
+    p_plus = ar * ar + ai * ai                 # bins 0 .. nb2-1
+    p_minus = dr * dr + di * di                # bins n_fft/2 - j
+    mid = e_last * e_last + o_last * o_last    # bin nb2 (E, O real there)
+    return torch.cat([p_plus, mid, torch.flip(p_minus, dims=(-1,))], dim=-1)
 
 
 def log_energy_blocked(y: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:

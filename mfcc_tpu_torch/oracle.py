@@ -1,4 +1,5 @@
-"""Float64 NumPy oracle: the MFCC and pitch slices of ``mfcc_tpu.oracle``.
+"""Float64 NumPy oracle: the MFCC, log-mel and pitch slices of
+``mfcc_tpu.oracle``.
 
 The port's source of every constant matrix (DFT bases, mel filterbank,
 DCT and lifter) and its accuracy reference on the card.  It is a copy,
@@ -226,6 +227,24 @@ def mfcc(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
     feat = cepstra(logmel, cfg)
     if cfg.append_energy:
         feat[:, 0] = log_energy(frames, cfg)
+    if cfg.deltas:
+        d1 = deltas(feat, cfg.delta_window)
+        d2 = deltas(d1, cfg.delta_window)
+        feat = np.concatenate([feat, d1, d2], axis=-1)
+    return feat
+
+
+def log_mel(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """Log-mel variant (DCT skipped): (n_samples,) -> (T, n_mels[*3])."""
+    if cfg.dither > 0.0:
+        raise NotImplementedError(
+            "dither is not ported yet (ROADMAP.md, modules to port, item 2: "
+            "ops/dither)")
+    frames = frame_signal(x, cfg)
+    if frames.shape[0] == 0:
+        n = cfg.n_mels * (3 if cfg.deltas else 1)
+        return np.zeros((0, n), dtype=np.float64)
+    feat = log_mel_energies(power_spectrum(frames, cfg), cfg)
     if cfg.deltas:
         d1 = deltas(feat, cfg.delta_window)
         d2 = deltas(d1, cfg.delta_window)

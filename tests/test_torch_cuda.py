@@ -1,6 +1,7 @@
 """Cases that need an NVIDIA GPU: each CUDA kernel against its plain
-PyTorch version on the card, the wrappers' checks, and the main paths
-(MFCC, pitch) through the kernels.  All are marked ``cuda`` and skip
+PyTorch version on the card, the kernels' accurate log bit for bit, the
+wrappers' checks, and the main paths (MFCC, log-mel through each spectral
+route, pitch) through the kernels.  All are marked ``cuda`` and skip
 without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
@@ -16,9 +17,12 @@ import pytest
 import torch
 
 from mfcc_tpu_torch import FeatureConfig, PitchConfig, oracle
-from mfcc_tpu_torch.models import mfcc as mfcc_model, pitch as pitch_model
-from mfcc_tpu_torch.ops import pitch as pitch_op, resample
-from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_raw_dit, fused_viterbi
+from mfcc_tpu_torch.models import (logmel as logmel_model, mfcc as mfcc_model,
+                                   pitch as pitch_model)
+from mfcc_tpu_torch.ops import framing, pitch as pitch_op, resample, xmath
+from mfcc_tpu_torch.ops.kernels import (fused_dit, fused_mfcc, fused_nccf,
+                                        fused_raw, fused_raw_dit,
+                                        fused_viterbi)
 from mfcc_tpu_torch.utils import wav
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -79,9 +83,11 @@ def test_wrapper_checks_and_short_input(cuda):
     with pytest.raises(ValueError):
         fused_raw_dit.fused_features_raw_dit(
             torch.zeros((4000, 2), device=cuda).t(), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_raw_dit.fused_features_raw_dit(
-            torch.zeros((1, 4000), device=cuda), cfg, apply_dct=False)
+    before = fused_raw_dit.LAUNCHES
+    out = fused_raw_dit.fused_features_raw_dit(
+        torch.zeros((1, 4000), device=cuda), cfg, apply_dct=False)
+    assert tuple(out.shape) == (1, 23, 26)
+    assert fused_raw_dit.LAUNCHES == before + 1
     before = fused_raw_dit.LAUNCHES
     out = fused_raw_dit.fused_features_raw_dit(
         torch.zeros((2, 399), device=cuda), cfg)
@@ -272,3 +278,151 @@ def test_pitch_kernel_launch_failure_raises(cuda, monkeypatch):
         pitch_model.pitch_batch(torch.zeros((1, 16000), device=cuda),
                                 torch.tensor([16000], device=cuda), pcfg)
     assert (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# the spectral kernels of the log-mel slice
+# ---------------------------------------------------------------------------
+
+LOGMEL80 = dict(n_mels=80, n_mfcc=80)
+TTS = dict(sample_rate=22050, frame_ms=46.44, hop_ms=11.61, n_fft=1024,
+           n_mels=80, n_mfcc=80)
+HI_RATE = dict(sample_rate=44100, n_fft=2048)
+ODD_FRAME = dict(frame_ms=25.0625, hop_ms=12.5)
+SPECTRAL = {"fused_raw_dit": (fused_raw_dit, "fused_features_raw_dit", True),
+            "fused_raw": (fused_raw, "fused_features_raw", True),
+            "fused_dit": (fused_dit, "fused_features_dit", False),
+            "fused_mfcc": (fused_mfcc, "fused_features", False)}
+
+
+def _features_diff(got, want, cfg, apply_dct):
+    """Cepstra: max unliftered abs diff (bound 2e-5).  Log-mel: the largest
+    |diff| - 1e-4 |want| (bound 2e-5: rtol 1e-4 plus atol 2e-5)."""
+    if apply_dct:
+        return _unliftered_diff(got, want, cfg)
+    return float(((got - want).abs() - 1e-4 * want.abs()).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,shape,apply_dct", [
+    ("fused_raw_dit", LOGMEL80, (2, 33360), False),
+    ("fused_raw_dit", dict(LOGMEL80, dynamic_range_db=50.0), (64, 160000),
+     False),
+    ("fused_raw", LOGMEL80, (64, 160000), False),
+    ("fused_raw", LOGMEL80, (2, 33360), False),           # T=207
+    ("fused_raw", dict(), (2, 16000), True),
+    ("fused_raw", dict(LOGMEL80, append_energy=True), (2, 16000), False),
+    ("fused_raw", dict(sample_rate=8000, n_fft=256), (2, 8000), False),
+    ("fused_raw", dict(sample_rate=48000, n_fft=2048), (2, 48000), False),
+    ("fused_raw", TINY, (2, 2000), True),
+    ("fused_dit", TTS, (64, 220500), False),
+    ("fused_dit", TTS, (2, 69 * 256 + 1024), False),      # T=70
+    ("fused_dit", dict(), (2, 33360), True),
+    ("fused_dit", dict(hop_ms=12.5, lifter=22, append_energy=True),
+     (3, 20000), True),
+    ("fused_dit", dict(ODD_FRAME, n_mels=40, n_mfcc=40), (2, 16000), False),
+    ("fused_dit", dict(sample_rate=8000, n_fft=256), (2, 8000), True),
+    ("fused_dit", dict(sample_rate=48000, n_fft=2048), (2, 48000), True),
+    ("fused_mfcc", HI_RATE, (64, 441000), True),
+    ("fused_mfcc", dict(HI_RATE, **LOGMEL80), (2, 44100), False),
+    ("fused_mfcc", dict(), (2, 33360), True),
+    ("fused_mfcc", dict(lifter=22, append_energy=True,
+                        dynamic_range_db=40.0), (3, 20000), True),
+    ("fused_mfcc", TINY, (2, 2000), True),
+])
+def test_spectral_kernel_matches_plain(cuda, gen, name, kw, shape,
+                                       apply_dct):
+    module, fn, raw = SPECTRAL[name]
+    cfg = FeatureConfig(**kw).validate()
+    x = torch.from_numpy((gen.standard_normal(shape) * 0.3)
+                         .astype(np.float32)).to(cuda)
+    if not raw:
+        x = framing.preemphasize(x, cfg).contiguous()
+    before = module.LAUNCHES
+    got = getattr(module, fn)(x, cfg, apply_dct=apply_dct)
+    torch.cuda.synchronize()
+    assert module.LAUNCHES == before + 1
+    want = module.plain_features(x, cfg, apply_dct)
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert _features_diff(got, want, cfg, apply_dct) <= TOL
+
+
+@pytest.mark.cuda
+def test_accurate_log_bits_on_the_card(cuda, gen):
+    """The kernels' acc_log equals ops/xmath bit for bit on 2^20 floats:
+    positive floats over the full exponent range (subnormals included) and
+    the floors the pipeline applies."""
+    bits = gen.integers(1, 0x7F800000, size=(1 << 20) - 8, dtype=np.int64)
+    x = np.concatenate([bits.astype(np.uint32).view(np.float32),
+                        np.float32([1e-10, 1e-12, 1e-5, 1e-7, 1.0, 2.0,
+                                    np.finfo(np.float32).tiny,
+                                    np.finfo(np.float32).max])])
+    xt = torch.from_numpy(x)
+    got = fused_mfcc.acc_log(xt.to(cuda)).cpu()
+    want = xmath._acc_log(xt)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,entry,route", [
+    (dict(LOGMEL80, deltas=True), logmel_model.log_mel_batch, "fused_raw"),
+    (dict(LOGMEL80, deltas=True, dynamic_range_db=50.0),
+     logmel_model.log_mel_batch, "fused_raw_dit"),
+    (dict(TTS, deltas=True), logmel_model.log_mel_batch, "fused_dit"),
+    (dict(LOGMEL80, frame_mode="center"), logmel_model.log_mel_batch,
+     "fused_raw"),
+    (HI_RATE, mfcc_model.mfcc_batch, "fused_mfcc"),
+    (dict(hop_ms=12.5, deltas=True), mfcc_model.mfcc_batch, "fused_dit"),
+])
+def test_spectral_routes_go_through_their_kernel(cuda, gen, kw, entry,
+                                                 route):
+    cfg = FeatureConfig(**kw).validate()
+    sr = cfg.sample_rate
+    lens = np.asarray([sr, sr - sr // 3, 399], np.int32)
+    x = np.round(gen.standard_normal((3, sr)) * 8000).astype(np.int16)
+    for i, n in enumerate(lens):
+        x[i, n:] = 0
+    counts = {k: m.LAUNCHES for k, (m, _, _) in SPECTRAL.items()}
+    gf, gfl, gm = entry(torch.from_numpy(x).to(cuda),
+                        torch.from_numpy(lens).to(cuda), cfg)
+    torch.cuda.synchronize()
+    launched = {k: m.LAUNCHES - counts[k] for k, (m, _, _) in SPECTRAL.items()}
+    assert launched == {k: int(k == route) for k in SPECTRAL}, launched
+    cf, cfl, cm = entry(torch.from_numpy(x), torch.from_numpy(lens), cfg)
+    assert torch.equal(gfl.cpu(), cfl) and torch.equal(gm.cpu(), cm)
+    assert bool((gf[~gm] == 0).all())
+    xf = x.astype(np.float64) / 32768.0
+    ref = (oracle.mfcc if entry is mfcc_model.mfcc_batch else oracle.log_mel)
+    bound = 1e-3 if (entry is logmel_model.log_mel_batch
+                     and cfg.dynamic_range_db is None) else 1e-4
+    for i, n in enumerate(lens[:2]):
+        want = ref(xf[i, :n], cfg)
+        got = gf[i, : want.shape[0]].cpu().numpy()
+        assert np.abs(got - want).max() <= bound
+
+
+@pytest.mark.cuda
+def test_logmel_golden_on_the_card(cuda):
+    cfg = FeatureConfig(n_mels=80, n_mfcc=80, deltas=True)
+    x, _ = wav.read_wav(os.path.join(GOLDEN, "speech2s.wav"))
+    before = fused_raw.LAUNCHES
+    feat = logmel_model.log_mel(torch.from_numpy(x).to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert fused_raw.LAUNCHES == before + 1
+    want = np.load(os.path.join(GOLDEN, "logmel80_deltas.npy"))
+    assert feat.shape == want.shape
+    assert np.abs(feat.cpu().numpy() - want).max() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_raw", "fused_dit", "fused_mfcc",
+                                  "fused_raw_dit"])
+def test_spectral_launch_failure_raises(cuda, monkeypatch, name):
+    module, fn, _ = SPECTRAL[name]
+    monkeypatch.setattr(module, "_lib", _FailingLib)
+    before = module.LAUNCHES
+    with pytest.raises(RuntimeError, match=f"{name} kernel launch failed"):
+        getattr(module, fn)(torch.zeros((1, 4000), device=cuda),
+                            FeatureConfig())
+    assert module.LAUNCHES == before

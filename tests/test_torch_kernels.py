@@ -1,7 +1,9 @@
-"""The port's fused_raw_dit kernel module against the JAX Pallas kernel
-(interpret mode on the CPU, as tests/test_kernels.py runs it), plus the
-layout of the CUDA kernel's constants and its tiling.  The cases that need
-the card are in tests/test_torch_cuda.py."""
+"""The port's spectral kernel modules (fused_raw_dit, fused_raw, fused_dit,
+fused_mfcc) against the JAX Pallas kernels (interpret mode on the CPU, as
+tests/test_kernels.py runs them), the radix-2 DIT twins and the route
+predicates against the reference's, plus the layout of the CUDA kernels'
+constants and numpy emulations of their tiling.  The cases that need the
+card are in tests/test_torch_cuda.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -10,16 +12,27 @@ import torch
 
 from mfcc_tpu import FeatureConfig as JaxConfig, oracle as jax_oracle
 from mfcc_tpu.ops import spectrum as jax_spectrum
-from mfcc_tpu.ops.kernels import fused_raw_dit as jax_kernel
+from mfcc_tpu.ops.kernels import (fused_dit as jax_dit,
+                                  fused_mfcc as jax_direct,
+                                  fused_raw as jax_raw,
+                                  fused_raw_dit as jax_kernel)
 from mfcc_tpu_torch import FeatureConfig, from_jax
-from mfcc_tpu_torch.ops import mel, spectrum
-from mfcc_tpu_torch.ops.kernels import fused_raw_dit
+from mfcc_tpu_torch.ops import framing, mel, spectrum
+from mfcc_tpu_torch.ops.kernels import (fused_dit, fused_mfcc, fused_raw,
+                                        fused_raw_dit, routes)
 
 TOL = 2e-5   # kernel vs XLA bound of tests/test_kernels.py
 
 # the tiny raw-DIT-eligible config of __graft_entry__.dryrun_multichip
 TINY = dict(sample_rate=2000, frame_ms=40, hop_ms=16, n_fft=128, n_mels=8,
             n_mfcc=4)
+# log-mel-80 (+ deltas in the model tests), BASELINE config 3
+LOGMEL80 = dict(n_mels=80, n_mfcc=80)
+# the 22.05 kHz TTS frame geometry: 1024-sample frames, hop 256
+TTS = dict(sample_rate=22050, frame_ms=46.44, hop_ms=11.61, n_fft=1024,
+           n_mels=80, n_mfcc=13)
+HI_RATE = dict(sample_rate=44100, n_fft=2048)      # hop 441, frame 1102
+ODD_FRAME = dict(frame_ms=25.0625, hop_ms=12.5)     # frame_len 401, hop 200
 
 
 @pytest.mark.parametrize("kw,shape", [
@@ -86,17 +99,18 @@ def test_kernel_constants_layout(kw):
     assert dctm.shape == (cfg.n_mels, cfg.n_mfcc)
 
 
-def _emulate_kernel(x: np.ndarray, cfg: FeatureConfig, tm: int = 64):
-    """The CUDA kernel's data flow in numpy (float64 sums): per (row, tile
-    of tm frames) the audio span is staged and pre-emphasized with each
+def _emulate_kernel(x: np.ndarray, cfg: FeatureConfig, tm: int = 64,
+                    apply_dct: bool = True):
+    """The direct CUDA tile's data flow in numpy (float64 sums): per (row,
+    tile of tm frames) the audio span is staged and pre-emphasized with each
     sample's true predecessor (x[0] only at the row start), the bins come
     from the 256-wide basis blocks plus the separate last bin, then mel,
-    floors, log, DCT and the energy column."""
+    floors, log, DCT and the energy column (or the log-mel energies)."""
     basis, last, melw, dctm = (a.astype(np.float64)
                                for a in fused_raw_dit._matrices(cfg))
     B, N = x.shape
     T, hop, fl = cfg.num_frames(N), cfg.hop_len, cfg.frame_len
-    out = np.zeros((B, T, cfg.n_mfcc))
+    out = np.zeros((B, T, cfg.n_mfcc if apply_dct else cfg.n_mels))
     rel = mel.relative_floor(cfg)
     for b in range(B):
         for t0 in range(0, T, tm):
@@ -115,8 +129,10 @@ def _emulate_kernel(x: np.ndarray, cfg: FeatureConfig, tm: int = 64):
             pl = (fr @ last) ** 2
             e = pw @ melw[:-1] + pl.sum(axis=1, keepdims=True) * melw[-1]
             floor = np.maximum(cfg.log_floor, rel * e.max(axis=1, keepdims=True))
-            f = np.log(np.maximum(e, floor)) @ dctm
-            if cfg.append_energy:
+            f = np.log(np.maximum(e, floor))
+            if apply_dct:
+                f = f @ dctm
+            if cfg.append_energy and apply_dct:
                 f[:, 0] = np.log(np.maximum((fr * fr).sum(axis=1),
                                             cfg.log_floor))
             n = min(tm, T - t0)
@@ -151,7 +167,8 @@ def test_plain_power_spectrum_matches_oracle(rng):
 
 
 @pytest.mark.parametrize("name", ["fused_raw_dit", "fused_nccf",
-                                  "fused_viterbi"])
+                                  "fused_viterbi", "fused_raw", "fused_dit",
+                                  "fused_mfcc"])
 def test_build_failure_raises(monkeypatch, tmp_path, name):
     """A kernel whose nvcc build fails raises (nothing falls back), and a
     missing toolkit is named."""
@@ -167,3 +184,324 @@ def test_build_failure_raises(monkeypatch, tmp_path, name):
     monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+# ---------------------------------------------------------------------------
+# fused_raw, fused_dit, fused_mfcc: plain versions against the Pallas
+# kernels in interpret mode, at the reference tests' bounds (cepstra 2e-5
+# unliftered; log-mel rtol 1e-4 plus atol 2e-5, tests/test_kernels.py)
+# ---------------------------------------------------------------------------
+
+def _assert_features(got, want, cfg, apply_dct):
+    assert got.shape == want.shape
+    if apply_dct:
+        lift = jax_oracle.lifter_coeffs(cfg.n_mfcc, cfg.lifter)
+        np.testing.assert_allclose(got / lift, want / lift, atol=TOL, rtol=0)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-5)
+
+
+def _preemphasized(x: np.ndarray, cfg) -> np.ndarray:
+    return framing.preemphasize(torch.from_numpy(x), from_jax(cfg)).numpy()
+
+
+@pytest.mark.parametrize("kw,apply_dct", [
+    (dict(), True),
+    (LOGMEL80, False),
+    (dict(lifter=22, append_energy=True), True),
+    (dict(LOGMEL80, append_energy=True), False),   # energy is cepstral only
+    (dict(sample_rate=8000, n_fft=256), False),
+])
+def test_fused_raw_plain_matches_pallas(rng, kw, apply_dct):
+    jc = JaxConfig(**kw).validate()
+    x = (rng.standard_normal((2, 8000)) * 0.3).astype(np.float32)
+    want = np.asarray(jax_raw.fused_features_raw(
+        jnp.asarray(x), jc, apply_dct=apply_dct, interpret=True))
+    got = fused_raw.fused_features_raw(torch.from_numpy(x), from_jax(jc),
+                                       apply_dct=apply_dct)
+    _assert_features(got.numpy(), want, jc, apply_dct)
+
+
+@pytest.mark.parametrize("kw,apply_dct,n", [
+    (dict(TTS, n_mfcc=80), False, 11025),
+    # cepstra at 22.05 kHz, 25/10 ms (frame 551, hop 220, n_fft 1024); at
+    # the TTS geometry's 1024-sample frames both DIT forms sit 2-5e-5 off
+    # the float64 oracle in c0 (the DIT valley rounding summed by the DCT)
+    (dict(sample_rate=22050, n_fft=1024), True, 11025),
+    (dict(hop_ms=12.5), True, 8000),
+    (dict(hop_ms=12.5, lifter=22, append_energy=True), True, 8000),
+    (dict(ODD_FRAME, dynamic_range_db=60.0), True, 8000),
+    (dict(ODD_FRAME, n_mels=40, n_mfcc=40), False, 8000),
+])
+def test_fused_dit_plain_matches_pallas(rng, kw, apply_dct, n):
+    jc = JaxConfig(**kw).validate()
+    y = _preemphasized((rng.standard_normal((2, n)) * 0.3)
+                       .astype(np.float32), jc)
+    want = np.asarray(jax_dit.fused_features_dit(
+        jnp.asarray(y), jc, apply_dct=apply_dct, interpret=True))
+    got = fused_dit.fused_features_dit(torch.from_numpy(y), from_jax(jc),
+                                       apply_dct=apply_dct)
+    _assert_features(got.numpy(), want, jc, apply_dct)
+
+
+@pytest.mark.parametrize("kw,apply_dct,n", [
+    (HI_RATE, True, 22050),
+    (dict(HI_RATE, **LOGMEL80), False, 22050),
+    (dict(), True, 8000),
+    (dict(lifter=22, append_energy=True, dynamic_range_db=40.0), True, 8000),
+])
+def test_fused_mfcc_plain_matches_pallas(rng, kw, apply_dct, n):
+    jc = JaxConfig(**kw).validate()
+    y = _preemphasized((rng.standard_normal((2, n)) * 0.3)
+                       .astype(np.float32), jc)
+    want = np.asarray(jax_direct.fused_features(
+        jnp.asarray(y), jc, apply_dct=apply_dct, interpret=True))
+    got = fused_mfcc.fused_features(torch.from_numpy(y), from_jax(jc),
+                                    apply_dct=apply_dct)
+    _assert_features(got.numpy(), want, jc, apply_dct)
+
+
+@pytest.mark.parametrize("kw", [dict(), TTS, ODD_FRAME,
+                                dict(sample_rate=8000, n_fft=256),
+                                dict(sample_rate=48000, n_fft=2048)])
+def test_power_spectrum_dit_matches_reference(rng, kw):
+    """The port's DIT power (frames -> natural-order |X|^2) against the
+    reference's power_spectrum_dit_split (audio -> p_lo, p_hi), within 2e-5
+    of the peak; and against the port's direct form."""
+    jc = JaxConfig(**kw).validate()
+    cfg = from_jax(jc)
+    y = (rng.standard_normal((2, 6000)) * 0.3).astype(np.float32)
+    p_lo, p_hi = jax_spectrum.power_spectrum_dit_split(jnp.asarray(y), jc)
+    want = np.concatenate([np.asarray(p_lo), np.asarray(p_hi)], axis=-1)
+    fr = framing.frames(torch.from_numpy(y), cfg)
+    got = spectrum.power_spectrum_dit(fr, cfg).numpy()
+    assert got.shape == want.shape == (2, cfg.num_frames(6000), cfg.n_bins)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5 * want.max())
+    direct = spectrum.power_spectrum(fr, cfg).numpy()
+    np.testing.assert_allclose(got, direct, rtol=0, atol=2e-5 * direct.max())
+
+
+def _config_grid():
+    """8/16/22.05/44.1/48 kHz x hops 80..441 x n_fft 256..2048 x 25 ms and
+    odd frame lengths; only configs whose sizes round to those values and
+    that validate."""
+    out = []
+    for sr in (8000, 16000, 22050, 44100, 48000):
+        for hop in (80, 110, 160, 161, 200, 220, 256, 441):
+            for fl in (int(round(0.025 * sr)), 401, 1023, 1102):
+                for n_fft in (256, 400, 512, 1024, 2048):
+                    if n_fft < fl:
+                        continue
+                    jc = JaxConfig(sample_rate=sr, frame_ms=1000.0 * fl / sr,
+                                   hop_ms=1000.0 * hop / sr, n_fft=n_fft)
+                    if jc.frame_len == fl and jc.hop_len == hop:
+                        out.append(jc)
+    return out
+
+
+def _reference_route(jc, apply_dct):
+    """The reference's kernel choice, models/mfcc.py:78-95 and
+    ops/kernels/__init__.py:66-72."""
+    use_dit = apply_dct or (jc.dynamic_range_db is not None
+                            and jc.dynamic_range_db <= 50.0)
+    if use_dit and jax_kernel.raw_dit_kernel_eligible(jc):
+        return "fused_raw_dit"
+    if jax_raw.raw_kernel_eligible(jc):
+        return "fused_raw"
+    return ("fused_dit" if jax_dit.dit_kernel_eligible(jc)
+            else "fused_mfcc")
+
+
+def test_route_predicates_match_reference():
+    grid = _config_grid()
+    assert len(grid) > 300
+    seen = set()
+    for jc in grid:
+        cfg = from_jax(jc)
+        assert routes.raw_dit_kernel_eligible(cfg) == \
+            jax_kernel.raw_dit_kernel_eligible(jc), jc
+        assert routes.raw_kernel_eligible(cfg) == \
+            jax_raw.raw_kernel_eligible(jc), jc
+        assert routes.dit_kernel_eligible(cfg) == \
+            jax_dit.dit_kernel_eligible(jc), jc
+        for db in (None, 40.0, 50.0, 50.5):
+            c, j = cfg.replace(dynamic_range_db=db), jc.replace(
+                dynamic_range_db=db)
+            for apply_dct in (True, False):
+                route = routes.spectral_route(c, apply_dct)
+                assert route == _reference_route(j, apply_dct), (jc, db)
+                seen.add(route)
+    assert seen == {"fused_raw_dit", "fused_raw", "fused_dit", "fused_mfcc"}
+
+
+def test_dit_matrices_match_reference():
+    keys = {(jc.frame_len, jc.n_fft) for jc in _config_grid()
+            if jc.n_fft % 4 == 0}
+    for fl, n_fft in sorted(keys):
+        for window in ("hamming", "povey"):
+            kw = dict(frame_ms=fl / 16.0, n_fft=n_fft, window=window)
+            jc = JaxConfig(**kw)
+            assert jc.frame_len == fl
+            got = spectrum.dit_matrices(from_jax(jc))
+            want = jax_spectrum.dit_matrices(jc)
+            for g, w in zip((got[0][0], got[0][1], got[1][0], got[1][1],
+                             got[2], got[3]),
+                            (want[0][0], want[0][1], want[1][0], want[1][1],
+                             want[2], want[3])):
+                assert g.dtype == np.float64 and g.shape == w.shape
+                np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' constants and numpy emulations of their data flow
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [TTS, ODD_FRAME, dict(sample_rate=8000,
+                                                     n_fft=256),
+                                dict(sample_rate=48000, n_fft=2048)])
+def test_dit_kernel_constants_layout(kw):
+    """Block k holds half-bins 128k..128k+127 as [E cos | E sin | O cos |
+    O sin], zero past n_fft/4 and past each parity stream's rows."""
+    cfg = FeatureConfig(**kw).validate()
+    basis, last, tw, melw, dctm = fused_dit._matrices(cfg)
+    (be, bel), (bo, bol), ct, st = spectrum.dit_matrices(cfg)
+    nb2, le, lo = cfg.n_fft // 4, be.shape[0], bo.shape[0]
+    le_pad = basis.shape[1]
+    assert le_pad % 16 == 0 and le_pad - 16 < le <= le_pad
+    assert basis.shape == (-(-nb2 // 128), le_pad, 512)
+    cols = [np.concatenate([b[:, q * 128:(q + 1) * 128] for b in basis],
+                           axis=1) for q in range(4)]
+    f32 = lambda a: a.astype(np.float32)
+    np.testing.assert_array_equal(cols[0][:le, :nb2], f32(be[:, :nb2]))
+    np.testing.assert_array_equal(cols[1][:le, :nb2], f32(be[:, nb2:]))
+    np.testing.assert_array_equal(cols[2][:lo, :nb2], f32(bo[:, :nb2]))
+    np.testing.assert_array_equal(cols[3][:lo, :nb2], f32(bo[:, nb2:]))
+    for q, rows in enumerate((le, le, lo, lo)):
+        assert not cols[q][rows:].any() and not cols[q][:, nb2:].any()
+    np.testing.assert_array_equal(last[:le, 0], f32(bel[:, 0]))
+    np.testing.assert_array_equal(last[:lo, 1], f32(bol[:, 0]))
+    assert not last[le:, 0].any() and not last[lo:, 1].any()
+    np.testing.assert_array_equal(tw, f32(np.stack([ct, st])))
+    assert melw.shape == (cfg.n_bins, cfg.n_mels)
+
+
+def _emulate_dit_kernel(y: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
+                        tm: int = 64):
+    """fused_dit.cu's data flow in numpy (float64 sums): per (row, tile of
+    tm frames) the span is staged (zeros past the row), each frame's even
+    and odd samples are read at stride 2 over le_pad rows, each 128-bin
+    block gives E and O, the twiddle combine puts p_plus[j] at bin j and
+    p_minus[j] at bin n_fft/2 - j, the mid bin comes from the last columns,
+    then mel, floors, log, DCT and energy."""
+    basis, last, tw, melw, dctm = (a.astype(np.float64)
+                                   for a in fused_dit._matrices(cfg))
+    B, N = y.shape
+    T, hop, fl = cfg.num_frames(N), cfg.hop_len, cfg.frame_len
+    nb2, half, le_pad = cfg.n_fft // 4, cfg.n_fft // 2, basis.shape[1]
+    out = np.zeros((B, T, cfg.n_mfcc if apply_dct else cfg.n_mels))
+    rel = mel.relative_floor(cfg)
+    for b in range(B):
+        for t0 in range(0, T, tm):
+            g = t0 * hop + np.arange((tm - 1) * hop + 2 * le_pad)
+            z = np.where(g < N, y[b, np.minimum(g, N - 1)], 0.0)
+            ze = np.stack([z[m * hop: m * hop + 2 * le_pad: 2]
+                           for m in range(tm)])
+            zo = np.stack([z[m * hop + 1: m * hop + 2 * le_pad: 2]
+                           for m in range(tm)])
+            power = np.zeros((tm, cfg.n_bins))
+            for k, blk in enumerate(basis):
+                er, ei = ze @ blk[:, :128], ze @ blk[:, 128:256]
+                o_r, oi = zo @ blk[:, 256:384], zo @ blk[:, 384:]
+                j = k * 128 + np.arange(128)
+                ok = j < nb2
+                c = np.where(ok, tw[0, np.minimum(j, nb2 - 1)], 0.0)
+                s = np.where(ok, tw[1, np.minimum(j, nb2 - 1)], 0.0)
+                b_re, b_im = c * o_r - s * oi, c * oi + s * o_r
+                pp = (er + b_re) ** 2 + (ei + b_im) ** 2
+                pm = (er - b_re) ** 2 + (ei - b_im) ** 2
+                power[:, j[ok]] = pp[:, ok]
+                power[:, half - j[ok]] = pm[:, ok]
+            power[:, nb2] = (ze @ last[:, 0]) ** 2 + (zo @ last[:, 1]) ** 2
+            e = power @ melw
+            floor = np.maximum(cfg.log_floor, rel * e.max(axis=1, keepdims=True))
+            f = np.log(np.maximum(e, floor))
+            if apply_dct:
+                f = f @ dctm
+                if cfg.append_energy:
+                    fr = np.stack([z[m * hop: m * hop + fl] for m in range(tm)])
+                    f[:, 0] = np.log(np.maximum((fr * fr).sum(axis=1),
+                                                cfg.log_floor))
+            n = min(tm, T - t0)
+            out[b, t0: t0 + n] = f[:n]
+    return out
+
+
+@pytest.mark.parametrize("kw,apply_dct,N", [
+    (dict(TTS, n_mfcc=80), False, 69 * 256 + 1024),   # T=70: 64 + 6
+    (dict(TTS, n_mels=26, lifter=22, append_energy=True), True, 20000),
+    (dict(ODD_FRAME, append_energy=True), True, 16000),  # uneven streams
+    (dict(sample_rate=8000, n_fft=256), True, 8000),     # 64 of 128 bins
+    (dict(sample_rate=48000, n_fft=2048, dynamic_range_db=50.0), False,
+     30000),                                              # four blocks
+])
+def test_dit_kernel_emulation_matches_plain(rng, kw, apply_dct, N):
+    cfg = FeatureConfig(**kw).validate()
+    y = (rng.standard_normal((2, N)) * 0.3).astype(np.float32)
+    want = fused_dit.plain_features(torch.from_numpy(y), cfg,
+                                    apply_dct).numpy()
+    got = _emulate_dit_kernel(y, cfg, apply_dct)
+    _assert_features(got, want, cfg, apply_dct)
+
+
+@pytest.mark.parametrize("kw,apply_dct", [
+    (dict(HI_RATE, append_energy=True), True),
+    (dict(HI_RATE, **LOGMEL80), False),
+])
+def test_direct_kernel_emulation_without_preemphasis(rng, kw, apply_dct):
+    """fused_mfcc.cu is the direct tile with pre-emphasis off, on audio the
+    host pre-emphasized; 1102-sample frames at hop 441."""
+    cfg = FeatureConfig(**kw).validate()
+    y = _preemphasized((rng.standard_normal((2, 30000)) * 0.3)
+                       .astype(np.float32), cfg)
+    want = fused_mfcc.plain_features(torch.from_numpy(y), cfg,
+                                     apply_dct).numpy()
+    got = _emulate_kernel(y, cfg.replace(preemph=0.0), apply_dct=apply_dct)
+    _assert_features(got, want, cfg, apply_dct)
+
+
+@pytest.mark.parametrize("module,fn", [
+    (fused_raw, "fused_features_raw"),
+    (fused_dit, "fused_features_dit"),
+    (fused_mfcc, "fused_features"),
+    (fused_raw_dit, "fused_features_raw_dit"),
+])
+@pytest.mark.parametrize("apply_dct", [True, False])
+def test_new_wrappers_on_cpu_run_the_plain_version(rng, module, fn,
+                                                   apply_dct):
+    cfg = FeatureConfig(**LOGMEL80, append_energy=True)
+    x = torch.from_numpy((rng.standard_normal((2, 4000)) * 0.3)
+                         .astype(np.float32))
+    before = module.LAUNCHES
+    got = getattr(module, fn)(x, cfg, apply_dct=apply_dct)
+    want = module.plain_features(x, cfg, apply_dct)
+    assert torch.equal(got, want) and module.LAUNCHES == before
+    assert got.shape == (2, 23, 80)
+    if not apply_dct:     # no energy column in log-mel output
+        assert torch.equal(got, module.plain_features(x, cfg.replace(
+            append_energy=False), False))
+    empty = getattr(module, fn)(x[:, :399], cfg, apply_dct=apply_dct)
+    assert tuple(empty.shape) == (2, 0, 80)
+    with pytest.raises(ValueError, match="center"):
+        getattr(module, fn)(x, cfg.replace(frame_mode="center"))
+
+
+def test_dit_wrapper_rejects_what_the_algorithm_cannot_take():
+    with pytest.raises(ValueError, match="n_fft % 4"):
+        fused_dit.fused_features_dit(torch.zeros((1, 4000)),
+                                     FeatureConfig(n_fft=514))
+
+
+def test_accurate_log_wrapper_on_cpu_is_xmath():
+    from mfcc_tpu_torch.ops import xmath
+    x = torch.tensor([1e-10, 0.5, 1.0, 3.0, 1e30], dtype=torch.float32)
+    assert torch.equal(fused_mfcc.acc_log(x), xmath.accurate_log(x))

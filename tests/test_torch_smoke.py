@@ -17,11 +17,15 @@ import time
 import torch
 
 from mfcc_tpu_torch import backend
-from mfcc_tpu_torch.ops.kernels import (_build, fused_nccf, fused_raw_dit,
+from mfcc_tpu_torch.ops.kernels import (_build, fused_dit, fused_mfcc,
+                                        fused_nccf, fused_raw, fused_raw_dit,
                                         fused_viterbi)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WRAPPERS = ((fused_raw_dit, "fused_features_raw_dit"),
+            (fused_raw, "fused_features_raw"),
+            (fused_dit, "fused_features_dit"),
+            (fused_mfcc, "fused_features"),
             (fused_nccf, "fused_nccf"),
             (fused_viterbi, "fused_viterbi"))
 
@@ -76,11 +80,16 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in range(1, 9):
+    for phase in [*map(str, range(1, 9)), "3b", "3c", "4b"]:
         assert f"[{phase} " in out, phase
     assert "Fake GPU, 700.00 W" in out
     json.dumps({"kernels": kernels})
     assert [k["name"] for k in kernels] == list(smoke.KERNELS)
+    # launches are the main paths' own: one per batch call (fused_raw_dit:
+    # two MFCC batches and the 50 dB log-mel batch), no golden or check run
+    assert {k["name"]: k["launches"] for k in kernels} == {
+        "fused_raw_dit": 3, "fused_raw": 1, "fused_mfcc": 1, "fused_dit": 1,
+        "fused_nccf": 1, "fused_viterbi": 1}
     for k in kernels:
         assert k["route"] == "cuda" and k["launches"] > 0, k
         assert os.path.exists(os.path.join(REPO, k["source"])), k
@@ -90,4 +99,5 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         assert src[int(line) - 1].startswith("def "), k
         assert k["ms"] > 0 and k["plain_ms"] > 0, k
     # on the CPU the wrappers run the plain versions: no difference at all
-    assert [k["max_abs_err"] for k in kernels] == [0.0, 0.0, 0]
+    assert [k["max_abs_err"] for k in kernels] == [0.0] * 5 + [0]
+    assert "0 differ in any bit" in out
