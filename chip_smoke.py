@@ -13,14 +13,20 @@ Phases, one status line each; any failure raises and exits non-zero:
    ``fused_raw.cu``, ``fused_mfcc.cu``, ``fused_dit.cu``, ``fused_nccf.cu``,
    ``fused_viterbi.cu`` in ``mfcc_tpu_torch/ops/kernels/csrc/``) from this
    checkout with nvcc, one process per source, all at once; print ptxas's
-   registers and spills.
+   registers, shared memory and spills per kernel.
 3. MFCC kernel vs plain: ``fused_raw_dit`` against its plain PyTorch
    version on the card, same inputs, max abs diff <= 2e-5 (cepstra
-   compared unliftered, as the repository's kernel tests do).
+   compared unliftered, as the repository's kernel tests do); each case
+   names the tile that ran (``fft`` or ``direct``).
 3b. spectral kernels vs plain: ``fused_raw``, ``fused_dit``,
    ``fused_mfcc`` and ``fused_raw_dit`` with ``apply_dct=False``, each at
    its main-path config (64 x 10 s), at the default config, on a ragged
-   batch and at a frame count that is no tile multiple; cepstra <= 2e-5
+   batch and at a frame count that is no tile multiple; then the FFT tile
+   of ``fused_raw_dit`` and ``fused_mfcc`` over n_fft 64..4096, a ragged
+   batch, a frame count that is no tile multiple, T = 1,
+   ``append_energy`` with ``lifter=22``, ``dynamic_range_db=50`` and
+   ``apply_dct=False``, and the direct tile of both at n_fft 401 and at
+   unbounded log-mel, each case's tile checked; cepstra <= 2e-5
    unliftered, log-mel within rtol 1e-4 plus atol 2e-5.
 3c. accurate log: the kernels' ``acc_log`` on 2^20 floats (positive floats
    over the full exponent range, and floor values) bit-identical to
@@ -58,9 +64,16 @@ Phases, one status line each; any failure raises and exits non-zero:
 8. timing (information, not a claim): each kernel and its plain version
    at its main-path config, ``mfcc_batch``, ``log_mel_batch`` and
    ``pitch_batch`` through the kernels and through plain PyTorch, at
-   64 x 10 s, CUDA events, median over two passes.
-9. the script's elapsed time, one JSON line describing the kernels, then
-   the final JSON status line.
+   64 x 10 s, CUDA events around groups of five back-to-back calls,
+   median over two passes in turns; beside the
+   two FFT-tile kernels the direct tile on the same work (``fused_raw``
+   on the same raw audio, cepstra) and, as a yardstick of the DFT stage
+   alone, ``torch.fft.rfft`` (cuFFT) of the windowed frames, materialized
+   before the timed window.
+9. the script's elapsed time, one JSON line describing the kernels (with
+   each one's bound: the larger of its input and output bytes over 3.35
+   TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes),
+   then the final JSON status line.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -73,6 +86,7 @@ from __future__ import annotations
 import concurrent.futures
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -88,6 +102,10 @@ LOGMEL_RTOL = 1e-4    # log-mel kernel bound: rtol 1e-4 plus atol 2e-5
 ORACLE_TOL = 1e-4     # feature contract vs the float64 oracle
 LOGMEL_ORACLE_TOL = 1e-3   # unbounded log-mel vs oracle (test_golden.py)
 PITCH_TOL = (1e-4, 3e-4, 1e-4)   # pov, norm, delta (tests/test_pitch.py)
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores
+ACC_LOG_OPS = 17             # the accurate log's operations per value
+FFT_GRID = (64, 128, 256, 512, 1024, 2048, 4096)
 KERNELS = ("fused_raw_dit", "fused_raw", "fused_mfcc", "fused_dit",
            "fused_nccf", "fused_viterbi")
 SPECTRAL = ("fused_raw_dit", "fused_raw", "fused_mfcc", "fused_dit")
@@ -133,19 +151,24 @@ def _int16(audio: np.ndarray) -> np.ndarray:
     return np.round(np.clip(audio, -1.0, 32767 / 32768) * 32768).astype(np.int16)
 
 
-def _time_ms(torch, fn, warmup: int = 3, calls: int = 30) -> list[float]:
+def _time_ms(torch, fn, warmup: int = 3, calls: int = 30,
+             group: int = 5) -> list[float]:
+    """ms per call: calls // group samples, each the mean over ``group``
+    back-to-back calls between two CUDA events, so that the host enqueues
+    ahead of the device as a corpus run does."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     out = []
-    for _ in range(calls):
+    for _ in range(max(1, calls // group)):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(group):
+            fn()
         end.record()
         end.synchronize()
-        out.append(start.elapsed_time(end))
+        out.append(start.elapsed_time(end) / group)
     return out
 
 
@@ -161,6 +184,25 @@ def _fmt(errs) -> str:
     return "/".join(f"{e:.2e}" for e in errs)
 
 
+def _tile_ran(module, before: dict) -> str:
+    """The tile a spectral wrapper's last call launched, as "<tile> tile, "
+    ("" for a kernel with one tile or a call that launched nothing)."""
+    ran = [k for k, v in getattr(module, "TILE_LAUNCHES", {}).items()
+           if v != before.get(k)]
+    return f"{ran[0]} tile, " if len(ran) == 1 else ""
+
+
+def _tiles(module) -> dict:
+    return dict(getattr(module, "TILE_LAUNCHES", {}))
+
+
+def _reset_counts(modules) -> None:
+    for m in modules:
+        m.LAUNCHES = 0
+        for k in getattr(m, "TILE_LAUNCHES", {}):
+            m.TILE_LAUNCHES[k] = 0
+
+
 def _build_all(_build) -> None:
     """nvcc for every kernel source at once (one process each)."""
     t0 = time.perf_counter()
@@ -171,8 +213,10 @@ def _build_all(_build) -> None:
     for name in KERNELS:
         log = _build.library_path(name).with_suffix(".log")
         for ln in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in ln or "spill" in ln:
-                _log(f"  ptxas {name}: {ln.strip()}")
+            if "Compiling entry" in ln:
+                _log(f"  ptxas {name}: {ln.split(chr(39))[1]}")
+            elif "registers" in ln or "spill" in ln:
+                _log(f"  ptxas {name}:   {ln.strip()}")
 
 
 def _mfcc_kernel_vs_plain(torch, dev, bench) -> float:
@@ -203,8 +247,10 @@ def _mfcc_kernel_vs_plain(torch, dev, bench) -> float:
     kernel_err = 0.0
     for name, c, audio in cases:
         x = torch.from_numpy(np.ascontiguousarray(audio)).to(dev)
+        before = _tiles(fused_raw_dit)
         got = fused_raw_dit.fused_features_raw_dit(x, c)
         torch.cuda.synchronize()
+        tile = _tile_ran(fused_raw_dit, before)
         want = fused_raw_dit.plain_features(x, c)
         torch.cuda.synchronize()
         assert got.shape == want.shape == (x.shape[0], c.num_frames(x.shape[1]),
@@ -223,8 +269,9 @@ def _mfcc_kernel_vs_plain(torch, dev, bench) -> float:
             diff = diff[keep]
         err = float(diff.abs().max()) if diff.numel() else 0.0
         assert bool(torch.isfinite(got).all()), name
-        _log(f"[3 MFCC kernel vs plain] {name}: shape {tuple(got.shape)}, "
-             f"max abs diff {err:.3e} (all frames {raw:.3e})")
+        _log(f"[3 MFCC kernel vs plain] {name}: {tile}shape "
+             f"{tuple(got.shape)}, max abs diff {err:.3e} (all frames "
+             f"{raw:.3e})")
         assert err <= KERNEL_TOL, (name, err)
         kernel_err = max(kernel_err, err)
     return kernel_err
@@ -252,15 +299,16 @@ def _mfcc_main_path(torch, dev, bench) -> int:
          oracle.lifter_coeffs(13, 22)),
     ]
 
-    fused_raw_dit.LAUNCHES = 0
+    _reset_counts([fused_raw_dit])
     outs = {}
     for tag, arr in (("int16", x16), ("float32", audio)):
         outs[tag] = mfcc_model.mfcc_batch(
             torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev), cfg)
     torch.cuda.synchronize()
     launches = fused_raw_dit.LAUNCHES
+    tiles = _tiles(fused_raw_dit)
     _log(f"[4 MFCC main path] mfcc_batch on the two ragged batches launched "
-         f"the kernel {launches} times")
+         f"the kernel {launches} times, by tile {tiles}")
     assert launches > 0, "the MFCC main path did not go through the kernel"
     gold_out = []
     for fname, c, _ in goldens:
@@ -294,7 +342,7 @@ def _mfcc_main_path(torch, dev, bench) -> int:
         err = float(np.abs(got / lift - want / lift).max())
         _log(f"[4 MFCC main path] speech2s.wav vs {fname}: {err:.3e}")
         assert err <= ORACLE_TOL, (fname, err)
-    return launches
+    return launches, tiles
 
 
 def _slice3_configs() -> dict:
@@ -326,9 +374,106 @@ def _noise(rng, shape) -> np.ndarray:
     return (0.3 * rng.standard_normal(shape)).astype(np.float32)
 
 
+def _compare(torch, dev, got, want, c, dct, lens):
+    """Kernel vs plain: -> (max abs diff, margin to the bound); cepstra
+    unliftered <= 2e-5, log-mel rtol 1e-4 plus atol 2e-5; ragged rows
+    inside their lengths."""
+    from mfcc_tpu_torch import oracle
+    assert got.shape == want.shape, (got.shape, want.shape)
+    assert bool(torch.isfinite(got).all())
+    if lens is not None:
+        keep = torch.arange(got.shape[1], device=dev)[None, :] < \
+            torch.tensor([c.num_frames(n) for n in lens],
+                         device=dev)[:, None]
+        got, want = got[keep], want[keep]
+    diff = got - want
+    if dct:
+        lift = torch.from_numpy(oracle.lifter_coeffs(
+            c.n_mfcc, c.lifter).astype(np.float32)).to(dev)
+        diff = diff / lift
+        excess = float(diff.abs().max()) - KERNEL_TOL
+    else:
+        excess = float((diff.abs() - LOGMEL_RTOL * want.abs()).max()
+                       ) - KERNEL_TOL
+    return float(diff.abs().max()), -excess
+
+
+def _fft_grid_config(n_fft: int, **kw):
+    """25 ms frames at hop 10 ms at the rate that gives n_fft the default
+    config's bin spacing (2 kHz at 64 points ... 128 kHz at 4096)."""
+    from mfcc_tpu_torch import FeatureConfig
+    n_mels = min(26, n_fft // 8)
+    return FeatureConfig(sample_rate=n_fft * 125 // 4, n_fft=n_fft,
+                         n_mels=n_mels, n_mfcc=min(13, n_mels),
+                         **kw).validate()
+
+
+def _fft_tile_vs_plain(torch, dev) -> dict:
+    """Phase 3b, second part: the FFT tile of fused_raw_dit and fused_mfcc
+    against their plain versions, and the direct tile where the config
+    keeps it; -> {kernel: max abs diff}."""
+    from mfcc_tpu_torch import FeatureConfig
+    from mfcc_tpu_torch.ops import framing
+    rng = np.random.default_rng(6)
+    base = FeatureConfig()
+    sr, fl, hop = base.sample_rate, base.frame_len, base.hop_len
+    ragged_lens = (sr, sr * 3 // 4 + 123, sr // 4)
+    ragged = np.zeros((3, sr), np.float32)
+    for i, n in enumerate(ragged_lens):
+        ragged[i, :n] = _noise(rng, n)
+    cases = []        # (case, cfg, apply_dct, audio, lens, tile)
+    for n in FFT_GRID:
+        c = _fft_grid_config(n)
+        cases.append((f"n_fft {n}, T=70", c, True,
+                      _noise(rng, (3, 69 * c.hop_len + c.frame_len)), None,
+                      "fft"))
+    cases += [
+        ("B=3 ragged (frames inside each length)", base, True, ragged,
+         ragged_lens, "fft"),
+        ("T=1", base, True, _noise(rng, (2, fl)), None, "fft"),
+        ("lifter=22, append_energy=True",
+         base.replace(lifter=22, append_energy=True), True,
+         _noise(rng, (3, 69 * hop + fl)), None, "fft"),
+        ("dynamic_range_db=50", base.replace(dynamic_range_db=50.0), True,
+         _noise(rng, (3, 69 * hop + fl)), None, "fft"),
+        ("log-mel-80 <= 50 dB, apply_dct=False",
+         base.replace(n_mels=80, n_mfcc=80, dynamic_range_db=50.0), False,
+         _noise(rng, (3, 69 * hop + fl)), None, "fft"),
+        ("n_fft 401", base.replace(n_fft=401), True,
+         _noise(rng, (3, 69 * hop + fl)), None, "direct"),
+        ("unbounded log-mel-80, apply_dct=False",
+         base.replace(n_mels=80, n_mfcc=80), False,
+         _noise(rng, (3, 69 * hop + fl)), None, "direct"),
+    ]
+    wrappers = _spectral_wrappers()
+    worst = {}
+    for name in ("fused_raw_dit", "fused_mfcc"):
+        module, fn, raw = wrappers[name]
+        worst[name] = 0.0
+        for case, c, dct, audio, lens, tile in cases:
+            x = torch.from_numpy(np.ascontiguousarray(audio)).to(dev)
+            if not raw:
+                x = framing.preemphasize(x, c).contiguous()
+            before = _tiles(module)
+            got = getattr(module, fn)(x, c, apply_dct=dct)
+            torch.cuda.synchronize()
+            ran = _tile_ran(module, before)
+            want = module.plain_features(x, c, dct)
+            torch.cuda.synchronize()
+            err, margin = _compare(torch, dev, got, want, c, dct, lens)
+            _log(f"[3b FFT tile vs plain] {name} "
+                 f"{'cepstra' if dct else 'log-mel'}, {case}: {ran}"
+                 f"shape {tuple(got.shape)}, max abs diff {err:.3e} "
+                 f"(margin {margin:.3e})")
+            assert ran == f"{tile} tile, ", (name, case, ran, tile)
+            assert margin >= 0.0, (name, case, err)
+            worst[name] = max(worst[name], err)
+    return worst
+
+
 def _spectral_kernels_vs_plain(torch, dev) -> dict:
     """Phase 3b: -> {kernel: max abs diff over its cases}."""
-    from mfcc_tpu_torch import FeatureConfig, oracle
+    from mfcc_tpu_torch import FeatureConfig
     from mfcc_tpu_torch.ops import framing
     rng = np.random.default_rng(4)
     wrappers = _spectral_wrappers()
@@ -357,36 +502,23 @@ def _spectral_kernels_vs_plain(torch, dev) -> dict:
             x = torch.from_numpy(np.ascontiguousarray(audio)).to(dev)
             if not raw:
                 x = framing.preemphasize(x, c).contiguous()
+            before = _tiles(module)
             got = getattr(module, fn)(x, c, apply_dct=dct)
             torch.cuda.synchronize()
+            ran = _tile_ran(module, before)
             want = module.plain_features(x, c, dct)
             torch.cuda.synchronize()
-            assert got.shape == want.shape == (
-                x.shape[0], c.num_frames(x.shape[1]),
-                c.n_mfcc if dct else c.n_mels), (name, case, got.shape)
-            assert bool(torch.isfinite(got).all()), (name, case)
-            if lens is not None:
-                keep = torch.arange(got.shape[1], device=dev)[None, :] < \
-                    torch.tensor([c.num_frames(n) for n in lens],
-                                 device=dev)[:, None]
-                got, want = got[keep], want[keep]
-            diff = got - want
-            if dct:
-                lift = torch.from_numpy(oracle.lifter_coeffs(
-                    c.n_mfcc, c.lifter).astype(np.float32)).to(dev)
-                diff = diff / lift
-                excess = float(diff.abs().max()) - KERNEL_TOL
-            else:
-                excess = float((diff.abs() - LOGMEL_RTOL * want.abs()).max()
-                               ) - KERNEL_TOL
-            err = float(diff.abs().max())
+            assert got.shape == (x.shape[0], c.num_frames(x.shape[1]),
+                                 c.n_mfcc if dct else c.n_mels), \
+                (name, case, got.shape)
+            err, margin = _compare(torch, dev, got, want, c, dct, lens)
             bound = ("2e-5 unliftered" if dct
                      else "rtol 1e-4 + atol 2e-5")
             _log(f"[3b spectral kernels vs plain] {name} "
-                 f"{'cepstra' if dct else 'log-mel'}, {case}: shape "
-                 f"{tuple(got.shape)}, max abs diff {err:.3e} "
-                 f"(bound {bound}, margin {-excess:.3e})")
-            assert excess <= 0.0, (name, case, err)
+                 f"{'cepstra' if dct else 'log-mel'}, {case}: {ran}"
+                 f"shape {tuple(got.shape)}, max abs diff {err:.3e} "
+                 f"(bound {bound}, margin {margin:.3e})")
+            assert margin >= 0.0, (name, case, err)
             worst[name] = max(worst[name], err)
     return worst
 
@@ -411,15 +543,16 @@ def _acc_log_bits(torch, dev) -> int:
     return bad
 
 
-def _logmel_main_paths(torch, dev) -> dict:
-    """Phase 4b: -> {kernel: launches in its main path's run}."""
+def _logmel_main_paths(torch, dev):
+    """Phase 4b: -> ({kernel: launches in its main path's run}, {kernel:
+    those launches by tile, where the kernel has more than one})."""
     from mfcc_tpu_torch import oracle
     from mfcc_tpu_torch.models import logmel as logmel_model
     from mfcc_tpu_torch.models import mfcc as mfcc_model
     from mfcc_tpu_torch.utils import wav
     modules = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
     speech, _ = wav.read_wav(os.path.join(GOLDEN, "speech2s.wav"))
-    launches = {}
+    launches, tiles = {}, {}
     for name, cfg in _slice3_configs().items():
         cfg = cfg.validate()
         cepstra = name == "fused_mfcc"
@@ -433,21 +566,21 @@ def _logmel_main_paths(torch, dev) -> dict:
             audio[i, n:] = 0.0
         x16 = _int16(audio)
 
-        for m in modules.values():
-            m.LAUNCHES = 0
+        _reset_counts(modules.values())
         feat, flens, mask = entry(torch.from_numpy(x16).to(dev),
                                   torch.from_numpy(lens).to(dev), cfg)
         torch.cuda.synchronize()
         counts = {k: m.LAUNCHES for k, m in modules.items()}
+        tiles[name] = _tiles(modules[name])
         _log(f"[4b log-mel and fallback main paths] "
-             f"{entry.__name__} ({name} route) launched {counts}")
+             f"{entry.__name__} ({name} route) launched {counts}"
+             + (f", by tile {tiles[name]}" if tiles[name] else ""))
         assert counts[name] > 0 and sum(counts.values()) == counts[name], \
             f"the {name} main path did not go through {name} alone"
         launches[name] = counts[name]
         gold = None
         if name == "fused_raw":      # the golden WAV, counted on its own
-            for m in modules.values():
-                m.LAUNCHES = 0
+            _reset_counts(modules.values())
             gold = logmel_model.log_mel(torch.from_numpy(speech).to(dev), cfg)
             torch.cuda.synchronize()
             assert modules[name].LAUNCHES > 0, \
@@ -482,7 +615,7 @@ def _logmel_main_paths(torch, dev) -> dict:
                  f"logmel80_deltas.npy: {err:.3e} (bound "
                  f"{LOGMEL_ORACLE_TOL:g})")
             assert err <= LOGMEL_ORACLE_TOL, err
-    return launches
+    return launches, tiles
 
 
 def _nccf_inputs(torch, dev, pcfg, audio, lens):
@@ -684,13 +817,25 @@ def _pitch_main_path(torch, dev, bench) -> dict:
     return launches
 
 
+def _rfft_stage(torch, y, cfg):
+    """The DFT stage alone as one library call: cuFFT's real FFT of the
+    windowed frames of pre-emphasized audio y, materialized here, outside
+    the timed call (a yardstick, not the function)."""
+    from mfcc_tpu_torch import oracle
+    from mfcc_tpu_torch.ops import framing
+    win = torch.from_numpy(oracle.window_fn(cfg.window, cfg.frame_len)
+                           .astype(np.float32)).to(y.device)
+    frames = (framing.frames(y, cfg) * win).contiguous()
+    return lambda: torch.fft.rfft(frames, n=cfg.n_fft)
+
+
 def _timing(torch, dev, bench, smi) -> dict:
     from mfcc_tpu_torch import FeatureConfig, PitchConfig
     from mfcc_tpu_torch.models import logmel as logmel_model
     from mfcc_tpu_torch.models import mfcc as mfcc_model, pitch as pitch_model
     from mfcc_tpu_torch.ops import framing, pitch as pitch_op
-    from mfcc_tpu_torch.ops.kernels import (fused_nccf, fused_raw_dit,
-                                            fused_viterbi)
+    from mfcc_tpu_torch.ops.kernels import (fused_nccf, fused_raw,
+                                            fused_raw_dit, fused_viterbi)
     cfg, pcfg = FeatureConfig(), PitchConfig()
     B, N = bench.shape
     xb = torch.from_numpy(bench).to(dev)
@@ -703,6 +848,11 @@ def _timing(torch, dev, bench, smi) -> dict:
                           TIMING_CALLS),
         "fused_raw_dit plain": (lambda: fused_raw_dit.plain_features(xb, cfg),
                                 TIMING_CALLS),
+        # the direct tile on the same work: fused_raw, cepstra, same audio
+        "fused_raw_dit direct": (lambda: fused_raw.fused_features_raw(
+            xb, cfg, apply_dct=True), TIMING_CALLS),
+        "fused_raw_dit rfft": (_rfft_stage(
+            torch, framing.preemphasize(xb, cfg), cfg), TIMING_CALLS),
     }
     # the log-mel slice's kernels, each at its main-path config
     configs = _slice3_configs()
@@ -716,6 +866,11 @@ def _timing(torch, dev, bench, smi) -> dict:
                                         apply_dct=dct), TIMING_CALLS)
         runs[f"{name} plain"] = (functools.partial(module.plain_features,
                                                    inp, c, dct), TIMING_CALLS)
+        if name == "fused_mfcc":     # direct tile: fused_raw on the raw audio
+            runs["fused_mfcc direct"] = (functools.partial(
+                fused_raw.fused_features_raw, audio, c, apply_dct=True), slow)
+            runs["fused_mfcc rfft"] = (_rfft_stage(torch, inp, c),
+                                       TIMING_CALLS)
     lm_cfg = configs["fused_raw"]
     runs.update({
         "fused_nccf": (lambda: fused_nccf.fused_nccf(xw, ball, pcfg, T=T),
@@ -749,8 +904,58 @@ def _timing(torch, dev, bench, smi) -> dict:
     for k, ms in med.items():
         _log(f"[8 timing] {k}: {ms:.4f} ms per {B} x {SECONDS:g} s "
              f"batch = {audio_s / (ms / 1e3):,.0f} audio-sec/s "
-             f"(median of {len(times[k])}; {smi})")
+             f"(median of {len(times[k])} groups; {smi})")
+    for k in ("fused_raw_dit", "fused_mfcc"):
+        _log(f"[8 timing] {k}: FFT tile {med[k]:.4f} ms against the direct "
+             f"tile on the same work {med[k + ' direct']:.4f} ms "
+             f"({med[k + ' direct'] / med[k]:.2f}x); cuFFT rfft of the "
+             f"materialized windowed frames alone {med[k + ' rfft']:.4f} ms")
     return med
+
+
+def _spectral_work(cfg, apply_dct: bool, raw: bool, B: int, N: int):
+    """(operations, bytes) of the spectral function on a (B, N) float32
+    batch: per frame a real FFT of n_fft points (2.5 n log2 n), window and
+    in-kernel pre-emphasis, |X|^2, the mel matrix's nonzeros, floors and
+    the accurate log per band, the DCT and the energy column; bytes are the
+    audio read once and the features written once."""
+    from mfcc_tpu_torch.ops import mel
+    n, fl, nm = cfg.n_fft, cfg.frame_len, cfg.n_mels
+    per_frame = (2.5 * n * math.log2(n) + fl
+                 + (2 * fl if raw and cfg.preemph else 0) + 3 * cfg.n_bins
+                 + 2 * int(np.count_nonzero(mel.mel_matrix(cfg)))
+                 + nm * (ACC_LOG_OPS + 1
+                         + (2 if cfg.dynamic_range_db is not None else 0)))
+    if apply_dct:
+        per_frame += 2 * nm * cfg.n_mfcc
+        if cfg.append_energy:
+            per_frame += 2 * fl + ACC_LOG_OPS
+    T = cfg.num_frames(N)
+    n_out = cfg.n_mfcc if apply_dct else nm
+    return B * T * per_frame, 4 * B * N + 4 * B * T * n_out
+
+
+def _bounds(bench) -> dict:
+    """{kernel: (ops, bytes)} at the shapes phase 8 times."""
+    from mfcc_tpu_torch import FeatureConfig, PitchConfig
+    B, N = bench.shape
+    out = {"fused_raw_dit": _spectral_work(FeatureConfig(), True, True, B, N)}
+    configs = _slice3_configs()
+    for name, (_, _, raw) in _spectral_wrappers().items():
+        if name != "fused_raw_dit":
+            c = configs[name]
+            out[name] = _spectral_work(c, name == "fused_mfcc", raw, B,
+                                       int(SECONDS * c.sample_rate))
+    p = PitchConfig()
+    T, L, w = p.num_frames(N), p.n_lags, p.frame_len_w
+    nw = int(round(N * p.work_rate / p.sample_rate))
+    # NCCF: w x L numerator MACs, lag energies by a running sum, then per
+    # lag the product, floor, ballast, two square roots and two divisions
+    out["fused_nccf"] = (B * T * (2 * w * L + 2 * (w + p.max_lag) + 8 * L),
+                         4 * (B * nw + B) + 2 * 4 * B * T * L)
+    # Viterbi: per step and state L additions and L comparisons
+    out["fused_viterbi"] = (B * T * 2 * L * L, 4 * B * T * L + 4 * B * T)
+    return out
 
 
 def run(torch, dev) -> list[dict]:
@@ -768,9 +973,10 @@ def run(torch, dev) -> list[dict]:
     bench = _bench_audio(BATCH, SECONDS, 16000)
     mfcc_err = _mfcc_kernel_vs_plain(torch, dev, bench)     # 3
     spectral_errs = _spectral_kernels_vs_plain(torch, dev)  # 3b
+    fft_errs = _fft_tile_vs_plain(torch, dev)               # 3b
     _acc_log_bits(torch, dev)                               # 3c
-    mfcc_launches = _mfcc_main_path(torch, dev, bench)      # 4
-    logmel_launches = _logmel_main_paths(torch, dev)        # 4b
+    mfcc_launches, mfcc_tiles = _mfcc_main_path(torch, dev, bench)  # 4
+    logmel_launches, logmel_tiles = _logmel_main_paths(torch, dev)  # 4b
     nccf_err = _nccf_kernel_vs_plain(torch, dev, bench)     # 5
     viterbi_bad = _viterbi_kernel_vs_plain(torch, dev)      # 6
     pitch_launches = _pitch_main_path(torch, dev, bench)    # 7
@@ -782,10 +988,33 @@ def run(torch, dev) -> list[dict]:
     errs = {**spectral_errs, "fused_nccf": nccf_err,
             "fused_viterbi": viterbi_bad}
     errs["fused_raw_dit"] = max(errs["fused_raw_dit"], mfcc_err)
-    return [{"name": k, "route": "cuda", "source": src(k),
-             "replaces": REPLACES[k], "launches": launches[k],
-             "max_abs_err": errs[k], "ms": med[k],
-             "plain_ms": med[f"{k} plain"]} for k in KERNELS]
+    for k, e in fft_errs.items():
+        errs[k] = max(errs[k], e)
+    # the tile each kernel ran on its main path
+    tiles = {"fused_raw": "direct", "fused_dit": "dit",
+             "fused_nccf": "direct", "fused_viterbi": None}
+    for k, counts in (("fused_raw_dit", {
+            t: mfcc_tiles[t] + logmel_tiles["fused_raw_dit"][t]
+            for t in mfcc_tiles}), ("fused_mfcc", logmel_tiles["fused_mfcc"])):
+        ran = [t for t, v in counts.items() if v]
+        tiles[k] = ran[0] if len(ran) == 1 else "+".join(ran)
+    records = []
+    for k, (ops, nbytes) in _bounds(bench).items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+        records.append({
+            "name": k, "route": "cuda", "source": src(k),
+            "replaces": REPLACES[k], "launches": launches[k],
+            "max_abs_err": errs[k], "ms": med[k],
+            "plain_ms": med[f"{k} plain"],
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "tile": tiles[k],
+            "direct_tile_ms": med.get(f"{k} direct"),
+            "rfft_stage_ms": med.get(f"{k} rfft")})
+        _log(f"[9 summary] {k}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB "
+             f"-> bound {records[-1]['bound_ms']:.4f} ms by "
+             f"{records[-1]['bound_by']}; ran {med[k]:.4f} ms")
+    return records
 
 
 def main() -> int:

@@ -1,10 +1,10 @@
 """mfcc_tpu_torch — the PyTorch / CUDA (NVIDIA Hopper) port of mfcc_tpu.
 
 The JAX package ``mfcc_tpu`` stays the reference; this package imports
-torch and numpy only.  Slice 1 is batched MFCC through one hand-written
-CUDA kernel (``ops/kernels/fused_raw_dit.py``); slice 2 is batched
-Kaldi-style pitch through two more (``ops/kernels/fused_nccf.py``,
-``ops/kernels/fused_viterbi.py``).
+torch and numpy only.  It computes batched MFCC (``models/mfcc``),
+log-mel (``models/logmel``) and Kaldi-style pitch (``models/pitch``) on
+the card through six hand-written CUDA kernels, one per Pallas kernel of
+the reference (``ops/kernels``), with a plain PyTorch path beside each.
 """
 
 from .config import FeatureConfig, PitchConfig, from_jax  # noqa: F401

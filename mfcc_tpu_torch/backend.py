@@ -12,9 +12,11 @@ the reference's kernel route (``ops/kernels/routes.py``: its eligibility
 predicates, which are Mosaic lane-layout rules, plus its <= 50 dB accuracy
 rule), so that each config reaches the counterpart of the kernel the
 reference gives it.  The rules decide the route only: they are no capacity
-limits, and every Hopper kernel takes every valid-mode config.  Where the
-route changes the numerical form on the card, and where it does not, is
-set out in ``routes.py``.  Configs the port has not reached yet raise
+limits, and every Hopper kernel takes every valid-mode config.  The route
+changes the numerical form on the card as in the reference: cepstra and
+log-mel bounded to <= 50 dB take the FFT tile (``fused_raw_dit``,
+``fused_mfcc``), unbounded log-mel the direct tile; ``routes.py`` sets it
+out.  Configs the port has not reached yet raise
 ``NotImplementedError`` here, naming the ROADMAP item.
 """
 

@@ -1,18 +1,24 @@
 """Host side shared by the four spectral kernel modules (``fused_raw_dit``,
 ``fused_raw``, ``fused_mfcc``, ``fused_dit``), whose CUDA sources share
-``csrc/spectral.cuh``.
+``csrc/spectral.cuh`` (and, for ``fused_raw_dit`` and ``fused_mfcc``,
+``csrc/fft_tile.cuh``).
 
 - :func:`plain_features` — the plain PyTorch spectral chain from audio the
   caller has pre-emphasized: frames, DFT power (direct or radix-2 DIT),
   mel, floors, accurate log, then the lifter-folded DCT with the optional
   log energy in c0, or the log-mel energies.
 - :func:`direct_matrices` — the direct tile's float32 constants.
+- :func:`fft_tile`, :func:`fft_matrices`, :func:`mel_bands`,
+  :func:`mel_chunks` — which configs the FFT tile takes, and its
+  constants.
 - :func:`pinned` — constants in page-locked memory, so that each call's
   upload is an asynchronous copy on the launch stream.
 - :func:`check_input`, :func:`epilogue_args`, :func:`raise_on_error` — the
   wrappers' common checks and launch arguments.
-- :func:`launch_direct` — one launch of a direct-tile entry
-  (``fused_raw_dit``, ``fused_raw``, ``fused_mfcc``).
+- :func:`launch_direct` — one launch of ``fused_raw``'s direct-tile entry.
+- :func:`launch_spectral` — one launch of ``fused_raw_dit``'s or
+  ``fused_mfcc``'s entry, which runs the FFT tile or the direct tile as
+  :func:`fft_tile` picks.
 """
 
 from __future__ import annotations
@@ -23,12 +29,14 @@ import functools
 import numpy as np
 import torch
 
-from ... import backend
+from ... import backend, oracle
 from ...config import FeatureConfig
 from .. import dct as dct_op, framing, mel as mel_op, spectrum
-from . import _build
+from . import _build, routes
 
 BINS_PER_BLOCK = 256   # must match spectral::kBins in csrc/spectral.cuh
+FFT_MIN, FFT_MAX = 64, 4096   # must match spectral::kFftMin / kFftMax
+MEL_CHUNK = 16                # must match spectral::kMelChunk
 
 
 def n_out(cfg: FeatureConfig, apply_dct: bool) -> int:
@@ -80,6 +88,74 @@ def direct_matrices(cfg: FeatureConfig):
             dct_op.dct_matrix(cfg).astype(np.float32))
 
 
+def fft_tile(cfg: FeatureConfig, apply_dct: bool) -> bool:
+    """Whether fused_raw_dit / fused_mfcc run the FFT tile for cfg: a
+    power-of-two n_fft from 64 to 4096 that holds the frame
+    (``spectral::fft_tile_ok``), for cepstra or log-mel bounded to <= 50 dB
+    (``routes.use_dit``, the reference's accuracy rule: in spectral valleys
+    ~120 dB deep an f32 FFT rounds worse than the direct form).  Else the
+    direct tile."""
+    n = cfg.n_fft
+    return (FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0
+            and 1 <= cfg.frame_len <= n and routes.use_dit(cfg, apply_dct))
+
+
+def mel_bands(melw: np.ndarray) -> np.ndarray:
+    """(n_mels, 2) int32 [lo, hi): the first nonzero row of each mel column
+    and one past its last ((0, 0) for an all-zero column)."""
+    bands = np.zeros((melw.shape[1], 2), np.int32)
+    for j in range(melw.shape[1]):
+        nz = np.flatnonzero(melw[:, j])
+        if nz.size:
+            bands[j] = nz[0], nz[-1] + 1
+    return bands
+
+
+def mel_chunks(bands: np.ndarray, size: int = MEL_CHUNK):
+    """Each band's range cut into chunks of at most ``size`` bins, in band
+    order: -> chunks (n_chunks, 2) int32, bins [k0, k1), and band_chunks
+    (n_mels, 2) int32, the chunks [c0, c1) of band j."""
+    chunks, band_chunks = [], np.zeros((bands.shape[0], 2), np.int32)
+    for j, (lo, hi) in enumerate(bands):
+        band_chunks[j, 0] = len(chunks)
+        chunks += [(k, min(k + size, hi)) for k in range(lo, hi, size)]
+        band_chunks[j, 1] = len(chunks)
+    return np.array(chunks, np.int32).reshape(-1, 2), band_chunks
+
+
+@functools.lru_cache(maxsize=16)
+def fft_matrices(cfg: FeatureConfig):
+    """Constants of the FFT tile, from the float64 twins.
+
+    window (frame_len,) f32: the analysis window (``spectrum.dft_matrices``'
+      window, unfolded);
+    twiddles (n_fft, 2) f32: cos and sin of 2 pi m / n_fft;
+    chunk_w (n_chunks, MEL_CHUNK) f32: chunk c's mel weights, zero-padded;
+    chunks (n_chunks, 2), band_chunks (n_mels, 2) int32: :func:`mel_chunks`
+      of the nonzero ranges (:func:`mel_bands`) of the f32 mel matrix;
+    dct (n_mels, n_mfcc) f32, lifter folded in.
+    """
+    ang = 2.0 * np.pi * np.arange(cfg.n_fft, dtype=np.float64) / cfg.n_fft
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    melw = mel_op.mel_matrix(cfg).astype(np.float32)
+    chunks, band_chunks = mel_chunks(mel_bands(melw))
+    chunk_w = np.zeros((chunks.shape[0], MEL_CHUNK), np.float32)
+    for j, (c0, c1) in enumerate(band_chunks):
+        for c in range(c0, c1):
+            k0, k1 = chunks[c]
+            chunk_w[c, : k1 - k0] = melw[k0:k1, j]
+    return (oracle.window_fn(cfg.window, cfg.frame_len).astype(np.float32),
+            tw, chunk_w, chunks, band_chunks,
+            dct_op.dct_matrix(cfg).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=16)
+def _device_fft_matrices(cfg: FeatureConfig, device: torch.device):
+    """The FFT tile's constants on one device, uploaded once per (config,
+    device) and kept."""
+    return tuple(torch.from_numpy(a).to(device) for a in fft_matrices(cfg))
+
+
 def pinned(arrays) -> tuple:
     """numpy constants -> page-locked CPU tensors (cache the result per
     config; each call then uploads with ``to(device, non_blocking=True)``)."""
@@ -120,10 +196,15 @@ def epilogue_args(cfg: FeatureConfig, apply_dct: bool) -> tuple:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (n_mels, n_out, log_floor, rel_floor, append_energy, apply_dct)
 EPILOGUE_ARGTYPES = [_I, _I, _F, _F, _I, _I]
-# the direct entries: (x, B, N, T, basis, nbb, last, melw, dctm, out,
-# frame_len, hop, n_bins[, preemph], *epilogue, stream)
+# the direct entry: (x, B, N, T, basis, nbb, last, melw, dctm, out,
+# frame_len, hop, n_bins, preemph, *epilogue, stream)
 DIRECT_ARGTYPES = [_P, _I, ctypes.c_longlong, _I, _P, _I, _P, _P, _P, _P,
                    _I, _I, _I]
+# the FFT-or-direct entries: (x, B, N, T, basis, nbb, last, win, tw, chunk_w,
+# chunks, band_chunks, n_chunks, melw, dctm, out, frame_len, hop, n_bins,
+# n_fft, fft[, preemph], *epilogue, stream)
+SPECTRAL_ARGTYPES = [_P, _I, ctypes.c_longlong, _I, _P, _I, _P, _P, _P, _P,
+                     _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
 
 
 def bind(name: str, entry: str, argtypes) -> ctypes.CDLL:
@@ -148,32 +229,68 @@ def raise_on_error(err: int, lib, name: str) -> None:
                            f"{lib.mfcc_error_string(err).decode()} ({err})")
 
 
-def launch_direct(lib_fn, entry: str, name: str, x: torch.Tensor,
-                  cfg: FeatureConfig, apply_dct: bool,
-                  preemph: float | None):
-    """Launch a direct-tile entry on x's device and current stream.
-
-    lib_fn() loads the library (not called for an empty output); preemph
-    is passed to entries that pre-emphasize in the kernel (None for
-    fused_mfcc).  -> (out, launched).
-    """
+def _empty_out(x: torch.Tensor, cfg: FeatureConfig, apply_dct: bool):
     B, N = x.shape
-    T = cfg.num_frames(N)
-    out = torch.empty((B, T, n_out(cfg, apply_dct)), dtype=torch.float32,
-                      device=x.device)
-    if B == 0 or T == 0:
+    return torch.empty((B, cfg.num_frames(N), n_out(cfg, apply_dct)),
+                       dtype=torch.float32, device=x.device)
+
+
+def launch_direct(lib_fn, entry: str, name: str, x: torch.Tensor,
+                  cfg: FeatureConfig, apply_dct: bool, preemph: float):
+    """Launch a direct-tile entry (``fused_raw``) on x's device and current
+    stream; lib_fn() loads the library (not called for an empty output).
+    -> (out, launched)."""
+    out = _empty_out(x, cfg, apply_dct)
+    if out.numel() == 0:
         return out, False
     lib = lib_fn()
     with torch.cuda.device(x.device):
         basis, last, melw, dctm = (t.to(x.device, non_blocking=True)
                                    for t in _pinned_direct_matrices(cfg))
-        args = [x.data_ptr(), B, N, T, basis.data_ptr(), basis.shape[0],
-                last.data_ptr(), melw.data_ptr(), dctm.data_ptr(),
-                out.data_ptr(), cfg.frame_len, cfg.hop_len, cfg.n_bins]
+        err = getattr(lib, entry)(
+            x.data_ptr(), *x.shape, out.shape[1], basis.data_ptr(),
+            basis.shape[0], last.data_ptr(), melw.data_ptr(), dctm.data_ptr(),
+            out.data_ptr(), cfg.frame_len, cfg.hop_len, cfg.n_bins, preemph,
+            *epilogue_args(cfg, apply_dct),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    raise_on_error(err, lib, name)
+    return out, True
+
+
+def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
+                    cfg: FeatureConfig, apply_dct: bool,
+                    preemph: float | None):
+    """Launch an FFT-or-direct entry (``fused_raw_dit``, ``fused_mfcc``) on
+    x's device and current stream.  The FFT tile's constants live on the
+    device (:func:`_device_fft_matrices`); the direct tile's are uploaded
+    from pinned memory per call, and the other tile's are passed as null.
+    preemph goes to entries that pre-emphasize in the kernel (None for
+    fused_mfcc).  -> (out, "fft" | "direct" | None if nothing
+    was launched)."""
+    out = _empty_out(x, cfg, apply_dct)
+    if out.numel() == 0:
+        return out, None
+    lib = lib_fn()
+    tile = "fft" if fft_tile(cfg, apply_dct) else "direct"
+    with torch.cuda.device(x.device):
+        if tile == "fft":
+            win, tw, chunk_w, chunks, band_chunks, dctm = \
+                _device_fft_matrices(cfg, x.device)
+            consts = [None, 0, None, win.data_ptr(), tw.data_ptr(),
+                      chunk_w.data_ptr(), chunks.data_ptr(),
+                      band_chunks.data_ptr(), chunks.shape[0], None]
+        else:
+            basis, last, melw, dctm = (t.to(x.device, non_blocking=True)
+                                       for t in _pinned_direct_matrices(cfg))
+            consts = [basis.data_ptr(), basis.shape[0], last.data_ptr(),
+                      None, None, None, None, None, 0, melw.data_ptr()]
+        args = [x.data_ptr(), *x.shape, out.shape[1], *consts,
+                dctm.data_ptr(), out.data_ptr(), cfg.frame_len, cfg.hop_len,
+                cfg.n_bins, cfg.n_fft, int(tile == "fft")]
         if preemph is not None:
             args.append(preemph)
         err = getattr(lib, entry)(
             *args, *epilogue_args(cfg, apply_dct),
             torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error(err, lib, name)
-    return out, True
+    return out, tile

@@ -2,24 +2,35 @@
 //
 // Replaces the Pallas TPU kernel
 //   mfcc_tpu/ops/kernels/fused_mfcc.py::fused_features
-// (B, N) float32 audio that the host has already pre-emphasized in, the
-// direct window-folded DFT over all n_bins (256-bin blocks plus the last
-// bin's cos/sin columns), |X|^2, mel, floors, accurate log, then cepstra
-// with the optional log energy of the frames in c0, or log-mel energies.
-// The model layer sends it the configs that neither raw kernel nor the
-// DIT kernel takes (an odd hop, n_fft % 4 != 0: 44.1 kHz at 25/10 ms).
+// (B, N) float32 audio that the host has already pre-emphasized in, DFT
+// power over all n_bins, mel, floors, accurate log, then cepstra with the
+// optional log energy of the frames in c0, or log-mel energies.  The model
+// layer sends it the configs that neither raw kernel nor the DIT kernel
+// takes (an odd hop, n_fft % 4 != 0: 44.1 kHz at 25/10 ms).
 //
 // The TPU kernel's hop-block decomposition (re/im = sum_k V_k @ C_k, rows
 // shifted by sublane rolls) exists to make overlapping frames static
-// slices of one VMEM buffer; it does not carry over.  Frames here are
-// offsets into the tile's staged span, as in the direct tile of
-// spectral.cuh, which this kernel runs with pre-emphasis off.  Large
-// frames (1102 samples at 44.1 kHz) fall to smaller frame tiles where a
-// 64-frame span does not fit in shared memory.
+// slices of one VMEM buffer for the MXU; it does not carry over.  Frames
+// here are offsets into the tile's staged span.  For cepstra and log-mel
+// bounded to <= 50 dB at a power-of-two n_fft from 64 to 4096 (44.1 kHz:
+// n_fft 2048, 1102-sample frames at hop 441) it runs the shared-memory FFT
+// tile of fft_tile.cuh with pre-emphasis off.  The function is bound there
+// by its operations (~64 kflop a frame, 61 us for a 64 x 10 s batch at the
+// fp32 peak, against 35 us of HBM traffic); the direct form it replaces did
+// 70 times that work (288 GFLOP), so the FFT is what brings the kernel near
+// its bound.  Any other config (another n_fft, unbounded log-mel) runs the
+// direct window-folded DFT tile of spectral.cuh, in the same C entry; the
+// host picks the tile from the config.
 
-#include "spectral.cuh"
+#include "fft_tile.cuh"
 
 namespace {
+
+template <int TM>
+__global__ void __launch_bounds__(spectral::kThreads, 4)
+    mfcc_fft_kernel(const spectral::FftParams p) {
+  spectral::fft_features<TM>(p);
+}
 
 template <int FR>
 __global__ void __launch_bounds__(spectral::kThreads, 1)
@@ -30,19 +41,28 @@ __global__ void __launch_bounds__(spectral::kThreads, 1)
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Returns a cudaError_t; 0 is
-// success.  Launches on `stream` and does not synchronize.
+// success.  Launches on `stream` and does not synchronize.  fft != 0 runs
+// the FFT tile (win, tw, chunk_w, chunks, band_chunks given; basis, last and
+// melw may be null), else the direct tile (basis, last, melw given; the FFT
+// tile's constants may be null).
 extern "C" int mfcc_fused_mfcc(
     const float* y, int B, long long N, int T, const float* basis, int nbb,
-    const float* last, const float* melw, const float* dctm, float* out,
-    int frame_len, int hop, int n_bins, int n_mels, int n_out,
+    const float* last, const float* win, const float* tw, const float* chunk_w,
+    const int* chunks, const int* band_chunks, int n_chunks,
+    const float* melw, const float* dctm, float* out, int frame_len, int hop,
+    int n_bins, int n_fft, int fft, int n_mels, int n_out,
     float log_floor, float rel_floor, int append_energy, int apply_dct,
     void* stream) {
   const spectral::Epilogue e{melw, dctm, out, T, n_mels, n_out, log_floor,
                              rel_floor, apply_dct, append_energy};
-  const spectral::DirectParams p{y, basis, last, e, N, 0, nbb, frame_len,
-                                 hop, n_bins, 0, 0.0f};
-  const spectral::KernelFn<spectral::DirectParams> kernels[4] = {
+  const spectral::SpectralArgs a{y, B, N, basis, nbb, last, win, tw, chunk_w,
+                                 chunks, band_chunks, n_chunks, e, frame_len,
+                                 hop, n_bins, n_fft, fft, 0.0f};
+  const spectral::KernelFn<spectral::FftParams> fft_tiles[4] = {
+      mfcc_fft_kernel<64>, mfcc_fft_kernel<32>, mfcc_fft_kernel<16>,
+      mfcc_fft_kernel<8>};
+  const spectral::KernelFn<spectral::DirectParams> direct_tiles[4] = {
       mfcc_kernel<8>, mfcc_kernel<4>, mfcc_kernel<2>, mfcc_kernel<1>};
-  return spectral::launch_direct(p, B, kernels,
-                                 static_cast<cudaStream_t>(stream));
+  return spectral::launch_spectral(a, fft_tiles, direct_tiles,
+                                   static_cast<cudaStream_t>(stream));
 }

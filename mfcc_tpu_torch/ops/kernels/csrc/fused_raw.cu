@@ -12,12 +12,10 @@
 //
 // The TPU kernel's lane-phase period layout, roll-based pre-emphasis and
 // boundary-split GEMMs do not carry over.  This is the direct tile of
-// spectral.cuh, the same tile the port's fused_raw_dit.cu already runs
-// (that kernel was written in the direct form from the start), so the two
-// sources differ only in their entry.  Whether the fused_raw_dit route
-// should move to a raw-input radix-2 tile (2x fewer FMAs, the reference's
-// choice for cepstra) is an H100 A/B left open; this route stays direct
-// either way, for the valley accuracy.
+// spectral.cuh for every config, kept for the valley accuracy: in spectral
+// valleys ~120 dB under the peak an f32 FFT rounds worse than the direct
+// form, so fused_raw_dit.cu runs its FFT tile (fft_tile.cuh) only for
+// cepstra and log-mel bounded to <= 50 dB.
 
 #include "spectral.cuh"
 

@@ -12,19 +12,32 @@
 //
 // The TPU kernel's radix-2 DIT on the raw layout (parity deinterleave,
 // lane-phase periods, roll+select assembly, packed bin permutation, LEAD
-// rows) does not carry over: this kernel is the direct window-folded DFT
-// tile of spectral.cuh, in natural bin order with the plain mel matrix
-// (what bounds it and what the tile does about it are noted there).  It
-// is the same tile as fused_raw.cu; whether this route should move to a
-// raw-input DIT tile (2x fewer FMAs, the reference's choice) is an H100
-// A/B left open.
+// rows) exists to feed the MXU GEMMs and does not carry over.  For a
+// power-of-two n_fft from 64 to 4096 this kernel runs the shared-memory
+// FFT tile of fft_tile.cuh (two real frames per complex FFT, radix-8
+// Stockham passes, sparse mel).  At the 16 kHz MFCC-13 main path the
+// function is bound by its bytes and its operations about equally (44 MB
+// of audio and features, 13.2 us; ~16 kflop a frame, ~15 us at the fp32
+// peak); the direct form did 26 times the operations, so the FFT tile
+// decides how near the kernel comes (fft_tile.cuh says how it is laid
+// out).  Any other config (an odd n_fft or one that is no power of two,
+// or unbounded log-mel) runs the direct window-folded DFT tile of
+// spectral.cuh, as fused_raw.cu does for every config; the host picks the
+// tile from the config, in the same C entry.
 //
 // Numerics: the accurate log and the pre-emphasis round exactly as the
-// plain PyTorch version does; only the DFT/mel/DCT summation order differs.
+// plain PyTorch version does; the DFT (FFT or direct), mel and DCT sum in
+// another order.
 
-#include "spectral.cuh"
+#include "fft_tile.cuh"
 
 namespace {
+
+template <int TM>
+__global__ void __launch_bounds__(spectral::kThreads, 4)
+    raw_dit_fft_kernel(const spectral::FftParams p) {
+  spectral::fft_features<TM>(p);
+}
 
 template <int FR>
 __global__ void __launch_bounds__(spectral::kThreads, 1)
@@ -35,20 +48,29 @@ __global__ void __launch_bounds__(spectral::kThreads, 1)
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Returns a cudaError_t; 0 is
-// success.  Launches on `stream` and does not synchronize.
+// success.  Launches on `stream` and does not synchronize.  fft != 0 runs
+// the FFT tile (win, tw, chunk_w, chunks, band_chunks given; basis, last and
+// melw may be null), else the direct tile (basis, last, melw given; the FFT
+// tile's constants may be null).
 extern "C" int mfcc_fused_raw_dit(
     const float* x, int B, long long N, int T, const float* basis, int nbb,
-    const float* last, const float* melw, const float* dctm, float* out,
-    int frame_len, int hop, int n_bins, float preemph, int n_mels, int n_out,
+    const float* last, const float* win, const float* tw, const float* chunk_w,
+    const int* chunks, const int* band_chunks, int n_chunks,
+    const float* melw, const float* dctm, float* out, int frame_len, int hop,
+    int n_bins, int n_fft, int fft, float preemph, int n_mels, int n_out,
     float log_floor, float rel_floor, int append_energy, int apply_dct,
     void* stream) {
   const spectral::Epilogue e{melw, dctm, out, T, n_mels, n_out, log_floor,
                              rel_floor, apply_dct, append_energy};
-  const spectral::DirectParams p{x, basis, last, e, N, 0, nbb, frame_len,
-                                 hop, n_bins, 0, preemph};
-  const spectral::KernelFn<spectral::DirectParams> kernels[4] = {
+  const spectral::SpectralArgs a{x, B, N, basis, nbb, last, win, tw, chunk_w,
+                                 chunks, band_chunks, n_chunks, e, frame_len,
+                                 hop, n_bins, n_fft, fft, preemph};
+  const spectral::KernelFn<spectral::FftParams> fft_tiles[4] = {
+      raw_dit_fft_kernel<64>, raw_dit_fft_kernel<32>, raw_dit_fft_kernel<16>,
+      raw_dit_fft_kernel<8>};
+  const spectral::KernelFn<spectral::DirectParams> direct_tiles[4] = {
       raw_dit_kernel<8>, raw_dit_kernel<4>, raw_dit_kernel<2>,
       raw_dit_kernel<1>};
-  return spectral::launch_direct(p, B, kernels,
-                                 static_cast<cudaStream_t>(stream));
+  return spectral::launch_spectral(a, fft_tiles, direct_tiles,
+                                   static_cast<cudaStream_t>(stream));
 }

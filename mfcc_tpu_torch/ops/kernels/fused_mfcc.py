@@ -1,5 +1,5 @@
-"""Pre-emphasized audio -> MFCC or log-mel in one hand-written CUDA kernel,
-direct form (the Hopper twin of ``mfcc_tpu/ops/kernels/fused_mfcc.py``).
+"""Pre-emphasized audio -> MFCC or log-mel in one hand-written CUDA kernel
+(the Hopper twin of ``mfcc_tpu/ops/kernels/fused_mfcc.py``).
 
 - :func:`plain_features` — the plain PyTorch version: frames, direct DFT
   power over all bins, mel, floors, accurate log, then DCT with the
@@ -10,11 +10,17 @@ direct form (the Hopper twin of ``mfcc_tpu/ops/kernels/fused_mfcc.py``).
 - :func:`acc_log` — the kernels' accurate log (``csrc/spectral.cuh``)
   applied to a buffer on the card, as the reference keeps its in-kernel
   ``_acc_log`` here; for a bit-for-bit check against ``ops/xmath``.
-- ``LAUNCHES`` — how many times :func:`fused_features` launched the kernel.
+- ``LAUNCHES`` — how many times :func:`fused_features` launched the
+  kernel, and ``TILE_LAUNCHES`` — those launches by tile ("fft",
+  "direct").
 
 The model layer sends this kernel the configs neither raw kernel nor the
 DIT kernel takes (``routes.spectral_route``), after pre-emphasizing them on
-the host (``ops/framing.preemphasize``).
+the host (``ops/framing.preemphasize``).  Like ``fused_raw_dit``, it runs
+the FFT tile of ``csrc/fft_tile.cuh`` for cepstra and log-mel bounded to
+<= 50 dB at a power-of-two n_fft from 64 to 4096 (``_spectral.fft_tile``:
+44.1 kHz MFCC at n_fft 2048), else the direct tile of
+``csrc/spectral.cuh``.
 """
 
 from __future__ import annotations
@@ -27,8 +33,10 @@ from ...config import FeatureConfig
 from .. import xmath
 from . import _spectral
 
-# kernel launches by fused_features (reset by callers that count)
+# kernel launches by fused_features, in all and by tile (reset by callers
+# that count)
 LAUNCHES = 0
+TILE_LAUNCHES = {"fft": 0, "direct": 0}
 
 
 def plain_features(y: torch.Tensor, cfg: FeatureConfig,
@@ -40,7 +48,7 @@ def plain_features(y: torch.Tensor, cfg: FeatureConfig,
 def _lib() -> ctypes.CDLL:
     return _spectral.bind(
         "fused_mfcc", "mfcc_fused_mfcc",
-        _spectral.DIRECT_ARGTYPES + _spectral.EPILOGUE_ARGTYPES
+        _spectral.SPECTRAL_ARGTYPES + _spectral.EPILOGUE_ARGTYPES
         + [ctypes.c_void_p])
 
 
@@ -55,12 +63,12 @@ def fused_features(y: torch.Tensor, cfg: FeatureConfig, *,
     if not y.is_cuda:
         return plain_features(y, cfg, apply_dct)
     _spectral.check_cuda_input(y)
-    out, launched = _spectral.launch_direct(
-        _lib, "mfcc_fused_mfcc", "fused_mfcc", y, cfg, apply_dct,
-        None)
-    if launched:
+    out, tile = _spectral.launch_spectral(
+        _lib, "mfcc_fused_mfcc", "fused_mfcc", y, cfg, apply_dct, None)
+    if tile is not None:
         global LAUNCHES
         LAUNCHES += 1
+        TILE_LAUNCHES[tile] += 1
     return out
 
 

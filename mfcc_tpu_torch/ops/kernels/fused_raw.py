@@ -4,6 +4,7 @@ form (the Hopper twin of ``mfcc_tpu/ops/kernels/fused_raw.py``).
 - :func:`plain_features` — the plain PyTorch version: the direct chain it
   shares with ``fused_raw_dit`` (pre-emphasis, window-folded DFT power,
   mel, floors, accurate log, DCT or log-mel).
+- :func:`_matrices` — the direct tile's float32 constants.
 - :func:`fused_features_raw` — the wrapper: launches ``csrc/fused_raw.cu``
   for a CUDA tensor (a build or launch failure raises), or runs
   :func:`plain_features` for a CPU tensor.
@@ -11,9 +12,10 @@ form (the Hopper twin of ``mfcc_tpu/ops/kernels/fused_raw.py``).
 
 The model layer sends this kernel unbounded-range log-mel
 (``routes.spectral_route``), the route the reference keeps on the direct
-form for deep spectral valleys.  On the card it runs the same direct tile
-as ``fused_raw_dit``, so the two routes give the same numbers there
-(``routes.py``).
+form for deep spectral valleys.  On the card it runs the direct
+window-folded DFT tile of ``csrc/spectral.cuh`` for every config;
+``fused_raw_dit`` runs it only where the FFT tile does not apply
+(``_spectral.fft_tile``, ``routes.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from . import _spectral, fused_raw_dit
 LAUNCHES = 0
 
 plain_features = fused_raw_dit.plain_features
+_matrices = _spectral.direct_matrices
 
 
 def _lib() -> ctypes.CDLL:

@@ -5,16 +5,18 @@ twin of ``mfcc_tpu/ops/kernels/fused_raw_dit.py``, projection="mel").
   chain (pre-emphasis, window-folded DFT power, mel, floors, accurate log,
   lifter-folded DCT with the optional log energy in c0, or the log-mel
   energies).  The CPU path and the kernel's differential twin.
-- :func:`_matrices` — the float64 -> float32 constants the kernel reads.
 - :func:`fused_features_raw_dit` — the wrapper: checks its input and
   launches ``csrc/fused_raw_dit.cu`` for a CUDA tensor (a build or launch
   failure raises), or runs :func:`plain_features` for a CPU tensor.
-- ``LAUNCHES`` — how many times the wrapper launched the kernel.
+- ``LAUNCHES`` — how many times the wrapper launched the kernel, and
+  ``TILE_LAUNCHES`` — those launches by tile ("fft", "direct").
 
 The model layer sends this kernel cepstra and log-mel bounded to <= 50 dB
 (``routes.spectral_route``).  The TPU kernel's radix-2 DIT layout is not
-carried over: the Hopper kernel runs the direct window-folded DFT tile of
-``csrc/spectral.cuh`` in natural bin order with the plain mel matrix.
+carried over: for those outputs at a power-of-two n_fft from 64 to 4096
+(``_spectral.fft_tile``) the Hopper kernel runs the shared-memory FFT tile
+of ``csrc/fft_tile.cuh``, else the direct window-folded DFT tile of
+``csrc/spectral.cuh``; the config decides, never a failure.
 """
 
 from __future__ import annotations
@@ -27,10 +29,10 @@ from ...config import FeatureConfig
 from .. import framing
 from . import _spectral
 
-# kernel launches by fused_features_raw_dit (reset by callers that count)
+# kernel launches by fused_features_raw_dit, in all and by tile (reset by
+# callers that count)
 LAUNCHES = 0
-
-_matrices = _spectral.direct_matrices
+TILE_LAUNCHES = {"fft": 0, "direct": 0}
 
 
 def plain_features(x: torch.Tensor, cfg: FeatureConfig,
@@ -43,7 +45,7 @@ def plain_features(x: torch.Tensor, cfg: FeatureConfig,
 def _lib() -> ctypes.CDLL:
     return _spectral.bind(
         "fused_raw_dit", "mfcc_fused_raw_dit",
-        _spectral.DIRECT_ARGTYPES + [ctypes.c_float]
+        _spectral.SPECTRAL_ARGTYPES + [ctypes.c_float]
         + _spectral.EPILOGUE_ARGTYPES + [ctypes.c_void_p])
 
 
@@ -59,10 +61,11 @@ def fused_features_raw_dit(x: torch.Tensor, cfg: FeatureConfig, *,
     if not x.is_cuda:
         return plain_features(x, cfg, apply_dct)
     _spectral.check_cuda_input(x)
-    out, launched = _spectral.launch_direct(
+    out, tile = _spectral.launch_spectral(
         _lib, "mfcc_fused_raw_dit", "fused_raw_dit", x, cfg, apply_dct,
         cfg.preemph)
-    if launched:
+    if tile is not None:
         global LAUNCHES
         LAUNCHES += 1
+        TILE_LAUNCHES[tile] += 1
     return out

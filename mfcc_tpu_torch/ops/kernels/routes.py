@@ -13,17 +13,19 @@ n_fft % 4 == 0), so each is also checked at the default config.
 
 What the route changes on the card:
 
+- ``fused_raw_dit`` (cepstra and log-mel <= 50 dB, pre-emphasis in the
+  kernel) runs the shared-memory FFT tile (``csrc/fft_tile.cuh``) at a
+  power-of-two n_fft from 64 to 4096, ``fused_raw`` (unbounded log-mel)
+  the direct window-folded DFT tile (``csrc/spectral.cuh``).  So the
+  cepstra / <= 50 dB split, and with it ``use_dit``, has the reference's
+  meaning on CUDA too: the fast form where the floors bound the valleys,
+  the direct form for unbounded log-mel, whose deep valleys an f32 FFT
+  rounds worse (``_spectral.fft_tile``).
 - ``fused_dit`` is the radix-2 DIT form with pre-emphasis on the host, as
   in the reference.
-- ``fused_raw_dit`` and ``fused_raw`` run the same direct tile
-  (``csrc/spectral.cuh``) with pre-emphasis in the kernel: the port's
-  ``fused_raw_dit`` was written in the direct form, so the split between
-  them, and with it ``use_dit``, changes nothing numerically on CUDA.  It
-  keeps each config's kernel name and launch count aligned with the
-  reference until the raw-input DIT tile is measured against the direct
-  one (ROADMAP).
-- ``fused_mfcc`` is that direct tile again, fed audio the host
-  pre-emphasized.
+- ``fused_mfcc`` takes audio the host pre-emphasized and applies the same
+  rule as ``fused_raw_dit``: FFT tile for cepstra and bounded log-mel,
+  direct tile otherwise.
 
 Routing on the H100's own terms (the direct form, in the kernel, for every
 unbounded log-mel) is an A/B left open in ROADMAP.

@@ -1,8 +1,9 @@
 """Cases that need an NVIDIA GPU: each CUDA kernel against its plain
-PyTorch version on the card, the kernels' accurate log bit for bit, the
-wrappers' checks, and the main paths (MFCC, log-mel through each spectral
-route, pitch) through the kernels.  All are marked ``cuda`` and skip
-without a card.
+PyTorch version on the card (the FFT tile of fused_raw_dit and fused_mfcc
+over n_fft 64..4096 and the direct tile where it still runs), the kernels'
+accurate log bit for bit, the wrappers' checks, and the main paths (MFCC,
+log-mel through each spectral route, pitch) through the kernels.  All are
+marked ``cuda`` and skip without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
 there without the repository's conftest:
@@ -426,3 +427,94 @@ def test_spectral_launch_failure_raises(cuda, monkeypatch, name):
         getattr(module, fn)(torch.zeros((1, 4000), device=cuda),
                             FeatureConfig())
     assert module.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the FFT tile of fused_raw_dit and fused_mfcc (csrc/fft_tile.cuh)
+# ---------------------------------------------------------------------------
+
+def _fft_grid(n_fft: int) -> dict:
+    """25 ms frames at hop 10 ms at the rate that gives n_fft the default
+    config's bin spacing (2 kHz at 64 points ... 128 kHz at 4096)."""
+    n_mels = min(26, n_fft // 8)
+    return dict(sample_rate=n_fft * 125 // 4, n_fft=n_fft, n_mels=n_mels,
+                n_mfcc=min(13, n_mels))
+
+
+def _run_spectral(cuda, gen, name, cfg, shape, apply_dct, lens=None):
+    """One call of a spectral wrapper on seeded noise (zero past each
+    length), against its plain version inside the lengths; -> (the tile
+    that ran, the diff as _features_diff measures it)."""
+    module, fn, raw = SPECTRAL[name]
+    x = (gen.standard_normal(shape) * 0.3).astype(np.float32)
+    for i, n in enumerate(lens or ()):
+        x[i, n:] = 0.0
+    x = torch.from_numpy(x).to(cuda)
+    if not raw:
+        x = framing.preemphasize(x, cfg).contiguous()
+    before = dict(module.TILE_LAUNCHES), module.LAUNCHES
+    got = getattr(module, fn)(x, cfg, apply_dct=apply_dct)
+    torch.cuda.synchronize()
+    ran = [k for k, v in module.TILE_LAUNCHES.items() if v != before[0][k]]
+    assert module.LAUNCHES == before[1] + 1 and len(ran) == 1
+    want = module.plain_features(x, cfg, apply_dct)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    if lens is not None:
+        keep = torch.arange(got.shape[1], device=cuda)[None, :] < torch.tensor(
+            [cfg.num_frames(n) for n in lens], device=cuda)[:, None]
+        got, want = got[keep][None], want[keep][None]
+    return ran[0], _features_diff(got, want, cfg, apply_dct)
+
+
+_FFT_CASES = [
+    *[(_fft_grid(n), None, True) for n in (64, 128, 256, 512, 1024, 2048,
+                                           4096)],
+    (dict(), (64, 160000), True),                      # the main path
+    (HI_RATE, (64, 441000), True),                     # 44.1 kHz main path
+    (dict(), (2, 400), True),                          # T = 1
+    (dict(lifter=22, append_energy=True), None, True),
+    (dict(dynamic_range_db=50.0), None, True),
+    (dict(LOGMEL80, dynamic_range_db=50.0), None, False),
+    (dict(HI_RATE, **LOGMEL80, dynamic_range_db=40.0), None, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_mfcc"])
+@pytest.mark.parametrize("kw,shape,apply_dct", _FFT_CASES)
+def test_fft_tile_matches_plain(cuda, gen, name, kw, shape, apply_dct):
+    """Over n_fft 64..4096 and the options; shape None is 3 rows of 70
+    frames (no tile multiple, an odd pair count in the last tile)."""
+    cfg = FeatureConfig(**kw).validate()
+    shape = shape or (3, 69 * cfg.hop_len + cfg.frame_len)
+    tile, diff = _run_spectral(cuda, gen, name, cfg, shape, apply_dct)
+    assert tile == "fft"
+    assert diff <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_mfcc"])
+def test_fft_tile_on_a_ragged_batch(cuda, gen, name):
+    """All-zero frames past each length (c0 ~ -117, where 2e-5 is a few
+    ulps of the summation order) are compared inside the lengths only."""
+    cfg = FeatureConfig()
+    tile, diff = _run_spectral(cuda, gen, name, cfg, (3, 16000), True,
+                               lens=[16000, 12123, 4000])
+    assert tile == "fft" and diff <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_mfcc"])
+@pytest.mark.parametrize("kw,apply_dct", [
+    (dict(n_fft=401), True),                  # no power of two
+    (dict(ODD_FRAME, n_fft=600), True),
+    (LOGMEL80, False),                        # unbounded log-mel
+])
+def test_direct_tile_where_the_fft_tile_does_not_apply(cuda, gen, name, kw,
+                                                       apply_dct):
+    cfg = FeatureConfig(**kw).validate()
+    tile, diff = _run_spectral(cuda, gen, name, cfg,
+                               (2, 69 * cfg.hop_len + cfg.frame_len),
+                               apply_dct)
+    assert tile == "direct"
+    assert diff <= TOL

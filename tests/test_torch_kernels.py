@@ -2,7 +2,8 @@
 fused_mfcc) against the JAX Pallas kernels (interpret mode on the CPU, as
 tests/test_kernels.py runs them), the radix-2 DIT twins and the route
 predicates against the reference's, plus the layout of the CUDA kernels'
-constants and numpy emulations of their tiling.  The cases that need the
+constants and numpy emulations of their tiling (the direct tile, the DIT
+tile and the FFT tile).  The cases that need the
 card are in tests/test_torch_cuda.py."""
 
 import numpy as np
@@ -17,9 +18,9 @@ from mfcc_tpu.ops.kernels import (fused_dit as jax_dit,
                                   fused_raw as jax_raw,
                                   fused_raw_dit as jax_kernel)
 from mfcc_tpu_torch import FeatureConfig, from_jax
-from mfcc_tpu_torch.ops import framing, mel, spectrum
-from mfcc_tpu_torch.ops.kernels import (fused_dit, fused_mfcc, fused_raw,
-                                        fused_raw_dit, routes)
+from mfcc_tpu_torch.ops import framing, mel, spectrum, xmath
+from mfcc_tpu_torch.ops.kernels import (_spectral, fused_dit, fused_mfcc,
+                                        fused_raw, fused_raw_dit, routes)
 
 TOL = 2e-5   # kernel vs XLA bound of tests/test_kernels.py
 
@@ -84,7 +85,7 @@ def test_kernel_constants_layout(kw):
     """Every basis block holds the float32 window-folded cos | sin columns
     of 256 consecutive bins in natural order; the last bin sits apart."""
     cfg = FeatureConfig(**kw).validate()
-    basis, last, melw, dctm = fused_raw_dit._matrices(cfg)
+    basis, last, melw, dctm = fused_raw._matrices(cfg)
     cos_m, sin_m = jax_spectrum.dft_matrices(JaxConfig(**kw))
     nb = cfg.n_bins - 1
     assert basis.shape == (-(-nb // 256), cfg.frame_len, 512)
@@ -107,7 +108,7 @@ def _emulate_kernel(x: np.ndarray, cfg: FeatureConfig, tm: int = 64,
     from the 256-wide basis blocks plus the separate last bin, then mel,
     floors, log, DCT and the energy column (or the log-mel energies)."""
     basis, last, melw, dctm = (a.astype(np.float64)
-                               for a in fused_raw_dit._matrices(cfg))
+                               for a in fused_raw._matrices(cfg))
     B, N = x.shape
     T, hop, fl = cfg.num_frames(N), cfg.hop_len, cfg.frame_len
     out = np.zeros((B, T, cfg.n_mfcc if apply_dct else cfg.n_mels))
@@ -505,3 +506,294 @@ def test_accurate_log_wrapper_on_cpu_is_xmath():
     from mfcc_tpu_torch.ops import xmath
     x = torch.tensor([1e-10, 0.5, 1.0, 3.0, 1e30], dtype=torch.float32)
     assert torch.equal(fused_mfcc.acc_log(x), xmath.accurate_log(x))
+
+
+# ---------------------------------------------------------------------------
+# the FFT tile of fused_raw_dit.cu and fused_mfcc.cu (csrc/fft_tile.cuh):
+# its constants, its shape rule and a numpy emulation of its data flow
+# ---------------------------------------------------------------------------
+
+def _fft_grid_config(n_fft: int, **kw) -> FeatureConfig:
+    """25 ms frames at hop 10 ms at the rate that gives n_fft the default
+    config's bin spacing (2 kHz at 64 points ... 128 kHz at 4096)."""
+    n_mels = min(26, n_fft // 8)
+    return FeatureConfig(sample_rate=n_fft * 125 // 4, n_fft=n_fft,
+                         n_mels=n_mels, n_mfcc=min(13, n_mels),
+                         **kw).validate()
+
+
+@pytest.mark.parametrize("kw", [dict(), TINY, HI_RATE, TTS,
+                                dict(window="povey", n_fft=1024),
+                                dict(sample_rate=8000, n_fft=256)])
+def test_fft_constants_layout(kw):
+    """The window and the twiddles are the float64 builders rounded to
+    float32; the chunks tile each band's nonzero range of the direct tile's
+    mel matrix in order, with its weights; the DCT is the direct tile's."""
+    cfg = FeatureConfig(**kw).validate()
+    win, tw, chunk_w, chunks, band_chunks, dctm = _spectral.fft_matrices(cfg)
+    cos_m, _ = jax_spectrum.dft_matrices(JaxConfig(**kw))
+    assert win.dtype == tw.dtype == chunk_w.dtype == np.float32
+    assert chunks.dtype == band_chunks.dtype == np.int32
+    np.testing.assert_array_equal(win, cos_m[:, 0].astype(np.float32))
+    np.testing.assert_array_equal(
+        win, jax_oracle.window_fn(cfg.window, cfg.frame_len).astype(np.float32))
+    ang = 2.0 * np.pi * np.arange(cfg.n_fft) / cfg.n_fft
+    assert tw.shape == (cfg.n_fft, 2)
+    np.testing.assert_array_equal(tw[:, 0], np.cos(ang).astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 1], np.sin(ang).astype(np.float32))
+    _, _, dmel, ddct = fused_raw._matrices(cfg)
+    np.testing.assert_array_equal(dctm, ddct)
+    assert chunk_w.shape == (chunks.shape[0], _spectral.MEL_CHUNK)
+    bands = _spectral.mel_bands(dmel)
+    for j, (c0, c1) in enumerate(band_chunks):
+        ch = chunks[c0:c1]
+        assert (ch[:, 1] - ch[:, 0] <= _spectral.MEL_CHUNK).all()
+        covered = np.concatenate([np.arange(a, b) for a, b in ch]
+                                 ) if c1 > c0 else np.zeros(0, int)
+        np.testing.assert_array_equal(covered, np.arange(*bands[j]))
+        for c, (k0, k1) in zip(range(c0, c1), ch):
+            np.testing.assert_array_equal(chunk_w[c, : k1 - k0],
+                                          dmel[k0:k1, j])
+            assert not chunk_w[c, k1 - k0:].any()
+    assert band_chunks[-1, 1] == chunks.shape[0]
+    assert chunks.shape[0] <= cfg.n_fft + cfg.n_fft // 32   # fits a buffer
+
+
+@pytest.mark.parametrize("cfg", [FeatureConfig(), FeatureConfig(**LOGMEL80),
+                                 FeatureConfig(**HI_RATE),
+                                 FeatureConfig(**TINY), _fft_grid_config(64),
+                                 _fft_grid_config(4096)])
+def test_fft_mel_bands_cover_every_nonzero(cfg):
+    """Band j's range [lo, hi) holds every nonzero of mel column j and
+    starts and ends on one, so the sparse sum skips only exact zeros."""
+    melw = fused_raw._matrices(cfg)[2]
+    bands = _spectral.mel_bands(melw)
+    assert bands.shape == (cfg.n_mels, 2)
+    rows = np.arange(melw.shape[0])[:, None]
+    inside = (rows >= bands[:, 0]) & (rows < bands[:, 1])
+    assert not melw[~inside].any()
+    for j, (lo, hi) in enumerate(bands):
+        assert (lo, hi) == (0, 0) or (melw[lo, j] and melw[hi - 1, j])
+
+
+@pytest.mark.parametrize("kw,apply_dct,fft", [
+    (dict(), True, True), (HI_RATE, True, True), (TTS, True, True),
+    (TINY, True, True), (dict(n_fft=4096), True, True),
+    (dict(sample_rate=2000, n_fft=64), True, True),
+    (dict(LOGMEL80, dynamic_range_db=50.0), False, True),
+    (dict(HI_RATE, dynamic_range_db=40.0), False, True),
+    (dict(n_fft=8192), True, False),           # past the tile's 4096
+    (dict(n_fft=401), True, False),            # odd
+    (dict(n_fft=768), True, False),            # no power of two
+    (dict(sample_rate=4000, frame_ms=25, n_fft=100), True, False),
+    (LOGMEL80, False, False),                  # unbounded log-mel
+    (dict(HI_RATE, dynamic_range_db=50.5), False, False),
+])
+def test_fft_tile_rule(kw, apply_dct, fft):
+    """The config picks the tile: a power-of-two n_fft from 64 to 4096 for
+    cepstra and log-mel bounded to <= 50 dB (the route's use_dit rule);
+    every other config keeps the direct tile."""
+    cfg = FeatureConfig(**kw).validate()
+    assert _spectral.fft_tile(cfg, apply_dct) is fft
+    assert fft <= routes.use_dit(cfg, apply_dct)
+
+
+def _dft_small(vr, vi, R, h):
+    """The kernel's 2-, 4- and 8-point DFTs (fft_tile.cuh), lists of
+    arrays in natural order."""
+    def dft4(r, i):
+        t0r, t0i, t1r, t1i = r[0] + r[2], i[0] + i[2], r[0] - r[2], i[0] - i[2]
+        t2r, t2i, t3r, t3i = r[1] + r[3], i[1] + i[3], r[1] - r[3], i[1] - i[3]
+        return ([t0r + t2r, t1r + t3i, t0r - t2r, t1r - t3i],
+                [t0i + t2i, t1i - t3r, t0i - t2i, t1i + t3r])
+    if R == 2:
+        return [vr[0] + vr[1], vr[0] - vr[1]], [vi[0] + vi[1], vi[0] - vi[1]]
+    if R == 4:
+        return dft4(vr, vi)
+    er, ei = dft4(vr[0::2], vi[0::2])
+    o_r, oi = dft4(vr[1::2], vi[1::2])
+    o_r, oi = ([o_r[0], h * (o_r[1] + oi[1]), oi[2], h * (oi[3] - o_r[3])],
+               [oi[0], h * (oi[1] - o_r[1]), -o_r[2], -h * (o_r[3] + oi[3])])
+    return ([er[q] + o_r[q] for q in range(4)] + [er[q] - o_r[q] for q in range(4)],
+            [ei[q] + oi[q] for q in range(4)] + [ei[q] - oi[q] for q in range(4)])
+
+
+def _fft_pass(sr, si, tw, log2n, log2ns, R, h):
+    """One Stockham radix-R pass of the kernel over (pairs, n) arrays:
+    butterfly j reads points j + r n/R, twiddles point r by table entry
+    k r n/(ns R) (k = j mod ns), and writes point q to (j-k) R + k + q ns."""
+    n, ns = 1 << log2n, 1 << log2ns
+    nq = n // R
+    j = np.arange(nq)
+    k = j & (ns - 1)
+    vr = [sr[:, j + r * nq] for r in range(R)]
+    vi = [si[:, j + r * nq] for r in range(R)]
+    for r in range(1, R):
+        m = k * r * (n // (ns * R))
+        c, s = tw[m, 0], tw[m, 1]
+        vr[r], vi[r] = vr[r] * c + vi[r] * s, vi[r] * c - vr[r] * s
+    vr, vi = _dft_small(vr, vi, R, h)
+    dr, di = np.empty_like(sr), np.empty_like(si)
+    base = (j - k) * R + k
+    for q in range(R):
+        dr[:, base + q * ns], di[:, base + q * ns] = vr[q], vi[q]
+    return dr, di
+
+
+def _emulate_fft_tile(x: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
+                      tm: int = 32, dtype=np.float64):
+    """The FFT tile's data flow in numpy, in ``dtype``: per (row, tile of
+    tm frames) the span is staged and pre-emphasized with each sample's
+    true predecessor (cfg.preemph 0: audio the host pre-emphasized),
+    frames 2q and 2q+1 go windowed into the real and imaginary parts of one
+    n_fft-point input, the radix passes run in the kernel's order (radix 8,
+    then radix 2 or 4 where log2 n_fft % 3 != 0) with the table's
+    twiddles, the split gives both frames' |X|^2 at bins 0..n_fft/2, each
+    mel chunk sums its bins in ascending order and each band its chunks in
+    order, then floors, log, DCT and the energy column."""
+    f = dtype
+    win, tw, chunk_w, chunks, band_chunks, dctm = (
+        a.astype(f) if a.dtype != np.int32 else a
+        for a in _spectral.fft_matrices(cfg))
+    B, N = x.shape
+    T, hop, fl, n = cfg.num_frames(N), cfg.hop_len, cfg.frame_len, cfg.n_fft
+    log2n = n.bit_length() - 1
+    h, half = f(np.float32(np.sqrt(0.5))), f(0.5)
+    rel = mel.relative_floor(cfg)
+    log = (np.log if f is np.float64 else
+           lambda v: xmath.accurate_log(torch.from_numpy(v)).numpy())
+    out = np.zeros((B, T, cfg.n_mfcc if apply_dct else cfg.n_mels), f)
+    for b in range(B):
+        xb = x[b].astype(f)
+        for t0 in range(0, T, tm):
+            g = t0 * hop + np.arange((tm - 1) * hop + fl)
+            cur = np.where(g < N, xb[np.minimum(g, N - 1)], f(0))
+            prev = np.where(g > 0, xb[np.clip(g - 1, 0, N - 1)], xb[0])
+            z = np.where(g < N, cur - f(cfg.preemph) * prev, f(0)).astype(f)
+            fr = np.stack([z[m * hop: m * hop + fl] for m in range(tm)])
+            zin = np.zeros((tm, n), f)
+            zin[:, :fl] = win * fr
+            re, im = zin[0::2], zin[1::2]
+            rest = log2n % 3
+            for s in range(0, log2n - rest, 3):
+                re, im = _fft_pass(re, im, tw, log2n, s, 8, h)
+            if rest:
+                re, im = _fft_pass(re, im, tw, log2n, log2n - rest,
+                                   1 << rest, h)
+            k = np.arange(n // 2 + 1)
+            k2 = (n - k) & (n - 1)
+            a, bi, c, d = re[:, k], im[:, k], re[:, k2], im[:, k2]
+            xr, xi = half * (a + c), half * (bi - d)
+            yr, yi = half * (bi + d), half * (c - a)
+            power = np.empty((tm, n // 2 + 1), f)
+            power[0::2], power[1::2] = xr * xr + xi * xi, yr * yr + yi * yi
+            part = np.zeros((tm, chunks.shape[0]), f)
+            for c, (k0, k1) in enumerate(chunks):
+                for i in range(k1 - k0):
+                    part[:, c] += power[:, k0 + i] * chunk_w[c, i]
+            e = np.zeros((tm, cfg.n_mels), f)
+            for j, (c0, c1) in enumerate(band_chunks):
+                for c in range(c0, c1):
+                    e[:, j] += part[:, c]
+            floor = np.maximum(f(cfg.log_floor),
+                               f(rel) * e.max(axis=1, keepdims=True))
+            feat = log(np.maximum(e, floor).astype(f))
+            if apply_dct:
+                feat = feat @ dctm
+                if cfg.append_energy:
+                    feat[:, 0] = log(np.maximum((fr * fr).sum(axis=1),
+                                                f(cfg.log_floor)).astype(f))
+            m = min(tm, T - t0)
+            out[b, t0: t0 + m] = feat[:m]
+    return out
+
+
+@pytest.mark.parametrize("kw,raw,apply_dct,N,tm", [
+    # n_fft 128: the tiny raw-DIT config, T=61 over tiles of 16
+    (TINY, True, True, 2000, 16),
+    (dict(TINY, dynamic_range_db=50.0), True, False, 2000, 16),
+    # n_fft 512: the main path's config, T=48 over tiles of 32
+    (dict(), True, True, 8000, 32),
+    (dict(lifter=22, append_energy=True), True, True, 8000, 32),
+    (dict(LOGMEL80, dynamic_range_db=50.0), True, False, 8000, 32),
+    # n_fft 2048: 44.1 kHz, odd hop 441, host pre-emphasis, T=48 over 16s
+    (HI_RATE, False, True, 22050, 16),
+    (dict(HI_RATE, **LOGMEL80), False, False, 22050, 16),
+])
+def test_fft_tile_emulation_matches_pallas_and_plain(rng, kw, raw, apply_dct,
+                                                      N, tm):
+    """The FFT tile's data flow against the Pallas kernel it replaces
+    (interpret mode: fused_raw_dit on raw audio, fused_mfcc on audio the
+    host pre-emphasized) and against the plain version, with tiles that
+    frames straddle (a zero pre-emphasis predecessor at a tile edge would
+    show as ~1e-3)."""
+    jc = JaxConfig(**kw).validate()
+    cfg = from_jax(jc)
+    x = (rng.standard_normal((2, N)) * 0.3).astype(np.float32)
+    if raw:
+        want = np.asarray(jax_kernel.fused_features_raw_dit(
+            jnp.asarray(x), jc, merged=True, apply_dct=apply_dct,
+            interpret=True))
+        plain = fused_raw_dit.plain_features(torch.from_numpy(x), cfg,
+                                             apply_dct).numpy()
+        got = _emulate_fft_tile(x, cfg, apply_dct, tm)
+    else:
+        y = _preemphasized(x, jc)
+        want = np.asarray(jax_direct.fused_features(
+            jnp.asarray(y), jc, apply_dct=apply_dct, interpret=True))
+        plain = fused_mfcc.plain_features(torch.from_numpy(y), cfg,
+                                          apply_dct).numpy()
+        got = _emulate_fft_tile(y, cfg.replace(preemph=0.0), apply_dct, tm)
+    _assert_features(got, want, jc, apply_dct)
+    _assert_features(got, plain, jc, apply_dct)
+
+
+@pytest.mark.parametrize("n_fft", [64, 256, 1024, 4096])
+def test_fft_tile_emulation_over_the_n_fft_grid(rng, n_fft):
+    """Every pass schedule (radix 2, 4 or none after the radix-8 passes)
+    against the plain version, with an odd frame count (the last frame's
+    partner lies past the row) and an all-zero tail."""
+    cfg = _fft_grid_config(n_fft, append_energy=True)
+    N = 12 * cfg.hop_len + cfg.frame_len            # T = 13
+    x = (rng.standard_normal((2, N)) * 0.3).astype(np.float32)
+    want = fused_raw_dit.plain_features(torch.from_numpy(x), cfg).numpy()
+    got = _emulate_fft_tile(x, cfg, True, tm=8)
+    _assert_features(got, want, cfg, True)
+
+
+@pytest.mark.parametrize("window,ratio", [("hamming", 1.0), ("hann", 4.0),
+                                           ("povey", 8.0)])
+def test_fft_tile_valley_error_against_direct(window, ratio):
+    """Unbounded 80-mel log-mel on the two-tone valley signal of
+    tests/test_accuracy_floor.py, every stage in float32, against the
+    float64 oracle.  With the configs' Hamming window (valleys ~60 dB deep)
+    the FFT tile is no less accurate than the direct form (the port's plain
+    f32 version, the direct tile's arithmetic).  With Hann or Povey windows
+    the valleys reach ~120-140 dB and both forms sit at the f32 floor
+    (> 1e-3), the FFT 2.7x and 5.9x above the direct form as measured: so
+    unbounded log-mel keeps the direct tile (``_spectral.fft_tile``)."""
+    kw = dict(n_mels=80, n_mfcc=80, window=window)
+    cfg = FeatureConfig(**kw).validate()
+    t = np.arange(16000) / 16000
+    x = (0.5 * np.sin(2 * np.pi * 180.0 * t)
+         + 0.3 * np.sin(2 * np.pi * 1200.0 * t)).astype(np.float32)
+    want = jax_oracle.log_mel(x.astype(np.float64), JaxConfig(**kw))
+    got = _emulate_fft_tile(x[None], cfg, False, dtype=np.float32)[0]
+    direct = fused_raw.plain_features(torch.from_numpy(x[None]), cfg,
+                                      False)[0].numpy()
+    err_fft = np.abs(got - want).max()
+    err_direct = np.abs(direct - want).max()
+    assert err_fft <= ratio * err_direct, (err_fft, err_direct)
+    if window != "hamming":
+        assert min(err_fft, err_direct) > 1e-3       # the f32 valley floor
+    assert not _spectral.fft_tile(cfg, False)
+
+
+def test_fft_tile_ablation_edits_still_apply():
+    """mfcc_tpu_torch/tools/ablate_fft_tile.py cuts stages out of the
+    sources by exact text edits: each must still match once."""
+    from mfcc_tpu_torch.tools import ablate_fft_tile
+    for name in ablate_fft_tile.VARIANTS:
+        files = ablate_fft_tile.variant_sources(name)
+        assert set(files) >= {"fft_tile.cuh", "fused_raw_dit.cu",
+                              "fused_mfcc.cu"}

@@ -3,10 +3,11 @@ shows here and not first on the card.
 
 ``torch.cuda`` is faked (synchronize, Event, device name and count), nvcc
 is not called, ``backend.resolve`` routes "auto" to "cuda", and each kernel
-wrapper counts a launch and runs its plain version on the CPU tensor it is
-given.  Every phase then runs end to end at a small size: the control
-flow, shapes, comparisons, launch accounting and the kernels' JSON record.
-Imports no jax.
+wrapper counts a launch (and, for the two kernels with an FFT and a direct
+tile, the tile the config picks) and runs its plain version on the CPU
+tensor it is given.  Every phase then runs end to end at a small size: the
+control flow, shapes, comparisons, launch and tile accounting and the
+kernels' JSON record with its bounds.  Imports no jax.
 """
 
 import importlib.util
@@ -17,9 +18,9 @@ import time
 import torch
 
 from mfcc_tpu_torch import backend
-from mfcc_tpu_torch.ops.kernels import (_build, fused_dit, fused_mfcc,
-                                        fused_nccf, fused_raw, fused_raw_dit,
-                                        fused_viterbi)
+from mfcc_tpu_torch.ops.kernels import (_build, _spectral, fused_dit,
+                                        fused_mfcc, fused_nccf, fused_raw,
+                                        fused_raw_dit, fused_viterbi)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WRAPPERS = ((fused_raw_dit, "fused_features_raw_dit"),
@@ -49,6 +50,11 @@ def _counting(mod, name):
 
     def wrapper(*args, **kwargs):
         mod.LAUNCHES += 1
+        x, cfg = args[:2]
+        if hasattr(mod, "TILE_LAUNCHES") and x.shape[0] and \
+                cfg.num_frames(x.shape[1]):
+            fft = _spectral.fft_tile(cfg, kwargs.get("apply_dct", True))
+            mod.TILE_LAUNCHES["fft" if fft else "direct"] += 1
         return fn(*args, **kwargs)
 
     return wrapper
@@ -75,13 +81,17 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         "cuda" if name in ("auto", "cuda") else resolve(name, x)))
     for mod, fn in WRAPPERS:
         monkeypatch.setattr(mod, "LAUNCHES", mod.LAUNCHES)   # restored after
+        if hasattr(mod, "TILE_LAUNCHES"):
+            monkeypatch.setattr(mod, "TILE_LAUNCHES", dict(mod.TILE_LAUNCHES))
         monkeypatch.setattr(mod, fn, _counting(mod, fn))
 
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 9)), "3b", "3c", "4b"]:
+    for phase in [*map(str, range(1, 10)), "3b", "3c", "4b"]:
         assert f"[{phase} " in out, phase
+    assert "[3b FFT tile vs plain] fused_mfcc cepstra, n_fft 4096" in out
+    assert "n_fft 401: direct tile" in out
     assert "Fake GPU, 700.00 W" in out
     json.dumps({"kernels": kernels})
     assert [k["name"] for k in kernels] == list(smoke.KERNELS)
@@ -98,6 +108,16 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         src = open(os.path.join(REPO, path)).read().splitlines()
         assert src[int(line) - 1].startswith("def "), k
         assert k["ms"] > 0 and k["plain_ms"] > 0, k
+        assert k["bound_ms"] > 0 and k["library_ms"] is None, k
+        assert k["bound_by"] in ("bytes", "operations"), k
+    tiles = {k["name"]: k["tile"] for k in kernels}
+    assert tiles == {"fused_raw_dit": "fft", "fused_mfcc": "fft",
+                     "fused_raw": "direct", "fused_dit": "dit",
+                     "fused_nccf": "direct", "fused_viterbi": None}
+    for k in kernels:
+        fft = k["name"] in ("fused_raw_dit", "fused_mfcc")
+        assert (k["direct_tile_ms"] is not None) == fft, k
+        assert (k["rfft_stage_ms"] is not None) == fft, k
     # on the CPU the wrappers run the plain versions: no difference at all
     assert [k["max_abs_err"] for k in kernels] == [0.0] * 5 + [0]
     assert "0 differ in any bit" in out
