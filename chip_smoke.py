@@ -17,17 +17,26 @@ Phases, one status line each; any failure raises and exits non-zero:
 3. MFCC kernel vs plain: ``fused_raw_dit`` against its plain PyTorch
    version on the card, same inputs, max abs diff <= 2e-5 (cepstra
    compared unliftered, as the repository's kernel tests do); each case
-   names the tile that ran (``fft`` or ``direct``).
+   names the tile that ran (``fft``, ``fft64`` or ``direct``).
 3b. spectral kernels vs plain: ``fused_raw``, ``fused_dit``,
    ``fused_mfcc`` and ``fused_raw_dit`` with ``apply_dct=False``, each at
    its main-path config (64 x 10 s), at the default config, on a ragged
    batch and at a frame count that is no tile multiple; then the FFT tile
-   of ``fused_raw_dit`` and ``fused_mfcc`` over n_fft 64..4096, a ragged
-   batch, a frame count that is no tile multiple, T = 1,
-   ``append_energy`` with ``lifter=22``, ``dynamic_range_db=50`` and
-   ``apply_dct=False``, and the direct tile of both at n_fft 401 and at
-   unbounded log-mel, each case's tile checked; cepstra <= 2e-5
-   unliftered, log-mel within rtol 1e-4 plus atol 2e-5.
+   of all four over n_fft 64..4096 (cepstra on the f32 flavour ``fft``,
+   unbounded log-mel at an odd frame count on the float64-front flavour
+   ``fft64``), a ragged batch, a frame count that is no tile multiple,
+   T = 1, ``append_energy`` with ``lifter=22``, ``dynamic_range_db=50``,
+   ``apply_dct=False``, unbounded log-mel-80 (ragged, and at the 22.05 kHz
+   TTS geometry), a Hann two-tone valley, and the tile each kernel keeps
+   where the FFT tile does not apply (n_fft 401: the direct tile; 400 for
+   ``fused_dit``: the DIT tile), each case's tile checked.  Bounds: cepstra
+   <= 2e-5 unliftered, log-mel within rtol 1e-4 plus atol 2e-5 of the plain
+   version; every ``fft64`` case also within 1e-5 of the float64 oracle
+   fed the kernel's own input (the raw audio, or the audio the host
+   pre-emphasized, with pre-emphasis off).  Where the f32 plain version is
+   itself over the kernel-vs-plain bound against that oracle (spectral
+   valleys: ~1e-2 in the Hann two-tone case) and the kernel is not, the
+   oracle is the yardstick, and both oracle errors are printed.
 3c. accurate log: the kernels' ``acc_log`` on 2^20 floats (positive floats
    over the full exponent range, and floor values) bit-identical to
    ``ops/xmath``.
@@ -39,13 +48,15 @@ Phases, one status line each; any failure raises and exits non-zero:
 4b. log-mel and fallback main paths, 64 x 10 s int16 ragged each, every
    spectral launch counter reset just before and read just after each (the
    golden WAV is run and counted apart):
-   ``models.logmel.log_mel_batch`` at log-mel-80 + deltas (-> ``fused_raw``,
-   and ``speech2s.wav`` vs ``logmel80_deltas.npy``), the same bounded to
-   50 dB (-> ``fused_raw_dit``, ``apply_dct=False``), at the 22.05 kHz TTS
-   geometry (-> ``fused_dit``), and ``mfcc_batch`` at 44.1 kHz (->
-   ``fused_mfcc``).  Frame counts, masks and zero padding exact; features
-   vs the float64 oracle within 1e-4, 1e-3 for unbounded log-mel (and the
-   golden).
+   ``models.logmel.log_mel_batch`` at log-mel-80 + deltas (-> ``fused_raw``
+   on the ``fft64`` tile, and ``speech2s.wav`` vs ``logmel80_deltas.npy``),
+   the same bounded to 50 dB (-> ``fused_raw_dit``, ``apply_dct=False``,
+   ``fft``), at the 22.05 kHz TTS geometry (-> ``fused_dit``, ``fft64``),
+   and ``mfcc_batch`` at 44.1 kHz (-> ``fused_mfcc``, ``fft``), each tile
+   asserted.  Frame counts, masks and zero padding exact; features vs the
+   float64 oracle within 1e-4, 1e-3 for unbounded log-mel on host
+   pre-emphasized audio (``fused_dit``: the host's f32 pre-emphasis rounds
+   before the kernel) and for the golden.
 5. NCCF kernel vs plain: ``fused_nccf`` against the correlation-theorem
    ``ops.pitch.nccf`` given the same ballast, <= 2e-5 on valid frames, on
    stationary signals (the bench batch, ragged noise, four other configs,
@@ -65,11 +76,13 @@ Phases, one status line each; any failure raises and exits non-zero:
    at its main-path config, ``mfcc_batch``, ``log_mel_batch`` and
    ``pitch_batch`` through the kernels and through plain PyTorch, at
    64 x 10 s, CUDA events around groups of five back-to-back calls,
-   median over two passes in turns; beside the
-   two FFT-tile kernels the direct tile on the same work (``fused_raw``
-   on the same raw audio, cepstra) and, as a yardstick of the DFT stage
-   alone, ``torch.fft.rfft`` (cuFFT) of the windowed frames, materialized
-   before the timed window.
+   median over two passes in turns; beside each FFT-tile kernel the tile
+   it replaced on the same work, launched through the same C entry (the
+   direct tile; the DIT tile for ``fused_dit``), beside the two
+   ``fft64`` kernels the f32 FFT tile on the same work, and beside the two
+   ``fft`` kernels, as a yardstick of the DFT stage alone,
+   ``torch.fft.rfft`` (cuFFT) of the windowed frames, materialized before
+   the timed window.
 9. the script's elapsed time, one JSON line describing the kernels (with
    each one's bound: the larger of its input and output bytes over 3.35
    TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes),
@@ -101,6 +114,7 @@ KERNEL_TOL = 2e-5     # kernel vs XLA bound of tests/test_kernels.py
 LOGMEL_RTOL = 1e-4    # log-mel kernel bound: rtol 1e-4 plus atol 2e-5
 ORACLE_TOL = 1e-4     # feature contract vs the float64 oracle
 LOGMEL_ORACLE_TOL = 1e-3   # unbounded log-mel vs oracle (test_golden.py)
+FFT64_ORACLE_TOL = 1e-5    # the fft64 tile vs the oracle on its own input
 PITCH_TOL = (1e-4, 3e-4, 1e-4)   # pov, norm, delta (tests/test_pitch.py)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores
@@ -109,6 +123,9 @@ FFT_GRID = (64, 128, 256, 512, 1024, 2048, 4096)
 KERNELS = ("fused_raw_dit", "fused_raw", "fused_mfcc", "fused_dit",
            "fused_nccf", "fused_viterbi")
 SPECTRAL = ("fused_raw_dit", "fused_raw", "fused_mfcc", "fused_dit")
+# the tile each spectral kernel's main path runs (phase 4b)
+MAIN_TILES = {"fused_raw_dit": "fft", "fused_raw": "fft64",
+              "fused_mfcc": "fft", "fused_dit": "fft64"}
 REPLACES = {"fused_raw_dit": "mfcc_tpu/ops/kernels/fused_raw_dit.py:555",
             "fused_raw": "mfcc_tpu/ops/kernels/fused_raw.py:335",
             "fused_mfcc": "mfcc_tpu/ops/kernels/fused_mfcc.py:200",
@@ -370,6 +387,76 @@ def _spectral_wrappers():
             "fused_dit": (fused_dit, "fused_features_dit", False)}
 
 
+def _other_tile(name: str) -> str:
+    """The tile a spectral kernel runs where the FFT tile does not apply."""
+    return "dit" if name == "fused_dit" else "direct"
+
+
+def _on_tile(name: str, x, c, dct: bool, tile: str):
+    """A call of kernel ``name``'s C entry on ``tile`` (the tile it
+    replaced, or the f32 FFT tile, on the same work), outside its
+    wrapper's launch counts; -> (out, tile)."""
+    from mfcc_tpu_torch.ops.kernels import _spectral, fused_dit
+    module, _, raw = _spectral_wrappers()[name]
+    return _spectral.launch_spectral(
+        module._lib, "mfcc_" + name, name, x, c, dct,
+        c.preemph if raw else None,
+        other=fused_dit.DIT_TILE if name == "fused_dit"
+        else _spectral.DIRECT_TILE, tile=tile)
+
+
+def _oracle_out(torch, x, c, dct: bool, raw: bool, rows, lens):
+    """The float64 oracle fed the kernel's own input (the raw audio, or the
+    audio the host pre-emphasized with pre-emphasis off) for ``rows`` of
+    x: (len(rows), T, n_out) float64, zero past each row's frames."""
+    from mfcc_tpu_torch import oracle
+    c = c.replace(deltas=False) if raw else c.replace(deltas=False,
+                                                       preemph=0.0)
+    fn = oracle.mfcc if dct else oracle.log_mel
+    xf = x.double().cpu().numpy()
+    out = np.zeros((len(rows), c.num_frames(x.shape[1]),
+                    c.n_mfcc if dct else c.n_mels))
+    for k, i in enumerate(rows):
+        want = fn(xf[i, : x.shape[1] if lens is None else lens[i]], c)
+        out[k, : want.shape[0]] = want
+    return torch.from_numpy(out).to(x.device)
+
+
+def _check(torch, dev, tag, got, want, x, c, dct, raw, lens, tile):
+    """Kernel vs plain on one case, and, on the fft64 tile or where that
+    comparison is over its bound, both against the float64 oracle fed the
+    kernel's input (every row, or the first and last of a large batch
+    where the plain version holds its bound).  The fft64 tile must be
+    within 1e-5 of the oracle.  A case over the kernel-vs-plain bound
+    passes only where the plain version is over that bound against the
+    oracle and the kernel is not: then the oracle is the yardstick, and
+    both errors are printed.  -> max abs diff to the plain version,
+    counted where the plain version is the yardstick (else 0)."""
+    err, margin = _compare(torch, dev, got, want, c, dct, lens)
+    line = (f"{tag}: {tile} tile, shape {tuple(got.shape)}, max abs diff "
+            f"{err:.3e} (margin {margin:.3e})")
+    if tile == "fft64" or margin < 0:
+        rows = list(range(x.shape[0]) if x.shape[0] <= 4 or margin < 0
+                    else (0, x.shape[0] - 1))
+        sub = None if lens is None else [lens[i] for i in rows]
+        ref = _oracle_out(torch, x, c, dct, raw, rows, sub)
+        k_err, k_margin = _compare(torch, dev, got[rows].double(), ref, c,
+                                   dct, sub)
+        p_err, p_margin = _compare(torch, dev, want[rows].double(), ref, c,
+                                   dct, sub)
+        line += (f"; vs the float64 oracle on rows {rows}: kernel "
+                 f"{k_err:.3e}, plain {p_err:.3e}")
+        if tile == "fft64":
+            assert k_err <= FFT64_ORACLE_TOL, (tag, k_err)
+        if margin < 0:
+            _log(line + " (the plain version is over the kernel-vs-plain "
+                 "bound against the oracle: the oracle is the yardstick)")
+            assert p_margin < 0 <= k_margin, (tag, err, k_err, p_err)
+            return 0.0
+    _log(line)
+    return err
+
+
 def _noise(rng, shape) -> np.ndarray:
     return (0.3 * rng.standard_normal(shape)).astype(np.float32)
 
@@ -409,24 +496,37 @@ def _fft_grid_config(n_fft: int, **kw):
 
 
 def _fft_tile_vs_plain(torch, dev) -> dict:
-    """Phase 3b, second part: the FFT tile of fused_raw_dit and fused_mfcc
-    against their plain versions, and the direct tile where the config
-    keeps it; -> {kernel: max abs diff}."""
+    """Phase 3b, second part: the FFT tile of all four spectral kernels
+    against their plain versions (and, on the fft64 tile, against the
+    float64 oracle), and the tile each keeps where the FFT tile does not
+    apply; -> {kernel: max abs diff against the plain version}."""
     from mfcc_tpu_torch import FeatureConfig
     from mfcc_tpu_torch.ops import framing
     rng = np.random.default_rng(6)
     base = FeatureConfig()
+    lm80 = base.replace(n_mels=80, n_mfcc=80)
+    tts = _slice3_configs()["fused_dit"].validate()
     sr, fl, hop = base.sample_rate, base.frame_len, base.hop_len
     ragged_lens = (sr, sr * 3 // 4 + 123, sr // 4)
     ragged = np.zeros((3, sr), np.float32)
     for i, n in enumerate(ragged_lens):
         ragged[i, :n] = _noise(rng, n)
-    cases = []        # (case, cfg, apply_dct, audio, lens, tile)
+    t = np.arange(sr) / sr
+    tones = (0.5 * np.sin(2 * np.pi * 180.0 * t)
+             + 0.3 * np.sin(2 * np.pi * 1200.0 * t)).astype(np.float32)
+    # (case, cfg, apply_dct, audio, lens, tile): tile "other" is the
+    # kernel's own other tile
+    cases = []
     for n in FFT_GRID:
         c = _fft_grid_config(n)
         cases.append((f"n_fft {n}, T=70", c, True,
                       _noise(rng, (3, 69 * c.hop_len + c.frame_len)), None,
                       "fft"))
+    for n in FFT_GRID:
+        c = _fft_grid_config(n)
+        cases.append((f"unbounded log-mel, n_fft {n}, T=71", c, False,
+                      _noise(rng, (3, 70 * c.hop_len + c.frame_len)), None,
+                      "fft64"))
     cases += [
         ("B=3 ragged (frames inside each length)", base, True, ragged,
          ragged_lens, "fft"),
@@ -437,20 +537,30 @@ def _fft_tile_vs_plain(torch, dev) -> dict:
         ("dynamic_range_db=50", base.replace(dynamic_range_db=50.0), True,
          _noise(rng, (3, 69 * hop + fl)), None, "fft"),
         ("log-mel-80 <= 50 dB, apply_dct=False",
-         base.replace(n_mels=80, n_mfcc=80, dynamic_range_db=50.0), False,
+         lm80.replace(dynamic_range_db=50.0), False,
          _noise(rng, (3, 69 * hop + fl)), None, "fft"),
-        ("n_fft 401", base.replace(n_fft=401), True,
-         _noise(rng, (3, 69 * hop + fl)), None, "direct"),
-        ("unbounded log-mel-80, apply_dct=False",
-         base.replace(n_mels=80, n_mfcc=80), False,
-         _noise(rng, (3, 69 * hop + fl)), None, "direct"),
+        ("unbounded log-mel-80, T=71", lm80, False,
+         _noise(rng, (3, 70 * hop + fl)), None, "fft64"),
+        ("unbounded log-mel-80, B=3 ragged", lm80, False, ragged,
+         ragged_lens, "fft64"),
+        ("unbounded log-mel-80, TTS geometry, T=71", tts, False,
+         _noise(rng, (2, 70 * tts.hop_len + tts.frame_len)), None, "fft64"),
+        ("unbounded log-mel-80, Hann two-tone valley",
+         lm80.replace(window="hann"), False, tones[None], None, "fft64"),
+        ("unbounded log-mel-80, Hamming two tones", lm80, False, tones[None],
+         None, "fft64"),
+        ("n_fft 401 (fused_dit: 400)", base.replace(n_fft=401), True,
+         _noise(rng, (3, 69 * hop + fl)), None, "other"),
     ]
     wrappers = _spectral_wrappers()
     worst = {}
-    for name in ("fused_raw_dit", "fused_mfcc"):
-        module, fn, raw = wrappers[name]
+    for name, (module, fn, raw) in wrappers.items():
         worst[name] = 0.0
         for case, c, dct, audio, lens, tile in cases:
+            if tile == "other":
+                tile = _other_tile(name)
+                if name == "fused_dit":
+                    c = c.replace(n_fft=400)
             x = torch.from_numpy(np.ascontiguousarray(audio)).to(dev)
             if not raw:
                 x = framing.preemphasize(x, c).contiguous()
@@ -460,13 +570,10 @@ def _fft_tile_vs_plain(torch, dev) -> dict:
             ran = _tile_ran(module, before)
             want = module.plain_features(x, c, dct)
             torch.cuda.synchronize()
-            err, margin = _compare(torch, dev, got, want, c, dct, lens)
-            _log(f"[3b FFT tile vs plain] {name} "
-                 f"{'cepstra' if dct else 'log-mel'}, {case}: {ran}"
-                 f"shape {tuple(got.shape)}, max abs diff {err:.3e} "
-                 f"(margin {margin:.3e})")
             assert ran == f"{tile} tile, ", (name, case, ran, tile)
-            assert margin >= 0.0, (name, case, err)
+            err = _check(torch, dev, f"[3b FFT tile vs plain] {name} "
+                         f"{'cepstra' if dct else 'log-mel'}, {case}", got,
+                         want, x, c, dct, raw, lens, tile)
             worst[name] = max(worst[name], err)
     return worst
 
@@ -511,14 +618,9 @@ def _spectral_kernels_vs_plain(torch, dev) -> dict:
             assert got.shape == (x.shape[0], c.num_frames(x.shape[1]),
                                  c.n_mfcc if dct else c.n_mels), \
                 (name, case, got.shape)
-            err, margin = _compare(torch, dev, got, want, c, dct, lens)
-            bound = ("2e-5 unliftered" if dct
-                     else "rtol 1e-4 + atol 2e-5")
-            _log(f"[3b spectral kernels vs plain] {name} "
-                 f"{'cepstra' if dct else 'log-mel'}, {case}: {ran}"
-                 f"shape {tuple(got.shape)}, max abs diff {err:.3e} "
-                 f"(bound {bound}, margin {margin:.3e})")
-            assert margin >= 0.0, (name, case, err)
+            err = _check(torch, dev, f"[3b spectral kernels vs plain] {name} "
+                         f"{'cepstra' if dct else 'log-mel'}, {case}", got,
+                         want, x, c, dct, raw, lens, ran.split(" ")[0])
             worst[name] = max(worst[name], err)
     return worst
 
@@ -573,10 +675,12 @@ def _logmel_main_paths(torch, dev):
         counts = {k: m.LAUNCHES for k, m in modules.items()}
         tiles[name] = _tiles(modules[name])
         _log(f"[4b log-mel and fallback main paths] "
-             f"{entry.__name__} ({name} route) launched {counts}"
-             + (f", by tile {tiles[name]}" if tiles[name] else ""))
+             f"{entry.__name__} ({name} route) launched {counts}, by tile "
+             f"{tiles[name]}")
         assert counts[name] > 0 and sum(counts.values()) == counts[name], \
             f"the {name} main path did not go through {name} alone"
+        assert tiles[name][MAIN_TILES[name]] == counts[name], \
+            f"the {name} main path did not run the {MAIN_TILES[name]} tile"
         launches[name] = counts[name]
         gold = None
         if name == "fused_raw":      # the golden WAV, counted on its own
@@ -595,8 +699,9 @@ def _logmel_main_paths(torch, dev):
         assert (flens.cpu().numpy() == want_fl).all(), flens
         assert (m == (np.arange(T)[None] < want_fl[:, None])).all()
         assert np.isfinite(f).all() and (f[~m] == 0.0).all()
-        tol = (LOGMEL_ORACLE_TOL if not cepstra and cfg.dynamic_range_db is None
-               else ORACLE_TOL)
+        # unbounded log-mel on audio the host pre-emphasized in f32 keeps
+        # that rounding (fused_dit); the fft64 tile on raw audio does not
+        tol = (LOGMEL_ORACLE_TOL if name == "fused_dit" else ORACLE_TOL)
         ref = oracle.mfcc if cepstra else oracle.log_mel
         xf = x16.astype(np.float64) / 32768.0
         for i in (0, B // 2, B - 2):
@@ -834,8 +939,7 @@ def _timing(torch, dev, bench, smi) -> dict:
     from mfcc_tpu_torch.models import logmel as logmel_model
     from mfcc_tpu_torch.models import mfcc as mfcc_model, pitch as pitch_model
     from mfcc_tpu_torch.ops import framing, pitch as pitch_op
-    from mfcc_tpu_torch.ops.kernels import (fused_nccf, fused_raw,
-                                            fused_raw_dit, fused_viterbi)
+    from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_viterbi
     cfg, pcfg = FeatureConfig(), PitchConfig()
     B, N = bench.shape
     xb = torch.from_numpy(bench).to(dev)
@@ -843,34 +947,31 @@ def _timing(torch, dev, bench, smi) -> dict:
     xw, ball, T, _ = _nccf_inputs(torch, dev, pcfg, bench, [N] * B)
     scores = fused_nccf.plain_nccf(xw, ball, pcfg, T)[0]   # every frame valid
     slow = max(2, TIMING_CALLS // 3)     # the plain Viterbi's T-step loop
-    runs = {
-        "fused_raw_dit": (lambda: fused_raw_dit.fused_features_raw_dit(xb, cfg),
-                          TIMING_CALLS),
-        "fused_raw_dit plain": (lambda: fused_raw_dit.plain_features(xb, cfg),
-                                TIMING_CALLS),
-        # the direct tile on the same work: fused_raw, cepstra, same audio
-        "fused_raw_dit direct": (lambda: fused_raw.fused_features_raw(
-            xb, cfg, apply_dct=True), TIMING_CALLS),
-        "fused_raw_dit rfft": (_rfft_stage(
-            torch, framing.preemphasize(xb, cfg), cfg), TIMING_CALLS),
-    }
-    # the log-mel slice's kernels, each at its main-path config
-    configs = _slice3_configs()
+    runs = {}
+    # each spectral kernel at its main-path config (fused_raw_dit at the
+    # MFCC-13 one), beside it the tile it replaced on the same work through
+    # the same C entry, and beside a kernel on the fft64 tile the f32 FFT
+    # tile, beside one on the fft tile cuFFT's DFT stage alone
+    configs = {**_slice3_configs(), "fused_raw_dit": cfg}
     for name, (module, fn, raw) in _spectral_wrappers().items():
-        if name == "fused_raw_dit":
-            continue
-        c, dct = configs[name], name == "fused_mfcc"
-        audio = torch.from_numpy(_bench_audio(B, SECONDS, c.sample_rate)).to(dev)
+        c, dct = configs[name], name in ("fused_raw_dit", "fused_mfcc")
+        audio = (xb if name == "fused_raw_dit" else torch.from_numpy(
+            _bench_audio(B, SECONDS, c.sample_rate)).to(dev))
         inp = audio if raw else framing.preemphasize(audio, c).contiguous()
         runs[name] = (functools.partial(getattr(module, fn), inp, c,
                                         apply_dct=dct), TIMING_CALLS)
         runs[f"{name} plain"] = (functools.partial(module.plain_features,
                                                    inp, c, dct), TIMING_CALLS)
-        if name == "fused_mfcc":     # direct tile: fused_raw on the raw audio
-            runs["fused_mfcc direct"] = (functools.partial(
-                fused_raw.fused_features_raw, audio, c, apply_dct=True), slow)
-            runs["fused_mfcc rfft"] = (_rfft_stage(torch, inp, c),
-                                       TIMING_CALLS)
+        other = _other_tile(name)
+        runs[f"{name} {other}"] = (functools.partial(
+            _on_tile, name, inp, c, dct, other),
+            slow if name == "fused_mfcc" else TIMING_CALLS)
+        if MAIN_TILES[name] == "fft64":
+            runs[f"{name} fft"] = (functools.partial(
+                _on_tile, name, inp, c, dct, "fft"), TIMING_CALLS)
+        else:
+            pre = inp if not raw else framing.preemphasize(inp, c)
+            runs[f"{name} rfft"] = (_rfft_stage(torch, pre, c), TIMING_CALLS)
     lm_cfg = configs["fused_raw"]
     runs.update({
         "fused_nccf": (lambda: fused_nccf.fused_nccf(xw, ball, pcfg, T=T),
@@ -905,11 +1006,18 @@ def _timing(torch, dev, bench, smi) -> dict:
         _log(f"[8 timing] {k}: {ms:.4f} ms per {B} x {SECONDS:g} s "
              f"batch = {audio_s / (ms / 1e3):,.0f} audio-sec/s "
              f"(median of {len(times[k])} groups; {smi})")
-    for k in ("fused_raw_dit", "fused_mfcc"):
-        _log(f"[8 timing] {k}: FFT tile {med[k]:.4f} ms against the direct "
-             f"tile on the same work {med[k + ' direct']:.4f} ms "
-             f"({med[k + ' direct'] / med[k]:.2f}x); cuFFT rfft of the "
-             f"materialized windowed frames alone {med[k + ' rfft']:.4f} ms")
+    for name in SPECTRAL:
+        other, tile = _other_tile(name), MAIN_TILES[name]
+        line = (f"[8 timing] {name}: {tile} tile {med[name]:.4f} ms against "
+                f"the {other} tile on the same work {med[f'{name} {other}']:.4f}"
+                f" ms ({med[f'{name} {other}'] / med[name]:.2f}x)")
+        if tile == "fft64":
+            line += (f" and the f32 fft tile {med[f'{name} fft']:.4f} ms "
+                     f"(f64 costs {med[name] / med[f'{name} fft']:.2f}x)")
+        else:
+            line += (f"; cuFFT rfft of the materialized windowed frames "
+                     f"alone {med[f'{name} rfft']:.4f} ms")
+        _log(line)
     return med
 
 
@@ -990,14 +1098,12 @@ def run(torch, dev) -> list[dict]:
     errs["fused_raw_dit"] = max(errs["fused_raw_dit"], mfcc_err)
     for k, e in fft_errs.items():
         errs[k] = max(errs[k], e)
-    # the tile each kernel ran on its main path
-    tiles = {"fused_raw": "direct", "fused_dit": "dit",
-             "fused_nccf": "direct", "fused_viterbi": None}
-    for k, counts in (("fused_raw_dit", {
-            t: mfcc_tiles[t] + logmel_tiles["fused_raw_dit"][t]
-            for t in mfcc_tiles}), ("fused_mfcc", logmel_tiles["fused_mfcc"])):
-        ran = [t for t, v in counts.items() if v]
-        tiles[k] = ran[0] if len(ran) == 1 else "+".join(ran)
+    # the tile each kernel ran on its main path(s)
+    tiles = {"fused_nccf": "direct", "fused_viterbi": None}
+    logmel_tiles["fused_raw_dit"] = {
+        t: v + mfcc_tiles[t] for t, v in logmel_tiles["fused_raw_dit"].items()}
+    for k, counts in logmel_tiles.items():
+        tiles[k] = "+".join(t for t, v in counts.items() if v)
     records = []
     for k, (ops, nbytes) in _bounds(bench).items():
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
@@ -1009,7 +1115,8 @@ def run(torch, dev) -> list[dict]:
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "tile": tiles[k],
-            "direct_tile_ms": med.get(f"{k} direct"),
+            "direct_tile_ms": med.get(f"{k} direct", med.get(f"{k} dit")),
+            "f32_tile_ms": med.get(f"{k} fft"),
             "rfft_stage_ms": med.get(f"{k} rfft")})
         _log(f"[9 summary] {k}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB "
              f"-> bound {records[-1]['bound_ms']:.4f} ms by "

@@ -12,11 +12,11 @@ the reference's kernel route (``ops/kernels/routes.py``: its eligibility
 predicates, which are Mosaic lane-layout rules, plus its <= 50 dB accuracy
 rule), so that each config reaches the counterpart of the kernel the
 reference gives it.  The rules decide the route only: they are no capacity
-limits, and every Hopper kernel takes every valid-mode config.  The route
-changes the numerical form on the card as in the reference: cepstra and
-log-mel bounded to <= 50 dB take the FFT tile (``fused_raw_dit``,
-``fused_mfcc``), unbounded log-mel the direct tile; ``routes.py`` sets it
-out.  Configs the port has not reached yet raise
+limits, and every Hopper kernel takes every valid-mode config.  Inside
+each kernel the config picks the tile (``routes.py`` sets it out): at a
+power-of-two n_fft the FFT tile, in f32 for cepstra and log-mel bounded to
+<= 50 dB and with a float64 front for unbounded log-mel, else the direct
+(or DIT) tile.  Configs the port has not reached yet raise
 ``NotImplementedError`` here, naming the ROADMAP item.
 """
 

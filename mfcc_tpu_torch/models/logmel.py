@@ -3,9 +3,9 @@
 
 The same front half as the MFCC pipeline, stopping at the floored log mel
 energies, optionally with delta and delta-delta.  On a CUDA tensor
-unbounded-range log-mel goes to the direct ``fused_raw`` kernel and log-mel
-bounded to <= 50 dB to ``fused_raw_dit``'s FFT tile
-(``ops/kernels/routes.py``).  The
+unbounded-range log-mel goes to ``fused_raw`` (its FFT tile with a float64
+front) and log-mel bounded to <= 50 dB to ``fused_raw_dit`` (its f32 FFT
+tile), as ``ops/kernels/routes.py`` sets out.  The
 reference's > 4096-frame blocked route is not ported (``models/mfcc``).
 """
 

@@ -2,22 +2,22 @@
 mfcc_tpu.ops.kernels (same file name).  CUDA sources live in ``csrc/`` and
 are built at first use (``_build.py``); importing a module builds nothing.
 
-- :mod:`fused_raw_dit` — raw audio -> MFCC, or log-mel bounded to <= 50 dB
-  (FFT tile).
-- :mod:`fused_raw` — raw audio -> unbounded-range log-mel (direct form).
-- :mod:`fused_dit` — pre-emphasized audio -> features by the radix-2 DIT.
+- :mod:`fused_raw_dit` — raw audio -> MFCC, or log-mel bounded to <= 50 dB.
+- :mod:`fused_raw` — raw audio -> unbounded-range log-mel.
+- :mod:`fused_dit` — pre-emphasized audio -> features (the TTS geometry;
+  the radix-2 DIT tile where the FFT tile does not apply).
 - :mod:`fused_mfcc` — pre-emphasized audio -> features (the last route,
-  e.g. an odd hop; FFT tile for cepstra and bounded log-mel).
+  e.g. an odd hop).
 - :mod:`routes` — which of those four a config reaches (the reference's
   route, ``mfcc_tpu/models/mfcc.py:78-95``).
 - :mod:`fused_nccf` — work-rate audio -> ballasted and plain NCCF (pitch).
 - :mod:`fused_viterbi` — NCCF scores -> Viterbi lag path (pitch).
 
 The four spectral kernels share ``csrc/spectral.cuh`` (accurate log,
-direct DFT tile, epilogue) and ``_spectral.py`` (plain chain, constants,
-launch); ``fused_raw_dit`` and ``fused_mfcc`` also run the shared-memory
-FFT tile of ``csrc/fft_tile.cuh`` (power-of-two n_fft from 64 to 4096,
-cepstra or log-mel bounded to <= 50 dB).
+direct DFT tile, epilogue), the shared-memory FFT tile of
+``csrc/fft_tile.cuh`` (power-of-two n_fft from 64 to 4096: f32 for cepstra
+and log-mel bounded to <= 50 dB, a float64 front for other log-mel) and
+``_spectral.py`` (plain chain, constants, tile rule, launch).
 """
 
 from . import (fused_dit, fused_mfcc, fused_nccf, fused_raw,  # noqa: F401

@@ -1,24 +1,24 @@
 """Host side shared by the four spectral kernel modules (``fused_raw_dit``,
 ``fused_raw``, ``fused_mfcc``, ``fused_dit``), whose CUDA sources share
-``csrc/spectral.cuh`` (and, for ``fused_raw_dit`` and ``fused_mfcc``,
-``csrc/fft_tile.cuh``).
+``csrc/spectral.cuh`` and ``csrc/fft_tile.cuh``.
 
 - :func:`plain_features` — the plain PyTorch spectral chain from audio the
   caller has pre-emphasized: frames, DFT power (direct or radix-2 DIT),
   mel, floors, accurate log, then the lifter-folded DCT with the optional
   log energy in c0, or the log-mel energies.
 - :func:`direct_matrices` — the direct tile's float32 constants.
-- :func:`fft_tile`, :func:`fft_matrices`, :func:`mel_bands`,
-  :func:`mel_chunks` — which configs the FFT tile takes, and its
-  constants.
+- :func:`fft_tile`, :func:`fft_smem_bytes`, :func:`fft_matrices`,
+  :func:`mel_bands`, :func:`mel_chunks` — the tile rule (which tile a
+  config takes: the f32 FFT tile "fft", its float64-front flavour "fft64",
+  or the entry's other tile), and the FFT tile's constants.
 - :func:`pinned` — constants in page-locked memory, so that each call's
   upload is an asynchronous copy on the launch stream.
 - :func:`check_input`, :func:`epilogue_args`, :func:`raise_on_error` — the
   wrappers' common checks and launch arguments.
-- :func:`launch_direct` — one launch of ``fused_raw``'s direct-tile entry.
-- :func:`launch_spectral` — one launch of ``fused_raw_dit``'s or
-  ``fused_mfcc``'s entry, which runs the FFT tile or the direct tile as
-  :func:`fft_tile` picks.
+- :func:`entry_argtypes`, :func:`launch_spectral` — the C types of a
+  spectral entry, and one launch of it: the FFT tile :func:`fft_tile`
+  picks, or the entry's other tile (the direct tile; ``fused_dit``'s DIT
+  tile).
 """
 
 from __future__ import annotations
@@ -88,16 +88,45 @@ def direct_matrices(cfg: FeatureConfig):
             dct_op.dct_matrix(cfg).astype(np.float32))
 
 
-def fft_tile(cfg: FeatureConfig, apply_dct: bool) -> bool:
-    """Whether fused_raw_dit / fused_mfcc run the FFT tile for cfg: a
-    power-of-two n_fft from 64 to 4096 that holds the frame
-    (``spectral::fft_tile_ok``), for cepstra or log-mel bounded to <= 50 dB
-    (``routes.use_dit``, the reference's accuracy rule: in spectral valleys
-    ~120 dB deep an f32 FFT rounds worse than the direct form).  Else the
-    direct tile."""
+# Per FFT tile flavour: bytes per scalar, complex points per wave, pad
+# shift, samples staged before the span (spectral::FftFlavour).
+FFT_FLAVOURS = {"fft": (4, 2048, 5, 0), "fft64": (8, 1024, 4, 1)}
+MAX_SMEM = 232448   # the H100's shared memory per block (opt-in), bytes
+
+
+def fft_smem_bytes(cfg: FeatureConfig, tile: str, tm: int) -> int:
+    """Shared-memory bytes of an FFT tile of tm frames for cfg
+    (``spectral::fft_smem_bytes`` with ``launch_fft``'s pairs and span)."""
+    size, wave, shift, lead = FFT_FLAVOURS[tile]
     n = cfg.n_fft
-    return (FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0
-            and 1 <= cfg.frame_len <= n and routes.use_dit(cfg, apply_dct))
+    pairs = max(1, min(wave // n, tm // 2))
+    span = ((tm - 1) * cfg.hop_len + cfg.frame_len + 3) // 4 * 4
+    return (size * 4 * pairs * (n + (n >> shift))
+            + 4 * (span + lead + tm * cfg.n_mels + 2 * tm))
+
+
+def fft_tile(cfg: FeatureConfig, apply_dct: bool) -> str:
+    """The tile the spectral entries run for cfg, decided from the config
+    alone:
+
+    - "fft", the f32 FFT tile, for cepstra and log-mel bounded to <= 50 dB
+      (``routes.use_dit``, the reference's accuracy rule: the floors bound
+      the spectral valleys);
+    - "fft64", the tile's float64-front flavour, for other log-mel: in
+      valleys ~120-140 dB deep an f32 FFT rounds up to 6x worse than the
+      direct form, while float64 through |X|^2 holds the oracle;
+    - "direct", the entry's other tile (the direct tile; the DIT tile in
+      ``fused_dit``), where neither FFT flavour applies.
+
+    Both flavours need a power-of-two n_fft from 64 to 4096 that holds the
+    frame (``spectral::fft_tile_ok``) and a frame tile of 8 whose shared
+    memory fits a block (:func:`fft_smem_bytes`)."""
+    n = cfg.n_fft
+    if not (FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0
+            and 1 <= cfg.frame_len <= n):
+        return "direct"
+    tile = "fft" if routes.use_dit(cfg, apply_dct) else "fft64"
+    return tile if fft_smem_bytes(cfg, tile, 8) <= MAX_SMEM else "direct"
 
 
 def mel_bands(melw: np.ndarray) -> np.ndarray:
@@ -124,19 +153,24 @@ def mel_chunks(bands: np.ndarray, size: int = MEL_CHUNK):
 
 
 @functools.lru_cache(maxsize=16)
-def fft_matrices(cfg: FeatureConfig):
-    """Constants of the FFT tile, from the float64 twins.
+def fft_matrices(cfg: FeatureConfig, tile: str = "fft"):
+    """Constants of the FFT tile's flavour ``tile``, from the float64 twins.
 
-    window (frame_len,) f32: the analysis window (``spectrum.dft_matrices``'
+    window (frame_len,): the analysis window (``spectrum.dft_matrices``'
       window, unfolded);
-    twiddles (n_fft, 2) f32: cos and sin of 2 pi m / n_fft;
+    twiddles (n_fft, 2): cos and sin of 2 pi m / n_fft;
+      both float32 for "fft", float64 for "fft64" (rounded to float32 they
+      would put an eps32 x peak floor back into every bin);
     chunk_w (n_chunks, MEL_CHUNK) f32: chunk c's mel weights, zero-padded;
     chunks (n_chunks, 2), band_chunks (n_mels, 2) int32: :func:`mel_chunks`
       of the nonzero ranges (:func:`mel_bands`) of the f32 mel matrix;
     dct (n_mels, n_mfcc) f32, lifter folded in.
     """
     ang = 2.0 * np.pi * np.arange(cfg.n_fft, dtype=np.float64) / cfg.n_fft
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1)
+    win = oracle.window_fn(cfg.window, cfg.frame_len)
+    if tile == "fft":
+        tw, win = tw.astype(np.float32), win.astype(np.float32)
     melw = mel_op.mel_matrix(cfg).astype(np.float32)
     chunks, band_chunks = mel_chunks(mel_bands(melw))
     chunk_w = np.zeros((chunks.shape[0], MEL_CHUNK), np.float32)
@@ -144,16 +178,17 @@ def fft_matrices(cfg: FeatureConfig):
         for c in range(c0, c1):
             k0, k1 = chunks[c]
             chunk_w[c, : k1 - k0] = melw[k0:k1, j]
-    return (oracle.window_fn(cfg.window, cfg.frame_len).astype(np.float32),
-            tw, chunk_w, chunks, band_chunks,
+    return (np.ascontiguousarray(win), tw, chunk_w, chunks, band_chunks,
             dct_op.dct_matrix(cfg).astype(np.float32))
 
 
 @functools.lru_cache(maxsize=16)
-def _device_fft_matrices(cfg: FeatureConfig, device: torch.device):
-    """The FFT tile's constants on one device, uploaded once per (config,
-    device) and kept."""
-    return tuple(torch.from_numpy(a).to(device) for a in fft_matrices(cfg))
+def _device_fft_matrices(cfg: FeatureConfig, tile: str,
+                         device: torch.device):
+    """The constants of FFT flavour ``tile`` on one device, uploaded once
+    per (config, flavour, device) and kept."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in fft_matrices(cfg, tile))
 
 
 def pinned(arrays) -> tuple:
@@ -196,15 +231,21 @@ def epilogue_args(cfg: FeatureConfig, apply_dct: bool) -> tuple:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (n_mels, n_out, log_floor, rel_floor, append_energy, apply_dct)
 EPILOGUE_ARGTYPES = [_I, _I, _F, _F, _I, _I]
-# the direct entry: (x, B, N, T, basis, nbb, last, melw, dctm, out,
-# frame_len, hop, n_bins, preemph, *epilogue, stream)
-DIRECT_ARGTYPES = [_P, _I, ctypes.c_longlong, _I, _P, _I, _P, _P, _P, _P,
-                   _I, _I, _I]
-# the FFT-or-direct entries: (x, B, N, T, basis, nbb, last, win, tw, chunk_w,
-# chunks, band_chunks, n_chunks, melw, dctm, out, frame_len, hop, n_bins,
-# n_fft, fft[, preemph], *epilogue, stream)
-SPECTRAL_ARGTYPES = [_P, _I, ctypes.c_longlong, _I, _P, _I, _P, _P, _P, _P,
-                     _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I]
+# the direct tile's constants: (basis, nbb, last, melw)
+DIRECT_ARGTYPES = [_P, _I, _P, _P]
+# the tile codes of the C entries (spectral::Tile; the other tile is 0)
+TILE_CODES = {"fft": 1, "fft64": 2}
+
+
+def entry_argtypes(other, preemph: bool) -> list:
+    """The C types of a spectral entry: (x, B, N, T, *the other tile's
+    constants (``other``), win, tw, chunk_w, chunks, band_chunks, n_chunks,
+    dctm, out, frame_len, hop, n_bins, n_fft, tile[, preemph as a double],
+    *epilogue, stream)."""
+    return ([_P, _I, ctypes.c_longlong, _I, *other, _P, _P, _P, _P, _P, _I,
+             _P, _P, _I, _I, _I, _I, _I]
+            + ([ctypes.c_double] if preemph else [])
+            + EPILOGUE_ARGTYPES + [_P])
 
 
 def bind(name: str, entry: str, argtypes) -> ctypes.CDLL:
@@ -235,62 +276,61 @@ def _empty_out(x: torch.Tensor, cfg: FeatureConfig, apply_dct: bool):
                        dtype=torch.float32, device=x.device)
 
 
-def launch_direct(lib_fn, entry: str, name: str, x: torch.Tensor,
-                  cfg: FeatureConfig, apply_dct: bool, preemph: float):
-    """Launch a direct-tile entry (``fused_raw``) on x's device and current
-    stream; lib_fn() loads the library (not called for an empty output).
-    -> (out, launched)."""
-    out = _empty_out(x, cfg, apply_dct)
-    if out.numel() == 0:
-        return out, False
-    lib = lib_fn()
-    with torch.cuda.device(x.device):
-        basis, last, melw, dctm = (t.to(x.device, non_blocking=True)
-                                   for t in _pinned_direct_matrices(cfg))
-        err = getattr(lib, entry)(
-            x.data_ptr(), *x.shape, out.shape[1], basis.data_ptr(),
-            basis.shape[0], last.data_ptr(), melw.data_ptr(), dctm.data_ptr(),
-            out.data_ptr(), cfg.frame_len, cfg.hop_len, cfg.n_bins, preemph,
-            *epilogue_args(cfg, apply_dct),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    raise_on_error(err, lib, name)
-    return out, True
+def direct_consts(cfg: FeatureConfig, device: torch.device):
+    """The direct tile's constants as the entries take them, uploaded from
+    pinned memory on the current stream: -> ([basis, nbb, last, melw],
+    dctm)."""
+    basis, last, melw, dctm = (t.to(device, non_blocking=True)
+                               for t in _pinned_direct_matrices(cfg))
+    return [basis, basis.shape[0], last, melw], dctm
+
+
+# an entry's other tile: (its name, its constants, their nulls)
+DIRECT_TILE = ("direct", direct_consts, [None, 0, None, None])
+
+
+def _arg(a):
+    return a.data_ptr() if isinstance(a, torch.Tensor) else a
 
 
 def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
                     cfg: FeatureConfig, apply_dct: bool,
-                    preemph: float | None):
-    """Launch an FFT-or-direct entry (``fused_raw_dit``, ``fused_mfcc``) on
-    x's device and current stream.  The FFT tile's constants live on the
-    device (:func:`_device_fft_matrices`); the direct tile's are uploaded
-    from pinned memory per call, and the other tile's are passed as null.
-    preemph goes to entries that pre-emphasize in the kernel (None for
-    fused_mfcc).  -> (out, "fft" | "direct" | None if nothing
-    was launched)."""
+                    preemph: float | None, other=DIRECT_TILE,
+                    tile: str | None = None):
+    """Launch a spectral entry on x's device and current stream.
+
+    The tile is :func:`fft_tile`'s pick for the config, or ``tile`` where
+    the caller names one (to time the tile a kernel replaced on the same
+    work; the C entry refuses one the shape does not allow).  An FFT
+    flavour reads its constants from the device (:func:`_device_fft_matrices`);
+    the entry's other tile, ``other`` = (name, consts(cfg, device) ->
+    (its constants, dctm), their nulls), uploads its constants per call;
+    the tile not run gets nulls.  preemph goes to the entries that
+    pre-emphasize in the kernel (None for ``fused_mfcc`` and
+    ``fused_dit``).  lib_fn() loads the library (not called for an empty
+    output).  -> (out, the tile's name, or None if nothing was launched).
+    """
     out = _empty_out(x, cfg, apply_dct)
     if out.numel() == 0:
         return out, None
     lib = lib_fn()
-    tile = "fft" if fft_tile(cfg, apply_dct) else "direct"
+    other_name, other_consts, other_nulls = other
+    tile = tile or fft_tile(cfg, apply_dct)
+    if tile == "direct":
+        tile = other_name
     with torch.cuda.device(x.device):
-        if tile == "fft":
-            win, tw, chunk_w, chunks, band_chunks, dctm = \
-                _device_fft_matrices(cfg, x.device)
-            consts = [None, 0, None, win.data_ptr(), tw.data_ptr(),
-                      chunk_w.data_ptr(), chunks.data_ptr(),
-                      band_chunks.data_ptr(), chunks.shape[0], None]
+        if tile in TILE_CODES:
+            *fft, dctm = _device_fft_matrices(cfg, tile, x.device)
+            consts = other_nulls + fft[:5] + [fft[3].shape[0]]
         else:
-            basis, last, melw, dctm = (t.to(x.device, non_blocking=True)
-                                       for t in _pinned_direct_matrices(cfg))
-            consts = [basis.data_ptr(), basis.shape[0], last.data_ptr(),
-                      None, None, None, None, None, 0, melw.data_ptr()]
-        args = [x.data_ptr(), *x.shape, out.shape[1], *consts,
-                dctm.data_ptr(), out.data_ptr(), cfg.frame_len, cfg.hop_len,
-                cfg.n_bins, cfg.n_fft, int(tile == "fft")]
+            lead, dctm = other_consts(cfg, x.device)
+            consts = lead + [None] * 5 + [0]
+        args = [x, *x.shape, out.shape[1], *consts, dctm, out, cfg.frame_len,
+                cfg.hop_len, cfg.n_bins, cfg.n_fft, TILE_CODES.get(tile, 0)]
         if preemph is not None:
             args.append(preemph)
         err = getattr(lib, entry)(
-            *args, *epilogue_args(cfg, apply_dct),
+            *map(_arg, args), *epilogue_args(cfg, apply_dct),
             torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error(err, lib, name)
     return out, tile

@@ -1,4 +1,5 @@
-// Fused radix-2 DIT spectral kernel for NVIDIA Hopper (sm_90a).
+// Fused spectral kernel for NVIDIA Hopper (sm_90a), pre-emphasized input:
+// FFT tile or radix-2 DIT tile.
 //
 // Replaces the Pallas TPU kernel
 //   mfcc_tpu/ops/kernels/fused_dit.py::fused_features_dit
@@ -8,18 +9,35 @@
 // multiple of 4 and whose hop is even (the 22.05 kHz TTS geometry, 16 kHz
 // at a 12.5 ms hop).
 //
-// The algorithm: with E and O the window-folded n_fft/2-point real DFTs of
+// What bounds it on the card: at its main path, unbounded log-mel-80 at
+// the TTS geometry (1024-sample frames, hop 256, n_fft 1024) on 64 x 10 s,
+// the audio in and features out are 74.0 MB (22.1 us at 3.35 TB/s) and the
+// function's operations 1.7 GFLOP (25.9 us at the 67 TFLOP/s fp32 peak):
+// operations.  The DIT tile below did 62.1 GFLOP of fp32 FMAs, 36x that.
+//
+// What the design does about it: at a power-of-two n_fft from 64 to 4096
+// (the TTS geometry's 1024) the entry runs the shared-memory FFT tile of
+// fft_tile.cuh with pre-emphasis off, for unbounded log-mel in its
+// float64-front flavour: window, twiddles, radix passes, split and |X|^2
+// in float64 on the FP64 units (half the FP32 rate, ~34 TFLOP/s on the
+// H100 SXM; 16-byte complex points, so twice the f32 tile's exchange bytes
+// through shared memory), then the f32 mel and epilogue.  The DIT form's
+// extra rounding stage in deep valleys (5.8e-5 to 1.8e-3 off the float64
+// oracle at this geometry, reference and plain version alike) goes with
+// it; what stays is the f32 rounding of the host's pre-emphasis (~4e-3 in
+// Hann valleys, none on the kernel's own input).  Cepstra and log-mel
+// <= 50 dB run the tile's f32 flavour.  Other configs with n_fft % 4 == 0
+// run the radix-2 DIT tile below; the host picks the tile from the config,
+// in the same C entry.
+//
+// The DIT tile: with E and O the window-folded n_fft/2-point real DFTs of
 // a frame's even and odd samples and W = exp(-2 pi i / n_fft),
 //     X[j]          = E[j] + W^j O[j]           j = 0 .. n_fft/4 - 1
 //     X[n_fft/2 - j] = conj(E[j] - W^j O[j])
 //     X[n_fft/4]    = E[n_fft/4] - i O[n_fft/4]  (both real: basis (-1)^m)
 // so |X|^2 over all n_fft/2 + 1 bins takes 2 x (frame_len/2) x (n_fft/2)
-// FMAs a frame, half the direct form's.
-//
-// What bounds it on the card: fp32 FMA throughput, as in the direct tile
-// (spectral.cuh); audio and features are a few hundred bytes a frame.
-//
-// What the design does about it: a block of 256 threads owns TM = 8*FR
+// FMAs a frame, half the direct form's, bound by the fp32 FMA rate.
+// A block of 256 threads owns TM = 8*FR
 // frames of one row and 128 half-DFT bins.  The block stages its span once
 // (no parity deinterleave on the host: the TPU kernel's even/odd streams
 // are a DMA-layout need); threads read a frame's even and odd samples at
@@ -35,7 +53,7 @@
 // rows past the stream are zero, as are all rows past the even stream, so
 // the reads past a frame's end multiply by zero.
 
-#include "spectral.cuh"
+#include "fft_tile.cuh"
 
 namespace {
 
@@ -213,23 +231,49 @@ __global__ void __launch_bounds__(kThreads, 1) dit_kernel(const DitParams p) {
   spectral::finish<TM>(p.e, mel, rowv, en, b, t0);
 }
 
+template <int TM, typename S>
+__global__ void __launch_bounds__(kThreads, spectral::FftFlavour<S>::kBlocks)
+    dit_fft_kernel(const spectral::FftParams<S> p) {
+  spectral::fft_features<TM, S>(p);
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Returns a cudaError_t; 0 is
-// success.  Launches on `stream` and does not synchronize.
+// success.  Launches on `stream` and does not synchronize.  tile is a
+// spectral::Tile: kFftTile or kFft64Tile run that flavour of the FFT tile
+// (win, tw, chunk_w, chunks, band_chunks given, win and tw in float or in
+// double; basis, last, dtw and melw may be null), kOtherTile the DIT tile
+// (basis, le_pad, last, dtw, melw given; the FFT tile's may be null).
 extern "C" int mfcc_fused_dit(
     const float* y, int B, long long N, int T, const float* basis, int nbb,
-    int le_pad, const float* last, const float* tw, const float* melw,
-    const float* dctm, float* out, int frame_len, int hop, int n_fft,
-    int n_mels, int n_out, float log_floor, float rel_floor,
-    int append_energy, int apply_dct, void* stream) {
+    int le_pad, const float* last, const float* dtw, const float* melw,
+    const void* win, const void* tw, const float* chunk_w, const int* chunks,
+    const int* band_chunks, int n_chunks, const float* dctm, float* out,
+    int frame_len, int hop, int n_bins, int n_fft, int tile, int n_mels,
+    int n_out, float log_floor, float rel_floor, int append_energy,
+    int apply_dct, void* stream) {
   const spectral::Epilogue e{melw, dctm, out, T, n_mels, n_out, log_floor,
                              rel_floor, apply_dct, append_energy};
+  if (tile != spectral::kOtherTile) {
+    const spectral::SpectralArgs a{y, B, N, nullptr, 0, nullptr, win, tw,
+                                   chunk_w, chunks, band_chunks, n_chunks, e,
+                                   frame_len, hop, n_bins, n_fft, tile, 0.0};
+    const spectral::KernelFn<spectral::FftParams<float>> fft32[4] = {
+        dit_fft_kernel<64, float>, dit_fft_kernel<32, float>,
+        dit_fft_kernel<16, float>, dit_fft_kernel<8, float>};
+    const spectral::KernelFn<spectral::FftParams<double>> fft64[4] = {
+        dit_fft_kernel<64, double>, dit_fft_kernel<32, double>,
+        dit_fft_kernel<16, double>, dit_fft_kernel<8, double>};
+    return spectral::launch_fft_tile(a, fft32, fft64,
+                                     static_cast<cudaStream_t>(stream));
+  }
   if (B <= 0 || frame_len < 2 || hop <= 0 || n_fft % 4 != 0 ||
       nbb != (n_fft / 4 + kHalf - 1) / kHalf || le_pad % kChunk != 0 ||
-      le_pad < (frame_len + 1) / 2 || !spectral::epilogue_ok(e))
+      le_pad < (frame_len + 1) / 2 || basis == nullptr || last == nullptr ||
+      dtw == nullptr || melw == nullptr || !spectral::epilogue_ok(e))
     return cudaErrorInvalidValue;
-  const DitParams p{y, basis, last, tw, e, N, 0, nbb, le_pad, frame_len,
+  const DitParams p{y, basis, last, dtw, e, N, 0, nbb, le_pad, frame_len,
                     hop, n_fft, 0};
   const spectral::KernelFn<DitParams> kernels[4] = {
       dit_kernel<8>, dit_kernel<4>, dit_kernel<2>, dit_kernel<1>};

@@ -1,25 +1,47 @@
-// Fused raw-audio spectral kernel for NVIDIA Hopper (sm_90a), direct form.
+// Fused raw-audio spectral kernel for NVIDIA Hopper (sm_90a): FFT tile or
+// direct tile.
 //
 // Replaces the Pallas TPU kernel
 //   mfcc_tpu/ops/kernels/fused_raw.py::fused_features_raw
 // raw (B, N) float32 audio in, in-kernel pre-emphasis (each frame's true
-// predecessor, x[-1] := x[0] at the row start), the direct window-folded
-// DFT in natural bin order for bins 0..n_bins-2 with the last bin as a
-// separate per-frame dot product, mel, floors, accurate log, then log-mel
-// energies or cepstra out.  The model layer sends it unbounded-range
-// log-mel, which the reference keeps on the direct form for deep spectral
-// valleys (routes.py).
+// predecessor, x[-1] := x[0] at the row start), DFT power in natural bin
+// order, mel, floors, accurate log, then log-mel energies or cepstra out.
+// The model layer sends it unbounded-range log-mel (routes.py), which the
+// reference keeps on the direct form for deep spectral valleys.  The TPU
+// kernel's lane-phase period layout, roll-based pre-emphasis and
+// boundary-split GEMMs do not carry over.
 //
-// The TPU kernel's lane-phase period layout, roll-based pre-emphasis and
-// boundary-split GEMMs do not carry over.  This is the direct tile of
-// spectral.cuh for every config, kept for the valley accuracy: in spectral
-// valleys ~120 dB under the peak an f32 FFT rounds worse than the direct
-// form, so fused_raw_dit.cu runs its FFT tile (fft_tile.cuh) only for
-// cepstra and log-mel bounded to <= 50 dB.
+// What bounds it on the card: at its main path, unbounded log-mel-80 at
+// 16 kHz on 64 x 10 s, the audio in and features out are 61.4 MB (18.3 us
+// at 3.35 TB/s) and the function's operations 1.0 GFLOP (15.2 us at the
+// 67 TFLOP/s fp32 peak): bytes.  The direct tile did 28.8 GFLOP of fp32
+// FMAs (frame_len x 512 a frame), 28x the function.
+//
+// What the design does about it: at a power-of-two n_fft from 64 to 4096
+// the kernel runs the shared-memory FFT tile of fft_tile.cuh, for
+// unbounded log-mel in its float64-front flavour: pre-emphasis (with the
+// config's coefficient as a double), window, twiddles, radix passes, split
+// and |X|^2 in float64 on the FP64 units (half the FP32 rate, ~34 TFLOP/s
+// on the H100 SXM; 16-byte complex points, so twice the f32 tile's
+// exchange bytes through shared memory), then the f32 mel and epilogue.
+// In valleys 120-140 dB under the peak the f32 FFT was 2.7-6x the direct
+// form's error; the f64 front is within 2e-6 of the float64 oracle there,
+// where the direct f32 form is ~1e-2 off.  Cepstra and log-mel <= 50 dB
+// run the f32 flavour, with pre-emphasis in f32 as the plain version
+// rounds it.  Any other n_fft runs the direct window-folded DFT tile of
+// spectral.cuh; the host picks the tile from the config, in the same C
+// entry.
 
-#include "spectral.cuh"
+#include "fft_tile.cuh"
 
 namespace {
+
+template <int TM, typename S>
+__global__ void __launch_bounds__(spectral::kThreads,
+                                  spectral::FftFlavour<S>::kBlocks)
+    raw_fft_kernel(const spectral::FftParams<S> p) {
+  spectral::fft_features<TM, S>(p);
+}
 
 template <int FR>
 __global__ void __launch_bounds__(spectral::kThreads, 1)
@@ -30,19 +52,32 @@ __global__ void __launch_bounds__(spectral::kThreads, 1)
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Returns a cudaError_t; 0 is
-// success.  Launches on `stream` and does not synchronize.
+// success.  Launches on `stream` and does not synchronize.  tile is a
+// spectral::Tile: kFftTile or kFft64Tile run that flavour of the FFT tile
+// (win, tw, chunk_w, chunks, band_chunks given, win and tw in float or in
+// double; basis, last and melw may be null), kOtherTile the direct tile
+// (basis, last, melw given; the FFT tile's constants may be null).
 extern "C" int mfcc_fused_raw(
     const float* x, int B, long long N, int T, const float* basis, int nbb,
-    const float* last, const float* melw, const float* dctm, float* out,
-    int frame_len, int hop, int n_bins, float preemph, int n_mels, int n_out,
+    const float* last, const float* melw, const void* win, const void* tw,
+    const float* chunk_w, const int* chunks, const int* band_chunks,
+    int n_chunks, const float* dctm, float* out, int frame_len, int hop,
+    int n_bins, int n_fft, int tile, double preemph, int n_mels, int n_out,
     float log_floor, float rel_floor, int append_energy, int apply_dct,
     void* stream) {
   const spectral::Epilogue e{melw, dctm, out, T, n_mels, n_out, log_floor,
                              rel_floor, apply_dct, append_energy};
-  const spectral::DirectParams p{x, basis, last, e, N, 0, nbb, frame_len,
-                                 hop, n_bins, 0, preemph};
-  const spectral::KernelFn<spectral::DirectParams> kernels[4] = {
+  const spectral::SpectralArgs a{x, B, N, basis, nbb, last, win, tw, chunk_w,
+                                 chunks, band_chunks, n_chunks, e, frame_len,
+                                 hop, n_bins, n_fft, tile, preemph};
+  const spectral::KernelFn<spectral::FftParams<float>> fft32[4] = {
+      raw_fft_kernel<64, float>, raw_fft_kernel<32, float>,
+      raw_fft_kernel<16, float>, raw_fft_kernel<8, float>};
+  const spectral::KernelFn<spectral::FftParams<double>> fft64[4] = {
+      raw_fft_kernel<64, double>, raw_fft_kernel<32, double>,
+      raw_fft_kernel<16, double>, raw_fft_kernel<8, double>};
+  const spectral::KernelFn<spectral::DirectParams> direct_tiles[4] = {
       raw_kernel<8>, raw_kernel<4>, raw_kernel<2>, raw_kernel<1>};
-  return spectral::launch_direct(p, B, kernels,
-                                 static_cast<cudaStream_t>(stream));
+  return spectral::launch_spectral(a, fft32, fft64, direct_tiles,
+                                   static_cast<cudaStream_t>(stream));
 }

@@ -20,12 +20,14 @@
 // of audio and features, 13.2 us; ~16 kflop a frame, ~15 us at the fp32
 // peak); the direct form did 26 times the operations, so the FFT tile
 // decides how near the kernel comes (fft_tile.cuh says how it is laid
-// out).  Any other config (an odd n_fft or one that is no power of two,
-// or unbounded log-mel) runs the direct window-folded DFT tile of
-// spectral.cuh, as fused_raw.cu does for every config; the host picks the
-// tile from the config, in the same C entry.
+// out).  Unbounded log-mel at such an n_fft (which the model layer sends
+// to fused_raw.cu, but a direct caller may ask for) runs the tile's
+// float64-front flavour, as in every spectral entry.  Any other config (an
+// odd n_fft or one that is no power of two) runs the direct window-folded
+// DFT tile of spectral.cuh; the host picks the tile from the config, in
+// the same C entry.
 //
-// Numerics: the accurate log and the pre-emphasis round exactly as the
+// Numerics: the accurate log and the f32 pre-emphasis round exactly as the
 // plain PyTorch version does; the DFT (FFT or direct), mel and DCT sum in
 // another order.
 
@@ -33,10 +35,11 @@
 
 namespace {
 
-template <int TM>
-__global__ void __launch_bounds__(spectral::kThreads, 4)
-    raw_dit_fft_kernel(const spectral::FftParams p) {
-  spectral::fft_features<TM>(p);
+template <int TM, typename S>
+__global__ void __launch_bounds__(spectral::kThreads,
+                                  spectral::FftFlavour<S>::kBlocks)
+    raw_dit_fft_kernel(const spectral::FftParams<S> p) {
+  spectral::fft_features<TM, S>(p);
 }
 
 template <int FR>
@@ -48,29 +51,33 @@ __global__ void __launch_bounds__(spectral::kThreads, 1)
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Returns a cudaError_t; 0 is
-// success.  Launches on `stream` and does not synchronize.  fft != 0 runs
-// the FFT tile (win, tw, chunk_w, chunks, band_chunks given; basis, last and
-// melw may be null), else the direct tile (basis, last, melw given; the FFT
-// tile's constants may be null).
+// success.  Launches on `stream` and does not synchronize.  tile is a
+// spectral::Tile: kFftTile or kFft64Tile run that flavour of the FFT tile
+// (win, tw, chunk_w, chunks, band_chunks given, win and tw in float or in
+// double; basis, last and melw may be null), kOtherTile the direct tile
+// (basis, last, melw given; the FFT tile's constants may be null).
 extern "C" int mfcc_fused_raw_dit(
     const float* x, int B, long long N, int T, const float* basis, int nbb,
-    const float* last, const float* win, const float* tw, const float* chunk_w,
-    const int* chunks, const int* band_chunks, int n_chunks,
-    const float* melw, const float* dctm, float* out, int frame_len, int hop,
-    int n_bins, int n_fft, int fft, float preemph, int n_mels, int n_out,
+    const float* last, const float* melw, const void* win, const void* tw,
+    const float* chunk_w, const int* chunks, const int* band_chunks,
+    int n_chunks, const float* dctm, float* out, int frame_len, int hop,
+    int n_bins, int n_fft, int tile, double preemph, int n_mels, int n_out,
     float log_floor, float rel_floor, int append_energy, int apply_dct,
     void* stream) {
   const spectral::Epilogue e{melw, dctm, out, T, n_mels, n_out, log_floor,
                              rel_floor, apply_dct, append_energy};
   const spectral::SpectralArgs a{x, B, N, basis, nbb, last, win, tw, chunk_w,
                                  chunks, band_chunks, n_chunks, e, frame_len,
-                                 hop, n_bins, n_fft, fft, preemph};
-  const spectral::KernelFn<spectral::FftParams> fft_tiles[4] = {
-      raw_dit_fft_kernel<64>, raw_dit_fft_kernel<32>, raw_dit_fft_kernel<16>,
-      raw_dit_fft_kernel<8>};
+                                 hop, n_bins, n_fft, tile, preemph};
+  const spectral::KernelFn<spectral::FftParams<float>> fft32[4] = {
+      raw_dit_fft_kernel<64, float>, raw_dit_fft_kernel<32, float>,
+      raw_dit_fft_kernel<16, float>, raw_dit_fft_kernel<8, float>};
+  const spectral::KernelFn<spectral::FftParams<double>> fft64[4] = {
+      raw_dit_fft_kernel<64, double>, raw_dit_fft_kernel<32, double>,
+      raw_dit_fft_kernel<16, double>, raw_dit_fft_kernel<8, double>};
   const spectral::KernelFn<spectral::DirectParams> direct_tiles[4] = {
       raw_dit_kernel<8>, raw_dit_kernel<4>, raw_dit_kernel<2>,
       raw_dit_kernel<1>};
-  return spectral::launch_spectral(a, fft_tiles, direct_tiles,
+  return spectral::launch_spectral(a, fft32, fft64, direct_tiles,
                                    static_cast<cudaStream_t>(stream));
 }

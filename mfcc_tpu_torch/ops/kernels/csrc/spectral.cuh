@@ -1,6 +1,6 @@
 // Device code shared by the four spectral kernels of the port
 // (fused_raw_dit.cu, fused_raw.cu, fused_mfcc.cu, fused_dit.cu; the FFT
-// tile of fused_raw_dit.cu and fused_mfcc.cu is in fft_tile.cuh):
+// tile they all run is in fft_tile.cuh):
 //
 // - acc_log: the accurate f32 log of mfcc_tpu/ops/xmath.py, every step one
 //   correctly rounded operation (__fmul_rn / __fadd_rn / __fsub_rn /
@@ -13,9 +13,9 @@
 // - direct_features: the direct window-folded DFT tile (a register-tiled
 //   outer product over 256-bin blocks in natural bin order, the last bin a
 //   separate per-frame dot product), mel accumulation, then the epilogue.
-//   fused_raw.cu runs it for every config, fused_raw_dit.cu and
-//   fused_mfcc.cu where the FFT tile does not apply (an n_fft that is no
-//   power of two from 64 to 4096, or unbounded log-mel).
+//   fused_raw_dit.cu, fused_raw.cu and fused_mfcc.cu run it where the FFT
+//   tile does not apply (an n_fft that is no power of two from 64 to 4096,
+//   or a frame tile whose shared memory does not fit).
 // - finish: the epilogue every spectral kernel shares: absolute and
 //   relative floors, accurate log, then the lifter-folded DCT (cepstra,
 //   optional log energy in c0) or the log-mel energies, written to (B, T,
@@ -344,8 +344,8 @@ inline bool epilogue_ok(const Epilogue& e) {
          (e.apply_dct || !e.append_energy);
 }
 
-// Direct-form launch shared by fused_raw.cu and (through launch_spectral
-// in fft_tile.cuh) fused_raw_dit.cu and fused_mfcc.cu; each passes its own
+// Direct-form launch of fused_raw_dit.cu, fused_raw.cu and fused_mfcc.cu
+// (through launch_spectral in fft_tile.cuh); each passes its own
 // __global__ entry at FR = 8, 4, 2, 1.
 inline cudaError_t launch_direct(DirectParams p, int B,
                                  const KernelFn<DirectParams> kernels[4],

@@ -1,22 +1,28 @@
-"""Pre-emphasized audio -> MFCC or log-mel by the radix-2 DIT in one
-hand-written CUDA kernel (the Hopper twin of
-``mfcc_tpu/ops/kernels/fused_dit.py``).
+"""Pre-emphasized audio -> MFCC or log-mel in one hand-written CUDA kernel
+(the Hopper twin of ``mfcc_tpu/ops/kernels/fused_dit.py``).
 
 - :func:`plain_features` — the plain PyTorch version: frames, the radix-2
   DIT power spectrum (``ops/spectrum.power_spectrum_dit``: two half-length
   DFTs of the parity streams and the twiddle combine), mel, floors,
   accurate log, then DCT with the optional log energy in c0, or log-mel.
-- :func:`_matrices` — the float64 -> float32 constants the kernel reads.
+- :func:`_matrices` — the float64 -> float32 constants of the DIT tile.
 - :func:`fused_features_dit` — the wrapper: launches ``csrc/fused_dit.cu``
   for a CUDA tensor (a build or launch failure raises), or runs
   :func:`plain_features` for a CPU tensor.
-- ``LAUNCHES`` — how many times the wrapper launched the kernel.
+- ``LAUNCHES`` — how many times the wrapper launched the kernel, and
+  ``TILE_LAUNCHES`` — those launches by tile ("fft", "fft64", "dit").
 
 The model layer sends this kernel the configs the raw kernels do not take
 whose n_fft is a multiple of 4 and whose hop is even
-(``routes.spectral_route``), after pre-emphasizing them on the host.  The
-kernel itself takes any hop; it needs n_fft % 4 == 0 (the algorithm's own
-condition, a real half-DFT bin n_fft/4).
+(``routes.spectral_route``: the 22.05 kHz TTS geometry), after
+pre-emphasizing them on the host.  On the card, at a power-of-two n_fft
+from 64 to 4096, it runs the shared-memory FFT tile of
+``csrc/fft_tile.cuh`` (``_spectral.fft_tile``: a float64 front for
+unbounded log-mel, f32 for cepstra and log-mel bounded to <= 50 dB);
+other configs run the radix-2 DIT tile of ``csrc/fused_dit.cu``, which
+takes any hop and needs n_fft % 4 == 0 (the algorithm's own condition, a
+real half-DFT bin n_fft/4).  The plain version stays the DIT form, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -31,8 +37,10 @@ from ...config import FeatureConfig
 from .. import dct as dct_op, mel as mel_op, spectrum
 from . import _spectral
 
-# kernel launches by fused_features_dit (reset by callers that count)
+# kernel launches by fused_features_dit, in all and by tile (reset by
+# callers that count)
 LAUNCHES = 0
+TILE_LAUNCHES = {"fft": 0, "fft64": 0, "dit": 0}
 
 HALF_BINS_PER_BLOCK = 128   # must match kHalf in csrc/fused_dit.cu
 ROWS_PER_CHUNK = 16         # must match spectral::kChunk
@@ -84,12 +92,26 @@ def _pinned_matrices(cfg: FeatureConfig):
     return _spectral.pinned(_matrices(cfg))
 
 
+def _dit_consts(cfg: FeatureConfig, device: torch.device):
+    """The DIT tile's constants as the entry takes them, uploaded from
+    pinned memory on the current stream: -> ([basis, nbb, le_pad, last,
+    tw, melw], dctm)."""
+    basis, last, tw, melw, dctm = (t.to(device, non_blocking=True)
+                                   for t in _pinned_matrices(cfg))
+    return [basis, basis.shape[0], basis.shape[1], last, tw, melw], dctm
+
+
+# the entry's other tile: its name, constants and their nulls, and the C
+# types of (basis, nbb, le_pad, last, tw, melw)
+DIT_TILE = ("dit", _dit_consts, [None, 0, 0, None, None, None])
+DIT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p]
+
+
 def _lib() -> ctypes.CDLL:
-    P, I = ctypes.c_void_p, ctypes.c_int
     return _spectral.bind(
         "fused_dit", "mfcc_fused_dit",
-        [P, I, ctypes.c_longlong, I, P, I, I, P, P, P, P, P, I, I, I]
-        + _spectral.EPILOGUE_ARGTYPES + [P])
+        _spectral.entry_argtypes(DIT_ARGTYPES, preemph=False))
 
 
 def fused_features_dit(y: torch.Tensor, cfg: FeatureConfig, *,
@@ -107,23 +129,11 @@ def fused_features_dit(y: torch.Tensor, cfg: FeatureConfig, *,
     if not y.is_cuda:
         return plain_features(y, cfg, apply_dct)
     _spectral.check_cuda_input(y)
-    B, N = y.shape
-    T = cfg.num_frames(N)
-    out = torch.empty((B, T, _spectral.n_out(cfg, apply_dct)),
-                      dtype=torch.float32, device=y.device)
-    if B == 0 or T == 0:
-        return out
-    lib = _lib()
-    with torch.cuda.device(y.device):
-        basis, last, tw, melw, dctm = (t.to(y.device, non_blocking=True)
-                                       for t in _pinned_matrices(cfg))
-        err = lib.mfcc_fused_dit(
-            y.data_ptr(), B, N, T, basis.data_ptr(), basis.shape[0],
-            basis.shape[1], last.data_ptr(), tw.data_ptr(), melw.data_ptr(),
-            dctm.data_ptr(), out.data_ptr(), cfg.frame_len, cfg.hop_len,
-            cfg.n_fft, *_spectral.epilogue_args(cfg, apply_dct),
-            torch.cuda.current_stream(y.device).cuda_stream)
-    _spectral.raise_on_error(err, lib, "fused_dit")
-    global LAUNCHES
-    LAUNCHES += 1
+    out, tile = _spectral.launch_spectral(
+        _lib, "mfcc_fused_dit", "fused_dit", y, cfg, apply_dct, None,
+        other=DIT_TILE)
+    if tile is not None:
+        global LAUNCHES
+        LAUNCHES += 1
+        TILE_LAUNCHES[tile] += 1
     return out

@@ -11,16 +11,16 @@
   applied to a buffer on the card, as the reference keeps its in-kernel
   ``_acc_log`` here; for a bit-for-bit check against ``ops/xmath``.
 - ``LAUNCHES`` — how many times :func:`fused_features` launched the
-  kernel, and ``TILE_LAUNCHES`` — those launches by tile ("fft",
+  kernel, and ``TILE_LAUNCHES`` — those launches by tile ("fft", "fft64",
   "direct").
 
 The model layer sends this kernel the configs neither raw kernel nor the
 DIT kernel takes (``routes.spectral_route``), after pre-emphasizing them on
-the host (``ops/framing.preemphasize``).  Like ``fused_raw_dit``, it runs
-the FFT tile of ``csrc/fft_tile.cuh`` for cepstra and log-mel bounded to
-<= 50 dB at a power-of-two n_fft from 64 to 4096 (``_spectral.fft_tile``:
-44.1 kHz MFCC at n_fft 2048), else the direct tile of
-``csrc/spectral.cuh``.
+the host (``ops/framing.preemphasize``).  Like every spectral kernel, it
+runs the FFT tile of ``csrc/fft_tile.cuh`` at a power-of-two n_fft from 64
+to 4096 (``_spectral.fft_tile``: 44.1 kHz MFCC at n_fft 2048), in f32 for
+cepstra and log-mel bounded to <= 50 dB and with a float64 front for
+other log-mel, else the direct tile of ``csrc/spectral.cuh``.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from . import _spectral
 # kernel launches by fused_features, in all and by tile (reset by callers
 # that count)
 LAUNCHES = 0
-TILE_LAUNCHES = {"fft": 0, "direct": 0}
+TILE_LAUNCHES = {"fft": 0, "fft64": 0, "direct": 0}
 
 
 def plain_features(y: torch.Tensor, cfg: FeatureConfig,
@@ -48,8 +48,7 @@ def plain_features(y: torch.Tensor, cfg: FeatureConfig,
 def _lib() -> ctypes.CDLL:
     return _spectral.bind(
         "fused_mfcc", "mfcc_fused_mfcc",
-        _spectral.SPECTRAL_ARGTYPES + _spectral.EPILOGUE_ARGTYPES
-        + [ctypes.c_void_p])
+        _spectral.entry_argtypes(_spectral.DIRECT_ARGTYPES, preemph=False))
 
 
 def fused_features(y: torch.Tensor, cfg: FeatureConfig, *,

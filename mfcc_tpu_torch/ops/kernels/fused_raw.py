@@ -1,5 +1,5 @@
-"""Raw audio -> log-mel or MFCC in one hand-written CUDA kernel, direct
-form (the Hopper twin of ``mfcc_tpu/ops/kernels/fused_raw.py``).
+"""Raw audio -> log-mel or MFCC in one hand-written CUDA kernel (the
+Hopper twin of ``mfcc_tpu/ops/kernels/fused_raw.py``).
 
 - :func:`plain_features` — the plain PyTorch version: the direct chain it
   shares with ``fused_raw_dit`` (pre-emphasis, window-folded DFT power,
@@ -8,14 +8,18 @@ form (the Hopper twin of ``mfcc_tpu/ops/kernels/fused_raw.py``).
 - :func:`fused_features_raw` — the wrapper: launches ``csrc/fused_raw.cu``
   for a CUDA tensor (a build or launch failure raises), or runs
   :func:`plain_features` for a CPU tensor.
-- ``LAUNCHES`` — how many times the wrapper launched the kernel.
+- ``LAUNCHES`` — how many times the wrapper launched the kernel, and
+  ``TILE_LAUNCHES`` — those launches by tile ("fft", "fft64", "direct").
 
 The model layer sends this kernel unbounded-range log-mel
 (``routes.spectral_route``), the route the reference keeps on the direct
-form for deep spectral valleys.  On the card it runs the direct
-window-folded DFT tile of ``csrc/spectral.cuh`` for every config;
-``fused_raw_dit`` runs it only where the FFT tile does not apply
-(``_spectral.fft_tile``, ``routes.py``).
+form for deep spectral valleys.  On the card, at a power-of-two n_fft from
+64 to 4096, it runs the shared-memory FFT tile of ``csrc/fft_tile.cuh``
+with a float64 front (pre-emphasis through |X|^2 in float64, which holds
+the float64 oracle in those valleys where an f32 FFT does not), or the
+tile's f32 flavour for cepstra and log-mel bounded to <= 50 dB; any other
+n_fft runs the direct window-folded DFT tile of ``csrc/spectral.cuh``.
+The config decides (``_spectral.fft_tile``), never a failure.
 """
 
 from __future__ import annotations
@@ -27,8 +31,10 @@ import torch
 from ...config import FeatureConfig
 from . import _spectral, fused_raw_dit
 
-# kernel launches by fused_features_raw (reset by callers that count)
+# kernel launches by fused_features_raw, in all and by tile (reset by
+# callers that count)
 LAUNCHES = 0
+TILE_LAUNCHES = {"fft": 0, "fft64": 0, "direct": 0}
 
 plain_features = fused_raw_dit.plain_features
 _matrices = _spectral.direct_matrices
@@ -37,8 +43,7 @@ _matrices = _spectral.direct_matrices
 def _lib() -> ctypes.CDLL:
     return _spectral.bind(
         "fused_raw", "mfcc_fused_raw",
-        _spectral.DIRECT_ARGTYPES + [ctypes.c_float]
-        + _spectral.EPILOGUE_ARGTYPES + [ctypes.c_void_p])
+        _spectral.entry_argtypes(_spectral.DIRECT_ARGTYPES, preemph=True))
 
 
 def fused_features_raw(x: torch.Tensor, cfg: FeatureConfig, *,
@@ -52,10 +57,10 @@ def fused_features_raw(x: torch.Tensor, cfg: FeatureConfig, *,
     if not x.is_cuda:
         return plain_features(x, cfg, apply_dct)
     _spectral.check_cuda_input(x)
-    out, launched = _spectral.launch_direct(
-        _lib, "mfcc_fused_raw", "fused_raw", x, cfg, apply_dct,
-        cfg.preemph)
-    if launched:
+    out, tile = _spectral.launch_spectral(
+        _lib, "mfcc_fused_raw", "fused_raw", x, cfg, apply_dct, cfg.preemph)
+    if tile is not None:
         global LAUNCHES
         LAUNCHES += 1
+        TILE_LAUNCHES[tile] += 1
     return out

@@ -9,13 +9,14 @@ twin of ``mfcc_tpu/ops/kernels/fused_raw_dit.py``, projection="mel").
   launches ``csrc/fused_raw_dit.cu`` for a CUDA tensor (a build or launch
   failure raises), or runs :func:`plain_features` for a CPU tensor.
 - ``LAUNCHES`` — how many times the wrapper launched the kernel, and
-  ``TILE_LAUNCHES`` — those launches by tile ("fft", "direct").
+  ``TILE_LAUNCHES`` — those launches by tile ("fft", "fft64", "direct").
 
 The model layer sends this kernel cepstra and log-mel bounded to <= 50 dB
 (``routes.spectral_route``).  The TPU kernel's radix-2 DIT layout is not
 carried over: for those outputs at a power-of-two n_fft from 64 to 4096
 (``_spectral.fft_tile``) the Hopper kernel runs the shared-memory FFT tile
-of ``csrc/fft_tile.cuh``, else the direct window-folded DFT tile of
+of ``csrc/fft_tile.cuh`` (unbounded log-mel, which a direct caller may ask
+for, its float64-front flavour), else the direct window-folded DFT tile of
 ``csrc/spectral.cuh``; the config decides, never a failure.
 """
 
@@ -32,7 +33,7 @@ from . import _spectral
 # kernel launches by fused_features_raw_dit, in all and by tile (reset by
 # callers that count)
 LAUNCHES = 0
-TILE_LAUNCHES = {"fft": 0, "direct": 0}
+TILE_LAUNCHES = {"fft": 0, "fft64": 0, "direct": 0}
 
 
 def plain_features(x: torch.Tensor, cfg: FeatureConfig,
@@ -45,8 +46,7 @@ def plain_features(x: torch.Tensor, cfg: FeatureConfig,
 def _lib() -> ctypes.CDLL:
     return _spectral.bind(
         "fused_raw_dit", "mfcc_fused_raw_dit",
-        _spectral.SPECTRAL_ARGTYPES + [ctypes.c_float]
-        + _spectral.EPILOGUE_ARGTYPES + [ctypes.c_void_p])
+        _spectral.entry_argtypes(_spectral.DIRECT_ARGTYPES, preemph=True))
 
 
 def fused_features_raw_dit(x: torch.Tensor, cfg: FeatureConfig, *,

@@ -11,24 +11,26 @@ reference gives it; they are no property of the Hopper kernels, every one
 of which takes every valid-mode config (``fused_dit`` every one with
 n_fft % 4 == 0), so each is also checked at the default config.
 
-What the route changes on the card:
+What the route changes on the card: the kernel, not the tile.  Every
+spectral kernel picks its tile from the config alone (``_spectral.fft_tile``):
+at a power-of-two n_fft from 64 to 4096, the shared-memory FFT tile of
+``csrc/fft_tile.cuh``, in f32 for cepstra and log-mel bounded to <= 50 dB
+(``use_dit``: the floors bound the valleys) and with a float64 front for
+other log-mel (in valleys ~120-140 dB deep an f32 FFT rounds worse than the
+direct form; float64 through |X|^2 holds the float64 oracle there); at any
+other n_fft the direct window-folded DFT tile (``csrc/spectral.cuh``), or
+in ``fused_dit`` its radix-2 DIT tile.  So on the card:
 
 - ``fused_raw_dit`` (cepstra and log-mel <= 50 dB, pre-emphasis in the
-  kernel) runs the shared-memory FFT tile (``csrc/fft_tile.cuh``) at a
-  power-of-two n_fft from 64 to 4096, ``fused_raw`` (unbounded log-mel)
-  the direct window-folded DFT tile (``csrc/spectral.cuh``).  So the
-  cepstra / <= 50 dB split, and with it ``use_dit``, has the reference's
-  meaning on CUDA too: the fast form where the floors bound the valleys,
-  the direct form for unbounded log-mel, whose deep valleys an f32 FFT
-  rounds worse (``_spectral.fft_tile``).
-- ``fused_dit`` is the radix-2 DIT form with pre-emphasis on the host, as
-  in the reference.
-- ``fused_mfcc`` takes audio the host pre-emphasized and applies the same
-  rule as ``fused_raw_dit``: FFT tile for cepstra and bounded log-mel,
-  direct tile otherwise.
+  kernel) runs the f32 FFT tile, ``fused_raw`` (unbounded log-mel) the
+  float64-front tile, with pre-emphasis in float64;
+- ``fused_dit`` and ``fused_mfcc`` take audio the host pre-emphasized (in
+  f32, as the reference does) and apply the same rule: the TTS geometry's
+  unbounded log-mel runs the float64-front tile on that audio, whose f32
+  rounding it keeps (the DIT form's extra valley rounding it does not).
 
-Routing on the H100's own terms (the direct form, in the kernel, for every
-unbounded log-mel) is an A/B left open in ROADMAP.
+Routing on the H100's own terms (pre-emphasis in the kernel, in float64,
+for every unbounded log-mel) is an A/B left open in ROADMAP.
 """
 
 from __future__ import annotations

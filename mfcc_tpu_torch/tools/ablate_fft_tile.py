@@ -1,19 +1,25 @@
 """Where the FFT tile's time goes: build variants of ``csrc/`` with one
 stage of ``fft_tile.cuh`` cut out or one constant changed, and time each
-on the card beside the unchanged build and the direct tile.
+on the card beside the unchanged build.
 
     python -m mfcc_tpu_torch.tools.ablate_fft_tile
 
 Each variant is a copy of the sources under ``build/ablate/<name>/`` with
 the text edits of :data:`VARIANTS` applied, built by nvcc with the port's
 flags.  A variant with a stage cut out computes wrong features: its time
-says only what that stage costs.  The batches are the main paths' (64 x
-10 s of seeded noise): ``fused_raw_dit`` at MFCC-13, 16 kHz, and
-``fused_mfcc`` at MFCC-13, 44.1 kHz (n_fft 2048, host pre-emphasis); the
-direct tile on the same work is ``fused_raw`` with ``apply_dct=True``.
-Times are CUDA events around 20 back-to-back calls, two passes in turns;
-the wrappers' host cost is one call per event pair against back-to-back
-calls, and the host time to enqueue one call.  Needs one card.
+says only what that stage costs.  A variant named ``f64_*`` changes the
+float64-front flavour only (an A/B of its layout) and ``wave*`` the f32
+flavour only; each is built for the sources that run that flavour.  The
+batches are the main paths' (64 x 10 s of seeded noise), one per source:
+``fused_raw_dit`` at MFCC-13, 16 kHz, and ``fused_mfcc`` at MFCC-13, 44.1
+kHz (n_fft 2048, host pre-emphasis), on the f32 flavour; ``fused_raw`` at
+unbounded log-mel-80, 16 kHz, and ``fused_dit`` at unbounded log-mel-80 at
+the 22.05 kHz TTS geometry (n_fft 1024, host pre-emphasis), on the f64
+flavour.  Times are CUDA events around 20 back-to-back calls, two passes
+in turns; then, for the unchanged build, each of those wrappers
+back-to-back against one call per event pair (the host's share), the host
+time to enqueue one call, and the tile each kernel replaced (the direct
+or DIT tile) on the same work.  Needs one card.
 """
 
 from __future__ import annotations
@@ -30,35 +36,59 @@ import torch
 
 from .. import FeatureConfig
 from ..ops import framing
-from ..ops.kernels import _build, _spectral, fused_mfcc, fused_raw, fused_raw_dit
+from ..ops.kernels import (_build, _spectral, fused_dit, fused_mfcc,
+                           fused_raw, fused_raw_dit)
 
 TILE = "fft_tile.cuh"
 # name -> [(file in csrc/, text, replacement)]
 VARIANTS = {
     "base": [],
-    "no_stage": [(TILE, "  stage_span(xb, p.N, static_cast<long long>(t0) * "
-                        "p.hop, p.span, p.preemph,\n             z);",
-                  "  if (p.preemph == 12345.0f) z[tid] = xb[tid];")],
-    "no_energy": [(TILE, "    for (int k = l; k < p.frame_len; k += G) "
-                         "se = fmaf(zm[k], zm[k], se);", "")],
-    "no_r8": [(TILE, "    for (; log2ns + 3 <= p.log2n; log2ns += 3) {",
-               "    for (; log2ns + 3 <= 0; log2ns += 3) {")],
+    "no_stage": [(TILE, "    stage_raw_span(xb, p.N, s0, p.span, z);",
+                  "    { if (p.preemph == 12345.0) z[tid] = xb[tid]; }"),
+                 (TILE, "    stage_span(xb, p.N, s0, p.span, p.preemph, z);",
+                  "    { if (p.preemph == 12345.0f) z[tid] = xb[tid]; }")],
+    "no_energy": [(TILE, "      se = fma_s(v, v, se);", "")],
+    "no_radix": [(TILE, "    for (; log2ns + LR <= p.log2n; log2ns += LR) {",
+                  "    for (; log2ns + LR <= 0; log2ns += LR) {")],
     "no_split": [(TILE, "    for (int i = tid; i < p.pairs * (half + 1); "
                         "i += kThreads) {",
                   "    for (int i = tid; i < 0; i += kThreads) {")],
-    "no_mel": [(TILE, "        if (ch.x + i < ch.y) acc = fmaf(pw[fft_pad("
-                      "ch.x + i)], w[i], acc);",
-                "        if (ch.x + i < ch.y) acc += w[i];")],
+    "no_mel": [(TILE, "          acc = fmaf(static_cast<float>(pw[fft_pad<S>("
+                      "ch.x + i)]), w[i], acc);",
+                "          acc += w[i];")],
     "no_finish": [(TILE, "  finish<TM>(p.e, mel, rowv, en, b, t0);\n}",
                    "  if (tid < TM && mel[tid] == 12345.0f) "
                    "p.e.out[tid] = en[0];\n}")],
-    "wave4096": [(TILE, "constexpr int kWavePoints = 2048;",
-                  "constexpr int kWavePoints = 4096;")],
-    "wave1024": [(TILE, "constexpr int kWavePoints = 2048;",
-                  "constexpr int kWavePoints = 1024;")],
+    "wave4096": [(TILE, "  static constexpr int kWavePoints = 2048;",
+                  "  static constexpr int kWavePoints = 4096;")],
+    "wave1024": [(TILE, "  static constexpr int kWavePoints = 2048;",
+                  "  static constexpr int kWavePoints = 1024;")],
+    "f64_radix4": [(TILE, "  static constexpr int kRadix = 8;\n"
+                          "  static constexpr int kSpanLead = 1;",
+                    "  static constexpr int kRadix = 4;\n"
+                    "  static constexpr int kSpanLead = 1;")],
+    "f64_2blocks": [(TILE, "  static constexpr int kBlocks = 3;",
+                     "  static constexpr int kBlocks = 2;")],
+    "f64_wave2048_2blocks": [
+        (TILE, "  static constexpr int kWavePoints = 1024;",
+         "  static constexpr int kWavePoints = 2048;"),
+        (TILE, "  static constexpr int kBlocks = 3;",
+         "  static constexpr int kBlocks = 2;")],
 }
-SOURCES = {"fused_raw_dit": ("mfcc_fused_raw_dit", True),
-           "fused_mfcc": ("mfcc_fused_mfcc", False)}
+# source -> (entry, takes preemph, C types of the other tile's constants,
+# the other tile)
+SOURCES = {
+    "fused_raw_dit": ("mfcc_fused_raw_dit", True, _spectral.DIRECT_ARGTYPES,
+                      _spectral.DIRECT_TILE),
+    "fused_mfcc": ("mfcc_fused_mfcc", False, _spectral.DIRECT_ARGTYPES,
+                   _spectral.DIRECT_TILE),
+    "fused_raw": ("mfcc_fused_raw", True, _spectral.DIRECT_ARGTYPES,
+                  _spectral.DIRECT_TILE),
+    "fused_dit": ("mfcc_fused_dit", False, fused_dit.DIT_ARGTYPES,
+                  fused_dit.DIT_TILE),
+}
+F32_SOURCES, F64_SOURCES = ("fused_raw_dit", "fused_mfcc"), ("fused_raw",
+                                                             "fused_dit")
 CALLS = 20
 
 
@@ -73,30 +103,31 @@ def variant_sources(name: str) -> dict:
     return files
 
 
-def _build_variant(name: str) -> dict:
+def sources_of(name: str) -> tuple:
+    """The kernel sources a variant changes the time of."""
+    if name.startswith("f64_"):
+        return F64_SOURCES
+    if name.startswith("wave"):
+        return F32_SOURCES
+    return F32_SOURCES + F64_SOURCES
+
+
+def _build_one(name: str, src: str):
     d = _build.BUILD_DIR.parent / "ablate" / name
-    shutil.rmtree(d, ignore_errors=True)
-    d.mkdir(parents=True)
-    for fname, text in variant_sources(name).items():
-        (d / fname).write_text(text)
-    libs = {}
-    for src, (entry, raw) in SOURCES.items():
-        so = d / f"lib{src}.so"
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                               str(so), str(d / f"{src}.cu")],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr}")
-        lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, entry)
-        fn.argtypes = (_spectral.SPECTRAL_ARGTYPES
-                       + ([ctypes.c_float] if raw else [])
-                       + _spectral.EPILOGUE_ARGTYPES + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.mfcc_error_string.argtypes = [ctypes.c_int]
-        lib.mfcc_error_string.restype = ctypes.c_char_p
-        libs[src] = lib
-    return libs
+    so = d / f"lib{src}.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                           str(d / f"{src}.cu")], capture_output=True,
+                          text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr}")
+    entry, raw, other_types, _ = SOURCES[src]
+    lib = ctypes.CDLL(str(so))
+    fn = getattr(lib, entry)
+    fn.argtypes = _spectral.entry_argtypes(other_types, raw)
+    fn.restype = ctypes.c_int
+    lib.mfcc_error_string.argtypes = [ctypes.c_int]
+    lib.mfcc_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _ms(fn, calls: int = CALLS) -> float:
@@ -133,53 +164,64 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
+    jobs = [(n, s) for n in VARIANTS for s in sources_of(n)]
+    for name in VARIANTS:
+        d = _build.BUILD_DIR.parent / "ablate" / name
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for fname, text in variant_sources(name).items():
+            (d / fname).write_text(text)
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
-        libs = dict(zip(VARIANTS, pool.map(_build_variant, VARIANTS)))
+        built = dict(zip(jobs, pool.map(lambda j: _build_one(*j), jobs)))
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
-    c16 = FeatureConfig()
-    c44 = FeatureConfig(sample_rate=44100, n_fft=2048)
-    x16 = torch.from_numpy((0.3 * rng.standard_normal((64, 160000)))
-                           .astype(np.float32)).to(dev)
-    x44 = torch.from_numpy((0.3 * rng.standard_normal((64, 441000)))
-                           .astype(np.float32)).to(dev)
-    y44 = framing.preemphasize(x44, c44).contiguous()
-    paths = {"fused_raw_dit": (x16, c16, c16.preemph),
-             "fused_mfcc": (y44, c44, None)}
+    tts = dict(sample_rate=22050, frame_ms=46.44, hop_ms=11.61, n_fft=1024)
+    cfgs = {"fused_raw_dit": (FeatureConfig(), True),
+            "fused_mfcc": (FeatureConfig(sample_rate=44100, n_fft=2048), True),
+            "fused_raw": (FeatureConfig(n_mels=80, n_mfcc=80), False),
+            "fused_dit": (FeatureConfig(n_mels=80, n_mfcc=80, **tts), False)}
+    paths = {}
+    for src, (cfg, dct) in cfgs.items():
+        x = torch.from_numpy((0.3 * rng.standard_normal(
+            (64, 10 * cfg.sample_rate))).astype(np.float32)).to(dev)
+        raw = SOURCES[src][1]
+        paths[src] = (x if raw else framing.preemphasize(x, cfg).contiguous(),
+                      cfg, dct, cfg.preemph if raw else None)
 
-    def call(name, src):
-        x, cfg, pre = paths[src]
+    def call(lib_of, src, tile=None):
+        x, cfg, dct, pre = paths[src]
         return lambda: _spectral.launch_spectral(
-            lambda: libs[name][src], SOURCES[src][0], src, x, cfg, True, pre)
+            lib_of, SOURCES[src][0], src, x, cfg, dct, pre,
+            other=SOURCES[src][3], tile=tile)
 
-    times = {n: {s: [] for s in SOURCES} for n in VARIANTS}
-    for order in (list(VARIANTS), list(VARIANTS)[::-1]):
-        for name in order:
-            for src in SOURCES:
-                times[name][src].append(_ms(call(name, src)))
-    for name, t in times.items():
-        print(f"{name:10s} fused_raw_dit 16 kHz "
-              + " / ".join(f"{v:.4f}" for v in t["fused_raw_dit"])
-              + " ms   fused_mfcc 44.1 kHz "
-              + " / ".join(f"{v:.4f}" for v in t["fused_mfcc"]) + f" ms ({smi})")
-    wrappers = {
-        "fused_raw_dit 16 kHz": lambda: fused_raw_dit.fused_features_raw_dit(
-            x16, c16),
-        "fused_mfcc 44.1 kHz": lambda: fused_mfcc.fused_features(y44, c44),
-        "fused_raw (direct) 16 kHz": lambda: fused_raw.fused_features_raw(
-            x16, c16, apply_dct=True),
-        "fused_raw (direct) 44.1 kHz": lambda: fused_raw.fused_features_raw(
-            x44, c44, apply_dct=True)}
-    for name, fn in wrappers.items():
-        b2b = _ms(fn)
+    times = {j: [] for j in jobs}
+    for order in (jobs, jobs[::-1]):
+        for name, src in order:
+            times[name, src].append(_ms(call(lambda: built[name, src], src)))
+    for (name, src), t in times.items():
+        x, cfg, dct, _ = paths[src]
+        print(f"{name:22s} {src:14s} {cfg.sample_rate} Hz n_fft {cfg.n_fft} "
+              f"{'cepstra' if dct else 'log-mel'} "
+              + " / ".join(f"{v:.4f}" for v in t) + f" ms ({smi})")
+    modules = {"fused_raw_dit": (fused_raw_dit, "fused_features_raw_dit"),
+               "fused_mfcc": (fused_mfcc, "fused_features"),
+               "fused_raw": (fused_raw, "fused_features_raw"),
+               "fused_dit": (fused_dit, "fused_features_dit")}
+    for src, (module, fn) in modules.items():
+        x, cfg, dct, _ = paths[src]
+        wrapper = (lambda m=module, f=fn, x=x, cfg=cfg, dct=dct:
+                   getattr(m, f)(x, cfg, apply_dct=dct))
+        b2b = _ms(wrapper)
         t0 = time.perf_counter()
         for _ in range(CALLS):
-            fn()
+            wrapper()
         enqueue = (time.perf_counter() - t0) / CALLS * 1e3
         torch.cuda.synchronize()
-        print(f"{name}: back-to-back {b2b:.4f} ms, one call per event pair "
-              f"{_single_ms(fn):.4f} ms, host enqueue {enqueue:.4f} ms "
-              f"({smi})")
+        other = _ms(call(module._lib, src, SOURCES[src][3][0]), calls=5)
+        print(f"{src}: back-to-back {b2b:.4f} ms, one call per event pair "
+              f"{_single_ms(wrapper):.4f} ms, host enqueue {enqueue:.4f} ms; "
+              f"its {SOURCES[src][3][0]} tile on the same work {other:.4f} "
+              f"ms ({smi})")
     return 0
 
 

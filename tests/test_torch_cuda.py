@@ -1,9 +1,10 @@
 """Cases that need an NVIDIA GPU: each CUDA kernel against its plain
-PyTorch version on the card (the FFT tile of fused_raw_dit and fused_mfcc
-over n_fft 64..4096 and the direct tile where it still runs), the kernels'
-accurate log bit for bit, the wrappers' checks, and the main paths (MFCC,
-log-mel through each spectral route, pitch) through the kernels.  All are
-marked ``cuda`` and skip without a card.
+PyTorch version on the card (the FFT tile of the four spectral kernels
+over n_fft 64..4096 in both flavours, the float64-front one also against
+the float64 oracle, and the direct and DIT tiles where they still run),
+the kernels' accurate log bit for bit, the wrappers' checks, and the main
+paths (MFCC, log-mel through each spectral route, pitch) through the
+kernels.  All are marked ``cuda`` and skip without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
 there without the repository's conftest:
@@ -21,8 +22,8 @@ from mfcc_tpu_torch import FeatureConfig, PitchConfig, oracle
 from mfcc_tpu_torch.models import (logmel as logmel_model, mfcc as mfcc_model,
                                    pitch as pitch_model)
 from mfcc_tpu_torch.ops import framing, pitch as pitch_op, resample, xmath
-from mfcc_tpu_torch.ops.kernels import (fused_dit, fused_mfcc, fused_nccf,
-                                        fused_raw, fused_raw_dit,
+from mfcc_tpu_torch.ops.kernels import (_spectral, fused_dit, fused_mfcc,
+                                        fused_nccf, fused_raw, fused_raw_dit,
                                         fused_viterbi)
 from mfcc_tpu_torch.utils import wav
 
@@ -304,6 +305,36 @@ def _features_diff(got, want, cfg, apply_dct):
     return float(((got - want).abs() - 1e-4 * want.abs()).max())
 
 
+def _oracle_features(x, cfg, raw, apply_dct=False, lens=None):
+    """The float64 oracle's features fed the kernel's own input (the audio
+    the host pre-emphasized: pre-emphasis off), (B, T, n_out) float64 on
+    x's device, zero past each row's length."""
+    c = cfg.replace(deltas=False) if raw else cfg.replace(deltas=False,
+                                                           preemph=0.0)
+    fn = oracle.mfcc if apply_dct else oracle.log_mel
+    xf = x.double().cpu().numpy()
+    out = np.zeros((x.shape[0], c.num_frames(x.shape[1]),
+                    c.n_mfcc if apply_dct else c.n_mels))
+    for i in range(x.shape[0]):
+        want = fn(xf[i, : x.shape[1] if lens is None else lens[i]], c)
+        out[i, : want.shape[0]] = want
+    return torch.from_numpy(out).to(x.device)
+
+
+def _plain_or_oracle_diff(got, want, x, cfg, raw, apply_dct):
+    """_features_diff of the kernel against its plain version, or, where
+    the f32 plain version is itself over the bound against the float64
+    oracle fed the kernel's input (the DIT form's, or the direct form's,
+    valley rounding), against that oracle."""
+    diff = _features_diff(got, want, cfg, apply_dct)
+    if diff <= TOL:
+        return diff
+    ref = _oracle_features(x, cfg, raw, apply_dct)
+    if _features_diff(want.double(), ref, cfg, apply_dct) > TOL:
+        return _features_diff(got.double(), ref, cfg, apply_dct)
+    return diff
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,kw,shape,apply_dct", [
     ("fused_raw_dit", LOGMEL80, (2, 33360), False),
@@ -346,7 +377,7 @@ def test_spectral_kernel_matches_plain(cuda, gen, name, kw, shape,
     want = module.plain_features(x, cfg, apply_dct)
     assert got.shape == want.shape
     assert bool(torch.isfinite(got).all())
-    assert _features_diff(got, want, cfg, apply_dct) <= TOL
+    assert _plain_or_oracle_diff(got, want, x, cfg, raw, apply_dct) <= TOL
 
 
 @pytest.mark.cuda
@@ -385,18 +416,27 @@ def test_spectral_routes_go_through_their_kernel(cuda, gen, kw, entry,
     for i, n in enumerate(lens):
         x[i, n:] = 0
     counts = {k: m.LAUNCHES for k, (m, _, _) in SPECTRAL.items()}
+    module = SPECTRAL[route][0]
+    tiles = dict(module.TILE_LAUNCHES)
     gf, gfl, gm = entry(torch.from_numpy(x).to(cuda),
                         torch.from_numpy(lens).to(cuda), cfg)
     torch.cuda.synchronize()
     launched = {k: m.LAUNCHES - counts[k] for k, (m, _, _) in SPECTRAL.items()}
     assert launched == {k: int(k == route) for k in SPECTRAL}, launched
+    tile = _spectral.fft_tile(cfg, entry is mfcc_model.mfcc_batch)
+    if tile == "direct":
+        tile = "dit" if route == "fused_dit" else "direct"
+    assert module.TILE_LAUNCHES[tile] == tiles[tile] + 1
     cf, cfl, cm = entry(torch.from_numpy(x), torch.from_numpy(lens), cfg)
     assert torch.equal(gfl.cpu(), cfl) and torch.equal(gm.cpu(), cm)
     assert bool((gf[~gm] == 0).all())
     xf = x.astype(np.float64) / 32768.0
     ref = (oracle.mfcc if entry is mfcc_model.mfcc_batch else oracle.log_mel)
+    # unbounded log-mel on audio the host pre-emphasized in f32 (fused_dit)
+    # keeps that rounding; the fft64 tile on raw audio holds 1e-4
     bound = 1e-3 if (entry is logmel_model.log_mel_batch
-                     and cfg.dynamic_range_db is None) else 1e-4
+                     and cfg.dynamic_range_db is None
+                     and route == "fused_dit") else 1e-4
     for i, n in enumerate(lens[:2]):
         want = ref(xf[i, :n], cfg)
         got = gf[i, : want.shape[0]].cpu().numpy()
@@ -430,7 +470,7 @@ def test_spectral_launch_failure_raises(cuda, monkeypatch, name):
 
 
 # ---------------------------------------------------------------------------
-# the FFT tile of fused_raw_dit and fused_mfcc (csrc/fft_tile.cuh)
+# the FFT tile of the four spectral kernels (csrc/fft_tile.cuh)
 # ---------------------------------------------------------------------------
 
 def _fft_grid(n_fft: int) -> dict:
@@ -459,11 +499,23 @@ def _run_spectral(cuda, gen, name, cfg, shape, apply_dct, lens=None):
     assert module.LAUNCHES == before[1] + 1 and len(ran) == 1
     want = module.plain_features(x, cfg, apply_dct)
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
-    if lens is not None:
-        keep = torch.arange(got.shape[1], device=cuda)[None, :] < torch.tensor(
-            [cfg.num_frames(n) for n in lens], device=cuda)[:, None]
-        got, want = got[keep][None], want[keep][None]
-    return ran[0], _features_diff(got, want, cfg, apply_dct)
+    keep = torch.arange(got.shape[1], device=cuda)[None, :] < torch.tensor(
+        [cfg.num_frames(n) for n in lens or [x.shape[1]] * x.shape[0]],
+        device=cuda)[:, None]
+    if ran[0] == "fft64":
+        ref = _oracle_features(x, cfg, raw, lens=lens)
+        assert float((got.double() - ref)[keep].abs().max()) <= 1e-5
+    if lens is None:
+        return ran[0], _plain_or_oracle_diff(got, want, x, cfg, raw,
+                                             apply_dct)
+    return ran[0], _features_diff(got[keep][None], want[keep][None], cfg,
+                                  apply_dct)
+
+
+def _oracle_diff(got, x, cfg, raw):
+    """Max abs diff of log-mel ``got`` to the float64 oracle fed the
+    kernel's own input."""
+    return float((got.double() - _oracle_features(x, cfg, raw)).abs().max())
 
 
 _FFT_CASES = [
@@ -480,7 +532,8 @@ _FFT_CASES = [
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_mfcc"])
+@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_mfcc",
+                                  "fused_raw", "fused_dit"])
 @pytest.mark.parametrize("kw,shape,apply_dct", _FFT_CASES)
 def test_fft_tile_matches_plain(cuda, gen, name, kw, shape, apply_dct):
     """Over n_fft 64..4096 and the options; shape None is 3 rows of 70
@@ -492,29 +545,106 @@ def test_fft_tile_matches_plain(cuda, gen, name, kw, shape, apply_dct):
     assert diff <= TOL
 
 
+# unbounded log-mel on noise: (config, shape); None is 3 rows of 71 frames
+_FFT64_CASES = [
+    *[(_fft_grid(n), None) for n in (64, 128, 256, 512, 1024, 2048, 4096)],
+    (LOGMEL80, (64, 160000)),                          # fused_raw main path
+    (dict(TTS, n_mfcc=80), (64, 220500)),              # fused_dit main path
+    (dict(LOGMEL80, window="hann"), None),
+    (dict(LOGMEL80, window="povey"), None),
+    (dict(LOGMEL80, dynamic_range_db=60.0), None),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_mfcc"])
-def test_fft_tile_on_a_ragged_batch(cuda, gen, name):
+@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_mfcc",
+                                  "fused_raw", "fused_dit"])
+@pytest.mark.parametrize("kw,shape", _FFT64_CASES)
+def test_fft64_tile_matches_plain_and_oracle(cuda, gen, name, kw, shape):
+    """The float64-front tile within 1e-5 of the float64 oracle fed its
+    input and, on noise, within the log-mel bound of the plain version (of
+    the oracle where the plain version's own rounding is over that bound:
+    the DIT form at n_fft 4096 and at the TTS geometry)."""
+    module, fn, raw = SPECTRAL[name]
+    cfg = FeatureConfig(**kw).validate()
+    shape = shape or (3, 70 * cfg.hop_len + cfg.frame_len)
+    tile, diff = _run_spectral(cuda, gen, name, cfg, shape, False)
+    assert tile == "fft64"
+    assert diff <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_mfcc",
+                                  "fused_raw", "fused_dit"])
+@pytest.mark.parametrize("window", ["hamming", "hann", "povey"])
+def test_fft64_tile_holds_the_oracle_in_valleys(cuda, name, window):
+    """The two-tone valley signal, unbounded log-mel-80: the f32 plain
+    versions are up to ~1e-2 off the oracle with Hann and Povey windows;
+    the float64-front tile stays within 1e-5 of it on its own input."""
+    module, fn, raw = SPECTRAL[name]
+    cfg = FeatureConfig(**LOGMEL80, window=window).validate()
+    t = np.arange(16000) / 16000
+    x = torch.from_numpy((0.5 * np.sin(2 * np.pi * 180.0 * t)
+                          + 0.3 * np.sin(2 * np.pi * 1200.0 * t))
+                         .astype(np.float32)[None]).to(cuda)
+    if not raw:
+        x = framing.preemphasize(x, cfg).contiguous()
+    before = module.TILE_LAUNCHES["fft64"]
+    got = getattr(module, fn)(x, cfg, apply_dct=False)
+    torch.cuda.synchronize()
+    assert module.TILE_LAUNCHES["fft64"] == before + 1
+    assert _oracle_diff(got, x, cfg, raw) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_mfcc",
+                                  "fused_raw", "fused_dit"])
+@pytest.mark.parametrize("apply_dct", [True, False])
+def test_fft_tile_on_a_ragged_batch(cuda, gen, name, apply_dct):
     """All-zero frames past each length (c0 ~ -117, where 2e-5 is a few
-    ulps of the summation order) are compared inside the lengths only."""
-    cfg = FeatureConfig()
-    tile, diff = _run_spectral(cuda, gen, name, cfg, (3, 16000), True,
+    ulps of the summation order) are compared inside the lengths only;
+    log-mel-80 on the fft64 tile."""
+    cfg = FeatureConfig() if apply_dct else FeatureConfig(**LOGMEL80)
+    tile, diff = _run_spectral(cuda, gen, name, cfg, (3, 16000), apply_dct,
                                lens=[16000, 12123, 4000])
-    assert tile == "fft" and diff <= TOL
+    assert tile == ("fft" if apply_dct else "fft64") and diff <= TOL
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_mfcc"])
+@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_mfcc",
+                                  "fused_raw", "fused_dit"])
 @pytest.mark.parametrize("kw,apply_dct", [
     (dict(n_fft=401), True),                  # no power of two
     (dict(ODD_FRAME, n_fft=600), True),
-    (LOGMEL80, False),                        # unbounded log-mel
+    (dict(LOGMEL80, n_fft=401), False),       # unbounded log-mel
 ])
 def test_direct_tile_where_the_fft_tile_does_not_apply(cuda, gen, name, kw,
                                                        apply_dct):
+    """The entry's other tile: the direct tile, or for fused_dit (n_fft %
+    4 == 0) the DIT tile at n_fft 400."""
+    if name == "fused_dit":
+        kw = dict(kw, n_fft=400 if kw["n_fft"] == 401 else kw["n_fft"])
     cfg = FeatureConfig(**kw).validate()
     tile, diff = _run_spectral(cuda, gen, name, cfg,
                                (2, 69 * cfg.hop_len + cfg.frame_len),
                                apply_dct)
-    assert tile == "direct"
+    assert tile == ("dit" if name == "fused_dit" else "direct")
     assert diff <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_raw_dit", "fused_mfcc",
+                                  "fused_raw", "fused_dit"])
+def test_fft_tile_refused_where_the_entry_cannot_take_it(cuda, name):
+    """The C entry refuses an FFT tile on a shape it does not take (n_fft
+    401) instead of running something else."""
+    module, _, raw = SPECTRAL[name]
+    cfg = FeatureConfig(n_fft=401 if name != "fused_dit" else 400)
+    other = (fused_dit.DIT_TILE if name == "fused_dit"
+             else _spectral.DIRECT_TILE)
+    for tile in ("fft", "fft64"):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _spectral.launch_spectral(
+                module._lib, "mfcc_" + name, name,
+                torch.zeros((1, 4000), device=cuda), cfg, True,
+                cfg.preemph if raw else None, other=other, tile=tile)

@@ -522,25 +522,30 @@ def _fft_grid_config(n_fft: int, **kw) -> FeatureConfig:
                          **kw).validate()
 
 
+@pytest.mark.parametrize("tile", ["fft", "fft64"])
 @pytest.mark.parametrize("kw", [dict(), TINY, HI_RATE, TTS,
                                 dict(window="povey", n_fft=1024),
                                 dict(sample_rate=8000, n_fft=256)])
-def test_fft_constants_layout(kw):
-    """The window and the twiddles are the float64 builders rounded to
-    float32; the chunks tile each band's nonzero range of the direct tile's
-    mel matrix in order, with its weights; the DCT is the direct tile's."""
+def test_fft_constants_layout(kw, tile):
+    """The window and the twiddles are the float64 builders, rounded to
+    float32 for the f32 tile and kept in float64 for the fft64 tile; the
+    chunks tile each band's nonzero range of the direct tile's mel matrix
+    in order, with its weights; the DCT is the direct tile's."""
     cfg = FeatureConfig(**kw).validate()
-    win, tw, chunk_w, chunks, band_chunks, dctm = _spectral.fft_matrices(cfg)
+    win, tw, chunk_w, chunks, band_chunks, dctm = _spectral.fft_matrices(
+        cfg, tile)
     cos_m, _ = jax_spectrum.dft_matrices(JaxConfig(**kw))
-    assert win.dtype == tw.dtype == chunk_w.dtype == np.float32
+    wt = np.float32 if tile == "fft" else np.float64
+    assert win.dtype == tw.dtype == wt and chunk_w.dtype == np.float32
     assert chunks.dtype == band_chunks.dtype == np.int32
-    np.testing.assert_array_equal(win, cos_m[:, 0].astype(np.float32))
+    np.testing.assert_array_equal(win.astype(np.float32),
+                                  cos_m[:, 0].astype(np.float32))
     np.testing.assert_array_equal(
-        win, jax_oracle.window_fn(cfg.window, cfg.frame_len).astype(np.float32))
+        win, jax_oracle.window_fn(cfg.window, cfg.frame_len).astype(wt))
     ang = 2.0 * np.pi * np.arange(cfg.n_fft) / cfg.n_fft
     assert tw.shape == (cfg.n_fft, 2)
-    np.testing.assert_array_equal(tw[:, 0], np.cos(ang).astype(np.float32))
-    np.testing.assert_array_equal(tw[:, 1], np.sin(ang).astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 0], np.cos(ang).astype(wt))
+    np.testing.assert_array_equal(tw[:, 1], np.sin(ang).astype(wt))
     _, _, dmel, ddct = fused_raw._matrices(cfg)
     np.testing.assert_array_equal(dctm, ddct)
     assert chunk_w.shape == (chunks.shape[0], _spectral.MEL_CHUNK)
@@ -576,26 +581,61 @@ def test_fft_mel_bands_cover_every_nonzero(cfg):
         assert (lo, hi) == (0, 0) or (melw[lo, j] and melw[hi - 1, j])
 
 
-@pytest.mark.parametrize("kw,apply_dct,fft", [
-    (dict(), True, True), (HI_RATE, True, True), (TTS, True, True),
-    (TINY, True, True), (dict(n_fft=4096), True, True),
-    (dict(sample_rate=2000, n_fft=64), True, True),
-    (dict(LOGMEL80, dynamic_range_db=50.0), False, True),
-    (dict(HI_RATE, dynamic_range_db=40.0), False, True),
-    (dict(n_fft=8192), True, False),           # past the tile's 4096
-    (dict(n_fft=401), True, False),            # odd
-    (dict(n_fft=768), True, False),            # no power of two
-    (dict(sample_rate=4000, frame_ms=25, n_fft=100), True, False),
-    (LOGMEL80, False, False),                  # unbounded log-mel
-    (dict(HI_RATE, dynamic_range_db=50.5), False, False),
+# a hop whose 8-frame span overflows a block's shared memory
+HUGE_HOP = dict(sample_rate=16000, frame_ms=256.0, hop_ms=2000.0, n_fft=4096)
+
+
+@pytest.mark.parametrize("kw,apply_dct,tile", [
+    (dict(), True, "fft"), (HI_RATE, True, "fft"), (TTS, True, "fft"),
+    (TINY, True, "fft"), (dict(n_fft=4096), True, "fft"),
+    (dict(sample_rate=2000, n_fft=64), True, "fft"),
+    (dict(LOGMEL80, dynamic_range_db=50.0), False, "fft"),
+    (dict(HI_RATE, dynamic_range_db=40.0), False, "fft"),
+    (dict(n_fft=8192), True, "direct"),        # past the tile's 4096
+    (dict(n_fft=401), True, "direct"),         # odd
+    (dict(n_fft=768), True, "direct"),         # no power of two
+    (dict(sample_rate=4000, frame_ms=25, n_fft=100), True, "direct"),
+    (LOGMEL80, False, "fft64"),                # unbounded log-mel
+    (dict(HI_RATE, dynamic_range_db=50.5), False, "fft64"),
+    (dict(TTS, n_mfcc=80), False, "fft64"),
+    (dict(sample_rate=2000, n_fft=64), False, "fft64"),
+    (dict(LOGMEL80, n_fft=4096), False, "fft64"),
+    (dict(LOGMEL80, n_fft=401), False, "direct"),
+    (dict(LOGMEL80, n_fft=8192), False, "direct"),
+    (HUGE_HOP, True, "direct"),                # shared memory
+    (HUGE_HOP, False, "direct"),
 ])
-def test_fft_tile_rule(kw, apply_dct, fft):
-    """The config picks the tile: a power-of-two n_fft from 64 to 4096 for
-    cepstra and log-mel bounded to <= 50 dB (the route's use_dit rule);
-    every other config keeps the direct tile."""
+def test_fft_tile_rule(kw, apply_dct, tile):
+    """The config picks the tile: at a power-of-two n_fft from 64 to 4096
+    whose 8-frame tile fits a block's shared memory, the f32 FFT tile for
+    cepstra and log-mel bounded to <= 50 dB (the route's use_dit rule) and
+    the float64-front tile for other log-mel; every other config keeps the
+    entry's other tile."""
     cfg = FeatureConfig(**kw).validate()
-    assert _spectral.fft_tile(cfg, apply_dct) is fft
-    assert fft <= routes.use_dit(cfg, apply_dct)
+    assert _spectral.fft_tile(cfg, apply_dct) == tile
+    if tile != "direct":
+        assert (tile == "fft") == routes.use_dit(cfg, apply_dct)
+        assert _spectral.fft_smem_bytes(cfg, tile, 8) <= _spectral.MAX_SMEM
+
+
+@pytest.mark.parametrize("kw,tile,tm,want", [
+    # the flavours' frame tiles at the main paths (spectral::launch_fft
+    # picks the largest within 55 KB for fft, 74 KB for fft64)
+    (dict(), "fft", 16, 46784), (dict(), "fft", 32, 58816),
+    (LOGMEL80, "fft64", 32, 66756), (LOGMEL80, "fft64", 64, 97732),
+    (dict(TTS, n_mfcc=80), "fft64", 16, 59524),
+    (dict(TTS, n_mfcc=80), "fft64", 32, 81156),
+    # pairs 1 (a 4096-point FFT is past the 1024-point wave), span 1520
+    (dict(n_fft=4096), "fft64", 8, 4 * 8 * (4096 + 256)
+     + 4 * (1520 + 1 + 8 * 26 + 16)),
+])
+def test_fft_smem_bytes(kw, tile, tm, want):
+    """The host's mirror of spectral::fft_smem_bytes: four exchange planes
+    of pairs x (n_fft + pad) elements (4 or 8 bytes; a pad per 32 or 16),
+    then floats: the span (with the fft64 tile's lead sample), the mel
+    energies and two per-frame vectors."""
+    assert _spectral.fft_smem_bytes(FeatureConfig(**kw).validate(), tile,
+                                    tm) == want
 
 
 def _dft_small(vr, vi, R, h):
@@ -641,7 +681,7 @@ def _fft_pass(sr, si, tw, log2n, log2ns, R, h):
 
 
 def _emulate_fft_tile(x: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
-                      tm: int = 32, dtype=np.float64):
+                      tm: int = 32, dtype=np.float64, front=None):
     """The FFT tile's data flow in numpy, in ``dtype``: per (row, tile of
     tm frames) the span is staged and pre-emphasized with each sample's
     true predecessor (cfg.preemph 0: audio the host pre-emphasized),
@@ -650,28 +690,36 @@ def _emulate_fft_tile(x: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
     then radix 2 or 4 where log2 n_fft % 3 != 0) with the table's
     twiddles, the split gives both frames' |X|^2 at bins 0..n_fft/2, each
     mel chunk sums its bins in ascending order and each band its chunks in
-    order, then floors, log, DCT and the energy column."""
-    f = dtype
-    win, tw, chunk_w, chunks, band_chunks, dctm = (
-        a.astype(f) if a.dtype != np.int32 else a
-        for a in _spectral.fft_matrices(cfg))
+    order, then floors, log, DCT and the energy column.
+
+    ``front`` (default ``dtype``) is the type of everything up to |X|^2
+    and the frame energy, which are then rounded to ``dtype``: float64
+    with dtype float32 is the float64-front tile ("fft64": the float64
+    window and twiddle tables of ``fft_matrices(cfg, "fft64")``, float32
+    mel, floors and accurate log)."""
+    f, g = dtype, front or dtype
+    win, tw, chunk_w, chunks, band_chunks, dctm = _spectral.fft_matrices(
+        cfg, "fft64" if g is np.float64 and f is np.float32 else "fft")
+    win, tw, chunk_w, dctm = (win.astype(g), tw.astype(g), chunk_w.astype(f),
+                              dctm.astype(f))
     B, N = x.shape
     T, hop, fl, n = cfg.num_frames(N), cfg.hop_len, cfg.frame_len, cfg.n_fft
     log2n = n.bit_length() - 1
-    h, half = f(np.float32(np.sqrt(0.5))), f(0.5)
+    h, half = g(np.sqrt(0.5) if g is np.float64 and f is np.float32
+                else np.float32(np.sqrt(0.5))), g(0.5)
     rel = mel.relative_floor(cfg)
     log = (np.log if f is np.float64 else
            lambda v: xmath.accurate_log(torch.from_numpy(v)).numpy())
     out = np.zeros((B, T, cfg.n_mfcc if apply_dct else cfg.n_mels), f)
     for b in range(B):
-        xb = x[b].astype(f)
+        xb = x[b].astype(g)
         for t0 in range(0, T, tm):
-            g = t0 * hop + np.arange((tm - 1) * hop + fl)
-            cur = np.where(g < N, xb[np.minimum(g, N - 1)], f(0))
-            prev = np.where(g > 0, xb[np.clip(g - 1, 0, N - 1)], xb[0])
-            z = np.where(g < N, cur - f(cfg.preemph) * prev, f(0)).astype(f)
+            i = t0 * hop + np.arange((tm - 1) * hop + fl)
+            cur = np.where(i < N, xb[np.minimum(i, N - 1)], g(0))
+            prev = np.where(i > 0, xb[np.clip(i - 1, 0, N - 1)], xb[0])
+            z = np.where(i < N, cur - g(cfg.preemph) * prev, g(0)).astype(g)
             fr = np.stack([z[m * hop: m * hop + fl] for m in range(tm)])
-            zin = np.zeros((tm, n), f)
+            zin = np.zeros((tm, n), g)
             zin[:, :fl] = win * fr
             re, im = zin[0::2], zin[1::2]
             rest = log2n % 3
@@ -687,6 +735,7 @@ def _emulate_fft_tile(x: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
             yr, yi = half * (bi + d), half * (c - a)
             power = np.empty((tm, n // 2 + 1), f)
             power[0::2], power[1::2] = xr * xr + xi * xi, yr * yr + yi * yi
+            energy = (fr * fr).sum(axis=1).astype(f)
             part = np.zeros((tm, chunks.shape[0]), f)
             for c, (k0, k1) in enumerate(chunks):
                 for i in range(k1 - k0):
@@ -701,8 +750,7 @@ def _emulate_fft_tile(x: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
             if apply_dct:
                 feat = feat @ dctm
                 if cfg.append_energy:
-                    feat[:, 0] = log(np.maximum((fr * fr).sum(axis=1),
-                                                f(cfg.log_floor)).astype(f))
+                    feat[:, 0] = log(np.maximum(energy, f(cfg.log_floor)))
             m = min(tm, T - t0)
             out[b, t0: t0 + m] = feat[:m]
     return out
@@ -761,22 +809,71 @@ def test_fft_tile_emulation_over_the_n_fft_grid(rng, n_fft):
     _assert_features(got, want, cfg, True)
 
 
+def _two_tones(sr: int) -> np.ndarray:
+    """1 s of the two-tone valley signal of tests/test_accuracy_floor.py."""
+    t = np.arange(sr) / sr
+    return (0.5 * np.sin(2 * np.pi * 180.0 * t)
+            + 0.3 * np.sin(2 * np.pi * 1200.0 * t)).astype(np.float32)
+
+
+def _fft64_valley_errors(kw):
+    """Unbounded log-mel of the two-tone signal against the float64 oracle
+    of the raw audio: -> (the fft64 tile on raw audio, the fft64 tile on
+    audio the host pre-emphasized in f32 (the fused_dit route), the direct
+    form (the port's plain f32 version), the DIT form)."""
+    cfg = FeatureConfig(**kw).validate()
+    x = _two_tones(cfg.sample_rate)[None]
+    y = framing.preemphasize(torch.from_numpy(x), cfg).numpy()
+    want = jax_oracle.log_mel(x[0].astype(np.float64), JaxConfig(**kw))
+    raw64 = _emulate_fft_tile(x, cfg, False, dtype=np.float32,
+                              front=np.float64)[0]
+    host64 = _emulate_fft_tile(y, cfg.replace(preemph=0.0), False,
+                               dtype=np.float32, front=np.float64)[0]
+    direct = fused_raw.plain_features(torch.from_numpy(x), cfg,
+                                      False)[0].numpy()
+    dit = fused_dit.plain_features(torch.from_numpy(y), cfg, False)[0].numpy()
+    return tuple(float(np.abs(a - want).max())
+                 for a in (raw64, host64, direct, dit))
+
+
+@pytest.mark.parametrize("kw,apply_dct", [
+    (dict(), True), (dict(hop_ms=12.5, lifter=22, append_energy=True), True),
+    (dict(sample_rate=8000, n_fft=256), True),
+    (dict(sample_rate=48000, n_fft=2048), True),
+    (dict(TTS, n_mels=26), True),
+    (dict(TTS, n_mfcc=80, dynamic_range_db=50.0), False),
+])
+def test_fft_tile_emulation_matches_dit_plain(rng, kw, apply_dct):
+    """fused_dit on its f32 FFT tile (cepstra, log-mel <= 50 dB) against
+    its plain version, the DIT form, on audio the host pre-emphasized."""
+    cfg = FeatureConfig(**kw).validate()
+    assert _spectral.fft_tile(cfg, apply_dct) == "fft"
+    N = 12 * cfg.hop_len + cfg.frame_len
+    y = _preemphasized((rng.standard_normal((2, N)) * 0.3)
+                       .astype(np.float32), cfg)
+    want = fused_dit.plain_features(torch.from_numpy(y), cfg,
+                                    apply_dct).numpy()
+    got = _emulate_fft_tile(y, cfg.replace(preemph=0.0), apply_dct, tm=8,
+                            dtype=np.float32)
+    _assert_features(got, want, cfg, apply_dct)
+
+
 @pytest.mark.parametrize("window,ratio", [("hamming", 1.0), ("hann", 4.0),
                                            ("povey", 8.0)])
 def test_fft_tile_valley_error_against_direct(window, ratio):
     """Unbounded 80-mel log-mel on the two-tone valley signal of
-    tests/test_accuracy_floor.py, every stage in float32, against the
-    float64 oracle.  With the configs' Hamming window (valleys ~60 dB deep)
-    the FFT tile is no less accurate than the direct form (the port's plain
-    f32 version, the direct tile's arithmetic).  With Hann or Povey windows
+    tests/test_accuracy_floor.py against the float64 oracle.  Every stage
+    in float32: with the configs' Hamming window (valleys ~60 dB deep) the
+    f32 FFT tile is no less accurate than the direct form (the port's plain
+    f32 version, the direct tile's arithmetic); with Hann or Povey windows
     the valleys reach ~120-140 dB and both forms sit at the f32 floor
-    (> 1e-3), the FFT 2.7x and 5.9x above the direct form as measured: so
-    unbounded log-mel keeps the direct tile (``_spectral.fft_tile``)."""
+    (> 1e-3), the FFT 2.7x and 5.9x above the direct form as measured.  So
+    unbounded log-mel takes the float64-front tile ("fft64"), which on raw
+    audio stays within 1e-5 of the oracle in all three, and on audio the
+    host pre-emphasized in f32 is no worse than the direct or DIT form."""
     kw = dict(n_mels=80, n_mfcc=80, window=window)
     cfg = FeatureConfig(**kw).validate()
-    t = np.arange(16000) / 16000
-    x = (0.5 * np.sin(2 * np.pi * 180.0 * t)
-         + 0.3 * np.sin(2 * np.pi * 1200.0 * t)).astype(np.float32)
+    x = _two_tones(16000)
     want = jax_oracle.log_mel(x.astype(np.float64), JaxConfig(**kw))
     got = _emulate_fft_tile(x[None], cfg, False, dtype=np.float32)[0]
     direct = fused_raw.plain_features(torch.from_numpy(x[None]), cfg,
@@ -786,7 +883,77 @@ def test_fft_tile_valley_error_against_direct(window, ratio):
     assert err_fft <= ratio * err_direct, (err_fft, err_direct)
     if window != "hamming":
         assert min(err_fft, err_direct) > 1e-3       # the f32 valley floor
-    assert not _spectral.fft_tile(cfg, False)
+    assert _spectral.fft_tile(cfg, False) == "fft64"
+    raw64, host64, err_direct, err_dit = _fft64_valley_errors(kw)
+    assert raw64 <= 1e-5, raw64
+    assert host64 <= min(err_direct, err_dit), (host64, err_direct, err_dit)
+
+
+@pytest.mark.parametrize("window", ["hamming", "hann", "povey"])
+def test_fft64_valley_error_at_the_tts_geometry(window):
+    """The same at the 22.05 kHz TTS geometry (1024-sample frames, hop
+    256), the fused_dit route's main path: within 1e-5 of the oracle on raw
+    audio; on audio the host pre-emphasized, no worse than the direct form
+    or the DIT form the route ran before."""
+    kw = dict(TTS, n_mfcc=80, window=window)
+    assert _spectral.fft_tile(FeatureConfig(**kw).validate(), False) == \
+        "fft64"
+    raw64, host64, err_direct, err_dit = _fft64_valley_errors(kw)
+    assert raw64 <= 1e-5, raw64
+    assert host64 <= min(err_direct, err_dit), (host64, err_direct, err_dit)
+
+
+@pytest.mark.parametrize("kw,raw,N", [
+    (LOGMEL80, True, 8000),                                 # fused_raw
+    (dict(LOGMEL80, sample_rate=8000, n_fft=256), True, 4000),
+    (dict(TTS, n_mfcc=80), False, 11025),                   # fused_dit
+    (dict(TTS, n_mels=40, n_mfcc=40, window="hann"), False, 11025),
+])
+def test_fft64_emulation_matches_pallas(rng, kw, raw, N):
+    """The float64-front tile against the Pallas kernel its route replaces,
+    in interpret mode, on noise (where that kernel sits within its oracle
+    bound): fused_features_raw on raw audio, fused_features_dit on audio
+    the host pre-emphasized; log-mel within rtol 1e-4 plus atol 2e-5, and
+    the tile within 1e-5 of the oracle fed its own input."""
+    jc = JaxConfig(**kw).validate()
+    cfg = from_jax(jc)
+    x = (rng.standard_normal((2, N)) * 0.3).astype(np.float32)
+    if raw:
+        want = np.asarray(jax_raw.fused_features_raw(
+            jnp.asarray(x), jc, apply_dct=False, interpret=True))
+        inp, c = x, cfg
+    else:
+        inp, c = _preemphasized(x, jc), cfg.replace(preemph=0.0)
+        want = np.asarray(jax_dit.fused_features_dit(
+            jnp.asarray(inp), jc, apply_dct=False, interpret=True))
+    got = _emulate_fft_tile(inp, c, False, tm=16, dtype=np.float32,
+                            front=np.float64)
+    _assert_features(got, want, jc, False)
+    for i in range(2):
+        ref = jax_oracle.log_mel(inp[i].astype(np.float64),
+                                 jc.replace(preemph=0.0) if not raw else jc)
+        assert np.abs(got[i] - ref).max() <= 1e-5
+
+
+@pytest.mark.parametrize("module", [fused_raw_dit, fused_raw, fused_mfcc,
+                                    fused_dit])
+@pytest.mark.parametrize("cfg", [FeatureConfig(**LOGMEL80),
+                                 FeatureConfig(**TTS).replace(n_mfcc=80),
+                                 _fft_grid_config(64),
+                                 _fft_grid_config(4096)])
+def test_fft64_emulation_matches_plain(rng, module, cfg):
+    """Each spectral kernel's fft64 tile against its plain version (the
+    direct form; the DIT form for fused_dit) on noise, at the log-mel bound
+    the card holds them to, over an odd frame count (T = 13)."""
+    N = 12 * cfg.hop_len + cfg.frame_len
+    x = (rng.standard_normal((2, N)) * 0.3).astype(np.float32)
+    raw = module in (fused_raw_dit, fused_raw)
+    inp = x if raw else _preemphasized(x, cfg)
+    c = cfg if raw else cfg.replace(preemph=0.0)
+    want = module.plain_features(torch.from_numpy(inp), cfg, False).numpy()
+    got = _emulate_fft_tile(inp, c, False, tm=8, dtype=np.float32,
+                            front=np.float64)
+    _assert_features(got, want, cfg, False)
 
 
 def test_fft_tile_ablation_edits_still_apply():

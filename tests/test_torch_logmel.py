@@ -181,6 +181,49 @@ def test_route_reaches_the_kernel_the_reference_gives(on_card, rng, kw,
     assert (got[~mask] == 0).all()
 
 
+@pytest.mark.parametrize("kw,cepstra,route,tile", [
+    (dict(), True, "fused_raw_dit", "fft"),                 # MFCC-13
+    (LOGMEL80, False, "fused_raw", "fft64"),                # unbounded
+    (dict(LOGMEL80, dynamic_range_db=50.0), False, "fused_raw_dit", "fft"),
+    (dict(LOGMEL80, dynamic_range_db=60.0), False, "fused_raw", "fft64"),
+    (dict(LOGMEL80, n_fft=600), False, "fused_raw", "direct"),
+    (TTS, False, "fused_dit", "fft64"),
+    (dict(TTS, n_mels=26, n_mfcc=13), True, "fused_dit", "fft"),
+    (dict(hop_ms=12.5), True, "fused_dit", "fft"),
+    (dict(hop_ms=12.5, n_fft=400), True, "fused_dit", "dit"),
+    (dict(sample_rate=8000, n_fft=256), True, "fused_raw_dit", "fft"),
+    (HI_RATE, True, "fused_mfcc", "fft"),
+    (dict(HI_RATE, **LOGMEL80), False, "fused_mfcc", "fft64"),
+    (dict(HI_RATE, n_fft=1200), True, "fused_mfcc", "direct"),
+])
+def test_route_and_tile_per_config(kw, cepstra, route, tile):
+    """The tile rule does not touch the route: each config reaches the
+    kernel the reference's route gives it (``routes.spectral_route``, as
+    before the FFT tile took the unbounded log-mel routes), and inside that
+    kernel the tile the config picks: the f32 FFT tile for cepstra and
+    log-mel <= 50 dB, the float64-front tile for other log-mel, the direct
+    or DIT tile at an n_fft the FFT tile does not take."""
+    from mfcc_tpu.ops.kernels import (fused_dit as jax_dit,
+                                      fused_raw as jax_raw,
+                                      fused_raw_dit as jax_raw_dit)
+    from mfcc_tpu_torch.ops.kernels import _spectral, routes
+    jc = JaxConfig(**kw).validate()
+    cfg = from_jax(jc)
+    use_dit = cepstra or (jc.dynamic_range_db is not None
+                          and jc.dynamic_range_db <= 50.0)
+    if use_dit and jax_raw_dit.raw_dit_kernel_eligible(jc):
+        reference = "fused_raw_dit"
+    elif jax_raw.raw_kernel_eligible(jc):
+        reference = "fused_raw"
+    else:
+        reference = ("fused_dit" if jax_dit.dit_kernel_eligible(jc)
+                     else "fused_mfcc")
+    assert routes.spectral_route(cfg, cepstra) == reference == route
+    picked = _spectral.fft_tile(cfg, cepstra)
+    assert (picked if picked != "direct" or route != "fused_dit"
+            else "dit") == tile
+
+
 def test_cpu_tensors_stay_on_the_plain_direct_path(rng, monkeypatch):
     """Without a card no wrapper is called: the CPU path is the plain
     direct form whatever the config's route."""

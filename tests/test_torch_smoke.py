@@ -3,11 +3,14 @@ shows here and not first on the card.
 
 ``torch.cuda`` is faked (synchronize, Event, device name and count), nvcc
 is not called, ``backend.resolve`` routes "auto" to "cuda", and each kernel
-wrapper counts a launch (and, for the two kernels with an FFT and a direct
-tile, the tile the config picks) and runs its plain version on the CPU
-tensor it is given.  Every phase then runs end to end at a small size: the
-control flow, shapes, comparisons, launch and tile accounting and the
-kernels' JSON record with its bounds.  Imports no jax.
+wrapper counts a launch (and, for the four spectral kernels, the tile the
+config picks) and runs its plain version on the CPU tensor it is given,
+or, where the config picks the float64-front tile, the float64 oracle on
+the kernel's own input (the f32 plain versions sit at the f32 valley
+floor, above that tile's oracle bound); a launch on a named tile (phase
+8's yardsticks) runs the plain chain.  Every phase then runs end to end at
+a small size: the control flow, shapes, comparisons, launch and tile
+accounting and the kernels' JSON record with its bounds.  Imports no jax.
 """
 
 import importlib.util
@@ -17,7 +20,10 @@ import time
 
 import torch
 
-from mfcc_tpu_torch import backend
+import numpy as np
+
+from mfcc_tpu_torch import backend, oracle
+from mfcc_tpu_torch.ops import framing
 from mfcc_tpu_torch.ops.kernels import (_build, _spectral, fused_dit,
                                         fused_mfcc, fused_nccf, fused_raw,
                                         fused_raw_dit, fused_viterbi)
@@ -53,11 +59,26 @@ def _counting(mod, name):
         x, cfg = args[:2]
         if hasattr(mod, "TILE_LAUNCHES") and x.shape[0] and \
                 cfg.num_frames(x.shape[1]):
-            fft = _spectral.fft_tile(cfg, kwargs.get("apply_dct", True))
-            mod.TILE_LAUNCHES["fft" if fft else "direct"] += 1
+            tile = _spectral.fft_tile(cfg, kwargs.get("apply_dct", True))
+            mod.TILE_LAUNCHES[tile if tile in mod.TILE_LAUNCHES
+                              else "dit"] += 1
+            if tile == "fft64":
+                c = cfg.replace(deltas=False)
+                if mod in (fused_dit, fused_mfcc):
+                    c = c.replace(preemph=0.0)
+                return torch.from_numpy(np.stack([
+                    oracle.log_mel(r, c) for r in x.double().numpy()
+                ]).astype(np.float32))
         return fn(*args, **kwargs)
 
     return wrapper
+
+
+def _launch_plain(lib_fn, entry, name, x, cfg, apply_dct, preemph,
+                  other=None, tile=None):
+    """launch_spectral's stand-in: the plain chain, on the tile named."""
+    y = framing.preemphasize(x, cfg) if preemph is not None else x
+    return _spectral.plain_features(y, cfg, apply_dct), tile
 
 
 def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
@@ -76,6 +97,7 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "Fake GPU")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(_build, "load", lambda name: None)
+    monkeypatch.setattr(_spectral, "launch_spectral", _launch_plain)
     resolve = backend.resolve
     monkeypatch.setattr(backend, "resolve", lambda name, x: (
         "cuda" if name in ("auto", "cuda") else resolve(name, x)))
@@ -91,7 +113,11 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     for phase in [*map(str, range(1, 10)), "3b", "3c", "4b"]:
         assert f"[{phase} " in out, phase
     assert "[3b FFT tile vs plain] fused_mfcc cepstra, n_fft 4096" in out
-    assert "n_fft 401: direct tile" in out
+    assert "fused_raw log-mel, unbounded log-mel, n_fft 4096, T=71: fft64 " \
+        "tile" in out
+    assert "fused_raw cepstra, n_fft 401 (fused_dit: 400): direct tile" in out
+    assert "fused_dit cepstra, n_fft 401 (fused_dit: 400): dit tile" in out
+    assert "Hann two-tone valley: fft64 tile" in out
     assert "Fake GPU, 700.00 W" in out
     json.dumps({"kernels": kernels})
     assert [k["name"] for k in kernels] == list(smoke.KERNELS)
@@ -112,12 +138,17 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         assert k["bound_by"] in ("bytes", "operations"), k
     tiles = {k["name"]: k["tile"] for k in kernels}
     assert tiles == {"fused_raw_dit": "fft", "fused_mfcc": "fft",
-                     "fused_raw": "direct", "fused_dit": "dit",
+                     "fused_raw": "fft64", "fused_dit": "fft64",
                      "fused_nccf": "direct", "fused_viterbi": None}
     for k in kernels:
-        fft = k["name"] in ("fused_raw_dit", "fused_mfcc")
-        assert (k["direct_tile_ms"] is not None) == fft, k
-        assert (k["rfft_stage_ms"] is not None) == fft, k
-    # on the CPU the wrappers run the plain versions: no difference at all
-    assert [k["max_abs_err"] for k in kernels] == [0.0] * 5 + [0]
+        spectral = k["name"] in smoke.SPECTRAL
+        assert (k["direct_tile_ms"] is not None) == spectral, k
+        assert (k["f32_tile_ms"] is not None) == (k["tile"] == "fft64"), k
+        assert (k["rfft_stage_ms"] is not None) == (k["tile"] == "fft"), k
+    # on the CPU the wrappers run the plain versions (the oracle where the
+    # config picks the fft64 tile): the pitch kernels' differ in nothing,
+    # the spectral kernels' by the f32 plain versions' own error
+    errs = {k["name"]: k["max_abs_err"] for k in kernels}
+    assert errs["fused_nccf"] == 0.0 and errs["fused_viterbi"] == 0
+    assert all(errs[k] <= 1e-2 for k in smoke.SPECTRAL), errs
     assert "0 differ in any bit" in out
