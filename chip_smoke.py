@@ -40,6 +40,14 @@ Phases, one status line each; any failure raises and exits non-zero:
 3c. accurate log: the kernels' ``acc_log`` on 2^20 floats (positive floats
    over the full exponent range, and floor values) bit-identical to
    ``ops/xmath``.
+3d. ``fused_raw_dit``'s bark and spec projections vs plain: at the main
+   path's config (64 x 10 s), a ragged batch, T = 70, T = 1, n_fft 256 /
+   1024 / 2048, and the direct tile (n_fft 401 for bark, 768 for spec),
+   each case's tile asserted (``fft64`` at a power-of-two n_fft).  Bounds:
+   bark log-energies rtol 1e-4 plus atol 2e-5, the spectrogram 2e-4 inside
+   the 50 dB window; every ``fft64`` case within 1e-5 of the float64
+   oracle over every band and bin; where the plain version is over its
+   bound against that oracle and the kernel is not, the oracle judges.
 4. MFCC main path: ``models.mfcc.mfcc_batch`` on ragged int16 and float32
    batches, with the kernel's launch counter reset just before and read
    just after, then on the golden WAV.  Frame counts, masks and zeroed
@@ -57,6 +65,17 @@ Phases, one status line each; any failure raises and exits non-zero:
    float64 oracle within 1e-4, 1e-3 for unbounded log-mel on host
    pre-emphasized audio (``fused_dit``: the host's f32 pre-emphasis rounds
    before the kernel) and for the golden.
+4c. PLP and spectrogram main paths: ``models.plp.plp_batch`` and
+   ``models.spectrogram.log_spectrogram_batch`` at the default config on
+   the 64 x 10 s int16 ragged batch, each with every spectral launch
+   counter reset just before and read just after (one ``fused_raw_dit``
+   launch, in the bark or spec projection, on the ``fft64`` tile), then on
+   ``speech2s.wav`` (counted apart), and at a config the reference sends to
+   XLA (spectrogram at n_fft 400, PLP at 44.1 kHz): no kernel launch, the
+   plain chain on the card.  Frame counts, masks and zero padding exact;
+   PLP within 1e-4 of the float64 oracle and ``plp13.npy``, the
+   spectrogram within 2e-4 of its oracle and ``spectrogram257.npy`` in the
+   50 dB window.
 5. NCCF kernel vs plain: ``fused_nccf`` against the correlation-theorem
    ``ops.pitch.nccf`` given the same ballast, <= 2e-5 on valid frames, on
    stationary signals (the bench batch, ragged noise, four other configs,
@@ -82,11 +101,15 @@ Phases, one status line each; any failure raises and exits non-zero:
    ``fft64`` kernels the f32 FFT tile on the same work, and beside the two
    ``fft`` kernels, as a yardstick of the DFT stage alone,
    ``torch.fft.rfft`` (cuFFT) of the windowed frames, materialized before
-   the timed window.
+   the timed window.  The same for ``fused_raw_dit``'s bark and spec
+   projections (the f32 tile and cuFFT beside them), ``plp_batch`` and
+   ``log_spectrogram_batch`` through the kernel and through plain PyTorch,
+   and the PLP tail alone (its ATen ops counted, its host enqueue time).
 9. the script's elapsed time, one JSON line describing the kernels (with
    each one's bound: the larger of its input and output bytes over 3.35
-   TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes),
-   then the final JSON status line.
+   TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes;
+   ``fused_raw_dit/bark`` and ``fused_raw_dit/spec`` are kernel 1's two
+   other projections, recorded apart), then the final JSON status line.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -115,6 +138,8 @@ LOGMEL_RTOL = 1e-4    # log-mel kernel bound: rtol 1e-4 plus atol 2e-5
 ORACLE_TOL = 1e-4     # feature contract vs the float64 oracle
 LOGMEL_ORACLE_TOL = 1e-3   # unbounded log-mel vs oracle (test_golden.py)
 FFT64_ORACLE_TOL = 1e-5    # the fft64 tile vs the oracle on its own input
+SPEC_TOL = 2e-4       # spectrogram, inside the 50 dB window (conventions)
+SPEC_WINDOW_DB = 50.0
 PITCH_TOL = (1e-4, 3e-4, 1e-4)   # pov, norm, delta (tests/test_pitch.py)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores
@@ -126,12 +151,16 @@ SPECTRAL = ("fused_raw_dit", "fused_raw", "fused_mfcc", "fused_dit")
 # the tile each spectral kernel's main path runs (phase 4b)
 MAIN_TILES = {"fused_raw_dit": "fft", "fused_raw": "fft64",
               "fused_mfcc": "fft", "fused_dit": "fft64"}
+# fused_raw_dit's other projections: record name -> projection (phase 4c)
+PROJECTIONS = {"fused_raw_dit/bark": "bark", "fused_raw_dit/spec": "spec"}
 REPLACES = {"fused_raw_dit": "mfcc_tpu/ops/kernels/fused_raw_dit.py:555",
             "fused_raw": "mfcc_tpu/ops/kernels/fused_raw.py:335",
             "fused_mfcc": "mfcc_tpu/ops/kernels/fused_mfcc.py:200",
             "fused_dit": "mfcc_tpu/ops/kernels/fused_dit.py:246",
             "fused_nccf": "mfcc_tpu/ops/kernels/fused_nccf.py:249",
-            "fused_viterbi": "mfcc_tpu/ops/kernels/fused_viterbi.py:149"}
+            "fused_viterbi": "mfcc_tpu/ops/kernels/fused_viterbi.py:149",
+            "fused_raw_dit/bark": "mfcc_tpu/ops/kernels/fused_raw_dit.py:555",
+            "fused_raw_dit/spec": "mfcc_tpu/ops/kernels/fused_raw_dit.py:555"}
 
 # sizes of the main paths and of the checks
 BATCH, SECONDS = 64, 10.0
@@ -216,8 +245,10 @@ def _tiles(module) -> dict:
 def _reset_counts(modules) -> None:
     for m in modules:
         m.LAUNCHES = 0
-        for k in getattr(m, "TILE_LAUNCHES", {}):
-            m.TILE_LAUNCHES[k] = 0
+        for counts in (getattr(m, "TILE_LAUNCHES", {}),
+                       getattr(m, "PROJECTION_LAUNCHES", {})):
+            for k in counts:
+                counts[k] = 0
 
 
 def _build_all(_build) -> None:
@@ -392,7 +423,7 @@ def _other_tile(name: str) -> str:
     return "dit" if name == "fused_dit" else "direct"
 
 
-def _on_tile(name: str, x, c, dct: bool, tile: str):
+def _on_tile(name: str, x, c, dct: bool, tile: str, projection: str = "mel"):
     """A call of kernel ``name``'s C entry on ``tile`` (the tile it
     replaced, or the f32 FFT tile, on the same work), outside its
     wrapper's launch counts; -> (out, tile)."""
@@ -402,52 +433,63 @@ def _on_tile(name: str, x, c, dct: bool, tile: str):
         module._lib, "mfcc_" + name, name, x, c, dct,
         c.preemph if raw else None,
         other=fused_dit.DIT_TILE if name == "fused_dit"
-        else _spectral.DIRECT_TILE, tile=tile)
+        else _spectral.direct_tile(projection), tile=tile,
+        projection=projection if name == "fused_raw_dit" else None)
 
 
-def _oracle_out(torch, x, c, dct: bool, raw: bool, rows, lens):
+def _oracle_out(torch, x, c, dct: bool, raw: bool, rows, lens,
+                projection: str = "mel"):
     """The float64 oracle fed the kernel's own input (the raw audio, or the
     audio the host pre-emphasized with pre-emphasis off) for ``rows`` of
-    x: (len(rows), T, n_out) float64, zero past each row's frames."""
+    x, in the projection: (len(rows), T, n_out) float64, zero past each
+    row's frames."""
     from mfcc_tpu_torch import oracle
+    from mfcc_tpu_torch.ops.kernels import _spectral
     c = c.replace(deltas=False) if raw else c.replace(deltas=False,
                                                        preemph=0.0)
-    fn = oracle.mfcc if dct else oracle.log_mel
+    fn = {"bark": oracle.log_bark, "spec": oracle.log_spectrogram}.get(
+        projection, oracle.mfcc if dct else oracle.log_mel)
     xf = x.double().cpu().numpy()
     out = np.zeros((len(rows), c.num_frames(x.shape[1]),
-                    c.n_mfcc if dct else c.n_mels))
+                    _spectral.n_out(c, dct, projection)))
     for k, i in enumerate(rows):
         want = fn(xf[i, : x.shape[1] if lens is None else lens[i]], c)
         out[k, : want.shape[0]] = want
     return torch.from_numpy(out).to(x.device)
 
 
-def _check(torch, dev, tag, got, want, x, c, dct, raw, lens, tile):
+def _check(torch, dev, tag, got, want, x, c, dct, raw, lens, tile,
+           projection: str = "mel"):
     """Kernel vs plain on one case, and, on the fft64 tile or where that
     comparison is over its bound, both against the float64 oracle fed the
     kernel's input (every row, or the first and last of a large batch
     where the plain version holds its bound).  The fft64 tile must be
-    within 1e-5 of the oracle.  A case over the kernel-vs-plain bound
-    passes only where the plain version is over that bound against the
-    oracle and the kernel is not: then the oracle is the yardstick, and
-    both errors are printed.  -> max abs diff to the plain version,
-    counted where the plain version is the yardstick (else 0)."""
-    err, margin = _compare(torch, dev, got, want, c, dct, lens)
+    within 1e-5 of the oracle over every band and bin.  A case over the
+    kernel-vs-plain bound passes only where the plain version is over
+    that bound against the oracle and the kernel is not: then the oracle
+    is the yardstick, and both errors are printed.  -> max abs diff to the
+    plain version, counted where the plain version is the yardstick (else
+    0)."""
+    err, margin = _compare(torch, dev, got, want, c, dct, lens, projection)
     line = (f"{tag}: {tile} tile, shape {tuple(got.shape)}, max abs diff "
             f"{err:.3e} (margin {margin:.3e})")
     if tile == "fft64" or margin < 0:
         rows = list(range(x.shape[0]) if x.shape[0] <= 4 or margin < 0
                     else (0, x.shape[0] - 1))
         sub = None if lens is None else [lens[i] for i in rows]
-        ref = _oracle_out(torch, x, c, dct, raw, rows, sub)
+        ref = _oracle_out(torch, x, c, dct, raw, rows, sub, projection)
         k_err, k_margin = _compare(torch, dev, got[rows].double(), ref, c,
-                                   dct, sub)
+                                   dct, sub, projection)
         p_err, p_margin = _compare(torch, dev, want[rows].double(), ref, c,
-                                   dct, sub)
+                                   dct, sub, projection)
+        k_all = float((_valid_frames(torch, dev, got[rows].double(), c, sub)
+                       - _valid_frames(torch, dev, ref, c, sub)).abs().max())
         line += (f"; vs the float64 oracle on rows {rows}: kernel "
-                 f"{k_err:.3e}, plain {p_err:.3e}")
+                 f"{k_err:.3e}" + (f" (every bin {k_all:.3e})"
+                                   if projection == "spec" else "")
+                 + f", plain {p_err:.3e}")
         if tile == "fft64":
-            assert k_err <= FFT64_ORACLE_TOL, (tag, k_err)
+            assert k_all <= FFT64_ORACLE_TOL, (tag, k_all)
         if margin < 0:
             _log(line + " (the plain version is over the kernel-vs-plain "
                  "bound against the oracle: the oracle is the yardstick)")
@@ -461,19 +503,32 @@ def _noise(rng, shape) -> np.ndarray:
     return (0.3 * rng.standard_normal(shape)).astype(np.float32)
 
 
-def _compare(torch, dev, got, want, c, dct, lens):
+def _valid_frames(torch, dev, t, c, lens):
+    """(B, T, width) -> (frames, width): every frame, or each row's own."""
+    if lens is None:
+        return t.reshape(-1, t.shape[-1])
+    keep = torch.arange(t.shape[1], device=dev)[None, :] < torch.tensor(
+        [c.num_frames(n) for n in lens], device=dev)[:, None]
+    return t[keep]
+
+
+def _compare(torch, dev, got, want, c, dct, lens, projection: str = "mel"):
     """Kernel vs plain: -> (max abs diff, margin to the bound); cepstra
-    unliftered <= 2e-5, log-mel rtol 1e-4 plus atol 2e-5; ragged rows
-    inside their lengths."""
+    unliftered <= 2e-5, log-mel and log bark energies rtol 1e-4 plus atol
+    2e-5, the spectrogram 2e-4 on the bins within 50 dB of their frame's
+    peak in ``want`` (the max abs diff is then over those bins); ragged
+    rows inside their lengths."""
     from mfcc_tpu_torch import oracle
     assert got.shape == want.shape, (got.shape, want.shape)
     assert bool(torch.isfinite(got).all())
-    if lens is not None:
-        keep = torch.arange(got.shape[1], device=dev)[None, :] < \
-            torch.tensor([c.num_frames(n) for n in lens],
-                         device=dev)[:, None]
-        got, want = got[keep], want[keep]
+    got = _valid_frames(torch, dev, got, c, lens)
+    want = _valid_frames(torch, dev, want, c, lens)
     diff = got - want
+    if projection == "spec":
+        window = want > (want.amax(dim=-1, keepdim=True)
+                         - math.log(10.0 ** (SPEC_WINDOW_DB / 10.0)))
+        err = float(diff.abs()[window].max())
+        return err, SPEC_TOL - err
     if dct:
         lift = torch.from_numpy(oracle.lifter_coeffs(
             c.n_mfcc, c.lifter).astype(np.float32)).to(dev)
@@ -723,6 +778,171 @@ def _logmel_main_paths(torch, dev):
     return launches, tiles
 
 
+def _projections_vs_plain(torch, dev, bench) -> dict:
+    """Phase 3d: fused_raw_dit's bark and spec projections against their
+    plain versions; -> {record name: max abs diff over its cases}."""
+    from mfcc_tpu_torch import FeatureConfig
+    from mfcc_tpu_torch.ops.kernels import fused_raw_dit
+    rng = np.random.default_rng(8)
+    base = FeatureConfig().validate()
+    sr, fl, hop = base.sample_rate, base.frame_len, base.hop_len
+    ragged_lens = (sr, sr * 3 // 4 + 123, sr // 4)
+    ragged = np.zeros((3, sr), np.float32)
+    for i, n in enumerate(ragged_lens):
+        ragged[i, :n] = _noise(rng, n)
+    t = np.arange(sr) / sr
+    tones = (0.5 * np.sin(2 * np.pi * 180.0 * t)
+             + 0.3 * np.sin(2 * np.pi * 1200.0 * t)).astype(np.float32)
+    # (case, cfg, audio, lens, tile); tile "direct" runs n_fft 401 for bark
+    # and 768 (admitted by spec_kernel_eligible) for spec
+    cases = [
+        (f"bench {bench.shape[0]} x {bench.shape[1] / sr:g} s", base, bench,
+         None, "fft64"),
+        ("B=3 ragged (frames inside each length)", base, ragged, ragged_lens,
+         "fft64"),
+        ("T=70, not a tile multiple", base, _noise(rng, (2, 69 * hop + fl)),
+         None, "fft64"),
+        ("T=1", base, _noise(rng, (2, fl)), None, "fft64"),
+        ("n_fft 256, 8 kHz", FeatureConfig(sample_rate=8000, n_fft=256),
+         _noise(rng, (2, 8000)), None, "fft64"),
+        ("n_fft 1024", base.replace(n_fft=1024), _noise(rng, (2, sr)), None,
+         "fft64"),
+        ("n_fft 2048, 48 kHz", FeatureConfig(sample_rate=48000, n_fft=2048),
+         _noise(rng, (2, 48000)), None, "fft64"),
+        ("Hann two-tone valley", base.replace(window="hann"), tones[None],
+         None, "fft64"),
+        ("direct tile, n_fft 401 (spec: 768)", base, _noise(rng, (3, sr)),
+         None, "direct"),
+    ]
+    worst = {}
+    for rec, projection in PROJECTIONS.items():
+        worst[rec] = 0.0
+        for case, c, audio, lens, tile in cases:
+            if tile == "direct":
+                c = c.replace(n_fft=401 if projection == "bark" else 768)
+            x = torch.from_numpy(np.ascontiguousarray(audio)).to(dev)
+            before = _tiles(fused_raw_dit)
+            got = fused_raw_dit.fused_features_raw_dit(
+                x, c, apply_dct=False, projection=projection)
+            torch.cuda.synchronize()
+            ran = _tile_ran(fused_raw_dit, before)
+            want = fused_raw_dit.plain_features(x, c, False, projection)
+            torch.cuda.synchronize()
+            assert ran == f"{tile} tile, ", (rec, case, ran, tile)
+            assert got.shape == (x.shape[0], c.num_frames(x.shape[1]),
+                                 c.n_bark if projection == "bark"
+                                 else c.n_bins), (rec, case, got.shape)
+            err = _check(torch, dev, f"[3d projections vs plain] {rec}, "
+                         f"{case}", got, want, x, c, False, True, lens, tile,
+                         projection)
+            worst[rec] = max(worst[rec], err)
+    return worst
+
+
+def _plp_spectrogram_main_paths(torch, dev):
+    """Phase 4c: -> ({record: fused_raw_dit launches in its main path's
+    run}, {record: the tile they ran})."""
+    from mfcc_tpu_torch import FeatureConfig, oracle
+    from mfcc_tpu_torch.models import plp as plp_model
+    from mfcc_tpu_torch.models import spectrogram as spec_model
+    from mfcc_tpu_torch.utils import wav
+    modules = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
+    raw_dit = modules["fused_raw_dit"]
+    speech, _ = wav.read_wav(os.path.join(GOLDEN, "speech2s.wav"))
+    cfg = FeatureConfig().validate()
+    bench = _bench_audio(BATCH, SECONDS, cfg.sample_rate)
+    B, N = bench.shape
+    lens = np.maximum(N - np.arange(B) * (N // (B + 6)), 0).astype(np.int32)
+    lens[-2:] = (cfg.frame_len, cfg.frame_len - 1)   # 1 frame, 0 frames
+    audio = bench.copy()
+    for i, n in enumerate(lens):
+        audio[i, n:] = 0.0
+    x16 = _int16(audio)
+    xf = x16.astype(np.float64) / 32768.0
+    entries = {"bark": (plp_model.plp_batch, oracle.plp, "plp13.npy"),
+               "spec": (spec_model.log_spectrogram_batch,
+                        oracle.log_spectrogram, "spectrogram257.npy")}
+    launches, tiles = {}, {}
+    for rec, projection in PROJECTIONS.items():
+        entry, ref_fn, golden = entries[projection]
+        _reset_counts(modules.values())
+        feat, flens, mask = entry(torch.from_numpy(x16).to(dev),
+                                  torch.from_numpy(lens).to(dev), cfg)
+        torch.cuda.synchronize()
+        counts = {k: m.LAUNCHES for k, m in modules.items()}
+        by_tile = _tiles(raw_dit)
+        by_proj = dict(raw_dit.PROJECTION_LAUNCHES)
+        _log(f"[4c PLP and spectrogram main paths] {entry.__name__} launched "
+             f"{counts}, by tile {by_tile}, by projection {by_proj}")
+        assert counts == {k: int(k == "fused_raw_dit") for k in modules}, \
+            f"{entry.__name__} did not launch fused_raw_dit once, alone"
+        assert by_proj[projection] == 1 == by_tile["fft64"], \
+            f"{entry.__name__} did not run the {projection} projection on fft64"
+        launches[rec], tiles[rec] = by_proj[projection], "fft64"
+        _reset_counts(modules.values())   # the golden WAV, counted apart
+        gold, gold_fl, _ = entry(torch.from_numpy(speech[None]).to(dev),
+                                 torch.tensor([len(speech)], device=dev), cfg)
+        torch.cuda.synchronize()
+        assert raw_dit.PROJECTION_LAUNCHES[projection] == 1, \
+            f"{entry.__name__} on speech2s.wav did not go through the kernel"
+
+        T = cfg.num_frames(N)
+        width = cfg.n_mfcc if projection == "bark" else cfg.n_bins
+        want_fl = np.array([cfg.num_frames(int(n)) for n in lens])
+        f, m = feat.cpu().numpy(), mask.cpu().numpy()
+        assert f.shape == (B, T, width), f.shape
+        assert (flens.cpu().numpy() == want_fl).all(), flens
+        assert (m == (np.arange(T)[None] < want_fl[:, None])).all()
+        assert np.isfinite(f).all() and (f[~m] == 0.0).all()
+        checks = [(f"int16 ragged batch {f.shape}, row {i}", f[i],
+                   ref_fn(xf[i, : lens[i]], cfg)) for i in (0, B // 2, B - 2)]
+        checks.append((f"speech2s.wav vs {golden}", gold[0].cpu().numpy(),
+                       np.load(os.path.join(GOLDEN, golden))))
+        assert int(gold_fl[0]) == checks[-1][2].shape[0]
+        for what, got, want in checks:
+            got = got[: want.shape[0]]
+            if projection == "bark":
+                err = float(np.abs(got - want).max())
+                bound = ORACLE_TOL
+            else:
+                keep = want > (want.max(axis=-1, keepdims=True)
+                               - math.log(10.0 ** (SPEC_WINDOW_DB / 10.0)))
+                err = float(np.abs(got - want)[keep].max())
+                bound = SPEC_TOL
+            _log(f"[4c PLP and spectrogram main paths] {rec}: {what} "
+                 f"({want.shape[0]} frames) vs the float64 reference {err:.3e}"
+                 f" (bound {bound:g}; every bin {np.abs(got - want).max():.3e})")
+            assert err <= bound, (rec, what, err)
+    # configs the reference sends to XLA run the plain chain on the card
+    rng = np.random.default_rng(9)
+    for entry, ref_fn, c in (
+            (spec_model.log_spectrogram_batch, oracle.log_spectrogram,
+             cfg.replace(n_fft=400)),
+            (plp_model.plp_batch, oracle.plp,
+             FeatureConfig(sample_rate=44100, n_fft=2048))):
+        x = _noise(rng, (4, c.sample_rate))
+        _reset_counts(modules.values())
+        feat, _, _ = entry(torch.from_numpy(x).to(dev),
+                           torch.full((4,), c.sample_rate, device=dev), c)
+        torch.cuda.synchronize()
+        counts = {k: m.LAUNCHES for k, m in modules.items()}
+        want = ref_fn(x[0].astype(np.float64), c)
+        got = feat[0].cpu().numpy()
+        if entry is plp_model.plp_batch:
+            err, bound = float(np.abs(got - want).max()), ORACLE_TOL
+        else:
+            keep = want > (want.max(axis=-1, keepdims=True)
+                           - math.log(10.0 ** (SPEC_WINDOW_DB / 10.0)))
+            err, bound = float(np.abs(got - want)[keep].max()), SPEC_TOL
+        _log(f"[4c PLP and spectrogram main paths] {entry.__name__} at "
+             f"{c.sample_rate} Hz, n_fft {c.n_fft} (the reference's XLA "
+             f"route): launched {counts}; row 0 vs the float64 oracle "
+             f"{err:.3e} (bound {bound:g})")
+        assert sum(counts.values()) == 0, counts
+        assert err <= bound, err
+    return launches, tiles
+
+
 def _nccf_inputs(torch, dev, pcfg, audio, lens):
     """Work-rate rows, valid frame counts and the wrapper-side ballast of a
     (B, N) batch, on the card."""
@@ -934,12 +1154,39 @@ def _rfft_stage(torch, y, cfg):
     return lambda: torch.fft.rfft(frames, n=cfg.n_fft)
 
 
+def _plp_tail_ops(torch, log_bark, cfg):
+    """The PLP tail on the kernel's (B, T, n_bark) output: -> (ATen ops it
+    dispatches, views included; host ms to enqueue one call)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from mfcc_tpu_torch.ops import plp as plp_op
+
+    class _CountOps(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with _CountOps() as counter:
+        plp_op.plp_from_log_bark(log_bark, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMING_CALLS):
+        plp_op.plp_from_log_bark(log_bark, cfg)
+    host_ms = (time.perf_counter() - t0) / TIMING_CALLS * 1e3
+    torch.cuda.synchronize()
+    return counter.n, host_ms
+
+
 def _timing(torch, dev, bench, smi) -> dict:
     from mfcc_tpu_torch import FeatureConfig, PitchConfig
     from mfcc_tpu_torch.models import logmel as logmel_model
     from mfcc_tpu_torch.models import mfcc as mfcc_model, pitch as pitch_model
-    from mfcc_tpu_torch.ops import framing, pitch as pitch_op
-    from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_viterbi
+    from mfcc_tpu_torch.models import plp as plp_model
+    from mfcc_tpu_torch.models import spectrogram as spec_model
+    from mfcc_tpu_torch.ops import framing, pitch as pitch_op, plp as plp_op
+    from mfcc_tpu_torch.ops.kernels import (fused_nccf, fused_raw_dit,
+                                            fused_viterbi)
     cfg, pcfg = FeatureConfig(), PitchConfig()
     B, N = bench.shape
     xb = torch.from_numpy(bench).to(dev)
@@ -972,8 +1219,35 @@ def _timing(torch, dev, bench, smi) -> dict:
         else:
             pre = inp if not raw else framing.preemphasize(inp, c)
             runs[f"{name} rfft"] = (_rfft_stage(torch, pre, c), TIMING_CALLS)
+    # fused_raw_dit's bark and spec projections at the default config, with
+    # the direct and the f32 FFT tile on the same work (cuFFT's rfft of the
+    # same frames is "fused_raw_dit rfft" above)
+    for rec, projection in PROJECTIONS.items():
+        runs[rec] = (functools.partial(
+            fused_raw_dit.fused_features_raw_dit, xb, cfg, apply_dct=False,
+            projection=projection), TIMING_CALLS)
+        runs[f"{rec} plain"] = (functools.partial(
+            fused_raw_dit.plain_features, xb, cfg, False, projection),
+            TIMING_CALLS)
+        for tile in ("direct", "fft"):
+            runs[f"{rec} {tile}"] = (functools.partial(
+                _on_tile, "fused_raw_dit", xb, cfg, False, tile, projection),
+                TIMING_CALLS)
+    log_bark = fused_raw_dit.fused_features_raw_dit(xb, cfg, apply_dct=False,
+                                                    projection="bark")
     lm_cfg = configs["fused_raw"]
     runs.update({
+        "plp_batch cuda": (lambda: plp_model.plp_batch(xb, lb, cfg, "cuda"),
+                           TIMING_CALLS),
+        "plp_batch torch": (lambda: plp_model.plp_batch(xb, lb, cfg, "torch"),
+                            TIMING_CALLS),
+        "plp tail": (lambda: plp_op.plp_from_log_bark(log_bark, cfg),
+                     TIMING_CALLS),
+        "log_spectrogram_batch cuda": (lambda: spec_model.log_spectrogram_batch(
+            xb, lb, cfg, "cuda"), TIMING_CALLS),
+        "log_spectrogram_batch torch": (
+            lambda: spec_model.log_spectrogram_batch(xb, lb, cfg, "torch"),
+            TIMING_CALLS),
         "fused_nccf": (lambda: fused_nccf.fused_nccf(xw, ball, pcfg, T=T),
                        TIMING_CALLS),
         "fused_nccf plain": (lambda: fused_nccf.plain_nccf(xw, ball, pcfg, T),
@@ -1018,28 +1292,46 @@ def _timing(torch, dev, bench, smi) -> dict:
             line += (f"; cuFFT rfft of the materialized windowed frames "
                      f"alone {med[f'{name} rfft']:.4f} ms")
         _log(line)
+    for rec in PROJECTIONS:
+        _log(f"[8 timing] {rec}: fft64 tile {med[rec]:.4f} ms against the "
+             f"direct tile on the same work {med[f'{rec} direct']:.4f} ms "
+             f"({med[f'{rec} direct'] / med[rec]:.2f}x) and the f32 fft tile "
+             f"{med[f'{rec} fft']:.4f} ms (f64 costs "
+             f"{med[rec] / med[f'{rec} fft']:.2f}x); cuFFT rfft of the "
+             f"same frames alone {med['fused_raw_dit rfft']:.4f} ms")
+    n_ops, host_ms = _plp_tail_ops(torch, log_bark, cfg)
+    _log(f"[8 timing] PLP tail (plp_from_log_bark on the kernel's {B} x "
+         f"{log_bark.shape[1]} x {log_bark.shape[2]} output): {n_ops} ATen "
+         f"ops, host enqueue {host_ms:.4f} ms a call, device "
+         f"{med['plp tail']:.4f} ms back to back; plp_batch "
+         f"{med['plp_batch cuda']:.4f} ms, of it fused_raw_dit/bark "
+         f"{med['fused_raw_dit/bark']:.4f} ms ({smi})")
     return med
 
 
-def _spectral_work(cfg, apply_dct: bool, raw: bool, B: int, N: int):
+def _spectral_work(cfg, apply_dct: bool, raw: bool, B: int, N: int,
+                   projection: str = "mel"):
     """(operations, bytes) of the spectral function on a (B, N) float32
     batch: per frame a real FFT of n_fft points (2.5 n log2 n), window and
-    in-kernel pre-emphasis, |X|^2, the mel matrix's nonzeros, floors and
-    the accurate log per band, the DCT and the energy column; bytes are the
-    audio read once and the features written once."""
-    from mfcc_tpu_torch.ops import mel
-    n, fl, nm = cfg.n_fft, cfg.frame_len, cfg.n_mels
+    in-kernel pre-emphasis, |X|^2, the projection matrix's nonzeros (mel or
+    bark; none for the spectrogram), floors and the accurate log per band
+    or bin, the DCT and the energy column; bytes are the audio read once
+    and the features written once."""
+    from mfcc_tpu_torch.ops.kernels import _spectral
+    n, fl = cfg.n_fft, cfg.frame_len
+    width = _spectral.n_out(cfg, False, projection)
+    proj = _spectral.projection_matrix(cfg, projection)
+    rel = projection == "mel" and cfg.dynamic_range_db is not None
     per_frame = (2.5 * n * math.log2(n) + fl
                  + (2 * fl if raw and cfg.preemph else 0) + 3 * cfg.n_bins
-                 + 2 * int(np.count_nonzero(mel.mel_matrix(cfg)))
-                 + nm * (ACC_LOG_OPS + 1
-                         + (2 if cfg.dynamic_range_db is not None else 0)))
+                 + (0 if proj is None else 2 * int(np.count_nonzero(proj)))
+                 + width * (ACC_LOG_OPS + 1 + (2 if rel else 0)))
     if apply_dct:
-        per_frame += 2 * nm * cfg.n_mfcc
+        per_frame += 2 * width * cfg.n_mfcc
         if cfg.append_energy:
             per_frame += 2 * fl + ACC_LOG_OPS
     T = cfg.num_frames(N)
-    n_out = cfg.n_mfcc if apply_dct else nm
+    n_out = _spectral.n_out(cfg, apply_dct, projection)
     return B * T * per_frame, 4 * B * N + 4 * B * T * n_out
 
 
@@ -1063,6 +1355,9 @@ def _bounds(bench) -> dict:
                          4 * (B * nw + B) + 2 * 4 * B * T * L)
     # Viterbi: per step and state L additions and L comparisons
     out["fused_viterbi"] = (B * T * 2 * L * L, 4 * B * T * L + 4 * B * T)
+    for rec, projection in PROJECTIONS.items():
+        out[rec] = _spectral_work(FeatureConfig(), False, True, B, N,
+                                  projection)
     return out
 
 
@@ -1083,23 +1378,25 @@ def run(torch, dev) -> list[dict]:
     spectral_errs = _spectral_kernels_vs_plain(torch, dev)  # 3b
     fft_errs = _fft_tile_vs_plain(torch, dev)               # 3b
     _acc_log_bits(torch, dev)                               # 3c
+    proj_errs = _projections_vs_plain(torch, dev, bench)    # 3d
     mfcc_launches, mfcc_tiles = _mfcc_main_path(torch, dev, bench)  # 4
     logmel_launches, logmel_tiles = _logmel_main_paths(torch, dev)  # 4b
+    proj_launches, proj_tiles = _plp_spectrogram_main_paths(torch, dev)  # 4c
     nccf_err = _nccf_kernel_vs_plain(torch, dev, bench)     # 5
     viterbi_bad = _viterbi_kernel_vs_plain(torch, dev)      # 6
     pitch_launches = _pitch_main_path(torch, dev, bench)    # 7
     med = _timing(torch, dev, bench, smi)                   # 8
 
-    src = "mfcc_tpu_torch/ops/kernels/csrc/{}.cu".format
-    launches = {**logmel_launches, **pitch_launches}
+    src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
+    launches = {**logmel_launches, **pitch_launches, **proj_launches}
     launches["fused_raw_dit"] += mfcc_launches
     errs = {**spectral_errs, "fused_nccf": nccf_err,
-            "fused_viterbi": viterbi_bad}
+            "fused_viterbi": viterbi_bad, **proj_errs}
     errs["fused_raw_dit"] = max(errs["fused_raw_dit"], mfcc_err)
     for k, e in fft_errs.items():
         errs[k] = max(errs[k], e)
     # the tile each kernel ran on its main path(s)
-    tiles = {"fused_nccf": "direct", "fused_viterbi": None}
+    tiles = {"fused_nccf": "direct", "fused_viterbi": None, **proj_tiles}
     logmel_tiles["fused_raw_dit"] = {
         t: v + mfcc_tiles[t] for t, v in logmel_tiles["fused_raw_dit"].items()}
     for k, counts in logmel_tiles.items():
@@ -1117,7 +1414,7 @@ def run(torch, dev) -> list[dict]:
             "library_ms": None, "tile": tiles[k],
             "direct_tile_ms": med.get(f"{k} direct", med.get(f"{k} dit")),
             "f32_tile_ms": med.get(f"{k} fft"),
-            "rfft_stage_ms": med.get(f"{k} rfft")})
+            "rfft_stage_ms": med.get(f"{k.split('/')[0]} rfft")})
         _log(f"[9 summary] {k}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB "
              f"-> bound {records[-1]['bound_ms']:.4f} ms by "
              f"{records[-1]['bound_by']}; ran {med[k]:.4f} ms")

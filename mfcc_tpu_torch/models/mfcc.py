@@ -85,11 +85,11 @@ def frame_mask(T: int, flens: torch.Tensor) -> torch.Tensor:
     return t[None, :] < flens[:, None]
 
 
-def features_batch(x: torch.Tensor, sample_lengths: torch.Tensor,
-                   cfg: FeatureConfig, backend: str = "auto",
-                   apply_dct: bool = True):
-    """The batch entry of :func:`mfcc_batch` and ``logmel.log_mel_batch``:
-    int16 cast, centre mode, frame counts, features, mask and zeroing."""
+def run_batch(x: torch.Tensor, sample_lengths: torch.Tensor,
+              cfg: FeatureConfig, features):
+    """The batch entry of every model (MFCC, log-mel, PLP, spectrogram):
+    int16 cast, centre mode, frame counts, then ``features(x, cfg,
+    flens)`` on the valid-mode batch, mask and zeroing."""
     backend_lib.check_config(cfg)
     if x.dtype == torch.int16:
         x = x.to(torch.float32) * (1.0 / 32768.0)
@@ -97,13 +97,20 @@ def features_batch(x: torch.Tensor, sample_lengths: torch.Tensor,
     x, sample_lengths, cfg = framing.resolve_frame_mode(
         x, sample_lengths, cfg)
     flens = frame_lengths(sample_lengths, cfg)
-    feat = _features_from_audio(x, cfg,
-                                lengths=flens if cfg.deltas else None,
-                                backend=backend, apply_dct=apply_dct)
+    feat = features(x, cfg, flens)
     mask = frame_mask(feat.shape[-2], flens)
     feat = torch.where(mask[..., None], feat, torch.zeros((), dtype=feat.dtype,
                                                           device=feat.device))
     return feat, flens, mask
+
+
+def features_batch(x: torch.Tensor, sample_lengths: torch.Tensor,
+                   cfg: FeatureConfig, backend: str = "auto",
+                   apply_dct: bool = True):
+    """The batch entry of :func:`mfcc_batch` and ``logmel.log_mel_batch``."""
+    return run_batch(x, sample_lengths, cfg, lambda xv, c, flens: (
+        _features_from_audio(xv, c, lengths=flens if c.deltas else None,
+                             backend=backend, apply_dct=apply_dct)))
 
 
 def mfcc_batch(x: torch.Tensor, sample_lengths: torch.Tensor,

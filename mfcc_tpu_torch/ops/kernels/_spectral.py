@@ -4,8 +4,13 @@
 
 - :func:`plain_features` — the plain PyTorch spectral chain from audio the
   caller has pre-emphasized: frames, DFT power (direct or radix-2 DIT),
-  mel, floors, accurate log, then the lifter-folded DCT with the optional
-  log energy in c0, or the log-mel energies.
+  then by projection: mel, floors, accurate log and the lifter-folded DCT
+  with the optional log energy in c0, or the log-mel energies ("mel");
+  the floored log of the bark + equal-loudness band energies ("bark",
+  PLP's front half); the floored log of each |X|^2 bin ("spec").
+- :func:`n_out`, :func:`projection_matrix`, :func:`staged_width` — each
+  projection's output width, its (n_bins, width) matrix, and the floats a
+  tile stages per frame for it.
 - :func:`direct_matrices` — the direct tile's float32 constants.
 - :func:`fft_tile`, :func:`fft_smem_bytes`, :func:`fft_matrices`,
   :func:`mel_bands`, :func:`mel_chunks` — the tile rule (which tile a
@@ -31,29 +36,72 @@ import torch
 
 from ... import backend, oracle
 from ...config import FeatureConfig
-from .. import dct as dct_op, framing, mel as mel_op, spectrum
+from .. import (dct as dct_op, framing, mel as mel_op, plp as plp_op,
+                spectrum, xmath)
 from . import _build, routes
 
 BINS_PER_BLOCK = 256   # must match spectral::kBins in csrc/spectral.cuh
 FFT_MIN, FFT_MAX = 64, 4096   # must match spectral::kFftMin / kFftMax
 MEL_CHUNK = 16                # must match spectral::kMelChunk
+# the projections of fused_raw_dit and their codes in its C entry (must
+# match spectral::Projection)
+PROJECTION_CODES = {"mel": 0, "bark": 1, "spec": 2}
 
 
-def n_out(cfg: FeatureConfig, apply_dct: bool) -> int:
+def check_projection(projection: str, apply_dct: bool) -> None:
+    """The reference's asserts (``fused_raw_dit.py:144-146``)."""
+    if projection not in PROJECTION_CODES:
+        raise ValueError(f"projection must be one of "
+                         f"{tuple(PROJECTION_CODES)}, got {projection!r}")
+    if projection != "mel" and apply_dct:
+        raise ValueError("bark/spec projections emit band/bin energies; no "
+                         "DCT stage (pass apply_dct=False)")
+
+
+def n_out(cfg: FeatureConfig, apply_dct: bool,
+          projection: str = "mel") -> int:
+    if projection == "bark":
+        return cfg.n_bark
+    if projection == "spec":
+        return cfg.n_bins
     return cfg.n_mfcc if apply_dct else cfg.n_mels
 
 
+def staged_width(cfg: FeatureConfig, projection: str = "mel") -> int:
+    """Floats a tile stages per frame for the projection
+    (``spectral::staged_width``): the band energies, or none for the
+    spectrogram, whose logs go from |X|^2 straight to the output."""
+    return 0 if projection == "spec" else n_out(cfg, False, projection)
+
+
+def projection_matrix(cfg: FeatureConfig, projection: str = "mel"):
+    """(n_bins, n_mels or n_bark) float64 projection, or None ("spec")."""
+    if projection == "bark":
+        return plp_op.bark_matrix(cfg)
+    return None if projection == "spec" else mel_op.mel_matrix(cfg)
+
+
 def plain_features(y: torch.Tensor, cfg: FeatureConfig, apply_dct: bool,
-                   power=spectrum.power_spectrum) -> torch.Tensor:
-    """(B, N) pre-emphasized audio -> (B, T, n_mfcc or n_mels), plain
-    PyTorch; ``power`` maps frames to |X|^2 in natural bin order."""
+                   power=spectrum.power_spectrum,
+                   projection: str = "mel") -> torch.Tensor:
+    """(B, N) pre-emphasized audio -> (B, T, n_out), plain PyTorch;
+    ``power`` maps frames to |X|^2 in natural bin order."""
     backend.check_config(cfg)
+    check_projection(projection, apply_dct)
     B, N = y.shape
     T = cfg.num_frames(N)
     if T == 0:
-        return y.new_zeros((B, 0, n_out(cfg, apply_dct)), dtype=torch.float32)
+        return y.new_zeros((B, 0, n_out(cfg, apply_dct, projection)),
+                           dtype=torch.float32)
     fr = framing.frames(y.to(torch.float32), cfg)
-    logmel = mel_op.log_mel_energies(power(fr, cfg), cfg)
+    p = power(fr, cfg)
+    if projection == "spec":
+        return xmath.floored_log(p, cfg.log_floor)
+    if projection == "bark":
+        bark = torch.from_numpy(projection_matrix(cfg, "bark")
+                                .astype(np.float32)).to(p.device)
+        return xmath.floored_log(backend.matmul(p, bark), cfg.log_floor)
+    logmel = mel_op.log_mel_energies(p, cfg)
     if not apply_dct:
         return logmel
     feat = dct_op.cepstra(logmel, cfg)
@@ -63,8 +111,12 @@ def plain_features(y: torch.Tensor, cfg: FeatureConfig, apply_dct: bool,
     return feat
 
 
+def _f32(a):
+    return None if a is None else a.astype(np.float32)
+
+
 @functools.lru_cache(maxsize=16)
-def direct_matrices(cfg: FeatureConfig):
+def direct_matrices(cfg: FeatureConfig, projection: str = "mel"):
     """Float32 constants of the direct tile, from the float64 twins.
 
     basis (nbb, frame_len, 512): block k holds the window-folded cos (cols
@@ -72,7 +124,8 @@ def direct_matrices(cfg: FeatureConfig):
       bin n_bins-2;
     last (frame_len, 2): cos and sin of the last bin n_bins-1 (the Nyquist
       for even n_fft), kept out of the blocks so they stay 256 wide;
-    mel (n_bins, n_mels); dct (n_mels, n_mfcc), lifter folded in.
+    the projection (n_bins, n_mels or n_bark; None for "spec");
+    dct (n_mels, n_mfcc), lifter folded in ("mel" only, else None).
     """
     cos_m, sin_m = spectrum.dft_matrices(cfg)
     fl, nb = cfg.frame_len, cfg.n_bins - 1
@@ -84,8 +137,8 @@ def direct_matrices(cfg: FeatureConfig):
         basis[k, :, BINS_PER_BLOCK: BINS_PER_BLOCK + hi - lo] = sin_m[:, lo:hi]
     last = np.stack([cos_m[:, nb], sin_m[:, nb]], axis=1).astype(np.float32)
     return (basis, np.ascontiguousarray(last),
-            mel_op.mel_matrix(cfg).astype(np.float32),
-            dct_op.dct_matrix(cfg).astype(np.float32))
+            _f32(projection_matrix(cfg, projection)),
+            _f32(dct_op.dct_matrix(cfg)) if projection == "mel" else None)
 
 
 # Per FFT tile flavour: bytes per scalar, complex points per wave, pad
@@ -94,7 +147,8 @@ FFT_FLAVOURS = {"fft": (4, 2048, 5, 0), "fft64": (8, 1024, 4, 1)}
 MAX_SMEM = 232448   # the H100's shared memory per block (opt-in), bytes
 
 
-def fft_smem_bytes(cfg: FeatureConfig, tile: str, tm: int) -> int:
+def fft_smem_bytes(cfg: FeatureConfig, tile: str, tm: int,
+                   projection: str = "mel") -> int:
     """Shared-memory bytes of an FFT tile of tm frames for cfg
     (``spectral::fft_smem_bytes`` with ``launch_fft``'s pairs and span)."""
     size, wave, shift, lead = FFT_FLAVOURS[tile]
@@ -102,21 +156,36 @@ def fft_smem_bytes(cfg: FeatureConfig, tile: str, tm: int) -> int:
     pairs = max(1, min(wave // n, tm // 2))
     span = ((tm - 1) * cfg.hop_len + cfg.frame_len + 3) // 4 * 4
     return (size * 4 * pairs * (n + (n >> shift))
-            + 4 * (span + lead + tm * cfg.n_mels + 2 * tm))
+            + 4 * (span + lead + tm * staged_width(cfg, projection) + 2 * tm))
 
 
-def fft_tile(cfg: FeatureConfig, apply_dct: bool) -> str:
+def fft_tile(cfg: FeatureConfig, apply_dct: bool,
+             projection: str = "mel") -> str:
     """The tile the spectral entries run for cfg, decided from the config
     alone:
 
     - "fft", the f32 FFT tile, for cepstra and log-mel bounded to <= 50 dB
       (``routes.use_dit``, the reference's accuracy rule: the floors bound
       the spectral valleys);
-    - "fft64", the tile's float64-front flavour, for other log-mel: in
-      valleys ~120-140 dB deep an f32 FFT rounds up to 6x worse than the
-      direct form, while float64 through |X|^2 holds the oracle;
+    - "fft64", the tile's float64-front flavour, for other log-mel, for
+      PLP's bark bands and for the spectrogram: in valleys ~120-140 dB
+      deep an f32 FFT rounds up to 6x worse than the direct form, while
+      float64 through |X|^2 holds the oracle;
     - "direct", the entry's other tile (the direct tile; the DIT tile in
       ``fused_dit``), where neither FFT flavour applies.
+
+    The bark and spec projections were decided by the valley check of
+    ``tests/test_torch_kernels.py::test_projection_valley_choice`` (the
+    tile's numpy emulation against the float64 oracle, 16 kHz two-tone and
+    bench-like signals, Hamming, Hann and Povey windows).  PLP-13 through
+    the f32 tile is 1.76e-4 (Hann) and 2.72e-4 (Povey) off the oracle on
+    the two tones, over the 2e-5 the f32 tile had to meet and over PLP's
+    1e-4 contract, where the direct f32 form is 8.0e-5 and 5.6e-5 and the
+    float64 front 2.1e-5 and 1.4e-5 (the f32 PLP tail's own error).  The
+    spectrogram through the f32 tile is within 2.6e-5 inside the 50 dB
+    window, but below it 5.1e-2 and 1.3e-2 off (two tones and bench-like,
+    Hann) where the direct form is 3.9e-2 and 4.2e-3, and the float64
+    front is within 2e-6 over every bin.
 
     Both flavours need a power-of-two n_fft from 64 to 4096 that holds the
     frame (``spectral::fft_tile_ok``) and a frame tile of 8 whose shared
@@ -125,8 +194,10 @@ def fft_tile(cfg: FeatureConfig, apply_dct: bool) -> str:
     if not (FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0
             and 1 <= cfg.frame_len <= n):
         return "direct"
-    tile = "fft" if routes.use_dit(cfg, apply_dct) else "fft64"
-    return tile if fft_smem_bytes(cfg, tile, 8) <= MAX_SMEM else "direct"
+    tile = ("fft" if projection == "mel" and routes.use_dit(cfg, apply_dct)
+            else "fft64")
+    return (tile if fft_smem_bytes(cfg, tile, 8, projection) <= MAX_SMEM
+            else "direct")
 
 
 def mel_bands(melw: np.ndarray) -> np.ndarray:
@@ -153,25 +224,32 @@ def mel_chunks(bands: np.ndarray, size: int = MEL_CHUNK):
 
 
 @functools.lru_cache(maxsize=16)
-def fft_matrices(cfg: FeatureConfig, tile: str = "fft"):
-    """Constants of the FFT tile's flavour ``tile``, from the float64 twins.
+def fft_matrices(cfg: FeatureConfig, tile: str = "fft",
+                 projection: str = "mel"):
+    """Constants of the FFT tile's flavour ``tile`` for ``projection``,
+    from the float64 twins.
 
     window (frame_len,): the analysis window (``spectrum.dft_matrices``'
       window, unfolded);
     twiddles (n_fft, 2): cos and sin of 2 pi m / n_fft;
       both float32 for "fft", float64 for "fft64" (rounded to float32 they
       would put an eps32 x peak floor back into every bin);
-    chunk_w (n_chunks, MEL_CHUNK) f32: chunk c's mel weights, zero-padded;
-    chunks (n_chunks, 2), band_chunks (n_mels, 2) int32: :func:`mel_chunks`
-      of the nonzero ranges (:func:`mel_bands`) of the f32 mel matrix;
-    dct (n_mels, n_mfcc) f32, lifter folded in.
+    chunk_w (n_chunks, MEL_CHUNK) f32: chunk c's projection weights,
+      zero-padded;
+    chunks (n_chunks, 2), band_chunks (n_bands, 2) int32: :func:`mel_chunks`
+      of the nonzero ranges (:func:`mel_bands`) of the f32 projection (the
+      mel or the bark matrix: any banded nonnegative matrix);
+    dct (n_mels, n_mfcc) f32, lifter folded in ("mel" only).
+    "spec" has no projection: chunk_w, chunks, band_chunks and dct are None.
     """
     ang = 2.0 * np.pi * np.arange(cfg.n_fft, dtype=np.float64) / cfg.n_fft
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=1)
     win = oracle.window_fn(cfg.window, cfg.frame_len)
     if tile == "fft":
         tw, win = tw.astype(np.float32), win.astype(np.float32)
-    melw = mel_op.mel_matrix(cfg).astype(np.float32)
+    if projection == "spec":
+        return np.ascontiguousarray(win), tw, None, None, None, None
+    melw = projection_matrix(cfg, projection).astype(np.float32)
     chunks, band_chunks = mel_chunks(mel_bands(melw))
     chunk_w = np.zeros((chunks.shape[0], MEL_CHUNK), np.float32)
     for j, (c0, c1) in enumerate(band_chunks):
@@ -179,27 +257,29 @@ def fft_matrices(cfg: FeatureConfig, tile: str = "fft"):
             k0, k1 = chunks[c]
             chunk_w[c, : k1 - k0] = melw[k0:k1, j]
     return (np.ascontiguousarray(win), tw, chunk_w, chunks, band_chunks,
-            dct_op.dct_matrix(cfg).astype(np.float32))
+            _f32(dct_op.dct_matrix(cfg)) if projection == "mel" else None)
 
 
 @functools.lru_cache(maxsize=16)
-def _device_fft_matrices(cfg: FeatureConfig, tile: str,
+def _device_fft_matrices(cfg: FeatureConfig, tile: str, projection: str,
                          device: torch.device):
     """The constants of FFT flavour ``tile`` on one device, uploaded once
-    per (config, flavour, device) and kept."""
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in fft_matrices(cfg, tile))
+    per (config, flavour, projection, device) and kept."""
+    return tuple(None if a is None else torch.from_numpy(a).to(device)
+                 for a in fft_matrices(cfg, tile, projection))
 
 
 def pinned(arrays) -> tuple:
     """numpy constants -> page-locked CPU tensors (cache the result per
-    config; each call then uploads with ``to(device, non_blocking=True)``)."""
-    return tuple(torch.from_numpy(a).pin_memory() for a in arrays)
+    config; each call then uploads with ``to(device, non_blocking=True)``);
+    None stays None."""
+    return tuple(None if a is None else torch.from_numpy(a).pin_memory()
+                 for a in arrays)
 
 
 @functools.lru_cache(maxsize=16)
-def _pinned_direct_matrices(cfg: FeatureConfig):
-    return pinned(direct_matrices(cfg))
+def _pinned_direct_matrices(cfg: FeatureConfig, projection: str):
+    return pinned(direct_matrices(cfg, projection))
 
 
 def check_input(x: torch.Tensor, cfg: FeatureConfig) -> None:
@@ -219,10 +299,18 @@ def check_cuda_input(x: torch.Tensor) -> None:
         raise ValueError("contiguous audio expected")
 
 
-def epilogue_args(cfg: FeatureConfig, apply_dct: bool) -> tuple:
+def epilogue_args(cfg: FeatureConfig, apply_dct: bool,
+                  projection: str = "mel") -> tuple:
     """(n_mels, n_out, log_floor, rel_floor, append_energy, apply_dct) as
     the C entries take them; the energy column is a cepstral feature (c0),
-    so it is gated on apply_dct as the reference gates it."""
+    so it is gated on apply_dct as the reference gates it.  The bark and
+    spec projections take no relative floor and no energy column, as the
+    reference's plan (``fused_raw_dit.py:176-184``); their width goes in
+    n_mels and n_out, and apply_dct goes as given (the C entry refuses it
+    there)."""
+    if projection != "mel":
+        width = n_out(cfg, False, projection)
+        return (width, width, cfg.log_floor, 0.0, 0, int(apply_dct))
     return (cfg.n_mels, n_out(cfg, apply_dct), cfg.log_floor,
             mel_op.relative_floor(cfg),
             int(cfg.append_energy and apply_dct), int(apply_dct))
@@ -237,14 +325,15 @@ DIRECT_ARGTYPES = [_P, _I, _P, _P]
 TILE_CODES = {"fft": 1, "fft64": 2}
 
 
-def entry_argtypes(other, preemph: bool) -> list:
+def entry_argtypes(other, preemph: bool, projection: bool = False) -> list:
     """The C types of a spectral entry: (x, B, N, T, *the other tile's
     constants (``other``), win, tw, chunk_w, chunks, band_chunks, n_chunks,
-    dctm, out, frame_len, hop, n_bins, n_fft, tile[, preemph as a double],
-    *epilogue, stream)."""
+    dctm, out, frame_len, hop, n_bins, n_fft, tile[, preemph as a double]
+    [, projection code], *epilogue, stream)."""
     return ([_P, _I, ctypes.c_longlong, _I, *other, _P, _P, _P, _P, _P, _I,
              _P, _P, _I, _I, _I, _I, _I]
             + ([ctypes.c_double] if preemph else [])
+            + ([_I] if projection else [])
             + EPILOGUE_ARGTYPES + [_P])
 
 
@@ -270,23 +359,36 @@ def raise_on_error(err: int, lib, name: str) -> None:
                            f"{lib.mfcc_error_string(err).decode()} ({err})")
 
 
-def _empty_out(x: torch.Tensor, cfg: FeatureConfig, apply_dct: bool):
+def _empty_out(x: torch.Tensor, cfg: FeatureConfig, apply_dct: bool,
+               projection: str):
     B, N = x.shape
-    return torch.empty((B, cfg.num_frames(N), n_out(cfg, apply_dct)),
+    return torch.empty((B, cfg.num_frames(N),
+                        n_out(cfg, apply_dct, projection)),
                        dtype=torch.float32, device=x.device)
 
 
-def direct_consts(cfg: FeatureConfig, device: torch.device):
+def direct_consts(cfg: FeatureConfig, device: torch.device,
+                  projection: str = "mel"):
     """The direct tile's constants as the entries take them, uploaded from
     pinned memory on the current stream: -> ([basis, nbb, last, melw],
-    dctm)."""
-    basis, last, melw, dctm = (t.to(device, non_blocking=True)
-                               for t in _pinned_direct_matrices(cfg))
+    dctm); melw is the projection (None for "spec"), dctm None but for
+    "mel"."""
+    basis, last, melw, dctm = (
+        None if t is None else t.to(device, non_blocking=True)
+        for t in _pinned_direct_matrices(cfg, projection))
     return [basis, basis.shape[0], last, melw], dctm
 
 
 # an entry's other tile: (its name, its constants, their nulls)
 DIRECT_TILE = ("direct", direct_consts, [None, 0, None, None])
+
+
+def direct_tile(projection: str):
+    """The direct tile with the projection's constants."""
+    if projection == "mel":
+        return DIRECT_TILE
+    return ("direct", functools.partial(direct_consts, projection=projection),
+            DIRECT_TILE[2])
 
 
 def _arg(a):
@@ -296,7 +398,7 @@ def _arg(a):
 def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
                     cfg: FeatureConfig, apply_dct: bool,
                     preemph: float | None, other=DIRECT_TILE,
-                    tile: str | None = None):
+                    tile: str | None = None, projection: str | None = None):
     """Launch a spectral entry on x's device and current stream.
 
     The tile is :func:`fft_tile`'s pick for the config, or ``tile`` where
@@ -307,21 +409,27 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
     (its constants, dctm), their nulls), uploads its constants per call;
     the tile not run gets nulls.  preemph goes to the entries that
     pre-emphasize in the kernel (None for ``fused_mfcc`` and
-    ``fused_dit``).  lib_fn() loads the library (not called for an empty
-    output).  -> (out, the tile's name, or None if nothing was launched).
+    ``fused_dit``).  ``projection`` goes to the entry that takes one
+    (``fused_raw_dit``; None for the others, which project on mel); the
+    other tile's constants must be that projection's
+    (:func:`direct_tile`).  lib_fn() loads the library (not called for an
+    empty output).  -> (out, the tile's name, or None if nothing was
+    launched).
     """
-    out = _empty_out(x, cfg, apply_dct)
+    proj = projection or "mel"
+    out = _empty_out(x, cfg, apply_dct, proj)
     if out.numel() == 0:
         return out, None
     lib = lib_fn()
     other_name, other_consts, other_nulls = other
-    tile = tile or fft_tile(cfg, apply_dct)
+    tile = tile or fft_tile(cfg, apply_dct, proj)
     if tile == "direct":
         tile = other_name
     with torch.cuda.device(x.device):
         if tile in TILE_CODES:
-            *fft, dctm = _device_fft_matrices(cfg, tile, x.device)
-            consts = other_nulls + fft[:5] + [fft[3].shape[0]]
+            *fft, dctm = _device_fft_matrices(cfg, tile, proj, x.device)
+            n_chunks = 0 if fft[3] is None else fft[3].shape[0]
+            consts = other_nulls + fft[:5] + [n_chunks]
         else:
             lead, dctm = other_consts(cfg, x.device)
             consts = lead + [None] * 5 + [0]
@@ -329,8 +437,10 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
                 cfg.hop_len, cfg.n_bins, cfg.n_fft, TILE_CODES.get(tile, 0)]
         if preemph is not None:
             args.append(preemph)
+        if projection is not None:
+            args.append(PROJECTION_CODES[projection])
         err = getattr(lib, entry)(
-            *map(_arg, args), *epilogue_args(cfg, apply_dct),
+            *map(_arg, args), *epilogue_args(cfg, apply_dct, proj),
             torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error(err, lib, name)
     return out, tile

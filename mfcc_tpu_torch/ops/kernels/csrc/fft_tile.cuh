@@ -5,7 +5,8 @@
 // power-of-two n_fft from 64 to 4096 that holds the frame:
 // - float ("fft"), for cepstra and log-mel bounded to <= 50 dB, where the
 //   floors bound the spectral valleys;
-// - double ("fft64", the float64 front), for unbounded log-mel.  In valleys
+// - double ("fft64", the float64 front), for unbounded log-mel, PLP's bark
+//   bands and the spectrogram (fused_raw_dit.cu's projections).  In valleys
 //   120-140 dB under the peak (Hann or Povey windows) an f32 FFT carries
 //   rounding of order eps32 x the frame's peak into every bin: 2.7-6x the
 //   direct form's error, ~1e-2 off the float64 oracle.  With pre-emphasis,
@@ -19,7 +20,11 @@
 // What it computes: exactly what the direct tile computes, the (B, T,
 // n_out) cepstra or log-mel energies of raw audio (pre-emphasis in the
 // kernel) or of audio the host pre-emphasized, by a radix FFT instead of a
-// dense DFT.
+// dense DFT; in fused_raw_dit.cu also PLP's log bark energies (the same
+// sparse band sums over the bark + equal-loudness filterbank: ~1,000
+// nonzeros at 16 kHz against the mel matrix's ~500) and the log
+// spectrogram (no band stage: each bin's floored log goes from the split
+// straight to the output, in natural bin order).
 //
 // What bounds the function on the card (64 x 10 s batches, 67 TFLOP/s
 // fp32, 3.35 TB/s HBM): at 16 kHz MFCC-13 the audio in and features out
@@ -81,6 +86,17 @@
 //   live in the exchange buffer the spectrum does not occupy.
 // - The unwindowed frame energy (in S) and the epilogue (floors, accurate
 //   log, DCT or log-mel) are those of the direct tile (spectral.cuh).
+// - The spectrogram (bark and mel share the path above) stages no band
+//   energies: the split rounds each |X|^2 to f32 and writes its floored
+//   accurate log to the output, n_fft/2 + 1 consecutive floats a frame,
+//   so a block's stores coalesce and the frame tile is not cut for an
+//   (TM, n_bins) buffer.  The frame energy, which nothing reads there, is
+//   skipped.  (Staging (TM, n_bins) and running finish() is the other
+//   epilogue, TM 16 at 16 kHz; ablate_fft_tile.py times it as
+//   "spec_staged": 18-20 % slower on the H100.)  The spectrogram is a
+//   compile-time flavour of the tile (Spec), which only fused_raw_dit.cu
+//   instantiates: decided at run time, its branches cost the mel paths
+//   2-4 % on the H100 (ablate_fft_tile.py's "mel_runtime_branch").
 // - The frame tile TM (64, 32, 16 or 8 frames of one row) is the largest
 //   whose shared memory lets kBlocks blocks share an SM; a frame past the
 //   row's last is computed from what the span holds and not written,
@@ -340,17 +356,17 @@ __device__ __forceinline__ void fft_first_pass(const float* z, const S* win,
 }
 
 // Shared-memory bytes of an FFT tile of TM frames: the four exchange
-// planes, then in floats the span (with its lead), the (TM, n_mels) mel
-// energies and two (TM) vectors.
+// planes, then in floats the span (with its lead), the (TM, staged) band
+// energies (staged_width) and two (TM) vectors.
 template <typename S>
 inline size_t fft_smem_bytes(int TM, int pairs, int nfp, int span,
-                             int n_mels) {
+                             int staged) {
   return sizeof(S) * 4 * static_cast<size_t>(pairs) * nfp +
          sizeof(float) * (span + FftFlavour<S>::kSpanLead +
-                          static_cast<size_t>(TM) * n_mels + 2 * TM);
+                          static_cast<size_t>(TM) * staged + 2 * TM);
 }
 
-template <int TM, typename S>
+template <int TM, typename S, bool Spec = false>
 __device__ __forceinline__ void fft_features(const FftParams<S>& p) {
   static_assert(TM >= 8 && kThreads % TM == 0, "frame tile");
   constexpr int R = FftFlavour<S>::kRadix, LR = log2_radix(R);
@@ -364,8 +380,9 @@ __device__ __forceinline__ void fft_features(const FftParams<S>& p) {
   float* z = reinterpret_cast<float*>(re0 + 4 * wave) +
              FftFlavour<S>::kSpanLead;
   float* mel = z + p.span;               // (TM, n_mels) mel energies, logs
-  float* rowv = mel + TM * p.e.n_mels;   // (TM) floors (epilogue)
+  float* rowv = mel + TM * staged_width(p.e);  // (TM) floors (epilogue)
   float* en = rowv + TM;                 // (TM) frame energy
+  constexpr bool spec = Spec;  // the spectrogram: no band stage
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x / p.tiles;
@@ -379,7 +396,7 @@ __device__ __forceinline__ void fft_features(const FftParams<S>& p) {
   __syncthreads();
 
   // ---- unwindowed frame energy: G threads per frame, shuffle sum ----
-  {
+  if (!spec) {
     constexpr int G = kThreads / TM;
     const int m = tid / G, l = tid % G;
     const float* zm = z + m * p.hop;
@@ -427,7 +444,8 @@ __device__ __forceinline__ void fft_features(const FftParams<S>& p) {
     }
 
     // ---- split the two real spectra: |X_a[k]|^2 -> re[k], |X_b[k]|^2 ->
-    // im[k], k = 0..N/2, each rounded to f32 where the mel reads it ----
+    // im[k], k = 0..N/2, each rounded to f32 where the mel reads it (the
+    // spectrogram: logged and written out instead) ----
     S* zr = odd ? re1 : re0;
     S* zi = odd ? im1 : im0;
     for (int i = tid; i < p.pairs * (half + 1); i += kThreads) {
@@ -437,10 +455,19 @@ __device__ __forceinline__ void fft_features(const FftParams<S>& p) {
       const S a = zr[pk], bi = zi[pk], c = zr[pn], d = zi[pn];
       const S xr = S(0.5) * (a + c), xi = S(0.5) * (bi - d);
       const S yr = S(0.5) * (bi + d), yi = S(0.5) * (c - a);
-      zr[pk] = static_cast<float>(xr * xr + xi * xi);
-      zi[pk] = static_cast<float>(yr * yr + yi * yi);
+      const float pa = static_cast<float>(xr * xr + xi * xi);
+      const float pb = static_cast<float>(yr * yr + yi * yi);
+      if (spec) {
+        const int m = 2 * (w0 + f);
+        spec_log(p.e, b, t0 + m, k, pa);
+        spec_log(p.e, b, t0 + m + 1, k, pb);
+      } else {
+        zr[pk] = pa;
+        zi[pk] = pb;
+      }
     }
     __syncthreads();
+    if (spec) continue;
 
     // ---- sparse mel in f32: chunk sums over ascending bins, then band
     // sums of the chunks in order (part: the free exchange buffers) ----
@@ -476,6 +503,7 @@ __device__ __forceinline__ void fft_features(const FftParams<S>& p) {
     }
     __syncthreads();
   }
+  if (spec) return;  // the split wrote the spectrogram
   finish<TM>(p.e, mel, rowv, en, b, t0);
 }
 
@@ -500,7 +528,7 @@ inline cudaError_t launch_fft(FftParams<S> p, int B,
     int pairs = FftFlavour<S>::kWavePoints >> p.log2n;
     pairs = pairs < 1 ? 1 : (pairs > TM / 2 ? TM / 2 : pairs);
     const int span = ((TM - 1) * p.hop + p.frame_len + 3) / 4 * 4;
-    bytes = fft_smem_bytes<S>(TM, pairs, nfp, span, p.e.n_mels);
+    bytes = fft_smem_bytes<S>(TM, pairs, nfp, span, staged_width(p.e));
     if (bytes <= fft_smem_target<S>() ||
         (i == 3 && bytes <= static_cast<size_t>(max_smem))) {
       pick = i;
@@ -535,30 +563,44 @@ struct SpectralArgs {
   const float* last;   // direct tile: (frame_len, 2)
   const void* win;           // FFT tile: (frame_len) float, double (fft64)
   const void* tw;            // FFT tile: (n_fft, 2) float, double (fft64)
-  const float* chunk_w;      // FFT tile: (n_chunks, kMelChunk)
-  const int* chunks;         // FFT tile: (n_chunks, 2)
-  const int* band_chunks;    // FFT tile: (n_mels, 2)
+  const float* chunk_w;      // FFT tile: (n_chunks, kMelChunk); not spec
+  const int* chunks;         // FFT tile: (n_chunks, 2); not spec
+  const int* band_chunks;    // FFT tile: (n_mels, 2); not spec
   int n_chunks;
   Epilogue e;                // melw: the direct tile's (n_bins, n_mels)
   int frame_len, hop, n_bins, n_fft, tile;
   double preemph;            // 0 where the host pre-emphasized
 };
 
+// The checks of launch_spectral and launch_fft_tile on the projection: the
+// spectrogram writes n_bins logs a frame.
+inline bool projection_ok(const SpectralArgs& a) {
+  return a.e.projection != kSpecProjection || a.e.n_out == a.n_bins;
+}
+
 // An FFT tile (kFftTile or kFft64Tile), refused on a shape it does not take
-// or without its constants.  fft32[i] and fft64[i] are the entry's kernels
-// of each flavour at TM = 64 >> i.
-inline cudaError_t launch_fft_tile(const SpectralArgs& a,
-                                   const KernelFn<FftParams<float>> fft32[4],
-                                   const KernelFn<FftParams<double>> fft64[4],
-                                   cudaStream_t stream) {
+// or without its constants (the band chunks, but for the spectrogram).
+// fft32[i] and fft64[i] are the entry's kernels of each flavour at TM =
+// 64 >> i, spec32 and spec64 its spectrogram kernels (fft_features<TM, S,
+// true>; null in an entry without the spec projection, which then refuses
+// it).
+inline cudaError_t launch_fft_tile(
+    const SpectralArgs& a, const KernelFn<FftParams<float>> fft32[4],
+    const KernelFn<FftParams<double>> fft64[4], cudaStream_t stream,
+    const KernelFn<FftParams<float>>* spec32 = nullptr,
+    const KernelFn<FftParams<double>>* spec64 = nullptr) {
+  const bool bands = a.e.projection != kSpecProjection;
+  if (!bands && (spec32 == nullptr || spec64 == nullptr))
+    return cudaErrorInvalidValue;
   // the chunk sums of a wave must fit in the free exchange buffers
   if (a.B <= 0 || a.frame_len <= 0 || a.hop <= 0 ||
       a.n_bins != a.n_fft / 2 + 1 || !epilogue_ok(a.e) ||
-      (a.tile != kFftTile && a.tile != kFft64Tile) ||
+      !projection_ok(a) || (a.tile != kFftTile && a.tile != kFft64Tile) ||
       !fft_tile_ok(a.n_fft, a.frame_len) || a.win == nullptr ||
-      a.tw == nullptr || a.chunk_w == nullptr || a.chunks == nullptr ||
-      a.band_chunks == nullptr || a.n_chunks < 0 ||
-      a.n_chunks > fft_pad<float>(a.n_fft))
+      a.tw == nullptr ||
+      (bands && (a.chunk_w == nullptr || a.chunks == nullptr ||
+                 a.band_chunks == nullptr)) ||
+      a.n_chunks < 0 || a.n_chunks > fft_pad<float>(a.n_fft))
     return cudaErrorInvalidValue;
   int log2n = 0;
   while ((1 << log2n) < a.n_fft) ++log2n;
@@ -571,26 +613,29 @@ inline cudaError_t launch_fft_tile(const SpectralArgs& a,
                              chunks, band_chunks, a.e, a.N, 0, a.frame_len,
                              a.hop, log2n, 0, 0, a.n_chunks,
                              static_cast<float>(a.preemph)};
-    return launch_fft<float>(p, a.B, fft32, stream);
+    return launch_fft<float>(p, a.B, bands ? fft32 : spec32, stream);
   }
   const FftParams<double> p{a.x, static_cast<const double*>(a.win),
                             static_cast<const double2*>(a.tw), chunk_w,
                             chunks, band_chunks, a.e, a.N, 0, a.frame_len,
                             a.hop, log2n, 0, 0, a.n_chunks, a.preemph};
-  return launch_fft<double>(p, a.B, fft64, stream);
+  return launch_fft<double>(p, a.B, bands ? fft64 : spec64, stream);
 }
 
 // The tile the host picked: a flavour of the FFT tile, or the direct tile
 // (its constants must be given).
-inline cudaError_t launch_spectral(const SpectralArgs& a,
-                                   const KernelFn<FftParams<float>> fft32[4],
-                                   const KernelFn<FftParams<double>> fft64[4],
-                                   const KernelFn<DirectParams> direct[4],
-                                   cudaStream_t stream) {
-  if (a.tile != kOtherTile) return launch_fft_tile(a, fft32, fft64, stream);
+inline cudaError_t launch_spectral(
+    const SpectralArgs& a, const KernelFn<FftParams<float>> fft32[4],
+    const KernelFn<FftParams<double>> fft64[4],
+    const KernelFn<DirectParams> direct[4], cudaStream_t stream,
+    const KernelFn<FftParams<float>>* spec32 = nullptr,
+    const KernelFn<FftParams<double>>* spec64 = nullptr) {
+  if (a.tile != kOtherTile)
+    return launch_fft_tile(a, fft32, fft64, stream, spec32, spec64);
   if (a.B <= 0 || a.frame_len <= 0 || a.hop <= 0 ||
       a.n_bins != a.n_fft / 2 + 1 || !epilogue_ok(a.e) ||
-      a.basis == nullptr || a.last == nullptr || a.e.melw == nullptr)
+      !projection_ok(a) || a.basis == nullptr || a.last == nullptr ||
+      (a.e.melw == nullptr && a.e.projection != kSpecProjection))
     return cudaErrorInvalidValue;
   const DirectParams p{a.x, a.basis, a.last, a.e, a.N, 0, a.nbb, a.frame_len,
                        a.hop, a.n_bins, 0, static_cast<float>(a.preemph)};

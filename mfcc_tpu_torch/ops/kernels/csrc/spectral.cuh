@@ -20,6 +20,11 @@
 //   relative floors, accurate log, then the lifter-folded DCT (cepstra,
 //   optional log energy in c0) or the log-mel energies, written to (B, T,
 //   n_out).
+// - Projection: what the band stage projects |X|^2 on.  "mel" and "bark"
+//   (fused_raw_dit.cu's PLP front half: the bark + equal-loudness
+//   filterbank, no relative floor, no DCT) differ only in the host's
+//   constants; "spec" has no projection, and spec_log writes the floored
+//   log of each |X|^2 bin straight to the output in natural bin order.
 // - launch_tiles: picks the largest frame tile whose shared memory fits.
 //
 // Build without --use_fast_math (it makes division approximate).
@@ -58,16 +63,40 @@ __device__ __forceinline__ float acc_log(float x) {
   return __fadd_rn(__fmul_rn(static_cast<float>(e), kLn2), __fmul_rn(r, p));
 }
 
+// The projection of the band stage (the host passes fused_raw_dit.cu an
+// int; the other entries project on mel).
+enum Projection {
+  kMelProjection = 0,
+  kBarkProjection = 1,
+  kSpecProjection = 2
+};
+
 // What the epilogue needs: the projection, the floors and the output.
 struct Epilogue {
-  const float* melw;  // (n_bins, n_mels)
+  const float* melw;  // (n_bins, n_mels): mel or bark; null for spec
   const float* dctm;  // (n_mels, n_mfcc) lifter-folded DCT-II
   float* out;         // (B, T, n_out)
-  int T, n_mels, n_out;
+  int T, n_mels, n_out;  // n_mels: the bands (n_bark for bark, n_bins spec)
   float log_floor, rel_floor;
-  int apply_dct;      // 0: write the log-mel energies (n_out == n_mels)
+  int apply_dct;      // 0: write the log band energies (n_out == n_mels)
   int append_energy;  // log frame energy in c0 (only with apply_dct)
+  int projection = kMelProjection;
 };
+
+// Floats a tile stages per frame for the band energies: none for the
+// spectrogram, whose logs go from |X|^2 straight to the output.
+__host__ __device__ inline int staged_width(const Epilogue& e) {
+  return e.projection == kSpecProjection ? 0 : e.n_mels;
+}
+
+// The spectrogram's output: bin k of frame t (of the row's T) of row b is
+// the floored accurate log of its power v, as finish() logs a band.
+__device__ __forceinline__ void spec_log(const Epilogue& e, int b, int t,
+                                         int k, float v) {
+  if (t < e.T)
+    e.out[(static_cast<long long>(b) * e.T + t) * e.n_out + k] =
+        acc_log(fmaxf(v, e.log_floor));
+}
 
 // Shared-memory layout of a tile of TM frames: a buffer of buf_floats(TM)
 // floats (a basis chunk, later one bin block's power), the audio span, the
@@ -150,7 +179,9 @@ __device__ __forceinline__ void finish(const Epilogue& p, float* mel,
 // FR broadcast samples and four conflict-free float4 basis vectors from
 // shared memory and runs 16*FR FMAs.  The span is staged once; the
 // window-folded bases stream from L2 in 16-row chunks.  Bins stay in
-// natural order, so the plain mel matrix serves.
+// natural order, so the plain mel (or bark) matrix serves, and the
+// spectrogram logs each block's power as it leaves the block (no identity
+// projection, no n_bins^2 MACs).
 // ---------------------------------------------------------------------------
 
 struct DirectParams {
@@ -170,8 +201,9 @@ __device__ __forceinline__ void direct_features(const DirectParams& p) {
   float* buf = smem;
   float* z = buf + buf_floats(TM);     // the (pre-emphasized) span
   float* mel = z + p.span;              // (TM, n_mels) mel energies, logs
-  float* rowv = mel + TM * p.e.n_mels;  // (TM) last-bin power, then floor
+  float* rowv = mel + TM * staged_width(p.e);  // (TM) last-bin power
   float* en = rowv + TM;                // (TM) frame energy
+  const bool spec = p.e.projection == kSpecProjection;
 
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
   const int b = blockIdx.x / p.tiles;
@@ -180,7 +212,7 @@ __device__ __forceinline__ void direct_features(const DirectParams& p) {
 
   stage_span(xb, p.N, static_cast<long long>(t0) * p.hop, p.span, p.preemph,
              z);
-  for (int i = tid; i < TM * p.e.n_mels; i += kThreads) mel[i] = 0.0f;
+  for (int i = tid; i < TM * staged_width(p.e); i += kThreads) mel[i] = 0.0f;
   __syncthreads();
 
   const int main_bins = p.n_bins - 1;
@@ -244,9 +276,17 @@ __device__ __forceinline__ void direct_features(const DirectParams& p) {
       pw[m * (kBins / 4) + 32 + tx] = make_float4(pv[4], pv[5], pv[6], pv[7]);
     }
     __syncthreads();
+    const int nb = min(kBins, main_bins - bb * kBins);
+    if (spec) {  // ---- spectrogram: this block's bins, logged ----
+      for (int o = tid; o < TM * nb; o += kThreads) {
+        const int m = o / nb, c = o - m * nb;
+        spec_log(p.e, b, t0 + m, bb * kBins + c, buf[m * kBins + c]);
+      }
+      __syncthreads();
+      continue;
+    }
 
     // ---- mel projection of this bin block, accumulated over blocks ----
-    const int nb = min(kBins, main_bins - bb * kBins);
     const float* w0 = p.e.melw + static_cast<long long>(bb) * kBins * p.e.n_mels;
     for (int o = tid; o < TM * p.e.n_mels; o += kThreads) {
       const int m = o / p.e.n_mels, j = o - m * p.e.n_mels;
@@ -285,6 +325,11 @@ __device__ __forceinline__ void direct_features(const DirectParams& p) {
     }
   }
   __syncthreads();
+  if (spec) {  // the last bin
+    for (int m = tid; m < TM; m += kThreads)
+      spec_log(p.e, b, t0 + m, main_bins, rowv[m]);
+    return;
+  }
   for (int o = tid; o < TM * p.e.n_mels; o += kThreads) {
     const int m = o / p.e.n_mels, j = o - m * p.e.n_mels;
     mel[o] = fmaf(rowv[m],
@@ -318,8 +363,8 @@ cudaError_t launch_tiles(Params p, int B, const KernelFn<Params> kernels[4],
     const int FR = 8 >> i, TM = 8 * FR;
     p.span = span_of(FR);
     const size_t bytes = sizeof(float) *
-        (static_cast<size_t>(buf_floats(TM)) + p.span + TM * p.e.n_mels +
-         2 * TM);
+        (static_cast<size_t>(buf_floats(TM)) + p.span +
+         TM * staged_width(p.e) + 2 * TM);
     if (bytes > static_cast<size_t>(max_smem)) continue;
     const void* fn = reinterpret_cast<const void*>(kernels[i]);
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -337,11 +382,16 @@ cudaError_t launch_tiles(Params p, int B, const KernelFn<Params> kernels[4],
   return cudaErrorInvalidConfiguration;  // not even an 8-frame tile fits
 }
 
-// The checks every spectral C entry makes on the epilogue's arguments.
+// The checks every spectral C entry makes on the epilogue's arguments: a
+// projection other than mel has no DCT (the reference asserts it) and no
+// relative floor.
 inline bool epilogue_ok(const Epilogue& e) {
   return e.T > 0 && e.n_mels > 0 && e.n_out > 0 &&
          (e.apply_dct || e.n_out == e.n_mels) &&
-         (e.apply_dct || !e.append_energy);
+         (e.apply_dct || !e.append_energy) &&
+         e.projection >= kMelProjection && e.projection <= kSpecProjection &&
+         (e.projection == kMelProjection ||
+          (!e.apply_dct && e.rel_floor == 0.0f));
 }
 
 // Direct-form launch of fused_raw_dit.cu, fused_raw.cu and fused_mfcc.cu

@@ -29,6 +29,11 @@ in ``fused_dit`` its radix-2 DIT tile.  So on the card:
   unbounded log-mel runs the float64-front tile on that audio, whose f32
   rounding it keeps (the DIT form's extra valley rounding it does not).
 
+PLP and the log spectrogram reach ``fused_raw_dit`` alone, with
+``projection="bark"`` where ``raw_dit_kernel_eligible`` holds and
+``projection="spec"`` where ``spec_kernel_eligible`` holds; otherwise
+they run the plain chain on the card, as the reference runs XLA.
+
 Routing on the H100's own terms (pre-emphasis in the kernel, in float64,
 for every unbounded log-mel) is an A/B left open in ROADMAP.
 """
@@ -54,6 +59,14 @@ def raw_dit_kernel_eligible(cfg: FeatureConfig) -> bool:
     rpp = hop_h * P // LANE
     le = (cfg.frame_len + 1) // 2
     return (P - 1) * hop_h + le - rpp * LANE <= rpp * LANE
+
+
+def spec_kernel_eligible(cfg: FeatureConfig) -> bool:
+    """Twin of ``mfcc_tpu/ops/kernels/fused_raw_dit.py:125``: the
+    spectrogram's kernel route also needs n_fft / 2 lane-aligned (n_fft
+    512, 768, 1024 yes; 400 no).  PLP's needs ``raw_dit_kernel_eligible``
+    alone."""
+    return raw_dit_kernel_eligible(cfg) and (cfg.n_fft // 2) % LANE == 0
 
 
 def raw_kernel_eligible(cfg: FeatureConfig) -> bool:

@@ -1,15 +1,16 @@
-"""Float64 NumPy oracle: the MFCC, log-mel and pitch slices of
-``mfcc_tpu.oracle``.
+"""Float64 NumPy oracle: the MFCC, log-mel, spectrogram, PLP and pitch
+slices of ``mfcc_tpu.oracle``.
 
-The port's source of every constant matrix (DFT bases, mel filterbank,
-DCT and lifter) and its accuracy reference on the card.  It is a copy,
-not an import, because the reference module imports jax through its
-package; ``tests/test_torch_ops.py`` holds every function here equal to
-its reference twin.  Conventions (framing, HTK pre-emphasis x[-1] :=
-x[0], symmetric windows, |X|^2 without scaling, continuous mel triangles,
-orthonormal DCT-II, regression deltas, the NCCF + Viterbi pitch) are
-documented on the reference; ``tests/test_torch_pitch.py`` holds the pitch
-twins equal to theirs.
+The port's source of every constant matrix (DFT bases, mel and bark
+filterbanks, DCT, lifter, autocorrelation IDFT) and its accuracy reference
+on the card.  It is a copy, not an import, because the reference module
+imports jax through its package; ``tests/test_torch_ops.py`` holds every
+function here equal to its reference twin.  Conventions (framing, HTK
+pre-emphasis x[-1] := x[0], symmetric windows, |X|^2 without scaling,
+continuous mel triangles, orthonormal DCT-II, regression deltas,
+Hermansky's PLP, the NCCF + Viterbi pitch) are documented on the
+reference; ``tests/test_torch_pitch.py`` and ``tests/test_torch_plp.py``
+hold the pitch and PLP twins equal to theirs.
 """
 
 from __future__ import annotations
@@ -213,13 +214,17 @@ def deltas(feat: np.ndarray, window: int = 2) -> np.ndarray:
 # End-to-end
 # --------------------------------------------------------------------------
 
-def mfcc(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
-    """Full float64 MFCC pipeline: (n_samples,) -> (T, n_feats)."""
+def _frames_undithered(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
     if cfg.dither > 0.0:
         raise NotImplementedError(
             "dither is not ported yet (ROADMAP.md, modules to port, item 2: "
             "ops/dither)")
-    frames = frame_signal(x, cfg)
+    return frame_signal(x, cfg)
+
+
+def mfcc(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """Full float64 MFCC pipeline: (n_samples,) -> (T, n_feats)."""
+    frames = _frames_undithered(x, cfg)
     if frames.shape[0] == 0:
         return np.zeros((0, cfg.n_feats), dtype=np.float64)
     power = power_spectrum(frames, cfg)
@@ -236,15 +241,151 @@ def mfcc(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
 
 def log_mel(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
     """Log-mel variant (DCT skipped): (n_samples,) -> (T, n_mels[*3])."""
-    if cfg.dither > 0.0:
-        raise NotImplementedError(
-            "dither is not ported yet (ROADMAP.md, modules to port, item 2: "
-            "ops/dither)")
-    frames = frame_signal(x, cfg)
+    frames = _frames_undithered(x, cfg)
     if frames.shape[0] == 0:
         n = cfg.n_mels * (3 if cfg.deltas else 1)
         return np.zeros((0, n), dtype=np.float64)
     feat = log_mel_energies(power_spectrum(frames, cfg), cfg)
+    if cfg.deltas:
+        d1 = deltas(feat, cfg.delta_window)
+        d2 = deltas(d1, cfg.delta_window)
+        feat = np.concatenate([feat, d1, d2], axis=-1)
+    return feat
+
+
+def log_spectrogram(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """Log-power-spectrogram twin of models/spectrogram.py:
+    (n_samples,) -> (T, n_bins) floored log power spectra."""
+    frames = _frames_undithered(x, cfg)
+    if frames.shape[0] == 0:
+        return np.zeros((0, cfg.n_bins), dtype=np.float64)
+    return np.log(np.maximum(power_spectrum(frames, cfg), cfg.log_floor))
+
+
+# --------------------------------------------------------------------------
+# PLP (Hermansky 1990) — conventions documented in docs/conventions.md
+# --------------------------------------------------------------------------
+
+def hz_to_bark(f):
+    """Hermansky's bark warp: 6 * asinh(f / 600)."""
+    f = np.asarray(f, np.float64)
+    return 6.0 * np.arcsinh(f / 600.0)
+
+
+def equal_loudness(f):
+    """40 dB equal-loudness weight (Hermansky eq. 4; Makhoul & Cosell)."""
+    f2 = np.asarray(f, np.float64) ** 2
+    return ((f2 + 56.8e6) * f2 * f2) / ((f2 + 6.3e6) ** 2 * (f2 + 0.38e9))
+
+
+def bark_filterbank(cfg: FeatureConfig) -> np.ndarray:
+    """(n_bark, n_bins) critical-band filterbank, float64, with the
+    equal-loudness curve folded into each filter.  Hermansky's piecewise
+    masking curve around each center c (d = bark(f) - c):
+
+        10^{ 2.5*(d+0.5)}  for -1.3 <= d <= -0.5
+        1                  for -0.5 <  d <   0.5
+        10^{-(d-0.5)}      for  0.5 <= d <=  2.5
+
+    Centers are n_bark points evenly spaced in bark strictly inside
+    (bark(fmin), bark(fmax)) — the same edge convention as the mel bank.
+    """
+    n_bins = cfg.n_bins
+    bin_hz = np.arange(n_bins, dtype=np.float64) * cfg.sample_rate / cfg.n_fft
+    z = hz_to_bark(bin_hz)
+    centers = np.linspace(hz_to_bark(cfg.fmin), hz_to_bark(cfg.fmax_hz),
+                          cfg.n_bark + 2)[1:-1]
+    d = z[None, :] - centers[:, None]
+    lo = 10.0 ** (2.5 * (d + 0.5))
+    hi = 10.0 ** (-(d - 0.5))
+    fb = np.where(d < -0.5, lo, np.where(d > 0.5, hi, 1.0))
+    fb = np.where((d < -1.3) | (d > 2.5), 0.0, fb)
+    return fb * equal_loudness(bin_hz)[None, :]
+
+
+def autocorr_idft_matrix(n_bands: int, order: int) -> np.ndarray:
+    """(n_bands, order+1) matrix A with r = phi @ A: the inverse DFT of a
+    real even spectrum sampled at ``n_bands`` points (duplicated edge
+    bands included by the caller), giving autocorrelation lags 0..order:
+
+        r[q] = (1/(2(M-1))) * (phi[0] + (-1)^q phi[M-1]
+                               + 2 sum_{j=1}^{M-2} phi[j] cos(pi j q/(M-1)))
+    """
+    M = n_bands
+    j = np.arange(M, dtype=np.float64)[:, None]
+    q = np.arange(order + 1, dtype=np.float64)[None, :]
+    A = 2.0 * np.cos(np.pi * j * q / (M - 1))
+    A[0, :] = 1.0
+    A[M - 1, :] = np.cos(np.pi * (M - 1) * q[0] / (M - 1))  # (-1)^q
+    return A / (2.0 * (M - 1))
+
+
+def levinson_np(r: np.ndarray, order: int):
+    """Levinson-Durbin over the last axis: (..., order+1) autocorrelation
+    -> (a (..., order+1) with a[...,0]=1, residual energy e (...,))."""
+    r = np.asarray(r, np.float64)
+    a = np.zeros(r.shape[:-1] + (order + 1,), np.float64)
+    a[..., 0] = 1.0
+    e = np.maximum(r[..., 0].copy(), 1e-20)
+    for i in range(1, order + 1):
+        acc = np.einsum("...j,...j->...", a[..., :i],
+                        r[..., 1: i + 1][..., ::-1])
+        k = -acc / e
+        a[..., 1: i + 1] = (a[..., 1: i + 1]
+                            + k[..., None] * a[..., i - 1:: -1][..., :i])
+        e = np.maximum(e * (1.0 - k * k), 1e-20)
+    return a, e
+
+
+def lpc_to_cepstra_np(a: np.ndarray, e: np.ndarray, n_ceps: int) -> np.ndarray:
+    """LPC -> real cepstrum of the all-pole model (standard recursion);
+    c[0] = log(residual energy)."""
+    p = a.shape[-1] - 1
+    c = np.zeros(a.shape[:-1] + (n_ceps,), np.float64)
+    c[..., 0] = np.log(e)
+    for m in range(1, n_ceps):
+        s = -a[..., m] if m <= p else 0.0
+        for k in range(1, m):
+            if m - k <= p:
+                s = s - (k / m) * c[..., k] * a[..., m - k]
+        c[..., m] = s
+    return c
+
+
+def log_bark(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """Floored log bark + equal-loudness band energies: (n_samples,) ->
+    (T, n_bark), the float64 reference of ``fused_raw_dit``'s
+    ``projection="bark"`` output (PLP's front half, which :func:`plp`
+    compresses by a cube root instead of a log)."""
+    frames = _frames_undithered(x, cfg)
+    if frames.shape[0] == 0:
+        return np.zeros((0, cfg.n_bark), dtype=np.float64)
+    bands = power_spectrum(frames, cfg) @ bark_filterbank(cfg).T
+    return np.log(np.maximum(bands, cfg.log_floor))
+
+
+def plp(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """Full float64 PLP pipeline: (n_samples,) -> (T, n_feats).
+
+    Stages: framing/window/power spectrum (shared with MFCC) -> bark
+    critical-band energies with equal loudness folded in -> cube-root
+    intensity->loudness -> duplicate edge bands -> IDFT autocorrelation
+    (lags 0..lpc_order) -> Levinson-Durbin -> LPC-to-cepstra (n_mfcc
+    coefficients, c0 = log residual energy) -> optional lifter/deltas.
+    """
+    frames = _frames_undithered(x, cfg)
+    if frames.shape[0] == 0:
+        return np.zeros((0, cfg.n_feats), dtype=np.float64)
+    power = power_spectrum(frames, cfg)
+    bands = power @ bark_filterbank(cfg).T              # (T, n_bark)
+    loud = np.maximum(bands, cfg.log_floor) ** 0.33
+    phi = np.concatenate([loud[:, :1], loud, loud[:, -1:]], axis=-1)
+    r = phi @ autocorr_idft_matrix(cfg.n_bark + 2, cfg.lpc_order)
+    a, e = levinson_np(r, cfg.lpc_order)
+    feat = lpc_to_cepstra_np(a, e, cfg.n_mfcc)
+    feat = feat * lifter_coeffs(cfg.n_mfcc, cfg.lifter)[None, :]
+    if cfg.append_energy:
+        feat[:, 0] = log_energy(frames, cfg)
     if cfg.deltas:
         d1 = deltas(feat, cfg.delta_window)
         d2 = deltas(d1, cfg.delta_window)

@@ -1,22 +1,30 @@
 """Where the FFT tile's time goes: build variants of ``csrc/`` with one
-stage of ``fft_tile.cuh`` cut out or one constant changed, and time each
-on the card beside the unchanged build.
+stage of ``fft_tile.cuh`` cut out, one constant changed or the
+spectrogram's other epilogue, and time each on the card beside the
+unchanged build.
 
-    python -m mfcc_tpu_torch.tools.ablate_fft_tile
+    python -m mfcc_tpu_torch.tools.ablate_fft_tile [--variants base,...]
+                                                   [--passes 2]
 
 Each variant is a copy of the sources under ``build/ablate/<name>/`` with
 the text edits of :data:`VARIANTS` applied, built by nvcc with the port's
 flags.  A variant with a stage cut out computes wrong features: its time
 says only what that stage costs.  A variant named ``f64_*`` changes the
 float64-front flavour only (an A/B of its layout) and ``wave*`` the f32
-flavour only; each is built for the sources that run that flavour.  The
-batches are the main paths' (64 x 10 s of seeded noise), one per source:
-``fused_raw_dit`` at MFCC-13, 16 kHz, and ``fused_mfcc`` at MFCC-13, 44.1
-kHz (n_fft 2048, host pre-emphasis), on the f32 flavour; ``fused_raw`` at
-unbounded log-mel-80, 16 kHz, and ``fused_dit`` at unbounded log-mel-80 at
-the 22.05 kHz TTS geometry (n_fft 1024, host pre-emphasis), on the f64
-flavour.  Times are CUDA events around 20 back-to-back calls, two passes
-in turns; then, for the unchanged build, each of those wrappers
+flavour only; each is built for the sources that run that flavour.
+``spec_staged`` swaps the spectrogram's epilogue (each |X|^2's log written
+from the split) for the other one (a (TM, n_bins) buffer staged, then
+``finish``), and times the spectrogram path only; ``mel_split`` takes the
+``mel_runtime_branch`` decides the spectrogram's branches in the tile at
+run time, not at compile time (``fft_features<TM, S, Spec>``), an A/B of
+what that costs the mel paths, which it times.  The batches are the
+main paths' (64 x 10 s of seeded noise), one per path: ``fused_raw_dit``
+at MFCC-13, 16 kHz, and ``fused_mfcc`` at MFCC-13, 44.1 kHz (n_fft 2048,
+host pre-emphasis), on the f32 flavour; ``fused_raw`` at unbounded
+log-mel-80, 16 kHz, ``fused_dit`` at unbounded log-mel-80 at the 22.05 kHz
+TTS geometry (n_fft 1024, host pre-emphasis), and ``fused_raw_dit``'s bark
+and spec projections at 16 kHz, on the f64 flavour.  Times are CUDA events around 20 back-to-back calls, ``--passes``
+passes in turns (forward, then backward); then, for the unchanged build, each of those wrappers
 back-to-back against one call per event pair (the host's share), the host
 time to enqueue one call, and the tile each kernel replaced (the direct
 or DIT tile) on the same work.  Needs one card.
@@ -24,6 +32,7 @@ or DIT tile) on the same work.  Needs one card.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import ctypes
 import shutil
@@ -74,21 +83,46 @@ VARIANTS = {
          "  static constexpr int kWavePoints = 2048;"),
         (TILE, "  static constexpr int kBlocks = 3;",
          "  static constexpr int kBlocks = 2;")],
+    "spec_staged": [
+        ("spectral.cuh",
+         "  return e.projection == kSpecProjection ? 0 : e.n_mels;",
+         "  return e.n_mels;"),
+        (TILE, "        spec_log(p.e, b, t0 + m, k, pa);\n"
+               "        spec_log(p.e, b, t0 + m + 1, k, pb);",
+         "        mel[m * nm + k] = pa;\n        mel[(m + 1) * nm + k] = pb;"),
+        (TILE, "  if (spec) return;  // the split wrote the spectrogram\n", "")],
+    "mel_runtime_branch": [
+        (TILE, "  constexpr bool spec = Spec;  // the spectrogram: no band stage",
+         "  const bool spec = p.e.projection == kSpecProjection;")],
 }
 # source -> (entry, takes preemph, C types of the other tile's constants,
-# the other tile)
+# the other tile, takes a projection)
 SOURCES = {
     "fused_raw_dit": ("mfcc_fused_raw_dit", True, _spectral.DIRECT_ARGTYPES,
-                      _spectral.DIRECT_TILE),
+                      _spectral.DIRECT_TILE, True),
     "fused_mfcc": ("mfcc_fused_mfcc", False, _spectral.DIRECT_ARGTYPES,
-                   _spectral.DIRECT_TILE),
+                   _spectral.DIRECT_TILE, False),
     "fused_raw": ("mfcc_fused_raw", True, _spectral.DIRECT_ARGTYPES,
-                  _spectral.DIRECT_TILE),
+                  _spectral.DIRECT_TILE, False),
     "fused_dit": ("mfcc_fused_dit", False, fused_dit.DIT_ARGTYPES,
-                  fused_dit.DIT_TILE),
+                  fused_dit.DIT_TILE, False),
 }
-F32_SOURCES, F64_SOURCES = ("fused_raw_dit", "fused_mfcc"), ("fused_raw",
-                                                             "fused_dit")
+_TTS = dict(sample_rate=22050, frame_ms=46.44, hop_ms=11.61, n_fft=1024)
+# timed path -> (source, config, apply_dct, projection)
+PATHS = {
+    "fused_raw_dit": ("fused_raw_dit", FeatureConfig(), True, "mel"),
+    "fused_mfcc": ("fused_mfcc", FeatureConfig(sample_rate=44100, n_fft=2048),
+                   True, "mel"),
+    "fused_raw": ("fused_raw", FeatureConfig(n_mels=80, n_mfcc=80), False,
+                  "mel"),
+    "fused_dit": ("fused_dit", FeatureConfig(n_mels=80, n_mfcc=80, **_TTS),
+                  False, "mel"),
+    "fused_raw_dit/bark": ("fused_raw_dit", FeatureConfig(), False, "bark"),
+    "fused_raw_dit/spec": ("fused_raw_dit", FeatureConfig(), False, "spec"),
+}
+F32_PATHS = ("fused_raw_dit", "fused_mfcc")
+F64_PATHS = ("fused_raw", "fused_dit", "fused_raw_dit/bark",
+             "fused_raw_dit/spec")
 CALLS = 20
 
 
@@ -103,13 +137,17 @@ def variant_sources(name: str) -> dict:
     return files
 
 
-def sources_of(name: str) -> tuple:
-    """The kernel sources a variant changes the time of."""
+def paths_of(name: str) -> tuple:
+    """The timed paths a variant changes the time of."""
     if name.startswith("f64_"):
-        return F64_SOURCES
+        return F64_PATHS
     if name.startswith("wave"):
-        return F32_SOURCES
-    return F32_SOURCES + F64_SOURCES
+        return F32_PATHS
+    if name.startswith("spec_"):
+        return ("fused_raw_dit/spec",)
+    if name.startswith("mel_"):
+        return F32_PATHS + ("fused_raw", "fused_dit")
+    return F32_PATHS + F64_PATHS
 
 
 def _build_one(name: str, src: str):
@@ -120,10 +158,10 @@ def _build_one(name: str, src: str):
                           text=True)
     if proc.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr}")
-    entry, raw, other_types, _ = SOURCES[src]
+    entry, raw, other_types, _, projection = SOURCES[src]
     lib = ctypes.CDLL(str(so))
     fn = getattr(lib, entry)
-    fn.argtypes = _spectral.entry_argtypes(other_types, raw)
+    fn.argtypes = _spectral.entry_argtypes(other_types, raw, projection)
     fn.restype = ctypes.c_int
     lib.mfcc_error_string.argtypes = [ctypes.c_int]
     lib.mfcc_error_string.restype = ctypes.c_char_p
@@ -157,71 +195,84 @@ def _single_ms(fn, calls: int = CALLS) -> float:
     return float(np.median(out))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated names of VARIANTS to build and time")
+    ap.add_argument("--passes", type=int, default=2,
+                    help="timing passes over the variants, in turns")
+    args = ap.parse_args(argv)
+    variants = args.variants.split(",")
+    unknown = set(variants) - set(VARIANTS)
+    if unknown:
+        ap.error(f"unknown variants {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("ablate_fft_tile: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    jobs = [(n, s) for n in VARIANTS for s in sources_of(n)]
-    for name in VARIANTS:
+    jobs = [(n, p) for n in variants for p in paths_of(n)]
+    builds = sorted({(n, PATHS[p][0]) for n, p in jobs})
+    for name in variants:
         d = _build.BUILD_DIR.parent / "ablate" / name
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
         for fname, text in variant_sources(name).items():
             (d / fname).write_text(text)
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
-        built = dict(zip(jobs, pool.map(lambda j: _build_one(*j), jobs)))
+        built = dict(zip(builds, pool.map(lambda j: _build_one(*j), builds)))
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
-    tts = dict(sample_rate=22050, frame_ms=46.44, hop_ms=11.61, n_fft=1024)
-    cfgs = {"fused_raw_dit": (FeatureConfig(), True),
-            "fused_mfcc": (FeatureConfig(sample_rate=44100, n_fft=2048), True),
-            "fused_raw": (FeatureConfig(n_mels=80, n_mfcc=80), False),
-            "fused_dit": (FeatureConfig(n_mels=80, n_mfcc=80, **tts), False)}
-    paths = {}
-    for src, (cfg, dct) in cfgs.items():
+    inputs = {}
+    for path, (src, cfg, dct, projection) in PATHS.items():
         x = torch.from_numpy((0.3 * rng.standard_normal(
             (64, 10 * cfg.sample_rate))).astype(np.float32)).to(dev)
         raw = SOURCES[src][1]
-        paths[src] = (x if raw else framing.preemphasize(x, cfg).contiguous(),
-                      cfg, dct, cfg.preemph if raw else None)
+        inputs[path] = (x if raw else framing.preemphasize(x, cfg).contiguous(),
+                        cfg.preemph if raw else None)
 
-    def call(lib_of, src, tile=None):
-        x, cfg, dct, pre = paths[src]
+    def call(lib_of, path, tile=None):
+        src, cfg, dct, projection = PATHS[path]
+        (x, pre), takes = inputs[path], SOURCES[src][4]
+        other = (_spectral.direct_tile(projection) if takes
+                 else SOURCES[src][3])
         return lambda: _spectral.launch_spectral(
-            lib_of, SOURCES[src][0], src, x, cfg, dct, pre,
-            other=SOURCES[src][3], tile=tile)
+            lib_of, SOURCES[src][0], src, x, cfg, dct, pre, other=other,
+            tile=tile, projection=projection if takes else None)
 
     times = {j: [] for j in jobs}
-    for order in (jobs, jobs[::-1]):
-        for name, src in order:
-            times[name, src].append(_ms(call(lambda: built[name, src], src)))
-    for (name, src), t in times.items():
-        x, cfg, dct, _ = paths[src]
-        print(f"{name:22s} {src:14s} {cfg.sample_rate} Hz n_fft {cfg.n_fft} "
-              f"{'cepstra' if dct else 'log-mel'} "
-              + " / ".join(f"{v:.4f}" for v in t) + f" ms ({smi})")
+    for i in range(args.passes):
+        for name, path in (jobs if i % 2 == 0 else jobs[::-1]):
+            lib = built[name, PATHS[path][0]]
+            times[name, path].append(_ms(call(lambda: lib, path)))
+    for (name, path), t in times.items():
+        _, cfg, dct, projection = PATHS[path]
+        what = "cepstra" if dct else {"mel": "log-mel"}.get(projection,
+                                                             projection)
+        print(f"{name:22s} {path:20s} {cfg.sample_rate} Hz n_fft {cfg.n_fft} "
+              f"{what} " + " / ".join(f"{v:.4f}" for v in t) + f" ms ({smi})")
     modules = {"fused_raw_dit": (fused_raw_dit, "fused_features_raw_dit"),
                "fused_mfcc": (fused_mfcc, "fused_features"),
                "fused_raw": (fused_raw, "fused_features_raw"),
                "fused_dit": (fused_dit, "fused_features_dit")}
-    for src, (module, fn) in modules.items():
-        x, cfg, dct, _ = paths[src]
-        wrapper = (lambda m=module, f=fn, x=x, cfg=cfg, dct=dct:
-                   getattr(m, f)(x, cfg, apply_dct=dct))
+    for path, (src, cfg, dct, projection) in PATHS.items():
+        module, fn = modules[src]
+        x = inputs[path][0]
+        kw = {"projection": projection} if SOURCES[src][4] else {}
+        wrapper = (lambda m=module, f=fn, x=x, cfg=cfg, dct=dct, kw=kw:
+                   getattr(m, f)(x, cfg, apply_dct=dct, **kw))
         b2b = _ms(wrapper)
         t0 = time.perf_counter()
         for _ in range(CALLS):
             wrapper()
         enqueue = (time.perf_counter() - t0) / CALLS * 1e3
         torch.cuda.synchronize()
-        other = _ms(call(module._lib, src, SOURCES[src][3][0]), calls=5)
-        print(f"{src}: back-to-back {b2b:.4f} ms, one call per event pair "
+        other = SOURCES[src][3][0]
+        other_ms = _ms(call(module._lib, path, other), calls=5)
+        print(f"{path}: back-to-back {b2b:.4f} ms, one call per event pair "
               f"{_single_ms(wrapper):.4f} ms, host enqueue {enqueue:.4f} ms; "
-              f"its {SOURCES[src][3][0]} tile on the same work {other:.4f} "
-              f"ms ({smi})")
+              f"its {other} tile on the same work {other_ms:.4f} ms ({smi})")
     return 0
 
 

@@ -2,9 +2,11 @@
 PyTorch version on the card (the FFT tile of the four spectral kernels
 over n_fft 64..4096 in both flavours, the float64-front one also against
 the float64 oracle, and the direct and DIT tiles where they still run),
-the kernels' accurate log bit for bit, the wrappers' checks, and the main
-paths (MFCC, log-mel through each spectral route, pitch) through the
-kernels.  All are marked ``cuda`` and skip without a card.
+the kernels' accurate log bit for bit, the wrappers' checks,
+``fused_raw_dit``'s bark and spec projections against their plain versions
+and the float64 oracle, and the main paths (MFCC, log-mel through each
+spectral route, PLP, the log spectrogram, pitch) through the kernels.  All
+are marked ``cuda`` and skip without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
 there without the repository's conftest:
@@ -20,7 +22,8 @@ import torch
 
 from mfcc_tpu_torch import FeatureConfig, PitchConfig, oracle
 from mfcc_tpu_torch.models import (logmel as logmel_model, mfcc as mfcc_model,
-                                   pitch as pitch_model)
+                                   pitch as pitch_model, plp as plp_model,
+                                   spectrogram as spec_model)
 from mfcc_tpu_torch.ops import framing, pitch as pitch_op, resample, xmath
 from mfcc_tpu_torch.ops.kernels import (_spectral, fused_dit, fused_mfcc,
                                         fused_nccf, fused_raw, fused_raw_dit,
@@ -647,4 +650,237 @@ def test_fft_tile_refused_where_the_entry_cannot_take_it(cuda, name):
             _spectral.launch_spectral(
                 module._lib, "mfcc_" + name, name,
                 torch.zeros((1, 4000), device=cuda), cfg, True,
-                cfg.preemph if raw else None, other=other, tile=tile)
+                cfg.preemph if raw else None, other=other, tile=tile,
+                projection="mel" if name == "fused_raw_dit" else None)
+
+
+# ---------------------------------------------------------------------------
+# fused_raw_dit's bark and spec projections, PLP and the log spectrogram
+# ---------------------------------------------------------------------------
+
+SPEC_TOL = 2e-4   # spectrogram, inside the 50 dB window (conventions)
+
+
+def _oracle_projection(x, cfg, projection, rows, lens=None):
+    """(len(rows), T, width) float64 oracle of fused_raw_dit's bark or spec
+    output for rows of the raw audio x, zero past each row's frames."""
+    fn = oracle.log_bark if projection == "bark" else oracle.log_spectrogram
+    xf = x.double().cpu().numpy()
+    out = np.zeros((len(rows), cfg.num_frames(x.shape[1]),
+                    cfg.n_bark if projection == "bark" else cfg.n_bins))
+    for k, i in enumerate(rows):
+        want = fn(xf[i, : x.shape[1] if lens is None else lens[i]], cfg)
+        out[k, : want.shape[0]] = want
+    return torch.from_numpy(out).to(x.device)
+
+
+def _projection_excess(got, want, projection):
+    """How far past its bound ``got`` is against ``want`` (<= 0 holds):
+    bark log-energies rtol 1e-4 plus atol 2e-5, the spectrogram 2e-4 on
+    the bins within 50 dB of their frame's peak in ``want``."""
+    diff = (got - want).abs()
+    if projection == "bark":
+        return float((diff - 1e-4 * want.abs()).max()) - TOL
+    window = want > want.amax(dim=-1, keepdim=True) - np.log(1e5)
+    return float(diff[window].max()) - SPEC_TOL
+
+
+def _run_projection(cuda, gen, projection, cfg, shape, lens=None,
+                    audio=None):
+    """One call of fused_raw_dit in ``projection``; -> (the tile that ran,
+    the excess over the bound against the plain version, or, where the
+    plain version is over that bound against the float64 oracle, against
+    the oracle).  A case on the fft64 tile must also be within 1e-5 of the
+    oracle over every band and bin."""
+    x = audio if audio is not None else (
+        gen.standard_normal(shape) * 0.3).astype(np.float32)
+    for i, n in enumerate(lens or ()):
+        x[i, n:] = 0.0
+    x = torch.from_numpy(x).to(cuda)
+    before = dict(fused_raw_dit.TILE_LAUNCHES), fused_raw_dit.LAUNCHES
+    proj_before = fused_raw_dit.PROJECTION_LAUNCHES[projection]
+    got = fused_raw_dit.fused_features_raw_dit(x, cfg, apply_dct=False,
+                                               projection=projection)
+    torch.cuda.synchronize()
+    ran = [k for k, v in fused_raw_dit.TILE_LAUNCHES.items()
+           if v != before[0][k]]
+    assert fused_raw_dit.LAUNCHES == before[1] + 1 and len(ran) == 1
+    assert fused_raw_dit.PROJECTION_LAUNCHES[projection] == proj_before + 1
+    want = fused_raw_dit.plain_features(x, cfg, False, projection)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    keep = torch.arange(got.shape[1], device=cuda)[None, :] < torch.tensor(
+        [cfg.num_frames(n) for n in lens or [x.shape[1]] * x.shape[0]],
+        device=cuda)[:, None]
+    rows = [0, x.shape[0] - 1]
+    ref = _oracle_projection(x, cfg, projection, rows, lens)
+    k = keep[rows]
+    if ran[0] == "fft64":
+        assert float((got[rows].double() - ref)[k].abs().max()) <= 1e-5
+    excess = _projection_excess(got[keep], want[keep], projection)
+    if excess > 0 and _projection_excess(want[rows].double()[k], ref[k],
+                                         projection) > 0:
+        excess = _projection_excess(got[rows].double()[k], ref[k], projection)
+    return ran[0], excess
+
+
+_PROJECTION_CASES = [
+    (dict(), (64, 160000)),                          # the main path
+    (dict(), (3, 69 * 160 + 400)),                   # T = 70
+    (dict(), (2, 400)),                              # T = 1
+    (dict(sample_rate=8000, n_fft=256), (2, 8000)),
+    (dict(n_fft=1024), (2, 16000)),
+    (dict(sample_rate=48000, n_fft=2048), (2, 48000)),
+    (dict(window="povey", preemph=0.0), (2, 16000)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("projection", ["bark", "spec"])
+@pytest.mark.parametrize("kw,shape", _PROJECTION_CASES)
+def test_projection_fft64_tile_matches_plain_and_oracle(cuda, gen, projection,
+                                                        kw, shape):
+    tile, excess = _run_projection(cuda, gen, projection,
+                                   FeatureConfig(**kw).validate(), shape)
+    assert tile == "fft64" and excess <= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("projection", ["bark", "spec"])
+def test_projection_on_a_ragged_batch(cuda, gen, projection):
+    tile, excess = _run_projection(cuda, gen, projection, FeatureConfig(),
+                                   (3, 16000), lens=[16000, 12123, 4000])
+    assert tile == "fft64" and excess <= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("projection", ["bark", "spec"])
+@pytest.mark.parametrize("window", ["hann", "povey"])
+def test_projection_holds_the_oracle_in_valleys(cuda, projection, window):
+    """The two-tone valley signal: the fft64 tile within 1e-5 of the
+    oracle over every band and bin (the f32 plain version is not)."""
+    t = np.arange(16000) / 16000
+    x = (0.5 * np.sin(2 * np.pi * 180.0 * t)
+         + 0.3 * np.sin(2 * np.pi * 1200.0 * t)).astype(np.float32)[None]
+    tile, excess = _run_projection(cuda, None, projection,
+                                   FeatureConfig(window=window), None,
+                                   audio=x)
+    assert tile == "fft64" and excess <= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("projection,n_fft", [("bark", 401), ("bark", 600),
+                                              ("spec", 768), ("spec", 401)])
+def test_projection_direct_tile(cuda, gen, projection, n_fft):
+    """At an n_fft that is no power of two the direct tile takes both
+    projections (the spectrogram logs each bin block as it leaves the
+    block: no identity projection); n_fft 768 is the spectrogram route's
+    (spec_kernel_eligible)."""
+    cfg = FeatureConfig(n_fft=n_fft).validate()
+    tile, excess = _run_projection(cuda, gen, projection, cfg,
+                                   (2, 69 * cfg.hop_len + cfg.frame_len))
+    assert tile == "direct" and excess <= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("projection", ["bark", "spec"])
+def test_projection_with_dct_refused(cuda, projection):
+    """The wrapper raises as the reference asserts, and the C entry refuses
+    a projection with apply_dct set on every tile."""
+    cfg = FeatureConfig()
+    x = torch.zeros((1, 4000), device=cuda)
+    with pytest.raises(ValueError, match="DCT"):
+        fused_raw_dit.fused_features_raw_dit(x, cfg, projection=projection)
+    for tile in ("fft", "fft64", "direct"):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _spectral.launch_spectral(
+                fused_raw_dit._lib, "mfcc_fused_raw_dit", "fused_raw_dit", x,
+                cfg, True, cfg.preemph, other=_spectral.direct_tile(
+                    projection), tile=tile, projection=projection)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,projection,kw", [
+    (plp_model.plp_batch, "bark", dict()),
+    (plp_model.plp_batch, "bark", dict(deltas=True, append_energy=True)),
+    (plp_model.plp_batch, "bark", dict(frame_mode="center", lifter=22)),
+    (spec_model.log_spectrogram_batch, "spec", dict()),
+    (spec_model.log_spectrogram_batch, "spec", dict(n_fft=1024)),
+    (spec_model.log_spectrogram_batch, "spec", dict(frame_mode="center")),
+])
+def test_plp_and_spectrogram_batch_go_through_the_kernel(cuda, gen, entry,
+                                                         projection, kw):
+    """One fused_raw_dit launch in the projection; frame counts, masks and
+    zeroing equal to the CPU path's; PLP within 1e-4 and the spectrogram
+    within 2e-4 (50 dB window) of the float64 oracle in each row's
+    frames."""
+    cfg = FeatureConfig(**kw)
+    lens = np.asarray([16000, 10666, 400, 399], np.int32)
+    x = np.round(gen.standard_normal((4, 16000)) * 8000).astype(np.int16)
+    for i, n in enumerate(lens):
+        x[i, n:] = 0
+    before = fused_raw_dit.LAUNCHES, dict(fused_raw_dit.PROJECTION_LAUNCHES)
+    gf, gfl, gm = entry(torch.from_numpy(x).to(cuda),
+                        torch.from_numpy(lens).to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert fused_raw_dit.LAUNCHES == before[0] + 1
+    assert fused_raw_dit.PROJECTION_LAUNCHES[projection] == \
+        before[1][projection] + 1
+    cf, cfl, cm = entry(torch.from_numpy(x), torch.from_numpy(lens), cfg)
+    assert torch.equal(gfl.cpu(), cfl) and torch.equal(gm.cpu(), cm)
+    assert bool((gf[~gm] == 0).all())
+    ref = oracle.plp if projection == "bark" else oracle.log_spectrogram
+    for i, n in enumerate(lens):
+        want = ref(x[i, :n].astype(np.float64) / 32768.0, cfg)
+        got = gf[i, : want.shape[0]].cpu().numpy()
+        assert int(gfl[i]) == want.shape[0]
+        if want.size == 0:
+            continue
+        if projection == "bark":
+            assert np.abs(got - want).max() <= 1e-4
+        else:
+            keep = want > want.max(axis=-1, keepdims=True) - np.log(1e5)
+            assert np.abs(got - want)[keep].max() <= SPEC_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,kw", [
+    (spec_model.log_spectrogram_batch, dict(n_fft=400)),
+    (plp_model.plp_batch, dict(sample_rate=44100, n_fft=2048)),
+])
+def test_reference_xla_configs_run_plain_on_the_card(cuda, gen, entry, kw):
+    """A config the reference sends to XLA launches no kernel: the plain
+    chain runs on the card and agrees with the CPU path's: PLP within 5e-5
+    (the bound between two f32 paths, tests/test_plp.py; 1.7e-5 measured
+    at 44.1 kHz), the spectrogram 2e-4 in the 50 dB window."""
+    cfg = FeatureConfig(**kw)
+    x = (gen.standard_normal((2, cfg.sample_rate)) * 0.3).astype(np.float32)
+    lens = torch.tensor([cfg.sample_rate, cfg.sample_rate // 2])
+    before = fused_raw_dit.LAUNCHES
+    gf, _, gm = entry(torch.from_numpy(x).to(cuda), lens.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert fused_raw_dit.LAUNCHES == before
+    cf, _, _ = entry(torch.from_numpy(x), lens, cfg)
+    m = gm.cpu()
+    if entry is plp_model.plp_batch:
+        assert float((gf.cpu() - cf)[m].abs().max()) <= 5e-5
+    else:
+        assert _projection_excess(gf.cpu()[m], cf[m], "spec") <= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("projection", ["bark", "spec"])
+def test_plp_and_spectrogram_goldens_on_the_card(cuda, projection):
+    cfg = FeatureConfig()
+    x, _ = wav.read_wav(os.path.join(GOLDEN, "speech2s.wav"))
+    fn, fname = ((plp_model.plp, "plp13.npy") if projection == "bark"
+                 else (spec_model.log_spectrogram, "spectrogram257.npy"))
+    before = fused_raw_dit.PROJECTION_LAUNCHES[projection]
+    feat = fn(torch.from_numpy(x).to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert fused_raw_dit.PROJECTION_LAUNCHES[projection] == before + 1
+    want = torch.from_numpy(np.load(os.path.join(GOLDEN, fname)))
+    assert feat.shape == want.shape
+    if projection == "bark":
+        assert float((feat.cpu().double() - want).abs().max()) <= 1e-4
+    else:
+        assert _projection_excess(feat.cpu().double(), want, "spec") <= 0

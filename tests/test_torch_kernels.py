@@ -17,7 +17,7 @@ from mfcc_tpu.ops.kernels import (fused_dit as jax_dit,
                                   fused_mfcc as jax_direct,
                                   fused_raw as jax_raw,
                                   fused_raw_dit as jax_kernel)
-from mfcc_tpu_torch import FeatureConfig, from_jax
+from mfcc_tpu_torch import FeatureConfig, from_jax, oracle
 from mfcc_tpu_torch.ops import framing, mel, spectrum, xmath
 from mfcc_tpu_torch.ops.kernels import (_spectral, fused_dit, fused_mfcc,
                                         fused_raw, fused_raw_dit, routes)
@@ -681,7 +681,8 @@ def _fft_pass(sr, si, tw, log2n, log2ns, R, h):
 
 
 def _emulate_fft_tile(x: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
-                      tm: int = 32, dtype=np.float64, front=None):
+                      tm: int = 32, dtype=np.float64, front=None,
+                      projection: str = "mel"):
     """The FFT tile's data flow in numpy, in ``dtype``: per (row, tile of
     tm frames) the span is staged and pre-emphasized with each sample's
     true predecessor (cfg.preemph 0: audio the host pre-emphasized),
@@ -696,21 +697,29 @@ def _emulate_fft_tile(x: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
     and the frame energy, which are then rounded to ``dtype``: float64
     with dtype float32 is the float64-front tile ("fft64": the float64
     window and twiddle tables of ``fft_matrices(cfg, "fft64")``, float32
-    mel, floors and accurate log)."""
+    mel, floors and accurate log).
+
+    ``projection`` "bark" sums the chunks of the bark matrix with no
+    relative floor (PLP's log band energies); "spec" floors and logs each
+    bin's |X|^2 (n_bins columns)."""
     f, g = dtype, front or dtype
     win, tw, chunk_w, chunks, band_chunks, dctm = _spectral.fft_matrices(
-        cfg, "fft64" if g is np.float64 and f is np.float32 else "fft")
-    win, tw, chunk_w, dctm = (win.astype(g), tw.astype(g), chunk_w.astype(f),
-                              dctm.astype(f))
+        cfg, "fft64" if g is np.float64 and f is np.float32 else "fft",
+        projection)
+    win, tw = win.astype(g), tw.astype(g)
+    if projection == "mel":
+        chunk_w, dctm = chunk_w.astype(f), dctm.astype(f)
+    elif projection == "bark":
+        chunk_w = chunk_w.astype(f)
     B, N = x.shape
     T, hop, fl, n = cfg.num_frames(N), cfg.hop_len, cfg.frame_len, cfg.n_fft
     log2n = n.bit_length() - 1
     h, half = g(np.sqrt(0.5) if g is np.float64 and f is np.float32
                 else np.float32(np.sqrt(0.5))), g(0.5)
-    rel = mel.relative_floor(cfg)
+    rel = mel.relative_floor(cfg) if projection == "mel" else 0.0
     log = (np.log if f is np.float64 else
            lambda v: xmath.accurate_log(torch.from_numpy(v)).numpy())
-    out = np.zeros((B, T, cfg.n_mfcc if apply_dct else cfg.n_mels), f)
+    out = np.zeros((B, T, _spectral.n_out(cfg, apply_dct, projection)), f)
     for b in range(B):
         xb = x[b].astype(g)
         for t0 in range(0, T, tm):
@@ -735,12 +744,17 @@ def _emulate_fft_tile(x: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
             yr, yi = half * (bi + d), half * (c - a)
             power = np.empty((tm, n // 2 + 1), f)
             power[0::2], power[1::2] = xr * xr + xi * xi, yr * yr + yi * yi
+            m = min(tm, T - t0)
+            if projection == "spec":
+                out[b, t0: t0 + m] = log(np.maximum(
+                    power, f(cfg.log_floor)).astype(f))[:m]
+                continue
             energy = (fr * fr).sum(axis=1).astype(f)
             part = np.zeros((tm, chunks.shape[0]), f)
             for c, (k0, k1) in enumerate(chunks):
                 for i in range(k1 - k0):
                     part[:, c] += power[:, k0 + i] * chunk_w[c, i]
-            e = np.zeros((tm, cfg.n_mels), f)
+            e = np.zeros((tm, band_chunks.shape[0]), f)
             for j, (c0, c1) in enumerate(band_chunks):
                 for c in range(c0, c1):
                     e[:, j] += part[:, c]
@@ -751,7 +765,6 @@ def _emulate_fft_tile(x: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
                 feat = feat @ dctm
                 if cfg.append_energy:
                     feat[:, 0] = log(np.maximum(energy, f(cfg.log_floor)))
-            m = min(tm, T - t0)
             out[b, t0: t0 + m] = feat[:m]
     return out
 
@@ -964,3 +977,238 @@ def test_fft_tile_ablation_edits_still_apply():
         files = ablate_fft_tile.variant_sources(name)
         assert set(files) >= {"fft_tile.cuh", "fused_raw_dit.cu",
                               "fused_mfcc.cu"}
+
+
+# ---------------------------------------------------------------------------
+# fused_raw_dit's bark and spec projections: constants and route against the
+# reference's, the emulated FFT tile against the Pallas kernel, and the
+# valley check that picks each projection's FFT flavour
+# ---------------------------------------------------------------------------
+
+def test_spec_kernel_eligible_matches_reference():
+    grid = _config_grid()
+    seen = set()
+    for jc in grid:
+        got = routes.spec_kernel_eligible(from_jax(jc))
+        assert got == jax_kernel.spec_kernel_eligible(jc), jc
+        seen.add(got)
+    assert seen == {True, False}
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(n_fft=1024, n_bark=17),
+                                dict(sample_rate=8000, n_fft=256),
+                                dict(n_fft=768)])
+def test_projection_constants_match_reference(kw):
+    """The bark constants are the reference kernel's bark matrix in natural
+    bin order (its packed mcat rows and its Nyquist row unpacked), as the
+    direct tile takes it and as the FFT tile's chunks cut it; the spec
+    projection has none, and natural order is the reference's packed
+    output depermuted by spec_bin_permutation."""
+    jc = JaxConfig(**kw).validate()
+    cfg = from_jax(jc)
+    H, Hh = jc.n_fft // 2, jc.n_fft // 4
+    pad = -(-jc.n_bark // 128) * 128
+    _, _, _, mcat, mny, _ = jax_kernel._matrices(jc, pad, pad, False, "bark")
+    natural = np.zeros((jc.n_bins, pad), np.float32)
+    natural[: Hh + 1] = mcat[: Hh + 1]
+    for j in range(1, Hh):
+        natural[H - j] = mcat[Hh + j]
+    natural[H] = mny[0]
+    bark = _spectral.direct_matrices(cfg, "bark")[2]
+    np.testing.assert_array_equal(bark, natural[:, : jc.n_bark])
+    assert bark.flags.c_contiguous and bark.dtype == np.float32
+    for tile in ("fft", "fft64"):
+        _, _, chunk_w, chunks, band_chunks, dctm = _spectral.fft_matrices(
+            cfg, tile, "bark")
+        assert dctm is None and band_chunks.shape == (jc.n_bark, 2)
+        for j, (c0, c1) in enumerate(band_chunks):
+            for c in range(c0, c1):
+                k0, k1 = chunks[c]
+                np.testing.assert_array_equal(chunk_w[c, : k1 - k0],
+                                              bark[k0:k1, j])
+        covered = sum(int(k1 - k0) for k0, k1 in chunks)
+        assert covered == sum(int(hi - lo)
+                              for lo, hi in _spectral.mel_bands(bark))
+        assert _spectral.fft_matrices(cfg, tile, "spec")[2:] == (None,) * 4
+    assert _spectral.direct_matrices(cfg, "spec")[2:] == (None, None)
+    # lane L of the reference's packed spectrogram holds bin
+    # packed_bin[L]; its wrapper's permutation puts bin b in column b
+    packed_bin = np.concatenate([np.arange(Hh + 1), H - np.arange(1, Hh),
+                                 [H]])
+    perm = jax_kernel.spec_bin_permutation(jc)
+    np.testing.assert_array_equal(packed_bin[perm], np.arange(jc.n_bins))
+
+
+@pytest.mark.parametrize("projection,width", [("bark", 21), ("spec", 257)])
+def test_projection_epilogue_and_widths(projection, width):
+    """No relative floor, no energy column, no DCT; the width in n_mels and
+    n_out; the spectrogram stages nothing per frame."""
+    cfg = FeatureConfig(dynamic_range_db=50.0, append_energy=True,
+                        lifter=22)
+    assert _spectral.n_out(cfg, False, projection) == width
+    assert _spectral.epilogue_args(cfg, False, projection) == (
+        width, width, cfg.log_floor, 0.0, 0, 0)
+    # apply_dct goes through, for the C entry to refuse
+    assert _spectral.epilogue_args(cfg, True, projection)[-1] == 1
+    assert _spectral.staged_width(cfg, projection) == \
+        (0 if projection == "spec" else width)
+    assert _spectral.staged_width(cfg) == cfg.n_mels
+
+
+@pytest.mark.parametrize("kw,projection,tile", [
+    (dict(), "bark", "fft64"), (dict(), "spec", "fft64"),
+    (dict(dynamic_range_db=50.0), "bark", "fft64"),
+    (dict(n_fft=1024), "spec", "fft64"), (dict(n_fft=4096), "spec", "fft64"),
+    (dict(sample_rate=8000, n_fft=256), "bark", "fft64"),
+    (dict(n_fft=768), "spec", "direct"), (dict(n_fft=401), "bark", "direct"),
+    (dict(n_fft=8192), "spec", "direct"), (HUGE_HOP, "spec", "direct"),
+])
+def test_projection_tile_rule(kw, projection, tile):
+    cfg = FeatureConfig(**kw).validate()
+    assert _spectral.fft_tile(cfg, False, projection) == tile
+
+
+@pytest.mark.parametrize("kw,tile,tm,projection,want", [
+    # 16 kHz default: 8 x 2 x 544 doubles, span 5360 / 10480 + lead 1
+    (dict(), "fft64", 32, "spec", 34816 + 4 * (5360 + 1 + 64)),
+    (dict(), "fft64", 64, "spec", 34816 + 4 * (10480 + 1 + 128)),
+    (dict(), "fft64", 32, "bark", 34816 + 4 * (5360 + 1 + 32 * 21 + 64)),
+    (dict(), "fft", 32, "bark", 4 * 4 * 4 * 528 + 4 * (5360 + 32 * 21 + 64)),
+])
+def test_projection_smem_bytes(kw, tile, tm, projection, want):
+    assert _spectral.fft_smem_bytes(FeatureConfig(**kw).validate(), tile, tm,
+                                    projection) == want
+
+
+def test_projection_wrapper_checks_and_cpu_path(rng):
+    cfg = FeatureConfig()
+    x = torch.from_numpy((rng.standard_normal((2, 4000)) * 0.3)
+                         .astype(np.float32))
+    for projection in ("bark", "spec"):
+        with pytest.raises(ValueError, match="DCT"):
+            fused_raw_dit.fused_features_raw_dit(x, cfg, projection=projection)
+        before = dict(fused_raw_dit.PROJECTION_LAUNCHES)
+        got = fused_raw_dit.fused_features_raw_dit(x, cfg, apply_dct=False,
+                                                   projection=projection)
+        assert torch.equal(got, fused_raw_dit.plain_features(x, cfg, False,
+                                                             projection))
+        assert fused_raw_dit.PROJECTION_LAUNCHES == before
+        assert fused_raw_dit.fused_features_raw_dit(
+            x[:, :399], cfg, apply_dct=False, projection=projection
+        ).shape == (2, 0, _spectral.n_out(cfg, False, projection))
+    with pytest.raises(ValueError, match="projection"):
+        fused_raw_dit.fused_features_raw_dit(x, cfg, apply_dct=False,
+                                             projection="cqt")
+
+
+def _spec_window_err(got, want, db=50.0):
+    keep = want > want.max(axis=-1, keepdims=True) - np.log(10.0 ** (db / 10))
+    return float(np.abs(got - want)[keep].max())
+
+
+@pytest.mark.parametrize("kw,projection,N", [
+    (dict(), "bark", 8000), (dict(), "spec", 8000),
+    (dict(n_fft=1024, window="hann"), "spec", 8000),
+    (dict(sample_rate=8000, n_fft=256, n_bark=15), "bark", 4000),
+    (dict(lifter=22, dynamic_range_db=50.0), "bark", 8000),
+])
+def test_projection_emulation_matches_pallas(rng, kw, projection, N):
+    """The float64-front FFT tile's data flow in each projection against the
+    Pallas kernel it replaces (fused_features_raw_dit in interpret mode,
+    the spectrogram depermuted by its wrapper) and the plain version, on
+    noise, over tiles of 16 frames that frames straddle: bark at the
+    log-mel bound (rtol 1e-4 plus atol 2e-5), the spectrogram within 2e-4
+    in the 50 dB window; and within 1e-5 of the float64 oracle over every
+    band and bin."""
+    jc = JaxConfig(**kw).validate()
+    cfg = from_jax(jc)
+    x = (rng.standard_normal((2, N)) * 0.3).astype(np.float32)
+    want = np.asarray(jax_kernel.fused_features_raw_dit(
+        jnp.asarray(x), jc, merged=True, apply_dct=False,
+        projection=projection, interpret=True))
+    plain = fused_raw_dit.plain_features(torch.from_numpy(x), cfg, False,
+                                         projection).numpy()
+    got = _emulate_fft_tile(x, cfg, False, tm=16, dtype=np.float32,
+                            front=np.float64, projection=projection)
+    assert got.shape == want.shape == plain.shape
+    for ref in (want, plain):
+        if projection == "bark":
+            np.testing.assert_allclose(got, ref, rtol=1e-4, atol=2e-5)
+        else:
+            assert _spec_window_err(got, ref) < 2e-4
+    for i in range(2):
+        ref = _oracle_projection(x[i], cfg, projection)
+        assert np.abs(got[i] - ref).max() <= 1e-5
+
+
+def _oracle_projection(x: np.ndarray, cfg, projection: str) -> np.ndarray:
+    """The float64 oracle of fused_raw_dit's bark or spec output (the
+    port's twins, held equal to the reference's in test_torch_plp.py)."""
+    fn = oracle.log_bark if projection == "bark" else oracle.log_spectrogram
+    return fn(x.astype(np.float64), cfg)
+
+
+def _bench_like(sr: int = 16000) -> np.ndarray:
+    """1 s of the bench.py signal: two tones plus noise, numpy seed 0."""
+    t = np.arange(sr) / sr
+    noise = np.random.default_rng(0).standard_normal(sr)
+    return (0.3 * np.sin(2 * np.pi * 180 * t) + 0.1 * np.sin(2 * np.pi * 1200 * t)
+            + 0.02 * noise).astype(np.float32)
+
+
+def _projection_valley_errors(signal: str, window: str) -> dict:
+    """Each projection through the f32 FFT tile, its float64 front and the
+    direct f32 form (the plain version) against the float64 oracle of the
+    raw audio: the spectrogram inside and below the 50 dB window, PLP-13
+    after the port's f32 tail."""
+    from mfcc_tpu_torch.ops import plp as plp_op
+    cfg = FeatureConfig(window=window).validate()
+    x = (_two_tones(16000) if signal == "two tones" else _bench_like())[None]
+    forms = {
+        "f32": lambda p: _emulate_fft_tile(x, cfg, False, dtype=np.float32,
+                                           projection=p),
+        "fft64": lambda p: _emulate_fft_tile(x, cfg, False, dtype=np.float32,
+                                             front=np.float64, projection=p),
+        "direct": lambda p: fused_raw_dit.plain_features(
+            torch.from_numpy(x), cfg, False, p).numpy()}
+    spec_ref = _oracle_projection(x[0], cfg, "spec")
+    keep = spec_ref > spec_ref.max(axis=-1, keepdims=True) - np.log(1e5)
+    plp_ref = oracle.plp(x[0].astype(np.float64), cfg)
+    out = {}
+    for name, form in forms.items():
+        d = np.abs(form("spec")[0] - spec_ref)
+        out[name] = (float(d[keep].max()), float(d[~keep].max()),
+                     float(np.abs(plp_op.plp_from_log_bark(
+                         torch.from_numpy(np.asarray(form("bark"),
+                                                     np.float32)), cfg
+                     )[0].numpy() - plp_ref).max()))
+    return out
+
+
+@pytest.mark.parametrize("signal", ["two tones", "bench-like"])
+@pytest.mark.parametrize("window", ["hamming", "hann", "povey"])
+def test_projection_valley_choice(signal, window):
+    """Why both projections take the float64 front (``_spectral.fft_tile``,
+    numbers in PERF.md's valley table).  The f32 tile was to serve the
+    spectrogram only if within 2e-4 of the oracle inside the 50 dB window
+    with margin and no worse than the direct form below it, and PLP only if
+    PLP-13 through it stayed within 2e-5: in the Hann and Povey two-tone
+    valleys PLP-13 through the f32 tile is past 1e-4 (PLP's contract; the
+    direct form is not), and below the window the f32 spectrogram is worse
+    than the direct form.  The float64 front holds the spectrogram within
+    1e-5 over every bin and PLP-13 within 2.5e-5 (the f32 tail's own
+    error), never worse than the direct form."""
+    errs = _projection_valley_errors(signal, window)
+    f32_in, f32_below, f32_plp = errs["f32"]
+    d_in, d_below, d_plp = errs["direct"]
+    f64_in, f64_below, f64_plp = errs["fft64"]
+    assert f32_in < 5e-5                   # the window alone would allow f32
+    assert max(f64_in, f64_below) <= 1e-5
+    assert f64_plp <= min(2.5e-5, d_plp + 2e-6)
+    assert d_plp <= 1e-4
+    if window != "hamming" and signal == "two tones":
+        assert f32_plp > 1e-4 > d_plp, (f32_plp, d_plp)
+        assert f32_below > d_below, (f32_below, d_below)
+    for projection in ("bark", "spec"):
+        assert _spectral.fft_tile(FeatureConfig(window=window), False,
+                                  projection) == "fft64"

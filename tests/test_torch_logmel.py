@@ -237,3 +237,30 @@ def test_cpu_tensors_stay_on_the_plain_direct_path(rng, monkeypatch):
                                    torch.from_numpy(lens), cfg)
         mfcc_model.mfcc_batch(torch.from_numpy(x), torch.from_numpy(lens),
                               cfg.replace(n_mfcc=13))
+
+
+def test_plain_valley_bands_against_jax():
+    """Unbounded log-mel-80 on the bench batch (64 x 10 s,
+    ``mfcc_tpu_torch/tools/plain_valley.py``), per band against the
+    float64 oracle over every row: the reference's XLA path and the port's
+    plain path, both on the CPU, sit at the same f32 valley floor in the
+    same bands (0-3, near DC after pre-emphasis), the port within 1.5x of
+    the reference there and over the other bands.  Prints both per band
+    (run with -s)."""
+    from mfcc_tpu_torch.tools import plain_valley
+    audio = plain_valley.bench_batch()
+    jc = JaxConfig(**LOGMEL80).validate()
+    cfg = from_jax(jc)
+    jf = np.asarray(jax_logmel.log_mel_batch_jit(
+        jnp.asarray(audio), jnp.full((audio.shape[0],), audio.shape[1],
+                                     jnp.int32), jc, "xla")[0])
+    pf = fused_raw.plain_features(torch.from_numpy(audio), cfg, False).numpy()
+    jax_bands = plain_valley.logmel_band_errors(jf, audio, cfg).max(axis=0)
+    port_bands = plain_valley.logmel_band_errors(pf, audio, cfg).max(axis=0)
+    print("band  jax-xla-cpu  port-plain-cpu")
+    for j in range(cfg.n_mels):
+        print(f"{j:4d}  {jax_bands[j]:.4e}  {port_bands[j]:.4e}")
+    assert set(np.argsort(jax_bands)[-2:]) <= {0, 1, 2, 3}
+    assert set(np.argsort(port_bands)[-2:]) <= {0, 1, 2, 3}
+    assert port_bands.max() <= 1.5 * jax_bands.max()
+    assert port_bands[4:].max() <= 1.5 * jax_bands[4:].max()

@@ -175,7 +175,8 @@ def test_plain_matmul_runs_in_ieee_fp32():
 def test_port_imports_no_jax():
     code = ("import sys; import mfcc_tpu_torch.models.mfcc, "
             "mfcc_tpu_torch.models.pitch, mfcc_tpu_torch.models.logmel, "
-            "mfcc_tpu_torch.utils.wav, "
+            "mfcc_tpu_torch.models.plp, mfcc_tpu_torch.models.spectrogram, "
+            "mfcc_tpu_torch.tools.plain_valley, mfcc_tpu_torch.utils.wav, "
             "mfcc_tpu_torch.ops.kernels._build; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'mfcc_tpu.')) or m == 'mfcc_tpu']; "

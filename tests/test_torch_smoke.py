@@ -6,9 +6,9 @@ is not called, ``backend.resolve`` routes "auto" to "cuda", and each kernel
 wrapper counts a launch (and, for the four spectral kernels, the tile the
 config picks) and runs its plain version on the CPU tensor it is given,
 or, where the config picks the float64-front tile, the float64 oracle on
-the kernel's own input (the f32 plain versions sit at the f32 valley
-floor, above that tile's oracle bound); a launch on a named tile (phase
-8's yardsticks) runs the plain chain.  Every phase then runs end to end at
+the kernel's own input in the call's projection (the f32 plain versions
+sit at the f32 valley floor, above that tile's oracle bound); a launch on
+a named tile (phase 8's yardsticks) runs the plain chain.  Every phase then runs end to end at
 a small size: the control flow, shapes, comparisons, launch and tile
 accounting and the kernels' JSON record with its bounds.  Imports no jax.
 """
@@ -51,23 +51,31 @@ class _Event:
         return (end.t - self.t) * 1e3
 
 
+ORACLES = {"mel": oracle.log_mel, "bark": oracle.log_bark,
+           "spec": oracle.log_spectrogram}
+
+
 def _counting(mod, name):
     fn = getattr(mod, name)
 
     def wrapper(*args, **kwargs):
         mod.LAUNCHES += 1
         x, cfg = args[:2]
+        projection = kwargs.get("projection", "mel")
         if hasattr(mod, "TILE_LAUNCHES") and x.shape[0] and \
                 cfg.num_frames(x.shape[1]):
-            tile = _spectral.fft_tile(cfg, kwargs.get("apply_dct", True))
+            tile = _spectral.fft_tile(cfg, kwargs.get("apply_dct", True),
+                                      projection)
             mod.TILE_LAUNCHES[tile if tile in mod.TILE_LAUNCHES
                               else "dit"] += 1
+            if hasattr(mod, "PROJECTION_LAUNCHES"):
+                mod.PROJECTION_LAUNCHES[projection] += 1
             if tile == "fft64":
                 c = cfg.replace(deltas=False)
                 if mod in (fused_dit, fused_mfcc):
                     c = c.replace(preemph=0.0)
                 return torch.from_numpy(np.stack([
-                    oracle.log_mel(r, c) for r in x.double().numpy()
+                    ORACLES[projection](r, c) for r in x.double().numpy()
                 ]).astype(np.float32))
         return fn(*args, **kwargs)
 
@@ -75,10 +83,11 @@ def _counting(mod, name):
 
 
 def _launch_plain(lib_fn, entry, name, x, cfg, apply_dct, preemph,
-                  other=None, tile=None):
+                  other=None, tile=None, projection=None):
     """launch_spectral's stand-in: the plain chain, on the tile named."""
     y = framing.preemphasize(x, cfg) if preemph is not None else x
-    return _spectral.plain_features(y, cfg, apply_dct), tile
+    return _spectral.plain_features(y, cfg, apply_dct,
+                                    projection=projection or "mel"), tile
 
 
 def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
@@ -103,14 +112,15 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         "cuda" if name in ("auto", "cuda") else resolve(name, x)))
     for mod, fn in WRAPPERS:
         monkeypatch.setattr(mod, "LAUNCHES", mod.LAUNCHES)   # restored after
-        if hasattr(mod, "TILE_LAUNCHES"):
-            monkeypatch.setattr(mod, "TILE_LAUNCHES", dict(mod.TILE_LAUNCHES))
+        for counts in ("TILE_LAUNCHES", "PROJECTION_LAUNCHES"):
+            if hasattr(mod, counts):
+                monkeypatch.setattr(mod, counts, dict(getattr(mod, counts)))
         monkeypatch.setattr(mod, fn, _counting(mod, fn))
 
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 10)), "3b", "3c", "4b"]:
+    for phase in [*map(str, range(1, 10)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
     assert "[3b FFT tile vs plain] fused_mfcc cepstra, n_fft 4096" in out
     assert "fused_raw log-mel, unbounded log-mel, n_fft 4096, T=71: fft64 " \
@@ -118,14 +128,25 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert "fused_raw cepstra, n_fft 401 (fused_dit: 400): direct tile" in out
     assert "fused_dit cepstra, n_fft 401 (fused_dit: 400): dit tile" in out
     assert "Hann two-tone valley: fft64 tile" in out
+    assert "fused_raw_dit/bark, direct tile, n_fft 401 (spec: 768): " \
+        "direct tile" in out
+    assert "fused_raw_dit/spec, Hann two-tone valley: fft64 tile" in out
+    assert "at 16000 Hz, n_fft 400 (the reference's XLA route): launched " \
+        "{'fused_raw_dit': 0, 'fused_raw': 0, 'fused_mfcc': 0, " \
+        "'fused_dit': 0}" in out
+    assert "[8 timing] PLP tail" in out and " ATen ops, host enqueue" in out
     assert "Fake GPU, 700.00 W" in out
     json.dumps({"kernels": kernels})
-    assert [k["name"] for k in kernels] == list(smoke.KERNELS)
+    assert [k["name"] for k in kernels] == [*smoke.KERNELS,
+                                            *smoke.PROJECTIONS]
     # launches are the main paths' own: one per batch call (fused_raw_dit:
-    # two MFCC batches and the 50 dB log-mel batch), no golden or check run
+    # two MFCC batches and the 50 dB log-mel batch; its bark and spec
+    # projections one plp_batch and one log_spectrogram_batch), no golden
+    # or check run
     assert {k["name"]: k["launches"] for k in kernels} == {
         "fused_raw_dit": 3, "fused_raw": 1, "fused_mfcc": 1, "fused_dit": 1,
-        "fused_nccf": 1, "fused_viterbi": 1}
+        "fused_nccf": 1, "fused_viterbi": 1, "fused_raw_dit/bark": 1,
+        "fused_raw_dit/spec": 1}
     for k in kernels:
         assert k["route"] == "cuda" and k["launches"] > 0, k
         assert os.path.exists(os.path.join(REPO, k["source"])), k
@@ -139,16 +160,22 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     tiles = {k["name"]: k["tile"] for k in kernels}
     assert tiles == {"fused_raw_dit": "fft", "fused_mfcc": "fft",
                      "fused_raw": "fft64", "fused_dit": "fft64",
-                     "fused_nccf": "direct", "fused_viterbi": None}
+                     "fused_nccf": "direct", "fused_viterbi": None,
+                     "fused_raw_dit/bark": "fft64",
+                     "fused_raw_dit/spec": "fft64"}
     for k in kernels:
-        spectral = k["name"] in smoke.SPECTRAL
+        spectral = k["name"].split("/")[0] in smoke.SPECTRAL
+        projection = k["name"] in smoke.PROJECTIONS
         assert (k["direct_tile_ms"] is not None) == spectral, k
         assert (k["f32_tile_ms"] is not None) == (k["tile"] == "fft64"), k
-        assert (k["rfft_stage_ms"] is not None) == (k["tile"] == "fft"), k
+        assert (k["rfft_stage_ms"] is not None) == (
+            k["tile"] == "fft" or projection), k
+    assert kernels[-1]["source"] == kernels[0]["source"]
     # on the CPU the wrappers run the plain versions (the oracle where the
     # config picks the fft64 tile): the pitch kernels' differ in nothing,
     # the spectral kernels' by the f32 plain versions' own error
     errs = {k["name"]: k["max_abs_err"] for k in kernels}
     assert errs["fused_nccf"] == 0.0 and errs["fused_viterbi"] == 0
     assert all(errs[k] <= 1e-2 for k in smoke.SPECTRAL), errs
+    assert all(errs[k] <= 2e-4 for k in smoke.PROJECTIONS), errs
     assert "0 differ in any bit" in out
