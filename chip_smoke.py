@@ -79,11 +79,17 @@ Phases, one status line each; any failure raises and exits non-zero:
 5. NCCF kernel vs plain: ``fused_nccf`` against the correlation-theorem
    ``ops.pitch.nccf`` given the same ballast, <= 2e-5 on valid frames, on
    stationary signals (the bench batch, ragged noise, four other configs,
-   a frame count that is no tile multiple).
+   a frame count that is no tile multiple, T = 1), each case with the tile
+   the kernel chose (frames a tile, lags a thread, lag passes, window
+   energies shared by the tile).
 6. Viterbi kernel vs plain: ``fused_viterbi`` against ``ops.pitch.viterbi``
    on seeded random scores with zero-emission tails, paths exactly equal,
-   for B in {1, 3, 64, 200} x T in {1, 2, 64, 65, 150, 996}, and
-   ``viterbi_blocked`` on one 6-minute stream.
+   for B in {1, 3, 64, 200} x T in {1, 2, 64, 65, 150, 996}; a tie-heavy
+   case (``penalty=0``, scores in {-1, 0, 1}: nearly every argmin a tie,
+   only the first index right); 256 and 257 lags (byte and uint16
+   backpointers); one 6-minute stream unblocked (~36,000 steps: the
+   backpointers spill to global memory in time blocks) and through
+   ``viterbi_blocked``; each case with the launch shape the kernel chose.
 7. pitch main path: ``models.pitch.pitch_batch`` on the ragged int16
    64 x 10 s batch and on the golden WAV, and the MFCC + pitch composition
    (mfcc_batch, pitch_batch, align_pitch, mask, concatenation), each with
@@ -105,9 +111,12 @@ Phases, one status line each; any failure raises and exits non-zero:
    projections (the f32 tile and cuFFT beside them), ``plp_batch`` and
    ``log_spectrogram_batch`` through the kernel and through plain PyTorch,
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
+   ``fused_viterbi``'s time per step of its chain beside the chain bound.
 9. the script's elapsed time, one JSON line describing the kernels (with
    each one's bound: the larger of its input and output bytes over 3.35
-   TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes;
+   TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes,
+   and for ``fused_viterbi`` also its dependent chain at the card's SM
+   clock, whichever is largest;
    ``fused_raw_dit/bark`` and ``fused_raw_dit/spec`` are kernel 1's two
    other projections, recorded apart), then the final JSON status line.
 
@@ -143,6 +152,13 @@ SPEC_WINDOW_DB = 50.0
 PITCH_TOL = (1e-4, 3e-4, 1e-4)   # pov, norm, delta (tests/test_pitch.py)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores
+# The Viterbi chain's floor per step: ceil(log2 n) dependent compare-select
+# pairs (a min tree over n candidates) at the dependent-issue latency of an
+# fp32 instruction, then one block barrier.  Both are cycle counts that
+# published microbenchmarks of Volta to Hopper report (~4 cycles a
+# dependent fp32 op, ~20-30 a bar.sync of a block), not measured here.
+FP32_DEP_CYCLES = 4
+BARRIER_CYCLES = 24
 ACC_LOG_OPS = 17             # the accurate log's operations per value
 FFT_GRID = (64, 128, 256, 512, 1024, 2048, 4096)
 KERNELS = ("fused_raw_dit", "fused_raw", "fused_mfcc", "fused_dit",
@@ -167,6 +183,7 @@ BATCH, SECONDS = 64, 10.0
 TIMING_CALLS = 30
 VITERBI_BATCHES = (1, 3, 64, 200)
 VITERBI_STEPS = (1, 2, 64, 65, 150, 996)
+VITERBI_WIDE = 996           # steps of the 256- and 257-lag cases
 LONG_SECONDS = 360.0
 
 
@@ -191,6 +208,26 @@ def _bench_audio(batch: int, seconds: float, sr: int) -> np.ndarray:
     audio = np.tile(base, (batch, 1))
     audio += 0.02 * rng.standard_normal(audio.shape).astype(np.float32)
     return audio
+
+
+def _sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+
+
+def _chain_ms(T: int, n: int, sm_mhz: float) -> float:
+    """The least time of a T-step Viterbi chain over n states: each step
+    after the first waits for a min over n candidates (ceil(log2 n)
+    dependent compare-select pairs) and one barrier."""
+    return max(T - 1, 0) * _chain_cycles(n) / (sm_mhz * 1e3)
+
+
+def _chain_cycles(n: int) -> int:
+    return math.ceil(math.log2(n)) * 2 * FP32_DEP_CYCLES + BARRIER_CYCLES
 
 
 def _int16(audio: np.ndarray) -> np.ndarray:
@@ -956,7 +993,7 @@ def _nccf_inputs(torch, dev, pcfg, audio, lens):
     return xw, pcfg.ballast * mean_e * mean_e, T, flens
 
 
-def _nccf_kernel_vs_plain(torch, dev, bench) -> float:
+def _nccf_kernel_vs_plain(torch, dev, bench) -> tuple:
     from mfcc_tpu_torch import PitchConfig
     from mfcc_tpu_torch.ops.kernels import fused_nccf
     pcfg = PitchConfig().validate()
@@ -978,12 +1015,14 @@ def _nccf_kernel_vs_plain(torch, dev, bench) -> float:
         ("hop_ms=15.25", pcfg.replace(hop_ms=15.25), short, [3 * sr] * 4),
         ("T=205, not a tile multiple", pcfg,
          0.3 * rng.standard_normal((2, 33360)).astype(np.float32), [33360] * 2),
+        ("T=1", pcfg, bench[:3, :720], [720] * 3),
     ]
-    worst = 0.0
+    worst, bench_tile = 0.0, None
     for name, c, audio, lens in cases:
         xw, ball, T, flens = _nccf_inputs(torch, dev, c.validate(), audio, lens)
         got = fused_nccf.fused_nccf(xw, ball, c, T=T)
         torch.cuda.synchronize()
+        shape = fused_nccf.LAST_SHAPE
         want = fused_nccf.plain_nccf(xw, ball, c, T)
         torch.cuda.synchronize()
         err = 0.0
@@ -993,11 +1032,12 @@ def _nccf_kernel_vs_plain(torch, dev, bench) -> float:
             for i, v in enumerate(flens):
                 if v:
                     err = max(err, float((g[i, :v] - w[i, :v]).abs().max()))
-        _log(f"[5 NCCF kernel vs plain] {name}: shape "
+        _log(f"[5 NCCF kernel vs plain] {name}: tile {shape}, shape "
              f"{tuple(got[0].shape)}, max abs diff {err:.3e} on valid frames")
         assert err <= KERNEL_TOL, (name, err)
         worst = max(worst, err)
-    return worst
+        bench_tile = bench_tile or shape
+    return worst, bench_tile
 
 
 def _viterbi_kernel_vs_plain(torch, dev) -> int:
@@ -1007,25 +1047,42 @@ def _viterbi_kernel_vs_plain(torch, dev) -> int:
     pcfg = PitchConfig()
     rng = np.random.default_rng(3)
 
-    def scores(B, T):
-        s = (0.5 * rng.standard_normal((B, T, pcfg.n_lags))).astype(np.float32)
+    def scores(B, T, n=pcfg.n_lags, ties=False):
+        s = (rng.integers(-1, 2, (B, T, n)) if ties
+             else 0.5 * rng.standard_normal((B, T, n))).astype(np.float32)
         s[1::2, T * 2 // 3:] = 0.0           # zero-emission tails
         return torch.from_numpy(s).to(dev)
+
+    def differ(s, c):
+        got = fused_viterbi.fused_viterbi(s, c)
+        torch.cuda.synchronize()
+        want = pitch_op.viterbi(s, c)
+        assert got.dtype == want.dtype == torch.int32
+        assert got.shape == want.shape == s.shape[:2]
+        return int((got != want).sum())
 
     bad = 0
     for B in VITERBI_BATCHES:
         for T in VITERBI_STEPS:
-            s = scores(B, T)
-            got = fused_viterbi.fused_viterbi(s, pcfg)
-            torch.cuda.synchronize()
-            want = pitch_op.viterbi(s, pcfg)
-            assert got.dtype == want.dtype == torch.int32
-            assert got.shape == want.shape == (B, T)
-            bad += int((got != want).sum())
+            bad += differ(scores(B, T), pcfg)
     _log(f"[6 Viterbi kernel vs plain] B in {VITERBI_BATCHES} x T in "
-         f"{VITERBI_STEPS}: {bad} path entries differ")
+         f"{VITERBI_STEPS}: {bad} path entries differ (the main path's "
+         f"launch shape {fused_viterbi.LAST_SHAPE})")
+    # min_f0 15.09 / 15.0 Hz at the 4 kHz work rate: 256 / 257 lags
+    cases = [("tie-heavy (penalty=0, scores in {-1, 0, 1})",
+              pcfg.replace(penalty=0.0), scores(64, VITERBI_WIDE, ties=True)),
+             *((f"{c.n_lags} lags", c, scores(4, VITERBI_WIDE, c.n_lags))
+               for c in (pcfg.replace(min_f0=15.09),
+                         pcfg.replace(min_f0=15.0)))]
     n = int(LONG_SECONDS * pcfg.sample_rate)
-    s = scores(1, pcfg.num_frames(n))
+    cases.append((f"unblocked B=1 x {LONG_SECONDS:g} s", pcfg,
+                  scores(1, pcfg.num_frames(n))))
+    for name, c, s in cases:
+        case_bad = differ(s, c.validate())
+        _log(f"[6 Viterbi kernel vs plain] {name}, (B, T, n) "
+             f"{tuple(s.shape)}: {case_bad} path entries differ (launch shape "
+             f"{fused_viterbi.LAST_SHAPE})")
+        bad += case_bad
     got = pitch_op.viterbi_blocked(s, pcfg, backend="cuda")
     torch.cuda.synchronize()
     want = pitch_op.viterbi_blocked(s, pcfg, backend="torch")
@@ -1178,7 +1235,7 @@ def _plp_tail_ops(torch, log_bark, cfg):
     return counter.n, host_ms
 
 
-def _timing(torch, dev, bench, smi) -> dict:
+def _timing(torch, dev, bench, smi, sm_mhz) -> dict:
     from mfcc_tpu_torch import FeatureConfig, PitchConfig
     from mfcc_tpu_torch.models import logmel as logmel_model
     from mfcc_tpu_torch.models import mfcc as mfcc_model, pitch as pitch_model
@@ -1193,7 +1250,8 @@ def _timing(torch, dev, bench, smi) -> dict:
     lb = torch.full((B,), N, dtype=torch.int32, device=dev)
     xw, ball, T, _ = _nccf_inputs(torch, dev, pcfg, bench, [N] * B)
     scores = fused_nccf.plain_nccf(xw, ball, pcfg, T)[0]   # every frame valid
-    slow = max(2, TIMING_CALLS // 3)     # the plain Viterbi's T-step loop
+    # the plain Viterbi's T-step loop (~0.1 s a call): one group a pass
+    slow = max(2, TIMING_CALLS // 6)
     runs = {}
     # each spectral kernel at its main-path config (fused_raw_dit at the
     # MFCC-13 one), beside it the tile it replaced on the same work through
@@ -1299,6 +1357,12 @@ def _timing(torch, dev, bench, smi) -> dict:
              f"{med[f'{rec} fft']:.4f} ms (f64 costs "
              f"{med[rec] / med[f'{rec} fft']:.2f}x); cuFFT rfft of the "
              f"same frames alone {med['fused_raw_dit rfft']:.4f} ms")
+    steps = scores.shape[1] - 1
+    chain = _chain_ms(scores.shape[1], pcfg.n_lags, sm_mhz)
+    _log(f"[8 timing] fused_viterbi per step of its {steps}-step chain: "
+         f"{med['fused_viterbi'] / steps * 1e3:.4f} us against the chain "
+         f"bound {chain / steps * 1e3:.4f} us ({_chain_cycles(pcfg.n_lags)} "
+         f"cycles at {sm_mhz:g} MHz; {smi})")
     n_ops, host_ms = _plp_tail_ops(torch, log_bark, cfg)
     _log(f"[8 timing] PLP tail (plp_from_log_bark on the kernel's {B} x "
          f"{log_bark.shape[1]} x {log_bark.shape[2]} output): {n_ops} ATen "
@@ -1351,6 +1415,7 @@ def _bounds(bench) -> dict:
     nw = int(round(N * p.work_rate / p.sample_rate))
     # NCCF: w x L numerator MACs, lag energies by a running sum, then per
     # lag the product, floor, ballast, two square roots and two divisions
+    # (the least work; the kernel's own is _nccf_kernel_ops)
     out["fused_nccf"] = (B * T * (2 * w * L + 2 * (w + p.max_lag) + 8 * L),
                          4 * (B * nw + B) + 2 * 4 * B * T * L)
     # Viterbi: per step and state L additions and L comparisons
@@ -1361,16 +1426,30 @@ def _bounds(bench) -> dict:
     return out
 
 
+def _nccf_kernel_ops(B: int, T: int, TM: int) -> float:
+    """The operations fused_nccf itself does: the numerators' w x L MACs, a
+    direct w-MAC energy for every window position of each TM-frame tile
+    (no running sum: its rounding would differ), and the epilogue."""
+    from mfcc_tpu_torch import PitchConfig
+    p = PitchConfig()
+    w, L, hop = p.frame_len_w, p.n_lags, p.hop_len_w
+    tiles = [min(TM, T - t0) for t0 in range(0, T, TM)]
+    positions = sum((tm - 1) * hop + p.max_lag + 1 for tm in tiles)
+    return B * (T * (2 * w * L + 8 * L) + positions * 2 * w)
+
+
 def run(torch, dev) -> list[dict]:
     """Phases 1-8 on device ``dev``; -> the kernels' JSON records."""
+    from mfcc_tpu_torch import PitchConfig
     from mfcc_tpu_torch.ops.kernels import _build
 
     # ---- 1. device ----
-    smi = _smi()
+    smi, sm_mhz = _smi(), _sm_clock_mhz()
     _log(f"[1 device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
          f"{torch.cuda.get_device_name(0)}, "
          f"device_count {torch.cuda.device_count()}")
     print(smi, flush=True)
+    _log(f"[1 device] max SM clock {sm_mhz:g} MHz")
 
     _build_all(_build)                                      # 2
     bench = _bench_audio(BATCH, SECONDS, 16000)
@@ -1382,10 +1461,10 @@ def run(torch, dev) -> list[dict]:
     mfcc_launches, mfcc_tiles = _mfcc_main_path(torch, dev, bench)  # 4
     logmel_launches, logmel_tiles = _logmel_main_paths(torch, dev)  # 4b
     proj_launches, proj_tiles = _plp_spectrogram_main_paths(torch, dev)  # 4c
-    nccf_err = _nccf_kernel_vs_plain(torch, dev, bench)     # 5
+    nccf_err, nccf_tile = _nccf_kernel_vs_plain(torch, dev, bench)  # 5
     viterbi_bad = _viterbi_kernel_vs_plain(torch, dev)      # 6
     pitch_launches = _pitch_main_path(torch, dev, bench)    # 7
-    med = _timing(torch, dev, bench, smi)                   # 8
+    med = _timing(torch, dev, bench, smi, sm_mhz)           # 8
 
     src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
     launches = {**logmel_launches, **pitch_launches, **proj_launches}
@@ -1402,22 +1481,33 @@ def run(torch, dev) -> list[dict]:
     for k, counts in logmel_tiles.items():
         tiles[k] = "+".join(t for t, v in counts.items() if v)
     records = []
+    B, N = bench.shape
+    T_pitch = PitchConfig().num_frames(N)
     for k, (ops, nbytes) in _bounds(bench).items():
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+        times = {"bytes": nbytes / HBM_BYTES_PER_S,
+                 "operations": ops / FP32_FLOPS,
+                 "chain": (_chain_ms(T_pitch, PitchConfig().n_lags, sm_mhz)
+                           / 1e3 if k == "fused_viterbi" else 0.0)}
+        bound_by = max(times, key=times.get)
         records.append({
             "name": k, "route": "cuda", "source": src(k),
             "replaces": REPLACES[k], "launches": launches[k],
             "max_abs_err": errs[k], "ms": med[k],
             "plain_ms": med[f"{k} plain"],
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": 1e3 * times[bound_by], "bound_by": bound_by,
             "library_ms": None, "tile": tiles[k],
             "direct_tile_ms": med.get(f"{k} direct", med.get(f"{k} dit")),
             "f32_tile_ms": med.get(f"{k} fft"),
             "rfft_stage_ms": med.get(f"{k.split('/')[0]} rfft")})
-        _log(f"[9 summary] {k}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB "
-             f"-> bound {records[-1]['bound_ms']:.4f} ms by "
+        _log(f"[9 summary] {k}: {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB"
+             + (f", a {T_pitch - 1}-step chain" if times["chain"] else "")
+             + f" -> bound {records[-1]['bound_ms']:.4f} ms by "
              f"{records[-1]['bound_by']}; ran {med[k]:.4f} ms")
+    own = _nccf_kernel_ops(B, T_pitch, nccf_tile["TM"])
+    _log(f"[9 summary] fused_nccf: the work the kernel does ({nccf_tile}: "
+         f"window energies summed directly once per tile position) "
+         f"{own / 1e9:.3f} GFLOP -> {own / FP32_FLOPS * 1e3:.4f} ms at the "
+         f"fp32 peak; ran {med['fused_nccf']:.4f} ms")
     return records
 
 

@@ -9,6 +9,9 @@
   raises; a config the kernel does not take raises NotImplementedError),
   or runs :func:`plain_nccf` for a CPU tensor.
 - ``LAUNCHES`` — how many times the wrapper launched the kernel.
+- ``LAST_SHAPE`` — the tile of the last launch (frames a tile TM, lags a
+  thread R, lag passes, window energies shared by the tile, outputs staged
+  in shared memory), as the C entry planned it.
 
 The kernel computes the numerators by direct time-domain correlation, not
 by the TPU kernel's DFT factorization; its design note heads the CUDA
@@ -19,6 +22,7 @@ rule and does not carry over.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,6 +32,8 @@ from . import _build
 
 # kernel launches by fused_nccf (reset by callers that count)
 LAUNCHES = 0
+LAST_SHAPE: dict | None = None
+SHAPE_KEYS = ("TM", "R", "passes", "shared_energy", "stage_out")
 
 # extended-window samples (frame_len_w + max_lag) the kernel can stage:
 # one window in the 227 KB of shared memory a Hopper block may opt into
@@ -47,11 +53,17 @@ def plain_nccf(xw: torch.Tensor, ball: torch.Tensor, pcfg: PitchConfig,
     return pitch_op.nccf(xw, pcfg, mask, ball=ball)
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_nccf")
+    return bind(_build.load("fused_nccf"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries' argument and result types on a build of
+    ``csrc/fused_nccf.cu``."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mfcc_fused_nccf.argtypes = [ptr, i64, i64, ptr, ptr, ptr,
-                                    i32, i32, i32, i32, i32, i32, ptr]
+                                    i32, i32, i32, i32, i32, i32, ptr, ptr]
     lib.mfcc_fused_nccf.restype = i32
     lib.mfcc_error_string.argtypes = [i32]
     lib.mfcc_error_string.restype = ctypes.c_char_p
@@ -89,15 +101,19 @@ def fused_nccf(xw: torch.Tensor, ball: torch.Tensor, pcfg: PitchConfig, *,
     if B == 0 or T == 0:
         return out_b, out_p
     lib = _lib()
+    # one row may carry any stride (a numpy x[None] view has 0)
+    ldx = xw.stride(0) if B > 1 else Nw
+    shape = (ctypes.c_int * len(SHAPE_KEYS))()
     with torch.cuda.device(xw.device):
         err = lib.mfcc_fused_nccf(
-            xw.data_ptr(), xw.stride(0), Nw, ball.data_ptr(),
+            xw.data_ptr(), ldx, Nw, ball.data_ptr(),
             out_b.data_ptr(), out_p.data_ptr(), B, T, pcfg.frame_len_w,
             pcfg.hop_len_w, pcfg.min_lag, pcfg.n_lags,
-            torch.cuda.current_stream(xw.device).cuda_stream)
+            torch.cuda.current_stream(xw.device).cuda_stream, shape)
     if err != 0:
         raise RuntimeError("fused_nccf kernel launch failed: "
                            f"{lib.mfcc_error_string(err).decode()} ({err})")
-    global LAUNCHES
+    global LAUNCHES, LAST_SHAPE
     LAUNCHES += 1
+    LAST_SHAPE = dict(zip(SHAPE_KEYS, shape))
     return out_b, out_p

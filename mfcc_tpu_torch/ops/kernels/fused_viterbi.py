@@ -8,6 +8,9 @@ kernel (the Hopper twin of ``mfcc_tpu/ops/kernels/fused_viterbi.py``).
   raises), or runs ``ops.pitch.viterbi`` for a CPU tensor.  It takes every
   lag-grid size.
 - ``LAUNCHES`` — how many times the wrapper launched the kernel.
+- ``LAST_SHAPE`` — the launch shape of the last launch (lanes per state K,
+  a lane's range J, threads, register path, backpointer steps held in
+  shared memory TB, score chunk), as the C entry planned it.
 
 The kernel's design note heads the CUDA source.
 """
@@ -25,6 +28,8 @@ from . import _build
 
 # kernel launches by fused_viterbi (reset by callers that count)
 LAUNCHES = 0
+LAST_SHAPE: dict | None = None
+SHAPE_KEYS = ("K", "J", "threads", "register_path", "TB", "score_chunk")
 
 
 @functools.lru_cache(maxsize=16)
@@ -34,11 +39,19 @@ def _pinned_trans(pcfg: PitchConfig) -> torch.Tensor:
     return torch.from_numpy(pitch_op._trans_matrix(pcfg)).pin_memory()
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_viterbi")
+    return bind(_build.load("fused_viterbi"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries' argument and result types on a build of
+    ``csrc/fused_viterbi.cu``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mfcc_fused_viterbi.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.mfcc_fused_viterbi.restype = i32
+    lib.mfcc_viterbi_plan.argtypes = [i32, i32, i32, ptr]
+    lib.mfcc_viterbi_plan.restype = ctypes.c_longlong
     lib.mfcc_error_string.argtypes = [i32]
     lib.mfcc_error_string.restype = ctypes.c_char_p
     return lib
@@ -59,17 +72,26 @@ def fused_viterbi(nccf_b: torch.Tensor, pcfg: PitchConfig) -> torch.Tensor:
     path = torch.empty((B, T), dtype=torch.int32, device=nccf_b.device)
     if B == 0 or T == 0:
         return path
-    bp = torch.empty((B, T, n), dtype=torch.int32, device=nccf_b.device)
     lib = _lib()
+    shape = (ctypes.c_int * len(SHAPE_KEYS))()
     with torch.cuda.device(nccf_b.device):
+        spill_bytes = lib.mfcc_viterbi_plan(B, T, n, shape)
+        if spill_bytes < 0:
+            err = -spill_bytes
+            raise RuntimeError("fused_viterbi kernel plan failed: "
+                               f"{lib.mfcc_error_string(err).decode()} ({err})")
+        # backpointers of a chain too long for shared memory spill here
+        spill = (torch.empty(spill_bytes, dtype=torch.uint8,
+                             device=nccf_b.device) if spill_bytes else None)
         trans = _pinned_trans(pcfg).to(nccf_b.device, non_blocking=True)
         err = lib.mfcc_fused_viterbi(
-            nccf_b.data_ptr(), trans.data_ptr(), bp.data_ptr(),
-            path.data_ptr(), B, T, n,
-            torch.cuda.current_stream(nccf_b.device).cuda_stream)
+            nccf_b.data_ptr(), trans.data_ptr(),
+            None if spill is None else spill.data_ptr(), path.data_ptr(),
+            B, T, n, torch.cuda.current_stream(nccf_b.device).cuda_stream)
     if err != 0:
         raise RuntimeError("fused_viterbi kernel launch failed: "
                            f"{lib.mfcc_error_string(err).decode()} ({err})")
-    global LAUNCHES
+    global LAUNCHES, LAST_SHAPE
     LAUNCHES += 1
+    LAST_SHAPE = dict(zip(SHAPE_KEYS, shape))
     return path

@@ -152,9 +152,13 @@ def _vibrato(gen, n, f0=180.0):
     (dict(min_f0=60.0, max_f0=300.0), (3, 32000)),
     (dict(hop_ms=15.25), (3, 32000)),
     (dict(sample_rate=8000), (2, 16000)),
-    # frame tiles of 8 and of 1 (a 32-frame span exceeds shared memory)
+    # frame tiles of 8 and of 1 (a 32-frame span exceeds shared memory),
+    # 841 lags: 15 a thread in 8 passes
     (dict(sample_rate=48000, work_rate=48000, hop_ms=40.0), (2, 144000)),
     (dict(sample_rate=48000, work_rate=48000, hop_ms=200.0), (2, 144000)),
+    (dict(), (3, 720)),                     # T=1
+    # 54 lags, 7 a thread: 56 slots, the last lag group short
+    (dict(min_f0=60.0, max_f0=300.0, hop_ms=12.5), (2, 32000)),
 ])
 def test_nccf_kernel_matches_plain(cuda, gen, kw, shape):
     pcfg = PitchConfig(**kw).validate()
@@ -171,6 +175,32 @@ def test_nccf_kernel_matches_plain(cuda, gen, kw, shape):
     for g, w in zip(got, want):
         assert g.shape == w.shape == (shape[0], T, pcfg.n_lags)
         assert float((g - w).abs().max()) <= TOL    # every frame is valid
+    shape = fused_nccf.LAST_SHAPE
+    assert shape["R"] % 2 == 1 and 8 * shape["R"] * shape["passes"] >= \
+        pcfg.n_lags > 8 * shape["R"] * (shape["passes"] - 1), shape
+
+
+@pytest.mark.cuda
+def test_nccf_kernel_lag_energies_in_registers(cuda, gen):
+    """A window too large for the tile's shared energies (40,400 samples,
+    39,961 lags): the lag energies stay in each thread's registers.  The
+    plain version's DFT matrices would be ~6 GB, so the plain NCCF is held
+    to the float64 oracle instead, within the kernel bound."""
+    pcfg = PitchConfig(sample_rate=16000, work_rate=16000,
+                       min_f0=0.4).validate()
+    n = pcfg.frame_len_w + pcfg.max_lag + 2 * pcfg.hop_len_w
+    x = _vibrato(gen, n, 140.0)
+    xw = torch.from_numpy(x[None]).to(cuda)
+    T = pcfg.num_frames(n)
+    got_b, got_p = fused_nccf.fused_nccf(xw, torch.zeros(1, device=cuda),
+                                         pcfg, T=T)
+    torch.cuda.synchronize()
+    assert fused_nccf.LAST_SHAPE["shared_energy"] == 0
+    assert fused_nccf.LAST_SHAPE["TM"] == 1
+    _, want_p = oracle.nccf(x.astype(np.float64), pcfg)
+    assert want_p.shape == tuple(got_p.shape[1:]) == (3, pcfg.n_lags)
+    assert np.abs(got_p[0].cpu().numpy() - want_p).max() <= TOL
+    assert torch.equal(got_b, got_p)        # ballast 0
 
 
 @pytest.mark.cuda
@@ -178,10 +208,19 @@ def test_nccf_kernel_matches_plain(cuda, gen, kw, shape):
     (1, 1, {}), (3, 2, {}), (3, 65, {}), (64, 996, {}), (200, 150, {}),
     # 1,027 lags: more states than threads, transitions read from global
     (2, 65, dict(work_rate=16000, min_f0=15.0)),
+    # tie-heavy: penalty 0 and scores in {-1, 0, 1}
+    (64, 996, dict(penalty=0.0)),
+    # 256 lags (byte backpointers) and 257 (uint16)
+    (4, 996, dict(min_f0=15.09)), (4, 996, dict(min_f0=15.0)),
+    # a 6-minute stream unblocked: its backpointers spill in time blocks
+    (1, 35996, {}),
 ])
 def test_viterbi_kernel_exactly_equal(cuda, gen, B, T, kw):
     pcfg = PitchConfig(**kw).validate()
-    s = (0.5 * gen.standard_normal((B, T, pcfg.n_lags))).astype(np.float32)
+    if pcfg.penalty == 0.0:
+        s = gen.integers(-1, 2, (B, T, pcfg.n_lags)).astype(np.float32)
+    else:
+        s = (0.5 * gen.standard_normal((B, T, pcfg.n_lags))).astype(np.float32)
     s[1::2, T * 2 // 3:] = 0.0
     s = torch.from_numpy(s).to(cuda)
     before = fused_viterbi.LAUNCHES

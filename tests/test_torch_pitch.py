@@ -9,6 +9,7 @@ tests/test_pitch.py): pov 1e-4, normalized log pitch 3e-4, delta 1e-4.
 """
 
 import dataclasses
+import functools
 import os
 
 import jax.numpy as jnp
@@ -25,6 +26,7 @@ from mfcc_tpu_torch import PitchConfig, from_jax, oracle
 from mfcc_tpu_torch.models import pitch as pitch_model
 from mfcc_tpu_torch.ops import pitch as pitch_op, resample
 from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_viterbi
+from mfcc_tpu_torch.tools import ablate_pitch
 from mfcc_tpu_torch.utils import wav
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -310,27 +312,67 @@ def _scores(rng, B, T, n):
     return s
 
 
-def _emulate_viterbi_kernel(s, trans):
-    """The CUDA kernel's loop in float32 numpy, vectorized over the
-    destination states (the kernel's threads): strict-< running argmin."""
+def _lane_argmin(cand, lo, hi):
+    """(value, index) of the first minimum of cand[:, lo:hi] over axis 1 as
+    the kernel's tree of contiguous pairs: the higher half wins only if
+    strictly smaller."""
+    if hi - lo == 1:
+        return cand[:, lo], np.full(cand[:, lo].shape, lo, np.int32)
+    mid = lo + (hi - lo + 1) // 2
+    v, a = _lane_argmin(cand, lo, mid)
+    v2, a2 = _lane_argmin(cand, mid, hi)
+    upd = v2 < v
+    return np.where(upd, v2, v), np.where(upd, a2, a)
+
+
+def _emulate_viterbi_kernel(s, trans, K=1, TB=None):
+    """The CUDA kernel's arithmetic in float32 numpy, vectorized over the
+    destination states: lane k of a state takes the first argmin of j in
+    [k*J, (k+1)*J) (J = ceil(n/K)) by a tree of contiguous pairs (strict <
+    for the higher half), the K partials merge as the kernel's warp
+    shuffles do (rounds off = 1, 2, 4, ..., the lower range keeping ties),
+    and the backpointers go through a TB-step byte buffer (uint16 above
+    256 states) whose full blocks spill and are read back, last first, for
+    the backtrace."""
     B, T, n = s.shape
+    J = -(-n // K)
+    bpt = np.uint8 if n <= 256 else np.uint16
+    TB = T if TB is None else TB
+    blocks = (T - 1) // TB + 1
+    # transitions of each lane's range, 0 past the grid (cost +inf there)
+    tv = np.zeros((K * J, n), np.float32)
+    tv[:n] = trans
     path = np.zeros((B, T), np.int32)
     for b in range(B):
-        cur = -s[b, 0]
-        bp = np.zeros((T, n), np.int32)
+        cur = np.full(K * J, np.inf, np.float32)
+        cur[:n] = -s[b, 0]
+        buf = np.zeros((TB, n), bpt)
+        spill = np.zeros((blocks, TB, n), bpt)
         for t in range(1, T):
-            best, arg = cur[0] + trans[0], np.zeros(n, np.int32)
-            for j in range(1, n):
-                c = cur[j] + trans[j]
-                upd = c < best
-                best = np.where(upd, c, best)
-                arg = np.where(upd, j, arg)
-            cur, bp[t] = best - s[b, t], arg
-        k = int(np.argmin(cur))
-        path[b, T - 1] = k
-        for t in range(T - 1, 0, -1):
-            k = bp[t, k]
-            path[b, t - 1] = k
+            cand = (cur[:, None] + tv).reshape(K, J, n)   # (lane, m, state)
+            best, arg = _lane_argmin(cand, 0, J)
+            arg = arg + (np.arange(K) * J)[:, None]
+            off = 1
+            while off < K:
+                for k in range(0, K, 2 * off):
+                    upd = best[k + off] < best[k]
+                    best[k] = np.where(upd, best[k + off], best[k])
+                    arg[k] = np.where(upd, arg[k + off], arg[k])
+                off *= 2
+            nxt = np.full(K * J, np.inf, np.float32)
+            nxt[:n] = best[0] - s[b, t]
+            cur = nxt
+            buf[t % TB] = arg[0]
+            if t % TB == TB - 1 and t // TB < blocks - 1:
+                spill[t // TB] = buf
+        k = int(np.argmin(cur[:n]))
+        for q in range(blocks - 1, -1, -1):
+            if q < blocks - 1:
+                buf = spill[q]
+            for t in range(min((q + 1) * TB, T) - 1, q * TB - 1, -1):
+                path[b, t] = k
+                if t > 0:
+                    k = int(buf[t - q * TB, k])
     return path
 
 
@@ -350,8 +392,56 @@ def test_viterbi_exactly_equal(rng, T):
     np.testing.assert_array_equal(
         got.numpy(), _emulate_viterbi_kernel(s, pitch_op._trans_matrix(t)))
     np.testing.assert_array_equal(
+        got.numpy(), _emulate_viterbi_kernel(s, pitch_op._trans_matrix(t),
+                                             TB=16))
+    np.testing.assert_array_equal(
         fused_viterbi.fused_viterbi(torch.from_numpy(s), t).numpy(),
         got.numpy())
+
+
+# lag-grid sizes of the lane-merge cases: 2 and 33 states (lanes with
+# empty ranges at K = 16), the default 71, and 257 (uint16 backpointers)
+VITERBI_GRIDS = {2: dict(min_f0=363.0), 33: dict(min_f0=95.0), 71: {},
+                 257: dict(min_f0=15.0)}
+
+
+@functools.lru_cache(maxsize=None)
+def _viterbi_reference(n, kind):
+    """(scores, path) of a (3, 40, n) case: Gaussian scores, or a tie-heavy
+    case (penalty 0, scores in {-1, 0, 1}, so nearly every argmin is a tie
+    and only the first index is right), with a zero-emission tail.  The
+    plain version's path, held equal to the JAX scan and to the Pallas
+    kernel in interpret mode."""
+    kw = dict(VITERBI_GRIDS[n], **({"penalty": 0.0} if kind == "ties" else {}))
+    j, t = _jcfg(kw), PitchConfig(**kw).validate()
+    assert t.n_lags == n
+    rng = np.random.default_rng(n)
+    if kind == "ties":
+        s = rng.integers(-1, 2, (3, 40, n)).astype(np.float32)
+        s[1, 26:] = 0.0
+    else:
+        s = _scores(rng, 3, 40, n)
+    got = pitch_op.viterbi(torch.from_numpy(s), t).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_pitch.viterbi(jnp.asarray(s), j)))
+    np.testing.assert_array_equal(got, np.asarray(
+        jax_viterbi_kernel.viterbi_pallas(jnp.asarray(s), j, interpret=True)))
+    return s, got, pitch_op._trans_matrix(t)
+
+
+@pytest.mark.parametrize("kind", ["gauss", "ties"])
+@pytest.mark.parametrize("n", list(VITERBI_GRIDS))
+@pytest.mark.parametrize("K", [1, 2, 4, 8, 16])
+def test_viterbi_lane_merge_exactly_equal(K, n, kind):
+    """The kernel's reduction order (K lanes a state, an argmin tree in each
+    lane, shuffle merge, spilled byte backpointers) gives the first-index argmin path exactly,
+    for every K, on Gaussian and on tie-heavy scores."""
+    s, want, trans = _viterbi_reference(n, kind)
+    if kind == "ties":
+        assert (trans == 0).all()
+    for TB in (None, 16):
+        np.testing.assert_array_equal(
+            _emulate_viterbi_kernel(s, trans, K=K, TB=TB), want)
 
 
 @pytest.mark.parametrize("T,block,warm", [(150, 32, 16), (100, 256, 128),
@@ -380,6 +470,36 @@ def test_viterbi_wrapper_on_cpu_runs_the_plain_version(rng):
     with pytest.raises(ValueError):
         fused_viterbi.fused_viterbi(s[..., :-1], t)
     assert tuple(fused_viterbi.fused_viterbi(s[:, :0], t).shape) == (2, 0)
+
+
+def test_pitch_kernels_shared_loads_conflict_free():
+    """The lane mappings of both kernels at the default config take one
+    shared-memory wavefront for every warp-wide load: the NCCF tile the C
+    entry plans there (32 frames, R = 9 lags a thread, one pass; the card
+    reports it in chip_smoke.py phase 5) and the Viterbi cost loads at
+    every lane count a state may get.  A 61-sample hop (hop_ms=15.25)
+    breaks the frame stagger, which the count shows."""
+    t = PitchConfig()
+    geometry = (t.frame_len_w, t.hop_len_w, t.min_lag, t.n_lags)
+    counts = ablate_pitch.nccf_bank_wavefronts(*geometry, TM=32, R=9,
+                                               passes=1)
+    for loads, wavefronts in counts.values():
+        assert loads == wavefronts > 0, counts
+    for K in (1, 2, 4, 8):
+        loads, wavefronts = ablate_pitch.viterbi_bank_wavefronts(t.n_lags, K)
+        assert loads == wavefronts > 0, K
+    loads, wavefronts = ablate_pitch.nccf_bank_wavefronts(
+        100, 61, 10, 71, TM=32, R=9, passes=1)["numerator"]
+    assert wavefronts > loads
+
+
+def test_pitch_ablation_edits_still_apply():
+    """Every A/B variant of tools/ablate_pitch.py edits the current
+    sources (each edit matches exactly once)."""
+    for name in ablate_pitch.VARIANTS:
+        files = ablate_pitch.variant_sources(name)
+        for src in ablate_pitch.sources_of(name):
+            assert f"{src}.cu" in files
 
 
 # ---------------------------------------------------------------- model --

@@ -53,6 +53,12 @@ class _Event:
 
 ORACLES = {"mel": oracle.log_mel, "bark": oracle.log_bark,
            "spec": oracle.log_spectrogram}
+# the launch shapes the pitch kernels' C entries report at the default
+# config (a stand-in: no C entry runs here)
+SHAPES = {fused_nccf: {"TM": 32, "R": 9, "passes": 1, "shared_energy": 1,
+                       "stage_out": 1},
+          fused_viterbi: {"K": 8, "J": 9, "threads": 576, "register_path": 1,
+                          "TB": 996, "score_chunk": 32}}
 
 
 def _counting(mod, name):
@@ -60,6 +66,8 @@ def _counting(mod, name):
 
     def wrapper(*args, **kwargs):
         mod.LAUNCHES += 1
+        if mod in SHAPES:
+            mod.LAST_SHAPE = SHAPES[mod]
         x, cfg = args[:2]
         projection = kwargs.get("projection", "mel")
         if hasattr(mod, "TILE_LAUNCHES") and x.shape[0] and \
@@ -98,9 +106,10 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     for name, value in (("BATCH", 8), ("SECONDS", 1.0), ("TIMING_CALLS", 2),
                         ("VITERBI_BATCHES", (1, 3)),
                         ("VITERBI_STEPS", (1, 2, 65)),
-                        ("LONG_SECONDS", 12.0)):
+                        ("VITERBI_WIDE", 40), ("LONG_SECONDS", 12.0)):
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "_smi", lambda: "Fake GPU, 700.00 W")
+    monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "Event", _Event)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "Fake GPU")
@@ -112,6 +121,8 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         "cuda" if name in ("auto", "cuda") else resolve(name, x)))
     for mod, fn in WRAPPERS:
         monkeypatch.setattr(mod, "LAUNCHES", mod.LAUNCHES)   # restored after
+        if mod in SHAPES:
+            monkeypatch.setattr(mod, "LAST_SHAPE", mod.LAST_SHAPE)
         for counts in ("TILE_LAUNCHES", "PROJECTION_LAUNCHES"):
             if hasattr(mod, counts):
                 monkeypatch.setattr(mod, counts, dict(getattr(mod, counts)))
@@ -135,6 +146,18 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         "{'fused_raw_dit': 0, 'fused_raw': 0, 'fused_mfcc': 0, " \
         "'fused_dit': 0}" in out
     assert "[8 timing] PLP tail" in out and " ATen ops, host enqueue" in out
+    # the pitch kernels' extended phases: 5's tile and T = 1, 6's ties,
+    # byte/uint16 boundary and unblocked stream, 8's per-step chain time
+    assert "[5 NCCF kernel vs plain] T=1: tile {'TM': 32, 'R': 9" in out
+    for case in ("tie-heavy (penalty=0, scores in {-1, 0, 1}), (B, T, n) "
+                 "(64, 40, 71): 0 path entries differ",
+                 "256 lags, (B, T, n) (4, 40, 256): 0 path entries differ",
+                 "257 lags, (B, T, n) (4, 40, 257): 0 path entries differ",
+                 "unblocked B=1 x 12 s, (B, T, n) (1, 1196, 71): 0 path"):
+        assert f"[6 Viterbi kernel vs plain] {case}" in out, case
+    assert "[8 timing] fused_viterbi per step of its 95-step chain: " in out
+    assert "against the chain bound 0.0404 us (80 cycles at 1980 MHz" in out
+    assert "[9 summary] fused_nccf: the work the kernel does" in out
     assert "Fake GPU, 700.00 W" in out
     json.dumps({"kernels": kernels})
     assert [k["name"] for k in kernels] == [*smoke.KERNELS,
@@ -156,7 +179,9 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         assert src[int(line) - 1].startswith("def "), k
         assert k["ms"] > 0 and k["plain_ms"] > 0, k
         assert k["bound_ms"] > 0 and k["library_ms"] is None, k
-        assert k["bound_by"] in ("bytes", "operations"), k
+        assert k["bound_by"] == ("chain" if k["name"] == "fused_viterbi"
+                                 else k["bound_by"]), k
+        assert k["bound_by"] in ("bytes", "operations", "chain"), k
     tiles = {k["name"]: k["tile"] for k in kernels}
     assert tiles == {"fused_raw_dit": "fft", "fused_mfcc": "fft",
                      "fused_raw": "fft64", "fused_dit": "fft64",
