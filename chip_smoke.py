@@ -111,7 +111,8 @@ Phases, one status line each; any failure raises and exits non-zero:
    projections (the f32 tile and cuFFT beside them), ``plp_batch`` and
    ``log_spectrogram_batch`` through the kernel and through plain PyTorch,
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
-   ``fused_viterbi``'s time per step of its chain beside the chain bound.
+   ``fused_viterbi``'s time per step of its chain beside the chain bound;
+   ``pitch_batch``'s ATen ops and host enqueue time beside its own.
 9. the script's elapsed time, one JSON line describing the kernels (with
    each one's bound: the larger of its input and output bytes over 3.35
    TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes,
@@ -1211,11 +1212,10 @@ def _rfft_stage(torch, y, cfg):
     return lambda: torch.fft.rfft(frames, n=cfg.n_fft)
 
 
-def _plp_tail_ops(torch, log_bark, cfg):
-    """The PLP tail on the kernel's (B, T, n_bark) output: -> (ATen ops it
-    dispatches, views included; host ms to enqueue one call)."""
+def _ops_and_host_ms(torch, fn):
+    """(ATen ops one call of fn dispatches, views included; host ms to
+    enqueue one call, TIMING_CALLS calls back to back)."""
     from torch.utils._python_dispatch import TorchDispatchMode
-    from mfcc_tpu_torch.ops import plp as plp_op
 
     class _CountOps(TorchDispatchMode):
         n = 0
@@ -1225,11 +1225,11 @@ def _plp_tail_ops(torch, log_bark, cfg):
             return func(*args, **(kwargs or {}))
 
     with _CountOps() as counter:
-        plp_op.plp_from_log_bark(log_bark, cfg)
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(TIMING_CALLS):
-        plp_op.plp_from_log_bark(log_bark, cfg)
+        fn()
     host_ms = (time.perf_counter() - t0) / TIMING_CALLS * 1e3
     torch.cuda.synchronize()
     return counter.n, host_ms
@@ -1363,13 +1363,20 @@ def _timing(torch, dev, bench, smi, sm_mhz) -> dict:
          f"{med['fused_viterbi'] / steps * 1e3:.4f} us against the chain "
          f"bound {chain / steps * 1e3:.4f} us ({_chain_cycles(pcfg.n_lags)} "
          f"cycles at {sm_mhz:g} MHz; {smi})")
-    n_ops, host_ms = _plp_tail_ops(torch, log_bark, cfg)
+    n_ops, host_ms = _ops_and_host_ms(
+        torch, lambda: plp_op.plp_from_log_bark(log_bark, cfg))
     _log(f"[8 timing] PLP tail (plp_from_log_bark on the kernel's {B} x "
          f"{log_bark.shape[1]} x {log_bark.shape[2]} output): {n_ops} ATen "
          f"ops, host enqueue {host_ms:.4f} ms a call, device "
          f"{med['plp tail']:.4f} ms back to back; plp_batch "
          f"{med['plp_batch cuda']:.4f} ms, of it fused_raw_dit/bark "
          f"{med['fused_raw_dit/bark']:.4f} ms ({smi})")
+    # what the pitch path waits on: the host's enqueue against its time
+    n_ops, host_ms = _ops_and_host_ms(torch, runs["pitch_batch cuda"][0])
+    _log(f"[8 timing] pitch_batch (cuda): {n_ops} ATen ops, host enqueue "
+         f"{host_ms:.4f} ms a call against {med['pitch_batch cuda']:.4f} ms "
+         f"back to back; of it fused_nccf {med['fused_nccf']:.4f} + "
+         f"fused_viterbi {med['fused_viterbi']:.4f} ms ({smi})")
     return med
 
 

@@ -31,7 +31,8 @@
 //
 // What the design does about it:
 // - K lanes per destination state, lane k keeping trans[j, i] for its
-//   J = ceil(n / K) values of j in registers, the j-loop fully unrolled and
+//   ceil(n / K) values of j in registers (J slots: that count rounded up to
+//   one of the ten widths built), the j-loop fully unrolled and
 //   its argmin a tree of contiguous pairs (ceil(log2 J) dependent
 //   compare-selects, not J - 1), then log2 K rounds of warp shuffles.  A
 //   step is bound by the instructions each warp issues (~4 a candidate),
@@ -212,6 +213,7 @@ __global__ void __launch_bounds__(reg_threads(J))
     cur[j] = j < n ? -s[j] : CUDART_INF_F;
     nxt[j] = CUDART_INF_F;
   }
+  __syncthreads();   // at T == 1 no step barrier precedes the backtrace
   const int nchunks = (p.T - 1 + p.CS - 1) / p.CS;   // steps 1 .. T-1
   if (nchunks > 0) stage_scores(scores, s, 1, min(p.CS, p.T - 1), n);
   const int q_last = (p.T - 1) / p.TB;
@@ -232,22 +234,17 @@ __global__ void __launch_bounds__(reg_threads(J))
     for (int u = 0; u < cnt; ++u) {
       const float* st = sc + u * n;
       BP* bpt = bp + static_cast<size_t>(r) * n;
-      if (J > 0) {
+      if constexpr (J > 0) {
+        // every built width is a multiple of 4: 16-byte aligned vector loads
         const float* cj = cur + k * jn;
-        float cand[J > 0 ? J : 1];
-        if constexpr (J % 4 == 0) {   // 16-byte aligned: vector loads
+        float cand[J];
 #pragma unroll
-          for (int m = 0; m < J; m += 4) {
-            const float4 c4 = *reinterpret_cast<const float4*>(cj + m);
-            cand[m] = __fadd_rn(c4.x, tv[m]);
-            cand[m + 1] = __fadd_rn(c4.y, tv[m + 1]);
-            cand[m + 2] = __fadd_rn(c4.z, tv[m + 2]);
-            cand[m + 3] = __fadd_rn(c4.w, tv[m + 3]);
-          }
-        } else {
-#pragma unroll
-          for (int m = 0; m < (J > 0 ? J : 1); ++m)
-            cand[m] = __fadd_rn(cj[m], tv[m]);
+        for (int m = 0; m < J; m += 4) {
+          const float4 c4 = *reinterpret_cast<const float4*>(cj + m);
+          cand[m] = __fadd_rn(c4.x, tv[m]);
+          cand[m + 1] = __fadd_rn(c4.y, tv[m + 1]);
+          cand[m + 2] = __fadd_rn(c4.z, tv[m + 2]);
+          cand[m + 3] = __fadd_rn(c4.w, tv[m + 3]);
         }
         float best;
         int arg;
@@ -331,25 +328,26 @@ __global__ void __launch_bounds__(reg_threads(J))
 
 typedef void (*Kernel)(Params);
 
-// The register-path widths built: every J up to 32, then steps of 4 or 8
-// (a lane's range is padded up to the next; padded slots cost +inf).
+// The register-path widths built: 4, 12, 20, ..., 68 (J / 4 odd, so the
+// 16-byte cost loads of up to 8 lanes of a state fall in distinct bank
+// groups) and kMaxSlots.  A lane's range is padded up to the next width;
+// padded slots cost +inf and never win.
 __host__ __device__ constexpr int next_width(int J) {
-  return J < 32 ? J + 1 : J < 40 ? J + 4 : J + 8;
+  return J + 8 < kMaxSlots ? J + 8 : kMaxSlots;
 }
 
 __host__ __device__ constexpr int built_width(int j) {
-  int J = 1;
-  while (J < j) J = next_width(J);
-  return J;
+  return j > kMaxSlots - 4 ? (j <= kMaxSlots ? kMaxSlots : j)
+                           : (j + 3) / 8 * 8 + 4;
 }
 
 template <int J>
 Kernel byte_kernel(int j) {
-  if constexpr (J > kMaxSlots) {
+  if (j == J) return viterbi_kernel<J, uint8_t>;
+  if constexpr (J == kMaxSlots) {
     return nullptr;
   } else {
-    return j == J ? viterbi_kernel<J, uint8_t>
-                  : byte_kernel<next_width(J)>(j);
+    return byte_kernel<next_width(J)>(j);
   }
 }
 
@@ -438,7 +436,7 @@ extern "C" int mfcc_fused_viterbi(const float* s, const float* trans,
   cudaError_t err = device_plan(B, T, n, &pl);
   if (err != cudaSuccess) return err;
   if (pl.spill_bytes > 0 && spill == nullptr) return cudaErrorInvalidValue;
-  Kernel kernel = pl.reg ? byte_kernel<1>(pl.J)
+  Kernel kernel = pl.reg ? byte_kernel<4>(pl.J)
                          : pl.bp_bytes == 1 ? viterbi_kernel<0, uint8_t>
                                             : viterbi_kernel<0, uint16_t>;
   if (kernel == nullptr) return cudaErrorInvalidConfiguration;

@@ -35,8 +35,6 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
-import shutil
-import subprocess
 import sys
 import time
 
@@ -44,8 +42,9 @@ import numpy as np
 import torch
 
 from .. import FeatureConfig
+from . import _ablate
 from ..ops import framing
-from ..ops.kernels import (_build, _spectral, fused_dit, fused_mfcc,
+from ..ops.kernels import (_spectral, fused_dit, fused_mfcc,
                            fused_raw, fused_raw_dit)
 
 TILE = "fft_tile.cuh"
@@ -127,14 +126,8 @@ CALLS = 20
 
 
 def variant_sources(name: str) -> dict:
-    """{file name: text} of csrc/ with variant ``name``'s edits applied;
-    raises if an edit no longer matches the sources exactly once."""
-    files = {p.name: p.read_text() for p in _build.CSRC.iterdir()}
-    for fname, old, new in VARIANTS[name]:
-        if files[fname].count(old) != 1:
-            raise ValueError(f"variant {name}: edit does not match {fname}")
-        files[fname] = files[fname].replace(old, new)
-    return files
+    """{file name: text} of csrc/ with variant ``name``'s edits applied."""
+    return _ablate.variant_sources(VARIANTS, name)
 
 
 def paths_of(name: str) -> tuple:
@@ -151,35 +144,15 @@ def paths_of(name: str) -> tuple:
 
 
 def _build_one(name: str, src: str):
-    d = _build.BUILD_DIR.parent / "ablate" / name
-    so = d / f"lib{src}.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                           str(d / f"{src}.cu")], capture_output=True,
-                          text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr}")
+    d = _ablate.variant_dir("ablate", name)
+    lib = _ablate.nvcc(d / f"{src}.cu", d / f"lib{src}.so", name)
     entry, raw, other_types, _, projection = SOURCES[src]
-    lib = ctypes.CDLL(str(so))
     fn = getattr(lib, entry)
     fn.argtypes = _spectral.entry_argtypes(other_types, raw, projection)
     fn.restype = ctypes.c_int
     lib.mfcc_error_string.argtypes = [ctypes.c_int]
     lib.mfcc_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _ms(fn, calls: int = CALLS) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
 
 
 def _single_ms(fn, calls: int = CALLS) -> float:
@@ -209,17 +182,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("ablate_fft_tile: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
+    smi = _ablate.smi()
     jobs = [(n, p) for n in variants for p in paths_of(n)]
     builds = sorted({(n, PATHS[p][0]) for n, p in jobs})
-    for name in variants:
-        d = _build.BUILD_DIR.parent / "ablate" / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        for fname, text in variant_sources(name).items():
-            (d / fname).write_text(text)
+    _ablate.write_variants("ablate", VARIANTS, variants)
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         built = dict(zip(builds, pool.map(lambda j: _build_one(*j), builds)))
     dev = torch.device("cuda", 0)
@@ -245,7 +211,7 @@ def main(argv=None) -> int:
     for i in range(args.passes):
         for name, path in (jobs if i % 2 == 0 else jobs[::-1]):
             lib = built[name, PATHS[path][0]]
-            times[name, path].append(_ms(call(lambda: lib, path)))
+            times[name, path].append(_ablate.ms(call(lambda: lib, path), CALLS))
     for (name, path), t in times.items():
         _, cfg, dct, projection = PATHS[path]
         what = "cepstra" if dct else {"mel": "log-mel"}.get(projection,
@@ -262,14 +228,14 @@ def main(argv=None) -> int:
         kw = {"projection": projection} if SOURCES[src][4] else {}
         wrapper = (lambda m=module, f=fn, x=x, cfg=cfg, dct=dct, kw=kw:
                    getattr(m, f)(x, cfg, apply_dct=dct, **kw))
-        b2b = _ms(wrapper)
+        b2b = _ablate.ms(wrapper, CALLS)
         t0 = time.perf_counter()
         for _ in range(CALLS):
             wrapper()
         enqueue = (time.perf_counter() - t0) / CALLS * 1e3
         torch.cuda.synchronize()
         other = SOURCES[src][3][0]
-        other_ms = _ms(call(module._lib, path, other), calls=5)
+        other_ms = _ablate.ms(call(module._lib, path, other), 5)
         print(f"{path}: back-to-back {b2b:.4f} ms, one call per event pair "
               f"{_single_ms(wrapper):.4f} ms, host enqueue {enqueue:.4f} ms; "
               f"its {other} tile on the same work {other_ms:.4f} ms ({smi})")

@@ -42,12 +42,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import shutil
-import subprocess
 import sys
 from collections import defaultdict
 
 import numpy as np
+
+from . import _ablate
 
 VIT, NCCF = "fused_viterbi.cu", "fused_nccf.cu"
 # name -> [(file in csrc/, text, replacement)]
@@ -82,13 +82,14 @@ CALLS = 20
 BANKS = 32
 
 
-def _wavefronts(addrs) -> int:
+def _wavefronts(addrs, banks: int = BANKS) -> int:
     """Wavefronts of one warp-wide 4-byte shared load: the most distinct
     words any one bank holds among the lanes' addresses (equal addresses
-    broadcast)."""
+    broadcast).  With ``banks=8`` and 16-byte chunk addresses, the same
+    for one quarter warp of a 16-byte load."""
     per_bank = defaultdict(set)
     for a in addrs:
-        per_bank[a % BANKS].add(a)
+        per_bank[a % banks].add(a)
     return max((len(v) for v in per_bank.values()), default=0)
 
 
@@ -132,30 +133,33 @@ def nccf_bank_wavefronts(w: int, hop: int, min_lag: int, n_lags: int, *,
     return out
 
 
+def viterbi_width(n: int, K: int) -> int:
+    """J, the register slots of a lane in ``csrc/fused_viterbi.cu``
+    (``built_width``): ceil(n / K) rounded up to 4, 12, 20, ..., 68 or 72."""
+    j = -(-n // K)
+    return j if j > 72 else 72 if j > 68 else (j + 3) // 8 * 8 + 4
+
+
 def viterbi_bank_wavefronts(n: int, K: int) -> tuple:
-    """(warp-wide loads, wavefronts) of one step's cost loads in
-    ``csrc/fused_viterbi.cu``'s register path: lane k of a state reads
-    cur[k*J + m], m < J, J = ceil(n / K)."""
-    J = -(-n // K)
+    """(quarter-warp requests, wavefronts) of one step's cost loads in
+    ``csrc/fused_viterbi.cu``'s register path: lane k of a state reads the
+    16-byte cur[k*J + m .. + 3], m = 0, 4, ..., J - 4, J =
+    :func:`viterbi_width`; a warp's 16-byte load is served a quarter warp
+    (8 lanes) at a time, across 8 groups of 4 banks."""
+    J = viterbi_width(n, K)
     threads = -(-n * K // 32) * 32
     loads = wf = 0
-    for w0 in range(0, threads, 32):
-        for m in range(J):
+    for q0 in range(0, threads, 8):
+        for m in range(0, J, 4):
             loads += 1
-            wf += _wavefronts([(t % K) * J + m for t in range(w0, w0 + 32)])
+            wf += _wavefronts([((t % K) * J + m) // 4
+                               for t in range(q0, q0 + 8)], banks=8)
     return loads, wf
 
 
 def variant_sources(name: str) -> dict:
-    """{file name: text} of csrc/ with variant ``name``'s edits applied;
-    raises if an edit no longer matches the sources exactly once."""
-    from ..ops.kernels import _build
-    files = {p.name: p.read_text() for p in _build.CSRC.iterdir()}
-    for fname, old, new in VARIANTS[name]:
-        if files[fname].count(old) != 1:
-            raise ValueError(f"variant {name}: edit does not match {fname}")
-        files[fname] = files[fname].replace(old, new)
-    return files
+    """{file name: text} of csrc/ with variant ``name``'s edits applied."""
+    return _ablate.variant_sources(VARIANTS, name)
 
 
 def sources_of(name: str) -> tuple:
@@ -167,53 +171,28 @@ def sources_of(name: str) -> tuple:
 
 
 def _build_one(name: str, src: str) -> ctypes.CDLL:
-    from ..ops.kernels import _build, fused_nccf, fused_viterbi
-    d = _build.BUILD_DIR.parent / "ablate_pitch" / name
-    so = d / f"lib{src}.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                           str(d / f"{src}.cu")], capture_output=True,
-                          text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr}")
-    module = fused_viterbi if src == "fused_viterbi" else fused_nccf
-    return module.bind(ctypes.CDLL(str(so)))
+    from ..ops.kernels import fused_nccf, fused_viterbi
+    d = _ablate.variant_dir("ablate_pitch", name)
+    lib = _ablate.nvcc(d / f"{src}.cu", d / f"lib{src}.so", name)
+    return (fused_viterbi if src == "fused_viterbi" else fused_nccf).bind(lib)
 
 
 def _previous(csrc: str):
     """The previous design's two kernels, built from ``csrc``:
     {source: ctypes entry}."""
-    from ..ops.kernels import _build
-    d = _build.BUILD_DIR.parent / "ablate_pitch" / "previous"
+    d = _ablate.variant_dir("ablate_pitch", "previous")
     d.mkdir(parents=True, exist_ok=True)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     types = {"fused_nccf": [ptr, i64, i64, ptr, ptr, ptr, *[i32] * 6, ptr],
              "fused_viterbi": [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]}
     out = {}
     for src, argtypes in types.items():
-        so = d / f"lib{src}.so"
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                               str(so), f"{csrc}/{src}.cu"],
-                              capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"previous {src}: nvcc failed\n{proc.stderr}")
-        fn = getattr(ctypes.CDLL(str(so)), f"mfcc_{src}")
+        lib = _ablate.nvcc(f"{csrc}/{src}.cu", d / f"lib{src}.so",
+                           f"previous {src}")
+        fn = getattr(lib, f"mfcc_{src}")
         fn.argtypes, fn.restype = argtypes, i32
         out[src] = fn
     return out
-
-
-def _ms(torch, fn, calls: int = CALLS) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
 
 
 def main(argv=None) -> int:
@@ -236,16 +215,9 @@ def main(argv=None) -> int:
     import concurrent.futures
     from .. import PitchConfig
     from ..ops import pitch as pitch_op
-    from ..ops.kernels import _build, fused_nccf, fused_viterbi
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    for name in variants:
-        d = _build.BUILD_DIR.parent / "ablate_pitch" / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        for fname, text in variant_sources(name).items():
-            (d / fname).write_text(text)
+    from ..ops.kernels import fused_nccf, fused_viterbi
+    smi = _ablate.smi()
+    _ablate.write_variants("ablate_pitch", VARIANTS, variants)
     jobs = [(n, s) for n in variants for s in sources_of(n)]
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         built = dict(zip(jobs, pool.map(lambda j: _build_one(*j), jobs)))
@@ -295,7 +267,7 @@ def main(argv=None) -> int:
     times = {j: [] for j in jobs}
     for i in range(args.passes):
         for job in (jobs if i % 2 == 0 else jobs[::-1]):
-            times[job].append(_ms(torch, launch(*job)[0]))
+            times[job].append(_ablate.ms(launch(*job)[0], CALLS))
     if args.previous_csrc:
         prev = _previous(args.previous_csrc)
         bp = torch.empty((B, T, n), dtype=torch.int32, device=dev)
@@ -320,7 +292,7 @@ def main(argv=None) -> int:
             for i in range(args.passes):
                 pair = [(t_prev, fn), (t_base, launch("base", src)[0])]
                 for acc, f in (pair if i % 2 == 0 else pair[::-1]):
-                    acc.append(_ms(torch, f))
+                    acc.append(_ablate.ms(f, CALLS))
             same = all(torch.equal(a, b) for a, b in zip(got, base))
             print(f"previous design {src}: outputs "
                   f"{'identical to' if same else 'DIFFER from'} this build's "

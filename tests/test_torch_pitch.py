@@ -328,14 +328,15 @@ def _lane_argmin(cand, lo, hi):
 def _emulate_viterbi_kernel(s, trans, K=1, TB=None):
     """The CUDA kernel's arithmetic in float32 numpy, vectorized over the
     destination states: lane k of a state takes the first argmin of j in
-    [k*J, (k+1)*J) (J = ceil(n/K)) by a tree of contiguous pairs (strict <
+    [k*J, (k+1)*J) (J = ceil(n/K) rounded up to a built register width,
+    the slots past the grid at +inf) by a tree of contiguous pairs (strict <
     for the higher half), the K partials merge as the kernel's warp
     shuffles do (rounds off = 1, 2, 4, ..., the lower range keeping ties),
     and the backpointers go through a TB-step byte buffer (uint16 above
     256 states) whose full blocks spill and are read back, last first, for
     the backtrace."""
     B, T, n = s.shape
-    J = -(-n // K)
+    J = ablate_pitch.viterbi_width(n, K)
     bpt = np.uint8 if n <= 256 else np.uint16
     TB = T if TB is None else TB
     blocks = (T - 1) // TB + 1

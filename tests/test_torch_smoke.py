@@ -57,7 +57,7 @@ ORACLES = {"mel": oracle.log_mel, "bark": oracle.log_bark,
 # config (a stand-in: no C entry runs here)
 SHAPES = {fused_nccf: {"TM": 32, "R": 9, "passes": 1, "shared_energy": 1,
                        "stage_out": 1},
-          fused_viterbi: {"K": 8, "J": 9, "threads": 576, "register_path": 1,
+          fused_viterbi: {"K": 1, "J": 72, "threads": 96, "register_path": 1,
                           "TB": 996, "score_chunk": 32}}
 
 
@@ -146,6 +146,8 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         "{'fused_raw_dit': 0, 'fused_raw': 0, 'fused_mfcc': 0, " \
         "'fused_dit': 0}" in out
     assert "[8 timing] PLP tail" in out and " ATen ops, host enqueue" in out
+    assert "[8 timing] pitch_batch (cuda): " in out and \
+        " back to back; of it fused_nccf " in out
     # the pitch kernels' extended phases: 5's tile and T = 1, 6's ties,
     # byte/uint16 boundary and unblocked stream, 8's per-step chain time
     assert "[5 NCCF kernel vs plain] T=1: tile {'TM': 32, 'R': 9" in out
@@ -155,6 +157,8 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                  "257 lags, (B, T, n) (4, 40, 257): 0 path entries differ",
                  "unblocked B=1 x 12 s, (B, T, n) (1, 1196, 71): 0 path"):
         assert f"[6 Viterbi kernel vs plain] {case}" in out, case
+    assert "(the main path's launch shape {'K': 1, 'J': 72, 'threads': 96, " \
+        "'register_path': 1" in out
     assert "[8 timing] fused_viterbi per step of its 95-step chain: " in out
     assert "against the chain bound 0.0404 us (80 cycles at 1980 MHz" in out
     assert "[9 summary] fused_nccf: the work the kernel does" in out
