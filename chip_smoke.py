@@ -113,13 +113,45 @@ Phases, one status line each; any failure raises and exits non-zero:
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
    ``fused_viterbi``'s time per step of its chain beside the chain bound;
    ``pitch_batch``'s ATen ops and host enqueue time beside its own.
-9. the script's elapsed time, one JSON line describing the kernels (with
+9. the script's elapsed time (phases 1-8 and 10-13), one JSON line
+   describing the kernels of phases 1-8 (with
    each one's bound: the larger of its input and output bytes over 3.35
    TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes,
    and for ``fused_viterbi`` also its dependent chain at the card's SM
    clock, whichever is largest;
    ``fused_raw_dit/bark`` and ``fused_raw_dit/spec`` are kernel 1's two
    other projections, recorded apart), then the final JSON status line.
+
+10. packed corpus: 256 utterances of 2-16 s (lengths uniform, numpy seed
+   0, the bench signal), packed by ``utils/batch.pack_rows`` into 16 s rows
+   and run through ``models.mfcc.mfcc_batch_packed`` in all four families
+   (MFCC-13, log-mel-80 bounded to 50 dB and unbounded, PLP-13, the
+   spectrogram), each with the spectral counters reset just before and read
+   just after (one launch: ``fused_raw_dit`` in the mel, bark or spec
+   projection, ``fused_raw`` for unbounded log-mel); 8 segments a family,
+   at odd and even frame offsets, against the family's standalone kernel
+   result (the kernel-vs-plain bounds: packing changes the FFT tile's frame
+   pairs) and the float64 oracle; then packed ``mfcc_batch_packed`` against
+   padded ``mfcc_batch`` (64 utterances a batch in input order, each padded
+   to its longest) on the same corpus, timed, with each side's fill and
+   audio-seconds per second.
+11. dither: the hash's uint32 bits on the card against the reference's
+   (2^20 samples, from 0 and across 2^32), the noise within 1e-6 relative
+   of the float64 draw; MFCC-13 at dither 1/32768 on the bench batch
+   through ``fused_raw_dit`` within 1e-4 of the dithered oracle; an all-zero
+   row off the log floor.
+12. post chain and CMVN on the bench batch's kernel features (ragged):
+   ``ops.post`` sliding and online CMVN (window 300, variance), splice,
+   energy VAD, ``parallel.cmvn`` float32 statistics, float64 host
+   statistics and apply, each against its float64 oracle twin, and timed.
+13. streaming: 64 sessions of the bench signal, 64-frame chunks, 5 chunks a
+   dispatch, 3 dispatches; ``process_chunks_batch_fused`` in all four
+   variants (``fused_raw_dit`` at preemph 0, its launches read per
+   variant) against the scan path on the card (5e-5; the spectrogram 2e-4
+   in the 50 dB window) and the float64 oracle; ``online_cmvn_step`` against
+   ``online_cmvn`` (1e-5, mean only; with the variance both against the
+   float64 oracle, 2e-4); one dispatch timed with its ATen ops and host
+   enqueue, and audio-seconds per second.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -186,6 +218,25 @@ VITERBI_BATCHES = (1, 3, 64, 200)
 VITERBI_STEPS = (1, 2, 64, 65, 150, 996)
 VITERBI_WIDE = 996           # steps of the 256- and 257-lag cases
 LONG_SECONDS = 360.0
+# phase 10: a ragged corpus, packed by pack_rows at the longest length
+PACK_UTTERANCES = 256
+PACK_SECONDS = (2.0, 16.0)   # lengths drawn uniformly; the row capacity
+PACK_BATCH = 64              # rows (packed) or utterances (padded) a call
+PACK_CHECKS = 8              # segments a family held to standalone and oracle
+PACK_TIMING = 6              # timed corpus passes a side and order
+# phase 12: the post chain on the bench batch's features
+POST_WINDOW = 300
+POST_CHECKS = 8              # rows held to the oracle
+POST_VAR_TOL = 2e-4          # variance-normalized CMVN (tests/test_post.py)
+CMVN_F32_TOL = 1e-3          # float32 statistics: cancellation in the variance
+# phase 13: streaming sessions of the bench signal
+STREAM_CHUNK_FRAMES = 64
+STREAM_K = 5                 # chunks a dispatch
+STREAM_DISPATCHES = 3
+STREAM_ORACLE_ROWS = 4       # sessions held to the oracle
+STREAM_FUSED_TOL = 5e-5      # fused serving path vs the scan path
+STREAM_CMVN_WINDOW = 300
+STREAM_CMVN_TOL = 1e-5       # online_cmvn_step vs online_cmvn, mean only
 
 
 def _log(msg: str) -> None:
@@ -1445,8 +1496,480 @@ def _nccf_kernel_ops(B: int, T: int, TM: int) -> float:
     return B * (T * (2 * w * L + 8 * L) + positions * 2 * w)
 
 
+# ---- phases 10-13: packed corpus, dither, post chain and CMVN, streaming --
+
+def _spectral_counts(modules) -> dict:
+    """Every spectral launch counter: {kernel: launches}, with
+    fused_raw_dit's by projection."""
+    out = {k: m.LAUNCHES for k, m in modules.items()}
+    out.update({f"fused_raw_dit/{p}": v for p, v in
+                modules["fused_raw_dit"].PROJECTION_LAUNCHES.items()})
+    return out
+
+
+def _window_err(got: np.ndarray, want: np.ndarray) -> float:
+    """Max abs error on the bins within SPEC_WINDOW_DB of each frame's
+    peak in want."""
+    keep = want > (want.max(axis=-1, keepdims=True)
+                   - math.log(10.0 ** (SPEC_WINDOW_DB / 10.0)))
+    return float(np.abs(got - want)[keep].max()) if keep.any() else 0.0
+
+
+def _packed_families():
+    """(name, family, config, its _compare bound as (cepstra, projection),
+    oracle twin, oracle bound (None: the spectrogram's window), the launch
+    counter it must move) of phase 10."""
+    from mfcc_tpu_torch import FeatureConfig, oracle
+    lm = FeatureConfig(n_mels=80, n_mfcc=80)
+    return [
+        ("mfcc", "mfcc", FeatureConfig(), (True, "mel"), oracle.mfcc,
+         ORACLE_TOL, "fused_raw_dit/mel"),
+        ("logmel <= 50 dB", "logmel", lm.replace(dynamic_range_db=50.0),
+         (False, "mel"), oracle.log_mel, ORACLE_TOL, "fused_raw_dit/mel"),
+        ("logmel unbounded", "logmel", lm, (False, "mel"), oracle.log_mel,
+         LOGMEL_ORACLE_TOL, "fused_raw"),
+        ("plp", "plp", FeatureConfig(), (True, "mel"), oracle.plp,
+         ORACLE_TOL, "fused_raw_dit/bark"),
+        ("spec", "spec", FeatureConfig(), (False, "spec"),
+         oracle.log_spectrogram, None, "fused_raw_dit/spec"),
+    ]
+
+
+def _standalone(torch, family, x, cfg):
+    """The family's batch model on one utterance (1, n) on the card."""
+    from mfcc_tpu_torch.models import mfcc as mfcc_model, plp as plp_model
+    from mfcc_tpu_torch.models import spectrogram as spec_model
+    n = torch.tensor([x.shape[1]], device=x.device)
+    if family == "plp":
+        return plp_model.plp_batch(x, n, cfg)[0][0]
+    if family == "spec":
+        return spec_model.log_spectrogram_batch(x, n, cfg)[0][0]
+    return mfcc_model.features_batch(x, n, cfg,
+                                     apply_dct=family == "mfcc")[0][0]
+
+
+def _pick_segments(rows, hop: int, count: int) -> list:
+    """count (row, slot, uid, offset, n) of the packed rows, among them
+    segments at odd and at even frame offsets."""
+    segs = [(b, j, uid, off, n) for b, r in enumerate(rows)
+            for j, (uid, off, n) in enumerate(r.segments)]
+    odd = [s for s in segs if (s[3] // hop) % 2]
+    even = [s for s in segs if not (s[3] // hop) % 2]
+    assert odd and even, "no packed segment at an odd or an even frame"
+    half = max(1, count // 2)
+    return sorted(odd[:half] + even[: count - min(half, len(odd))])
+
+
+def _packed_corpus(torch, dev, smi) -> None:
+    """Phase 10: the ragged corpus packed by pack_rows through all four
+    families, segments against their standalone kernel result and the
+    oracle; packed mfcc_batch_packed against padded mfcc_batch, timed."""
+    from mfcc_tpu_torch import FeatureConfig
+    from mfcc_tpu_torch.models import mfcc as mfcc_model
+    from mfcc_tpu_torch.utils import batch as batch_lib
+    modules = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
+    sr, hop = 16000, FeatureConfig().hop_len
+    lo, hi = PACK_SECONDS
+    rng = np.random.default_rng(0)
+    lens = rng.integers(int(lo * sr), int(hi * sr) + 1, PACK_UTTERANCES)
+    audio = _bench_audio(PACK_UTTERANCES, hi, sr)
+    utts = {i: audio[i, :n] for i, n in enumerate(lens)}
+    cap = int(hi * sr)
+    rows = list(batch_lib.pack_rows([(i, int(n)) for i, n in enumerate(lens)],
+                                    cap, hop))
+    S = max(len(r.segments) for r in rows)
+    xp = np.zeros((len(rows), cap), np.float32)
+    starts = np.zeros((len(rows), S), np.int32)
+    seg_lens = np.zeros((len(rows), S), np.int32)
+    for b, row in enumerate(rows):
+        sig, st, ln = batch_lib.pack_audio(row, utts.__getitem__)
+        xp[b], starts[b, : len(st)], seg_lens[b, : len(ln)] = sig, st, ln
+    real = int(lens.sum())
+    _log(f"[10 packed corpus] {PACK_UTTERANCES} utterances of {lo:g}-{hi:g} s "
+         f"(numpy seed 0), {real / sr:.1f} s of audio, packed by pack_rows "
+         f"at {hi:g} s ({cap} samples) into {len(rows)} rows of up to {S} "
+         f"segments")
+    x = torch.from_numpy(xp).to(dev)
+    st_d = torch.from_numpy(starts).to(dev)
+    ln_d = torch.from_numpy(seg_lens).to(dev)
+    picks = _pick_segments(rows, hop, PACK_CHECKS)
+    for name, family, cfg, (dct, proj), ref_fn, ref_tol, counter in \
+            _packed_families():
+        _reset_counts(modules.values())
+        feat, f0, fc, mask = mfcc_model.mfcc_batch_packed(x, st_d, ln_d, cfg,
+                                                          family=family)
+        torch.cuda.synchronize()
+        counts = _spectral_counts(modules)
+        _log(f"[10 packed corpus] {name}: mfcc_batch_packed on {len(rows)} "
+             f"rows launched {counts}")
+        assert counts[counter] == 1 and sum(
+            v for k, v in counts.items() if "/" not in k) == 1, \
+            f"packed {name} did not launch {counter} once, alone"
+        assert bool(torch.isfinite(feat).all()) and \
+            not bool(feat[~mask].any()), name
+        f0, fc = f0.cpu().numpy(), fc.cpu().numpy()
+        worst, worst_ref = 0.0, 0.0
+        for b, j, uid, off, n in picks:
+            got = feat[b, f0[b, j]: f0[b, j] + fc[b, j]]
+            alone = _standalone(torch, family, torch.from_numpy(
+                utts[uid][None]).to(dev), cfg)
+            err, margin = _compare(torch, dev, got[None], alone[None], cfg,
+                                   dct, None, proj)
+            g = got.cpu().numpy()
+            ref = ref_fn(utts[uid].astype(np.float64), cfg)
+            err_ref = (_window_err(g, ref) if ref_tol is None
+                       else float(np.abs(g - ref).max()))
+            _log(f"[10 packed corpus] {name}: row {b} slot {j} (frame "
+                 f"{off // hop}, {'odd' if (off // hop) % 2 else 'even'}, "
+                 f"{fc[b, j]} frames) vs standalone {err:.3e} (margin "
+                 f"{margin:.3e}); vs the float64 oracle {err_ref:.3e}")
+            assert margin >= 0, (name, b, j, err)
+            assert err_ref <= (SPEC_TOL if ref_tol is None else ref_tol), \
+                (name, b, j, err_ref)
+            worst, worst_ref = max(worst, err), max(worst_ref, err_ref)
+        _log(f"[10 packed corpus] {name}: {len(picks)} segments within their "
+             f"bounds (worst {worst:.3e} off standalone, {worst_ref:.3e} off "
+             f"the oracle)")
+    # packed against padded, MFCC-13: batches of PACK_BATCH rows
+    cfg = FeatureConfig()
+    packed_calls = [(x[i: i + PACK_BATCH], st_d[i: i + PACK_BATCH],
+                     ln_d[i: i + PACK_BATCH])
+                    for i in range(0, len(rows), PACK_BATCH)]
+    padded_calls, padded_samples = [], 0
+    for i in range(0, PACK_UTTERANCES, PACK_BATCH):
+        ids = range(i, min(i + PACK_BATCH, PACK_UTTERANCES))
+        width = int(max(lens[k] for k in ids))
+        xb = np.zeros((len(ids), width), np.float32)
+        for r, k in enumerate(ids):
+            xb[r, : lens[k]] = utts[k]
+        padded_calls.append((torch.from_numpy(xb).to(dev),
+                             torch.from_numpy(lens[list(ids)]).to(dev)))
+        padded_samples += xb.size
+    runs = {
+        "packed": lambda: [mfcc_model.mfcc_batch_packed(a, s, n, cfg)
+                           for a, s, n in packed_calls],
+        "padded": lambda: [mfcc_model.mfcc_batch(a, n, cfg)
+                           for a, n in padded_calls]}
+    launches = {}
+    for k, fn in runs.items():
+        _reset_counts(modules.values())
+        fn()
+        torch.cuda.synchronize()
+        launches[k] = modules["fused_raw_dit"].LAUNCHES
+    times = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for k in order:
+            times[k] += _time_ms(torch, runs[k], warmup=1, calls=PACK_TIMING,
+                                 group=1)
+    fill = {"packed": real / xp.size, "padded": real / padded_samples}
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    for k in runs:
+        _log(f"[10 packed corpus] {k}: {ms[k]:.4f} ms per corpus pass "
+             f"({launches[k]} fused_raw_dit launches, median of "
+             f"{len(times[k])}), fill {fill[k]:.4f}, "
+             f"{real / sr / (ms[k] / 1e3):,.0f} audio-sec/s ({smi})")
+    _log(f"[10 packed corpus] packed / padded time "
+         f"{ms['packed'] / ms['padded']:.3f}, samples computed "
+         f"{xp.size / padded_samples:.3f} ({smi})")
+    # what a call costs the host: a pass is host-bound where it exceeds the
+    # device's share of the pass
+    for k, call in (("packed", lambda: mfcc_model.mfcc_batch_packed(
+            *packed_calls[0], cfg)),
+                    ("padded", lambda: mfcc_model.mfcc_batch(
+                        *padded_calls[0], cfg))):
+        n_ops, host_ms = _ops_and_host_ms(torch, call)
+        _log(f"[10 packed corpus] {k}: one call of {PACK_BATCH} rows, "
+             f"{n_ops} ATen ops, host enqueue {host_ms:.4f} ms ({smi})")
+
+
+def _dither_phase(torch, dev, bench) -> None:
+    """Phase 11: the hash's bits on the card, dithered MFCC-13 on the bench
+    batch against the dithered oracle, a silent row off the log floor."""
+    from mfcc_tpu_torch import FeatureConfig, oracle
+    from mfcc_tpu_torch.models import mfcc as mfcc_model
+    from mfcc_tpu_torch.ops import dither
+    from mfcc_tpu_torch.ops.kernels import fused_raw_dit
+    n = 1 << 20
+    for seed, start in ((0, 0), (7, 2**32 - n // 2)):
+        h1, h2 = dither.bits(seed, start, n, device=dev)
+        w1, w2 = dither.bits_np(seed, start, n)
+        bad = int((h1.cpu() != torch.from_numpy(w1.astype(np.int64))).sum()
+                  + (h2.cpu() != torch.from_numpy(w2.astype(np.int64))).sum())
+        z = dither.noise(seed, start, n, device=dev).cpu().double().numpy()
+        zn = dither.noise_np(seed, start, n)
+        rel = float((np.abs(z - zn) / np.maximum(np.abs(zn), 1.0)).max())
+        _log(f"[11 dither] seed {seed}, samples [{start}, {start + n}) on the "
+             f"card: {bad} of {2 * n} hash words differ from the uint32 "
+             f"reference; noise vs float64 noise_np {rel:.3e} relative")
+        assert bad == 0 and rel <= 1e-6, (seed, bad, rel)
+    cfg = FeatureConfig(dither=dither.KALDI_ONE_LSB)
+    B, N = bench.shape
+    _reset_counts([fused_raw_dit])
+    feat, _, _ = mfcc_model.mfcc_batch(
+        torch.from_numpy(bench).to(dev),
+        torch.full((B,), N, dtype=torch.int32, device=dev), cfg)
+    torch.cuda.synchronize()
+    launches = fused_raw_dit.LAUNCHES
+    f = feat.cpu().numpy()
+    err = max(float(np.abs(f[i] - oracle.mfcc(bench[i].astype(np.float64),
+                                              cfg)).max()) for i in range(B))
+    _log(f"[11 dither] mfcc_batch at dither 1/32768 on the {B} x "
+         f"{N / cfg.sample_rate:g} s bench batch: {launches} fused_raw_dit "
+         f"launch(es); vs the dithered float64 oracle {err:.3e} (bound "
+         f"{ORACLE_TOL:g})")
+    assert launches == 1 and err <= ORACLE_TOL, (launches, err)
+    zero = torch.zeros((2, cfg.sample_rate), device=dev)
+    nz = torch.full((2,), cfg.sample_rate, device=dev)
+    plain = mfcc_model.mfcc_batch(zero, nz, cfg.replace(dither=0.0))[0]
+    dith = mfcc_model.mfcc_batch(zero, nz, cfg)[0]
+    c0, d0 = plain[0, :, 0].cpu().numpy(), dith[0, :, 0].cpu().numpy()
+    zerr = float(np.abs(dith[0].cpu().numpy()
+                        - oracle.mfcc(np.zeros(cfg.sample_rate), cfg)).max())
+    _log(f"[11 dither] all-zero row: c0 spread {np.ptp(c0):.3e} undithered "
+         f"(the log floor), {np.ptp(d0):.3e} dithered (range {d0.min():.3f} "
+         f"to {d0.max():.3f}); vs the oracle {zerr:.3e}")
+    assert np.ptp(c0) == 0.0 and np.ptp(d0) > 0.0 and zerr <= ORACLE_TOL
+
+
+def _near(a: np.ndarray, thr: float, context: int) -> np.ndarray:
+    """Frames within 1e-4 of a VAD threshold, widened by the vote window
+    (there the float32 and float64 means may decide differently)."""
+    near = np.abs(a - thr) <= 1e-4 * max(1.0, abs(thr))
+    if context:
+        near = np.convolve(near, np.ones(2 * context + 1), "same") > 0
+    return near
+
+
+def _post_phase(torch, dev, bench, smi) -> None:
+    """Phase 12: the post chain and corpus CMVN on the bench batch's kernel
+    features, each against its float64 oracle twin, and timed."""
+    from mfcc_tpu_torch import FeatureConfig, oracle
+    from mfcc_tpu_torch.models import mfcc as mfcc_model
+    from mfcc_tpu_torch.ops import post
+    from mfcc_tpu_torch.parallel import cmvn
+    cfg = FeatureConfig(append_energy=True)
+    B, N = bench.shape
+    rng = np.random.default_rng(12)
+    lens = rng.integers(N // 5, N + 1, B).astype(np.int32)
+    lens[0] = N
+    audio = bench.copy()
+    for i, n in enumerate(lens):
+        audio[i, n:] = 0.0
+    feat, flens, mask = mfcc_model.mfcc_batch(
+        torch.from_numpy(audio).to(dev), torch.from_numpy(lens).to(dev), cfg)
+    fl = flens.cpu().numpy()
+    rows = [feat[i, : fl[i]].cpu().double().numpy() for i in range(B)]
+    ops = {
+        "sliding_cmvn": (lambda: post.sliding_cmvn(feat, flens, POST_WINDOW,
+                                                   True),
+                         lambda r: oracle.sliding_cmvn(r, POST_WINDOW, True),
+                         POST_VAR_TOL),
+        "online_cmvn": (lambda: post.online_cmvn(feat, flens, POST_WINDOW,
+                                                 True),
+                        lambda r: oracle.online_cmvn(r, POST_WINDOW, True),
+                        POST_VAR_TOL),
+        "splice": (lambda: post.splice(feat, flens, 3, 3),
+                   lambda r: oracle.splice(r, 3, 3), 0.0),
+    }
+    for name, (fn, ref_fn, tol) in ops.items():
+        got = fn().cpu().numpy()
+        err = max(float(np.abs(got[i, : fl[i]] - ref_fn(rows[i])).max())
+                  for i in range(POST_CHECKS))
+        pad = not got[~mask.cpu().numpy()].any()
+        _log(f"[12 post chain] {name} on ({B}, {feat.shape[1]}, "
+             f"{feat.shape[2]}) kernel features: rows 0-{POST_CHECKS - 1} vs "
+             f"the float64 oracle {err:.3e} (bound {tol:g}); padded frames "
+             f"zero {pad}")
+        assert err <= tol and pad, (name, err)
+    for ctx in (0, 3):
+        got = post.energy_vad(feat[..., 0], flens, context=ctx).cpu().numpy()
+        flips = near = 0
+        for i in range(POST_CHECKS):
+            le = rows[i][:, 0]
+            want = oracle.energy_vad(le, context=ctx)
+            ok = _near(le, 0.5 * le.mean(), ctx)
+            near += int(ok.sum())
+            flips += int((got[i, : fl[i]] != want)[~ok].sum())
+            assert not got[i, fl[i]:].any()
+        _log(f"[12 post chain] energy_vad (c0 log energy, context {ctx}): "
+             f"rows 0-{POST_CHECKS - 1}, {flips} decisions differ from the "
+             f"oracle's away from the threshold ({near} frames within 1e-4 "
+             f"of it)")
+        assert flips == 0, (ctx, flips)
+    # corpus CMVN: float32 statistics on the card, float64 on the host
+    stats = cmvn.batch_stats(feat, mask)
+    host = cmvn.host_batch_stats(feat, flens)
+    count, s, sq = oracle.cmvn_stats(rows)
+    scale = sum(np.abs(r).sum(axis=0) for r in rows)
+    dev_err = max(float((np.abs(stats.sum.cpu().double().numpy() - s)
+                         / scale).max()),
+                  float((np.abs(stats.sumsq.cpu().double().numpy() - sq)
+                         / sq).max()))
+    host_err = max(float((np.abs(host.sum.numpy() - s) / scale).max()),
+                   float((np.abs(host.sumsq.numpy() - sq) / sq).max()))
+    _log(f"[12 post chain] cmvn.batch_stats (float32, card) vs "
+         f"oracle.cmvn_stats {dev_err:.3e} relative, host_batch_stats "
+         f"(float64) {host_err:.3e}; count {int(stats.count)} = "
+         f"{int(host.count)} = {count}")
+    assert int(stats.count) == int(host.count) == count
+    assert dev_err <= 1e-5 and host_err <= 1e-12, (dev_err, host_err)
+    errs = {}
+    for name, st in (("float32 card statistics", stats),
+                     ("float64 host statistics", host)):
+        normed = cmvn.apply(feat, st).cpu().numpy()
+        errs[name] = max(float(np.abs(normed[i, : fl[i]] - oracle.apply_cmvn(
+            rows[i], count, s, sq)).max()) for i in range(B))
+        _log(f"[12 post chain] cmvn.apply with the {name} vs "
+             f"oracle.apply_cmvn, all {B} rows: {errs[name]:.3e}")
+    assert errs["float64 host statistics"] <= ORACLE_TOL, errs
+    assert errs["float32 card statistics"] <= CMVN_F32_TOL, errs
+    runs = {
+        **{k: v[0] for k, v in ops.items()},
+        "energy_vad": lambda: post.energy_vad(feat[..., 0], flens, context=3),
+        "cmvn.batch_stats": lambda: cmvn.batch_stats(feat, mask),
+        "cmvn.apply": lambda: cmvn.apply(feat, host),
+        "cmvn.host_batch_stats": lambda: cmvn.host_batch_stats(feat, flens)}
+    for k, fn in runs.items():
+        ms = statistics.median(_time_ms(torch, fn, calls=TIMING_CALLS))
+        _log(f"[12 post chain] {k}: {ms:.4f} ms per ({B}, {feat.shape[1]}, "
+             f"{feat.shape[2]}) batch ({smi})")
+
+
+def _streaming_phase(torch, dev, bench, smi) -> None:
+    """Phase 13: STREAM sessions of the bench signal, K chunks a dispatch,
+    through the fused serving path (all four variants) against the scan
+    path and the oracle; online_cmvn_step against online_cmvn; one dispatch
+    timed with its ATen ops and host enqueue."""
+    from mfcc_tpu_torch import FeatureConfig, oracle
+    from mfcc_tpu_torch.models import streaming
+    from mfcc_tpu_torch.ops import post
+    modules = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
+    cf, K, D = STREAM_CHUNK_FRAMES, STREAM_K, STREAM_DISPATCHES
+    base = FeatureConfig()
+    B = bench.shape[0]
+    C = cf * base.hop_len
+    need = D * K * C
+    assert bench.shape[1] >= need, (bench.shape, need)
+    sig = np.ascontiguousarray(bench[:, :need])
+    chunks = [torch.from_numpy(sig[:, d * K * C:(d + 1) * K * C]
+                               .reshape(B, K, C)).to(dev) for d in range(D)]
+    variants = {"mfcc": (base, oracle.mfcc, ORACLE_TOL),
+                "logmel": (base.replace(dynamic_range_db=50.0),
+                           oracle.log_mel, ORACLE_TOL),
+                "plp": (base, oracle.plp, ORACLE_TOL),
+                "spec": (base, oracle.log_spectrogram, None)}
+    _log(f"[13 streaming] {B} sessions of the bench signal, chunk_frames "
+         f"{cf}, K = {K} chunks a dispatch, {D} dispatches: {need} samples a "
+         f"session")
+    emitted = {}
+    for v, (cfg, ref_fn, ref_tol) in variants.items():
+        st_f = streaming.init_state_batch(B, cfg, device=dev)
+        st_s = streaming.init_state_batch(B, cfg, device=dev)
+        outs, worst = [[] for _ in range(B)], 0.0
+        launches = {}
+        for d in range(D):
+            _reset_counts(modules.values())
+            st_f, ff, n_new = streaming.process_chunks_batch_fused(
+                st_f, chunks[d], cfg, v)
+            torch.cuda.synchronize()
+            for k, n in _spectral_counts(modules).items():
+                launches[k] = launches.get(k, 0) + n
+            st_s, fs, nvs = streaming.process_chunks_batch(st_s, chunks[d],
+                                                           cfg, v)
+            nn, nv = n_new.cpu().numpy(), nvs.cpu().numpy()
+            ff, fs = ff.cpu().numpy(), fs.cpu().numpy()
+            for b in range(B):
+                want = np.concatenate([fs[b, k, : nv[b, k]] for k in range(K)])
+                assert nn[b] == want.shape[0]
+                assert not ff[b, nn[b]:].any()
+                got = ff[b, : nn[b]]
+                worst = max(worst, _window_err(got, want) if v == "spec"
+                            else float(np.abs(got - want).max()))
+                outs[b].append(ff[b, : nn[b]])
+        proj = {"plp": "bark", "spec": "spec"}.get(v, "mel")
+        _log(f"[13 streaming] {v}: process_chunks_batch_fused launched "
+             f"{launches} over {D} dispatches")
+        assert launches[f"fused_raw_dit/{proj}"] == D and sum(
+            n for k, n in launches.items() if "/" not in k) == D, v
+        assert torch.equal(st_f.carry, st_s.carry) and torch.equal(
+            st_f.frames_done, st_s.frames_done), v
+        got = [np.concatenate(o) for o in outs]
+        emitted[v] = outs
+        ref_errs, all_bins = [], []
+        for b in range(STREAM_ORACLE_ROWS):
+            ref = ref_fn(sig[b].astype(np.float64), cfg)
+            assert got[b].shape == ref.shape, (v, got[b].shape, ref.shape)
+            ref_errs.append(_window_err(got[b], ref) if ref_tol is None
+                            else float(np.abs(got[b] - ref).max()))
+            all_bins.append(float(np.abs(got[b] - ref).max()))
+        bound = SPEC_TOL if v == "spec" else STREAM_FUSED_TOL
+        _log(f"[13 streaming] {v}: fused vs scan path {worst:.3e} (bound "
+             f"{bound:g}{', 50 dB window' if v == 'spec' else ''}); sessions "
+             f"0-{STREAM_ORACLE_ROWS - 1} ({got[0].shape[0]} frames) vs the "
+             f"float64 oracle {max(ref_errs):.3e} (every bin "
+             f"{max(all_bins):.3e})")
+        assert worst <= bound, (v, worst)
+        assert max(ref_errs) <= (SPEC_TOL if ref_tol is None else ref_tol), \
+            (v, ref_errs)
+    # the streaming online CMVN step against the batch op, on the fused
+    # mfcc stream as each dispatch emitted it: mean-only within
+    # STREAM_CMVN_TOL of the batch op; with the variance normalized both
+    # within POST_VAR_TOL of the float64 oracle (at a 300-frame window the
+    # float32 window sums of squares round ~3e-5 into the output, in the
+    # batch op as in the step, each in its own order)
+    W, F = STREAM_CMVN_WINDOW, base.n_mfcc
+    for nv in (False, True):
+        err = err_step = err_batch = 0.0
+        for b in range(STREAM_ORACLE_ROWS):
+            cst = streaming.init_online_cmvn(W, F, device=dev)
+            parts = []
+            for rows in emitted["mfcc"][b]:
+                slots = np.zeros((K * cf, F), np.float32)
+                slots[: len(rows)] = rows
+                cst, out = streaming.online_cmvn_step(
+                    cst, torch.from_numpy(slots).to(dev), len(rows), W, nv)
+                parts.append(out[: len(rows)].cpu().numpy())
+            feats = np.concatenate(emitted["mfcc"][b])
+            step = np.concatenate(parts)
+            whole = torch.from_numpy(feats)[None].to(dev)
+            batch = post.online_cmvn(whole, torch.tensor(
+                [whole.shape[1]], device=dev), W, nv)[0].cpu().numpy()
+            ref = oracle.online_cmvn(feats.astype(np.float64), W, nv)
+            err = max(err, float(np.abs(step - batch).max()))
+            err_step = max(err_step, float(np.abs(step - ref).max()))
+            err_batch = max(err_batch, float(np.abs(batch - ref).max()))
+        _log(f"[13 streaming] online_cmvn_step (window {W}, "
+             f"{'variance' if nv else 'mean only'}) over the fused mfcc "
+             f"stream of sessions 0-{STREAM_ORACLE_ROWS - 1}, one step a "
+             f"dispatch: vs the batch online_cmvn {err:.3e}; vs the float64 "
+             f"oracle {err_step:.3e} (the batch op {err_batch:.3e})")
+        if nv:
+            assert max(err_step, err_batch) <= POST_VAR_TOL, (err_step,
+                                                              err_batch)
+        else:
+            assert err <= STREAM_CMVN_TOL, err
+    # one dispatch, timed: the fused path's four variants and the scan path
+    st0 = {v: streaming.init_state_batch(B, c, device=dev)
+           for v, (c, _, _) in variants.items()}
+    runs = {f"fused {v}": functools.partial(
+        streaming.process_chunks_batch_fused, st0[v], chunks[0], c, v)
+        for v, (c, _, _) in variants.items()}
+    runs["scan mfcc"] = functools.partial(streaming.process_chunks_batch,
+                                          st0["mfcc"], chunks[0], base)
+    audio_s = B * K * C / base.sample_rate
+    for k, fn in runs.items():
+        ms = statistics.median(_time_ms(torch, fn, calls=TIMING_CALLS))
+        n_ops, host_ms = _ops_and_host_ms(torch, fn)
+        _log(f"[13 streaming] {k}: {ms:.4f} ms a dispatch of {B} x {K} "
+             f"chunks ({audio_s:g} s of audio) = {audio_s / (ms / 1e3):,.0f}"
+             f" audio-sec/s; {n_ops} ATen ops, host enqueue {host_ms:.4f} ms "
+             f"a dispatch ({smi})")
+
+
+
 def run(torch, dev) -> list[dict]:
-    """Phases 1-8 on device ``dev``; -> the kernels' JSON records."""
+    """Phases 1-8 and 10-13 on device ``dev``; -> the kernels' JSON records
+    (of phases 1-8: the later phases report their own counters)."""
     from mfcc_tpu_torch import PitchConfig
     from mfcc_tpu_torch.ops.kernels import _build
 
@@ -1472,6 +1995,10 @@ def run(torch, dev) -> list[dict]:
     viterbi_bad = _viterbi_kernel_vs_plain(torch, dev)      # 6
     pitch_launches = _pitch_main_path(torch, dev, bench)    # 7
     med = _timing(torch, dev, bench, smi, sm_mhz)           # 8
+    _packed_corpus(torch, dev, smi)                         # 10
+    _dither_phase(torch, dev, bench)                        # 11
+    _post_phase(torch, dev, bench, smi)                     # 12
+    _streaming_phase(torch, dev, bench, smi)                # 13
 
     src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
     launches = {**logmel_launches, **pitch_launches, **proj_launches}
@@ -1533,7 +2060,8 @@ def main() -> int:
     kernels = run(torch, torch.device("cuda", 0))
     # ---- 9. summary ----
     assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
-    _log(f"[9 summary] phases 1-8 passed in {time.perf_counter() - t0:.1f} s")
+    _log(f"[9 summary] phases 1-8 and 10-13 passed in "
+         f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,10 +31,6 @@ BACKENDS = ("auto", "torch", "cuda")
 
 def check_config(cfg) -> None:
     """Raise NotImplementedError for configs outside the ported slice."""
-    if cfg.dither > 0.0:
-        raise NotImplementedError(
-            "dither is not ported yet (ROADMAP.md, modules to port, item 2: "
-            "ops/dither)")
     if cfg.matmul_precision != "highest":
         raise NotImplementedError(
             f"matmul_precision={cfg.matmul_precision!r} is not ported yet: "

@@ -19,6 +19,8 @@ small (B, T, n_bark) output in plain PyTorch, as it runs in XLA in the
 reference.  Otherwise the plain chain runs on the card; a CPU tensor takes
 the plain chain.  ``append_energy`` takes c0 from the host-pre-emphasized
 audio in both routes, as the reference does; deltas see the frame counts.
+Dither is added to the audio once, before either route
+(``mfcc_tpu/models/plp.py:38-41``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import torch
 
 from ..config import FeatureConfig
 from .. import backend as backend_lib
-from ..ops import deltas as deltas_op, framing, plp as plp_op, spectrum
+from ..ops import (deltas as deltas_op, dither as dither_op, framing,
+                   plp as plp_op, spectrum)
 from ..ops.kernels import fused_raw_dit, routes
 from .mfcc import frame_lengths, frame_mask, run_batch  # noqa: F401
 
@@ -39,6 +42,7 @@ def _plp_from_audio(x: torch.Tensor, cfg: FeatureConfig,
     appended)."""
     squeeze = x.dim() == 1
     xb = (x[None, :] if squeeze else x).to(torch.float32).contiguous()
+    xb = dither_op.apply(xb, cfg)
     use_kernel = (backend_lib.resolve(backend, xb) == "cuda"
                   and routes.raw_dit_kernel_eligible(cfg))
     y = (framing.preemphasize(xb, cfg)

@@ -19,6 +19,12 @@ there.  A CPU tensor takes the plain chain.  The route is decided from the
 config alone.  Contract: 2e-4 against the float64 oracle inside the 50 dB
 window (``docs/conventions.md``); below it the f32 plain chain is
 floor-limited, while the kernel's float64 front holds the oracle.
+
+Dither: the reference model does not dither the spectrogram in valid mode
+(``mfcc_tpu/models/spectrogram.py:33-47``), although its oracle
+``log_spectrogram`` does; in centre mode its frame-mode resolution dithers
+the signal before the reflect pad.  The port matches the model in both
+(ROADMAP section 3).
 """
 
 from __future__ import annotations

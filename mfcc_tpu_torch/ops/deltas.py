@@ -6,10 +6,14 @@
 with edge replication at the true utterance boundary: for a ragged batch
 the forward neighbour is clipped to each utterance's last valid frame, so
 padded frames never leak into the derivatives of real frames.
+
+:class:`DeltaStream` is the streaming twin: it runs on the host in numpy
+float64, over ``oracle.deltas``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import FeatureConfig
@@ -54,3 +58,70 @@ def append_deltas(feat: torch.Tensor, cfg: FeatureConfig,
     d1 = deltas(feat, cfg.delta_window, lengths)
     d2 = deltas(d1, cfg.delta_window, lengths)
     return torch.cat([feat, d1, d2], dim=-1)
+
+
+class DeltaStream:
+    """Streaming delta / delta-delta post-processor (host side; twin of
+    ``mfcc_tpu.ops.deltas.DeltaStream``).
+
+    Deltas need a +-window halo and delta-deltas a halo of deltas, so exact
+    emission lags the static stream by 2 window frames.  This buffers the
+    incoming static frames and emits [static, delta, delta-delta] rows equal
+    to the batch computation's prefix (start-edge replication included);
+    the last 2 window frames of a stream need :meth:`flush` (end-edge
+    replication) once the source is done.  Features are tens of floats a
+    frame, so this runs in float64 numpy next to the consumer.
+    """
+
+    def __init__(self, window: int = 2):
+        self.window = window
+        self._buf = None          # retained frames (float64, (K, F))
+        self._buf_start = 0       # global index of _buf[0]
+        self._emitted = 0         # next global row to emit
+        self._total = 0           # frames received
+        self._at_start = True     # _buf[0] is the true stream start
+
+    def _slice_deltas(self, lo: int, hi: int) -> np.ndarray:
+        """Exact [static, delta, delta-delta] for global rows [lo, hi) from
+        the retained frames; edge replication happens only at the true
+        stream boundaries (interior slice edges have real +-2w context)."""
+        from .. import oracle
+        w = self.window
+        a = max(self._buf_start, lo - 2 * w)
+        feat = self._buf[a - self._buf_start:]
+        d1 = oracle.deltas(feat, w)
+        d2 = oracle.deltas(d1, w)
+        return np.concatenate([feat, d1, d2], axis=-1)[lo - a: hi - a]
+
+    def push(self, static_frames) -> np.ndarray:
+        """Add (k, F) new static frames (numpy or a tensor); returns every
+        newly final [static, delta, delta-delta] row (possibly none)."""
+        if isinstance(static_frames, torch.Tensor):
+            static_frames = static_frames.detach().cpu().numpy()
+        new = np.asarray(static_frames, np.float64).reshape(
+            -1, static_frames.shape[-1])
+        self._buf = new if self._buf is None else np.concatenate(
+            [self._buf, new])
+        self._total += new.shape[0]
+        w = self.window
+        safe = self._total - 2 * w       # rows no future frame can change
+        if safe <= self._emitted:
+            return np.zeros((0, new.shape[-1] * 3))
+        out = self._slice_deltas(self._emitted, safe)
+        self._emitted = safe
+        # keep only what future rows can still reference: 4w frames back
+        keep_from = max(self._buf_start, self._emitted - 4 * w)
+        if self._at_start and self._emitted > 4 * w:
+            self._at_start = False
+        if not self._at_start:
+            self._buf = self._buf[keep_from - self._buf_start:]
+            self._buf_start = keep_from
+        return out
+
+    def flush(self) -> np.ndarray:
+        """Emit the trailing 2 window rows (the end edge is now known)."""
+        if self._buf is None or self._emitted >= self._total:
+            return np.zeros((0, 0))
+        out = self._slice_deltas(self._emitted, self._total)
+        self._emitted = self._total
+        return out

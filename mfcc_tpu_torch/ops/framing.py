@@ -3,7 +3,8 @@
 
 Centre mode (Kaldi snip_edges=false) becomes a reflect pad followed by the
 exact "valid" pipeline, as in the reference, so every later stage and the
-kernel are unchanged by it.
+kernel are unchanged by it; a dithered centre-mode signal is dithered
+before the pad.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from ..config import FeatureConfig
-from . import xmath
+from . import dither as dither_op, xmath
 
 
 def center_reflect_indices(n: int, cfg: FeatureConfig) -> np.ndarray:
@@ -71,18 +72,24 @@ def center_pad_batch(x: torch.Tensor, lengths: torch.Tensor,
 def resolve_frame_mode(x: torch.Tensor, sample_lengths: torch.Tensor,
                        cfg: FeatureConfig):
     """Batch entry hook: (x', sample_lengths', cfg') with cfg' in "valid"
-    mode (centre mode reflect-pads first)."""
+    mode.  Centre mode dithers the signal first (the reflected samples
+    carry reflected noise, the oracle's dither-then-pad order), then
+    reflect-pads, and turns dither off in cfg' so that the valid-mode
+    pipeline does not add it again."""
     if cfg.frame_mode == "valid":
         return x, sample_lengths, cfg
+    x = dither_op.apply(x, cfg)
     xp, L = center_pad_batch(x, sample_lengths, cfg)
-    return xp, L, cfg.replace(frame_mode="valid")
+    return xp, L, cfg.replace(frame_mode="valid", dither=0.0)
 
 
 def resolve_frame_mode_static(x: torch.Tensor, cfg: FeatureConfig):
     """Single-utterance twin of resolve_frame_mode."""
     if cfg.frame_mode == "valid":
         return x, cfg
-    return center_pad_static(x, cfg), cfg.replace(frame_mode="valid")
+    x = dither_op.apply(x, cfg)
+    return center_pad_static(x, cfg), cfg.replace(frame_mode="valid",
+                                                  dither=0.0)
 
 
 def preemphasize(x: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:

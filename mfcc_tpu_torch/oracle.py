@@ -1,5 +1,5 @@
-"""Float64 NumPy oracle: the MFCC, log-mel, spectrogram, PLP and pitch
-slices of ``mfcc_tpu.oracle``.
+"""Float64 NumPy oracle: the MFCC, log-mel, spectrogram, PLP, pitch,
+dither, corpus CMVN and post-processing slices of ``mfcc_tpu.oracle``.
 
 The port's source of every constant matrix (DFT bases, mel and bark
 filterbanks, DCT, lifter, autocorrelation IDFT) and its accuracy reference
@@ -8,9 +8,9 @@ imports jax through its package; ``tests/test_torch_ops.py`` holds every
 function here equal to its reference twin.  Conventions (framing, HTK
 pre-emphasis x[-1] := x[0], symmetric windows, |X|^2 without scaling,
 continuous mel triangles, orthonormal DCT-II, regression deltas,
-Hermansky's PLP, the NCCF + Viterbi pitch) are documented on the
-reference; ``tests/test_torch_pitch.py`` and ``tests/test_torch_plp.py``
-hold the pitch and PLP twins equal to theirs.
+Hermansky's PLP, the NCCF + Viterbi pitch, position-indexed dither, the
+Kaldi post chain) are documented on the reference; the ``tests/test_torch_*``
+file of each slice holds its twins equal to the reference's.
 """
 
 from __future__ import annotations
@@ -214,17 +214,22 @@ def deltas(feat: np.ndarray, window: int = 2) -> np.ndarray:
 # End-to-end
 # --------------------------------------------------------------------------
 
-def _frames_undithered(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
-    if cfg.dither > 0.0:
-        raise NotImplementedError(
-            "dither is not ported yet (ROADMAP.md, modules to port, item 2: "
-            "ops/dither)")
-    return frame_signal(x, cfg)
+def _dither(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """x plus cfg.dither times the float64 noise of positions 0.. (the
+    reference's ``oracle._dither``)."""
+    if cfg.dither == 0.0:
+        return x
+    from .ops import dither as dither_op
+    return dither_op.apply_np(np.asarray(x, np.float64), cfg)
+
+
+def _frames(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    return frame_signal(_dither(x, cfg), cfg)
 
 
 def mfcc(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
     """Full float64 MFCC pipeline: (n_samples,) -> (T, n_feats)."""
-    frames = _frames_undithered(x, cfg)
+    frames = _frames(x, cfg)
     if frames.shape[0] == 0:
         return np.zeros((0, cfg.n_feats), dtype=np.float64)
     power = power_spectrum(frames, cfg)
@@ -241,7 +246,7 @@ def mfcc(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
 
 def log_mel(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
     """Log-mel variant (DCT skipped): (n_samples,) -> (T, n_mels[*3])."""
-    frames = _frames_undithered(x, cfg)
+    frames = _frames(x, cfg)
     if frames.shape[0] == 0:
         n = cfg.n_mels * (3 if cfg.deltas else 1)
         return np.zeros((0, n), dtype=np.float64)
@@ -256,7 +261,7 @@ def log_mel(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
 def log_spectrogram(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
     """Log-power-spectrogram twin of models/spectrogram.py:
     (n_samples,) -> (T, n_bins) floored log power spectra."""
-    frames = _frames_undithered(x, cfg)
+    frames = _frames(x, cfg)
     if frames.shape[0] == 0:
         return np.zeros((0, cfg.n_bins), dtype=np.float64)
     return np.log(np.maximum(power_spectrum(frames, cfg), cfg.log_floor))
@@ -357,7 +362,7 @@ def log_bark(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
     (T, n_bark), the float64 reference of ``fused_raw_dit``'s
     ``projection="bark"`` output (PLP's front half, which :func:`plp`
     compresses by a cube root instead of a log)."""
-    frames = _frames_undithered(x, cfg)
+    frames = _frames(x, cfg)
     if frames.shape[0] == 0:
         return np.zeros((0, cfg.n_bark), dtype=np.float64)
     bands = power_spectrum(frames, cfg) @ bark_filterbank(cfg).T
@@ -373,7 +378,7 @@ def plp(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
     (lags 0..lpc_order) -> Levinson-Durbin -> LPC-to-cepstra (n_mfcc
     coefficients, c0 = log residual energy) -> optional lifter/deltas.
     """
-    frames = _frames_undithered(x, cfg)
+    frames = _frames(x, cfg)
     if frames.shape[0] == 0:
         return np.zeros((0, cfg.n_feats), dtype=np.float64)
     power = power_spectrum(frames, cfg)
@@ -505,3 +510,96 @@ def pitch(x: np.ndarray, pcfg) -> np.ndarray:
     norm_log_f0 = log_f0 - weighted_sliding_mean(log_f0, w, pcfg.norm_window)
     d = deltas(log_f0[:, None], pcfg.delta_window)[:, 0]
     return np.stack([pov, norm_log_f0, d], axis=-1)
+
+
+# --------------------------------------------------------------------------
+# Corpus CMVN and the post-processing chain (parallel/cmvn.py, ops/post.py)
+# --------------------------------------------------------------------------
+
+def cmvn_stats(feats: list[np.ndarray]):
+    """Corpus CMVN statistics (count, sum, sumsq) over a list of (T, F)."""
+    count = sum(f.shape[0] for f in feats)
+    s = sum(f.sum(axis=0) for f in feats)
+    sq = sum((f * f).sum(axis=0) for f in feats)
+    return count, s, sq
+
+
+def apply_cmvn(feat: np.ndarray, count, s, sq, eps: float = 1e-8) -> np.ndarray:
+    mean = s / count
+    var = np.maximum(sq / count - mean * mean, eps)
+    return (feat - mean) / np.sqrt(var)
+
+
+def sliding_cmvn(feat: np.ndarray, window: int = 600,
+                 normalize_variance: bool = False) -> np.ndarray:
+    """(T, F) per-frame sliding mean/var normalization, centered window,
+    edges shrink (ops/post.sliding_cmvn twin for one utterance)."""
+    T = feat.shape[0]
+    half = window // 2
+    out = np.zeros_like(feat)
+    for t in range(T):
+        lo, hi = max(0, t - half), min(T, t + half + 1)
+        seg = feat[lo:hi]
+        mean = seg.mean(axis=0)
+        out[t] = feat[t] - mean
+        if normalize_variance:
+            var = np.maximum((seg * seg).mean(axis=0) - mean * mean, 1e-8)
+            out[t] /= np.sqrt(var)
+    return out
+
+
+def online_cmvn(feat: np.ndarray, window: int = 600,
+                normalize_variance: bool = False,
+                prior=None) -> np.ndarray:
+    """(T, F) causal online CMVN (Kaldi apply-cmvn-online): frame t is
+    normalized by the statistics of frames [max(0, t - window + 1), t].
+    ``prior`` is an optional (count, sum (F,), sumsq (F,)) triple blended
+    in with weight min(prior_count, window - cnt) while the window is
+    young."""
+    T, F = feat.shape
+    out = np.zeros_like(feat)
+    for t in range(T):
+        lo = max(0, t - window + 1)
+        seg = feat[lo: t + 1]
+        cnt = float(seg.shape[0])
+        s = seg.sum(axis=0)
+        sq = (seg * seg).sum(axis=0)
+        if prior is not None:
+            pc, ps, pss = prior
+            w = min(float(pc), max(0.0, window - cnt))
+            if pc > 0.0 and w > 0.0:
+                cnt += w
+                s = s + (w / pc) * np.asarray(ps)
+                sq = sq + (w / pc) * np.asarray(pss)
+        mean = s / cnt
+        out[t] = feat[t] - mean
+        if normalize_variance:
+            var = np.maximum(sq / cnt - mean * mean, 1e-8)
+            out[t] /= np.sqrt(var)
+    return out
+
+
+def splice(feat: np.ndarray, left: int = 3, right: int = 3) -> np.ndarray:
+    """(T, F) -> (T, (left+1+right)*F) context splice, edge replication."""
+    T = feat.shape[0]
+    cols = []
+    for off in range(-left, right + 1):
+        idx = np.clip(np.arange(T) + off, 0, T - 1)
+        cols.append(feat[idx])
+    return np.concatenate(cols, axis=-1)
+
+
+def energy_vad(log_e: np.ndarray, threshold: float = 0.0,
+               mean_scale: float = 0.5, context: int = 0,
+               proportion: float = 0.6) -> np.ndarray:
+    """(T,) log energies -> (T,) bool voiced (ops/post.energy_vad twin)."""
+    thr = threshold + mean_scale * log_e.mean()
+    raw = log_e > thr
+    if context <= 0:
+        return raw
+    T = log_e.shape[0]
+    out = np.zeros((T,), bool)
+    for t in range(T):
+        lo, hi = max(0, t - context), min(T, t + context + 1)
+        out[t] = raw[lo:hi].sum() >= proportion * (hi - lo)
+    return out

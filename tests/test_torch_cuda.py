@@ -4,9 +4,11 @@ over n_fft 64..4096 in both flavours, the float64-front one also against
 the float64 oracle, and the direct and DIT tiles where they still run),
 the kernels' accurate log bit for bit, the wrappers' checks,
 ``fused_raw_dit``'s bark and spec projections against their plain versions
-and the float64 oracle, and the main paths (MFCC, log-mel through each
-spectral route, PLP, the log spectrogram, pitch) through the kernels.  All
-are marked ``cuda`` and skip without a card.
+and the float64 oracle, the main paths (MFCC, log-mel through each
+spectral route, PLP, the log spectrogram, pitch) through the kernels, the
+dither hash on the card, packed segments at an odd frame offset against
+their standalone kernel result, and the fused serving path against the
+streaming scan path.  All are marked ``cuda`` and skip without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
 there without the repository's conftest:
@@ -23,12 +25,13 @@ import torch
 from mfcc_tpu_torch import FeatureConfig, PitchConfig, oracle
 from mfcc_tpu_torch.models import (logmel as logmel_model, mfcc as mfcc_model,
                                    pitch as pitch_model, plp as plp_model,
-                                   spectrogram as spec_model)
-from mfcc_tpu_torch.ops import framing, pitch as pitch_op, resample, xmath
+                                   spectrogram as spec_model, streaming)
+from mfcc_tpu_torch.ops import (dither, framing, pitch as pitch_op, resample,
+                                xmath)
 from mfcc_tpu_torch.ops.kernels import (_spectral, fused_dit, fused_mfcc,
                                         fused_nccf, fused_raw, fused_raw_dit,
                                         fused_viterbi)
-from mfcc_tpu_torch.utils import wav
+from mfcc_tpu_torch.utils import batch as batch_lib, wav
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 TOL = 2e-5   # kernel vs XLA bound of tests/test_kernels.py
@@ -923,3 +926,108 @@ def test_plp_and_spectrogram_goldens_on_the_card(cuda, projection):
         assert float((feat.cpu().double() - want).abs().max()) <= 1e-4
     else:
         assert _projection_excess(feat.cpu().double(), want, "spec") <= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,start,n", [(7, 0, 1 << 20), (3, 2**32 - 100, 300),
+                                          (5, 2**33 + 5, 4096)])
+def test_dither_bits_on_the_card(cuda, seed, start, n):
+    """The int64 hash equals the reference's uint32 bits on the card; the
+    noise is the float32 rounding of the float64 draw (1e-6 relative)."""
+    h1, h2 = dither.bits(seed, start, n, device=cuda)
+    w1, w2 = dither.bits_np(seed, start, n)
+    assert torch.equal(h1.cpu(), torch.from_numpy(w1.astype(np.int64)))
+    assert torch.equal(h2.cpu(), torch.from_numpy(w2.astype(np.int64)))
+    starts = torch.tensor([start, start + 17], device=cuda)
+    r1, _ = dither.bits(seed, starts, 64)
+    assert torch.equal(r1[1].cpu(), torch.from_numpy(
+        dither.bits_np(seed, start + 17, 64)[0].astype(np.int64)))
+    z = dither.noise(seed, start, n, device=cuda).cpu().double().numpy()
+    np.testing.assert_allclose(z, dither.noise_np(seed, start, n), rtol=1e-6,
+                               atol=1e-6)
+
+
+# the kernel-vs-plain bound each packed family is held to (PERF.md
+# section 2): cepstra 2e-5, log-mel as the log bark energies (rtol 1e-4
+# plus atol 2e-5), the spectrogram 2e-4 inside its 50 dB window
+PACKED_BOUNDS = {"mfcc": "cepstra", "logmel": "bark", "plp": "cepstra",
+                 "spec": "spec"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,kw", [
+    ("mfcc", dict()),
+    ("logmel", dict(n_mels=80, n_mfcc=80, dynamic_range_db=50.0)),
+    ("logmel", dict(n_mels=80, n_mfcc=80)), ("plp", dict()), ("spec", dict())])
+def test_packed_segment_at_an_odd_frame_against_standalone(cuda, gen, family,
+                                                           kw):
+    """A segment at an odd frame of its row pairs with other frames in the
+    FFT tile than alone: within the kernel-vs-plain bounds of its
+    standalone kernel result, not bit for bit."""
+    cfg = FeatureConfig(**kw)
+    sigs = {i: (gen.standard_normal(n) * 0.3).astype(np.float32)
+            for i, n in enumerate((9123, 20000, 15700))}
+    rows = list(batch_lib.pack_rows([(i, len(s)) for i, s in sigs.items()],
+                                    6 * 16000, cfg.hop_len))
+    row = rows[0]
+    x, starts, lens = batch_lib.pack_audio(row, sigs.__getitem__)
+    assert any((off // cfg.hop_len) % 2 for _, off, _ in row.segments)
+    before = sum(fused_raw_dit.PROJECTION_LAUNCHES.values()) + \
+        fused_raw.LAUNCHES
+    feat, f0, fc, _ = mfcc_model.mfcc_batch_packed(
+        torch.from_numpy(x[None]).to(cuda),
+        torch.from_numpy(starts[None]).to(cuda),
+        torch.from_numpy(lens[None]).to(cuda), cfg, family=family)
+    torch.cuda.synchronize()
+    assert sum(fused_raw_dit.PROJECTION_LAUNCHES.values()) + \
+        fused_raw.LAUNCHES == before + 1
+    for j, (uid, off, n) in enumerate(row.segments):
+        xs = torch.from_numpy(sigs[uid][None, :n]).to(cuda)
+        ln = torch.tensor([n], device=cuda)
+        if family == "plp":
+            want = plp_model.plp_batch(xs, ln, cfg)[0][0]
+        elif family == "spec":
+            want = spec_model.log_spectrogram_batch(xs, ln, cfg)[0][0]
+        else:
+            want = mfcc_model.features_batch(xs, ln, cfg,
+                                             apply_dct=family == "mfcc")[0][0]
+        got = feat[0, int(f0[0, j]): int(f0[0, j] + fc[0, j])]
+        assert got.shape == want.shape
+        if PACKED_BOUNDS[family] == "cepstra":
+            assert float((got - want).abs().max()) <= TOL, (j, off)
+        else:
+            assert _projection_excess(got, want, PACKED_BOUNDS[family]) <= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mfcc", "logmel", "plp", "spec"])
+def test_fused_serving_against_the_scan_path_on_the_card(cuda, gen, variant):
+    """process_chunks_batch_fused launches fused_raw_dit at preemph 0 on
+    the host-pre-emphasized span; within 5e-5 of the scan path on the card
+    (the spectrogram 2e-4 inside its 50 dB window), over two dispatches."""
+    cfg = FeatureConfig(dynamic_range_db=50.0 if variant == "logmel" else None)
+    B, K, C = 4, 3, 16 * cfg.hop_len
+    xs = (gen.standard_normal((B, 2 * K * C)) * 0.3).astype(np.float32)
+    st_s = streaming.init_state_batch(B, cfg, device=cuda)
+    st_f = streaming.init_state_batch(B, cfg, device=cuda)
+    projection = {"plp": "bark", "spec": "spec"}.get(variant, "mel")
+    for d in range(2):
+        chunks = torch.from_numpy(xs[:, d * K * C:(d + 1) * K * C]
+                                  .reshape(B, K, C)).to(cuda)
+        st_s, fs, nvs = streaming.process_chunks_batch(st_s, chunks, cfg,
+                                                       variant)
+        before = fused_raw_dit.PROJECTION_LAUNCHES[projection]
+        st_f, ff, n_new = streaming.process_chunks_batch_fused(st_f, chunks,
+                                                               cfg, variant)
+        torch.cuda.synchronize()
+        assert fused_raw_dit.PROJECTION_LAUNCHES[projection] == before + 1
+        for b in range(B):
+            want = torch.cat([fs[b, k, : int(nvs[b, k])] for k in range(K)])
+            assert int(n_new[b]) == want.shape[0]
+            got = ff[b, : want.shape[0]]
+            if variant == "spec":
+                assert _projection_excess(got, want, "spec") <= 0
+            else:
+                assert float((got - want).abs().max()) <= 5e-5
+            assert not bool(ff[b, want.shape[0]:].any())
+        assert torch.equal(st_f.carry, st_s.carry)

@@ -74,8 +74,8 @@ def test_wrapper_rejects_bad_input():
         fused_raw_dit.fused_features_raw_dit(
             torch.zeros((1, 4000)), cfg.replace(frame_mode="center"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_raw_dit.fused_features_raw_dit(torch.zeros((1, 4000)),
-                                             cfg.replace(dither=1e-4))
+        fused_raw_dit.fused_features_raw_dit(
+            torch.zeros((1, 4000)), cfg.replace(matmul_precision="high"))
 
 
 @pytest.mark.parametrize("kw", [dict(), TINY, dict(n_fft=1024),

@@ -145,7 +145,7 @@ def test_backend_resolution():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(dither=1e-4),
+    dict(accum_dtype="bfloat16"),
     dict(matmul_precision="high"),
     dict(matmul_precision="default"),
     dict(compute_dtype="bfloat16"),
@@ -177,7 +177,12 @@ def test_port_imports_no_jax():
             "mfcc_tpu_torch.models.pitch, mfcc_tpu_torch.models.logmel, "
             "mfcc_tpu_torch.models.plp, mfcc_tpu_torch.models.spectrogram, "
             "mfcc_tpu_torch.tools.plain_valley, mfcc_tpu_torch.utils.wav, "
-            "mfcc_tpu_torch.ops.kernels._build; "
+            "mfcc_tpu_torch.ops.kernels._build, mfcc_tpu_torch.ops.dither, "
+            "mfcc_tpu_torch.ops.post, mfcc_tpu_torch.ops.deltas, "
+            "mfcc_tpu_torch.parallel.cmvn, mfcc_tpu_torch.utils.batch, "
+            "mfcc_tpu_torch.models.streaming; "
+            "from mfcc_tpu_torch import (mfcc_batch_packed, mfcc_long, "
+            "process_chunks_batch_fused, online_cmvn_step, state_from_jax); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'mfcc_tpu.')) or m == 'mfcc_tpu']; "
             "assert not bad, bad")

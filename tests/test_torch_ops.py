@@ -72,8 +72,11 @@ def test_oracle_mfcc_equals_reference(rng, kw):
 
 
 def test_oracle_dither_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        oracle.mfcc(np.zeros(1000), from_jax(JaxConfig(dither=1e-4)))
+    """Dither is ported now: the oracle adds the reference's float64 noise
+    (tests/test_torch_dither.py holds the rest)."""
+    jc = JaxConfig(dither=1e-4)
+    np.testing.assert_array_equal(oracle.mfcc(np.zeros(1000), from_jax(jc)),
+                                  jax_oracle.mfcc(np.zeros(1000), jc))
 
 
 def _log_inputs():

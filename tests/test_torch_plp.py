@@ -293,8 +293,8 @@ def test_plp_route_per_config(on_card, rng, kw, kernel):
 
 def test_plp_unported_options_raise(rng):
     x = torch.zeros(4000)
-    with pytest.raises(NotImplementedError, match="dither"):
-        plp_model.plp(x, FeatureConfig(dither=1.0))
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        plp_model.plp(x, FeatureConfig(compute_dtype="bfloat16"))
     with pytest.raises(NotImplementedError, match="matmul_precision"):
         plp_model.plp_batch(x[None], torch.tensor([4000]),
                             FeatureConfig(matmul_precision="high"))

@@ -106,7 +106,12 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     for name, value in (("BATCH", 8), ("SECONDS", 1.0), ("TIMING_CALLS", 2),
                         ("VITERBI_BATCHES", (1, 3)),
                         ("VITERBI_STEPS", (1, 2, 65)),
-                        ("VITERBI_WIDE", 40), ("LONG_SECONDS", 12.0)):
+                        ("VITERBI_WIDE", 40), ("LONG_SECONDS", 12.0),
+                        ("PACK_UTTERANCES", 6), ("PACK_SECONDS", (0.5, 1.5)),
+                        ("PACK_BATCH", 2), ("PACK_CHECKS", 3),
+                        ("PACK_TIMING", 1), ("POST_CHECKS", 2),
+                        ("STREAM_CHUNK_FRAMES", 8), ("STREAM_K", 2),
+                        ("STREAM_ORACLE_ROWS", 2)):
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "_smi", lambda: "Fake GPU, 700.00 W")
     monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
@@ -131,8 +136,35 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 10)), "3b", "3c", "3d", "4b", "4c"]:
+    for phase in [*map(str, range(1, 14)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
+    # the slice-8 phases: packed families through their kernels, the
+    # dither bits, the post chain, the fused serving path by variant
+    for name, counter in (("mfcc", "'fused_raw_dit/mel': 1"),
+                          ("logmel <= 50 dB", "'fused_raw_dit/mel': 1"),
+                          ("logmel unbounded", "'fused_raw': 1"),
+                          ("plp", "'fused_raw_dit/bark': 1"),
+                          ("spec", "'fused_raw_dit/spec': 1")):
+        line = next(ln for ln in out.splitlines() if ln.startswith(
+            f"[10 packed corpus] {name}: mfcc_batch_packed on "))
+        assert counter in line, line
+    assert "segments within their bounds" in out
+    assert "[10 packed corpus] packed: " in out and "fill " in out
+    assert "[10 packed corpus] padded: " in out
+    assert "[10 packed corpus] packed: one call of 2 rows, " in out
+    assert "0 of 2097152 hash words differ from the uint32 reference" in out
+    assert "[11 dither] all-zero row: c0 spread 0.000e+00 undithered" in out
+    for name in ("sliding_cmvn", "online_cmvn", "splice", "energy_vad",
+                 "cmvn.batch_stats", "cmvn.apply", "cmvn.host_batch_stats"):
+        assert f"[12 post chain] {name}: " in out, name
+    for v, proj in (("mfcc", "mel"), ("logmel", "mel"), ("plp", "bark"),
+                    ("spec", "spec")):
+        assert f"[13 streaming] {v}: process_chunks_batch_fused launched" in out
+        assert f"'fused_raw_dit/{proj}': 3" in next(
+            ln for ln in out.splitlines() if ln.startswith(
+                f"[13 streaming] {v}: process_chunks_batch_fused launched"))
+        assert f"[13 streaming] fused {v}: " in out and "ATen ops" in out
+    assert "[13 streaming] online_cmvn_step" in out
     assert "[3b FFT tile vs plain] fused_mfcc cepstra, n_fft 4096" in out
     assert "fused_raw log-mel, unbounded log-mel, n_fft 4096, T=71: fft64 " \
         "tile" in out

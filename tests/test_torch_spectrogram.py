@@ -165,10 +165,10 @@ def test_spectrogram_route_per_config(on_card, rng, kw, kernel):
 
 
 def test_spectrogram_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="dither"):
+    with pytest.raises(NotImplementedError, match="matmul_precision"):
         spec_model.log_spectrogram(torch.zeros(4000),
-                                   FeatureConfig(dither=1.0))
-    with pytest.raises(NotImplementedError, match="dither"):
+                                   FeatureConfig(matmul_precision="high"))
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
         spec_model.log_spectrogram_batch(torch.zeros((1, 4000)),
                                          torch.tensor([4000]),
-                                         FeatureConfig(dither=1.0))
+                                         FeatureConfig(compute_dtype="bfloat16"))
