@@ -12,8 +12,9 @@ Phases, one status line each; any failure raises and exits non-zero:
 2. build: compile the six kernel sources (``fused_raw_dit.cu``,
    ``fused_raw.cu``, ``fused_mfcc.cu``, ``fused_dit.cu``, ``fused_nccf.cu``,
    ``fused_viterbi.cu`` in ``mfcc_tpu_torch/ops/kernels/csrc/``) from this
-   checkout with nvcc, one process per source, all at once; print ptxas's
-   registers, shared memory and spills per kernel.
+   checkout with nvcc, and the WAV decoder ``native/wavio.cpp`` with g++,
+   one process per source, all at once; print ptxas's registers, shared
+   memory and spills per kernel.
 3. MFCC kernel vs plain: ``fused_raw_dit`` against its plain PyTorch
    version on the card, same inputs, max abs diff <= 2e-5 (cepstra
    compared unliftered, as the repository's kernel tests do); each case
@@ -113,7 +114,7 @@ Phases, one status line each; any failure raises and exits non-zero:
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
    ``fused_viterbi``'s time per step of its chain beside the chain bound;
    ``pitch_batch``'s ATen ops and host enqueue time beside its own.
-9. the script's elapsed time (phases 1-8 and 10-13), one JSON line
+9. the script's elapsed time (phases 1-8 and 10-14), one JSON line
    describing the kernels of phases 1-8 (with
    each one's bound: the larger of its input and output bytes over 3.35
    TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes,
@@ -152,6 +153,26 @@ Phases, one status line each; any failure raises and exits non-zero:
    ``online_cmvn`` (1e-5, mean only; with the variance both against the
    float64 oracle, 2e-4); one dispatch timed with its ATen ops and host
    enqueue, and audio-seconds per second.
+14. corpus runner: 1,024 WAVs of phase 10's signal, 2-16 s (uniform,
+   numpy seed 0), written into a temporary directory (removed at the end):
+   one process's shard of a corpus run.  ``cli.main`` in-process on the
+   card, batch size 64: (a) MFCC-13 to ``.npy``, padded; (b) the same with
+   ``--pack --pack-seconds 16`` (its fill ratio printed); (c) ``--format
+   ark --cmvn``; (d) ``--logmel --n-mels 80 --deltas`` and (e) ``--pitch``
+   on the first 256; (f) (a) again into its directory, a resume that
+   processes nothing and launches nothing; (g) (a) on the first 64 with
+   ``--trace-dir``, whose Chrome trace must name the ``fused_raw_dit``
+   launch.  Every launch counter is reset just before a run and read just
+   after it: one spectral launch a batch (``fused_raw`` for (d)), and in
+   (e) one ``fused_nccf`` and one ``fused_viterbi`` a batch.  The report's
+   self-check ``max_abs_error`` <= 1e-4 and ``max_abs_error_pitch`` <=
+   3e-4; 8 utterances a run read back from its files within the oracle's
+   contract bounds and within the kernel bounds of a direct model call on
+   the same rows (``mfcc_batch_packed`` on the packed rows for (b)); in
+   (c) ``cmvn.npz`` equal to numpy's float64 statistics of (a)'s files and
+   the archive equal to (a)'s files normalized by them.  Each run prints
+   its wall time, audio-seconds per second, stage seconds (decode,
+   dispatch, fetch+write), launches and the card's name and power limit.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -237,6 +258,14 @@ STREAM_ORACLE_ROWS = 4       # sessions held to the oracle
 STREAM_FUSED_TOL = 5e-5      # fused serving path vs the scan path
 STREAM_CMVN_WINDOW = 300
 STREAM_CMVN_TOL = 1e-5       # online_cmvn_step vs online_cmvn, mean only
+# phase 14: the corpus runner through its CLI on one process's shard
+RUNNER_UTTERANCES = 1024
+RUNNER_SECONDS = (2.0, 16.0)  # lengths drawn uniformly, numpy seed 0
+RUNNER_BATCH = 64
+RUNNER_PACK_SECONDS = 16.0
+RUNNER_SUBSET = 256          # utterances of the log-mel and pitch runs
+RUNNER_TRACE = 64            # utterances of the traced run
+RUNNER_CHECKS = 8            # utterances a run read back and checked
 
 
 def _log(msg: str) -> None:
@@ -341,12 +370,17 @@ def _reset_counts(modules) -> None:
 
 
 def _build_all(_build) -> None:
-    """nvcc for every kernel source at once (one process each)."""
+    """nvcc for every kernel source and g++ for the WAV decoder
+    (``native/wavio.cpp``), all at once (one process each)."""
+    from mfcc_tpu_torch import native
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        wavio = pool.submit(native.load)
         list(pool.map(_build.load, KERNELS))
-    _log(f"[2 build] {', '.join(k + '.cu' for k in KERNELS)} built and "
-         f"loaded in {time.perf_counter() - t0:.2f} s")
+        wavio.result()
+    _log(f"[2 build] {', '.join(k + '.cu' for k in KERNELS)} and "
+         f"native/wavio.cpp built and loaded in "
+         f"{time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         log = _build.library_path(name).with_suffix(".log")
         for ln in (log.read_text().splitlines() if log.exists() else []):
@@ -1967,8 +2001,337 @@ def _streaming_phase(torch, dev, bench, smi) -> None:
 
 
 
+def _write_runner_corpus(d: str, n: int, lo: float, hi: float,
+                         sr: int) -> list:
+    """n WAVs of phase 10's signal, lengths uniform in [lo, hi] s (numpy
+    seed 0), written in blocks of 64 -> [(path, n_samples)] in path
+    order."""
+    from mfcc_tpu_torch.utils import wav
+    lens = np.random.default_rng(0).integers(int(lo * sr), int(hi * sr) + 1,
+                                             n)
+    noise = np.random.default_rng(0)
+    N = int(hi * sr)
+    t = np.arange(N) / sr
+    base = (0.3 * np.sin(2 * np.pi * 180 * t)
+            + 0.1 * np.sin(2 * np.pi * 1200 * t)).astype(np.float32)
+    out = []
+    for i0 in range(0, n, 64):
+        rows = base + 0.02 * noise.standard_normal(
+            (min(64, n - i0), N)).astype(np.float32)
+        for r, row in enumerate(rows):
+            p = os.path.join(d, f"u{i0 + r:05d}.wav")
+            wav.write_wav(p, row[: lens[i0 + r]], sr)
+            out.append((p, int(lens[i0 + r])))
+    return out
+
+
+def _runner_counters():
+    from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_viterbi
+    mods = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
+    mods.update(fused_nccf=fused_nccf, fused_viterbi=fused_viterbi)
+    return mods
+
+
+def _runner_cli(torch, argv: list) -> tuple:
+    """One ``cli.main`` run in-process, every launch counter reset just
+    before and read just after -> (exit code, launches, wall s, stdout)."""
+    import contextlib
+    import io
+    from mfcc_tpu_torch import cli
+    mods = _runner_counters()
+    _reset_counts(mods.values())
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return rc, {k: m.LAUNCHES for k, m in mods.items()}, wall, buf.getvalue()
+
+
+def _runner_batches(infos: list) -> list:
+    """The runner's padded batches of these (path, n): its default bucket
+    ladder, RUNNER_BATCH rows a batch, in its order."""
+    from mfcc_tpu_torch.runner import RunnerOptions
+    from mfcc_tpu_torch.utils import batch as batch_lib
+    o = RunnerOptions()
+    return list(batch_lib.make_path_batches(
+        infos, RUNNER_BATCH, batch_lib.bucket_ladder(o.min_bucket,
+                                                     o.max_bucket)))
+
+
+def _pack_plan(corpus: list, cfg, seconds: float) -> tuple:
+    """The runner's packed rows of these (path, n) -> (rows, capacity)."""
+    from mfcc_tpu_torch.utils import batch as batch_lib
+    hop, fl = cfg.hop_len, cfg.frame_len
+    cap = max(int(round(seconds * cfg.sample_rate / hop)),
+              -(-(fl + hop) // hop)) * hop
+    return list(batch_lib.pack_rows_split(corpus, cap, hop, fl)), cap
+
+
+def _direct_packed(torch, dev, cfg, rows, cap, uids, read) -> dict:
+    """The utterances uids through a direct mfcc_batch_packed call on the
+    packed rows that hold them, reassembled as the runner does."""
+    from mfcc_tpu_torch.models import mfcc as mfcc_model
+    from mfcc_tpu_torch.utils import batch as batch_lib
+    mine = [r for r in rows if any(pc.uid in uids for pc in r.segments)]
+    S = max(len(r.segments) for r in mine)
+    x = np.zeros((len(mine), cap), np.float32)
+    st = np.zeros((len(mine), S), np.int32)
+    ln = np.zeros((len(mine), S), np.int32)
+    for b, r in enumerate(mine):
+        sig, s, n_, _ = batch_lib.pack_audio_split(r, read)
+        x[b], st[b, : len(s)], ln[b, : len(n_)] = sig, s, n_
+    feat, f0, fc, _ = mfcc_model.mfcc_batch_packed(
+        *(torch.from_numpy(a).to(dev) for a in (x, st, ln)), cfg)
+    feat, f0, fc = (t.cpu().numpy() for t in (feat, f0, fc))
+    out = {u: np.zeros((cfg.num_frames(len(read(u))), cfg.n_mfcc),
+                       np.float32) for u in uids}
+    for b, r in enumerate(mine):
+        for j, pc in enumerate(r.segments):
+            if pc.uid in out:
+                out[pc.uid][pc.frame_start: pc.frame_start + pc.n_frames] = \
+                    feat[b, f0[b, j]: f0[b, j] + fc[b, j]]
+    return out
+
+
+def _direct_padded(torch, dev, model, infos: list, picks) -> dict:
+    """The utterances infos[picks] through a direct call of ``model``
+    (int16 rows, lengths) -> (feat, frame counts, ...) on the runner's own
+    batches that hold them: the same rows, widths and batch size."""
+    from mfcc_tpu_torch.utils import wav
+    want = {infos[i][0]: i for i in picks}
+    out = {}
+    for pb in _runner_batches(infos):
+        if not any(p in want for p in pb.paths):
+            continue
+        x16 = np.zeros((len(pb.paths), pb.bucket), np.int16)
+        n = np.zeros(len(pb.paths), np.int32)
+        for r, p in enumerate(pb.paths):
+            if p is not None:
+                row = _int16(wav.read_wav(p)[0])[: pb.bucket]
+                x16[r, : len(row)], n[r] = row, len(row)
+        feat, fl = (t.cpu().numpy() for t in model(
+            torch.from_numpy(x16).to(dev), torch.from_numpy(n).to(dev))[:2])
+        out.update({want[p]: feat[r, : fl[r]]
+                    for r, p in enumerate(pb.paths) if p in want})
+    return out
+
+
+def _corpus_runner_phase(torch, dev, smi) -> None:
+    """Phase 14: ``python -m mfcc_tpu_torch`` (``cli.main``, in-process)
+    over one process's shard of a corpus: padded, packed, ark with global
+    CMVN, log-mel-80 + deltas, pitch, a resume and a traced run; launches,
+    the report's self-check, files against the oracle and a direct model
+    call, the CMVN statistics against numpy, timings."""
+    import shutil
+    import tempfile
+    from mfcc_tpu_torch import FeatureConfig, oracle
+    from mfcc_tpu_torch.models import mfcc as mfcc_model
+    from mfcc_tpu_torch.models import logmel as logmel_model
+    from mfcc_tpu_torch.utils import kaldi, wav
+    device = "cuda" if dev.type == "cuda" else "cpu"
+    sr = 16000
+    lo, hi = RUNNER_SECONDS
+    root = tempfile.mkdtemp(prefix="mfcc_runner_")
+    try:
+        t0 = time.perf_counter()
+        cdir = os.path.join(root, "corpus")
+        os.makedirs(cdir)
+        corpus = _write_runner_corpus(cdir, RUNNER_UTTERANCES, lo, hi, sr)
+        lens = np.asarray([n for _, n in corpus])
+        mb = sum(os.path.getsize(p) for p, _ in corpus) / 1e6
+        _log(f"[14 corpus runner] {len(corpus)} utterances of {lo:g}-{hi:g} "
+             f"s (numpy seed 0, phase 10's signal), {lens.sum() / sr:.1f} s "
+             f"of audio, {mb:.1f} MB of PCM16 WAV written in "
+             f"{time.perf_counter() - t0:.2f} s")
+        sub = os.path.join(root, "subset.txt")
+        with open(sub, "w") as f:
+            f.write("\n".join(p for p, _ in corpus[:RUNNER_SUBSET]) + "\n")
+        trace_list = os.path.join(root, "trace.txt")
+        with open(trace_list, "w") as f:
+            f.write("\n".join(p for p, _ in corpus[:RUNNER_TRACE]) + "\n")
+        cfg = FeatureConfig()
+        lm = FeatureConfig(n_mels=80, n_mfcc=80, deltas=True)
+        n_sub = min(RUNNER_SUBSET, len(corpus))
+        rows, cap = _pack_plan(corpus, cfg, RUNNER_PACK_SECONDS)
+        padded = {k: _runner_batches(corpus[:k])
+                  for k in (len(corpus), n_sub, min(RUNNER_TRACE, len(corpus)))}
+        packed_batches = -(-len(rows) // RUNNER_BATCH)
+        padded_samples = sum(len(pb.paths) * pb.bucket
+                             for pb in padded[len(corpus)])
+        none = dict.fromkeys(_runner_counters(), 0)
+        runs = [  # name, input, args, cfg, launches expected
+            ("a mfcc npy", cdir, [], cfg,
+             {**none, "fused_raw_dit": len(padded[len(corpus)])}),
+            ("b mfcc --pack", cdir, ["--pack", "--pack-seconds",
+                                     RUNNER_PACK_SECONDS], cfg,
+             {**none, "fused_raw_dit": packed_batches}),
+            ("c ark --cmvn", cdir, ["--format", "ark", "--cmvn"], cfg,
+             {**none, "fused_raw_dit": len(padded[len(corpus)])}),
+            ("d logmel-80 deltas", sub, ["--logmel", "--n-mels", 80,
+                                         "--deltas"], lm,
+             {**none, "fused_raw": len(padded[n_sub])}),
+            ("e mfcc --pitch", sub, ["--pitch"], cfg,
+             {**none, **dict.fromkeys(("fused_raw_dit", "fused_nccf",
+                                       "fused_viterbi"), len(padded[n_sub]))}),
+            ("f resume of a", cdir, [], cfg, none),
+            ("g traced", trace_list, ["--trace-dir",
+                                      os.path.join(root, "trace")], cfg,
+             {**none, "fused_raw_dit": len(padded[min(RUNNER_TRACE,
+                                                      len(corpus))])}),
+        ]
+        outs = {}
+        rng = np.random.default_rng(1)
+        for name, src, args, rcfg, want in runs:
+            key = name[0]
+            out = outs["a"] if key == "f" else os.path.join(root, key)
+            outs[key] = out
+            rc, launches, wall, _ = _runner_cli(torch, [
+                src, "-o", out, "--batch-size", RUNNER_BATCH, "--device",
+                device, *args])
+            rep = json.load(open(os.path.join(out, "run_report.0.json")))
+            st = rep["stage_seconds"]
+            _log(f"[14 corpus runner] {name}: exit {rc}, "
+                 f"{rep['n_utterances']} utterances, "
+                 f"{rep['audio_seconds']:.1f} s of audio in {wall:.3f} s wall "
+                 f"({rep['wall_seconds']:.3f} s in the runner) = "
+                 f"{rep['audio_seconds_per_second']:,.0f} audio-sec/s; stages "
+                 + ", ".join(f"{k} {v:.3f} s" for k, v in st.items())
+                 + f"; launched {launches}; self-check max_abs_error "
+                 f"{rep['max_abs_error']}, pitch {rep['max_abs_error_pitch']}"
+                 f" ({smi})")
+            assert launches == want, (name, launches, want)
+            if key == "f":
+                assert rc == 1 and rep["n_utterances"] == 0, name
+                continue
+            assert rc == 0, name
+            n_run = len(corpus) if src == cdir else n_sub if src == sub \
+                else min(RUNNER_TRACE, len(corpus))
+            assert rep["n_utterances"] == n_run, (name, rep["n_utterances"])
+            if key != "c":
+                assert rep["max_abs_error"] <= ORACLE_TOL, name
+            if key == "e":
+                assert rep["max_abs_error_pitch"] <= PITCH_TOL[1], name
+            if key == "b":
+                _log(f"[14 corpus runner] b: {len(rows)} packed rows of "
+                     f"{cap} samples, fill {lens.sum() / (len(rows) * cap):.4f}"
+                     f"; the padded run's fill "
+                     f"{lens.sum() / padded_samples:.4f} "
+                     f"({len(padded[len(corpus)])} batches of {RUNNER_BATCH})")
+            if key == "g":
+                tr = json.load(open(os.path.join(root, "trace",
+                                                 "trace.0.json")))
+                ev = tr["traceEvents"]
+                names = [e.get("name", "") for e in ev]
+                kern = [n for e, n in zip(ev, names)
+                        if e.get("cat") == "kernel"]
+                # the device's busy share of the traced span: its kernels
+                # and copies (one stream) over the span of every event
+                busy = sum(e.get("dur", 0) for e in ev
+                           if e.get("cat") in ("kernel", "gpu_memcpy",
+                                               "gpu_memset"))
+                ts = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in ev
+                      if "ts" in e and e.get("ph") == "X"]
+                span = max(b for _, b in ts) - min(a for a, _ in ts)
+                _log(f"[14 corpus runner] g: the Chrome trace holds "
+                     f"{names.count('fused_raw_dit')} fused_raw_dit events "
+                     f"and {len(kern)} device kernel events "
+                     f"({sum('raw_dit' in n for n in kern)} of raw_dit_*); "
+                     f"the device busy {busy / 1e3:.3f} ms (kernels and "
+                     f"copies) of the traced {span / 1e3:.3f} ms, "
+                     f"{100 * busy / max(span, 1):.2f} % ({smi})")
+                assert "fused_raw_dit" in names, "the trace names no launch"
+                assert device == "cpu" or any("raw_dit" in n for n in kern)
+                continue
+            # 8 utterances read back: the oracle, a direct model call
+            picks = sorted(rng.choice(n_run, min(RUNNER_CHECKS, n_run),
+                                      replace=False))
+            if key == "c":
+                back = kaldi.read_scp(os.path.join(out, "features.0.scp"))
+            sigs = {i: wav.read_wav(corpus[i][0])[0] for i in picks}
+            uid = lambda i: os.path.splitext(os.path.basename(corpus[i][0]))[0]
+            got = {i: (back[uid(i)] if key == "c" else
+                       np.load(os.path.join(out, uid(i) + ".npy")))
+                   for i in picks}
+            if key == "c":
+                z = np.load(os.path.join(out, "cmvn.npz"))
+                pre = [np.load(os.path.join(outs["a"], uid(i) + ".npy"))
+                       for i in range(len(corpus))]
+                allf = np.concatenate(pre).astype(np.float64)
+                assert float(z["count"]) == allf.shape[0], name
+                np.testing.assert_allclose(z["sum"], allf.sum(0), rtol=1e-9)
+                np.testing.assert_allclose(z["sumsq"], (allf * allf).sum(0),
+                                           rtol=1e-9)
+                mean = z["sum"] / allf.shape[0]
+                inv = 1.0 / np.sqrt(np.maximum(z["sumsq"] / allf.shape[0]
+                                               - mean * mean, 1e-8))
+                errs = []
+                for i in picks:
+                    want_n = oracle.apply_cmvn(oracle.mfcc(
+                        sigs[i].astype(np.float64), cfg), z["count"],
+                        z["sum"], z["sumsq"])
+                    # the 1e-4 feature contract through (x - mean) * inv_std
+                    errs.append(float((np.abs(got[i] - want_n) / inv).max()))
+                    np.testing.assert_allclose(
+                        got[i], ((pre[i] - mean) * inv).astype(np.float32),
+                        rtol=1e-6, atol=1e-6)
+                _log(f"[14 corpus runner] c: cmvn.npz equals numpy's float64 "
+                     f"statistics of run a's {len(pre)} files (count "
+                     f"{int(allf.shape[0])}); {len(picks)} normalized "
+                     f"utterances equal run a's normalized, and "
+                     f"{max(errs):.3e} off the oracle before the scaling")
+                assert max(errs) <= ORACLE_TOL, errs
+                continue
+            ref = {i: oracle.log_mel(sigs[i].astype(np.float64), rcfg)
+                   if key == "d" else oracle.mfcc(sigs[i].astype(np.float64),
+                                                  rcfg) for i in picks}
+            if key == "b":
+                direct = _direct_packed(
+                    torch, dev, cfg, rows, cap, {corpus[i][0] for i in picks},
+                    lambda p: wav.read_wav(p)[0])
+                direct = {i: direct[corpus[i][0]] for i in picks}
+            else:
+                model = (
+                    (lambda x, n: _mfcc_plus_pitch(torch, x, n, cfg))
+                    if key == "e" else
+                    (lambda x, n: logmel_model.log_mel_batch(x, n, lm))
+                    if key == "d" else
+                    (lambda x, n: mfcc_model.mfcc_batch(x, n, cfg)))
+                direct = _direct_padded(torch, dev, model, corpus[:n_run],
+                                        picks)
+            e_ref, e_dir = 0.0, 0.0
+            for i in picks:
+                g = got[i]
+                assert g.shape == direct[i].shape, (name, i)
+                if key == "e":
+                    pw = oracle.pitch(sigs[i].astype(np.float64),
+                                      _pitch_for(cfg))
+                    idx = np.minimum(np.arange(g.shape[0]), pw.shape[0] - 1)
+                    e_ref = max(e_ref, *_columns_err(
+                        g[:, -3:], pw[idx], PITCH_TOL))
+                    g = g[:, :-3]
+                    assert np.abs(g - ref[i]).max() <= ORACLE_TOL, (name, i)
+                tol = LOGMEL_ORACLE_TOL if key == "d" else ORACLE_TOL
+                e = float(np.abs(g - ref[i]).max())
+                assert e <= tol, (name, i, e)
+                e_ref = max(e_ref, e)
+                gd = got[i] - direct[i]
+                bound = (KERNEL_TOL + LOGMEL_RTOL * np.abs(direct[i])
+                         if key == "d" else KERNEL_TOL)
+                assert (np.abs(gd) <= bound).all(), (name, i)
+                e_dir = max(e_dir, float(np.abs(gd).max()))
+            _log(f"[14 corpus runner] {key}: {len(picks)} utterances read "
+                 f"back, {e_ref:.3e} off the oracle, {e_dir:.3e} off a direct "
+                 f"{'mfcc_batch_packed' if key == 'b' else 'model'} call")
+        _log(f"[14 corpus runner] phase 14 passed in "
+             f"{time.perf_counter() - t0:.1f} s ({smi})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def run(torch, dev) -> list[dict]:
-    """Phases 1-8 and 10-13 on device ``dev``; -> the kernels' JSON records
+    """Phases 1-8 and 10-14 on device ``dev``; -> the kernels' JSON records
     (of phases 1-8: the later phases report their own counters)."""
     from mfcc_tpu_torch import PitchConfig
     from mfcc_tpu_torch.ops.kernels import _build
@@ -1999,6 +2362,7 @@ def run(torch, dev) -> list[dict]:
     _dither_phase(torch, dev, bench)                        # 11
     _post_phase(torch, dev, bench, smi)                     # 12
     _streaming_phase(torch, dev, bench, smi)                # 13
+    _corpus_runner_phase(torch, dev, smi)                   # 14
 
     src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
     launches = {**logmel_launches, **pitch_launches, **proj_launches}
@@ -2060,7 +2424,7 @@ def main() -> int:
     kernels = run(torch, torch.device("cuda", 0))
     # ---- 9. summary ----
     assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
-    _log(f"[9 summary] phases 1-8 and 10-13 passed in "
+    _log(f"[9 summary] phases 1-8 and 10-14 passed in "
          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ log spectrogram (``models/spectrogram``), Kaldi-style pitch
 through six hand-written CUDA kernels, one per Pallas kernel of the
 reference (``ops/kernels``), with a plain PyTorch path beside each; dither
 (``ops/dither``), the post chain (``ops/post``) and corpus CMVN
-(``parallel/cmvn``) around them.
+(``parallel/cmvn``) around them.  ``python -m mfcc_tpu_torch`` runs the
+corpus runner (``runner.py``, ``cli.py``): WAV files in, feature files out.
 """
 
 from .config import FeatureConfig, PitchConfig, from_jax  # noqa: F401

@@ -33,6 +33,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ... import backend, oracle
 from ...config import FeatureConfig
@@ -414,7 +415,7 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
     other tile's constants must be that projection's
     (:func:`direct_tile`).  lib_fn() loads the library (not called for an
     empty output).  -> (out, the tile's name, or None if nothing was
-    launched).
+    launched).  A profiler trace shows the launch under ``name``.
     """
     proj = projection or "mel"
     out = _empty_out(x, cfg, apply_dct, proj)
@@ -425,7 +426,7 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
     tile = tile or fft_tile(cfg, apply_dct, proj)
     if tile == "direct":
         tile = other_name
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), record_function(name):
         if tile in TILE_CODES:
             *fft, dctm = _device_fft_matrices(cfg, tile, proj, x.device)
             n_chunks = 0 if fft[3] is None else fft[3].shape[0]

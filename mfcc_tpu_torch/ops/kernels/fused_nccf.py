@@ -25,6 +25,7 @@ import ctypes
 import functools
 
 import torch
+from torch.profiler import record_function
 
 from ...config import PitchConfig
 from .. import pitch as pitch_op
@@ -104,7 +105,7 @@ def fused_nccf(xw: torch.Tensor, ball: torch.Tensor, pcfg: PitchConfig, *,
     # one row may carry any stride (a numpy x[None] view has 0)
     ldx = xw.stride(0) if B > 1 else Nw
     shape = (ctypes.c_int * len(SHAPE_KEYS))()
-    with torch.cuda.device(xw.device):
+    with torch.cuda.device(xw.device), record_function("fused_nccf"):
         err = lib.mfcc_fused_nccf(
             xw.data_ptr(), ldx, Nw, ball.data_ptr(),
             out_b.data_ptr(), out_p.data_ptr(), B, T, pcfg.frame_len_w,

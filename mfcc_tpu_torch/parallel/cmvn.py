@@ -15,9 +15,9 @@ and they are small: a count and two (F,) vectors.
   contract of normalized features; float64 keeps it.
 - :func:`apply` — (x - mean) / std with the variance floored.
 
-The reduction across processes (the reference's shard_map / psum variant
-and ``parallel/dist``) waits for the distribution slice (ROADMAP modules
-item 8).
+The corpus runner sums the float64 statistics across processes with
+``parallel/dist.all_reduce_sum_f64`` (over gloo); the reference's shard_map
+/ psum variant of the on-device statistics waits (ROADMAP modules item 8).
 """
 
 from __future__ import annotations

@@ -104,10 +104,18 @@ def test_wav_reader_matches_reference():
 
 
 def test_wav_reader_rejects_other_formats(tmp_path):
+    # the reader takes what the reference's takes (multi-channel files are
+    # averaged, tests/test_torch_utils.py) and rejects what it rejects
     p = tmp_path / "stereo.wav"
-    jax_wav.write_wav(p, np.zeros(100, np.int16), 16000)
+    jax_wav.write_wav(p, np.arange(100, dtype=np.int16), 16000)
     data = bytearray(p.read_bytes())
     data[22] = 2                                  # channel count
+    p.write_bytes(bytes(data))
+    got, sr = wav.read_wav(p)
+    want, _ = jax_wav._parse(bytes(data), None)
+    assert got.shape == (50,) and sr == 16000
+    np.testing.assert_array_equal(got, want)
+    data[34] = 12                                 # 12-bit PCM
     p.write_bytes(bytes(data))
     with pytest.raises(wav.WavError):
         wav.read_wav(p)
@@ -180,7 +188,11 @@ def test_port_imports_no_jax():
             "mfcc_tpu_torch.ops.kernels._build, mfcc_tpu_torch.ops.dither, "
             "mfcc_tpu_torch.ops.post, mfcc_tpu_torch.ops.deltas, "
             "mfcc_tpu_torch.parallel.cmvn, mfcc_tpu_torch.utils.batch, "
-            "mfcc_tpu_torch.models.streaming; "
+            "mfcc_tpu_torch.models.streaming, mfcc_tpu_torch.runner, "
+            "mfcc_tpu_torch.cli, mfcc_tpu_torch.native, "
+            "mfcc_tpu_torch.utils.manifest, mfcc_tpu_torch.utils.report, "
+            "mfcc_tpu_torch.utils.htk, mfcc_tpu_torch.utils.kaldi, "
+            "mfcc_tpu_torch.utils.tfrecord, mfcc_tpu_torch.parallel.dist; "
             "from mfcc_tpu_torch import (mfcc_batch_packed, mfcc_long, "
             "process_chunks_batch_fused, online_cmvn_step, state_from_jax); "
             "bad = [m for m in sys.modules if m == 'jax' "

@@ -65,6 +65,10 @@ def _counting(mod, name):
     fn = getattr(mod, name)
 
     def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(mod.__name__.split(".")[-1]):
+            return launch(*args, **kwargs)
+
+    def launch(*args, **kwargs):
         mod.LAUNCHES += 1
         if mod in SHAPES:
             mod.LAST_SHAPE = SHAPES[mod]
@@ -111,7 +115,11 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                         ("PACK_BATCH", 2), ("PACK_CHECKS", 3),
                         ("PACK_TIMING", 1), ("POST_CHECKS", 2),
                         ("STREAM_CHUNK_FRAMES", 8), ("STREAM_K", 2),
-                        ("STREAM_ORACLE_ROWS", 2)):
+                        ("STREAM_ORACLE_ROWS", 2),
+                        ("RUNNER_UTTERANCES", 6),
+                        ("RUNNER_SECONDS", (0.5, 1.5)), ("RUNNER_BATCH", 2),
+                        ("RUNNER_PACK_SECONDS", 1.0), ("RUNNER_SUBSET", 4),
+                        ("RUNNER_TRACE", 3), ("RUNNER_CHECKS", 2)):
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "_smi", lambda: "Fake GPU, 700.00 W")
     monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
@@ -136,8 +144,29 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 14)), "3b", "3c", "3d", "4b", "4c"]:
+    for phase in [*map(str, range(1, 15)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
+    # phase 14: the corpus runner's seven runs through the CLI, each with
+    # its launches as expected (the counters' own assertions), read back
+    for run in ("a mfcc npy", "b mfcc --pack", "c ark --cmvn",
+                "d logmel-80 deltas", "e mfcc --pitch", "f resume of a",
+                "g traced"):
+        line = next(ln for ln in out.splitlines()
+                    if ln.startswith(f"[14 corpus runner] {run}: exit "))
+        assert "audio-sec/s; stages " in line and "Fake GPU, 700.00 W" in line
+        assert run.startswith("f") or (
+            "stages decode " in line and "fetch+write" in line)
+    assert "[14 corpus runner] f resume of a: exit 1, 0 utterances" in out
+    assert "'fused_nccf': 3, 'fused_viterbi': 3" in next(
+        ln for ln in out.splitlines()
+        if ln.startswith("[14 corpus runner] e mfcc --pitch: exit 0"))
+    for key in "abde":
+        assert f"[14 corpus runner] {key}: 2 utterances read back" in out
+    assert "[14 corpus runner] b: " in out and " packed rows of 16000 " \
+        "samples, fill " in out
+    assert "[14 corpus runner] c: cmvn.npz equals numpy's float64" in out
+    assert "[14 corpus runner] g: the Chrome trace holds " in out
+    assert "[14 corpus runner] phase 14 passed in " in out
     # the slice-8 phases: packed families through their kernels, the
     # dither bits, the post chain, the fused serving path by variant
     for name, counter in (("mfcc", "'fused_raw_dit/mel': 1"),
