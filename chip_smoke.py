@@ -114,7 +114,7 @@ Phases, one status line each; any failure raises and exits non-zero:
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
    ``fused_viterbi``'s time per step of its chain beside the chain bound;
    ``pitch_batch``'s ATen ops and host enqueue time beside its own.
-9. the script's elapsed time (phases 1-8 and 10-14), one JSON line
+9. the script's elapsed time (phases 1-8 and 10-16), one JSON line
    describing the kernels of phases 1-8 (with
    each one's bound: the larger of its input and output bytes over 3.35
    TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes,
@@ -173,6 +173,28 @@ Phases, one status line each; any failure raises and exits non-zero:
    the archive equal to (a)'s files normalized by them.  Each run prints
    its wall time, audio-seconds per second, stage seconds (decode,
    dispatch, fetch+write), launches and the card's name and power limit.
+15. online pitch: one 60 s stream of the bench signal through
+   ``models.pitch_online.OnlinePitch`` at the default PitchConfig (16 kHz
+   in, the streaming resampler to 4 kHz), fed in 100 ms pieces, delay 50,
+   16-frame chunks, with ``fused_nccf``'s counter reset just before and
+   read just after: one launch a chunk.  The rows within pov 1e-4, norm
+   3e-4, delta 1e-4 of the float64 twin ``online_pitch_np``; with delay >=
+   T the pov column within 2e-4 of ``pitch_batch`` on >= 95 % of the
+   frames (the causal ballast the one difference); the chunk NCCF kernel
+   within 2e-5 of the plain chunk NCCF on the card for an interior chunk
+   and the stream's last (n_valid < 16).  ms a chunk, the real-time
+   factor, and one chunk step alone through the kernel and the plain NCCF.
+16. training feed and front end: ``dataset.feature_batches`` over phase
+   14's corpus (batch 64), plain and with run (c)'s ``cmvn.npz`` and
+   SpecAugment, each with every spectral counter reset just before and read
+   just after (one ``fused_raw_dit`` launch a batch); plain batches equal
+   ``mfcc_batch`` on the same rows bit for bit, augmented ones equal the
+   plain batch normalized with that seed's stripes; one seed's masks equal
+   on the CPU and the card; ``ops.augment.speed_perturb`` at 0.9 / 1.1 on
+   the bench batch, card against CPU (1e-6), timed; the trainable front
+   end on the bench batch: ``forward`` at init within 2e-5 of
+   ``mfcc_batch`` through the kernel, then ``fit`` for 200 steps (lr 3e-3)
+   recovering a 1.5x filterbank below 0.1x its first loss, ms a step.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -187,9 +209,11 @@ import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -266,6 +290,15 @@ RUNNER_PACK_SECONDS = 16.0
 RUNNER_SUBSET = 256          # utterances of the log-mel and pitch runs
 RUNNER_TRACE = 64            # utterances of the traced run
 RUNNER_CHECKS = 8            # utterances a run read back and checked
+# phase 15: one online pitch stream of the bench signal
+ONLINE_SECONDS = 60.0
+ONLINE_FEED = 1600           # 100 ms pieces at 16 kHz
+ONLINE_DELAY = 50
+ONLINE_CHUNK = 16
+ONLINE_STEP_CALLS = 100      # chunk steps timed alone
+# phase 16: the training feed over phase 14's corpus, the front end
+FEED_CHECKS = 2              # plain batches held to mfcc_batch (+ the last)
+TRAIN_STEPS = 200
 
 
 def _log(msg: str) -> None:
@@ -2118,220 +2151,475 @@ def _direct_padded(torch, dev, model, infos: list, picks) -> dict:
     return out
 
 
-def _corpus_runner_phase(torch, dev, smi) -> None:
+def _runner_corpus(root: str) -> tuple:
+    """Phase 14's corpus, written under root (phase 16 reads it too) ->
+    (its directory, [(path, n_samples)])."""
+    sr = 16000
+    lo, hi = RUNNER_SECONDS
+    t0 = time.perf_counter()
+    cdir = os.path.join(root, "corpus")
+    os.makedirs(cdir)
+    corpus = _write_runner_corpus(cdir, RUNNER_UTTERANCES, lo, hi, sr)
+    lens = np.asarray([n for _, n in corpus])
+    mb = sum(os.path.getsize(p) for p, _ in corpus) / 1e6
+    _log(f"[14 corpus runner] {len(corpus)} utterances of {lo:g}-{hi:g} "
+         f"s (numpy seed 0, phase 10's signal), {lens.sum() / sr:.1f} s "
+         f"of audio, {mb:.1f} MB of PCM16 WAV written in "
+         f"{time.perf_counter() - t0:.2f} s")
+    return cdir, corpus
+
+
+def _corpus_runner_phase(torch, dev, smi, root, cdir, corpus) -> str:
     """Phase 14: ``python -m mfcc_tpu_torch`` (``cli.main``, in-process)
     over one process's shard of a corpus: padded, packed, ark with global
     CMVN, log-mel-80 + deltas, pitch, a resume and a traced run; launches,
     the report's self-check, files against the oracle and a direct model
-    call, the CMVN statistics against numpy, timings."""
-    import shutil
-    import tempfile
+    call, the CMVN statistics against numpy, timings.  -> the path of run
+    (c)'s cmvn.npz."""
     from mfcc_tpu_torch import FeatureConfig, oracle
     from mfcc_tpu_torch.models import mfcc as mfcc_model
     from mfcc_tpu_torch.models import logmel as logmel_model
     from mfcc_tpu_torch.utils import kaldi, wav
     device = "cuda" if dev.type == "cuda" else "cpu"
-    sr = 16000
-    lo, hi = RUNNER_SECONDS
-    root = tempfile.mkdtemp(prefix="mfcc_runner_")
-    try:
-        t0 = time.perf_counter()
-        cdir = os.path.join(root, "corpus")
-        os.makedirs(cdir)
-        corpus = _write_runner_corpus(cdir, RUNNER_UTTERANCES, lo, hi, sr)
-        lens = np.asarray([n for _, n in corpus])
-        mb = sum(os.path.getsize(p) for p, _ in corpus) / 1e6
-        _log(f"[14 corpus runner] {len(corpus)} utterances of {lo:g}-{hi:g} "
-             f"s (numpy seed 0, phase 10's signal), {lens.sum() / sr:.1f} s "
-             f"of audio, {mb:.1f} MB of PCM16 WAV written in "
-             f"{time.perf_counter() - t0:.2f} s")
-        sub = os.path.join(root, "subset.txt")
-        with open(sub, "w") as f:
-            f.write("\n".join(p for p, _ in corpus[:RUNNER_SUBSET]) + "\n")
-        trace_list = os.path.join(root, "trace.txt")
-        with open(trace_list, "w") as f:
-            f.write("\n".join(p for p, _ in corpus[:RUNNER_TRACE]) + "\n")
-        cfg = FeatureConfig()
-        lm = FeatureConfig(n_mels=80, n_mfcc=80, deltas=True)
-        n_sub = min(RUNNER_SUBSET, len(corpus))
-        rows, cap = _pack_plan(corpus, cfg, RUNNER_PACK_SECONDS)
-        padded = {k: _runner_batches(corpus[:k])
-                  for k in (len(corpus), n_sub, min(RUNNER_TRACE, len(corpus)))}
-        packed_batches = -(-len(rows) // RUNNER_BATCH)
-        padded_samples = sum(len(pb.paths) * pb.bucket
-                             for pb in padded[len(corpus)])
-        none = dict.fromkeys(_runner_counters(), 0)
-        runs = [  # name, input, args, cfg, launches expected
-            ("a mfcc npy", cdir, [], cfg,
-             {**none, "fused_raw_dit": len(padded[len(corpus)])}),
-            ("b mfcc --pack", cdir, ["--pack", "--pack-seconds",
-                                     RUNNER_PACK_SECONDS], cfg,
-             {**none, "fused_raw_dit": packed_batches}),
-            ("c ark --cmvn", cdir, ["--format", "ark", "--cmvn"], cfg,
-             {**none, "fused_raw_dit": len(padded[len(corpus)])}),
-            ("d logmel-80 deltas", sub, ["--logmel", "--n-mels", 80,
-                                         "--deltas"], lm,
-             {**none, "fused_raw": len(padded[n_sub])}),
-            ("e mfcc --pitch", sub, ["--pitch"], cfg,
-             {**none, **dict.fromkeys(("fused_raw_dit", "fused_nccf",
-                                       "fused_viterbi"), len(padded[n_sub]))}),
-            ("f resume of a", cdir, [], cfg, none),
-            ("g traced", trace_list, ["--trace-dir",
-                                      os.path.join(root, "trace")], cfg,
-             {**none, "fused_raw_dit": len(padded[min(RUNNER_TRACE,
-                                                      len(corpus))])}),
-        ]
-        outs = {}
-        rng = np.random.default_rng(1)
-        for name, src, args, rcfg, want in runs:
-            key = name[0]
-            out = outs["a"] if key == "f" else os.path.join(root, key)
-            outs[key] = out
-            rc, launches, wall, _ = _runner_cli(torch, [
-                src, "-o", out, "--batch-size", RUNNER_BATCH, "--device",
-                device, *args])
-            rep = json.load(open(os.path.join(out, "run_report.0.json")))
-            st = rep["stage_seconds"]
-            _log(f"[14 corpus runner] {name}: exit {rc}, "
-                 f"{rep['n_utterances']} utterances, "
-                 f"{rep['audio_seconds']:.1f} s of audio in {wall:.3f} s wall "
-                 f"({rep['wall_seconds']:.3f} s in the runner) = "
-                 f"{rep['audio_seconds_per_second']:,.0f} audio-sec/s; stages "
-                 + ", ".join(f"{k} {v:.3f} s" for k, v in st.items())
-                 + f"; launched {launches}; self-check max_abs_error "
-                 f"{rep['max_abs_error']}, pitch {rep['max_abs_error_pitch']}"
-                 f" ({smi})")
-            assert launches == want, (name, launches, want)
-            if key == "f":
-                assert rc == 1 and rep["n_utterances"] == 0, name
-                continue
-            assert rc == 0, name
-            n_run = len(corpus) if src == cdir else n_sub if src == sub \
-                else min(RUNNER_TRACE, len(corpus))
-            assert rep["n_utterances"] == n_run, (name, rep["n_utterances"])
-            if key != "c":
-                assert rep["max_abs_error"] <= ORACLE_TOL, name
-            if key == "e":
-                assert rep["max_abs_error_pitch"] <= PITCH_TOL[1], name
-            if key == "b":
-                _log(f"[14 corpus runner] b: {len(rows)} packed rows of "
-                     f"{cap} samples, fill {lens.sum() / (len(rows) * cap):.4f}"
-                     f"; the padded run's fill "
-                     f"{lens.sum() / padded_samples:.4f} "
-                     f"({len(padded[len(corpus)])} batches of {RUNNER_BATCH})")
-            if key == "g":
-                tr = json.load(open(os.path.join(root, "trace",
-                                                 "trace.0.json")))
-                ev = tr["traceEvents"]
-                names = [e.get("name", "") for e in ev]
-                kern = [n for e, n in zip(ev, names)
-                        if e.get("cat") == "kernel"]
-                # the device's busy share of the traced span: its kernels
-                # and copies (one stream) over the span of every event
-                busy = sum(e.get("dur", 0) for e in ev
-                           if e.get("cat") in ("kernel", "gpu_memcpy",
-                                               "gpu_memset"))
-                ts = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in ev
-                      if "ts" in e and e.get("ph") == "X"]
-                span = max(b for _, b in ts) - min(a for a, _ in ts)
-                _log(f"[14 corpus runner] g: the Chrome trace holds "
-                     f"{names.count('fused_raw_dit')} fused_raw_dit events "
-                     f"and {len(kern)} device kernel events "
-                     f"({sum('raw_dit' in n for n in kern)} of raw_dit_*); "
-                     f"the device busy {busy / 1e3:.3f} ms (kernels and "
-                     f"copies) of the traced {span / 1e3:.3f} ms, "
-                     f"{100 * busy / max(span, 1):.2f} % ({smi})")
-                assert "fused_raw_dit" in names, "the trace names no launch"
-                assert device == "cpu" or any("raw_dit" in n for n in kern)
-                continue
-            # 8 utterances read back: the oracle, a direct model call
-            picks = sorted(rng.choice(n_run, min(RUNNER_CHECKS, n_run),
-                                      replace=False))
-            if key == "c":
-                back = kaldi.read_scp(os.path.join(out, "features.0.scp"))
-            sigs = {i: wav.read_wav(corpus[i][0])[0] for i in picks}
-            uid = lambda i: os.path.splitext(os.path.basename(corpus[i][0]))[0]
-            got = {i: (back[uid(i)] if key == "c" else
-                       np.load(os.path.join(out, uid(i) + ".npy")))
-                   for i in picks}
-            if key == "c":
-                z = np.load(os.path.join(out, "cmvn.npz"))
-                pre = [np.load(os.path.join(outs["a"], uid(i) + ".npy"))
-                       for i in range(len(corpus))]
-                allf = np.concatenate(pre).astype(np.float64)
-                assert float(z["count"]) == allf.shape[0], name
-                np.testing.assert_allclose(z["sum"], allf.sum(0), rtol=1e-9)
-                np.testing.assert_allclose(z["sumsq"], (allf * allf).sum(0),
-                                           rtol=1e-9)
-                mean = z["sum"] / allf.shape[0]
-                inv = 1.0 / np.sqrt(np.maximum(z["sumsq"] / allf.shape[0]
-                                               - mean * mean, 1e-8))
-                errs = []
-                for i in picks:
-                    want_n = oracle.apply_cmvn(oracle.mfcc(
-                        sigs[i].astype(np.float64), cfg), z["count"],
-                        z["sum"], z["sumsq"])
-                    # the 1e-4 feature contract through (x - mean) * inv_std
-                    errs.append(float((np.abs(got[i] - want_n) / inv).max()))
-                    np.testing.assert_allclose(
-                        got[i], ((pre[i] - mean) * inv).astype(np.float32),
-                        rtol=1e-6, atol=1e-6)
-                _log(f"[14 corpus runner] c: cmvn.npz equals numpy's float64 "
-                     f"statistics of run a's {len(pre)} files (count "
-                     f"{int(allf.shape[0])}); {len(picks)} normalized "
-                     f"utterances equal run a's normalized, and "
-                     f"{max(errs):.3e} off the oracle before the scaling")
-                assert max(errs) <= ORACLE_TOL, errs
-                continue
-            ref = {i: oracle.log_mel(sigs[i].astype(np.float64), rcfg)
-                   if key == "d" else oracle.mfcc(sigs[i].astype(np.float64),
-                                                  rcfg) for i in picks}
-            if key == "b":
-                direct = _direct_packed(
-                    torch, dev, cfg, rows, cap, {corpus[i][0] for i in picks},
-                    lambda p: wav.read_wav(p)[0])
-                direct = {i: direct[corpus[i][0]] for i in picks}
-            else:
-                model = (
-                    (lambda x, n: _mfcc_plus_pitch(torch, x, n, cfg))
-                    if key == "e" else
-                    (lambda x, n: logmel_model.log_mel_batch(x, n, lm))
-                    if key == "d" else
-                    (lambda x, n: mfcc_model.mfcc_batch(x, n, cfg)))
-                direct = _direct_padded(torch, dev, model, corpus[:n_run],
-                                        picks)
-            e_ref, e_dir = 0.0, 0.0
+    lens = np.asarray([n for _, n in corpus])
+    t0 = time.perf_counter()
+    sub = os.path.join(root, "subset.txt")
+    with open(sub, "w") as f:
+        f.write("\n".join(p for p, _ in corpus[:RUNNER_SUBSET]) + "\n")
+    trace_list = os.path.join(root, "trace.txt")
+    with open(trace_list, "w") as f:
+        f.write("\n".join(p for p, _ in corpus[:RUNNER_TRACE]) + "\n")
+    cfg = FeatureConfig()
+    lm = FeatureConfig(n_mels=80, n_mfcc=80, deltas=True)
+    n_sub = min(RUNNER_SUBSET, len(corpus))
+    rows, cap = _pack_plan(corpus, cfg, RUNNER_PACK_SECONDS)
+    padded = {k: _runner_batches(corpus[:k])
+              for k in (len(corpus), n_sub, min(RUNNER_TRACE, len(corpus)))}
+    packed_batches = -(-len(rows) // RUNNER_BATCH)
+    padded_samples = sum(len(pb.paths) * pb.bucket
+                         for pb in padded[len(corpus)])
+    none = dict.fromkeys(_runner_counters(), 0)
+    runs = [  # name, input, args, cfg, launches expected
+        ("a mfcc npy", cdir, [], cfg,
+         {**none, "fused_raw_dit": len(padded[len(corpus)])}),
+        ("b mfcc --pack", cdir, ["--pack", "--pack-seconds",
+                                 RUNNER_PACK_SECONDS], cfg,
+         {**none, "fused_raw_dit": packed_batches}),
+        ("c ark --cmvn", cdir, ["--format", "ark", "--cmvn"], cfg,
+         {**none, "fused_raw_dit": len(padded[len(corpus)])}),
+        ("d logmel-80 deltas", sub, ["--logmel", "--n-mels", 80,
+                                     "--deltas"], lm,
+         {**none, "fused_raw": len(padded[n_sub])}),
+        ("e mfcc --pitch", sub, ["--pitch"], cfg,
+         {**none, **dict.fromkeys(("fused_raw_dit", "fused_nccf",
+                                   "fused_viterbi"), len(padded[n_sub]))}),
+        ("f resume of a", cdir, [], cfg, none),
+        ("g traced", trace_list, ["--trace-dir",
+                                  os.path.join(root, "trace")], cfg,
+         {**none, "fused_raw_dit": len(padded[min(RUNNER_TRACE,
+                                                  len(corpus))])}),
+    ]
+    outs = {}
+    rng = np.random.default_rng(1)
+    for name, src, args, rcfg, want in runs:
+        key = name[0]
+        out = outs["a"] if key == "f" else os.path.join(root, key)
+        outs[key] = out
+        rc, launches, wall, _ = _runner_cli(torch, [
+            src, "-o", out, "--batch-size", RUNNER_BATCH, "--device",
+            device, *args])
+        rep = json.load(open(os.path.join(out, "run_report.0.json")))
+        st = rep["stage_seconds"]
+        _log(f"[14 corpus runner] {name}: exit {rc}, "
+             f"{rep['n_utterances']} utterances, "
+             f"{rep['audio_seconds']:.1f} s of audio in {wall:.3f} s wall "
+             f"({rep['wall_seconds']:.3f} s in the runner) = "
+             f"{rep['audio_seconds_per_second']:,.0f} audio-sec/s; stages "
+             + ", ".join(f"{k} {v:.3f} s" for k, v in st.items())
+             + f"; launched {launches}; self-check max_abs_error "
+             f"{rep['max_abs_error']}, pitch {rep['max_abs_error_pitch']}"
+             f" ({smi})")
+        assert launches == want, (name, launches, want)
+        if key == "f":
+            assert rc == 1 and rep["n_utterances"] == 0, name
+            continue
+        assert rc == 0, name
+        n_run = len(corpus) if src == cdir else n_sub if src == sub \
+            else min(RUNNER_TRACE, len(corpus))
+        assert rep["n_utterances"] == n_run, (name, rep["n_utterances"])
+        if key != "c":
+            assert rep["max_abs_error"] <= ORACLE_TOL, name
+        if key == "e":
+            assert rep["max_abs_error_pitch"] <= PITCH_TOL[1], name
+        if key == "b":
+            _log(f"[14 corpus runner] b: {len(rows)} packed rows of "
+                 f"{cap} samples, fill {lens.sum() / (len(rows) * cap):.4f}"
+                 f"; the padded run's fill "
+                 f"{lens.sum() / padded_samples:.4f} "
+                 f"({len(padded[len(corpus)])} batches of {RUNNER_BATCH})")
+        if key == "g":
+            tr = json.load(open(os.path.join(root, "trace",
+                                             "trace.0.json")))
+            ev = tr["traceEvents"]
+            names = [e.get("name", "") for e in ev]
+            kern = [n for e, n in zip(ev, names)
+                    if e.get("cat") == "kernel"]
+            # the device's busy share of the traced span: its kernels
+            # and copies (one stream) over the span of every event
+            busy = sum(e.get("dur", 0) for e in ev
+                       if e.get("cat") in ("kernel", "gpu_memcpy",
+                                           "gpu_memset"))
+            ts = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in ev
+                  if "ts" in e and e.get("ph") == "X"]
+            span = max(b for _, b in ts) - min(a for a, _ in ts)
+            _log(f"[14 corpus runner] g: the Chrome trace holds "
+                 f"{names.count('fused_raw_dit')} fused_raw_dit events "
+                 f"and {len(kern)} device kernel events "
+                 f"({sum('raw_dit' in n for n in kern)} of raw_dit_*); "
+                 f"the device busy {busy / 1e3:.3f} ms (kernels and "
+                 f"copies) of the traced {span / 1e3:.3f} ms, "
+                 f"{100 * busy / max(span, 1):.2f} % ({smi})")
+            assert "fused_raw_dit" in names, "the trace names no launch"
+            assert device == "cpu" or any("raw_dit" in n for n in kern)
+            continue
+        # 8 utterances read back: the oracle, a direct model call
+        picks = sorted(rng.choice(n_run, min(RUNNER_CHECKS, n_run),
+                                  replace=False))
+        if key == "c":
+            back = kaldi.read_scp(os.path.join(out, "features.0.scp"))
+        sigs = {i: wav.read_wav(corpus[i][0])[0] for i in picks}
+        uid = lambda i: os.path.splitext(os.path.basename(corpus[i][0]))[0]
+        got = {i: (back[uid(i)] if key == "c" else
+                   np.load(os.path.join(out, uid(i) + ".npy")))
+               for i in picks}
+        if key == "c":
+            z = np.load(os.path.join(out, "cmvn.npz"))
+            pre = [np.load(os.path.join(outs["a"], uid(i) + ".npy"))
+                   for i in range(len(corpus))]
+            allf = np.concatenate(pre).astype(np.float64)
+            assert float(z["count"]) == allf.shape[0], name
+            np.testing.assert_allclose(z["sum"], allf.sum(0), rtol=1e-9)
+            np.testing.assert_allclose(z["sumsq"], (allf * allf).sum(0),
+                                       rtol=1e-9)
+            mean = z["sum"] / allf.shape[0]
+            inv = 1.0 / np.sqrt(np.maximum(z["sumsq"] / allf.shape[0]
+                                           - mean * mean, 1e-8))
+            errs = []
             for i in picks:
-                g = got[i]
-                assert g.shape == direct[i].shape, (name, i)
-                if key == "e":
-                    pw = oracle.pitch(sigs[i].astype(np.float64),
-                                      _pitch_for(cfg))
-                    idx = np.minimum(np.arange(g.shape[0]), pw.shape[0] - 1)
-                    e_ref = max(e_ref, *_columns_err(
-                        g[:, -3:], pw[idx], PITCH_TOL))
-                    g = g[:, :-3]
-                    assert np.abs(g - ref[i]).max() <= ORACLE_TOL, (name, i)
-                tol = LOGMEL_ORACLE_TOL if key == "d" else ORACLE_TOL
-                e = float(np.abs(g - ref[i]).max())
-                assert e <= tol, (name, i, e)
-                e_ref = max(e_ref, e)
-                gd = got[i] - direct[i]
-                bound = (KERNEL_TOL + LOGMEL_RTOL * np.abs(direct[i])
-                         if key == "d" else KERNEL_TOL)
-                assert (np.abs(gd) <= bound).all(), (name, i)
-                e_dir = max(e_dir, float(np.abs(gd).max()))
-            _log(f"[14 corpus runner] {key}: {len(picks)} utterances read "
-                 f"back, {e_ref:.3e} off the oracle, {e_dir:.3e} off a direct "
-                 f"{'mfcc_batch_packed' if key == 'b' else 'model'} call")
-        _log(f"[14 corpus runner] phase 14 passed in "
-             f"{time.perf_counter() - t0:.1f} s ({smi})")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+                want_n = oracle.apply_cmvn(oracle.mfcc(
+                    sigs[i].astype(np.float64), cfg), z["count"],
+                    z["sum"], z["sumsq"])
+                # the 1e-4 feature contract through (x - mean) * inv_std
+                errs.append(float((np.abs(got[i] - want_n) / inv).max()))
+                np.testing.assert_allclose(
+                    got[i], ((pre[i] - mean) * inv).astype(np.float32),
+                    rtol=1e-6, atol=1e-6)
+            _log(f"[14 corpus runner] c: cmvn.npz equals numpy's float64 "
+                 f"statistics of run a's {len(pre)} files (count "
+                 f"{int(allf.shape[0])}); {len(picks)} normalized "
+                 f"utterances equal run a's normalized, and "
+                 f"{max(errs):.3e} off the oracle before the scaling")
+            assert max(errs) <= ORACLE_TOL, errs
+            continue
+        ref = {i: oracle.log_mel(sigs[i].astype(np.float64), rcfg)
+               if key == "d" else oracle.mfcc(sigs[i].astype(np.float64),
+                                              rcfg) for i in picks}
+        if key == "b":
+            direct = _direct_packed(
+                torch, dev, cfg, rows, cap, {corpus[i][0] for i in picks},
+                lambda p: wav.read_wav(p)[0])
+            direct = {i: direct[corpus[i][0]] for i in picks}
+        else:
+            model = (
+                (lambda x, n: _mfcc_plus_pitch(torch, x, n, cfg))
+                if key == "e" else
+                (lambda x, n: logmel_model.log_mel_batch(x, n, lm))
+                if key == "d" else
+                (lambda x, n: mfcc_model.mfcc_batch(x, n, cfg)))
+            direct = _direct_padded(torch, dev, model, corpus[:n_run],
+                                    picks)
+        e_ref, e_dir = 0.0, 0.0
+        for i in picks:
+            g = got[i]
+            assert g.shape == direct[i].shape, (name, i)
+            if key == "e":
+                pw = oracle.pitch(sigs[i].astype(np.float64),
+                                  _pitch_for(cfg))
+                idx = np.minimum(np.arange(g.shape[0]), pw.shape[0] - 1)
+                e_ref = max(e_ref, *_columns_err(
+                    g[:, -3:], pw[idx], PITCH_TOL))
+                g = g[:, :-3]
+                assert np.abs(g - ref[i]).max() <= ORACLE_TOL, (name, i)
+            tol = LOGMEL_ORACLE_TOL if key == "d" else ORACLE_TOL
+            e = float(np.abs(g - ref[i]).max())
+            assert e <= tol, (name, i, e)
+            e_ref = max(e_ref, e)
+            gd = got[i] - direct[i]
+            bound = (KERNEL_TOL + LOGMEL_RTOL * np.abs(direct[i])
+                     if key == "d" else KERNEL_TOL)
+            assert (np.abs(gd) <= bound).all(), (name, i)
+            e_dir = max(e_dir, float(np.abs(gd).max()))
+        _log(f"[14 corpus runner] {key}: {len(picks)} utterances read "
+             f"back, {e_ref:.3e} off the oracle, {e_dir:.3e} off a direct "
+             f"{'mfcc_batch_packed' if key == 'b' else 'model'} call")
+    _log(f"[14 corpus runner] phase 14 passed in "
+         f"{time.perf_counter() - t0:.1f} s ({smi})")
+    return os.path.join(outs["c"], "cmvn.npz")
+
+
+# ---- phases 15-16: online pitch, the training feed and the front end ----
+
+def _online_stream(pitch_online, pcfg, x, delay, dev):
+    """x fed in ONLINE_FEED-sample pieces, then flushed -> (rows, tracker)."""
+    op = pitch_online.OnlinePitch(pcfg, delay=delay,
+                                  chunk_frames=ONLINE_CHUNK, device=dev)
+    rows = [op.feed(x[i: i + ONLINE_FEED])
+            for i in range(0, x.size, ONLINE_FEED)]
+    rows.append(op.flush())
+    return np.concatenate(rows), op
+
+
+def _online_pitch_phase(torch, dev, smi) -> None:
+    """Phase 15: one stream of the bench signal through ``OnlinePitch`` at
+    the default PitchConfig (16 kHz in, the streaming resampler to 4 kHz),
+    fed in 100 ms pieces: ``fused_nccf`` launched once a chunk, the rows
+    against the float64 twin ``online_pitch_np``; with delay >= T against
+    ``pitch_batch``; the chunk NCCF kernel against the plain chunk NCCF on
+    the card; ms a chunk and the real-time factor."""
+    from mfcc_tpu_torch import PitchConfig
+    from mfcc_tpu_torch.models import pitch as pitch_model, pitch_online
+    from mfcc_tpu_torch.ops.kernels import fused_nccf
+    from mfcc_tpu_torch.ops.resample import resample_poly_numpy
+    pcfg = PitchConfig().validate()
+    sr, F = pcfg.sample_rate, ONLINE_CHUNK
+    x = _bench_audio(1, ONLINE_SECONDS, sr)[0]
+    T = pcfg.num_frames(x.size)
+    chunks = -(-T // F)
+    _online_stream(pitch_online, pcfg, x[: sr], ONLINE_DELAY, dev)  # warm
+    torch.cuda.synchronize()
+    _reset_counts([fused_nccf])
+    t0 = time.perf_counter()
+    got, op = _online_stream(pitch_online, pcfg, x, ONLINE_DELAY, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_nccf.LAUNCHES
+    _log(f"[15 online pitch] {ONLINE_SECONDS:g} s stream fed in "
+         f"{ONLINE_FEED}-sample pieces, delay {ONLINE_DELAY}, chunk_frames "
+         f"{F}: {got.shape[0]} rows of {T} frames in {op.chunks} chunks; "
+         f"launched fused_nccf {launches} times ({smi})")
+    assert got.shape == (T, 3), got.shape
+    assert launches == op.chunks == chunks, (launches, op.chunks, chunks)
+    t1 = time.perf_counter()
+    want = pitch_online.online_pitch_np(x.astype(np.float64), pcfg,
+                                        ONLINE_DELAY, F)
+    errs = _columns_err(got, want, PITCH_TOL)
+    _log(f"[15 online pitch] vs online_pitch_np (float64, "
+         f"{time.perf_counter() - t1:.1f} s on the host): pov/norm/delta "
+         f"{_fmt(errs)} (bounds {_fmt(PITCH_TOL)}) ({smi})")
+    _log(f"[15 online pitch] the stream: {wall * 1e3:.1f} ms wall, "
+         f"{wall * 1e3 / chunks:.3f} ms a chunk of {F} frames "
+         f"({F * pcfg.hop_ms:g} ms of audio), real-time factor "
+         f"{wall / ONLINE_SECONDS:.5f}, {ONLINE_SECONDS / wall:,.0f} "
+         f"audio-sec/s ({smi})")
+    # one chunk step alone (kernel, energies, Viterbi ops, the fetch)
+    xw = resample_poly_numpy(x.astype(np.float64), sr,
+                             pcfg.work_rate).astype(np.float32)
+    span, hop = pitch_online.chunk_span(pcfg, F), pcfg.hop_len_w
+    for backend in ("cuda", "torch"):
+        buf = torch.from_numpy(xw[:span].copy()).to(dev)
+        state = pitch_online.init_chunk_state(pcfg, dev)
+        steps = []
+        for i in range(ONLINE_STEP_CALLS + 3):
+            t0 = time.perf_counter()
+            state, back, nccf_p = pitch_online.online_chunk_step(
+                state, buf, F, pcfg, F, backend=backend)
+            back.cpu(), nccf_p.cpu(), state.cost.cpu()
+            steps.append(time.perf_counter() - t0)
+        ms = statistics.median(steps[3:]) * 1e3
+        ops, host_ms = _ops_and_host_ms(
+            torch, lambda: pitch_online.online_chunk_step(
+                state, buf, F, pcfg, F, backend=backend))
+        _log(f"[15 online pitch] online_chunk_step ({backend}), its fetch "
+             f"included: {ms:.4f} ms median of {ONLINE_STEP_CALLS}; "
+             f"{ops} ATen ops, host enqueue {host_ms:.4f} ms a step "
+             f"({smi})")
+    # the chunk NCCF kernel against the plain chunk NCCF, stationary
+    # signal: an interior chunk and the stream's last, n_valid < F
+    c_last = (chunks - 1) * F
+    worst = 0.0
+    for c0 in (chunks // 2 * F, c_last):
+        nv = min(F, T - c0)
+        buf = np.zeros((span,), np.float32)
+        have = min(xw.size - c0 * hop, span)
+        buf[:have] = xw[c0 * hop: c0 * hop + have]
+        b = torch.from_numpy(buf).to(dev)
+        e0 = pitch_online.chunk_energies(b, F, pcfg)[:nv]
+        ball = (pcfg.ballast * e0.mean() ** 2).reshape(1)
+        kb, kp = pitch_online.chunk_nccf(b, F, pcfg, ball, backend="cuda")
+        pb, pp = pitch_online.chunk_nccf(b, F, pcfg, ball, backend="torch")
+        err = max(float((kb - pb)[:nv].abs().max()),
+                  float((kp - pp)[:nv].abs().max()))
+        _log(f"[15 online pitch] chunk NCCF kernel vs plain, chunk at frame "
+             f"{c0}, n_valid {nv} of {F}: {err:.3e} (bound {KERNEL_TOL:g}) "
+             f"({smi})")
+        assert err <= KERNEL_TOL, (c0, err)
+        worst = max(worst, err)
+    assert T - c_last < F, "the stream's last chunk must be partial"
+    # delay >= T: every decision from the final cost, against pitch_batch
+    full, _ = _online_stream(pitch_online, pcfg, x, T + 10, dev)
+    batch = pitch_model.pitch_batch(
+        torch.from_numpy(x[None]).to(dev),
+        torch.tensor([x.size], device=dev), pcfg)[0][0].cpu().numpy()
+    d = np.abs(full[:, 0] - batch[:, 0])
+    same = float((d < 2e-4).mean())
+    _log(f"[15 online pitch] delay {T + 10} >= T against pitch_batch: pov "
+         f"within 2e-4 on {100 * same:.2f} % of {T} frames (the causal "
+         f"ballast is the one difference), max {d.max():.3e} ({smi})")
+    assert same >= 0.95, same
+
+
+def _check_feed_batch(torch, dev, cfg, b) -> None:
+    """One plain feature_batches batch against mfcc_batch on the same
+    rows, decoded by the pure reader to int16 at the batch's bucket."""
+    from mfcc_tpu_torch.models import mfcc as mfcc_model
+    from mfcc_tpu_torch.utils import wav
+    x = np.zeros((len(b.uids), b.bucket), np.int16)
+    n = np.zeros(len(b.uids), np.int32)
+    for r, uid in enumerate(b.uids):
+        if uid is not None:
+            row = _int16(wav.read_wav(uid)[0])
+            x[r, : len(row)], n[r] = row, len(row)
+    feat, fl, mask = mfcc_model.mfcc_batch(torch.from_numpy(x).to(dev),
+                                           torch.from_numpy(n).to(dev), cfg)
+    assert torch.equal(b.frame_counts, fl) and torch.equal(b.mask, mask)
+    assert torch.equal(b.features, feat), "feed batch != mfcc_batch"
+
+
+def _training_phase(torch, dev, bench, smi, cdir, corpus, cmvn_path) -> None:
+    """Phase 16: ``dataset.feature_batches`` over phase 14's corpus, plain
+    and with its cmvn.npz and SpecAugment; the masks of one seed on the CPU
+    and the card; ``speed_perturb`` on the card against the CPU; the
+    trainable front end on the bench batch, at init against the kernel's
+    ``mfcc_batch`` and through a 200-step recovery."""
+    from mfcc_tpu_torch import FeatureConfig, dataset
+    from mfcc_tpu_torch.models import mfcc as mfcc_model, trainable
+    from mfcc_tpu_torch.ops import augment
+    cfg = FeatureConfig()
+    mods = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
+    seconds = sum(n for _, n in corpus) / cfg.sample_rate
+    runs = {}
+    for name, kw in (("plain", {}),
+                     ("cmvn + augment", dict(cmvn_stats=cmvn_path,
+                                             augment_seed=0))):
+        _reset_counts(mods.values())
+        t0 = time.perf_counter()
+        batches = list(dataset.feature_batches(
+            cdir, cfg, batch_size=RUNNER_BATCH, device=dev, **kw))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: m.LAUNCHES for k, m in mods.items()}
+        n_utt = sum(u is not None for b in batches for u in b.uids)
+        _log(f"[16 training feed] feature_batches ({name}): {len(batches)} "
+             f"batches, {n_utt} utterances, {seconds:.1f} s of audio in "
+             f"{wall:.3f} s = {seconds / wall:,.0f} audio-sec/s; launched "
+             f"{launches} ({smi})")
+        assert n_utt == len(corpus), n_utt
+        assert launches == {**dict.fromkeys(mods, 0),
+                            "fused_raw_dit": len(batches)}, launches
+        for b in batches:
+            assert b.features.is_cuda == (dev.type == "cuda")
+            assert not b.features[~b.mask].any(), "padding not zero"
+        runs[name] = batches
+    plain, aug = runs["plain"], runs["cmvn + augment"]
+    for b in plain[:FEED_CHECKS] + plain[-1:]:
+        _check_feed_batch(torch, dev, cfg, b)
+    stats = dataset.load_cmvn_stats(cmvn_path)
+    m, v = stats.mean_var()
+    mean, inv = m.to(dev, torch.float32), (1.0 / torch.sqrt(v)).to(
+        dev, torch.float32)
+    hit = 0.0
+    for bi, (p, a) in enumerate(zip(plain, aug)):
+        B, T, F = p.features.shape
+        normed = torch.where(p.mask[..., None], (p.features - mean) * inv, 0.0)
+        nf = p.frame_counts.cpu()
+        masks = augment.draw_masks(dataset.augment_generator(0, 0, bi),
+                                   B, T, F, num_frames=nf)
+        want = augment.apply_masks(normed, masks, num_frames=nf)
+        assert torch.equal(a.features, want), bi
+        hit += float((a.features != normed).sum()) / float(
+            p.mask.sum() * F)
+    _log(f"[16 training feed] {min(FEED_CHECKS, len(plain)) + 1} plain "
+         f"batches equal mfcc_batch on the same rows bit for bit; every "
+         f"augmented batch equals its plain batch normalized by cmvn.npz "
+         f"with its seed's stripes (mean masked share "
+         f"{hit / len(plain):.3f}), padding zero ({smi})")
+    # one seed's masks on the CPU and on the card
+    f_dev = plain[0].features
+    nf = plain[0].frame_counts.cpu()
+    on_card = augment.spec_augment(f_dev, dataset.augment_generator(1, 0, 0),
+                                   num_frames=nf)
+    on_cpu = augment.spec_augment(f_dev.cpu(),
+                                  dataset.augment_generator(1, 0, 0),
+                                  num_frames=nf)
+    assert torch.equal(on_card.cpu(), on_cpu), "masks differ by device"
+    _log(f"[16 training feed] spec_augment, one seed: the card's output "
+         f"equals the CPU's bit for bit ({int((on_cpu == 0).sum())} zeros "
+         f"of {on_cpu.numel()}) ({smi})")
+    # speed perturbation on the bench batch
+    B, N = bench.shape
+    lens = torch.full((B,), N, dtype=torch.int32)
+    x_dev = torch.from_numpy(bench).to(dev)
+    for factor in (0.9, 1.1):
+        y, yl = augment.speed_perturb(x_dev, lens.to(dev), factor)
+        y_cpu, yl_cpu = augment.speed_perturb(torch.from_numpy(bench), lens,
+                                              factor)
+        err = float((y.cpu() - y_cpu).abs().max())
+        ms = statistics.median(_time_ms(
+            torch, lambda: augment.speed_perturb(x_dev, lens.to(dev),
+                                                 factor),
+            calls=TIMING_CALLS // 3))
+        _log(f"[16 training feed] speed_perturb {factor:g} on {B} x "
+             f"{N / cfg.sample_rate:g} s: {tuple(y.shape)}, card vs CPU "
+             f"{err:.3e}, {ms:.4f} ms on the card ({smi})")
+        assert torch.equal(yl.cpu(), yl_cpu) and err <= 1e-6, (factor, err)
+    # the trainable front end on the bench batch
+    params = trainable.init_params(cfg, dev)
+    _reset_counts(mods.values())
+    want = mfcc_model.mfcc_batch(x_dev, lens.to(dev), cfg)[0]
+    assert mods["fused_raw_dit"].LAUNCHES == 1
+    got = trainable.forward(params, x_dev, cfg).detach()
+    err = float((got - want).abs().max())
+    _log(f"[16 trainable] forward at init vs mfcc_batch through "
+         f"fused_raw_dit on {B} x {N / cfg.sample_rate:g} s: {err:.3e} "
+         f"(bound {KERNEL_TOL:g}) ({smi})")
+    assert err <= KERNEL_TOL, err
+    tgt = trainable.init_params(cfg, dev)
+    with torch.no_grad():
+        tgt.mel_w.mul_(1.5)
+    target = trainable.forward(tgt, x_dev, cfg).detach()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, losses = trainable.fit(x_dev, target, cfg, steps=TRAIN_STEPS,
+                                   lr=3e-3, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    opt = trainable.make_optimizer(params, 1e-6)
+    step = lambda: trainable.train_step(params, opt, x_dev, target, cfg)
+    step_ms = statistics.median(_time_ms(torch, step,
+                                         calls=TIMING_CALLS // 3))
+    ops, host_ms = _ops_and_host_ms(torch, step)
+    _log(f"[16 trainable] fit, {TRAIN_STEPS} steps at lr 3e-3 recovering a "
+         f"1.5x filterbank: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+         f"({losses[-1] / losses[0]:.4f} of the first); {wall * 1e3:.1f} ms "
+         f"wall, {wall * 1e3 / TRAIN_STEPS:.3f} ms a step; train_step "
+         f"{step_ms:.4f} ms between CUDA events, {ops} ATen ops, host "
+         f"enqueue {host_ms:.4f} ms a step ({smi})")
+    assert losses[-1] < 0.1 * losses[0], losses[::50]
+    assert torch.isfinite(params.mel_w).all()
 
 
 def run(torch, dev) -> list[dict]:
-    """Phases 1-8 and 10-14 on device ``dev``; -> the kernels' JSON records
+    """Phases 1-8 and 10-16 on device ``dev``; -> the kernels' JSON records
     (of phases 1-8: the later phases report their own counters)."""
     from mfcc_tpu_torch import PitchConfig
     from mfcc_tpu_torch.ops.kernels import _build
@@ -2362,7 +2650,16 @@ def run(torch, dev) -> list[dict]:
     _dither_phase(torch, dev, bench)                        # 11
     _post_phase(torch, dev, bench, smi)                     # 12
     _streaming_phase(torch, dev, bench, smi)                # 13
-    _corpus_runner_phase(torch, dev, smi)                   # 14
+    root = tempfile.mkdtemp(prefix="mfcc_runner_")
+    try:
+        cdir, corpus = _runner_corpus(root)
+        cmvn_path = _corpus_runner_phase(torch, dev, smi, root, cdir,
+                                         corpus)            # 14
+        _online_pitch_phase(torch, dev, smi)                # 15
+        _training_phase(torch, dev, bench, smi, cdir, corpus,
+                        cmvn_path)                          # 16
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
     launches = {**logmel_launches, **pitch_launches, **proj_launches}
@@ -2424,7 +2721,7 @@ def main() -> int:
     kernels = run(torch, torch.device("cuda", 0))
     # ---- 9. summary ----
     assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
-    _log(f"[9 summary] phases 1-8 and 10-14 passed in "
+    _log(f"[9 summary] phases 1-8 and 10-16 passed in "
          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,13 @@ reference (``ops/kernels``), with a plain PyTorch path beside each; dither
 (``ops/dither``), the post chain (``ops/post``) and corpus CMVN
 (``parallel/cmvn``) around them.  ``python -m mfcc_tpu_torch`` runs the
 corpus runner (``runner.py``, ``cli.py``): WAV files in, feature files out.
+
+Serving and training: the online pitch tracker (``models/pitch_online``,
+``OnlinePitch``: the chunk NCCF through ``fused_nccf``, its streaming
+resampler in ``ops/resample``), SpecAugment and speed perturbation
+(``ops/augment``), the trainable front end (``models/trainable``) and
+``dataset.feature_batches``, the corpus as device batches for a training
+loop.  Entry points run on the card unless given ``device="cpu"``.
 """
 
 from .config import FeatureConfig, PitchConfig, from_jax  # noqa: F401

@@ -54,8 +54,21 @@ def resolve(name: str, x: torch.Tensor) -> str:
     return name
 
 
+def require_device(name) -> torch.device:
+    """torch.device(name), raising when it names a card and none is
+    available: an entry point runs on the host only when asked."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to compute on the host")
+    return dev
+
+
 @contextlib.contextmanager
-def _ieee_fp32():
+def ieee_fp32():
+    """Matmuls inside run in IEEE fp32 (no TF32); the caller's settings
+    are restored after.  :func:`matmul` runs under it, and so does the
+    trainable front end's backward pass."""
     allow_tf32 = torch.backends.cuda.matmul.allow_tf32
     precision = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
@@ -75,7 +88,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     above the 1e-4 feature tolerance.  The flags are set for the call and
     restored after it.
     """
-    with _ieee_fp32():
+    with ieee_fp32():
         if (torch.backends.cuda.matmul.allow_tf32
                 or torch.get_float32_matmul_precision() != "highest"):
             raise RuntimeError("fp32 matmul precision could not be pinned")

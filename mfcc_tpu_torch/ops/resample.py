@@ -16,9 +16,14 @@ decimation steps per GEMM row, column r*L + p = H[:, p] shifted r*M rows.
 Each output is the same dot product plus exact zero terms, and the frame
 tensor shrinks by R*W / ((R-1)*M + W) (17.6x at 16 -> 4 kHz), so the
 unfold copy stays small: 0.24 ms against 0.98 ms unfolded for a
-64 x 10 s batch on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).  The
-streaming resampler is not ported yet (ROADMAP.md, modules to port,
-item 7).
+64 x 10 s batch on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).  Where
+L and M are both large (speed perturbation's 0.9 / 1.1 ratios, L = 8,889
+and 2,909) the dense bank would be nearly all zeros (71 M entries at 0.9,
+~21 taps a column), so :func:`resample` runs its band instead
+(:func:`_band`); the reference multiplies the dense bank.
+:class:`StreamingResampler` is the host-side chunked twin of
+:func:`resample_poly_numpy` that the online pitch tracker
+(``models/pitch_online``) feeds, NumPy float64 as in the reference.
 """
 
 from __future__ import annotations
@@ -34,6 +39,9 @@ from .. import backend
 
 # super-block the polyphase bank to at least this many GEMM columns
 _FOLD_COLUMNS = 128
+# a dense bank beyond this many entries (4 MiB of float32) is nearly all
+# zeros: resample through its band instead (see _band)
+_DENSE_BANK_ENTRIES = 1 << 20
 
 
 def reduce_ratio(sr_in: int, sr_out: int) -> tuple[int, int]:
@@ -124,17 +132,131 @@ def _bank(L: int, M: int, fold_columns: int):
     return L, M, W, torch.from_numpy(H.astype(np.float32)), lo
 
 
+@functools.lru_cache(maxsize=32)
+def _band(L: int, M: int):
+    """(W, lo, off (L, K) int64, G (L, K) float32): the nonzero band of the
+    (W, L) polyphase bank, read from the same derivation.  Output phase p
+    is the dot of K_p <= K taps G[p, :K_p] with frame rows off[p, :K_p];
+    the slots past K_p hold a zero tap on an in-range row.
+
+    At a ratio with L and M both in the thousands (speed perturbation's
+    16000 -> 17778 has L = 8,889, M = 8,000) the dense bank is W ~ M + K
+    rows by L columns, 71 M entries of which ~21 a column are taps."""
+    h = _kaiser_sinc(L, M)
+    taps = h.shape[0]
+    half = (taps - 1) // 2
+    p = np.arange(L)
+    rho = (p * M + half) % L
+    q = (p * M + half - rho) // L
+    Kp = -(-(taps - rho) // L)
+    lo = int((q - (Kp - 1)).min())
+    W = int(q.max()) - lo + 1
+    t = np.arange(int(Kp.max()))[None, :]
+    live = t < Kp[:, None]
+    off = np.where(live, q[:, None] - t - lo, (q - lo)[:, None])
+    G = np.where(live, h[np.minimum(t * L + rho[:, None], taps - 1)], 0.0)
+    return (W, lo, torch.from_numpy(off.astype(np.int64)),
+            torch.from_numpy(G.astype(np.float32)))
+
+
 def resample(x: torch.Tensor, sr_in: int, sr_out: int) -> torch.Tensor:
     """(..., n) float audio at sr_in -> (..., ceil(n*L/M)) float32 at
-    sr_out, on x's device."""
+    sr_out, on x's device.
+
+    One fp32 GEMM against the (super-blocked) dense bank, or, where that
+    bank would exceed ``_DENSE_BANK_ENTRIES``, its band: K gathers of the
+    frames, each scaled by one tap a phase and summed in tap order
+    (elementwise f32 operations only, so the CPU and the card round
+    alike)."""
     if sr_in == sr_out:
         return x
-    L, M, W, H, lo = _bank(*reduce_ratio(sr_in, sr_out), _FOLD_COLUMNS)
+    L, M = reduce_ratio(sr_in, sr_out)
+    W, lo, off, G = _band(L, M)
+    band = W * L > _DENSE_BANK_ENTRIES
+    if not band:
+        L, M, W, H, lo = _bank(L, M, _FOLD_COLUMNS)
     n = x.shape[-1]
     n_out, nb, pad_l, start0, need = _frame_geometry(n, L, M, W, lo)
     if n_out == 0 or n == 0:
         return x.new_zeros((*x.shape[:-1], 0), dtype=torch.float32)
     xp = F.pad(x.to(torch.float32), (pad_l, max(0, need - n)))[..., start0:]
     frames = xp.unfold(-1, W, M)[..., :nb, :]            # (..., nb, W)
-    y = backend.matmul(frames, H.to(x.device))           # (..., nb, L)
+    if band:
+        off, G = off.to(x.device), G.to(x.device)
+        y = frames[..., off[:, 0]] * G[:, 0]             # (..., nb, L)
+        for k in range(1, off.shape[1]):
+            y = y + frames[..., off[:, k]] * G[:, k]
+    else:
+        y = backend.matmul(frames, H.to(x.device))       # (..., nb, L)
     return y.reshape(*x.shape[:-1], nb * L)[..., :n_out]
+
+
+class StreamingResampler:
+    """Host-side chunked twin of :func:`resample_poly_numpy` (the
+    reference's ``StreamingResampler``, copied as it is).
+
+    Output block b (L samples) needs raw samples [b*M + lo, b*M + lo + W),
+    so a block is emitted once its whole input window has arrived;
+    :meth:`flush` zero-pads the tail (the batch edge convention) and emits
+    the rest, so that the concatenation of every output equals
+    ``resample_poly_numpy(whole_signal)`` to float64 round-off (the
+    product's blocking follows the emitted block count).
+    """
+
+    def __init__(self, sr_in: int, sr_out: int):
+        if sr_in == sr_out:
+            raise ValueError("no-op resampler; stream the samples directly")
+        self.L, self.M = reduce_ratio(sr_in, sr_out)
+        self.H, lo = _polyphase_matrix(self.L, self.M)
+        self.W = self.H.shape[0]
+        self.pad_l = max(0, -lo)
+        self.start0 = lo + self.pad_l       # first frame offset into xp
+        # xp = [pad_l zeros | raw]; keep only the suffix still needed
+        self._buf = np.zeros((self.pad_l,), np.float64)
+        self._buf_start = 0                 # xp index of _buf[0]
+        self._n_raw = 0                     # raw samples received
+        self._blocks_done = 0
+        self._flushed = False
+
+    def feed(self, chunk: np.ndarray) -> np.ndarray:
+        """Raw samples in -> every newly complete output sample out."""
+        if self._flushed:
+            raise RuntimeError("feed after flush")
+        self._buf = np.concatenate(
+            [self._buf, np.asarray(chunk, np.float64)])
+        self._n_raw += len(chunk)
+        xp_len = self.pad_l + self._n_raw
+        # blocks b with b*M + start0 + W <= xp_len are complete
+        nb_ready = max((xp_len - self.start0 - self.W) // self.M + 1, 0)
+        return self._emit(nb_ready)
+
+    def flush(self) -> np.ndarray:
+        """Zero-pad the tail and emit the remaining output samples, so that
+        the total output length is ceil(n_raw * L / M)."""
+        if self._flushed:
+            raise RuntimeError("flush after flush")
+        self._flushed = True
+        n_out, nb, _pad_l, start0, need = _frame_geometry(
+            self._n_raw, self.L, self.M, self.W, self.start0 - self.pad_l)
+        xp_len = self.pad_l + self._n_raw
+        self._buf = np.concatenate(
+            [self._buf, np.zeros((max(0, need + self.pad_l - xp_len),))])
+        return self._emit(nb)
+
+    def _emit(self, nb_ready: int) -> np.ndarray:
+        bs = np.arange(self._blocks_done, nb_ready)
+        if bs.size == 0:
+            return np.zeros((0,), np.float64)
+        idx = (bs * self.M + self.start0 - self._buf_start)[:, None] \
+            + np.arange(self.W)[None, :]
+        y = (self._buf[idx] @ self.H).reshape(-1)
+        self._blocks_done = nb_ready
+        if self._flushed:   # trim the last block to the exact length
+            n_out = -(-self._n_raw * self.L // self.M)
+            y = y[: n_out - (bs[0] * self.L)]
+        # drop the buffer prefix no later block can reach
+        keep_from = nb_ready * self.M + min(self.start0, 0)
+        drop = min(max(keep_from - self._buf_start, 0), self._buf.shape[0])
+        self._buf = self._buf[drop:]
+        self._buf_start += drop
+        return y

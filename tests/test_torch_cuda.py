@@ -8,7 +8,9 @@ and the float64 oracle, the main paths (MFCC, log-mel through each
 spectral route, PLP, the log spectrogram, pitch) through the kernels, the
 dither hash on the card, packed segments at an odd frame offset against
 their standalone kernel result, and the fused serving path against the
-streaming scan path.  All are marked ``cuda`` and skip without a card.
+streaming scan path; the online pitch tracker's chunk NCCF, SpecAugment's
+masks across devices and the trainable front end's forward pass.  All
+are marked ``cuda`` and skip without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
 there without the repository's conftest:
@@ -1031,3 +1033,96 @@ def test_fused_serving_against_the_scan_path_on_the_card(cuda, gen, variant):
                 assert float((got - want).abs().max()) <= 5e-5
             assert not bool(ff[b, want.shape[0]:].any())
         assert torch.equal(st_f.carry, st_s.carry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [16, 11, 1])
+def test_online_chunk_nccf_kernel_matches_plain(cuda, gen, n_valid):
+    """The online tracker's chunk NCCF at B = 1: the kernel within the
+    kernel bound of the plain chunk NCCF on the valid frames of a chunk
+    whose tail frames read the buffer's zero padding (a stationary
+    signal), one launch; the chunk step itself launches it once."""
+    from mfcc_tpu_torch.models import pitch_online
+    pcfg = PitchConfig().validate()
+    F = 16
+    span = pitch_online.chunk_span(pcfg, F)
+    have = pcfg.frame_len_w + pcfg.max_lag + (n_valid - 1) * pcfg.hop_len_w
+    t = np.arange(span) / pcfg.work_rate
+    buf = np.zeros(span, np.float32)
+    buf[:have] = (0.3 * np.sin(2 * np.pi * 180 * t[:have])
+                  + 0.02 * gen.standard_normal(have))
+    b = torch.from_numpy(buf).to(cuda)
+    e0 = pitch_online.chunk_energies(b, F, pcfg)[:n_valid]
+    ball = (pcfg.ballast * e0.mean() ** 2).reshape(1)
+    before = fused_nccf.LAUNCHES
+    kb, kp = pitch_online.chunk_nccf(b, F, pcfg, ball)
+    torch.cuda.synchronize()
+    assert fused_nccf.LAUNCHES == before + 1
+    pb, pp = pitch_online.chunk_nccf(b, F, pcfg, ball, backend="torch")
+    assert fused_nccf.LAUNCHES == before + 1
+    for g, w in ((kb, pb), (kp, pp)):
+        assert g.shape == w.shape == (F, pcfg.n_lags)
+        assert float((g - w)[:n_valid].abs().max()) <= TOL
+    state = pitch_online.init_chunk_state(pcfg, cuda)
+    state, back, nccf_p = pitch_online.online_chunk_step(state, b, n_valid,
+                                                         pcfg, F)
+    assert fused_nccf.LAUNCHES == before + 2
+    assert back.is_cuda and back.dtype == torch.int32
+    assert torch.equal(nccf_p, kp)
+
+
+@pytest.mark.cuda
+def test_online_pitch_on_the_card_matches_its_twin(cuda, gen):
+    from mfcc_tpu_torch.models import pitch_online
+    pcfg = PitchConfig().validate()
+    x = _vibrato(gen, 2 * pcfg.sample_rate, 150.0)
+    op = pitch_online.OnlinePitch(pcfg)
+    rows = [op.feed(x[i: i + 1600]) for i in range(0, x.size, 1600)]
+    got = np.concatenate(rows + [op.flush()])
+    want = pitch_online.online_pitch_np(x.astype(np.float64), pcfg)
+    assert got.shape == want.shape == (pcfg.num_frames(x.size), 3)
+    for i, tol in enumerate(PITCH_TOL):
+        assert float(np.abs(got[:, i] - want[:, i]).max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_value", [0.0, "mean"])
+def test_spec_augment_masks_equal_on_cpu_and_card(cuda, gen, mask_value):
+    """One seed draws the same stripes on both devices: the draws come from
+    a CPU generator, and the applier is elementwise (fill 0.0: equal bit
+    for bit; the mean fill's sum may round otherwise on the card)."""
+    from mfcc_tpu_torch.ops import augment
+    f = torch.from_numpy(gen.standard_normal((4, 300, 80))
+                         .astype(np.float32) + 5.0)
+    nf = torch.tensor([300, 211, 17, 0])
+    f = torch.where(torch.arange(300)[None, :, None] < nf[:, None, None], f,
+                    0.0)
+    cpu = augment.spec_augment(f, torch.Generator().manual_seed(9),
+                               num_frames=nf, mask_value=mask_value)
+    card = augment.spec_augment(f.to(cuda), torch.Generator().manual_seed(9),
+                                num_frames=nf.to(cuda),
+                                mask_value=mask_value).cpu()
+    assert torch.equal(card == f, cpu == f)
+    if mask_value == 0.0:
+        assert torch.equal(card, cpu)
+    else:
+        assert float((card - cpu).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_trainable_forward_on_the_card_matches_the_cpu(cuda, gen):
+    from mfcc_tpu_torch.models import trainable
+    cfg = FeatureConfig()
+    audio = torch.from_numpy((0.3 * gen.standard_normal((4, 32000)))
+                             .astype(np.float32))
+    params = trainable.init_params(cfg, "cpu")
+    with torch.no_grad():
+        params.mel_w.mul_(1.3)
+    want = trainable.forward(params, audio, cfg).detach()
+    got = trainable.forward(params.to(cuda), audio.to(cuda), cfg).detach()
+    assert float((got.cpu() - want).abs().max()) <= TOL
+    # and one step's gradient is finite on the card
+    opt = trainable.make_optimizer(params, 1e-3)
+    loss = trainable.train_step(params, opt, audio.to(cuda), want.to(cuda),
+                                cfg)
+    assert torch.isfinite(loss) and torch.isfinite(params.mel_w).all()

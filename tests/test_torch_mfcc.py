@@ -192,7 +192,9 @@ def test_port_imports_no_jax():
             "mfcc_tpu_torch.cli, mfcc_tpu_torch.native, "
             "mfcc_tpu_torch.utils.manifest, mfcc_tpu_torch.utils.report, "
             "mfcc_tpu_torch.utils.htk, mfcc_tpu_torch.utils.kaldi, "
-            "mfcc_tpu_torch.utils.tfrecord, mfcc_tpu_torch.parallel.dist; "
+            "mfcc_tpu_torch.utils.tfrecord, mfcc_tpu_torch.parallel.dist, "
+            "mfcc_tpu_torch.models.pitch_online, mfcc_tpu_torch.ops.augment, "
+            "mfcc_tpu_torch.models.trainable, mfcc_tpu_torch.dataset; "
             "from mfcc_tpu_torch import (mfcc_batch_packed, mfcc_long, "
             "process_chunks_batch_fused, online_cmvn_step, state_from_jax); "
             "bad = [m for m in sys.modules if m == 'jax' "

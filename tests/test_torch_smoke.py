@@ -119,7 +119,9 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                         ("RUNNER_UTTERANCES", 6),
                         ("RUNNER_SECONDS", (0.5, 1.5)), ("RUNNER_BATCH", 2),
                         ("RUNNER_PACK_SECONDS", 1.0), ("RUNNER_SUBSET", 4),
-                        ("RUNNER_TRACE", 3), ("RUNNER_CHECKS", 2)):
+                        ("RUNNER_TRACE", 3), ("RUNNER_CHECKS", 2),
+                        ("ONLINE_SECONDS", 3.0), ("ONLINE_STEP_CALLS", 3),
+                        ("FEED_CHECKS", 1)):
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "_smi", lambda: "Fake GPU, 700.00 W")
     monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
@@ -144,8 +146,34 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 15)), "3b", "3c", "3d", "4b", "4c"]:
+    for phase in [*map(str, range(1, 17)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
+    # phase 15: the online stream, one fused_nccf launch a chunk (the
+    # phase's own assertion), its twin, the kernel vs plain chunk NCCF
+    assert "[15 online pitch] 3 s stream fed in 1600-sample pieces, delay " \
+        "50, chunk_frames 16: 296 rows of 296 frames in 19 chunks; " \
+        "launched fused_nccf 19 times" in out
+    assert "[15 online pitch] vs online_pitch_np (float64, " in out
+    assert "real-time factor " in out and "ms a chunk of 16 frames" in out
+    for route in ("cuda", "torch"):
+        assert f"[15 online pitch] online_chunk_step ({route})" in out
+    assert "chunk at frame 288, n_valid 8 of 16: " in out
+    assert "[15 online pitch] delay 306 >= T against pitch_batch" in out
+    # phase 16: the feed's launches (the phase's own assertion), the
+    # masks across devices, speed perturbation, the trainable front end
+    for name in ("plain", "cmvn + augment"):
+        line = next(ln for ln in out.splitlines() if ln.startswith(
+            f"[16 training feed] feature_batches ({name}): "))
+        assert ", 6 utterances, " in line and "'fused_raw_dit': 4" in line
+    assert "plain batches equal mfcc_batch on the same rows bit for bit" \
+        in out
+    assert "[16 training feed] spec_augment, one seed: the card's output " \
+        "equals the CPU's" in out
+    for factor in ("0.9", "1.1"):
+        assert f"[16 training feed] speed_perturb {factor} on 8 x 1 s" in out
+    assert "[16 trainable] forward at init vs mfcc_batch through " \
+        "fused_raw_dit on 8 x 1 s: " in out
+    assert "[16 trainable] fit, 200 steps at lr 3e-3" in out
     # phase 14: the corpus runner's seven runs through the CLI, each with
     # its launches as expected (the counters' own assertions), read back
     for run in ("a mfcc npy", "b mfcc --pack", "c ark --cmvn",
