@@ -114,7 +114,7 @@ Phases, one status line each; any failure raises and exits non-zero:
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
    ``fused_viterbi``'s time per step of its chain beside the chain bound;
    ``pitch_batch``'s ATen ops and host enqueue time beside its own.
-9. the script's elapsed time (phases 1-8 and 10-16), one JSON line
+9. the script's elapsed time (phases 1-8 and 10-17), one JSON line
    describing the kernels of phases 1-8 (with
    each one's bound: the larger of its input and output bytes over 3.35
    TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes,
@@ -150,9 +150,11 @@ Phases, one status line each; any failure raises and exits non-zero:
    variants (``fused_raw_dit`` at preemph 0, its launches read per
    variant) against the scan path on the card (5e-5; the spectrogram 2e-4
    in the 50 dB window) and the float64 oracle; ``online_cmvn_step`` against
-   ``online_cmvn`` (1e-5, mean only; with the variance both against the
-   float64 oracle, 2e-4); one dispatch timed with its ATen ops and host
-   enqueue, and audio-seconds per second.
+   ``online_cmvn`` at window 300, on the card and on the CPU (1e-5, with and
+   without the variance; both within 2e-4 of the float64 oracle), and the
+   window sums float32 ``torch.cumsum`` gives on each device against
+   float64 ones; one dispatch timed with its ATen ops and host enqueue, and
+   audio-seconds per second.
 14. corpus runner: 1,024 WAVs of phase 10's signal, 2-16 s (uniform,
    numpy seed 0), written into a temporary directory (removed at the end):
    one process's shard of a corpus run.  ``cli.main`` in-process on the
@@ -195,6 +197,22 @@ Phases, one status line each; any failure raises and exits non-zero:
    end on the bench batch: ``forward`` at init within 2e-5 of
    ``mfcc_batch`` through the kernel, then ``fit`` for 200 steps (lr 3e-3)
    recovering a 1.5x filterbank below 0.1x its first loss, ms a step.
+17. distributed step: ``parallel/dryrun.dryrun_multichip(8)``, eight
+   processes joined by gloo, every one on this card, laid out as dp 2 x sp
+   2 x tp 2: MFCC-13 + CMVN (statistics summed over data x time) and the
+   trainable front end's step (filterbank columns split over feat) at the
+   default config on the 64 x 10 s bench batch (32 rows and 499 frames a
+   rank), the kernel route, a split-packed batch, centre mode, pitch, PLP,
+   streaming and the post trio at the reference's tiny sizes.  Every rank
+   asserts the reference's bounds against one process on the whole batch
+   (raw 3e-5, CMVN 1e-4, kernel route and packed 3e-5), the training
+   step's (loss rtol 1e-5, clipped gradients 1e-4 of their largest, the
+   parameters within Adam's first-step bound) and that no jax was
+   imported; a failed rank fails the phase.  Each rank's ``fused_raw_dit``
+   launches of the MFCC step (counters reset just before, read just after:
+   one), and rank 0's ``batch_stats_psum`` (also on host copies of its
+   shard), feat all-gather and training step (sharded, and one process on
+   the whole batch) on CUDA events.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -281,7 +299,7 @@ STREAM_DISPATCHES = 3
 STREAM_ORACLE_ROWS = 4       # sessions held to the oracle
 STREAM_FUSED_TOL = 5e-5      # fused serving path vs the scan path
 STREAM_CMVN_WINDOW = 300
-STREAM_CMVN_TOL = 1e-5       # online_cmvn_step vs online_cmvn, mean only
+STREAM_CMVN_TOL = 1e-5       # online_cmvn_step vs online_cmvn
 # phase 14: the corpus runner through its CLI on one process's shard
 RUNNER_UTTERANCES = 1024
 RUNNER_SECONDS = (2.0, 16.0)  # lengths drawn uniformly, numpy seed 0
@@ -299,6 +317,8 @@ ONLINE_STEP_CALLS = 100      # chunk steps timed alone
 # phase 16: the training feed over phase 14's corpus, the front end
 FEED_CHECKS = 2              # plain batches held to mfcc_batch (+ the last)
 TRAIN_STEPS = 200
+# phase 17: the distributed step, every rank a process on the one card
+DRYRUN_RANKS = 8             # dp 2 x sp 2 x tp 2, the reference's mesh
 
 
 def _log(msg: str) -> None:
@@ -1979,42 +1999,57 @@ def _streaming_phase(torch, dev, bench, smi) -> None:
         assert max(ref_errs) <= (SPEC_TOL if ref_tol is None else ref_tol), \
             (v, ref_errs)
     # the streaming online CMVN step against the batch op, on the fused
-    # mfcc stream as each dispatch emitted it: mean-only within
-    # STREAM_CMVN_TOL of the batch op; with the variance normalized both
-    # within POST_VAR_TOL of the float64 oracle (at a 300-frame window the
-    # float32 window sums of squares round ~3e-5 into the output, in the
-    # batch op as in the step, each in its own order)
+    # mfcc stream as each dispatch emitted it, on the card and on the CPU:
+    # within STREAM_CMVN_TOL of each other, with or without the variance,
+    # and within POST_VAR_TOL of the float64 oracle
     W, F = STREAM_CMVN_WINDOW, base.n_mfcc
     for nv in (False, True):
-        err = err_step = err_batch = 0.0
-        for b in range(STREAM_ORACLE_ROWS):
-            cst = streaming.init_online_cmvn(W, F, device=dev)
-            parts = []
-            for rows in emitted["mfcc"][b]:
-                slots = np.zeros((K * cf, F), np.float32)
-                slots[: len(rows)] = rows
-                cst, out = streaming.online_cmvn_step(
-                    cst, torch.from_numpy(slots).to(dev), len(rows), W, nv)
-                parts.append(out[: len(rows)].cpu().numpy())
-            feats = np.concatenate(emitted["mfcc"][b])
-            step = np.concatenate(parts)
-            whole = torch.from_numpy(feats)[None].to(dev)
-            batch = post.online_cmvn(whole, torch.tensor(
-                [whole.shape[1]], device=dev), W, nv)[0].cpu().numpy()
-            ref = oracle.online_cmvn(feats.astype(np.float64), W, nv)
-            err = max(err, float(np.abs(step - batch).max()))
-            err_step = max(err_step, float(np.abs(step - ref).max()))
-            err_batch = max(err_batch, float(np.abs(batch - ref).max()))
-        _log(f"[13 streaming] online_cmvn_step (window {W}, "
-             f"{'variance' if nv else 'mean only'}) over the fused mfcc "
-             f"stream of sessions 0-{STREAM_ORACLE_ROWS - 1}, one step a "
-             f"dispatch: vs the batch online_cmvn {err:.3e}; vs the float64 "
-             f"oracle {err_step:.3e} (the batch op {err_batch:.3e})")
-        if nv:
-            assert max(err_step, err_batch) <= POST_VAR_TOL, (err_step,
-                                                              err_batch)
-        else:
-            assert err <= STREAM_CMVN_TOL, err
+        errs = {}
+        for where in (dev, torch.device("cpu")):
+            err = err_step = err_batch = 0.0
+            for b in range(STREAM_ORACLE_ROWS):
+                cst = streaming.init_online_cmvn(W, F, device=where)
+                parts = []
+                for rows in emitted["mfcc"][b]:
+                    slots = np.zeros((K * cf, F), np.float32)
+                    slots[: len(rows)] = rows
+                    cst, out = streaming.online_cmvn_step(
+                        cst, torch.from_numpy(slots).to(where), len(rows),
+                        W, nv)
+                    parts.append(out[: len(rows)].cpu().numpy())
+                feats = np.concatenate(emitted["mfcc"][b])
+                step = np.concatenate(parts)
+                whole = torch.from_numpy(feats)[None].to(where)
+                batch = post.online_cmvn(whole, torch.tensor(
+                    [whole.shape[1]], device=where), W, nv)[0].cpu().numpy()
+                ref = oracle.online_cmvn(feats.astype(np.float64), W, nv)
+                err = max(err, float(np.abs(step - batch).max()))
+                err_step = max(err_step, float(np.abs(step - ref).max()))
+                err_batch = max(err_batch, float(np.abs(batch - ref).max()))
+            errs[where.type] = (err, err_step, err_batch)
+            _log(f"[13 streaming] online_cmvn_step (window {W}, "
+                 f"{'variance' if nv else 'mean only'}) over the fused mfcc "
+                 f"stream of sessions 0-{STREAM_ORACLE_ROWS - 1}, one step a "
+                 f"dispatch, on the {where.type}: vs the batch online_cmvn "
+                 f"{err:.3e}; vs the float64 oracle {err_step:.3e} (the batch "
+                 f"op {err_batch:.3e})")
+        for err, err_step, err_batch in errs.values():
+            assert err <= STREAM_CMVN_TOL, errs
+            assert max(err_step, err_batch) <= POST_VAR_TOL, errs
+    # the window sums behind them: float32 running sums (torch.cumsum of
+    # float32 on each device) against float64 ones, on session 0's shifted
+    # squares; ops/post and online_cmvn_step take float64 prefix sums
+    sq = np.concatenate(emitted["mfcc"][0])
+    sq = (sq - sq[0]) ** 2
+    w = min(W, len(sq) - 1)
+    want = np.cumsum(sq.astype(np.float64), axis=0)
+    want = want[w:] - want[:-w]
+    for where in (dev, torch.device("cpu")):
+        cs = torch.cumsum(torch.from_numpy(sq).to(where), dim=0).cpu()
+        got = (cs[w:] - cs[:-w]).double().numpy()
+        _log(f"[13 streaming] window-{w} sums of squares from float32 "
+             f"torch.cumsum on the {where.type}: {np.abs(got - want).max():.3e}"
+             f" off float64 (relative {np.abs(got / want - 1).max():.3e})")
     # one dispatch, timed: the fused path's four variants and the scan path
     st0 = {v: streaming.init_state_batch(B, c, device=dev)
            for v, (c, _, _) in variants.items()}
@@ -2618,8 +2653,68 @@ def _training_phase(torch, dev, bench, smi, cdir, corpus, cmvn_path) -> None:
     assert torch.isfinite(params.mel_w).all()
 
 
+# ---- phase 17: the distributed step ----
+
+def _distributed_phase(torch, dev, smi) -> None:
+    """Phase 17: ``parallel/dryrun`` in DRYRUN_RANKS gloo processes, every
+    one on this card: MFCC + CMVN and the training step at the default
+    config on the BATCH x SECONDS bench batch, the other models at the
+    reference's tiny sizes, each rank asserting its bounds; here each
+    rank's launches, the errors against one process, and rank 0's
+    collective and step times."""
+    from mfcc_tpu_torch.parallel import dryrun
+    t0 = time.perf_counter()
+    res = dryrun.dryrun_multichip(DRYRUN_RANKS, device=dev.type,
+                                  config="default", batch=BATCH,
+                                  seconds=SECONDS)
+    wall = time.perf_counter() - t0
+    m, (B, T, F) = res["mesh"], res["feat_shape"]
+    cols = 26 // m["tp"]
+    _log(f"[17 distributed step] dryrun_multichip({DRYRUN_RANKS}): mesh dp "
+         f"{m['dp']} x sp {m['sp']} x tp {m['tp']}, {DRYRUN_RANKS} gloo "
+         f"processes on {res['device']}, each {B // m['dp']} rows x "
+         f"{T // m['sp']} frames of the {B} x {SECONDS:g} s batch and "
+         f"{cols} of 26 filterbank columns; {wall:.1f} s in all")
+    _log(f"[17 distributed step] rank 0: {res['summary']}")
+    _log(f"[17 distributed step] sharded vs one process on the whole batch:"
+         f" raw {res['raw_err']:.3e} (bound {dryrun.RAW_TOL:g}), CMVN "
+         f"{res['cmvn_err']:.3e} (bound {dryrun.CMVN_TOL:g}), kernel route "
+         f"{res['kernel_err']:.3e}, packed {res['packed_err']:.3e} (bounds "
+         f"{dryrun.KERNEL_TOL:g}); training step loss {res['loss']:.5f}, "
+         f"{res['loss_rel_err']:.3e} relative (bound {dryrun.LOSS_RTOL:g}), "
+         f"clipped gradients {res['grad_rel_err']:.3e} of their largest "
+         f"(bound {dryrun.GRAD_TOL:g}), parameters after the step "
+         f"{res['adam_bound_ratio']:.3f} of Adam's first-step bound")
+    assert res["raw_err"] < dryrun.RAW_TOL and \
+        res["cmvn_err"] < dryrun.CMVN_TOL, res
+    assert res["loss_rel_err"] <= dryrun.LOSS_RTOL and \
+        res["grad_rel_err"] <= dryrun.GRAD_TOL and \
+        res["adam_bound_ratio"] <= 1.0, res
+    main = [r["mfcc"]["fused_raw_dit"] for r in res["launches"]]
+    steps = {k: {n: v for n, v in c.items() if v}
+             for k, c in res["launches"][0].items()}
+    _log(f"[17 distributed step] fused_raw_dit launches of the MFCC step by "
+         f"rank (counters reset just before, read just after): {main}; "
+         f"rank 0's launches by step: {steps}")
+    if dev.type == "cuda":
+        assert main == [1] * DRYRUN_RANKS, main
+    ms = res["ms"]
+    _log(f"[17 distributed step] rank 0, "
+         f"{'CUDA events' if dev.type == 'cuda' else 'host clock'}, "
+         f"{dryrun.TIMED} calls each with {DRYRUN_RANKS} processes sharing "
+         f"the card: batch_stats_psum (the shard's sums, then count + 2 x "
+         f"{F} float64 all-reduced over data x time) "
+         f"{ms['stats_all_reduce']:.4f} ms (the same on host copies of the "
+         f"shard, host clock, {ms['stats_all_reduce_host']:.4f} ms); feat "
+         f"all-gather of "
+         f"({B // m['dp']}, {T // m['sp']}, {cols}) float32 log-mel "
+         f"{ms['feat_all_gather']:.4f} ms; training step sharded "
+         f"{ms['train_step_sharded']:.4f} ms, one process on the whole batch"
+         f" (the others idle) {ms['train_step_one_process']:.4f} ms ({smi})")
+
+
 def run(torch, dev) -> list[dict]:
-    """Phases 1-8 and 10-16 on device ``dev``; -> the kernels' JSON records
+    """Phases 1-8 and 10-17 on device ``dev``; -> the kernels' JSON records
     (of phases 1-8: the later phases report their own counters)."""
     from mfcc_tpu_torch import PitchConfig
     from mfcc_tpu_torch.ops.kernels import _build
@@ -2660,6 +2755,7 @@ def run(torch, dev) -> list[dict]:
                         cmvn_path)                          # 16
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    _distributed_phase(torch, dev, smi)                     # 17
 
     src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
     launches = {**logmel_launches, **pitch_launches, **proj_launches}
@@ -2721,7 +2817,7 @@ def main() -> int:
     kernels = run(torch, torch.device("cuda", 0))
     # ---- 9. summary ----
     assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
-    _log(f"[9 summary] phases 1-8 and 10-16 passed in "
+    _log(f"[9 summary] phases 1-8 and 10-17 passed in "
          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

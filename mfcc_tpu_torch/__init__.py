@@ -16,10 +16,18 @@ Serving and training: the online pitch tracker (``models/pitch_online``,
 resampler in ``ops/resample``), SpecAugment and speed perturbation
 (``ops/augment``), the trainable front end (``models/trainable``) and
 ``dataset.feature_batches``, the corpus as device batches for a training
-loop.  Entry points run on the card unless given ``device="cpu"``.
+loop.
+
+Several processes: ``parallel/dist`` joins them over gloo (one process a
+GPU), ``parallel/mesh`` lays their ranks out as data x time x feat, and
+``parallel/dryrun`` (``python -m mfcc_tpu_torch.parallel.dryrun N``) runs
+the reference's distributed step across N of them: CMVN statistics
+summed over the mesh, the trainable front end's filterbank columns split
+over "feat".  Entry points run on the card unless given ``device="cpu"``.
 """
 
-from .config import FeatureConfig, PitchConfig, from_jax  # noqa: F401
+from .config import (FeatureConfig, PitchConfig, MFCC13,  # noqa: F401
+                     LOGMEL80, from_jax, logmel_config)
 from . import oracle  # noqa: F401
 from .models import plp, spectrogram, streaming  # noqa: F401
 from .models.mfcc import (mfcc, mfcc_batch, mfcc_batch_packed,  # noqa: F401

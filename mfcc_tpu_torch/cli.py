@@ -207,6 +207,7 @@ def main(argv=None) -> int:
         resume=not a.no_resume, trace_dir=a.trace_dir, backend=a.backend,
         out_format=a.format, resample=a.resample, device=a.device)
     rep = run(a.input, cfg, opts)
+    dist.finalize()
     print(rep.dump())
     if rep.n_utterances == 0:
         print("no utterances processed", file=sys.stderr)

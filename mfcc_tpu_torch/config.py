@@ -284,6 +284,17 @@ class PitchConfig:
         return dataclasses.replace(self, **kw)
 
 
+# Named presets of the baseline's configs (BASELINE.md), the reference's.
+MFCC13 = FeatureConfig().validate()
+LOGMEL80 = FeatureConfig(n_mels=80, n_mfcc=80, deltas=True).validate()
+
+
+def logmel_config(n_mels: int = 80, deltas: bool = True) -> FeatureConfig:
+    """Log-mel variant: mel energies + log, DCT skipped (models/logmel.py)."""
+    return FeatureConfig(n_mels=n_mels, n_mfcc=n_mels,
+                         deltas=deltas).validate()
+
+
 def from_jax(cfg_or_dict):
     """The port's FeatureConfig or PitchConfig for a JAX config of that
     name or its ``dataclasses.asdict`` (a dict is matched by its field

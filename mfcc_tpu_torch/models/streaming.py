@@ -308,7 +308,8 @@ def online_cmvn_step(state: OnlineCmvnState, feats: torch.Tensor,
     frames_seen + j) is normalized by the statistics of global frames
     [max(0, g - window + 1), g], the contract of ``ops/post.online_cmvn``
     and ``oracle.online_cmvn``; within 1e-5 of the batch op (the cumsum
-    restarts at each chunk, so the float32 summation order differs).
+    restarts at each chunk, so the summation order differs), with or
+    without the variance, at any window.
     Statistics run on data shifted by the stream's first frame.
     ``prior``: optional raw (count, sum (F,), sumsq (F,)) blended in while
     the window is young.  Returns (state', normalized (S, F)).
@@ -327,14 +328,17 @@ def online_cmvn_step(state: OnlineCmvnState, feats: torch.Tensor,
     # rows of buf are global frames [frames_seen - (W-1), frames_seen + S):
     # slot j's window is rows [j, W-1+j]; rows before the stream are zeros
     # and are left out of the count
-    zero = buf.new_zeros((1, F))
-    cs = torch.cat([zero, torch.cumsum(buf, dim=0)])
-    sums = cs[W + j] - cs[j]
+    # float64 prefix sums on every device (``ops/post``: CUDA's float32
+    # cumsum accumulates in float32, ~3e-5 off at a 300-frame window)
+    zero = buf.new_zeros((1, F), dtype=torch.float64)
+
+    def window_sums(v):
+        cs = torch.cat([zero, torch.cumsum(v, dim=0, dtype=torch.float64)])
+        return (cs[W + j] - cs[j]).to(feats.dtype)
+
+    sums = window_sums(buf)
     cnt = torch.clamp(state.frames_seen + j + 1, max=W).to(feats.dtype)
-    sq = None
-    if normalize_variance:
-        cs2 = torch.cat([zero, torch.cumsum(buf * buf, dim=0)])
-        sq = cs2[W + j] - cs2[j]
+    sq = window_sums(buf * buf) if normalize_variance else None
     cnt, sums, sq = post._blend_prior(cnt, sums, sq, W, prior, offset=off)
     out = post._normalize(feats, off, sums, sq, cnt) * valid
     new_buf = buf[n_valid + torch.arange(W - 1, device=dev)]

@@ -11,9 +11,14 @@ Window statistics are one cumulative sum and two gathers.  The sums run on
 data shifted by each utterance's first frame: (feat - mean) and the
 variance do not change under a shift, and in float32 the shift keeps
 E[x'^2] near the variance instead of variance + mean^2, whose difference
-would cancel for short windows when |mean| ~ std.  A cumsum on the card
-sums in another order than the CPU's, so hold the card to the oracle, not
-to the CPU's bits.
+would cancel for short windows when |mean| ~ std.
+
+The prefix sums are float64 on every device, and each window's difference
+is rounded once to the features' dtype.  ``torch.cumsum`` of float32
+accumulates in float64 on the CPU but in float32 on CUDA, and a window of
+300 frames taken as the difference of two float32 prefix sums over ~1,000
+frames was ~3e-5 off the float64 oracle on the card, with the variance
+normalized (within ~2e-6 on the CPU).
 """
 
 from __future__ import annotations
@@ -28,9 +33,16 @@ def _gather_t(cs: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
 
 
 def _cumsum0(v: torch.Tensor) -> torch.Tensor:
-    """(B, T, ...) -> (B, T + 1, ...): 0, then the running sums over T."""
-    return torch.cat([torch.zeros_like(v[:, :1]), torch.cumsum(v, dim=1)],
-                     dim=1)
+    """(B, T, ...) -> (B, T + 1, ...) float64: 0, then the running sums
+    over T."""
+    cs = torch.cumsum(v, dim=1, dtype=torch.float64)
+    return torch.cat([torch.zeros_like(cs[:, :1]), cs], dim=1)
+
+
+def _between(cs: torch.Tensor, lo: np.ndarray, hi: np.ndarray,
+             dtype) -> torch.Tensor:
+    """Sums over frames [lo, hi) from float64 prefix sums, in dtype."""
+    return (_gather_t(cs, hi) - _gather_t(cs, lo)).to(dtype)
 
 
 def _window_sums(v: torch.Tensor, window: int):
@@ -40,8 +52,7 @@ def _window_sums(v: torch.Tensor, window: int):
     half = window // 2
     hi = np.minimum(np.arange(T) + half + 1, T)
     lo = np.maximum(np.arange(T) - half, 0)
-    cs = _cumsum0(v)
-    return _gather_t(cs, hi) - _gather_t(cs, lo), hi - lo
+    return _between(_cumsum0(v), lo, hi, v.dtype), hi - lo
 
 
 def _valid(T: int, flens: torch.Tensor, device) -> torch.Tensor:
@@ -110,13 +121,11 @@ def online_cmvn(feat: torch.Tensor, flens: torch.Tensor, window: int = 600,
     fs = (feat - c) * mask[..., None]
     t = np.arange(T)
     lo, hi = np.maximum(t - window + 1, 0), t + 1
-    cs = _cumsum0(fs)
-    sums = _gather_t(cs, hi) - _gather_t(cs, lo)
+    sums = _between(_cumsum0(fs), lo, hi, feat.dtype)
     cnt = _counts(lo, hi, flens, feat.dtype, feat.device)
     sq = None
     if normalize_variance:
-        cs2 = _cumsum0(fs * fs)
-        sq = _gather_t(cs2, hi) - _gather_t(cs2, lo)
+        sq = _between(_cumsum0(fs * fs), lo, hi, feat.dtype)
     cnt, sums, sq = _blend_prior(cnt, sums, sq, window, prior, offset=c)
     return _normalize(feat, c, sums, sq, cnt) * mask[..., None]
 

@@ -1,5 +1,5 @@
 """Global cepstral mean and variance normalization (twin of
-``mfcc_tpu/parallel/cmvn.py``, its single-process part).
+``mfcc_tpu/parallel/cmvn.py``).
 
 Corpus statistics are the only cross-utterance coupling of the pipeline,
 and they are small: a count and two (F,) vectors.
@@ -8,6 +8,9 @@ and they are small: a count and two (F,) vectors.
   across batches.
 - :func:`batch_stats` — masked statistics of one padded batch, on the
   features' device in their dtype (float32 on the card).
+- :func:`batch_stats_psum` — the same summed over the processes of a
+  group (the reference's shard_map / psum over "data", or "data" and
+  "time"): each process's shard on its device, one all-reduce over gloo.
 - :func:`host_batch_stats` — the same in float64 on the host (the corpus
   runner's ``_host_batch_stats``): for cepstra with |mean| >> std (c0 mean
   ~16, std ~0.6) the float32 variance sumsq/n - mean^2 loses ~3 digits (the
@@ -16,8 +19,7 @@ and they are small: a count and two (F,) vectors.
 - :func:`apply` — (x - mean) / std with the variance floored.
 
 The corpus runner sums the float64 statistics across processes with
-``parallel/dist.all_reduce_sum_f64`` (over gloo); the reference's shard_map
-/ psum variant of the on-device statistics waits (ROADMAP modules item 8).
+``parallel/dist.all_reduce_sum_f64`` (over gloo).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from . import dist
 
 
 class Stats(NamedTuple):
@@ -54,13 +58,33 @@ class Stats(NamedTuple):
 def batch_stats(feat: torch.Tensor, mask: torch.Tensor) -> Stats:
     """(B, T, F) features + (B, T) mask -> masked Stats in feat's dtype.
 
-    Float32 statistics bound normalized cepstra at ~5e-4 (cancellation in
-    the variance; see :func:`host_batch_stats`): fine for serving and
-    training normalization, not for the corpus contract."""
+    The sums accumulate in float64 on the features' device and are
+    rounded once to their dtype, so a split of the batch
+    (:func:`batch_stats_psum`) moves no bit in practice: with float32 sums a
+    64 x 10 s batch split four ways moved the normalized cepstra 1.3e-4.
+    Float32 statistics still bound normalized cepstra at ~5e-4
+    (cancellation in the variance; see :func:`host_batch_stats`): fine for
+    serving and training normalization, not for the corpus contract."""
+    return Stats(*(t.to(feat.dtype) for t in _sums64(feat, mask)))
+
+
+def _sums64(feat: torch.Tensor, mask: torch.Tensor) -> list:
     m = mask.to(feat.dtype)
     fm = feat * m[..., None]
-    return Stats(count=m.sum(), sum=fm.sum(dim=(0, 1)),
-                 sumsq=(fm * feat).sum(dim=(0, 1)))
+    f64 = torch.float64
+    return [m.sum(dtype=f64), fm.sum(dim=(0, 1), dtype=f64),
+            (fm * feat).sum(dim=(0, 1), dtype=f64)]
+
+
+def batch_stats_psum(feat: torch.Tensor, mask: torch.Tensor,
+                     group=None) -> Stats:
+    """:func:`batch_stats` of this process's shard, summed over the
+    processes of ``group`` (default: every process; a mesh's
+    ``group(DATA_AXIS)``, or ``group(DATA_AXIS, TIME_AXIS)`` where frames
+    are split too) in one float64 all-reduce, then rounded once -> the same
+    Stats on every process, on feat's device in its dtype."""
+    return Stats(*(t.to(feat.dtype) for t in dist.all_reduce_sum(
+        _sums64(feat, mask), group)))
 
 
 def host_batch_stats(feat, flens) -> Stats:

@@ -84,3 +84,22 @@ def test_validate_errors_match(bad):
     with pytest.raises(ValueError) as te:
         torch_config.FeatureConfig(**bad).validate()
     assert str(te.value) == str(je.value)
+
+
+@pytest.mark.parametrize("name", ["MFCC13", "LOGMEL80"])
+def test_presets_match(name):
+    import mfcc_tpu
+    import mfcc_tpu_torch
+    j, t = getattr(mfcc_tpu, name), getattr(mfcc_tpu_torch, name)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.config_hash() == j.config_hash()
+    assert t is getattr(torch_config, name)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(n_mels=40, deltas=False),
+                                dict(n_mels=128)])
+def test_logmel_config_matches(kw):
+    j = jax_config.logmel_config(**kw)
+    t = torch_config.logmel_config(**kw)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.config_hash() == j.config_hash()

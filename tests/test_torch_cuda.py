@@ -9,7 +9,8 @@ spectral route, PLP, the log spectrogram, pitch) through the kernels, the
 dither hash on the card, packed segments at an odd frame offset against
 their standalone kernel result, and the fused serving path against the
 streaming scan path; the online pitch tracker's chunk NCCF, SpecAugment's
-masks across devices and the trainable front end's forward pass.  All
+masks across devices, the trainable front end's forward pass, the online
+CMVN pair at window 300 and the distributed dry run on two ranks.  All
 are marked ``cuda`` and skip without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
@@ -1126,3 +1127,50 @@ def test_trainable_forward_on_the_card_matches_the_cpu(cuda, gen):
     loss = trainable.train_step(params, opt, audio.to(cuda), want.to(cuda),
                                 cfg)
     assert torch.isfinite(loss) and torch.isfinite(params.mel_w).all()
+
+
+@pytest.mark.cuda
+def test_online_cmvn_window_300_on_the_card(cuda):
+    """The card's float32 cumsum accumulates in float32; the float64 prefix
+    sums keep the streaming step and the batch op within 1e-5 of each other
+    and of the float64 oracle at window 300 with the variance normalized
+    (chip_smoke.py phase 13's case; 3.1e-5 apart with float32 sums)."""
+    from mfcc_tpu_torch.ops import post
+    from mfcc_tpu_torch.parallel import dryrun
+    n, W, S = 960 * 160 + 240, 300, 320
+    x = torch.from_numpy(dryrun.bench_signal(2, n, 16000)).to(cuda)
+    feats = mfcc_model.mfcc_batch(x, torch.full((2,), n, device=cuda),
+                                  FeatureConfig())[0]
+    for f in feats:
+        st = streaming.init_online_cmvn(W, f.shape[1], device=cuda)
+        parts = []
+        for k in range(0, f.shape[0], S):
+            slots = torch.zeros((S, f.shape[1]), device=cuda)
+            rows = f[k: k + S]
+            slots[: len(rows)] = rows
+            st, out = streaming.online_cmvn_step(st, slots, len(rows), W,
+                                                 True)
+            parts.append(out[: len(rows)])
+        step = torch.cat(parts).cpu().numpy()
+        batch = post.online_cmvn(f[None], torch.tensor([f.shape[0]],
+                                                       device=cuda), W,
+                                 True)[0].cpu().numpy()
+        ref = oracle.online_cmvn(f.cpu().numpy().astype(np.float64), W, True)
+        assert np.abs(step - batch).max() <= 1e-5
+        assert max(np.abs(step - ref).max(), np.abs(batch - ref).max()) \
+            <= 1e-5
+
+
+@pytest.mark.cuda
+def test_dryrun_on_the_card(cuda):
+    """Two ranks on the card (dp 1 x sp 1 x tp 2) at the tiny config: the
+    reference's bounds hold in every rank, and the kernel route launches
+    fused_raw_dit once in each."""
+    from mfcc_tpu_torch.parallel import dryrun
+    res = dryrun.dryrun_multichip(2, device="cuda")
+    assert res["device"] == torch.cuda.get_device_name(0)
+    assert res["summary"].startswith("dryrun_multichip OK: mesh dp=1 sp=1 "
+                                     "tp=2")
+    for per_rank in res["launches"]:
+        assert per_rank["kernel route"]["fused_raw_dit"] == 1
+        assert per_rank["pitch"]["fused_nccf"] == 1

@@ -194,9 +194,11 @@ def test_port_imports_no_jax():
             "mfcc_tpu_torch.utils.htk, mfcc_tpu_torch.utils.kaldi, "
             "mfcc_tpu_torch.utils.tfrecord, mfcc_tpu_torch.parallel.dist, "
             "mfcc_tpu_torch.models.pitch_online, mfcc_tpu_torch.ops.augment, "
-            "mfcc_tpu_torch.models.trainable, mfcc_tpu_torch.dataset; "
+            "mfcc_tpu_torch.models.trainable, mfcc_tpu_torch.dataset, "
+            "mfcc_tpu_torch.parallel.mesh, mfcc_tpu_torch.parallel.dryrun; "
             "from mfcc_tpu_torch import (mfcc_batch_packed, mfcc_long, "
-            "process_chunks_batch_fused, online_cmvn_step, state_from_jax); "
+            "process_chunks_batch_fused, online_cmvn_step, state_from_jax, "
+            "MFCC13, LOGMEL80, logmel_config); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'mfcc_tpu.')) or m == 'mfcc_tpu']; "
             "assert not bad, bad")

@@ -1,12 +1,18 @@
-"""The port's corpus runner in two processes joined by ``torch.distributed``
-over gloo on the CPU (the twin of ``tests/test_multiprocess.py``).
+"""The port in two and four processes joined by ``torch.distributed`` over
+gloo on the CPU (the twin of ``tests/test_multiprocess.py``).
 
-Each process reads its strided shard of the corpus, computes on its own
-device and writes its own manifest, report and features; the float64 CMVN
-statistics are summed over gloo.  The outputs must equal one process's run
-of the same corpus, and cmvn.npz its statistics.  The padded case runs a
-worker given here as ``python -c``; the packed case runs ``python -m
-mfcc_tpu_torch`` with the environment ``torchrun`` sets.
+The corpus runner: each process reads its strided shard of the corpus,
+computes on its own device and writes its own manifest, report and
+features; the float64 CMVN statistics are summed over gloo.  The outputs
+must equal one process's run of the same corpus, and cmvn.npz its
+statistics.  The padded cases run a worker given here as ``python -c``;
+the packed case runs ``python -m mfcc_tpu_torch`` with the environment
+``torchrun`` sets.
+
+The global CMVN statistics on the device: each process extracts features
+of its shard and ``cmvn.batch_stats_psum`` sums their statistics over the
+processes; rank 0 holds them to the float64 oracle over the same
+utterances (rtol 1e-4, atol 1e-2, as the reference's worker does).
 """
 
 import json
@@ -27,16 +33,65 @@ NPROC = 2
 # one process of the padded case: joins the group with explicit arguments
 WORKER = """
 import sys
-rank, port, corpus, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+rank, port, corpus, out, n = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                              sys.argv[4], int(sys.argv[5]))
 from mfcc_tpu_torch import FeatureConfig, runner
 from mfcc_tpu_torch.parallel import dist
-dist.initialize(f"tcp://127.0.0.1:{port}", world_size=%d, rank=rank)
+dist.initialize(f"tcp://127.0.0.1:{port}", world_size=n, rank=rank)
 rep = runner.run(corpus, FeatureConfig(cmvn=True).validate(),
                  runner.RunnerOptions(out_dir=out, batch_size=2, device="cpu"))
-assert rep.n_hosts == %d and rep.n_devices == 1, rep
+assert rep.n_hosts == n and rep.n_devices == 1, rep
 assert rep.n_utterances > 0
+dist.finalize()
 print(f"rank {rank}: {rep.n_utterances} utterances", flush=True)
-""" % (NPROC, NPROC)
+"""
+
+# one process of the global CMVN case (the twin of tests/mp_cmvn_worker.py)
+CMVN_WORKER = """
+import os, sys
+import numpy as np
+import torch
+rank, port, corpus, out, n = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                              sys.argv[4], int(sys.argv[5]))
+from mfcc_tpu_torch import FeatureConfig, oracle
+from mfcc_tpu_torch.models import mfcc as mfcc_model
+from mfcc_tpu_torch.parallel import cmvn, dist
+from mfcc_tpu_torch.utils import wav
+dist.initialize(f"tcp://127.0.0.1:{port}", world_size=n, rank=rank)
+cfg = FeatureConfig()
+paths = sorted(os.path.join(corpus, f) for f in os.listdir(corpus)
+               if f.endswith(".wav"))
+PAD, B_LOCAL = 16000, 4
+
+
+def rows(shard):
+    for p in shard[:B_LOCAL]:
+        x, _ = wav.read_wav(p)
+        yield x[:PAD]
+
+
+audio = np.zeros((B_LOCAL, PAD), np.float32)
+lengths = np.zeros((B_LOCAL,), np.int32)
+for i, x in enumerate(rows(dist.host_shard(paths))):
+    audio[i, : len(x)], lengths[i] = x, len(x)
+feat, flens, mask = mfcc_model.mfcc_batch(torch.from_numpy(audio),
+                                          torch.from_numpy(lengths), cfg)
+stats = cmvn.batch_stats_psum(feat, mask)   # summed across the processes
+if rank == 0:
+    # the oracle over the same utterances every process contributed
+    feats64 = [oracle.mfcc(x.astype(np.float64), cfg) for r in range(n)
+               for x in rows(dist.host_shard(paths, r, n))]
+    c, s, sq = oracle.cmvn_stats(feats64)
+    assert float(stats.count) == c, (float(stats.count), c)
+    np.testing.assert_allclose(stats.sum.numpy(), s, rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(stats.sumsq.numpy(), sq, rtol=1e-4, atol=1e-2)
+    with open(os.path.join(out, "mp_ok"), "w") as f:
+        f.write(f"count={float(stats.count)}\\n")
+assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
+dist.finalize()
+print(f"rank {rank} done; global frame count {float(stats.count)}",
+      flush=True)
+"""
 
 
 def _free_port():
@@ -57,9 +112,46 @@ def _corpus(tmp_path, rng, n):
     return d
 
 
+def _run(cmd_args, nproc, **popen):
+    procs = [subprocess.Popen(cmd_args(r), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, **popen)
+             for r in range(nproc)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o[-3000:]
+
+
+@pytest.mark.parametrize("nproc", [2, 4])
+def test_multi_process_global_cmvn(tmp_path, rng, nproc):
+    """The statistics of every process's shard summed on the device over
+    gloo (``cmvn.batch_stats_psum``); n = 4 makes the strided shards and
+    the reduction order non-trivial."""
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    for i in range(4 * nproc):
+        x = (rng.standard_normal(12000) * 0.3).astype(np.float32)
+        wav.write_wav(corpus / f"u{i}.wav", x, 16000)
+    port = _free_port()
+    _run(lambda r: [sys.executable, "-c", CMVN_WORKER, str(r), str(port),
+                    str(corpus), str(tmp_path), str(nproc)], nproc,
+         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
+    assert (tmp_path / "mp_ok").exists()
+
+
+def test_four_process_runner_global_cmvn(tmp_path, rng):
+    """The runner at 4 processes (the reference's runner test runs 2 and
+    4): strided shards of an odd corpus, per-rank files, the float64 global
+    statistics."""
+    _runner_global_cmvn(tmp_path, rng, False, 4)
+
+
 @pytest.mark.parametrize("pack", [False, True])
 def test_two_process_runner_global_cmvn(tmp_path, rng, pack):
-    n = 2 * NPROC + 1            # odd: uneven shards
+    _runner_global_cmvn(tmp_path, rng, pack, NPROC)
+
+
+def _runner_global_cmvn(tmp_path, rng, pack, nproc):
+    n = 2 * nproc + 1            # odd: uneven shards
     corpus = _corpus(tmp_path, rng, n)
     ref = tmp_path / "ref"
     runner.run(str(corpus), FeatureConfig(cmvn=True).validate(),
@@ -74,18 +166,17 @@ def test_two_process_runner_global_cmvn(tmp_path, rng, pack):
              str(out), "--cmvn", "--pack", "--pack-seconds", "2",
              "--batch-size", "2", "--device", "cpu"],
             cwd=REPO, env=dict(env, RANK=str(r), LOCAL_RANK=str(r),
-                               WORLD_SIZE=str(NPROC), MASTER_ADDR="127.0.0.1",
+                               WORLD_SIZE=str(nproc), MASTER_ADDR="127.0.0.1",
                                MASTER_PORT=str(port)),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(NPROC)]
+            for r in range(nproc)]
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+        for p, o in zip(procs, outs):
+            assert p.returncode == 0, o[-3000:]
     else:
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", WORKER, str(r), str(port), str(corpus),
-             str(out)], cwd=REPO, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(NPROC)]
-    outs = [p.communicate(timeout=300)[0] for p in procs]
-    for p, o in zip(procs, outs):
-        assert p.returncode == 0, o[-3000:]
+        _run(lambda r: [sys.executable, "-c", WORKER, str(r), str(port),
+                        str(corpus), str(out), str(nproc)], nproc, cwd=REPO,
+             env=env)
 
     # every utterance once, equal to the one-process run (the global
     # statistics are the same float64 sums in another order)
@@ -99,9 +190,9 @@ def test_two_process_runner_global_cmvn(tmp_path, rng, pack):
     np.testing.assert_allclose(got["sumsq"], want["sumsq"], rtol=1e-9)
     # per-rank manifests over the strided shards, per-rank reports
     paths = runner.collect_wavs(str(corpus))
-    for r in range(NPROC):
+    for r in range(nproc):
         man = json.loads((out / f"manifest.{r}.json").read_text())
-        assert man["done"] == sorted(paths[r::NPROC]) and man["cmvn_applied"]
+        assert man["done"] == sorted(paths[r::nproc]) and man["cmvn_applied"]
         rep = json.loads((out / f"run_report.{r}.json").read_text())
-        assert rep["n_hosts"] == NPROC
-        assert rep["n_utterances"] == len(paths[r::NPROC])
+        assert rep["n_hosts"] == nproc
+        assert rep["n_utterances"] == len(paths[r::nproc])

@@ -310,6 +310,46 @@ def test_online_cmvn_step_matches_batch(rng, S, valids, nv):
     np.testing.assert_allclose(got, ref, rtol=0, atol=MEAN_TOL)
 
 
+def _cumsum_in_own_dtype(v, dim, dtype=None):
+    """torch.cumsum as CUDA runs it: the running sum kept in the result's
+    dtype (the CPU's cumsum of float32 accumulates in float64)."""
+    a = torch.movedim(v.to(dtype or v.dtype), dim, 0)
+    out, acc = torch.empty_like(a), torch.zeros_like(a[0])
+    for i in range(a.shape[0]):
+        acc = acc + a[i]
+        out[i] = acc
+    return torch.movedim(out, 0, dim)
+
+
+def test_online_cmvn_window_300_under_cuda_cumsum(monkeypatch):
+    """The card's case (chip_smoke.py phase 13): MFCC-13 of the bench
+    signal, 960 frames, window 300, variance normalized, one step per 320
+    slots.  With float32 running sums the step and the batch op were
+    4.2e-5 apart; the float64 prefix sums keep both within 1e-5 of each
+    other and of the float64 oracle, whatever the cumsum's accumulator."""
+    n = 960 * 160 + 240
+    t = np.arange(n) / 16000
+    base = (0.3 * np.sin(2 * np.pi * 180 * t)
+            + 0.1 * np.sin(2 * np.pi * 1200 * t)).astype(np.float32)
+    audio = np.tile(base, (2, 1)) + 0.02 * np.random.default_rng(
+        0).standard_normal((2, n)).astype(np.float32)
+    feats = mfcc_model.mfcc_batch(torch.from_numpy(audio),
+                                  torch.tensor([n, n]),
+                                  from_jax(JaxConfig()))[0].numpy()
+    monkeypatch.setattr(torch, "cumsum", _cumsum_in_own_dtype)
+    W = 300
+    for feat in feats:
+        want = post.online_cmvn(torch.from_numpy(feat)[None],
+                                torch.tensor([len(feat)]), W,
+                                normalize_variance=True)[0].numpy()
+        got, _ = _stream_cmvn(feat, 320, W, True)
+        ref = oracle.online_cmvn(feat.astype(np.float64), W,
+                                 normalize_variance=True)
+        np.testing.assert_allclose(got, want, rtol=0, atol=STEP_TOL)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=STEP_TOL)
+        np.testing.assert_allclose(want, ref, rtol=0, atol=STEP_TOL)
+
+
 def test_online_cmvn_step_matches_jax_step_with_prior(rng):
     T, F, window, S = 30, 6, 12, 7
     feat = (rng.standard_normal((T, F)) * 2 + 3).astype(np.float32)

@@ -121,7 +121,7 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                         ("RUNNER_PACK_SECONDS", 1.0), ("RUNNER_SUBSET", 4),
                         ("RUNNER_TRACE", 3), ("RUNNER_CHECKS", 2),
                         ("ONLINE_SECONDS", 3.0), ("ONLINE_STEP_CALLS", 3),
-                        ("FEED_CHECKS", 1)):
+                        ("FEED_CHECKS", 1), ("DRYRUN_RANKS", 4)):
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "_smi", lambda: "Fake GPU, 700.00 W")
     monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
@@ -146,7 +146,7 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 17)), "3b", "3c", "3d", "4b", "4c"]:
+    for phase in [*map(str, range(1, 18)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
     # phase 15: the online stream, one fused_nccf launch a chunk (the
     # phase's own assertion), its twin, the kernel vs plain chunk NCCF
@@ -159,6 +159,25 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         assert f"[15 online pitch] online_chunk_step ({route})" in out
     assert "chunk at frame 288, n_valid 8 of 16: " in out
     assert "[15 online pitch] delay 306 >= T against pitch_batch" in out
+    # phase 17: the dry run in 4 CPU processes at the default config on
+    # the 8 x 1 s batch (the plain path: no launch), its errors and times
+    assert "[17 distributed step] dryrun_multichip(4): mesh dp 1 x sp 2 x " \
+        "tp 2, 4 gloo processes on cpu, each 8 rows x 49 frames of the 8 x " \
+        "1 s batch and 13 of 26 filterbank columns" in out
+    assert "[17 distributed step] rank 0: dryrun_multichip OK: mesh dp=1 " \
+        "sp=2 tp=2, feat (8, 98, 13)" in out
+    assert "of Adam's first-step bound" in out
+    assert "launches of the MFCC step by rank (counters reset just before, " \
+        "read just after): [0, 0, 0, 0]" in out
+    assert "training step sharded " in out and "Fake GPU, 700.00 W" in out
+    # the online CMVN pair on both devices, and the cumsum window sums
+    for nv in ("mean only", "variance"):
+        assert out.count(f"online_cmvn_step (window 300, {nv}) over the "
+                         f"fused mfcc stream of sessions 0-1, one step a "
+                         f"dispatch, on the cpu: vs the batch online_cmvn "
+                         ) == 2
+    assert "[13 streaming] window-45 sums of squares from float32 " \
+        "torch.cumsum on the cpu: " in out
     # phase 16: the feed's launches (the phase's own assertion), the
     # masks across devices, speed perturbation, the trainable front end
     for name in ("plain", "cmvn + augment"):
