@@ -114,7 +114,7 @@ Phases, one status line each; any failure raises and exits non-zero:
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
    ``fused_viterbi``'s time per step of its chain beside the chain bound;
    ``pitch_batch``'s ATen ops and host enqueue time beside its own.
-9. the script's elapsed time (phases 1-8 and 10-17), one JSON line
+9. the script's elapsed time (phases 1-8 and 10-19), one JSON line
    describing the kernels of phases 1-8 (with
    each one's bound: the larger of its input and output bytes over 3.35
    TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes,
@@ -213,6 +213,41 @@ Phases, one status line each; any failure raises and exits non-zero:
    one), and rank 0's ``batch_stats_psum`` (also on host copies of its
    shard), feat all-gather and training step (sharded, and one process on
    the whole batch) on CUDA events.
+
+18. precision modes: ``mfcc_batch``, ``log_mel_batch`` (80 mels) and
+   ``plp_batch`` on the 64 x 10 s int16 ragged batch under
+   ``matmul_precision`` "highest", "high", "default" and
+   ``compute_dtype="bfloat16"``, each on its route ("auto") and on the
+   plain route ("torch"), every spectral counter reset just before and
+   read just after: "high" launches no spectral kernel (the reference's
+   route), "default" and bf16 launch the "highest" kernel and equal its
+   output bit for bit (the kernels have no product a mode changes; PLP's
+   plain LPC tail after the kernel follows the mode, so its "default"
+   is held to 5.33e-2); "high" (IEEE fp32 on the card) equal to the
+   "highest" plain twin bit for bit; each within the reference's error
+   for its mode against the float64 oracle (1e-4, 2.8e-4, 5.33e-2; on the
+   plain route plus the f32 plain chain's own error at "highest").  The
+   plain twins of "default" and bf16 against the oracle: MFCC and PLP
+   whole, log-mel inside each frame's 50 dB window (outside it the
+   valleys amplify any product's error), "default" within 5.33e-2, bf16
+   within the reference's gates (mean 0.05, max 0.3; log-mel its mean:
+   the reference's own bf16 chain, which the CPU computes, is 0.40 off
+   at the window's edge), and bf16 against that chain on the CPU, the
+   reference's form, on the same rows (mean 1e-5, max 0.3).  The
+   caller's TF32 flags unchanged after every call, and a caller's TF32
+   setting without effect on "highest"; CUDA-event ms of each.  Then
+   ``backend.matmul``'s forms alone on the plain path's DFT product of
+   the bench batch, (63,872, 400) x (400, 514): IEEE fp32 ("highest",
+   "high"), one TF32 product ("default") and bf16, each against the
+   float64 product (the first two within their bounds) and timed, beside
+   the 3xTF32 split the port does not take for "high" (why:
+   ``backend.py``); one ``train_step`` at "default".
+19. pitch post stages (``ops/pitch.post_stages``) on the card and on the
+   CPU over the card's NCCF of the bench batch and of one 120 s row, with
+   the port's float64 prefix sums and with float32 ``torch.cumsum``:
+   their gap, the CPU's margin to the per-column bounds, and each against
+   the float64 oracle (the float64 form within pov 1e-4, norm 3e-4, delta
+   1e-4).
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -319,6 +354,26 @@ FEED_CHECKS = 2              # plain batches held to mfcc_batch (+ the last)
 TRAIN_STEPS = 200
 # phase 17: the distributed step, every rank a process on the one card
 DRYRUN_RANKS = 8             # dp 2 x sp 2 x tp 2, the reference's mesh
+# phase 18: the precision modes on the bench batch
+PRECISION_CALLS = 10         # timed calls a (family, setting, route)
+PRECISION_ROWS = 3           # rows held to the float64 oracle
+PRECISION_SETTINGS = {"highest": {}, "high": dict(matmul_precision="high"),
+                      "default": dict(matmul_precision="default"),
+                      "bf16": dict(compute_dtype="bfloat16")}
+# the reference's error against the oracle for each mode (MFCC-13 on its
+# bench batch, TPU: mfcc_tpu/config.py:117-132, bench/ab_precision.json),
+# the bound each mode is held to; on the plain route the f32 plain
+# chain's own error at "highest" (this run) comes on top
+MODE_ERR = {"highest": ORACLE_TOL, "high": 2.8e-4, "default": 5.33e-2}
+BF16_GATES = (0.05, 0.3)     # mean, max vs the oracle (tests/test_numerics.py)
+# bf16 plain twin on the card vs the CPU's (the reference's form): mean
+# (tests/test_torch_precision.py's port-vs-JAX mean), max (the gate's)
+BF16_FORM_GATES = (1e-5, 0.3)
+# |form - float64 product| <= (unit + K 2^-23) |A| @ |B|; "high" is the
+# "highest" form (tests/test_torch_precision.py emulates "default")
+FORM_UNIT = {"highest": 0.0, "default": 2.0 ** -9}
+# phase 19: the pitch post stages on the card and the CPU, one NCCF
+PITCH_LONG_SECONDS = 120.0
 
 
 def _log(msg: str) -> None:
@@ -2713,8 +2768,294 @@ def _distributed_phase(torch, dev, smi) -> None:
          f" (the others idle) {ms['train_step_one_process']:.4f} ms ({smi})")
 
 
+# ---- phases 18-19: the precision modes; the pitch post stages ----
+
+def _precision_families(torch, dev, smi) -> None:
+    """Phase 18, the families: each setting of ``PRECISION_SETTINGS``
+    through each family's batch entry on the bench batch, on its route
+    ("auto") and on the plain route ("torch")."""
+    from mfcc_tpu_torch import FeatureConfig, backend, oracle
+    from mfcc_tpu_torch.models import logmel as logmel_model
+    from mfcc_tpu_torch.models import mfcc as mfcc_model, plp as plp_model
+    modules = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
+    bench = _bench_audio(BATCH, SECONDS, 16000)
+    B, N = bench.shape
+    lens = np.maximum(N - np.arange(B) * (N // (B + 6)), 0).astype(np.int32)
+    lens[-2:] = (400, 399)                   # 1 frame, 0 frames
+    audio = bench.copy()
+    for i, n in enumerate(lens):
+        audio[i, n:] = 0.0
+    x16 = _int16(audio)
+    xf = x16.astype(np.float64) / 32768.0
+    xd, ld = torch.from_numpy(x16).to(dev), torch.from_numpy(lens).to(dev)
+    rows = sorted({0, B // 2, max(B - 2, 0)})[:PRECISION_ROWS]
+    families = {
+        "mfcc_batch": (mfcc_model.mfcc_batch, FeatureConfig(), oracle.mfcc),
+        "log_mel_batch": (logmel_model.log_mel_batch,
+                          FeatureConfig(n_mels=80, n_mfcc=80), oracle.log_mel),
+        "plp_batch": (plp_model.plp_batch, FeatureConfig(), oracle.plp)}
+    xc = torch.from_numpy(x16[rows])
+    lc = torch.from_numpy(lens[rows])
+    for fam, (entry, base, ref_fn) in families.items():
+        base = base.validate()
+        refs = {i: ref_fn(xf[i, : lens[i]], base) for i in rows}
+        out = {}
+        for name, kw in PRECISION_SETTINGS.items():
+            cfg = base.replace(**kw)
+            for route in ("auto", "torch"):
+                flags = backend.matmul_flags()
+                _reset_counts(modules.values())
+                feat = entry(xd, ld, cfg, route)[0]
+                torch.cuda.synchronize()
+                ran = {k: m.LAUNCHES for k, m in modules.items() if m.LAUNCHES}
+                assert backend.matmul_flags() == flags, (fam, name, route)
+                f = feat.cpu().numpy()
+                assert np.isfinite(f).all(), (fam, name, route)
+                err = np.concatenate([
+                    np.abs(f[i, : refs[i].shape[0]] - refs[i]).ravel()
+                    for i in rows])
+                ms = statistics.median(_time_ms(
+                    torch, lambda: entry(xd, ld, cfg, route), warmup=1,
+                    calls=PRECISION_CALLS))
+                out[name, route] = (feat, ran, float(err.max()),
+                                    float(err.mean()), ms)
+                _log(f"[18 precision modes] {fam} {name} {route}: launched "
+                     f"{ran or 'no spectral kernel (plain chain)'}; vs the "
+                     f"float64 oracle on rows {rows} max {err.max():.3e} "
+                     f"mean {err.mean():.3e}; {ms:.4f} ms a {B} x "
+                     f"{N / 16000:g} s batch ({smi})")
+        kernel = out["highest", "auto"][1]
+        floor = out["highest", "torch"][2]
+        assert len(kernel) == 1 and sum(kernel.values()) == 1, kernel
+        assert out["high", "auto"][1] == {}, "'high' launched a kernel"
+        # "high" is IEEE fp32 on the card: the "highest" plain chain
+        assert torch.equal(out["high", "auto"][0], out["high", "torch"][0])
+        assert torch.equal(out["high", "auto"][0], out["highest", "torch"][0])
+        for name in ("default", "bf16"):
+            assert out[name, "auto"][1] == kernel, (fam, name)
+        # the kernels read neither field; PLP's tail after the kernel is
+        # plain PyTorch, as in the reference, and its products follow the
+        # mode
+        assert torch.equal(out["bf16", "auto"][0], out["highest", "auto"][0])
+        if fam == "plp_batch":
+            assert out["default", "auto"][2] <= MODE_ERR["default"]
+        else:
+            assert torch.equal(out["default", "auto"][0],
+                               out["highest", "auto"][0]), fam
+        assert all(out[k][1] == {} for k in out if k[1] == "torch")
+        assert out["highest", "auto"][2] <= MODE_ERR["highest"], fam
+        assert out["high", "torch"][2] <= MODE_ERR["high"] + floor, (
+            fam, out["high", "torch"][2], floor)
+        _log(f"[18 precision modes] {fam}: 'high' on the plain route, equal "
+             f"to 'highest' there, within {MODE_ERR['high']:g} + the plain "
+             f"chain's own {floor:.3e} at 'highest'; 'default' and bf16 on "
+             f"{next(iter(kernel))}, bf16 equal to 'highest' bit for bit, "
+             + ("'default' within its 5.33e-2 (the LPC tail's products "
+                "follow the mode)" if fam == "plp_batch"
+                else "'default' too"))
+        # the plain twins of the TF32 and bf16 forms: log-mel inside each
+        # frame's 50 dB window, the cepstral families whole
+        spectral = fam == "log_mel_batch"
+
+        def twin_err(f, want):
+            d = []
+            for i in rows:
+                e = np.abs(f[i, : refs[i].shape[0]] - want[i])
+                if spectral:
+                    e = e[refs[i] > refs[i].max(axis=-1, keepdims=True)
+                          - math.log(10.0 ** (SPEC_WINDOW_DB / 10.0))]
+                d.append(e.ravel())
+            d = np.concatenate(d)
+            return float(d.max()), float(d.mean())
+
+        tf_max = twin_err(out["default", "torch"][0].cpu().numpy(), refs)[0]
+        bf_max, bf_mean = twin_err(out["bf16", "torch"][0].cpu().numpy(), refs)
+        bf_cfg = base.replace(**PRECISION_SETTINGS["bf16"])
+        cpu = entry(xc, lc, bf_cfg, "torch")[0].numpy()
+        form_max, form_mean = twin_err(
+            out["bf16", "torch"][0].cpu().numpy(),
+            {i: cpu[k, : refs[i].shape[0]] for k, i in enumerate(rows)})
+        where = (f"inside each frame's {SPEC_WINDOW_DB:g} dB window"
+                 if spectral else "whole")
+        _log(f"[18 precision modes] {fam} plain twins {where}: 'default' "
+             f"max {tf_max:.3e} (bound {MODE_ERR['default']:g} + "
+             f"{floor:.3e}); bf16 mean {bf_mean:.3e} (gate "
+             f"{BF16_GATES[0]:g}) max {bf_max:.3e} (gate {BF16_GATES[1]:g}"
+             + (", not held: the reference's chain on the CPU is as far off"
+                if spectral else "") +
+             f"); bf16 vs the same chain on the CPU (the reference's form) "
+             f"mean {form_mean:.3e} (bound {BF16_FORM_GATES[0]:g}) max "
+             f"{form_max:.3e} (bound {BF16_FORM_GATES[1]:g})")
+        assert tf_max <= MODE_ERR["default"] + floor, (fam, tf_max)
+        assert bf_mean < BF16_GATES[0], (fam, bf_mean)
+        assert spectral or bf_max < BF16_GATES[1], (fam, bf_max)
+        assert (form_mean < BF16_FORM_GATES[0]
+                and form_max < BF16_FORM_GATES[1]), (fam, form_mean, form_max)
+        if fam == "mfcc_batch":
+            # a caller that allows TF32 gets "highest" in IEEE fp32 and
+            # its own flags back
+            saved = torch.get_float32_matmul_precision()
+            torch.set_float32_matmul_precision("high")
+            try:
+                feat = entry(xd, ld, base, "torch")[0]
+                assert backend.matmul_flags()[:2] == ("high", True)
+            finally:
+                torch.set_float32_matmul_precision(saved)
+            assert torch.equal(feat, out["highest", "torch"][0])
+            _log("[18 precision modes] a caller's TF32 flags left as they "
+                 "were, its 'highest' features unchanged by them")
+
+
+def _three_tf32(torch, backend, a, b):
+    """a @ b as three TF32 products of a split (hi = the operand with its
+    13 low mantissa bits cleared, lo the rest): hi.lo + lo.hi + hi.hi.
+    Not the port's form for "high"; timed beside it as the record of why
+    (``backend.py``)."""
+    def split(t):
+        hi = (t.view(torch.int32) & -(1 << 13)).view(torch.float32)
+        return hi, t - hi
+    (ah, al), (bh, bl) = split(a), split(b)
+    with backend.matmul_form("default"):
+        return ah @ bl + al @ bh + ah @ bh
+
+
+def _precision_forms(torch, dev, smi) -> None:
+    """Phase 18, the forms alone: ``backend.matmul`` on the plain path's
+    DFT product of the bench batch, against float64; one training step at
+    "default"."""
+    from mfcc_tpu_torch import FeatureConfig, backend
+    from mfcc_tpu_torch.models import trainable
+    from mfcc_tpu_torch.ops import framing, spectrum
+    cfg = FeatureConfig().validate()
+    bench = _bench_audio(BATCH, SECONDS, cfg.sample_rate)
+    x = torch.from_numpy(bench).to(dev)
+    a = framing.frames(framing.preemphasize(x, cfg), cfg).reshape(
+        -1, cfg.frame_len).contiguous()
+    cos_m, sin_m = spectrum.dft_matrices(cfg)
+    b = torch.from_numpy(np.concatenate([cos_m, sin_m], axis=1)
+                         .astype(np.float32)).to(dev)
+    exact = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    live = scale > 0     # bin 0's sine column is all zeros
+    K = a.shape[1]
+    ab, bb = a.bfloat16(), b.bfloat16()
+    forms = {m: functools.partial(backend.matmul, a, b, m)
+             for m in backend.PRECISIONS}
+    forms["bf16"] = functools.partial(backend.matmul, ab, bb)
+    forms["3xTF32"] = functools.partial(_three_tf32, torch, backend, a, b)
+    rel, ms = {}, {}
+    for name, fn in forms.items():
+        flags = backend.matmul_flags()
+        got = fn()
+        err = (got.double() - exact).abs()
+        assert backend.matmul_flags() == flags, name
+        rel[name] = float((err[live] / scale[live]).max())
+        ms[name] = statistics.median(_time_ms(torch, fn, calls=TIMING_CALLS))
+        within = ""
+        if name in FORM_UNIT:
+            bound = FORM_UNIT[name] + K * 2.0 ** -23
+            assert bool((err <= bound * scale).all()), (name, rel[name])
+            within = f" (bound {bound:.3e})"
+        elif name == "high":
+            assert torch.equal(got, forms["highest"]()), "'high' form"
+            within = " (the 'highest' form, equal bit for bit)"
+        _log(f"[18 precision forms] {name}: ({a.shape[0]}, {K}) x ({K}, "
+             f"{b.shape[1]}) vs float64 max abs {float(err.max()):.3e}, "
+             f"max relative to |A||B| {rel[name]:.3e}{within}; "
+             f"{ms[name]:.4f} ms ({smi})")
+    _log(f"[18 precision forms] 3xTF32, the split 'high' does not take: "
+         f"{ms['3xTF32'] / ms['highest']:.2f}x IEEE fp32's time, "
+         f"{rel['3xTF32'] / rel['highest']:.2f}x its error, "
+         f"{rel['default'] / rel['3xTF32']:.1f}x closer to float64 than "
+         f"one TF32 product")
+    # one training step at "default": spectrum and DCT on TF32, the mel
+    # product IEEE fp32
+    tcfg = cfg.replace(matmul_precision="default")
+    losses = {}
+    for c in (cfg, tcfg):
+        params = trainable.init_params(c, dev)
+        tgt = trainable.init_params(c, dev)
+        with torch.no_grad():
+            tgt.mel_w.mul_(1.5)
+        target = trainable.forward(tgt, x, cfg).detach()
+        opt = trainable.make_optimizer(params, 1e-3)
+        flags = backend.matmul_flags()
+        losses[c.matmul_precision] = float(trainable.train_step(
+            params, opt, x, target, c))
+        assert backend.matmul_flags() == flags
+    assert all(math.isfinite(v) for v in losses.values()), losses
+    step_ms = statistics.median(_time_ms(
+        torch, lambda: trainable.train_step(params, opt, x, target, tcfg),
+        calls=TIMING_CALLS // 3))
+    rel_loss = abs(losses["default"] / losses["highest"] - 1.0)
+    _log(f"[18 precision forms] train_step at 'default' on {tuple(x.shape)}: "
+         f"loss {losses['default']:.6f} against "
+         f"{losses['highest']:.6f} at 'highest' ({rel_loss:.3e} relative), "
+         f"{step_ms:.4f} ms a step, the caller's flags unchanged ({smi})")
+
+
+def _pitch_post_phase(torch, dev, smi) -> None:
+    """Phase 19 (ROADMAP port faults, to check 1): the pitch post stages
+    (``ops/pitch.post_stages``: Viterbi, lag, log f0, POV, the POV^2-weighted
+    sliding mean, deltas) on the card and on the CPU over the same NCCF
+    (the card's ``fused_nccf``), with the float64 prefix sums the port
+    takes and with float32 ``torch.cumsum`` (the form before), each
+    against the float64 oracle: the bench batch and one long row."""
+    import torch.nn.functional as F
+    from mfcc_tpu_torch import PitchConfig, oracle
+    from mfcc_tpu_torch.ops import pitch as pitch_op
+    pcfg = PitchConfig().validate()
+    bench = _bench_audio(BATCH, SECONDS, pcfg.sample_rate)
+    B, N = bench.shape
+    lens = np.maximum(N - np.arange(B) * (N // (B + 6)), 0).astype(np.int32)
+    lens = np.maximum(lens, N // 4)
+    audio = bench.copy()
+    for i, n in enumerate(lens):
+        audio[i, n:] = 0.0
+    long = _bench_audio(1, PITCH_LONG_SECONDS, pcfg.sample_rate)
+    prefix = {"float64 prefix sums": pitch_op._prefix64,
+              "float32 torch.cumsum": lambda v: F.pad(
+                  torch.cumsum(v, dim=-1), (1, 0))}
+    for what, sig, ln in ((f"{B} x {SECONDS:g} s ragged", audio, lens),
+                          (f"1 x {PITCH_LONG_SECONDS:g} s", long,
+                           np.array([long.shape[1]], np.int32))):
+        nb, npl, flens, mask, _ = pitch_op._track(
+            torch.from_numpy(sig).to(dev), torch.from_numpy(ln).to(dev), pcfg,
+            nccf_chunk=None, backend="auto", precision="highest")
+        rows = sorted({0, len(ln) - 1})
+        refs = {i: oracle.pitch(sig[i, : ln[i]].astype(np.float64), pcfg)
+                for i in rows}
+        m = mask.cpu().numpy()
+        for form, fn in prefix.items():
+            saved = pitch_op._prefix64
+            pitch_op._prefix64 = fn
+            try:
+                card = pitch_op.post_stages(nb, npl, flens, mask, pcfg)
+                cpu = pitch_op.post_stages(nb.cpu(), npl.cpu(), flens.cpu(),
+                                           mask.cpu(), pcfg).numpy()
+                card = card.cpu().numpy()
+            finally:
+                pitch_op._prefix64 = saved
+            gap = [float(np.abs(card - cpu)[..., c][m].max())
+                   for c in range(3)]
+            errs = {}
+            for side, f in (("card", card), ("cpu", cpu)):
+                errs[side] = [max(float(np.abs(
+                    f[i, : refs[i].shape[0], c] - refs[i][:, c]).max())
+                    for i in rows) for c in range(3)]
+            margin = [t - e for t, e in zip(PITCH_TOL, errs["cpu"])]
+            _log(f"[19 pitch post stages] {what}, {form}: card vs CPU on "
+                 f"the same NCCF (pov/norm/delta) {_fmt(gap)}, the CPU's "
+                 f"margin to the bounds {_fmt(margin)}; vs the float64 "
+                 f"oracle on rows {rows}: card {_fmt(errs['card'])}, CPU "
+                 f"{_fmt(errs['cpu'])} (bounds {_fmt(PITCH_TOL)}) ({smi})")
+            if fn is saved:
+                assert all(e <= t for e, t in zip(errs["card"], PITCH_TOL)), (
+                    what, errs["card"])
+
+
 def run(torch, dev) -> list[dict]:
-    """Phases 1-8 and 10-17 on device ``dev``; -> the kernels' JSON records
+    """Phases 1-8 and 10-19 on device ``dev``; -> the kernels' JSON records
     (of phases 1-8: the later phases report their own counters)."""
     from mfcc_tpu_torch import PitchConfig
     from mfcc_tpu_torch.ops.kernels import _build
@@ -2756,6 +3097,9 @@ def run(torch, dev) -> list[dict]:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     _distributed_phase(torch, dev, smi)                     # 17
+    _precision_families(torch, dev, smi)                    # 18
+    _precision_forms(torch, dev, smi)                       # 18
+    _pitch_post_phase(torch, dev, smi)                      # 19
 
     src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
     launches = {**logmel_launches, **pitch_launches, **proj_launches}
@@ -2817,7 +3161,7 @@ def main() -> int:
     kernels = run(torch, torch.device("cuda", 0))
     # ---- 9. summary ----
     assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
-    _log(f"[9 summary] phases 1-8 and 10-17 passed in "
+    _log(f"[9 summary] phases 1-8 and 10-19 passed in "
          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,11 +13,13 @@ picked by the reference's route (``ops/kernels/routes.py``): cepstra and
 log-mel bounded to <= 50 dB go to ``fused_raw_dit``, other log-mel to
 ``fused_raw``, and what neither raw kernel takes is pre-emphasized on the
 host and goes to ``fused_dit`` or ``fused_mfcc``.  Deltas run after it.
-On a CPU tensor the chain is the plain direct form.  The reference's
-> 4096-frame blocked route is not ported: it works around a TPU relayout
-fault, and a long row goes straight through the kernel.  Dither is
-position-indexed noise added to the audio once, before the spectral chain
-(``ops/dither``).
+On a CPU tensor the chain is the plain direct form, and so it is on the
+card under ``matmul_precision="high"`` (``backend.resolve``: the
+reference's kernels cannot take that mode, so it runs XLA).  The
+reference's > 4096-frame blocked route is not ported: it works around a
+TPU relayout fault, and a long row goes straight through the kernel.
+Dither is position-indexed noise added to the audio once, before the
+spectral chain (``ops/dither``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..ops.kernels import (fused_dit, fused_mfcc, fused_raw, fused_raw_dit,
 def _spectral_features(xb: torch.Tensor, cfg: FeatureConfig,
                        apply_dct: bool, backend: str) -> torch.Tensor:
     """(B, N) valid-mode float32 audio -> (B, T, n_mfcc or n_mels)."""
-    if backend_lib.resolve(backend, xb) != "cuda":
+    if backend_lib.resolve(backend, xb, cfg) != "cuda":
         return fused_raw_dit.plain_features(xb, cfg, apply_dct)
     route = routes.spectral_route(cfg, apply_dct)
     if route == "fused_raw_dit":

@@ -83,25 +83,31 @@ def chunk_span(pcfg: PitchConfig, n_frames: int) -> int:
 
 def chunk_energies(buf: torch.Tensor, n_frames: int,
                    pcfg: PitchConfig) -> torch.Tensor:
-    """(span,) chunk buffer -> (n_frames,) window energies e0: the cumsum
-    of the squared extended frame at w - 1, as the reference's
-    ``_chunk_nccf`` takes it."""
+    """(span,) chunk buffer -> (n_frames,) window energies e0: the prefix
+    sum of the squared extended frame at w - 1, as the reference's
+    ``_chunk_nccf`` takes it, in float64 rounded once (``ops/pitch``'s
+    prefix sums: CUDA's float32 cumsum keeps a float32 running sum)."""
     E = buf[_consts(pcfg, n_frames, buf.device)[0]]
-    return torch.cumsum(E * E, dim=-1)[:, pcfg.frame_len_w - 1]
+    return torch.cumsum(E * E, dim=-1, dtype=torch.float64)[
+        :, pcfg.frame_len_w - 1].to(torch.float32)
 
 
 def chunk_nccf(buf: torch.Tensor, n_frames: int, pcfg: PitchConfig,
-               ball: torch.Tensor, backend: str = "auto"):
+               ball: torch.Tensor, backend: str = "auto", *,
+               precision: str = backend_lib.KEYWORD_PRECISION):
     """(span,) chunk buffer + (1,) ballast (pcfg.ballast * mean_e^2) ->
     ((n_frames, n_lags) ballasted NCCF, (n_frames, n_lags) plain NCCF):
-    ``fused_nccf`` at B = 1 on "cuda", the plain ``ops/pitch.nccf`` on
-    "torch"."""
-    if backend_lib.resolve(backend, buf) == "cuda":
+    ``fused_nccf`` at B = 1 on "cuda", the plain ``ops/pitch.nccf`` at
+    the mode ``precision`` on "torch" (the reference's ``_chunk_nccf``
+    takes one; its ``online_chunk_step`` passes HIGHEST, as this
+    module's does)."""
+    if backend_lib.resolve(backend, buf, None) == "cuda":
         from ..ops.kernels import fused_nccf
         nb, npl = fused_nccf.fused_nccf(buf[None], ball, pcfg, T=n_frames)
     else:
         mask = torch.ones((1, n_frames), dtype=torch.bool, device=buf.device)
-        nb, npl = pitch_op.nccf(buf[None], pcfg, mask, ball=ball)
+        nb, npl = pitch_op.nccf(buf[None], pcfg, mask, precision=precision,
+                                ball=ball)
     return nb[0], npl[0]
 
 

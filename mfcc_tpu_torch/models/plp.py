@@ -16,7 +16,8 @@ band energies, floored log) is one launch of ``fused_raw_dit`` with
 n_fft, ``_spectral.fft_tile`` says why), and the
 tail (loudness, autocorrelation, Levinson, cepstra, lifter) runs on its
 small (B, T, n_bark) output in plain PyTorch, as it runs in XLA in the
-reference.  Otherwise the plain chain runs on the card; a CPU tensor takes
+reference.  Otherwise (and under ``matmul_precision="high"``,
+``backend.resolve``) the plain chain runs on the card; a CPU tensor takes
 the plain chain.  ``append_energy`` takes c0 from the host-pre-emphasized
 audio in both routes, as the reference does; deltas see the frame counts.
 Dither is added to the audio once, before either route
@@ -43,7 +44,7 @@ def _plp_from_audio(x: torch.Tensor, cfg: FeatureConfig,
     squeeze = x.dim() == 1
     xb = (x[None, :] if squeeze else x).to(torch.float32).contiguous()
     xb = dither_op.apply(xb, cfg)
-    use_kernel = (backend_lib.resolve(backend, xb) == "cuda"
+    use_kernel = (backend_lib.resolve(backend, xb, cfg) == "cuda"
                   and routes.raw_dit_kernel_eligible(cfg))
     y = (framing.preemphasize(xb, cfg)
          if cfg.append_energy or not use_kernel else None)

@@ -14,11 +14,12 @@ On a CUDA tensor, where ``routes.spec_kernel_eligible`` holds (the
 reference's kernel route: n_fft 512, 768, 1024 ...), one launch of
 ``fused_raw_dit`` with ``projection="spec"`` computes it (the FFT tile's
 float64 front at a power-of-two n_fft, else the direct tile); elsewhere
-(n_fft 400) the plain chain runs on the card, as the reference runs XLA
-there.  A CPU tensor takes the plain chain.  The route is decided from the
-config alone.  Contract: 2e-4 against the float64 oracle inside the 50 dB
-window (``docs/conventions.md``); below it the f32 plain chain is
-floor-limited, while the kernel's float64 front holds the oracle.
+(n_fft 400), and under ``matmul_precision="high"``, the plain chain runs
+on the card, as the reference runs XLA there.  A CPU tensor takes the
+plain chain.  The route is decided from the config alone.  Contract:
+2e-4 against the float64 oracle inside the 50 dB window
+(``docs/conventions.md``); below it the f32 plain chain is floor-limited,
+while the kernel's float64 front holds the oracle.
 
 Dither: the reference model does not dither the spectrogram in valid mode
 (``mfcc_tpu/models/spectrogram.py:33-47``), although its oracle
@@ -41,7 +42,7 @@ from .mfcc import frame_lengths, frame_mask, run_batch  # noqa: F401
 def _spectrogram(xb: torch.Tensor, cfg: FeatureConfig,
                  backend: str) -> torch.Tensor:
     """(B, N) valid-mode float32 audio -> (B, T, n_bins)."""
-    if (backend_lib.resolve(backend, xb) == "cuda"
+    if (backend_lib.resolve(backend, xb, cfg) == "cuda"
             and routes.spec_kernel_eligible(cfg)):
         return fused_raw_dit.fused_features_raw_dit(
             xb, cfg, apply_dct=False, projection="spec")

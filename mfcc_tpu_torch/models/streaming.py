@@ -246,8 +246,10 @@ def process_chunks_batch_fused(state: StreamState, chunks: torch.Tensor,
     kernel's plain version.  Within 5e-5 of the scan path (the
     spectrogram 2e-4 inside its 50 dB window): the one allowed deviation
     from streaming-equals-batch.  Raises ValueError where the reference
-    does: a config outside the kernel's route (:func:`fused_eligible`) and
-    log-mel not bounded to <= 50 dB (the kernel's valley envelope).
+    does: a config outside the kernel's route (:func:`fused_eligible`),
+    log-mel not bounded to <= 50 dB (the kernel's valley envelope) and
+    ``matmul_precision="high"`` (no kernel route; the scan path computes
+    it).
     """
     B, K, C = chunks.shape
     n_slots = _check(cfg, variant, C)
@@ -259,6 +261,11 @@ def process_chunks_batch_fused(state: StreamState, chunks: torch.Tensor,
             "fused serving log-mel requires dynamic_range_db <= 50 (the "
             "kernel's valley-accuracy envelope); use process_chunks_batch "
             "for unbounded log-mel")
+    if not routes.kernel_precision_supported(cfg):
+        raise ValueError("matmul_precision='high' has no kernel route (the "
+                         "reference's Mosaic has no in-kernel HIGH dot); use "
+                         "'highest' or 'default', or the scan path "
+                         "(process_chunks_batch)")
     flat = chunks.to(state.carry.device).reshape(B, K * C)
     buf, y, new_seen, total, n_new = _span(state, flat, cfg, K * n_slots)
     kcfg = cfg.replace(preemph=0.0)

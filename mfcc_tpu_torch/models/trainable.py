@@ -6,11 +6,15 @@ initialized at the classic HTK values, so the front end can be fine-tuned
 against a downstream loss; the built-in objective is the MSE to target
 features.  The forward pass is plain PyTorch on the parameters' device:
 framing, pre-emphasis and the power spectrum (``ops/framing``,
-``ops/spectrum``), the learnable mel product through ``backend.matmul``
-(IEEE fp32), the softplus floor, ``xmath.accurate_log`` (its autograd
-Function carries the analytic 1/x) and the DCT.  The reference computes
-this product outside Pallas too, so no kernel is involved, and no kernel
-has a backward.
+``ops/spectrum``, at the config's precision mode and compute dtype), the
+learnable mel product through ``backend.matmul`` (IEEE fp32 whatever the
+mode, as the reference fixes HIGHEST there), the softplus floor,
+``xmath.accurate_log`` (its autograd Function carries the analytic 1/x)
+and the DCT (at the config's mode).  The backward's products run in IEEE
+fp32 under every mode (:func:`loss_and_grad`), at least as accurate as
+the transposed dots JAX derives at the forward's precision.  The
+reference computes this product outside Pallas too, so no kernel is
+involved, and no kernel has a backward.
 
 optax becomes ``torch.optim``: Adam (beta 0.9 / 0.999, eps 1e-8) behind a
 global-norm clip written as optax writes it, with optax's closed-form
@@ -125,6 +129,7 @@ def forward(params: FrontendParams, audio: torch.Tensor,
     audio its rows, and the result its frame block along "time", T_local
     frames; band energies are gathered over "feat" before the DCT
     (collective)."""
+    backend.check_config(cfg)
     audio, cfg = framing.resolve_frame_mode_static(audio, cfg)
     y = framing.preemphasize(audio.to(torch.float32), cfg)
     fr = framing.frames(y, cfg)
@@ -218,7 +223,10 @@ def loss_and_grad(params: FrontendParams, audio: torch.Tensor,
     for p in params.parameters():
         if p.grad is not None:
             p.grad.zero_()
-    with backend.ieee_fp32():          # the backward's products too
+    # each forward product sets its own mode and restores IEEE fp32 after
+    # it, so autograd's products (the transposes of the forward's) all run
+    # in IEEE fp32, at least as accurate as JAX's transposed dots
+    with backend.matmul_form("highest"):
         loss = loss_fn(params, audio, target, cfg, mesh)
         loss.backward()
     loss = loss.detach()

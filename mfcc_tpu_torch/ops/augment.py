@@ -22,19 +22,22 @@ from typing import NamedTuple, Union
 
 import torch
 
+from .. import backend
 from .resample import reduce_ratio, resample
 
 
 def speed_perturb(x: torch.Tensor, lengths: torch.Tensor, factor: float,
-                  sample_rate: int = 16_000):
+                  sample_rate: int = 16_000, *,
+                  precision: str = backend.KEYWORD_PRECISION):
     """Time-scale (..., N) padded audio by ``factor``: resample to
     sample_rate / factor and play it at sample_rate.  -> (x' (..., N'),
     lengths' (...,) int32), N' = ceil(N * L / M).  Factor 1.0 returns the
-    inputs as they are."""
+    inputs as they are.  ``precision``: the resampler's mode
+    (:func:`resample`)."""
     if factor == 1.0:
         return x, lengths
     sr_out = int(round(sample_rate / factor))
-    y = resample(x, sample_rate, sr_out)
+    y = resample(x, sample_rate, sr_out, precision=precision)
     L, M = reduce_ratio(sample_rate, sr_out)
     lengths = torch.as_tensor(lengths, device=x.device)
     new_len = (lengths.to(torch.int64) * L + (M - 1)) // M

@@ -24,8 +24,10 @@ def dct_matrix(cfg: FeatureConfig) -> np.ndarray:
     return _dct_matrix_cached((cfg.n_mfcc, cfg.n_mels, cfg.lifter))
 
 
-def cepstra(logmel: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
-    """(..., T, n_mels) log-mel -> (..., T, n_mfcc) liftered cepstra."""
+def cepstra(logmel: torch.Tensor, cfg: FeatureConfig, *,
+            precision=None) -> torch.Tensor:
+    """(..., T, n_mels) log-mel -> (..., T, n_mfcc) liftered cepstra, a
+    float32 product at ``precision`` (None: the config's mode)."""
     mat = torch.from_numpy(dct_matrix(cfg).astype(np.float32)).to(
         logmel.device)
-    return backend.matmul(logmel, mat)
+    return backend.matmul(logmel, mat, precision or cfg.matmul_precision)

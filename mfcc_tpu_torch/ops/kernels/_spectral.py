@@ -86,7 +86,9 @@ def plain_features(y: torch.Tensor, cfg: FeatureConfig, apply_dct: bool,
                    power=spectrum.power_spectrum,
                    projection: str = "mel") -> torch.Tensor:
     """(B, N) pre-emphasized audio -> (B, T, n_out), plain PyTorch;
-    ``power`` maps frames to |X|^2 in natural bin order."""
+    ``power`` maps frames to |X|^2 in natural bin order.  Every product
+    runs at the config's precision mode, the DFT's at its compute dtype
+    (``ops/spectrum``)."""
     backend.check_config(cfg)
     check_projection(projection, apply_dct)
     B, N = y.shape
@@ -101,7 +103,9 @@ def plain_features(y: torch.Tensor, cfg: FeatureConfig, apply_dct: bool,
     if projection == "bark":
         bark = torch.from_numpy(projection_matrix(cfg, "bark")
                                 .astype(np.float32)).to(p.device)
-        return xmath.floored_log(backend.matmul(p, bark), cfg.log_floor)
+        return xmath.floored_log(backend.matmul(p, bark,
+                                                cfg.matmul_precision),
+                                 cfg.log_floor)
     logmel = mel_op.log_mel_energies(p, cfg)
     if not apply_dct:
         return logmel

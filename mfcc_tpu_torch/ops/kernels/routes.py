@@ -36,6 +36,14 @@ they run the plain chain on the card, as the reference runs XLA.
 
 Routing on the H100's own terms (pre-emphasis in the kernel, in float64,
 for every unbounded log-mel) is an A/B left open in ROADMAP.
+
+The precision mode is routed as the reference routes it
+(:func:`kernel_precision_supported`): "high" runs the plain chain on the
+card, whose products are IEEE fp32 (``backend.matmul``), because Mosaic
+has no in-kernel HIGH dot.  The Hopper kernels have no matrix product and
+would take "high" as they take every mode; sending it through them is
+ROADMAP's A/B 3, to be measured once fidelity to the reference's route is
+no longer the goal.
 """
 
 from __future__ import annotations
@@ -46,6 +54,13 @@ from ...config import FeatureConfig
 
 LANE = 128   # the TPU lane width the reference's layout rules count in
 Q_PAD = 8    # the reference DIT kernel's roll-lookahead rows
+
+
+def kernel_precision_supported(cfg) -> bool:
+    """Twin of ``mfcc_tpu/backend.py:29-35``: the kernel route takes
+    "default" and "highest" but not "high" (Mosaic cannot lower a HIGH
+    dot), which ``backend.resolve`` sends to the plain path."""
+    return getattr(cfg, "matmul_precision", "highest") != "high"
 
 
 def raw_dit_kernel_eligible(cfg: FeatureConfig) -> bool:

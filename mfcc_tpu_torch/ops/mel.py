@@ -1,7 +1,9 @@
 """Mel filterbank projection (twin of ``mfcc_tpu/ops/mel.py``).
 
 The (n_bins, n_mels) triangular filterbank is built in float64 by the
-oracle and applied as one fp32 matmul, then floored (optional per-frame
+oracle and applied as one float32 product at the precision mode
+(``backend.matmul``; float32 operands whatever the compute dtype, as the
+reference's ``accum_dtype`` filterbank), then floored (optional per-frame
 relative floor, then the absolute floor) and logged with the accurate log.
 """
 
@@ -36,11 +38,12 @@ def relative_floor(cfg: FeatureConfig) -> float:
     return 10.0 ** (-cfg.dynamic_range_db / 10.0)
 
 
-def log_mel_energies(power: torch.Tensor,
-                     cfg: FeatureConfig) -> torch.Tensor:
-    """(..., T, n_bins) power -> (..., T, n_mels) floored log mel energies."""
+def log_mel_energies(power: torch.Tensor, cfg: FeatureConfig, *,
+                     precision=None) -> torch.Tensor:
+    """(..., T, n_bins) power -> (..., T, n_mels) floored log mel energies;
+    ``precision`` None is the config's mode."""
     fb = torch.from_numpy(mel_matrix(cfg).astype(np.float32)).to(power.device)
-    e = backend.matmul(power, fb)
+    e = backend.matmul(power, fb, precision or cfg.matmul_precision)
     if cfg.dynamic_range_db is not None:
         rel = torch.amax(e, dim=-1, keepdim=True) * torch.tensor(
             relative_floor(cfg), dtype=torch.float32, device=e.device)

@@ -106,13 +106,26 @@ def pitch_frame_counts(lengths: torch.Tensor,
     return torch.clamp(n, min=0).to(torch.int32)
 
 
+def _prefix64(v: torch.Tensor) -> torch.Tensor:
+    """(..., n) -> (..., n + 1) float64 prefix sums along the last axis,
+    0 first.  A difference of two is a window sum rounded once: a float32
+    running sum (CUDA's ``torch.cumsum`` of float32 keeps one; the CPU's
+    accumulates in float64) puts the normalized log pitch of a 2-minute
+    row ~4e-4 off the float64 oracle, over its 3e-4 bound
+    (``tests/test_torch_pitch.py``)."""
+    return F.pad(torch.cumsum(v, dim=-1, dtype=torch.float64), (1, 0))
+
+
 def nccf(xw: torch.Tensor, pcfg: PitchConfig, mask: torch.Tensor, *,
+         precision: str = backend_lib.KEYWORD_PRECISION,
          ball: torch.Tensor | None = None):
     """(B, Nw) work-rate signal -> (nccf_ballasted, nccf_plain), each
     (B, T, n_lags), by the correlation theorem (four DFT products and a
-    lag-grid IDFT, IEEE fp32).  mask: (B, T) frame validity, for the masked
-    mean energy the ballast scales with.  ``ball``: optional (B,)
-    precomputed ballast (pcfg.ballast * mean_energy^2) used instead."""
+    lag-grid IDFT, float32 at the mode ``precision``; ``backend.matmul``).
+    mask: (B, T) frame validity, for the masked mean energy the ballast
+    scales with.  ``ball``: optional (B,) precomputed ballast
+    (pcfg.ballast * mean_energy^2) used instead.  The window energies are
+    differences of float64 prefix sums (:func:`_prefix64`)."""
     w, hop = pcfg.frame_len_w, pcfg.hop_len_w
     n, Nc, cos_m, sin_m, cl, sl = _corr_matrices(pcfg)
     B, Nw = xw.shape
@@ -129,22 +142,23 @@ def nccf(xw: torch.Tensor, pcfg: PitchConfig, mask: torch.Tensor, *,
         E = F.pad(E, (0, Nc - n))
         A = F.pad(A, (0, Nc - n))
 
+    def mm(a, b):
+        return backend_lib.matmul(a, b, precision)
+
     cm, sm = _const(cos_m, dev), _const(sin_m, dev)
-    re_a = backend_lib.matmul(A, cm)
-    im_a = -backend_lib.matmul(A, sm)
-    re_e = backend_lib.matmul(E, cm)
-    im_e = -backend_lib.matmul(E, sm)
+    re_a, im_a = mm(A, cm), -mm(A, sm)
+    re_e, im_e = mm(E, cm), -mm(E, sm)
     # conj(FA) * FE
     R = re_a * re_e + im_a * im_e
     I = re_a * im_e - im_a * re_e
-    num = (backend_lib.matmul(R, _const(cl, dev))
-           - backend_lib.matmul(I, _const(sl, dev)))
+    num = mm(R, _const(cl, dev)) - mm(I, _const(sl, dev))
 
-    # window energies: one cumsum + static slices
-    cs = torch.cumsum(E[..., :n] * E[..., :n], dim=-1)
-    e0 = cs[..., w - 1]                                # (B, T)
+    # window energies: one prefix sum + static slices
+    cs = _prefix64(E[..., :n] * E[..., :n])
+    e0 = cs[..., w].to(torch.float32)                  # (B, T)
     lo, hi = pcfg.min_lag, pcfg.max_lag
-    e_lag = cs[..., w - 1 + lo: w + hi] - cs[..., lo - 1: hi]
+    e_lag = (cs[..., w + lo: w + hi + 1] - cs[..., lo: hi + 1]).to(
+        torch.float32)
 
     if ball is None:
         mask_f = mask.to(e0.dtype)
@@ -191,15 +205,17 @@ def mean_frame_energy(xw: torch.Tensor, pcfg: PitchConfig,
 
 
 def _nccf_dispatch(xw: torch.Tensor, pcfg: PitchConfig, mask: torch.Tensor,
-                   backend: str):
-    """:func:`nccf` ("torch") or the CUDA kernel ("cuda", ballast from
-    :func:`mean_frame_energy`, as the reference's kernel route)."""
+                   backend: str, precision: str):
+    """:func:`nccf` at ``precision`` ("torch") or the CUDA kernel ("cuda",
+    ballast from :func:`mean_frame_energy`, as the reference's kernel
+    route; the kernel has no product a mode changes, as the reference's
+    keeps HIGHEST)."""
     if backend == "cuda":
         from .kernels import fused_nccf
         mean_e = mean_frame_energy(xw, pcfg, mask)
         return fused_nccf.fused_nccf(xw, pcfg.ballast * mean_e * mean_e,
                                      pcfg, T=mask.shape[1])
-    return nccf(xw, pcfg, mask)
+    return nccf(xw, pcfg, mask, precision=precision)
 
 
 def viterbi(nccf_b: torch.Tensor, pcfg: PitchConfig) -> torch.Tensor:
@@ -242,7 +258,7 @@ def viterbi_blocked(nccf_b: torch.Tensor, pcfg: PitchConfig, *,
     stretches without voicing evidence (the reference function's docstring
     has the argument; tests/test_pitch.py measures it).
     """
-    if backend_lib.resolve(backend, nccf_b) == "cuda":
+    if backend_lib.resolve(backend, nccf_b, None) == "cuda":
         from .kernels import fused_viterbi
         solve = fused_viterbi.fused_viterbi
     else:
@@ -307,13 +323,13 @@ def pov_feature(c: torch.Tensor) -> torch.Tensor:
 def weighted_sliding_mean(v: torch.Tensor, wgt: torch.Tensor,
                           window: int) -> torch.Tensor:
     """(B, T) centered weighted sliding mean, edges shrink (oracle
-    semantics); frames with zero total weight keep v[t].  Prefix sums
-    indexed at min(t+half+1, T) and max(t-half, 0)."""
+    semantics); frames with zero total weight keep v[t].  Float64 prefix
+    sums (:func:`_prefix64`) indexed at min(t+half+1, T) and max(t-half,
+    0); the mean is rounded to float32 once."""
     T = v.shape[-1]
     half = window // 2
-    zero = v.new_zeros((*v.shape[:-1], 1))
-    pv = torch.cat([zero, torch.cumsum(v * wgt, dim=-1)], dim=-1)
-    pw = torch.cat([zero, torch.cumsum(wgt, dim=-1)], dim=-1)
+    pv = _prefix64(v * wgt)
+    pw = _prefix64(wgt)
 
     def shifted(p):
         tail = p[..., -1:].expand(*p.shape[:-1], half)
@@ -323,36 +339,41 @@ def weighted_sliding_mean(v: torch.Tensor, wgt: torch.Tensor,
 
     sv = shifted(pv)
     sw = shifted(pw)
-    return torch.where(sw > 1e-12, sv / torch.clamp(sw, min=1e-12), v)
+    return torch.where(sw > 1e-12, (sv / torch.clamp(sw, min=1e-12)).to(
+        v.dtype), v)
 
 
-def _track(x, lengths, pcfg, *, viterbi_block, viterbi_warm, nccf_chunk,
-           backend):
-    """The stages shared by :func:`pitch_features` and :func:`pitch_track`:
-    -> (path, ym, c, yp, flens, mask), or None when no frame fits."""
+def _track(x, lengths, pcfg, *, nccf_chunk, backend, precision):
+    """The NCCF stage shared by :func:`pitch_features` and
+    :func:`pitch_track`: -> (masked nccf_b, nccf_p, flens, mask, the
+    resolved backend), or None when no frame fits."""
     if nccf_chunk is not None:
         raise NotImplementedError(
             "nccf_chunk (chunked NCCF) is not ported: it measured negative "
             "on the TPU (ROADMAP.md, modules to port, item 7: "
             "_nccf_chunked)")
-    backend = backend_lib.resolve(backend, x)
+    backend = backend_lib.resolve(backend, x, None)
     B, N = x.shape
     T = pcfg.num_frames(N)
     if T <= 0:
         return None
     x = x.to(torch.float32)
-    xw = (resample(x, pcfg.sample_rate, pcfg.work_rate)
+    xw = (resample(x, pcfg.sample_rate, pcfg.work_rate, precision=precision)
           if pcfg.work_rate != pcfg.sample_rate else x)
     lengths = torch.as_tensor(lengths, device=x.device)
     flens = torch.clamp(pitch_frame_counts(lengths, pcfg), max=T)
     mask = torch.arange(T, dtype=torch.int32,
                         device=x.device)[None, :] < flens[:, None]
-    nccf_b, nccf_p = _nccf_dispatch(xw, pcfg, mask, backend)
+    nccf_b, nccf_p = _nccf_dispatch(xw, pcfg, mask, backend, precision)
     nccf_b = torch.where(mask[..., None], nccf_b, 0.0)
+    return nccf_b, nccf_p, flens, mask, backend
+
+
+def _path(nccf_b, nccf_p, pcfg, *, viterbi_block, viterbi_warm, backend):
+    """-> (path, and the plain NCCF at path - 1, path, path + 1)."""
     path = _viterbi_dispatch(nccf_b, pcfg, viterbi_block=viterbi_block,
                              viterbi_warm=viterbi_warm, backend=backend)
-    ym, c, yp = _path_neighborhood(nccf_p, path)
-    return path, ym, c, yp, flens, mask
+    return (path, *_path_neighborhood(nccf_p, path))
 
 
 def _lag(path, ym, c, yp, pcfg):
@@ -360,27 +381,21 @@ def _lag(path, ym, c, yp, pcfg):
             + _parabolic_from(ym, c, yp, path, pcfg.n_lags))
 
 
-def pitch_features(x: torch.Tensor, lengths: torch.Tensor,
-                   pcfg: PitchConfig, *, viterbi_block: int | None = None,
-                   viterbi_warm: int = 128, nccf_chunk: int | None = None,
-                   backend: str = "auto"):
-    """(B, N) zero-padded float audio at pcfg.sample_rate + (B,) true
-    lengths -> ((B, T, 3) [pov, normalized log pitch, delta log pitch],
-    (B,) int32 frame counts, (B, T) bool mask).  Padded frames are zero.
-
-    viterbi_block: opt-in blocked Viterbi (see :func:`viterbi_blocked`).
-    nccf_chunk: the reference's chunked NCCF, not ported (raises)."""
-    B = x.shape[0]
-    tr = _track(x, lengths, pcfg, viterbi_block=viterbi_block,
-                viterbi_warm=viterbi_warm, nccf_chunk=nccf_chunk,
-                backend=backend)
-    if tr is None:
-        return (torch.zeros((B, 0, pcfg.n_feats), device=x.device),
-                torch.zeros((B,), dtype=torch.int32, device=x.device),
-                torch.zeros((B, 0), dtype=torch.bool, device=x.device))
-    path, ym, c, yp, flens, mask = tr
+def post_stages(nccf_b: torch.Tensor, nccf_p: torch.Tensor,
+                flens: torch.Tensor, mask: torch.Tensor, pcfg: PitchConfig,
+                *, viterbi_block: int | None = None, viterbi_warm: int = 128,
+                backend: str = "auto") -> torch.Tensor:
+    """The stages after the NCCF, on its device: (B, T, n_lags) ballasted
+    NCCF (zero on invalid frames) and plain NCCF, (B,) frame counts, (B,
+    T) mask -> (B, T, 3) [pov, normalized log pitch, delta log pitch],
+    zero on invalid frames: the Viterbi path ("cuda": the kernel),
+    parabolic lag, log f0, POV, the POV^2-weighted sliding mean and the
+    deltas."""
+    backend = backend_lib.resolve(backend, nccf_b, None)
+    path, ym, c, yp = _path(nccf_b, nccf_p, pcfg, viterbi_block=viterbi_block,
+                            viterbi_warm=viterbi_warm, backend=backend)
     wr = torch.tensor(float(pcfg.work_rate), dtype=torch.float32,
-                      device=x.device)
+                      device=nccf_b.device)
     log_f0 = xmath.accurate_log(wr / _lag(path, ym, c, yp, pcfg))
     pov = pov_feature(c)
     wgt = torch.clamp(c, 0.0, 1.0) ** 2 * mask.to(c.dtype)
@@ -388,7 +403,35 @@ def pitch_features(x: torch.Tensor, lengths: torch.Tensor,
     d = deltas_op.deltas(log_f0[..., None], pcfg.delta_window,
                          lengths=flens)[..., 0]
     feat = torch.stack([pov, norm, d], dim=-1)
-    return torch.where(mask[..., None], feat, 0.0), flens, mask
+    return torch.where(mask[..., None], feat, 0.0)
+
+
+def pitch_features(x: torch.Tensor, lengths: torch.Tensor,
+                   pcfg: PitchConfig, *,
+                   precision: str = backend_lib.KEYWORD_PRECISION,
+                   viterbi_block: int | None = None,
+                   viterbi_warm: int = 128, nccf_chunk: int | None = None,
+                   backend: str = "auto"):
+    """(B, N) zero-padded float audio at pcfg.sample_rate + (B,) true
+    lengths -> ((B, T, 3) [pov, normalized log pitch, delta log pitch],
+    (B,) int32 frame counts, (B, T) bool mask).  Padded frames are zero.
+
+    precision: the mode of the resampler's and the plain NCCF's products
+    (``backend.matmul``), "highest" by default as in the reference; the
+    ``fused_nccf`` route ignores it, as the reference's kernel does.
+    viterbi_block: opt-in blocked Viterbi (see :func:`viterbi_blocked`).
+    nccf_chunk: the reference's chunked NCCF, not ported (raises)."""
+    B = x.shape[0]
+    tr = _track(x, lengths, pcfg, nccf_chunk=nccf_chunk, backend=backend,
+                precision=precision)
+    if tr is None:
+        return (torch.zeros((B, 0, pcfg.n_feats), device=x.device),
+                torch.zeros((B,), dtype=torch.int32, device=x.device),
+                torch.zeros((B, 0), dtype=torch.bool, device=x.device))
+    nccf_b, nccf_p, flens, mask, backend = tr
+    return post_stages(nccf_b, nccf_p, flens, mask, pcfg,
+                       viterbi_block=viterbi_block, viterbi_warm=viterbi_warm,
+                       backend=backend), flens, mask
 
 
 def pitch_track(x: torch.Tensor, lengths: torch.Tensor, pcfg: PitchConfig,
@@ -397,12 +440,13 @@ def pitch_track(x: torch.Tensor, lengths: torch.Tensor, pcfg: PitchConfig,
     """(B, N), (B,) -> ((B, T) f0 in Hz, (B, T) plain NCCF voicing, mask):
     the raw track for consumers that want Hz rather than ASR features."""
     B = x.shape[0]
-    tr = _track(x, lengths, pcfg, viterbi_block=viterbi_block,
-                viterbi_warm=viterbi_warm, nccf_chunk=nccf_chunk,
-                backend=backend)
+    tr = _track(x, lengths, pcfg, nccf_chunk=nccf_chunk, backend=backend,
+                precision="highest")
     if tr is None:
         z = torch.zeros((B, 0), device=x.device)
         return z, z, torch.zeros((B, 0), dtype=torch.bool, device=x.device)
-    path, ym, c, yp, _, mask = tr
+    nccf_b, nccf_p, _, mask, backend = tr
+    path, ym, c, yp = _path(nccf_b, nccf_p, pcfg, viterbi_block=viterbi_block,
+                            viterbi_warm=viterbi_warm, backend=backend)
     f0 = float(pcfg.work_rate) / _lag(path, ym, c, yp, pcfg)
     return torch.where(mask, f0, 0.0), torch.where(mask, c, 0.0), mask

@@ -1,6 +1,7 @@
 """PLP compute stages (Hermansky 1990; twin of ``mfcc_tpu/ops/plp.py``).
 
-The spectral stages are fp32 products against float64-built constants:
+The spectral stages are float32 products, at the config's precision mode
+(or a ``precision`` given), against float64-built constants:
 the critical-band energies with the equal-loudness curve folded into the
 bark filterbank, and the autocorrelation as an IDFT matrix product with the
 edge-band duplication folded in.  The two short recursions (Levinson-Durbin
@@ -69,10 +70,12 @@ def _f32(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
 
-def bark_loudness(power: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+def bark_loudness(power: torch.Tensor, cfg: FeatureConfig, *,
+                  precision=None) -> torch.Tensor:
     """(..., T, n_bins) natural-order power -> (..., T, n_bark) cube-root
     loudness."""
-    e = backend.matmul(power, _f32(bark_matrix(cfg), power.device))
+    e = backend.matmul(power, _f32(bark_matrix(cfg), power.device),
+                       precision or cfg.matmul_precision)
     return _loudness(xmath.floored_log(e, cfg.log_floor))
 
 
@@ -81,12 +84,13 @@ def _loudness(log_bark: torch.Tensor) -> torch.Tensor:
                                   device=log_bark.device) * log_bark)
 
 
-def autocorrelation(loudness: torch.Tensor,
-                    cfg: FeatureConfig) -> torch.Tensor:
+def autocorrelation(loudness: torch.Tensor, cfg: FeatureConfig, *,
+                    precision=None) -> torch.Tensor:
     """(..., T, n_bark) loudness -> (..., T, lpc_order+1) autocorrelation
     (edge-band duplication folded into the IDFT matrix)."""
     return backend.matmul(loudness, _f32(_plp_matrices(cfg)[1],
-                                         loudness.device))
+                                         loudness.device),
+                          precision or cfg.matmul_precision)
 
 
 def levinson(r: torch.Tensor, order: int):

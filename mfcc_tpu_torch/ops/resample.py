@@ -9,7 +9,8 @@ The float64 filter design and frame bookkeeping are the reference's, copied
 as they are (scipy.signal.resample_poly's default filter; len(y) =
 ceil(n*L/M)); :func:`resample_poly_numpy` is the float64 oracle.
 :func:`resample` is the torch version: frames by ``unfold``, one fp32
-product through ``backend.matmul`` (IEEE fp32, no TF32).
+product through ``backend.matmul`` (IEEE fp32, no TF32, unless a
+``precision`` mode is given).
 
 For small L (16 kHz -> 4 kHz has L = 1) the bank is super-blocked: R
 decimation steps per GEMM row, column r*L + p = H[:, p] shifted r*M rows.
@@ -159,15 +160,17 @@ def _band(L: int, M: int):
             torch.from_numpy(G.astype(np.float32)))
 
 
-def resample(x: torch.Tensor, sr_in: int, sr_out: int) -> torch.Tensor:
+def resample(x: torch.Tensor, sr_in: int, sr_out: int, *,
+             precision: str = backend.KEYWORD_PRECISION) -> torch.Tensor:
     """(..., n) float audio at sr_in -> (..., ceil(n*L/M)) float32 at
     sr_out, on x's device.
 
-    One fp32 GEMM against the (super-blocked) dense bank, or, where that
-    bank would exceed ``_DENSE_BANK_ENTRIES``, its band: K gathers of the
-    frames, each scaled by one tap a phase and summed in tap order
-    (elementwise f32 operations only, so the CPU and the card round
-    alike)."""
+    One fp32 GEMM against the (super-blocked) dense bank at the mode
+    ``precision`` (``backend.matmul``; "highest" by default, as in the
+    reference), or, where that bank would exceed ``_DENSE_BANK_ENTRIES``,
+    its band: K gathers of the frames, each scaled by one tap a phase and
+    summed in tap order (elementwise f32 operations only, so the CPU and
+    the card round alike, and no mode applies)."""
     if sr_in == sr_out:
         return x
     L, M = reduce_ratio(sr_in, sr_out)
@@ -187,7 +190,7 @@ def resample(x: torch.Tensor, sr_in: int, sr_out: int) -> torch.Tensor:
         for k in range(1, off.shape[1]):
             y = y + frames[..., off[:, k]] * G[:, k]
     else:
-        y = backend.matmul(frames, H.to(x.device))       # (..., nb, L)
+        y = backend.matmul(frames, H.to(x.device), precision)
     return y.reshape(*x.shape[:-1], nb * L)[..., :n_out]
 
 

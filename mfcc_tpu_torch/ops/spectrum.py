@@ -6,8 +6,11 @@ The windowed n_fft-point real DFT of a frame_len-sample frame is two dense
 plain path materializes frames with ``Tensor.unfold`` and runs ONE fp32
 matmul against the concatenated [cos | sin] basis: the reference's "no
 frame materialization" rule was an XLA-on-TPU measurement and does not
-bind here.  The float64 bases are the single source of the DFT constants
-for the plain path and the CUDA kernels alike.
+bind here.  The product follows the precision mode (``backend.matmul``);
+under ``compute_dtype="bfloat16"`` it is the reference's chain of bfloat16
+hop-block products (:func:`_dft`).  The float64 bases are the single
+source of the DFT constants for the plain path and the CUDA kernels
+alike.
 
 ``power_spectrum_dit`` is the radix-2 decimation-in-time form of the same
 power spectrum (two half-length DFTs of the parity streams and a twiddle
@@ -42,13 +45,45 @@ def dft_matrices(cfg: FeatureConfig) -> tuple[np.ndarray, np.ndarray]:
     return _dft_matrices_cached((cfg.frame_len, cfg.n_fft, cfg.window))
 
 
-def power_spectrum(fr: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
-    """(..., T, frame_len) pre-emphasized frames -> (..., T, n_bins) |X|^2
-    (fp32 products and accumulation)."""
+def _dft(fr: torch.Tensor, basis: np.ndarray, block: int,
+         cfg: FeatureConfig, precision) -> torch.Tensor:
+    """(..., T, K) frames @ the (K, W) float64 basis -> (..., T, W) float32
+    at the config's compute dtype and the mode ``precision`` (None: the
+    config's).  In float32 one product.  In bfloat16 the reference's
+    hop-block chain (``mfcc_tpu/ops/spectrum.py:114-150``): frames and
+    basis rounded to bfloat16, one bfloat16 product per ``block`` columns
+    of the frame, the partial sums added in bfloat16, the sum cast to
+    float32 (``accum_dtype``).  The chain's last add is taken in float32,
+    as XLA computes it (its excess precision, on by default, drops the
+    rounding between an add and the cast that follows): so the port
+    equals JAX's CPU result to ~1e-5 where a last add in bfloat16 would
+    put them ~5e-3 apart (``tests/test_torch_precision.py``)."""
+    if precision is None:
+        precision = cfg.matmul_precision
+    dt = backend.COMPUTE_DTYPES[cfg.compute_dtype]
+    mat = torch.from_numpy(basis.astype(np.float32)).to(fr.device, dt)
+    fr = fr.to(dt)
+    if dt == torch.float32:
+        return backend.matmul(fr, mat, precision)
+    parts = [backend.matmul(fr[..., lo: lo + block], mat[lo: lo + block],
+                            precision)
+             for lo in range(0, fr.shape[-1], block)]
+    acc = parts[0]
+    for part in parts[1:-1]:
+        acc = acc + part
+    if len(parts) == 1:
+        return acc.to(torch.float32)
+    return acc.to(torch.float32) + parts[-1].to(torch.float32)
+
+
+def power_spectrum(fr: torch.Tensor, cfg: FeatureConfig, *,
+                   precision=None) -> torch.Tensor:
+    """(..., T, frame_len) pre-emphasized frames -> (..., T, n_bins) |X|^2:
+    the product at the config's compute dtype and the mode ``precision``
+    (None: the config's), float32 accumulation."""
     cos_m, sin_m = dft_matrices(cfg)
-    basis = torch.from_numpy(
-        np.concatenate([cos_m, sin_m], axis=1).astype(np.float32)).to(fr.device)
-    spec = backend.matmul(fr.to(torch.float32), basis)
+    spec = _dft(fr, np.concatenate([cos_m, sin_m], axis=1), cfg.hop_len,
+                cfg, precision)
     re, im = spec[..., :cfg.n_bins], spec[..., cfg.n_bins:]
     return re * re + im * im
 
@@ -89,24 +124,23 @@ def dit_supported(cfg: FeatureConfig) -> bool:
     return cfg.n_fft % 4 == 0 and cfg.frame_len >= 2
 
 
-def power_spectrum_dit(fr: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
+def power_spectrum_dit(fr: torch.Tensor, cfg: FeatureConfig, *,
+                       precision=None) -> torch.Tensor:
     """(..., T, frame_len) pre-emphasized frames -> (..., T, n_bins) |X|^2
-    in natural bin order by the radix-2 split: one fp32 matmul per parity
-    stream against its packed [cos | sin | bin n_fft/4] half-DFT basis,
-    then the twiddle combine (twin of the reference's
+    in natural bin order by the radix-2 split: one product per parity
+    stream against its packed [cos | sin | bin n_fft/4] half-DFT basis
+    (at the config's compute dtype and the mode ``precision``, as
+    :func:`power_spectrum`; in bfloat16 chained over half-hop blocks),
+    then the twiddle combine in float32 (twin of the reference's
     power_spectrum_dit_split and _dit_combine)."""
     if not dit_supported(cfg):
         raise ValueError("the radix-2 DIT needs n_fft % 4 == 0 and "
                          "frame_len >= 2")
     (be, bel), (bo, bol), ct, st = dit_matrices(cfg)
     nb2 = cfg.n_fft // 4
-    fr = fr.to(torch.float32)
-    outs = []
-    for s, basis, last in ((0, be, bel), (1, bo, bol)):
-        mat = torch.from_numpy(np.concatenate([basis, last], axis=1)
-                               .astype(np.float32)).to(fr.device)
-        outs.append(backend.matmul(fr[..., s::2], mat))
-    (E, O) = outs
+    E, O = (_dft(fr[..., s::2], np.concatenate([basis, last], axis=1),
+                 max(cfg.hop_len // 2, 1), cfg, precision)
+            for s, basis, last in ((0, be, bel), (1, bo, bol)))
     f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(fr.device)
     ctj, stj = f32(ct), f32(st)
     e_re, e_im, e_last = E[..., :nb2], E[..., nb2:2 * nb2], E[..., 2 * nb2:]

@@ -1174,3 +1174,54 @@ def test_dryrun_on_the_card(cuda):
     for per_rank in res["launches"]:
         assert per_rank["kernel route"]["fused_raw_dit"] == 1
         assert per_rank["pitch"]["fused_nccf"] == 1
+
+
+# |form - float64 product| <= (unit + K 2^-23) (|A| @ |B|), as
+# tests/test_torch_precision.py emulates the forms on the CPU; "high" is
+# the IEEE fp32 form of "highest"
+FORM_UNIT = {"highest": 0.0, "high": 0.0, "default": 2.0 ** -9}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["highest", "high", "default"])
+def test_matmul_forms_on_the_card_within_their_bounds(cuda, gen, mode):
+    """backend.matmul's form for each mode on a DFT product of the plain
+    path's shape family, against the float64 product ("high" equal to
+    "highest" bit for bit); the caller's flags come back unchanged."""
+    from mfcc_tpu_torch import backend
+    M, K, N = 4096, 400, 514
+    a = (gen.standard_normal((M, K)) * 0.3).astype(np.float32)
+    b = np.cos(gen.uniform(0, 2 * np.pi, (K, N))).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64)
+    before = backend.matmul_flags()
+    ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    got = backend.matmul(ta, tb, mode)
+    assert backend.matmul_flags() == before
+    if mode == "high":
+        assert torch.equal(got, backend.matmul(ta, tb, "highest"))
+    err = np.abs(got.double().cpu().numpy() - exact)
+    assert (err <= (FORM_UNIT[mode] + K * 2.0 ** -23) * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["high", "default", "bfloat16"])
+def test_precision_modes_route_as_the_reference(cuda, gen, mode):
+    """"high" runs the plain chain on the card (no spectral launch), within
+    2.8e-4 of the oracle; "default" and bf16 compute take the unchanged
+    kernel, within the contract's 1e-4."""
+    kw = (dict(compute_dtype="bfloat16") if mode == "bfloat16"
+          else dict(matmul_precision=mode))
+    cfg = FeatureConfig(**kw).validate()
+    x = (gen.standard_normal((2, 16000)) * 0.3).astype(np.float32)
+    counters = (fused_raw_dit, fused_raw, fused_dit, fused_mfcc)
+    before = [m.LAUNCHES for m in counters]
+    feat, _, _ = mfcc_model.mfcc_batch(torch.from_numpy(x).to(cuda),
+                                       torch.tensor([16000, 16000],
+                                                    device=cuda), cfg)
+    torch.cuda.synchronize()
+    launched = [m.LAUNCHES - b for m, b in zip(counters, before)]
+    assert launched == ([0, 0, 0, 0] if mode == "high" else [1, 0, 0, 0])
+    want = oracle.mfcc(x[0].astype(np.float64), FeatureConfig())
+    err = float(np.abs(feat[0].cpu().numpy() - want).max())
+    assert err <= (2.8e-4 if mode == "high" else 1e-4), err

@@ -75,7 +75,18 @@ def test_wrapper_rejects_bad_input():
             torch.zeros((1, 4000)), cfg.replace(frame_mode="center"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_raw_dit.fused_features_raw_dit(
-            torch.zeros((1, 4000)), cfg.replace(matmul_precision="high"))
+            torch.zeros((1, 4000)), cfg.replace(accum_dtype="bfloat16"))
+    # every precision mode is taken (the route alone sends "high" away
+    # from the kernels); a CPU tensor runs the plain version at the mode
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 4000)).astype(np.float32))
+    before = fused_raw_dit.LAUNCHES
+    for kw in (dict(matmul_precision="high"), dict(matmul_precision="default"),
+               dict(compute_dtype="bfloat16")):
+        c = cfg.replace(**kw)
+        assert torch.equal(fused_raw_dit.fused_features_raw_dit(x, c),
+                           fused_raw_dit.plain_features(x, c))
+    assert fused_raw_dit.LAUNCHES == before
 
 
 @pytest.mark.parametrize("kw", [dict(), TINY, dict(n_fft=1024),

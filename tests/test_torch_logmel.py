@@ -16,7 +16,7 @@ from mfcc_tpu.models import logmel as jax_logmel
 from mfcc_tpu_torch import FeatureConfig, backend, from_jax, oracle
 from mfcc_tpu_torch.models import logmel as logmel_model, mfcc as mfcc_model
 from mfcc_tpu_torch.ops.kernels import (fused_dit, fused_mfcc, fused_raw,
-                                        fused_raw_dit)
+                                        fused_raw_dit, routes)
 from mfcc_tpu_torch.utils import wav
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -124,8 +124,10 @@ def on_card(monkeypatch):
     """backend "auto" resolves to "cuda" (CPU tensors), and every spectral
     wrapper records its name and input before running its plain version."""
     resolve = backend.resolve
-    monkeypatch.setattr(backend, "resolve", lambda name, x: (
-        "cuda" if name in ("auto", "cuda") else resolve(name, x)))
+    monkeypatch.setattr(backend, "resolve", lambda name, x, cfg: (
+        "cuda" if name in ("auto", "cuda") and (
+            cfg is None or routes.kernel_precision_supported(cfg))
+        else resolve(name, x, cfg)))
     calls = []
     for name, (module, fn) in WRAPPERS.items():
         wrapped = getattr(module, fn)

@@ -235,7 +235,7 @@ def test_packed_int16_and_empty_slots(rng):
     (dict(cfg=dict(deltas=True)), "deltas"),
     (dict(cfg=dict(frame_mode="center")), "valid"),
     (dict(family="pitch"), "family"),
-    (dict(cfg=dict(matmul_precision="high")), "ROADMAP"),
+    (dict(cfg=dict(accum_dtype="bfloat16")), "ROADMAP"),
 ])
 def test_packed_guards(kw, match):
     x = torch.zeros((1, 16000))

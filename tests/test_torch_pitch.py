@@ -618,3 +618,34 @@ def test_pitch_backend_resolution_and_unported_options(rng):
         torch.from_numpy(xv[None]), torch.tensor([xv.size]), t,
         viterbi_block=128, viterbi_warm=64)
     _check_columns(got[0].numpy(), want)
+
+
+def _cumsum_in_own_dtype(v, dim, dtype=None):
+    """torch.cumsum as CUDA runs it: the running sum kept in the result's
+    dtype (the CPU's cumsum of float32 accumulates in float64)."""
+    a = torch.movedim(v.to(dtype or v.dtype), dim, 0)
+    out, acc = torch.empty_like(a), torch.zeros_like(a[0])
+    for i in range(a.shape[0]):
+        acc = acc + a[i]
+        out[i] = acc
+    return torch.movedim(out, 0, dim)
+
+
+def test_pitch_two_minutes_under_cuda_cumsum(monkeypatch):
+    """The card's float32 running cumsum emulated on the CPU, over a
+    2-minute row of the bench signal (two tones plus noise, 11,996
+    frames): the POV^2-weighted sliding mean and the NCCF window energies
+    take float64 prefix sums, so every column stays within its bound of
+    the float64 oracle whatever the cumsum's accumulator.  With float32
+    prefix sums the normalized log pitch was 3.4e-4 off (bound 3e-4)."""
+    n = 120 * SR
+    t = np.arange(n) / SR
+    x = (0.3 * np.sin(2 * np.pi * 180 * t) + 0.1 * np.sin(2 * np.pi * 1200 * t)
+         + 0.02 * np.random.default_rng(0).standard_normal(n)
+         ).astype(np.float32)
+    pcfg = PitchConfig()
+    want = oracle.pitch(x.astype(np.float64), pcfg)
+    monkeypatch.setattr(torch, "cumsum", _cumsum_in_own_dtype)
+    got = pitch_model.pitch_batch(torch.from_numpy(x[None]),
+                                  torch.tensor([n]), pcfg, "torch")[0][0]
+    _check_columns(got.numpy()[: want.shape[0]], want)

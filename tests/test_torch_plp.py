@@ -254,8 +254,10 @@ def on_card(monkeypatch):
     fused_raw_dit wrapper records each call before running its plain
     version."""
     resolve = backend.resolve
-    monkeypatch.setattr(backend, "resolve", lambda name, x: (
-        "cuda" if name in ("auto", "cuda") else resolve(name, x)))
+    monkeypatch.setattr(backend, "resolve", lambda name, x, cfg: (
+        "cuda" if name in ("auto", "cuda") and (
+            cfg is None or routes.kernel_precision_supported(cfg))
+        else resolve(name, x, cfg)))
     calls = []
     wrapped = fused_raw_dit.fused_features_raw_dit
 
@@ -292,9 +294,22 @@ def test_plp_route_per_config(on_card, rng, kw, kernel):
 
 
 def test_plp_unported_options_raise(rng):
+    """Only accum_dtype other than float32 still raises (ROADMAP modules
+    item 2.4); bf16 compute and the precision modes compute, equal to the
+    reference's XLA path (``tests/test_torch_precision.py``)."""
     x = torch.zeros(4000)
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        plp_model.plp(x, FeatureConfig(compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="matmul_precision"):
+    with pytest.raises(NotImplementedError, match="accum_dtype"):
+        plp_model.plp(x, FeatureConfig(accum_dtype="bfloat16"))
+    with pytest.raises(NotImplementedError, match="accum_dtype"):
         plp_model.plp_batch(x[None], torch.tensor([4000]),
-                            FeatureConfig(matmul_precision="high"))
+                            FeatureConfig(accum_dtype="bfloat16"))
+    sig = (rng.standard_normal(8000) * 0.3).astype(np.float32)
+    for kw in (dict(compute_dtype="bfloat16"), dict(matmul_precision="high")):
+        jc = JaxConfig(**kw).validate()
+        want = np.asarray(jax_plp.plp_jit(jnp.asarray(sig), jc))
+        got = plp_model.plp(torch.from_numpy(sig), from_jax(jc)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=PATHS_TOL)
+        got, _, _ = plp_model.plp_batch(torch.from_numpy(sig)[None],
+                                        torch.tensor([8000]), from_jax(jc))
+        np.testing.assert_allclose(got[0].numpy(), want, rtol=0,
+                                   atol=PATHS_TOL)

@@ -6,7 +6,8 @@ is not called, ``backend.resolve`` routes "auto" to "cuda", and each kernel
 wrapper counts a launch (and, for the four spectral kernels, the tile the
 config picks) and runs its plain version on the CPU tensor it is given,
 or, where the config picks the float64-front tile, the float64 oracle on
-the kernel's own input in the call's projection (the f32 plain versions
+the kernel's own input in the call's projection (both at compute_dtype
+float32, which the spectral kernels do not read) (the f32 plain versions
 sit at the f32 valley floor, above that tile's oracle bound); a launch on
 a named tile (phase 8's yardsticks) runs the plain chain.  Every phase then runs end to end at
 a small size: the control flow, shapes, comparisons, launch and tile
@@ -26,7 +27,7 @@ from mfcc_tpu_torch import backend, oracle
 from mfcc_tpu_torch.ops import framing
 from mfcc_tpu_torch.ops.kernels import (_build, _spectral, fused_dit,
                                         fused_mfcc, fused_nccf, fused_raw,
-                                        fused_raw_dit, fused_viterbi)
+                                        fused_raw_dit, fused_viterbi, routes)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WRAPPERS = ((fused_raw_dit, "fused_features_raw_dit"),
@@ -73,6 +74,9 @@ def _counting(mod, name):
         if mod in SHAPES:
             mod.LAST_SHAPE = SHAPES[mod]
         x, cfg = args[:2]
+        if hasattr(mod, "TILE_LAUNCHES"):   # the kernels read no compute_dtype
+            cfg = cfg.replace(compute_dtype="float32")
+            args = (x, cfg, *args[2:])
         projection = kwargs.get("projection", "mel")
         if hasattr(mod, "TILE_LAUNCHES") and x.shape[0] and \
                 cfg.num_frames(x.shape[1]):
@@ -121,7 +125,8 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                         ("RUNNER_PACK_SECONDS", 1.0), ("RUNNER_SUBSET", 4),
                         ("RUNNER_TRACE", 3), ("RUNNER_CHECKS", 2),
                         ("ONLINE_SECONDS", 3.0), ("ONLINE_STEP_CALLS", 3),
-                        ("FEED_CHECKS", 1), ("DRYRUN_RANKS", 4)):
+                        ("FEED_CHECKS", 1), ("DRYRUN_RANKS", 4),
+                        ("PRECISION_CALLS", 2), ("PITCH_LONG_SECONDS", 3.0)):
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "_smi", lambda: "Fake GPU, 700.00 W")
     monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
@@ -132,8 +137,10 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(_build, "load", lambda name: None)
     monkeypatch.setattr(_spectral, "launch_spectral", _launch_plain)
     resolve = backend.resolve
-    monkeypatch.setattr(backend, "resolve", lambda name, x: (
-        "cuda" if name in ("auto", "cuda") else resolve(name, x)))
+    monkeypatch.setattr(backend, "resolve", lambda name, x, cfg: (
+        "cuda" if name in ("auto", "cuda") and (
+            cfg is None or routes.kernel_precision_supported(cfg))
+        else resolve(name, x, cfg)))
     for mod, fn in WRAPPERS:
         monkeypatch.setattr(mod, "LAUNCHES", mod.LAUNCHES)   # restored after
         if mod in SHAPES:
@@ -146,7 +153,7 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 18)), "3b", "3c", "3d", "4b", "4c"]:
+    for phase in [*map(str, range(1, 20)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
     # phase 15: the online stream, one fused_nccf launch a chunk (the
     # phase's own assertion), its twin, the kernel vs plain chunk NCCF
@@ -159,6 +166,32 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         assert f"[15 online pitch] online_chunk_step ({route})" in out
     assert "chunk at frame 288, n_valid 8 of 16: " in out
     assert "[15 online pitch] delay 306 >= T against pitch_batch" in out
+    # phase 18: every setting of every family on both routes; "high" on
+    # the plain chain, the others on the "highest" kernel (the phase's own
+    # assertions), the forms alone and the training step
+    for fam in ("mfcc_batch", "log_mel_batch", "plp_batch"):
+        for setting in ("highest", "high", "default", "bf16"):
+            for route in ("auto", "torch"):
+                assert f"[18 precision modes] {fam} {setting} {route}: " \
+                    "launched " in out, (fam, setting, route)
+        assert f"[18 precision modes] {fam}: 'high' on the plain route, " \
+            "equal to 'highest' there, within 0.00028 + " in out
+        assert f"[18 precision modes] {fam} plain twins " in out
+    assert "[18 precision modes] mfcc_batch high auto: launched no " \
+        "spectral kernel (plain chain)" in out
+    assert "[18 precision modes] log_mel_batch plain twins inside each " \
+        "frame's 50 dB window: " in out
+    assert "[18 precision modes] a caller's TF32 flags left as they were" \
+        in out
+    for form in ("highest", "high", "default", "bf16", "3xTF32"):
+        assert f"[18 precision forms] {form}: (784, 400) x (400, 514) vs " \
+            "float64" in out
+    assert "[18 precision forms] train_step at 'default' on (8, 16000)" in out
+    # phase 19: both prefix-sum forms on the batch and the long row
+    for what in ("8 x 1 s ragged", "1 x 3 s"):
+        for form in ("float64 prefix sums", "float32 torch.cumsum"):
+            assert f"[19 pitch post stages] {what}, {form}: card vs CPU " \
+                "on the same NCCF" in out, (what, form)
     # phase 17: the dry run in 4 CPU processes at the default config on
     # the 8 x 1 s batch (the plain path: no launch), its errors and times
     assert "[17 distributed step] dryrun_multichip(4): mesh dp 1 x sp 2 x " \

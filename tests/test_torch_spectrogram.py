@@ -123,8 +123,10 @@ def on_card(monkeypatch):
     fused_raw_dit wrapper records each call before running its plain
     version."""
     resolve = backend.resolve
-    monkeypatch.setattr(backend, "resolve", lambda name, x: (
-        "cuda" if name in ("auto", "cuda") else resolve(name, x)))
+    monkeypatch.setattr(backend, "resolve", lambda name, x, cfg: (
+        "cuda" if name in ("auto", "cuda") and (
+            cfg is None or routes.kernel_precision_supported(cfg))
+        else resolve(name, x, cfg)))
     calls = []
     wrapped = fused_raw_dit.fused_features_raw_dit
 
@@ -164,11 +166,23 @@ def test_spectrogram_route_per_config(on_card, rng, kw, kernel):
     assert torch.equal(got, plain)
 
 
-def test_spectrogram_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="matmul_precision"):
+def test_spectrogram_unported_options_raise(rng):
+    """Only accum_dtype other than float32 still raises (ROADMAP modules
+    item 2.4); the precision modes and bf16 compute compute, equal to the
+    reference's XLA path inside the 50 dB window."""
+    with pytest.raises(NotImplementedError, match="accum_dtype"):
         spec_model.log_spectrogram(torch.zeros(4000),
-                                   FeatureConfig(matmul_precision="high"))
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
+                                   FeatureConfig(accum_dtype="bfloat16"))
+    with pytest.raises(NotImplementedError, match="accum_dtype"):
         spec_model.log_spectrogram_batch(torch.zeros((1, 4000)),
                                          torch.tensor([4000]),
-                                         FeatureConfig(compute_dtype="bfloat16"))
+                                         FeatureConfig(accum_dtype="bfloat16"))
+    sig = (rng.standard_normal(8000) * 0.3).astype(np.float32)
+    for kw in (dict(matmul_precision="high"), dict(compute_dtype="bfloat16")):
+        jc = JaxConfig(**kw).validate()
+        want = np.asarray(jax_spec.log_spectrogram_jit(jnp.asarray(sig), jc))
+        got = spec_model.log_spectrogram(torch.from_numpy(sig), from_jax(jc))
+        assert _window_err(got.numpy(), want) < WINDOW_TOL
+        got, _, _ = spec_model.log_spectrogram_batch(
+            torch.from_numpy(sig)[None], torch.tensor([8000]), from_jax(jc))
+        assert _window_err(got[0].numpy(), want) < WINDOW_TOL

@@ -343,8 +343,19 @@ def test_streaming_refusals(call):
         fn(st, torch.zeros((1, 100)), cfg)
     with pytest.raises(ValueError, match="valid"):
         fn(st, torch.zeros((1, 160)), cfg.replace(frame_mode="center"))
+    # "high" has no kernel route: the fused path refuses it as the
+    # reference does (models/streaming.py:264-267), the scan path
+    # computes it; accum_dtype other than float32 is not ported
+    high = cfg.replace(matmul_precision="high")
+    if call == "fused":
+        with pytest.raises(ValueError, match="high"):
+            fn(st, torch.zeros((1, 160)), high)
+    else:
+        _, got, _ = fn(st, torch.zeros((1, 160)), high)
+        _, want, _ = fn(st, torch.zeros((1, 160)), cfg)
+        assert torch.equal(got, want)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(st, torch.zeros((1, 160)), cfg.replace(matmul_precision="high"))
+        fn(st, torch.zeros((1, 160)), cfg.replace(accum_dtype="bfloat16"))
 
 
 def test_stream_signal_matches_stepwise(speechlike):
