@@ -114,7 +114,7 @@ Phases, one status line each; any failure raises and exits non-zero:
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
    ``fused_viterbi``'s time per step of its chain beside the chain bound;
    ``pitch_batch``'s ATen ops and host enqueue time beside its own.
-9. the script's elapsed time (phases 1-8 and 10-19), one JSON line
+9. the script's elapsed time (phases 1-8 and 10-20), one JSON line
    describing the kernels of phases 1-8 (with
    each one's bound: the larger of its input and output bytes over 3.35
    TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes,
@@ -248,6 +248,21 @@ Phases, one status line each; any failure raises and exits non-zero:
    their gap, the CPU's margin to the per-column bounds, and each against
    the float64 oracle (the float64 form within pov 1e-4, norm 3e-4, delta
    1e-4).
+20. ``nccf_chunk=`` on the card, where the port does not chunk: the NCCF
+   stage (``ops/pitch._track``) on one 6-minute stream of the bench signal
+   (T = 35,996 at 4 kHz) and on the ragged 64 x 10 s batch at K = 4, 128
+   and 512, ``fused_nccf``'s counter reset just before and read just
+   after each call: one launch, equal in every bit to ``nccf_chunk=None``,
+   within 2e-5 of the chunked plain route (``_nccf_chunked``, the CPU's);
+   K = 3 refused (ValueError); ``pitch_track`` with ``viterbi_block=320,
+   viterbi_warm=64`` on the stream, ``nccf_chunk=128``, equal to
+   unchunked; ``pitch_features(nccf_chunk=128)`` on a voiced 60 s vibrato
+   within pov 1e-4, norm 3e-4, delta 1e-4 of the float64 oracle.  Times
+   (information: why the card does not chunk): CUDA events, the unchunked
+   kernel route against the chunk rows (``_chunk_rows``) through one
+   ``fused_nccf`` launch at each K, on the stream, the batch and a
+   60-minute row (T = 359,996) at K = 512; the plain route on the host CPU
+   chunked against unchunked on the stream (host clock).
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -374,6 +389,12 @@ BF16_FORM_GATES = (1e-5, 0.3)
 FORM_UNIT = {"highest": 0.0, "default": 2.0 ** -9}
 # phase 19: the pitch post stages on the card and the CPU, one NCCF
 PITCH_LONG_SECONDS = 120.0
+# phase 20: the chunked NCCF (nccf_chunk=) on one long stream
+CHUNK_KS = (4, 128, 512)     # frames a chunk; 4 is the least at the default
+CHUNK_STREAM_SECONDS = 360.0
+CHUNK_HOUR_REPEATS = 10      # the stream's work-rate row 10 times: 60 min
+CHUNK_VOICED_SECONDS = 60.0
+CHUNK_CALLS = 10             # timed calls on the card; 2 on the host CPU
 
 
 def _log(msg: str) -> None:
@@ -1611,19 +1632,28 @@ def _bounds(bench) -> dict:
             out[name] = _spectral_work(c, name == "fused_mfcc", raw, B,
                                        int(SECONDS * c.sample_rate))
     p = PitchConfig()
-    T, L, w = p.num_frames(N), p.n_lags, p.frame_len_w
-    nw = int(round(N * p.work_rate / p.sample_rate))
-    # NCCF: w x L numerator MACs, lag energies by a running sum, then per
-    # lag the product, floor, ballast, two square roots and two divisions
-    # (the least work; the kernel's own is _nccf_kernel_ops)
-    out["fused_nccf"] = (B * T * (2 * w * L + 2 * (w + p.max_lag) + 8 * L),
-                         4 * (B * nw + B) + 2 * 4 * B * T * L)
+    T, L = p.num_frames(N), p.n_lags
+    out["fused_nccf"] = _nccf_work(
+        B, T, int(round(N * p.work_rate / p.sample_rate)))
     # Viterbi: per step and state L additions and L comparisons
     out["fused_viterbi"] = (B * T * 2 * L * L, 4 * B * T * L + 4 * B * T)
     for rec, projection in PROJECTIONS.items():
         out[rec] = _spectral_work(FeatureConfig(), False, True, B, N,
                                   projection)
     return out
+
+
+def _nccf_work(B: int, T: int, nw: int) -> tuple:
+    """(operations, bytes) of the NCCF of T frames of B work-rate rows of nw
+    samples: w x L numerator MACs, lag energies by a running sum, then per
+    lag the product, floor, ballast, two square roots and two divisions
+    (the least work; the kernel's own is _nccf_kernel_ops); the rows and
+    the ballast read once, both NCCFs written once."""
+    from mfcc_tpu_torch import PitchConfig
+    p = PitchConfig()
+    w, L = p.frame_len_w, p.n_lags
+    return (B * T * (2 * w * L + 2 * (w + p.max_lag) + 8 * L),
+            4 * (B * nw + B) + 2 * 4 * B * T * L)
 
 
 def _nccf_kernel_ops(B: int, T: int, TM: int) -> float:
@@ -3054,8 +3084,188 @@ def _pitch_post_phase(torch, dev, smi) -> None:
                     what, errs["card"])
 
 
+# ---- phase 20: the chunked NCCF on one long stream ----
+
+def _vibrato(n: int, sr: int) -> np.ndarray:
+    """A voiced 180 Hz vibrato (three harmonics, 10 % at 4 Hz, light noise),
+    numpy seed 0: the voiced signal of tests/test_torch_pitch.py."""
+    rng = np.random.default_rng(0)
+    t = np.arange(n) / sr
+    phase = 2 * np.pi * 180.0 * (t + 0.1 / (2 * np.pi * 4.0)
+                              * np.sin(2 * np.pi * 4.0 * t))
+    x = sum(a * np.sin(h * phase) for h, a in ((1, 0.5), (2, 0.25),
+                                               (3, 0.12)))
+    return (x + 0.02 * rng.standard_normal(n)).astype(np.float32)
+
+
+def _valid_diff(torch, got, want, mask) -> float:
+    """max |got - want| over the valid frames of (B, T, n_lags) NCCFs."""
+    return float(torch.where(mask[..., None], (got - want).abs(), 0.0).max())
+
+
+def _chunked_nccf_phase(torch, dev, smi) -> None:
+    """Phase 20: ``nccf_chunk=`` on the card, where the port runs the
+    unchunked kernel route (``ops/pitch._track``): on one 6-minute stream
+    and the ragged bench batch at K in CHUNK_KS, the NCCF stage one
+    ``fused_nccf`` launch, equal in every bit to ``nccf_chunk=None`` and
+    within 2e-5 of the chunked plain route; K = 3 refused; ``pitch_track``
+    (blocked) with chunking equal to without, and ``pitch_features`` with
+    chunking on a voiced minute against the float64 oracle; CUDA-event ms
+    of the unchunked kernel route beside the chunk rows through one
+    ``fused_nccf`` launch (the design the card does not take), on the
+    stream, the batch and a 60-minute row, and the host CPU's plain route
+    chunked and unchunked (host clock)."""
+    from mfcc_tpu_torch import PitchConfig, oracle
+    from mfcc_tpu_torch.ops import pitch as pitch_op, resample
+    from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_viterbi
+    pcfg = PitchConfig().validate()
+    sr = pcfg.sample_rate
+    stream = _bench_audio(1, CHUNK_STREAM_SECONDS, sr)
+    batch = _bench_audio(BATCH, SECONDS, sr)
+    B, N = batch.shape
+    lens = np.maximum(N - np.arange(B) * (N // (B + 6)), N // 4)
+    for i, n in enumerate(lens):
+        batch[i, n:] = 0.0
+
+    def stage(x, ln, k):
+        fused_nccf.LAUNCHES = 0
+        out = pitch_op._track(x, ln, pcfg, nccf_chunk=k, backend="auto",
+                              precision="highest")
+        torch.cuda.synchronize()
+        assert fused_nccf.LAUNCHES == 1 and out[4] == "cuda", (
+            k, fused_nccf.LAUNCHES, out[4])
+        return out
+
+    def unchunked(xw, mask, backend="cuda"):
+        return pitch_op._nccf_dispatch(xw, pcfg, mask, backend, "highest")
+
+    def chunk_rows(xw, mask, K):
+        xc, _, ball = pitch_op._chunk_rows(xw, pcfg, mask, K)
+        B, T = mask.shape
+        return tuple(o.reshape(B, -1, o.shape[-1])[:, :T]
+                     for o in fused_nccf.fused_nccf(xc, ball, pcfg, T=K))
+
+    def ms(fn, *args):
+        return statistics.median(_time_ms(torch, lambda: fn(*args),
+                                          calls=CHUNK_CALLS))
+
+    def timed(fn, *args):
+        n_ops, host = _ops_and_host_ms(torch, lambda: fn(*args))
+        return f"{ms(fn, *args):.4f} ({n_ops} ATen ops, enqueue {host:.4f})"
+
+    def bound_ms(xw, T):
+        ops, nbytes = _nccf_work(xw.shape[0], T, xw.shape[1])
+        return 1e3 * max(ops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    cases = {f"1 x {CHUNK_STREAM_SECONDS:g} s stream":
+             (stream, [stream.shape[1]]),
+             f"{B} x {SECONDS:g} s ragged": (batch, lens)}
+    for what, (audio, lengths) in cases.items():
+        x = torch.from_numpy(np.ascontiguousarray(audio)).to(dev)
+        ln = torch.tensor(np.asarray(lengths), device=dev)
+        full = stage(x, ln, None)
+        mask = full[3]
+        T = mask.shape[1]
+        xw = resample.resample(x, sr, pcfg.work_rate, precision="highest")
+        times = [f"unchunked {timed(unchunked, xw, mask)}"]
+        for K in CHUNK_KS:
+            got = stage(x, ln, K)
+            plain = pitch_op._nccf_chunked(xw, pcfg, mask, K,
+                                           precision="highest")
+            d_plain = [_valid_diff(torch, g, p, mask)
+                       for g, p in zip(got[:2], plain)]
+            rows_same = same((g[mask] for g in chunk_rows(xw, mask, K)),
+                             (f[mask] for f in unchunked(xw, mask)))
+            _log(f"[20 chunked NCCF] {what} (T={T}), K={K}: one fused_nccf "
+                 f"launch, equal in every bit to nccf_chunk=None: "
+                 f"{same(got[:4], full[:4])}; vs the chunked plain route "
+                 f"ballasted/plain {_fmt(d_plain)} (bound {KERNEL_TOL:g}); "
+                 f"the chunk rows through fused_nccf equal on the valid "
+                 f"frames: {rows_same}")
+            assert same(got[:4], full[:4]), (what, K)
+            assert max(d_plain) <= KERNEL_TOL, (what, K, d_plain)
+            times.append(f"chunk rows K={K} {timed(chunk_rows, xw, mask, K)}")
+        _log(f"[20 chunked NCCF] {what}: ms a call (CUDA events; host ms) "
+             f"{', '.join(times)}; bound {bound_ms(xw, T):.4f} ({smi})")
+    try:
+        pitch_op.pitch_track(x, ln, pcfg, nccf_chunk=3)
+    except ValueError as e:
+        _log(f"[20 chunked NCCF] K=3 refused: ValueError: {e}")
+    else:
+        raise AssertionError("nccf_chunk=3 was not refused")
+
+    # one hour: the stream's work-rate row repeated
+    x = torch.from_numpy(stream).to(dev)
+    xw_s = resample.resample(x, sr, pcfg.work_rate, precision="highest")
+    xh = xw_s.repeat(1, CHUNK_HOUR_REPEATS)
+    Th = (xh.shape[1] - pcfg.frame_len_w - pcfg.max_lag) // pcfg.hop_len_w + 1
+    mask_h = torch.ones((1, Th), dtype=torch.bool, device=dev)
+    K = CHUNK_KS[-1]
+    _log(f"[20 chunked NCCF] 1 x {CHUNK_HOUR_REPEATS * CHUNK_STREAM_SECONDS:g}"
+         f" s row (T={Th}): chunk rows K={K} equal to unchunked in every "
+         f"bit: {same(chunk_rows(xh, mask_h, K), unchunked(xh, mask_h))}; "
+         f"ms unchunked {ms(unchunked, xh, mask_h):.4f}, chunk rows K={K} "
+         f"{ms(chunk_rows, xh, mask_h, K):.4f}; bound "
+         f"{bound_ms(xh, Th):.4f} ({smi})")
+    del xh
+
+    # end to end: pitch_track, blocked, on the stream
+    ln = torch.tensor([stream.shape[1]], device=dev)
+    blocked = dict(viterbi_block=320, viterbi_warm=64)
+    tracks = {}
+    for k in (None, 128):
+        _reset_counts([fused_nccf, fused_viterbi])
+        tracks[k] = pitch_op.pitch_track(x, ln, pcfg, nccf_chunk=k, **blocked)
+        torch.cuda.synchronize()
+        counts = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+        assert counts == (1, 1), (k, counts)
+    _log(f"[20 chunked NCCF] pitch_track 1 x {CHUNK_STREAM_SECONDS:g} s, "
+         f"viterbi_block 320, warm 64: one fused_nccf and one fused_viterbi "
+         f"launch each; nccf_chunk=128 f0, voicing and mask equal to "
+         f"unchunked in every bit: {same(tracks[None], tracks[128])}")
+    assert same(tracks[None], tracks[128])
+
+    xv = _vibrato(int(CHUNK_VOICED_SECONDS * sr), sr)
+    _reset_counts([fused_nccf, fused_viterbi])
+    feat, fl, _ = pitch_op.pitch_features(
+        torch.from_numpy(xv[None]).to(dev), torch.tensor([xv.size], device=dev),
+        pcfg, nccf_chunk=128)
+    torch.cuda.synchronize()
+    counts = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+    want = oracle.pitch(xv.astype(np.float64), pcfg)
+    assert int(fl[0]) == want.shape[0] and counts == (1, 1), (fl, counts)
+    errs = _columns_err(feat[0].cpu().numpy(), want, PITCH_TOL)
+    _log(f"[20 chunked NCCF] pitch_features(nccf_chunk=128) on a voiced "
+         f"{CHUNK_VOICED_SECONDS:g} s vibrato ({want.shape[0]} frames, "
+         f"launched fused_nccf/fused_viterbi {counts}) vs the float64 "
+         f"oracle, pov/norm/delta {_fmt(errs)}")
+
+    # the plain route on the host CPU, host clock
+    xc = xw_s.cpu()
+    mc = torch.ones((1, pcfg.num_frames(stream.shape[1])), dtype=torch.bool)
+
+    def host_ms(fn):
+        fn()
+        out = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(out)
+
+    cpu = [f"unchunked {host_ms(lambda: unchunked(xc, mc, 'torch')):.1f}"]
+    cpu += [f"K={K} " + format(host_ms(lambda: pitch_op._nccf_chunked(
+        xc, pcfg, mc, K, precision="highest")), ".1f") for K in CHUNK_KS]
+    _log(f"[20 chunked NCCF] the plain route on the host CPU ({os.cpu_count()}"
+         f" cores, {torch.get_num_threads()} threads), 1 x "
+         f"{CHUNK_STREAM_SECONDS:g} s stream: ms a call {', '.join(cpu)}")
+
+
 def run(torch, dev) -> list[dict]:
-    """Phases 1-8 and 10-19 on device ``dev``; -> the kernels' JSON records
+    """Phases 1-8 and 10-20 on device ``dev``; -> the kernels' JSON records
     (of phases 1-8: the later phases report their own counters)."""
     from mfcc_tpu_torch import PitchConfig
     from mfcc_tpu_torch.ops.kernels import _build
@@ -3100,6 +3310,7 @@ def run(torch, dev) -> list[dict]:
     _precision_families(torch, dev, smi)                    # 18
     _precision_forms(torch, dev, smi)                       # 18
     _pitch_post_phase(torch, dev, smi)                      # 19
+    _chunked_nccf_phase(torch, dev, smi)                    # 20
 
     src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
     launches = {**logmel_launches, **pitch_launches, **proj_launches}
@@ -3161,7 +3372,7 @@ def main() -> int:
     kernels = run(torch, torch.device("cuda", 0))
     # ---- 9. summary ----
     assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
-    _log(f"[9 summary] phases 1-8 and 10-19 passed in "
+    _log(f"[9 summary] phases 1-8 and 10-20 passed in "
          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

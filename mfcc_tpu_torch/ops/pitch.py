@@ -218,6 +218,65 @@ def _nccf_dispatch(xw: torch.Tensor, pcfg: PitchConfig, mask: torch.Tensor,
     return nccf(xw, pcfg, mask, precision=precision)
 
 
+def _check_chunk(K: int, pcfg: PitchConfig) -> None:
+    """ValueError unless chunks of K frames can be cut: a chunk row holds
+    one block of K*hop_len_w samples and the head of the next, which needs
+    (K+1)*hop_len_w >= frame_len_w + max_lag, and K >= 1.  A deliberate
+    deviation: below the bound the reference fails inside its reshape, with
+    a bare TypeError."""
+    hop, need = pcfg.hop_len_w, pcfg.frame_len_w + pcfg.max_lag
+    if K < 1 or (K + 1) * hop < need:
+        raise ValueError(
+            f"nccf_chunk={K}: a chunk row spans one block of K*hop_len_w "
+            f"samples and the head of the next, so (K+1)*hop_len_w = "
+            f"{(K + 1) * hop} must be >= frame_len_w + max_lag = {need}")
+
+
+def _chunk_rows(xw: torch.Tensor, pcfg: PitchConfig, mask: torch.Tensor,
+                K: int):
+    """(B, Nw) work-rate rows, (B, T) mask -> the chunked NCCF's inputs:
+    (B*C, span) chunk rows of K frames each (C = ceil(T/K)), their (B*C,
+    K) masks against the true frame counts, and the (B*C,) ballast.
+
+    Row c is [block c | head of block c+1] of the zero-padded signal cut
+    in blocks of K*hop_len_w samples (static slices and a reshape, no
+    gather), so frame c*K + k reads the samples it reads unchunked.  The
+    ballast is the GLOBAL masked mean energy (:func:`mean_frame_energy`),
+    repeated for every chunk."""
+    _check_chunk(K, pcfg)
+    B, Nw = xw.shape
+    T = mask.shape[1]
+    hop = pcfg.hop_len_w
+    span = (K - 1) * hop + pcfg.frame_len_w + pcfg.max_lag
+    C = -(-T // K)
+    stride = K * hop
+    need = (C + 1) * stride                  # base blocks + context
+    xw_p = F.pad(xw, (0, need - Nw)) if Nw < need else xw[:, :need]
+    base = xw_p[:, : C * stride].reshape(B, C, stride)
+    ctx = xw_p[:, stride:].reshape(B, C, stride)[:, :, : span - stride]
+    xc = torch.cat([base, ctx], dim=-1).reshape(B * C, span)
+    flens = mask.sum(dim=1)                          # (B,)
+    g = torch.arange(C * K, device=xw.device).reshape(C, K)
+    mask_c = (g[None] < flens[:, None, None]).reshape(B * C, K)
+    mean_e = mean_frame_energy(xw, pcfg, mask)
+    return xc, mask_c, (pcfg.ballast * mean_e * mean_e).repeat_interleave(C)
+
+
+def _nccf_chunked(xw: torch.Tensor, pcfg: PitchConfig, mask: torch.Tensor,
+                  K: int, *, precision: str):
+    """The plain NCCF (:func:`nccf` at ``precision``) of time chunks of K
+    frames folded into the batch axis, (B, Nw) -> (B*C, span) rows
+    (:func:`_chunk_rows`) -> (B, T, n_lags) again: the reference's
+    ``nccf_chunk=`` option (``_nccf_chunked``), faster than the unchunked
+    :func:`nccf` on the host CPU.  The plain NCCF equals the unchunked one;
+    the ballasted one differs by the ballast's f32 summation order."""
+    B, T = mask.shape
+    xc, mask_c, ball_c = _chunk_rows(xw, pcfg, mask, K)
+    nb, npl = nccf(xc, pcfg, mask_c, precision=precision, ball=ball_c)
+    return (nb.reshape(B, -1, nb.shape[-1])[:, :T],
+            npl.reshape(B, -1, npl.shape[-1])[:, :T])
+
+
 def viterbi(nccf_b: torch.Tensor, pcfg: PitchConfig) -> torch.Tensor:
     """(B, T, n_lags) masked ballasted NCCF -> (B, T) int32 lag indices.
 
@@ -346,12 +405,13 @@ def weighted_sliding_mean(v: torch.Tensor, wgt: torch.Tensor,
 def _track(x, lengths, pcfg, *, nccf_chunk, backend, precision):
     """The NCCF stage shared by :func:`pitch_features` and
     :func:`pitch_track`: -> (masked nccf_b, nccf_p, flens, mask, the
-    resolved backend), or None when no frame fits."""
+    resolved backend), or None when no frame fits.  With ``nccf_chunk``
+    set and more frames than it, the plain route's NCCF is
+    :func:`_nccf_chunked`; the kernel route ("cuda") does not chunk: it
+    sums each frame alone, so chunk rows would give the same bits, and on
+    the H100 they took longer (PERF.md)."""
     if nccf_chunk is not None:
-        raise NotImplementedError(
-            "nccf_chunk (chunked NCCF) is not ported: it measured negative "
-            "on the TPU (ROADMAP.md, modules to port, item 7: "
-            "_nccf_chunked)")
+        _check_chunk(nccf_chunk, pcfg)
     backend = backend_lib.resolve(backend, x, None)
     B, N = x.shape
     T = pcfg.num_frames(N)
@@ -364,7 +424,11 @@ def _track(x, lengths, pcfg, *, nccf_chunk, backend, precision):
     flens = torch.clamp(pitch_frame_counts(lengths, pcfg), max=T)
     mask = torch.arange(T, dtype=torch.int32,
                         device=x.device)[None, :] < flens[:, None]
-    nccf_b, nccf_p = _nccf_dispatch(xw, pcfg, mask, backend, precision)
+    if nccf_chunk is not None and T > nccf_chunk and backend == "torch":
+        nccf_b, nccf_p = _nccf_chunked(xw, pcfg, mask, nccf_chunk,
+                                       precision=precision)
+    else:
+        nccf_b, nccf_p = _nccf_dispatch(xw, pcfg, mask, backend, precision)
     nccf_b = torch.where(mask[..., None], nccf_b, 0.0)
     return nccf_b, nccf_p, flens, mask, backend
 
@@ -420,7 +484,10 @@ def pitch_features(x: torch.Tensor, lengths: torch.Tensor,
     (``backend.matmul``), "highest" by default as in the reference; the
     ``fused_nccf`` route ignores it, as the reference's kernel does.
     viterbi_block: opt-in blocked Viterbi (see :func:`viterbi_blocked`).
-    nccf_chunk: the reference's chunked NCCF, not ported (raises)."""
+    nccf_chunk: opt-in chunked NCCF (see :func:`_nccf_chunked`), K frames
+    a chunk folded into the batch axis, on the plain route when there are
+    more than K frames; the kernel route only checks K (see
+    :func:`_track`).  The automatic paths never set it."""
     B = x.shape[0]
     tr = _track(x, lengths, pcfg, nccf_chunk=nccf_chunk, backend=backend,
                 precision=precision)
@@ -438,7 +505,8 @@ def pitch_track(x: torch.Tensor, lengths: torch.Tensor, pcfg: PitchConfig,
                 *, viterbi_block: int | None = None, viterbi_warm: int = 128,
                 nccf_chunk: int | None = None, backend: str = "auto"):
     """(B, N), (B,) -> ((B, T) f0 in Hz, (B, T) plain NCCF voicing, mask):
-    the raw track for consumers that want Hz rather than ASR features."""
+    the raw track for consumers that want Hz rather than ASR features.
+    viterbi_block and nccf_chunk as in :func:`pitch_features`."""
     B = x.shape[0]
     tr = _track(x, lengths, pcfg, nccf_chunk=nccf_chunk, backend=backend,
                 precision="highest")

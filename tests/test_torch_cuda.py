@@ -187,6 +187,37 @@ def test_nccf_kernel_matches_plain(cuda, gen, kw, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [4, 128, 512])
+def test_nccf_chunk_on_the_card_is_the_unchunked_kernel_route(cuda, gen, K):
+    """``nccf_chunk=`` on a CUDA tensor: the bound is checked, then one
+    ``fused_nccf`` launch over the unchunked rows, equal in every bit to
+    ``nccf_chunk=None``, and within the kernel bound of the chunked plain
+    route the CPU takes."""
+    pcfg = PitchConfig()
+    lens = np.asarray([96000, 70001, 4800], np.int32)
+    x = np.zeros((3, 96000), np.float32)
+    for i, n in enumerate(lens):
+        x[i, :n] = _vibrato(gen, n, 110.0 + 40 * i)
+    x, ln = torch.from_numpy(x).to(cuda), torch.from_numpy(lens).to(cuda)
+    out = {}
+    for k in (K, None):
+        before = fused_nccf.LAUNCHES
+        out[k] = pitch_op._track(x, ln, pcfg, nccf_chunk=k, backend="auto",
+                                 precision="highest")
+        torch.cuda.synchronize()
+        assert fused_nccf.LAUNCHES == before + 1
+    nb, npl, _, mask, route = out[K]
+    assert route == out[None][4] == "cuda"
+    assert all(torch.equal(a, b) for a, b in zip(out[K][:4], out[None][:4]))
+    xw = resample.resample(x, pcfg.sample_rate, pcfg.work_rate)
+    plain = pitch_op._nccf_chunked(xw, pcfg, mask, K, precision="highest")
+    for g, p in zip((nb, npl), plain):
+        assert float((g - p).abs()[mask].max()) <= TOL
+    with pytest.raises(ValueError, match="nccf_chunk=3"):
+        pitch_op.pitch_track(x, ln, pcfg, nccf_chunk=3)
+
+
+@pytest.mark.cuda
 def test_nccf_kernel_lag_energies_in_registers(cuda, gen):
     """A window too large for the tile's shared energies (40,400 samples,
     39,961 lags): the lag energies stay in each thread's registers.  The

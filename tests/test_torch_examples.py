@@ -80,6 +80,9 @@ def test_example_runs_on_the_cpu(monkeypatch, capsys, tmp_path, name):
     elif name == "longform_pitch.py":
         out = _run(monkeypatch, capsys, tmp_path, name, "--minutes", "0.05")
         assert "3 s of audio -> 296 pitch frames" in out
+        chunked = _run(monkeypatch, capsys, tmp_path, name, "--minutes",
+                       "0.05", "--nccf-chunk", "128")
+        assert chunked == out
     elif name == "train_frontend.py":
         out = _run(monkeypatch, capsys, tmp_path, name, "--out", "f.npz",
                    "--steps", "20")

@@ -12,6 +12,7 @@ import dataclasses
 import functools
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -304,6 +305,137 @@ def test_nccf_wrapper_on_cpu_runs_the_plain_version(rng):
         PitchConfig(work_rate=16000, min_f0=0.25).validate())
 
 
+# ---------------------------------------------------------- chunked NCCF --
+# nccf_chunk=: the port chunks on the CPU only (on the card the kernel's
+# frames would be the same bits, so it runs unchunked; tests/test_torch_cuda.py)
+
+HI = jax.lax.Precision.HIGHEST
+CHUNK_SECONDS = 6           # 596 frames: K = 512 makes two chunks
+CHUNKS = (4, 128, 512)
+
+
+def _chunk_inputs(rng, kw=None):
+    """The (3, 6 s) zero-padded batch at the work rate: vibrato 6 s
+    (voiced), tone + silence repeated, vibrato 0.3 s (voiced)."""
+    j, t = _jcfg(kw or {}), PitchConfig(**(kw or {})).validate()
+    n = CHUNK_SECONDS * SR
+    x = np.zeros((3, n), np.float32)
+    lens = np.asarray([n, n * 3 // 4, 4800], np.int32)
+    x[0] = _vibrato(rng, n=n)
+    x[1, : lens[1]] = np.tile(_tone_silence(rng), CHUNK_SECONDS)[: lens[1]]
+    x[2, :4800] = _vibrato(rng, n=4800, f0=120.0)
+    xw = np.array(jax_resample.resample(jnp.asarray(x), j.sample_rate,
+                                        j.work_rate))
+    flens, mask = _flens_mask(lens, j, j.num_frames(n))
+    return j, t, xw, flens, mask
+
+
+def _close_on_valid(got, want, flens, voiced=(0, 2)):
+    """The ballasted NCCF on every row, the plain one on the voiced rows,
+    valid frames only, within the kernel bound."""
+    (gb, gp), (wb, wp) = got, want
+    for i, v in enumerate(flens):
+        np.testing.assert_allclose(np.asarray(gb)[i, :v],
+                                   np.asarray(wb)[i, :v], atol=KERNEL_TOL,
+                                   rtol=0)
+        if i in voiced:
+            np.testing.assert_allclose(np.asarray(gp)[i, :v],
+                                       np.asarray(wp)[i, :v],
+                                       atol=KERNEL_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("K", CHUNKS)
+@pytest.mark.parametrize("route", ["xla", "pallas"])
+def test_chunked_nccf_matches_jax(rng, K, route):
+    """The port's chunked NCCF against JAX's ``_nccf_chunked`` on its XLA
+    route and through its Pallas kernel in interpret mode, on a ragged
+    B = 3 batch."""
+    j, t, xw, flens, mask = _chunk_inputs(rng)
+    want = jax_pitch._nccf_chunked(jnp.asarray(xw), j, jnp.asarray(mask), K,
+                                   precision=HI, backend=route)
+    got = pitch_op._nccf_chunked(torch.from_numpy(xw), t,
+                                 torch.from_numpy(mask), K,
+                                 precision="highest")
+    assert tuple(got[0].shape) == want[0].shape == (3, mask.shape[1],
+                                                    t.n_lags)
+    _close_on_valid(got, want, flens)
+
+
+@pytest.mark.parametrize("kw", CONFIGS[1:4])
+def test_chunked_nccf_matches_jax_other_configs(rng, kw):
+    j, t, xw, flens, mask = _chunk_inputs(rng, kw)
+    want = jax_pitch._nccf_chunked(jnp.asarray(xw), j, jnp.asarray(mask), 64,
+                                   precision=HI, backend="xla")
+    got = pitch_op._nccf_chunked(torch.from_numpy(xw), t,
+                                 torch.from_numpy(mask), 64,
+                                 precision="highest")
+    _close_on_valid(got, want, flens)
+
+
+@pytest.mark.parametrize("K", CHUNKS)
+def test_chunked_equals_unchunked(rng, K):
+    """Every frame reads the samples it reads unchunked, so the plain NCCF
+    is equal in every bit; the ballasted one differs by the ballast's
+    summation order (the global mean from hop-block sums here, from the
+    frame tensor in the unchunked ``nccf``), within the reference's 2e-6
+    (``tests/test_pitch.py``)."""
+    _, t, xw, flens, mask = _chunk_inputs(rng)
+    xw, mask = torch.from_numpy(xw), torch.from_numpy(mask)
+    want_b, want_p = pitch_op.nccf(xw, t, mask)
+    got_b, got_p = pitch_op._nccf_chunked(xw, t, mask, K, precision="highest")
+    assert torch.equal(got_p, want_p)
+    np.testing.assert_allclose(got_b.numpy(), want_b.numpy(), atol=2e-6,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("kw", CONFIGS)
+def test_chunk_bound(rng, kw):
+    """``_nccf_chunked`` raises ValueError exactly when (K+1)*hop_len_w <
+    frame_len_w + max_lag, or K < 1; at the smallest K it takes it agrees
+    with JAX's.  Below it the reference fails inside its reshape, with a
+    TypeError (a deliberate deviation; at the default config K = 3)."""
+    j, t, xw, flens, mask = _chunk_inputs(rng, kw)
+    k_min = max(1, -(-(t.frame_len_w + t.max_lag) // t.hop_len_w) - 1)
+    assert (k_min + 1) * t.hop_len_w >= t.frame_len_w + t.max_lag
+    txw, tmask = torch.from_numpy(xw), torch.from_numpy(mask)
+    for K in (0, -1, k_min - 1):
+        if K >= 1:
+            assert (K + 1) * t.hop_len_w < t.frame_len_w + t.max_lag
+            with pytest.raises(TypeError, match="reshape"):
+                jax_pitch._nccf_chunked(jnp.asarray(xw), j,
+                                        jnp.asarray(mask), K, precision=HI,
+                                        backend="xla")
+        with pytest.raises(ValueError, match=f"nccf_chunk={K}"):
+            pitch_op._nccf_chunked(txw, t, tmask, K, precision="highest")
+    got = pitch_op._nccf_chunked(txw, t, tmask, k_min, precision="highest")
+    want = jax_pitch._nccf_chunked(jnp.asarray(xw), j, jnp.asarray(mask),
+                                   k_min, precision=HI, backend="xla")
+    _close_on_valid(got, want, flens)
+    if not kw:
+        assert k_min == 4
+
+
+def test_pitch_features_chunked_on_voiced_audio(rng):
+    """``pitch_features(nccf_chunk=128)`` on a voiced 4 s vibrato: within
+    the oracle's bounds, and JAX's with the same arguments; with the
+    blocked Viterbi too, within 3e-4 of the unchunked blocked pipeline
+    (the reference's bound)."""
+    j, t = _jcfg({}), PitchConfig()
+    xv = torch.from_numpy(_vibrato(rng, n=4 * SR)[None, :])
+    lens = torch.tensor([xv.shape[1]], dtype=torch.int32)
+    want = oracle.pitch(xv[0].numpy().astype(np.float64), t)
+    feat, flens, _ = pitch_op.pitch_features(xv, lens, t, nccf_chunk=128)
+    _check_columns(feat[0, : int(flens[0])].numpy(), want)
+    jfeat, jflens, _ = jax_pitch.pitch_features(
+        jnp.asarray(xv.numpy()), jnp.asarray(lens.numpy()), j, nccf_chunk=128)
+    assert int(jflens[0]) == int(flens[0])
+    _check_columns(feat.numpy(), np.asarray(jfeat))
+    blocked = dict(viterbi_block=256, viterbi_warm=128)
+    f2 = pitch_op.pitch_features(xv, lens, t, nccf_chunk=128, **blocked)[0]
+    f3 = pitch_op.pitch_features(xv, lens, t, **blocked)[0]
+    np.testing.assert_allclose(f2.numpy(), f3.numpy(), atol=3e-4, rtol=0)
+
+
 # -------------------------------------------------------------- Viterbi --
 
 def _scores(rng, B, T, n):
@@ -534,13 +666,28 @@ def test_pitch_batch_matches_jax_and_oracle(rng, dtype, kw):
         _check_columns(tf.numpy()[i, : want.shape[0]], want)
 
 
-def test_pitch_track_matches_jax(rng):
+@pytest.mark.parametrize("nccf_chunk", [None, 4, 64, 196, 296])
+def test_pitch_track_matches_jax(rng, nccf_chunk):
+    """The model's track, and with ``nccf_chunk`` ``pitch_track`` chunked in
+    both packages; at K >= T (196 frames) neither chunks, and the port's
+    track equals ``nccf_chunk=None``'s in every bit."""
     j, t = _jcfg({}), PitchConfig()
     x, lens = _ragged(rng)
-    jf0, jv, jm = jax_pitch_model.pitch_track_batch_jit(
-        jnp.asarray(x), jnp.asarray(lens), j)
-    f0, v, m = pitch_model.pitch_track_batch(torch.from_numpy(x),
-                                             torch.from_numpy(lens), t)
+    if nccf_chunk is None:
+        jf0, jv, jm = jax_pitch_model.pitch_track_batch_jit(
+            jnp.asarray(x), jnp.asarray(lens), j)
+        f0, v, m = pitch_model.pitch_track_batch(torch.from_numpy(x),
+                                                 torch.from_numpy(lens), t)
+    else:
+        jf0, jv, jm = jax_pitch.pitch_track(
+            jnp.asarray(x), jnp.asarray(lens), j, nccf_chunk=nccf_chunk)
+        f0, v, m = pitch_op.pitch_track(torch.from_numpy(x),
+                                        torch.from_numpy(lens), t,
+                                        nccf_chunk=nccf_chunk)
+        if nccf_chunk >= t.num_frames(x.shape[1]):
+            want = pitch_op.pitch_track(torch.from_numpy(x),
+                                        torch.from_numpy(lens), t)
+            assert all(torch.equal(a, b) for a, b in zip((f0, v, m), want))
     np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
     # f0 = work_rate / lag: 1e-4 of log pitch is ~1e-4 relative
     np.testing.assert_allclose(f0.numpy(), np.asarray(jf0), rtol=1e-4,
@@ -604,8 +751,8 @@ def test_pitch_backend_resolution_and_unported_options(rng):
         pitch_model.pitch_batch(x, lens, t, "cuda")
     with pytest.raises(ValueError, match="backend"):
         pitch_model.pitch_batch(x, lens, t, "pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pitch_op.pitch_features(x, lens, t, nccf_chunk=128)
+    with pytest.raises(ValueError, match="nccf_chunk=3"):
+        pitch_op.pitch_features(x, lens, t, nccf_chunk=3)
     counts = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
     a = pitch_model.pitch_batch(x, lens, t, "auto")[0]
     b = pitch_model.pitch_batch(x, lens, t, "torch")[0]

@@ -126,7 +126,10 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                         ("RUNNER_TRACE", 3), ("RUNNER_CHECKS", 2),
                         ("ONLINE_SECONDS", 3.0), ("ONLINE_STEP_CALLS", 3),
                         ("FEED_CHECKS", 1), ("DRYRUN_RANKS", 4),
-                        ("PRECISION_CALLS", 2), ("PITCH_LONG_SECONDS", 3.0)):
+                        ("PRECISION_CALLS", 2), ("PITCH_LONG_SECONDS", 3.0),
+                        ("CHUNK_STREAM_SECONDS", 14.0),
+                        ("CHUNK_HOUR_REPEATS", 2),
+                        ("CHUNK_VOICED_SECONDS", 4.0), ("CHUNK_CALLS", 2)):
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "_smi", lambda: "Fake GPU, 700.00 W")
     monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
@@ -153,8 +156,27 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 20)), "3b", "3c", "3d", "4b", "4c"]:
+    for phase in [*map(str, range(1, 21)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
+    # phase 20: nccf_chunk= at each K on the stream and the batch, one
+    # launch a call (the phase's own assertion), equal to unchunked
+    for what, T in (("1 x 14 s stream", 1396), ("8 x 1 s ragged", 96)):
+        for K in (4, 128, 512):
+            line = next(ln for ln in out.splitlines() if ln.startswith(
+                f"[20 chunked NCCF] {what} (T={T}), K={K}: one fused_nccf "
+                "launch, "))
+            assert "equal in every bit to nccf_chunk=None: True" in line, line
+        assert f"[20 chunked NCCF] {what}: ms a call (CUDA events; host " \
+            "ms) unchunked " in out
+    assert "[20 chunked NCCF] K=3 refused: ValueError: nccf_chunk=3" in out
+    assert "[20 chunked NCCF] 1 x 28 s row (T=2796): chunk rows K=512 " \
+        "equal to unchunked in every bit: " in out
+    assert "nccf_chunk=128 f0, voicing and mask equal to unchunked in " \
+        "every bit: True" in out
+    assert "[20 chunked NCCF] pitch_features(nccf_chunk=128) on a voiced " \
+        "4 s vibrato (396 frames, launched fused_nccf/fused_viterbi (1, 1))" \
+        in out
+    assert "[20 chunked NCCF] the plain route on the host CPU (" in out
     # phase 15: the online stream, one fused_nccf launch a chunk (the
     # phase's own assertion), its twin, the kernel vs plain chunk NCCF
     assert "[15 online pitch] 3 s stream fed in 1600-sample pieces, delay " \
