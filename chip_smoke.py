@@ -12,9 +12,11 @@ Phases, one status line each; any failure raises and exits non-zero:
 2. build: compile the six kernel sources (``fused_raw_dit.cu``,
    ``fused_raw.cu``, ``fused_mfcc.cu``, ``fused_dit.cu``, ``fused_nccf.cu``,
    ``fused_viterbi.cu`` in ``mfcc_tpu_torch/ops/kernels/csrc/``) from this
-   checkout with nvcc, and the WAV decoder ``native/wavio.cpp`` with g++,
-   one process per source, all at once; print ptxas's registers, shared
-   memory and spills per kernel.
+   checkout with nvcc, the roofline ladder's rungs (phase 21: three edited
+   copies of ``fft_tile.cuh`` x ``fused_raw_dit.cu``, ``fused_raw.cu``,
+   ``fused_mfcc.cu``, under ``build/roofline/``), and the WAV decoder
+   ``native/wavio.cpp`` with g++, one process per source, all at once;
+   print ptxas's registers, shared memory and spills per kernel.
 3. MFCC kernel vs plain: ``fused_raw_dit`` against its plain PyTorch
    version on the card, same inputs, max abs diff <= 2e-5 (cepstra
    compared unliftered, as the repository's kernel tests do); each case
@@ -114,8 +116,9 @@ Phases, one status line each; any failure raises and exits non-zero:
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
    ``fused_viterbi``'s time per step of its chain beside the chain bound;
    ``pitch_batch``'s ATen ops and host enqueue time beside its own.
-9. the script's elapsed time (phases 1-8 and 10-20), one JSON line
-   describing the kernels of phases 1-8 (with
+9. the script's elapsed time (phases 1-8 and 10-21), one JSON line
+   describing the kernels of phases 1-8 and row 7, the roofline probe, of
+   phase 21 (with
    each one's bound: the larger of its input and output bytes over 3.35
    TB/s and its operations over 67 TFLOP/s fp32, from this run's shapes,
    and for ``fused_viterbi`` also its dependent chain at the card's SM
@@ -263,6 +266,24 @@ Phases, one status line each; any failure raises and exits non-zero:
    ``fused_nccf`` launch at each K, on the stream, the batch and a
    60-minute row (T = 359,996) at K = 512; the plain route on the host CPU
    chunked against unchunked on the stream (host clock).
+21. the roofline ladder (``tools/roofline.py``, the twin of
+   ``bench/roofline.py``'s ``make_probe``), on 64 x 10 s of ``0.1 N(0, 1)``
+   (numpy seed 0) for each of ``fused_raw_dit`` (MFCC-13, 16 kHz),
+   ``fused_raw`` (unbounded log-mel-80) and ``fused_mfcc`` (MFCC-13, 44.1
+   kHz): each rung built in phase 2 run once and held to its twin, ``stage``
+   (the staged span stored as the output) equal in every bit to the gather
+   of the same samples, ``fft`` (no floors, log or frame energy) within
+   1e-4 of the plain chain's max, ``fftlog`` (no frame energy) equal in
+   every bit to the kernel, and every rung's launch (TM, pairs, span,
+   shared memory, blocks, recorded by its block 0) the kernel's plan; then
+   the ladder with the kernel timed in two passes in turns (CUDA events
+   around 20 calls), its rung launches counted from 0 just before and read
+   just after: ms, audio-sec/s, host enqueue and the five derived shares
+   (the kernel's share of its ``fft`` ceiling, the log's, the FFT chain's
+   over the ``stage`` floor, the energy's, and ``stage``'s share of the
+   data-sheet HBM rate).  Row 7's JSON record: path 1's ``fft`` rung beside
+   its plain twin and its bound, with every path's rung times, ceiling
+   share and ``stage_pct_of_hbm``.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -322,7 +343,8 @@ REPLACES = {"fused_raw_dit": "mfcc_tpu/ops/kernels/fused_raw_dit.py:555",
             "fused_nccf": "mfcc_tpu/ops/kernels/fused_nccf.py:249",
             "fused_viterbi": "mfcc_tpu/ops/kernels/fused_viterbi.py:149",
             "fused_raw_dit/bark": "mfcc_tpu/ops/kernels/fused_raw_dit.py:555",
-            "fused_raw_dit/spec": "mfcc_tpu/ops/kernels/fused_raw_dit.py:555"}
+            "fused_raw_dit/spec": "mfcc_tpu/ops/kernels/fused_raw_dit.py:555",
+            "roofline_probe": "bench/roofline.py:162"}
 
 # sizes of the main paths and of the checks
 BATCH, SECONDS = 64, 10.0
@@ -498,18 +520,23 @@ def _reset_counts(modules) -> None:
                 counts[k] = 0
 
 
-def _build_all(_build) -> None:
-    """nvcc for every kernel source and g++ for the WAV decoder
-    (``native/wavio.cpp``), all at once (one process each)."""
+def _build_all(_build) -> dict:
+    """nvcc for every kernel source and for the roofline ladder's rungs
+    (phase 21), g++ for the WAV decoder (``native/wavio.cpp``), all at once
+    (one process each); -> the rungs' libraries."""
     from mfcc_tpu_torch import native
+    from mfcc_tpu_torch.tools import roofline
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 2) as pool:
         wavio = pool.submit(native.load)
+        rungs = pool.submit(roofline.build, roofline.PATHS)
         list(pool.map(_build.load, KERNELS))
         wavio.result()
-    _log(f"[2 build] {', '.join(k + '.cu' for k in KERNELS)} and "
-         f"native/wavio.cpp built and loaded in "
-         f"{time.perf_counter() - t0:.2f} s")
+        libs = rungs.result()
+    _log(f"[2 build] {', '.join(k + '.cu' for k in KERNELS)}, "
+         f"native/wavio.cpp and the roofline rungs "
+         f"{', '.join(f'{r}/{s}.cu' for r, s in sorted(libs))} built and "
+         f"loaded in {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         log = _build.library_path(name).with_suffix(".log")
         for ln in (log.read_text().splitlines() if log.exists() else []):
@@ -517,6 +544,7 @@ def _build_all(_build) -> None:
                 _log(f"  ptxas {name}: {ln.split(chr(39))[1]}")
             elif "registers" in ln or "spill" in ln:
                 _log(f"  ptxas {name}:   {ln.strip()}")
+    return libs
 
 
 def _mfcc_kernel_vs_plain(torch, dev, bench) -> float:
@@ -1595,13 +1623,14 @@ def _timing(torch, dev, bench, smi, sm_mhz) -> dict:
 
 
 def _spectral_work(cfg, apply_dct: bool, raw: bool, B: int, N: int,
-                   projection: str = "mel"):
+                   projection: str = "mel", log: bool = True):
     """(operations, bytes) of the spectral function on a (B, N) float32
     batch: per frame a real FFT of n_fft points (2.5 n log2 n), window and
     in-kernel pre-emphasis, |X|^2, the projection matrix's nonzeros (mel or
     bark; none for the spectrogram), floors and the accurate log per band
-    or bin, the DCT and the energy column; bytes are the audio read once
-    and the features written once."""
+    or bin (not with ``log=False``: the roofline's ``fft`` rung), the DCT
+    and the energy column; bytes are the audio read once and the features
+    written once."""
     from mfcc_tpu_torch.ops.kernels import _spectral
     n, fl = cfg.n_fft, cfg.frame_len
     width = _spectral.n_out(cfg, False, projection)
@@ -1610,10 +1639,11 @@ def _spectral_work(cfg, apply_dct: bool, raw: bool, B: int, N: int,
     per_frame = (2.5 * n * math.log2(n) + fl
                  + (2 * fl if raw and cfg.preemph else 0) + 3 * cfg.n_bins
                  + (0 if proj is None else 2 * int(np.count_nonzero(proj)))
-                 + width * (ACC_LOG_OPS + 1 + (2 if rel else 0)))
+                 + (width * (ACC_LOG_OPS + 1 + (2 if rel else 0)) if log
+                    else 0))
     if apply_dct:
         per_frame += 2 * width * cfg.n_mfcc
-        if cfg.append_energy:
+        if cfg.append_energy and log:
             per_frame += 2 * fl + ACC_LOG_OPS
     T = cfg.num_frames(N)
     n_out = _spectral.n_out(cfg, apply_dct, projection)
@@ -3264,9 +3294,82 @@ def _chunked_nccf_phase(torch, dev, smi) -> None:
          f"{CHUNK_STREAM_SECONDS:g} s stream: ms a call {', '.join(cpu)}")
 
 
+# ---- phase 21: the roofline ladder (row 7) ----
+
+def _roofline_phase(torch, dev, smi, libs) -> dict:
+    """The rungs built in phase 2 on each path's BATCH x SECONDS batch of
+    the reference probe's signal: each held to its twin and to the
+    kernel's launch, then the ladder timed (its rung launches counted from
+    0 just before, read just after) -> row 7's record."""
+    from mfcc_tpu_torch.tools import roofline
+    inputs = {path: roofline.kernel_input(path, torch.from_numpy(
+        roofline.signal(cfg, BATCH, SECONDS)).to(dev))
+        for path, (_, cfg, _) in roofline.PATHS.items()}
+    checks = {}
+    for path, x in inputs.items():
+        checks[path] = c = roofline.check(libs, path, x)
+        p = c["plan"]
+        _log(f"[21 roofline] {path} ({p['tile']} tile): stage, fft and "
+             f"fftlog launched the kernel's plan (TM {p['TM']}, pairs "
+             f"{p['pairs']}, span {p['span']}, {p['smem_bytes']} B shared, "
+             f"{p['blocks']} blocks); stage equal in every bit to the gather, "
+             f"fftlog to the kernel; fft {c['fft_max_abs_err']:.3e} off the "
+             f"plain chain ({c['fft_rel_err']:.2e} of its max, bound "
+             f"{roofline.FFT_RTOL:g})")
+    for rung in roofline.LAUNCHES:
+        roofline.LAUNCHES[rung] = 0
+    results = roofline.ladder(libs, inputs, passes=2)
+    launches = dict(roofline.LAUNCHES)
+    doc = roofline.report(results, inputs, smi, 2, checks)
+    for path in inputs:
+        for rung, r in doc["results"][path].items():
+            _log(f"[21 roofline] {path} {rung}: {r['median_ms']:.4f} ms "
+                 f"({' / '.join(f'{t:.4f}' for t in r['ms'])}) = "
+                 f"{r['audio_sec_per_s']:,.0f} audio-sec/s, host enqueue "
+                 f"{r['host_enqueue_ms']:.4f} ms a call ({smi})")
+        _log(f"[21 roofline] {path}: " + ", ".join(
+            f"{k} {v:.1f} %" for k, v in doc["derived"][path].items())
+            + f" ({smi})")
+    _log(f"[21 roofline] rung launches of the ladder (counted from 0 just "
+         f"before): {launches}")
+    if not all(launches.values()):
+        raise RuntimeError(f"a rung was not launched: {launches}")
+    # the record: the fft rung of path 1, the attainable ceiling
+    path = "fused_raw_dit"
+    _, cfg, dct = roofline.PATHS[path]
+    x = inputs[path]
+    plain_ms = statistics.median(_time_ms(torch, lambda: roofline.plain_rung(
+        "fft", x, cfg, dct), calls=TIMING_CALLS))
+    ops, nbytes = _spectral_work(cfg, dct, True, *x.shape, log=False)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / FP32_FLOPS}
+    bound_by = max(times, key=times.get)
+    fft_ms = doc["results"][path]["fft"]["median_ms"]
+    _log(f"[21 roofline] {path} fft rung: {ops / 1e9:.3f} GFLOP, "
+         f"{nbytes / 1e6:.2f} MB -> bound {1e3 * times[bound_by]:.4f} ms by "
+         f"{bound_by}; ran {fft_ms:.4f} ms, its plain twin {plain_ms:.4f} ms")
+    return {
+        "name": "roofline_probe", "route": "cuda",
+        "source": "mfcc_tpu_torch/tools/roofline.py",
+        "replaces": REPLACES["roofline_probe"],
+        "launches": sum(launches.values()),
+        "max_abs_err": max(c["fft_max_abs_err"] for c in checks.values()),
+        "ms": fft_ms, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * times[bound_by], "bound_by": bound_by,
+        "library_ms": None, "tile": None, "direct_tile_ms": None,
+        "f32_tile_ms": None, "rfft_stage_ms": None,
+        "rungs": {p: {r: v["median_ms"] for r, v in doc["results"][p].items()}
+                  for p in inputs},
+        "kernel_pct_of_attainable_ceiling": {
+            p: d["kernel_pct_of_attainable_ceiling"]
+            for p, d in doc["derived"].items()},
+        "stage_pct_of_hbm": {p: d["stage_pct_of_hbm"]
+                             for p, d in doc["derived"].items()}}
+
+
 def run(torch, dev) -> list[dict]:
-    """Phases 1-8 and 10-20 on device ``dev``; -> the kernels' JSON records
-    (of phases 1-8: the later phases report their own counters)."""
+    """Phases 1-8 and 10-21 on device ``dev``; -> the kernels' JSON records
+    (of phases 1-8, and row 7's of phase 21: the other phases report their
+    own counters)."""
     from mfcc_tpu_torch import PitchConfig
     from mfcc_tpu_torch.ops.kernels import _build
 
@@ -3278,7 +3381,7 @@ def run(torch, dev) -> list[dict]:
     print(smi, flush=True)
     _log(f"[1 device] max SM clock {sm_mhz:g} MHz")
 
-    _build_all(_build)                                      # 2
+    rung_libs = _build_all(_build)                          # 2
     bench = _bench_audio(BATCH, SECONDS, 16000)
     mfcc_err = _mfcc_kernel_vs_plain(torch, dev, bench)     # 3
     spectral_errs = _spectral_kernels_vs_plain(torch, dev)  # 3b
@@ -3311,6 +3414,7 @@ def run(torch, dev) -> list[dict]:
     _precision_forms(torch, dev, smi)                       # 18
     _pitch_post_phase(torch, dev, smi)                      # 19
     _chunked_nccf_phase(torch, dev, smi)                    # 20
+    roofline = _roofline_phase(torch, dev, smi, rung_libs)  # 21
 
     src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
     launches = {**logmel_launches, **pitch_launches, **proj_launches}
@@ -3354,7 +3458,7 @@ def run(torch, dev) -> list[dict]:
          f"window energies summed directly once per tile position) "
          f"{own / 1e9:.3f} GFLOP -> {own / FP32_FLOPS * 1e3:.4f} ms at the "
          f"fp32 peak; ran {med['fused_nccf']:.4f} ms")
-    return records
+    return records + [roofline]
 
 
 def main() -> int:
@@ -3372,7 +3476,7 @@ def main() -> int:
     kernels = run(torch, torch.device("cuda", 0))
     # ---- 9. summary ----
     assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
-    _log(f"[9 summary] phases 1-8 and 10-20 passed in "
+    _log(f"[9 summary] phases 1-8 and 10-21 passed in "
          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

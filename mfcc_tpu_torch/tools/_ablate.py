@@ -1,6 +1,6 @@
-"""What the kernel A/B tools (``ablate_fft_tile``, ``ablate_pitch``) share:
-copies of ``csrc/`` with text edits applied, their nvcc builds, and
-CUDA-event timing of back-to-back calls."""
+"""What the kernel measurement tools (``ablate_fft_tile``,
+``ablate_pitch``, ``roofline``) share: copies of ``csrc/`` with text edits
+applied, their nvcc builds, and CUDA-event timing of back-to-back calls."""
 
 from __future__ import annotations
 

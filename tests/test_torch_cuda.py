@@ -10,8 +10,9 @@ dither hash on the card, packed segments at an odd frame offset against
 their standalone kernel result, and the fused serving path against the
 streaming scan path; the online pitch tracker's chunk NCCF, SpecAugment's
 masks across devices, the trainable front end's forward pass, the online
-CMVN pair at window 300 and the distributed dry run on two ranks.  All
-are marked ``cuda`` and skip without a card.
+CMVN pair at window 300, the distributed dry run on two ranks, and the
+roofline ladder's ``stage`` and ``fftlog`` rungs.  All are marked ``cuda``
+and skip without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
 there without the repository's conftest:
@@ -1256,3 +1257,26 @@ def test_precision_modes_route_as_the_reference(cuda, gen, mode):
     want = oracle.mfcc(x[0].astype(np.float64), FeatureConfig())
     err = float(np.abs(feat[0].cpu().numpy() - want).max())
     assert err <= (2.8e-4 if mode == "high" else 1e-4), err
+
+
+@pytest.mark.cuda
+def test_roofline_stage_and_fftlog_rungs_on_the_card(cuda):
+    """The roofline ladder's ``stage`` and ``fftlog`` rungs of
+    ``fused_raw_dit`` (built from edited copies of csrc/ into
+    build/roofline/): the kernel's launch plan, and equal in every bit to
+    the gather of the staged samples and to the unchanged kernel, on 8 x 3
+    s of the reference probe's signal (T = 298, no tile multiple)."""
+    from mfcc_tpu_torch.tools import roofline
+    path = "fused_raw_dit"
+    src, cfg, dct = roofline.PATHS[path]
+    libs = roofline.build([path], ("stage", "fftlog"))
+    x = torch.from_numpy(roofline.signal(cfg, 8, 3.0)).to(cuda)
+    want = {"stage": roofline.plain_rung("stage", x, cfg, dct, src),
+            "fftlog": roofline.kernel(path, x)}
+    plan = roofline.plan(path, *x.shape)
+    assert plan["T"] == 298 and plan["TM"] == 16
+    for rung, w in want.items():
+        got, _ = roofline.launch(libs[rung, src], path, x, rung)
+        launched = roofline.launched_plan(libs[rung, src])
+        assert launched == {k: plan[k] for k in roofline.PLAN_KEYS}, rung
+        assert torch.equal(got, w), rung

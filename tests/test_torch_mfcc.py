@@ -205,6 +205,7 @@ def test_port_imports_no_jax():
             "mfcc_tpu_torch.models.pitch, mfcc_tpu_torch.models.logmel, "
             "mfcc_tpu_torch.models.plp, mfcc_tpu_torch.models.spectrogram, "
             "mfcc_tpu_torch.tools.plain_valley, mfcc_tpu_torch.utils.wav, "
+            "mfcc_tpu_torch.tools.roofline, "
             "mfcc_tpu_torch.ops.kernels._build, mfcc_tpu_torch.ops.dither, "
             "mfcc_tpu_torch.ops.post, mfcc_tpu_torch.ops.deltas, "
             "mfcc_tpu_torch.parallel.cmvn, mfcc_tpu_torch.utils.batch, "

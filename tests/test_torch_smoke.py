@@ -28,6 +28,7 @@ from mfcc_tpu_torch.ops import framing
 from mfcc_tpu_torch.ops.kernels import (_build, _spectral, fused_dit,
                                         fused_mfcc, fused_nccf, fused_raw,
                                         fused_raw_dit, fused_viterbi, routes)
+from mfcc_tpu_torch.tools import roofline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WRAPPERS = ((fused_raw_dit, "fused_features_raw_dit"),
@@ -106,6 +107,32 @@ def _launch_plain(lib_fn, entry, name, x, cfg, apply_dct, preemph,
                                     projection=projection or "mel"), tile
 
 
+class _Rungs:
+    """The roofline rungs' stand-ins: no build; a launch runs the rung's
+    plain twin (fftlog: the kernel wrapper, which it equals on the card)
+    and records the kernel's plan as the rung's block 0 would."""
+
+    def __init__(self):
+        self.plan = None
+
+    def build(self, paths):
+        return {(r, roofline.PATHS[p][0]): None for p in paths
+                for r in roofline.BUILT}
+
+    def launch(self, lib, path, x, rung):
+        src, cfg, dct = roofline.PATHS[path]
+        self.plan = roofline.plan(path, *x.shape)
+
+        def run():
+            roofline.LAUNCHES[rung] += 1
+            return (roofline.kernel(path, x) if rung == "fftlog"
+                    else roofline.plain_rung(rung, x, cfg, dct, src))
+        return run(), run
+
+    def launched_plan(self, lib):
+        return {k: self.plan[k] for k in roofline.PLAN_KEYS}
+
+
 def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
@@ -139,6 +166,10 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(_build, "load", lambda name: None)
     monkeypatch.setattr(_spectral, "launch_spectral", _launch_plain)
+    rungs = _Rungs()
+    for name in ("build", "launch", "launched_plan"):
+        monkeypatch.setattr(roofline, name, getattr(rungs, name))
+    monkeypatch.setattr(roofline, "LAUNCHES", dict(roofline.LAUNCHES))
     resolve = backend.resolve
     monkeypatch.setattr(backend, "resolve", lambda name, x, cfg: (
         "cuda" if name in ("auto", "cuda") and (
@@ -156,8 +187,22 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 21)), "3b", "3c", "3d", "4b", "4c"]:
+    for phase in [*map(str, range(1, 22)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
+    # phase 21: each path's rungs held to their twins and the kernel's
+    # plan, the ladder timed with its launches counted from 0
+    for path, tm in (("fused_raw_dit", 16), ("fused_raw", 32),
+                     ("fused_mfcc", 8)):
+        assert f"[21 roofline] {path} (" in out and f"(TM {tm}, " in next(
+            ln for ln in out.splitlines()
+            if ln.startswith(f"[21 roofline] {path} ("))
+        for rung in roofline.RUNGS:
+            assert f"[21 roofline] {path} {rung}: " in out, (path, rung)
+        assert f"[21 roofline] {path}: kernel_pct_of_attainable_ceiling " \
+            in out
+    assert "[21 roofline] rung launches of the ladder (counted from 0 just " \
+        "before): {'stage': 201, 'fft': 201, 'fftlog': 201}" in out
+    assert "[21 roofline] fused_raw_dit fft rung: " in out
     # phase 20: nccf_chunk= at each K on the stream and the batch, one
     # launch a call (the phase's own assertion), equal to unchunked
     for what, T in (("1 x 14 s stream", 1396), ("8 x 1 s ragged", 96)):
@@ -328,7 +373,8 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert "Fake GPU, 700.00 W" in out
     json.dumps({"kernels": kernels})
     assert [k["name"] for k in kernels] == [*smoke.KERNELS,
-                                            *smoke.PROJECTIONS]
+                                            *smoke.PROJECTIONS,
+                                            "roofline_probe"]
     # launches are the main paths' own: one per batch call (fused_raw_dit:
     # two MFCC batches and the 50 dB log-mel batch; its bark and spec
     # projections one plp_batch and one log_spectrogram_batch), no golden
@@ -336,14 +382,14 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert {k["name"]: k["launches"] for k in kernels} == {
         "fused_raw_dit": 3, "fused_raw": 1, "fused_mfcc": 1, "fused_dit": 1,
         "fused_nccf": 1, "fused_viterbi": 1, "fused_raw_dit/bark": 1,
-        "fused_raw_dit/spec": 1}
+        "fused_raw_dit/spec": 1, "roofline_probe": 603}
     for k in kernels:
         assert k["route"] == "cuda" and k["launches"] > 0, k
         assert os.path.exists(os.path.join(REPO, k["source"])), k
         path, line = k["replaces"].split(":")
         assert os.path.exists(os.path.join(REPO, path)), k
         src = open(os.path.join(REPO, path)).read().splitlines()
-        assert src[int(line) - 1].startswith("def "), k
+        assert src[int(line) - 1].lstrip().startswith("def "), k
         assert k["ms"] > 0 and k["plain_ms"] > 0, k
         assert k["bound_ms"] > 0 and k["library_ms"] is None, k
         assert k["bound_by"] == ("chain" if k["name"] == "fused_viterbi"
@@ -354,7 +400,8 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                      "fused_raw": "fft64", "fused_dit": "fft64",
                      "fused_nccf": "direct", "fused_viterbi": None,
                      "fused_raw_dit/bark": "fft64",
-                     "fused_raw_dit/spec": "fft64"}
+                     "fused_raw_dit/spec": "fft64",
+                     "roofline_probe": None}
     for k in kernels:
         spectral = k["name"].split("/")[0] in smoke.SPECTRAL
         projection = k["name"] in smoke.PROJECTIONS
@@ -362,7 +409,15 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         assert (k["f32_tile_ms"] is not None) == (k["tile"] == "fft64"), k
         assert (k["rfft_stage_ms"] is not None) == (
             k["tile"] == "fft" or projection), k
-    assert kernels[-1]["source"] == kernels[0]["source"]
+    assert kernels[-2]["source"] == kernels[0]["source"]
+    probe = kernels[-1]
+    assert probe["replaces"] == "bench/roofline.py:162"
+    assert probe["source"] == "mfcc_tpu_torch/tools/roofline.py"
+    for key in ("rungs", "kernel_pct_of_attainable_ceiling",
+                "stage_pct_of_hbm"):
+        assert set(probe[key]) == set(roofline.PATHS), key
+    assert all(set(r) == set(roofline.RUNGS) for r in probe["rungs"].values())
+    assert probe["max_abs_err"] == 0.0   # on the CPU each rung is its twin
     # on the CPU the wrappers run the plain versions (the oracle where the
     # config picks the fft64 tile): the pitch kernels' differ in nothing,
     # the spectral kernels' by the f32 plain versions' own error
