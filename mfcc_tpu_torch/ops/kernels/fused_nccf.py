@@ -6,12 +6,17 @@
   kernel's differential twin.
 - :func:`fused_nccf` — the wrapper: checks its input and launches
   ``csrc/fused_nccf.cu`` for a CUDA tensor (a build or launch failure
-  raises; a config the kernel does not take raises NotImplementedError),
-  or runs :func:`plain_nccf` for a CPU tensor.
+  raises), or runs :func:`plain_nccf` for a CPU tensor.  The kernel takes
+  every window the reference takes: where no tile of whole windows fits in
+  shared memory, the C entry plans the lag-blocked tiling.
+- :func:`launch` — one launch through a build's C entry, uncounted (the
+  wrapper's, and the A/B builds' of ``tools/ablate_pitch.py``).
 - ``LAUNCHES`` — how many times the wrapper launched the kernel.
-- ``LAST_SHAPE`` — the tile of the last launch (frames a tile TM, lags a
-  thread R, lag passes, window energies shared by the tile, outputs staged
-  in shared memory), as the C entry planned it.
+- ``LAST_SHAPE`` — the tile of the last launch, as the C entry planned it
+  (:data:`SHAPE_KEYS`): frames a tile TM, lags a thread R, lag passes a
+  thread, window energies shared by the tile, outputs staged in shared
+  memory, and for the lag-blocked tiling the lags a block and the samples
+  a chunk (0 and 0 for the tiles that stage whole windows).
 
 The kernel computes the numerators by direct time-domain correlation, not
 by the TPU kernel's DFT factorization; its design note heads the CUDA
@@ -34,16 +39,8 @@ from . import _build
 # kernel launches by fused_nccf (reset by callers that count)
 LAUNCHES = 0
 LAST_SHAPE: dict | None = None
-SHAPE_KEYS = ("TM", "R", "passes", "shared_energy", "stage_out")
-
-# extended-window samples (frame_len_w + max_lag) the kernel can stage:
-# one window in the 227 KB of shared memory a Hopper block may opt into
-MAX_WINDOW = 58_000
-
-
-def kernel_supports(pcfg: PitchConfig) -> bool:
-    """Whether the CUDA kernel takes this config."""
-    return pcfg.frame_len_w + pcfg.max_lag <= MAX_WINDOW
+SHAPE_KEYS = ("TM", "R", "passes", "shared_energy", "stage_out",
+              "lag_block", "sample_chunk")
 
 
 def plain_nccf(xw: torch.Tensor, ball: torch.Tensor, pcfg: PitchConfig,
@@ -82,11 +79,6 @@ def fused_nccf(xw: torch.Tensor, ball: torch.Tensor, pcfg: PitchConfig, *,
                          f"{tuple(xw.shape)} and {tuple(ball.shape)}")
     if not xw.is_cuda:
         return plain_nccf(xw, ball, pcfg, T)
-    if not kernel_supports(pcfg):
-        raise NotImplementedError(
-            f"the NCCF kernel stages one {pcfg.frame_len_w + pcfg.max_lag}-"
-            f"sample window, more than its {MAX_WINDOW} (ROADMAP.md, TPU "
-            "kernels to port, item 5: windows beyond shared memory)")
     if xw.dtype != torch.float32 or ball.dtype != torch.float32:
         raise TypeError(f"float32 rows and ballast expected, got {xw.dtype} "
                         f"and {ball.dtype}")
@@ -95,13 +87,27 @@ def fused_nccf(xw: torch.Tensor, ball: torch.Tensor, pcfg: PitchConfig, *,
                          "ballast expected")
     if ball.device != xw.device:
         raise ValueError(f"ballast on {ball.device}, rows on {xw.device}")
+    if xw.shape[0] == 0 or T == 0:
+        out = torch.empty((xw.shape[0], T, pcfg.n_lags), dtype=torch.float32,
+                          device=xw.device)
+        return out, torch.empty_like(out)
+    out_b, out_p, shape = launch(_lib(), xw, ball, pcfg, T)
+    global LAUNCHES, LAST_SHAPE
+    LAUNCHES += 1
+    LAST_SHAPE = shape
+    return out_b, out_p
+
+
+def launch(lib: ctypes.CDLL, xw: torch.Tensor, ball: torch.Tensor,
+           pcfg: PitchConfig, T: int):
+    """One launch of a bound build of ``csrc/fused_nccf.cu`` on checked
+    CUDA inputs (float32, unit sample stride, B >= 1, T >= 1), not
+    counted in ``LAUNCHES`` -> (out_b, out_p, the tile it planned).  A
+    launch the card refuses raises RuntimeError."""
     B, Nw = xw.shape
     out_b = torch.empty((B, T, pcfg.n_lags), dtype=torch.float32,
                         device=xw.device)
     out_p = torch.empty_like(out_b)
-    if B == 0 or T == 0:
-        return out_b, out_p
-    lib = _lib()
     # one row may carry any stride (a numpy x[None] view has 0)
     ldx = xw.stride(0) if B > 1 else Nw
     shape = (ctypes.c_int * len(SHAPE_KEYS))()
@@ -114,7 +120,4 @@ def fused_nccf(xw: torch.Tensor, ball: torch.Tensor, pcfg: PitchConfig, *,
     if err != 0:
         raise RuntimeError("fused_nccf kernel launch failed: "
                            f"{lib.mfcc_error_string(err).decode()} ({err})")
-    global LAUNCHES, LAST_SHAPE
-    LAUNCHES += 1
-    LAST_SHAPE = dict(zip(SHAPE_KEYS, shape))
-    return out_b, out_p
+    return out_b, out_p, dict(zip(SHAPE_KEYS, shape))

@@ -15,8 +15,8 @@ mirrored by the float64 oracle (``oracle.pitch``):
 :func:`nccf` (the correlation-theorem form) and :func:`viterbi` are the
 plain twins of the CUDA kernels ``kernels/fused_nccf`` and
 ``kernels/fused_viterbi``.  With ``backend`` resolving to "cuda" (a CUDA
-tensor under "auto") the pipeline runs the kernels; a config they do not
-take raises NotImplementedError.
+tensor under "auto") the pipeline runs the kernels, which take every
+config the reference computes.
 
 Padded (ragged-batch) frames get their ballasted NCCF set to exactly 0
 before the Viterbi pass: a flat-zero emission makes staying in the current

@@ -4,6 +4,8 @@ conflicts counted from the lane mapping.
     python -m mfcc_tpu_torch.tools.ablate_pitch [--variants base,...]
                                                 [--passes 4]
                                                 [--previous-csrc DIR]
+    python -m mfcc_tpu_torch.tools.ablate_pitch --lag-shapes
+                                                [--variants nccf_lag_R1,...]
 
 Each variant is a copy of ``csrc/fused_viterbi.cu`` or ``csrc/fused_nccf.cu``
 under ``build/ablate_pitch/<name>/`` with the text edits of
@@ -18,10 +20,20 @@ each lane's first candidate (wrong paths: its time is the step without its
 candidate work); ``viterbi_no_walk`` skips the
 backtrace's pointer walk (wrong paths: its time says what the walk
 costs); ``nccf_R<r>`` caps the lags a thread at r (15; 9 at 71 lags);
-``nccf_lag_energy_in_thread`` keeps each thread's lag energies in
-registers instead of summing each window position once per tile;
 ``nccf_direct_stores`` stores each thread's R outputs from registers
-instead of staging the tile's outputs in shared memory.  Every
+instead of staging the tile's outputs in shared memory;
+``nccf_lag_blocked`` plans the lag-blocked tiling (lag blocks, sample
+chunks, the lag energies in each thread's registers) for every config;
+``nccf_lag_widest`` plans that tiling at the most lags a thread whatever
+the grid, not at the R that spreads a short grid over the SMs;
+``nccf_lag_R<r>`` plans it at r lags a thread whatever the grid.
+``chip_smoke.py`` phase 22 builds ``nccf_lag_blocked`` and
+``nccf_lag_widest`` (:func:`build`) and launches them through
+:func:`fused_nccf.launch`.  ``--lag-shapes`` times the shipped build and
+the ``nccf_lag_*`` variants (by default every ``nccf_lag_R<r>``) on
+:data:`LAG_SHAPES`, where the planner takes the lag-blocked tiling, each
+launch checked against the shipped build's bits: the sweep that the
+planner's choice of R is held to.  Every
 variant but ``viterbi_no_argmin`` and ``viterbi_no_walk`` must give the
 unchanged build's outputs bit for bit, which the tool checks (the output
 buffers are cleared before each variant's checked launch).  Times are CUDA events around 20
@@ -50,6 +62,11 @@ import numpy as np
 from . import _ablate
 
 VIT, NCCF = "fused_viterbi.cu", "fused_nccf.cu"
+# the planner's head: nccf_lag_blocked returns the lag-blocked plan there
+_PLAN = ("cudaError_t plan(int w, int hop, int min_lag, int n_lags, int B, "
+         "int T,\n                 int max_smem, int sms, Plan* pl) {\n")
+# the lag-blocked planner's loop over R
+_LAG_R = "  for (int R = widest; R >= 1; R -= 2) {"
 # name -> [(file in csrc/, text, replacement)]
 VARIANTS = {
     "base": [],
@@ -71,15 +88,31 @@ VARIANTS = {
     **{f"nccf_R{r}": [(NCCF, "constexpr int kMaxLagsPerThread = 15;",
                        f"constexpr int kMaxLagsPerThread = {r};")]
        for r in (5, 3, 1)},
-    "nccf_lag_energy_in_thread": [
-        (NCCF, "  for (int shared_energy = 1; shared_energy >= 0; --shared_energy) {",
-         "  for (int shared_energy = 0; shared_energy >= 0; --shared_energy) {"),
-        (NCCF, "      if (!shared_energy && TM != 1) continue;\n", "")],
-    "nccf_direct_stores": [(NCCF, "      for (int stage_out = 1; stage_out >= 0; --stage_out) {",
-                            "      for (int stage_out = 0; stage_out >= 0; --stage_out) {")],
+    "nccf_direct_stores": [(NCCF, "    for (int stage_out = 1; stage_out >= 0; --stage_out) {",
+                            "    for (int stage_out = 0; stage_out >= 0; --stage_out) {")],
+    "nccf_lag_blocked": [(NCCF, _PLAN, _PLAN + "  return plan_lag_blocked("
+                          "w, hop, n_lags, B, T, max_smem, sms, pl);\n")],
+    "nccf_lag_widest": [(NCCF, _LAG_R, _LAG_R.replace("1;", "widest;"))],
+    **{f"nccf_lag_R{r}": [(NCCF, _LAG_R, f"  for (int R = {r}; R >= {r}; "
+                           "R -= 2) {")] for r in range(1, 16, 2)},
 }
+# the builds chip_smoke.py phase 22 holds against the shipped planner
+TILINGS = ("nccf_lag_blocked", "nccf_lag_widest")
 CALLS = 20
 BANKS = 32
+# (name, PitchConfig keywords, B, T): --lag-shapes' NCCF shapes, windows
+# where no whole window fits in shared memory, at short and full grids
+LAG_SHAPES = (
+    ("40,400-sample window", dict(work_rate=16000, min_f0=0.4), 1, 3),
+    ("many lags", dict(work_rate=16000, min_f0=0.25), 1, 3),
+    ("many lags", dict(work_rate=16000, min_f0=0.25), 1, 64),
+    ("wide frame", dict(work_rate=16000, frame_ms=4000.0), 2, 6),
+    ("wide frame", dict(work_rate=16000, frame_ms=4000.0), 2, 99),
+    ("wide frame", dict(work_rate=16000, frame_ms=4000.0), 2, 199),
+    ("wide frame", dict(work_rate=16000, frame_ms=4000.0), 8, 199),
+    ("both", dict(work_rate=16000, frame_ms=2000.0, min_f0=0.5), 1, 4),
+    ("both", dict(work_rate=16000, frame_ms=2000.0, min_f0=0.5), 1, 40),
+)
 
 
 def _wavefronts(addrs, banks: int = BANKS) -> int:
@@ -133,6 +166,62 @@ def nccf_bank_wavefronts(w: int, hop: int, min_lag: int, n_lags: int, *,
     return out
 
 
+def nccf_lag_bank_wavefronts(w: int, hop: int, min_lag: int, n_lags: int,
+                             *, TM: int, R: int, lag_block: int,
+                             sample_chunk: int) -> dict:
+    """(warp-wide loads or stores, wavefronts) of one block of
+    ``csrc/fused_nccf.cu``'s lag-blocked tiling, the first lag block of a
+    full frame tile, for its shared-memory accesses: the staging of a
+    chunk (``stage``, consecutive words), the numerator loop (per step
+    A[j] and the window's new sample; warp k the 32 lag groups of frame
+    k % TM in column k // TM), and the staged outputs (``outputs``: each
+    thread's R lags, then the coalesced copy), in word addresses.  The
+    tile is the one the C entry planned (``fused_nccf.LAST_SHAPE``)."""
+    nl = min(lag_block, n_lags)
+    jc = min(sample_chunk, w)
+    na = (TM - 1) * hop + jc
+    ne = na + nl + R - 2
+    span_a = (TM - 1) * hop + sample_chunk
+    out = {}
+    loads = wf = 0
+    for n, base in ((na, 0), (ne, span_a)):
+        for i0 in range(0, n, 32):
+            loads += 1
+            wf += _wavefronts([base + i for i in range(i0, min(i0 + 32, n))])
+    out["stage"] = (loads, wf)
+    loads = wf = 0
+    for k in range(8):
+        m, c = k % TM, k // TM
+        lanes = [(c * 32 + g) * R for g in range(32) if (c * 32 + g) * R < nl]
+        if not lanes:
+            continue
+        for q in range(R - 1):
+            loads += 1
+            wf += _wavefronts([span_a + m * hop + l0 + q for l0 in lanes])
+        for j in range(jc):
+            loads += 2
+            wf += _wavefronts([m * hop + j] * len(lanes))
+            wf += _wavefronts([span_a + m * hop + l0 + j + R - 1
+                               for l0 in lanes])
+    out["numerator"] = (loads, wf)
+    loads = wf = 0
+    n_out = TM * nl
+    for k in range(8):
+        m, c = k % TM, k // TM
+        lanes = [(c * 32 + g) * R for g in range(32) if (c * 32 + g) * R < nl]
+        for r in range(R):
+            addrs = [m * nl + l0 + r for l0 in lanes if l0 + r < nl]
+            for half in (0, n_out):
+                if addrs:
+                    loads += 1
+                    wf += _wavefronts([half + a for a in addrs])
+    for i0 in range(0, 2 * n_out, 32):
+        loads += 1
+        wf += _wavefronts(range(i0, min(i0 + 32, 2 * n_out)))
+    out["outputs"] = (loads, wf)
+    return out
+
+
 def viterbi_width(n: int, K: int) -> int:
     """J, the register slots of a lane in ``csrc/fused_viterbi.cu``
     (``built_width``): ceil(n / K) rounded up to 4, 12, 20, ..., 68 or 72."""
@@ -160,6 +249,17 @@ def viterbi_bank_wavefronts(n: int, K: int) -> tuple:
 def variant_sources(name: str) -> dict:
     """{file name: text} of csrc/ with variant ``name``'s edits applied."""
     return _ablate.variant_sources(VARIANTS, name)
+
+
+def build(names) -> dict:
+    """The named ``nccf_*`` variants written under
+    ``build/ablate_pitch/`` and built, one nvcc each, all at once ->
+    {name: bound library} (launch one with :func:`fused_nccf.launch`)."""
+    import concurrent.futures
+    _ablate.write_variants("ablate_pitch", VARIANTS, names)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(
+            lambda n: _build_one(n, "fused_nccf"), names)))
 
 
 def sources_of(name: str) -> tuple:
@@ -195,23 +295,72 @@ def _previous(csrc: str):
     return out
 
 
+def lag_sweep(names, passes: int, smi: str) -> None:
+    """Time the shipped ``fused_nccf.cu`` and the ``nccf_lag_*`` variants
+    ``names`` on each of :data:`LAG_SHAPES` (seeded noise), in ``passes``
+    passes in turns, each variant's outputs held to the shipped build's
+    bit for bit; one line a shape."""
+    import torch
+    from .. import PitchConfig
+    from ..ops.kernels import _build, fused_nccf
+    libs = {"shipped": fused_nccf.bind(_build.load("fused_nccf")),
+            **build(names)}
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    for name, kw, B, T in LAG_SHAPES:
+        c = PitchConfig(**kw).validate()
+        n = c.frame_len_w + c.max_lag + (T - 1) * c.hop_len_w
+        xw = torch.from_numpy((0.3 * rng.standard_normal((B, n)))
+                              .astype(np.float32)).to(dev)
+        ball = torch.full((B,), 0.5, device=dev)
+        runs = {k: fused_nccf.launch(lib, xw, ball, c, T)
+                for k, lib in libs.items()}
+        torch.cuda.synchronize()
+        times = {k: [] for k in libs}
+        for i in range(passes):
+            for k in (list(libs) if i % 2 == 0 else list(libs)[::-1]):
+                times[k].append(_ablate.ms(
+                    lambda lib=libs[k]: fused_nccf.launch(lib, xw, ball, c, T),
+                    CALLS))
+        print(f"{name} (B={B}, T={T}, {c.n_lags} lags, w={c.frame_len_w}): "
+              + "; ".join(
+                  f"{k} R {r[2]['R']} TM {r[2]['TM']} Lb {r[2]['lag_block']} "
+                  f"{np.median(times[k]):.4f} ms" + (
+                      "" if all(torch.equal(a, b) for a, b in
+                                zip(r[:2], runs["shipped"][:2]))
+                      else " DIFFERS from shipped")
+                  for k, r in runs.items()) + f" ({smi})", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", default=",".join(VARIANTS),
-                    help="comma-separated names of VARIANTS to build and time")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated names of VARIANTS to build and time "
+                    "(default: all but nccf_lag_R<r>; with --lag-shapes every "
+                    "nccf_lag_R<r>)")
     ap.add_argument("--passes", type=int, default=4,
                     help="timing passes over the variants, in turns")
     ap.add_argument("--previous-csrc", default=None,
                     help="csrc/ of the previous design to hold against")
+    ap.add_argument("--lag-shapes", action="store_true",
+                    help="time nccf_lag_* variants on LAG_SHAPES instead")
     args = ap.parse_args(argv)
-    variants = args.variants.split(",")
+    variants = (args.variants.split(",") if args.variants else
+                [v for v in VARIANTS
+                 if v.startswith("nccf_lag_R") == args.lag_shapes])
     unknown = set(variants) - set(VARIANTS)
     if unknown:
         ap.error(f"unknown variants {sorted(unknown)}")
+    if args.lag_shapes and not all(v.startswith("nccf_lag_")
+                                   for v in variants):
+        ap.error("--lag-shapes times nccf_lag_* variants only")
     import torch
     if not torch.cuda.is_available():
         print("ablate_pitch: needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.lag_shapes:
+        lag_sweep(variants, args.passes, _ablate.smi())
+        return 0
     import concurrent.futures
     from .. import PitchConfig
     from ..ops import pitch as pitch_op

@@ -10,9 +10,12 @@ dither hash on the card, packed segments at an odd frame offset against
 their standalone kernel result, and the fused serving path against the
 streaming scan path; the online pitch tracker's chunk NCCF, SpecAugment's
 masks across devices, the trainable front end's forward pass, the online
-CMVN pair at window 300, the distributed dry run on two ranks, and the
-roofline ladder's ``stage`` and ``fftlog`` rungs.  All are marked ``cuda``
-and skip without a card.
+CMVN pair at window 300, the distributed dry run on two ranks, the
+roofline ladder's ``stage`` and ``fftlog`` rungs, and ``fused_nccf``
+beyond shared memory (the lag-blocked tiling equal to the planner's
+tiles, windows past the old limit against the float64 oracle,
+``pitch_batch`` at a 4 s frame).  All are marked ``cuda`` and skip
+without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
 there without the repository's conftest:
@@ -220,10 +223,12 @@ def test_nccf_chunk_on_the_card_is_the_unchunked_kernel_route(cuda, gen, K):
 
 @pytest.mark.cuda
 def test_nccf_kernel_lag_energies_in_registers(cuda, gen):
-    """A window too large for the tile's shared energies (40,400 samples,
-    39,961 lags): the lag energies stay in each thread's registers.  The
-    plain version's DFT matrices would be ~6 GB, so the plain NCCF is held
-    to the float64 oracle instead, within the kernel bound."""
+    """A window too large for the tile's shared energies (40,399 samples,
+    39,960 lags): the lag energies stay in each thread's registers, in the
+    lag-blocked tiling the planner takes there (the one-frame register
+    tile measured slower on the H100; chip_smoke.py phase 22).  The plain
+    version's DFT matrices would be ~6 GB, so the plain NCCF is held to the
+    float64 oracle instead, within the kernel bound."""
     pcfg = PitchConfig(sample_rate=16000, work_rate=16000,
                        min_f0=0.4).validate()
     n = pcfg.frame_len_w + pcfg.max_lag + 2 * pcfg.hop_len_w
@@ -234,7 +239,7 @@ def test_nccf_kernel_lag_energies_in_registers(cuda, gen):
                                          pcfg, T=T)
     torch.cuda.synchronize()
     assert fused_nccf.LAST_SHAPE["shared_energy"] == 0
-    assert fused_nccf.LAST_SHAPE["TM"] == 1
+    assert fused_nccf.LAST_SHAPE["lag_block"] > 0
     _, want_p = oracle.nccf(x.astype(np.float64), pcfg)
     assert want_p.shape == tuple(got_p.shape[1:]) == (3, pcfg.n_lags)
     assert np.abs(got_p[0].cpu().numpy() - want_p).max() <= TOL
@@ -285,13 +290,17 @@ def test_pitch_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="CUDA tensor"):
         pitch_model.pitch_batch(torch.zeros((1, 16000)),
                                 torch.tensor([16000]), pcfg, "cuda")
-    # a window the kernel cannot stage raises on the card; the plain
-    # version is not run here (its DFT matrices would be tens of GB)
+    # no window limit: 63,961 lags, one launch on a few frames (not
+    # pitch_batch, whose Viterbi transition matrix would be 16 GB here)
     big = PitchConfig(work_rate=16000, min_f0=0.25).validate()
-    assert not fused_nccf.kernel_supports(big)
-    x = torch.zeros((1, 70000), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pitch_model.pitch_batch(x, torch.tensor([70000], device=cuda), big)
+    before = fused_nccf.LAUNCHES
+    got = fused_nccf.fused_nccf(torch.ones((1, 70000), device=cuda),
+                                torch.zeros(1, device=cuda), big, T=3)
+    torch.cuda.synchronize()
+    assert fused_nccf.LAUNCHES == before + 1
+    assert fused_nccf.LAST_SHAPE["lag_block"] > 0
+    assert all(g.shape == (1, 3, big.n_lags) and bool(torch.isfinite(g).all())
+               for g in got)
 
 
 @pytest.mark.cuda
@@ -332,6 +341,131 @@ def test_pitch_golden_on_the_card(cuda):
     assert got.shape == want.shape
     for c, tol in enumerate(PITCH_TOL):
         assert np.abs(got[:, c] - want[:, c]).max() < tol
+
+
+# windows beyond what one whole window in shared memory allowed (58,000
+# samples), at 16 kHz: the lag-blocked tiling
+BEYOND = {"many lags": dict(work_rate=16000, min_f0=0.25),       # 63,961 lags
+          "wide frame": dict(work_rate=16000, frame_ms=4000.0)}  # w = 64,000
+
+
+@pytest.fixture(scope="module")
+def tiling_libs():
+    """``tools/ablate_pitch.py``'s builds that plan the lag-blocked tiling
+    for every config (``nccf_lag_blocked``) and at the widest R whatever
+    the grid (``nccf_lag_widest``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from mfcc_tpu_torch.tools import ablate_pitch
+    return ablate_pitch.build(ablate_pitch.TILINGS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,shape", [
+    (dict(), (64, 160000)),                          # the main path's batch
+    (dict(work_rate=16000, min_f0=15.0), (3, 32000)),   # 1,027 lags
+])
+def test_nccf_lag_blocked_tiling_equals_the_planner(cuda, gen, tiling_libs,
+                                                    kw, shape):
+    """The lag-blocked tiling forced on configs the whole-window tiles take:
+    both outputs equal in every bit (every sum is the same fmaf chain)."""
+    pcfg = PitchConfig(**kw).validate()
+    x = torch.from_numpy(np.stack([_vibrato(gen, shape[1], 100.0 + 20 * i)
+                                   for i in range(shape[0])])).to(cuda)
+    xw = resample.resample(x, pcfg.sample_rate, pcfg.work_rate)
+    T = pcfg.num_frames(shape[1])
+    ball = torch.rand(shape[0], device=cuda)
+    want = fused_nccf.fused_nccf(xw, ball, pcfg, T=T)
+    assert fused_nccf.LAST_SHAPE["lag_block"] == 0
+    *got, tile = fused_nccf.launch(tiling_libs["nccf_lag_blocked"], xw,
+                                   ball, pcfg, T)
+    torch.cuda.synchronize()
+    assert tile["lag_block"] > 0 and tile["sample_chunk"] > 0, tile
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,B,T", [
+    (dict(work_rate=16000, frame_ms=4000.0), 2, 6),
+    (dict(work_rate=16000, frame_ms=2000.0, min_f0=0.5), 1, 4),
+])
+def test_nccf_short_grid_lags_a_thread_change_no_bit(cuda, gen, tiling_libs,
+                                                     kw, B, T):
+    """On a grid shorter than the SMs the planner takes fewer lags a
+    thread than the widest R: more blocks, the same outputs in every
+    bit."""
+    pcfg = PitchConfig(**kw).validate()
+    n = pcfg.frame_len_w + pcfg.max_lag + (T - 1) * pcfg.hop_len_w
+    xw = torch.from_numpy(np.stack([_vibrato(gen, n, 120.0 + 40 * i)
+                                    for i in range(B)])).to(cuda)
+    ball = torch.rand(B, device=cuda)
+    want = fused_nccf.fused_nccf(xw, ball, pcfg, T=T)
+    tile = fused_nccf.LAST_SHAPE
+    *got, widest = fused_nccf.launch(tiling_libs["nccf_lag_widest"], xw,
+                                     ball, pcfg, T)
+    torch.cuda.synchronize()
+    assert tile["lag_block"] > 0 and tile["R"] < widest["R"], (tile, widest)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["many lags", "wide frame"])
+def test_nccf_beyond_shared_memory_matches_the_oracle(cuda, gen, name):
+    """Windows beyond the old 58,000-sample limit, one launch in the
+    lag-blocked tiling (the wide frame in sample chunks), on two ragged
+    rows: every valid frame within 2e-5 of the float64 oracle at the
+    kernel's ballast, ballasted and plain."""
+    pcfg = PitchConfig(**BEYOND[name]).validate()
+    hop, need = pcfg.hop_len_w, pcfg.frame_len_w + pcfg.max_lag
+    lens = [need + 5 * hop, need + 2 * hop]
+    x = np.zeros((2, lens[0]), np.float32)
+    for i, n in enumerate(lens):
+        x[i, :n] = _vibrato(gen, n, 140.0 + 60 * i)
+    xw = torch.from_numpy(x).to(cuda)
+    ball = torch.tensor([0.5, 0.25], device=cuda)
+    before = fused_nccf.LAUNCHES
+    got = fused_nccf.fused_nccf(xw, ball, pcfg, T=6)
+    torch.cuda.synchronize()
+    assert fused_nccf.LAUNCHES == before + 1
+    assert fused_nccf.LAST_SHAPE["lag_block"] > 0
+    for i, n in enumerate(lens):
+        x64 = x[i, :n].astype(np.float64)
+        T = pcfg.num_frames(n)
+        e0 = np.mean([np.square(x64[t * hop: t * hop + pcfg.frame_len_w]).sum()
+                      for t in range(T)])
+        want = oracle.nccf(x64, pcfg.replace(
+            ballast=float(ball[i]) / e0 ** 2))
+        for g, w in zip(got, want):
+            assert w.shape == (T, pcfg.n_lags)
+            assert np.abs(g[i, :T].cpu().numpy() - w).max() <= TOL
+
+
+@pytest.mark.cuda
+def test_pitch_batch_at_a_wide_frame_goes_through_the_kernels(cuda, gen):
+    """pitch_batch at a 64,000-sample frame (frame_ms=4000 at 16 kHz), two
+    ragged int16 rows: one fused_nccf and one fused_viterbi launch, the
+    features within the contract's bounds of the float64 oracle."""
+    pcfg = PitchConfig(**BEYOND["wide frame"]).validate()
+    lens = np.asarray([72000, 66000], np.int32)
+    x = np.zeros((2, 72000), np.float32)
+    for i, n in enumerate(lens):
+        x[i, :n] = _vibrato(gen, n, 120.0 + 50 * i)
+    x = np.round(x * 32767).astype(np.int16)
+    before = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+    gf, gfl, gm = pitch_model.pitch_batch(torch.from_numpy(x).to(cuda),
+                                          torch.from_numpy(lens).to(cuda),
+                                          pcfg)
+    torch.cuda.synchronize()
+    assert (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    assert gfl.cpu().tolist() == [pcfg.num_frames(int(n)) for n in lens]
+    assert bool((gf[~gm] == 0).all())
+    xf = x.astype(np.float64) / 32768.0
+    for i, n in enumerate(lens):
+        want = oracle.pitch(xf[i, :n], pcfg)
+        got = gf[i, : want.shape[0]].cpu().numpy()
+        for c, tol in enumerate(PITCH_TOL):
+            assert np.abs(got[:, c] - want[:, c]).max() < tol
 
 
 class _FailingLib:

@@ -11,6 +11,7 @@ tests/test_pitch.py): pov 1e-4, normalized log pitch 3e-4, delta 1e-4.
 import dataclasses
 import functools
 import os
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -236,9 +237,11 @@ def test_plain_nccf_matches_jax_and_pallas(rng, kw):
                                        atol=KERNEL_TOL, rtol=0)
 
 
-def _emulate_nccf_kernel(xw, ball, pcfg, T):
+def _emulate_nccf_kernel(xw, ball, pcfg, T, chain=False):
     """The CUDA kernel's arithmetic in float32 numpy: direct correlation,
-    samples past each row's end read 0 (tiling does not change a value)."""
+    samples past each row's end read 0 (tiling does not change a value).
+    With ``chain`` each sum is the kernel's ascending float32 chain over j
+    (unfused products: a float32 cumsum), else a pairwise float32 sum."""
     w, hop, lo, nl = pcfg.frame_len_w, pcfg.hop_len_w, pcfg.min_lag, pcfg.n_lags
     n = w + pcfg.max_lag
     z = np.zeros((xw.shape[0], (T - 1) * hop + n), np.float32)
@@ -246,13 +249,23 @@ def _emulate_nccf_kernel(xw, ball, pcfg, T):
     z[:, :m] = xw[:, :m]
     E = z[:, (np.arange(T) * hop)[:, None] + np.arange(n)[None, :]]
     A = E[..., :w]
-    e0 = (A * A).sum(-1, dtype=np.float32)
     num = np.empty(E.shape[:2] + (nl,), np.float32)
     el = np.empty_like(num)
-    for k in range(nl):
-        Ek = E[..., lo + k: lo + k + w]
-        num[..., k] = (A * Ek).sum(-1, dtype=np.float32)
-        el[..., k] = (Ek * Ek).sum(-1, dtype=np.float32)
+    if chain:
+        def total(v):
+            return np.cumsum(v, axis=-1, dtype=np.float32)[..., -1]
+        e0 = total(A * A)
+        for b, t in np.ndindex(*E.shape[:2]):
+            Ek = np.lib.stride_tricks.sliding_window_view(
+                E[b, t, lo:], w)[:nl]                      # (nl, w)
+            num[b, t] = total(A[b, t] * Ek)
+            el[b, t] = total(Ek * Ek)
+    else:
+        e0 = (A * A).sum(-1, dtype=np.float32)
+        for k in range(nl):
+            Ek = E[..., lo + k: lo + k + w]
+            num[..., k] = (A * Ek).sum(-1, dtype=np.float32)
+            el[..., k] = (Ek * Ek).sum(-1, dtype=np.float32)
     prod = np.maximum(e0[..., None] * el, np.float32(1e-30))
     ball = ball.astype(np.float32)[:, None, None]
     return num / np.sqrt(prod + ball), num / np.sqrt(prod)
@@ -288,6 +301,60 @@ def test_nccf_kernel_arithmetic_matches_plain(rng, kw):
                                    rtol=0)
 
 
+# windows beyond what one whole window in shared memory allowed (58,000
+# samples): the card's lag-blocked tiling takes them (chip_smoke.py phase
+# 22); the plain version's dense DFT matrices would take gigabytes here
+BEYOND = {"many lags": dict(work_rate=16000, min_f0=0.25),       # 63,961 lags
+          "wide frame": dict(work_rate=16000, frame_ms=4000.0),  # w = 64,000
+          "both": dict(work_rate=16000, frame_ms=2000.0, min_f0=0.5)}
+
+
+def _beyond_rows(rng, t, frames):
+    """(1, n) float32 work-rate row of ``frames`` frames: a 140 Hz vibrato
+    plus noise (the work rate is the input rate)."""
+    n = t.frame_len_w + t.max_lag + (frames - 1) * t.hop_len_w
+    return _vibrato(rng, n=n, f0=140.0)[None]
+
+
+@pytest.mark.parametrize("name,frames", [("many lags", 3), ("wide frame", 3),
+                                         ("both", 2)])
+def test_oracle_nccf_twin_beyond_shared_memory(rng, name, frames):
+    """The card's yardstick beyond the old limit: the port's float64 oracle
+    NCCF against the reference's, within 1e-12."""
+    kw = BEYOND[name]
+    t, j = PitchConfig(**kw).validate(), _jcfg(kw)
+    x = _beyond_rows(rng, t, frames)[0].astype(np.float64)
+    got, want = oracle.nccf(x, t), jax_oracle.nccf(x, j)
+    for g, w in zip(got, want):
+        assert g.shape == (frames, t.n_lags)
+        np.testing.assert_allclose(g, np.asarray(w), atol=1e-12, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["many lags", "wide frame"])
+def test_nccf_kernel_arithmetic_beyond_shared_memory(rng, name):
+    """The kernel's arithmetic, each sum the lag-blocked tiling's ascending
+    float32 chain (a 64,000-term chain at the wide frame), within the 2e-5
+    kernel bound of the float64 oracle, the port's and the reference's, on
+    the ballasted and the plain NCCF.  The plain version is not run: its
+    dense DFT matrices would be ~8 GB."""
+    kw = BEYOND[name]
+    t, j = PitchConfig(**kw).validate(), _jcfg(kw)
+    xw = _beyond_rows(rng, t, 2)
+    ball = np.array([0.5], np.float32)
+    kb, kp = _emulate_nccf_kernel(xw, ball, t, 2, chain=True)
+    assert np.isfinite(kb).all() and np.isfinite(kp).all()
+    x = xw[0].astype(np.float64)
+    e0 = [np.square(x[i * t.hop_len_w: i * t.hop_len_w + t.frame_len_w]).sum()
+          for i in range(2)]
+    ballast = float(ball[0]) / np.mean(e0) ** 2     # the oracle's ballast
+    for want in (oracle.nccf(x, t.replace(ballast=ballast)),
+                 jax_oracle.nccf(x, dataclasses.replace(j, ballast=ballast))):
+        np.testing.assert_allclose(kb[0], np.asarray(want[0]), atol=KERNEL_TOL,
+                                   rtol=0)
+        np.testing.assert_allclose(kp[0], np.asarray(want[1]), atol=KERNEL_TOL,
+                                   rtol=0)
+
+
 def test_nccf_wrapper_on_cpu_runs_the_plain_version(rng):
     t = PitchConfig()
     xw = torch.from_numpy((0.3 * rng.standard_normal((2, 4000)))
@@ -300,9 +367,9 @@ def test_nccf_wrapper_on_cpu_runs_the_plain_version(rng):
     assert fused_nccf.LAUNCHES == before
     with pytest.raises(ValueError):
         fused_nccf.fused_nccf(xw, ball[:1], t, T=90)
-    assert fused_nccf.kernel_supports(t)
-    assert not fused_nccf.kernel_supports(
-        PitchConfig(work_rate=16000, min_f0=0.25).validate())
+    # no window limit: the C entry plans a tiling for every config
+    assert not hasattr(fused_nccf, "kernel_supports")
+    assert not hasattr(fused_nccf, "MAX_WINDOW")
 
 
 # ---------------------------------------------------------- chunked NCCF --
@@ -624,6 +691,116 @@ def test_pitch_kernels_shared_loads_conflict_free():
     loads, wavefronts = ablate_pitch.nccf_bank_wavefronts(
         100, 61, 10, 71, TM=32, R=9, passes=1)["numerator"]
     assert wavefronts > loads
+    # the lag-blocked tiling (a warp the lag groups of one frame), in the
+    # tiles the C entry plans for it: at the default config (where the
+    # A/B build forces it), at the 61-sample hop, and at the wide frame,
+    # whose 160-sample hop (0 mod 32) would conflict across frames
+    # (full grid), and at the short grids of the wide frame and both
+    for kw, tile in ((dict(), dict(TM=8, R=3, lag_block=96,
+                                   sample_chunk=100)),
+                     (dict(hop_ms=15.25), dict(TM=8, R=3, lag_block=96,
+                                               sample_chunk=100)),
+                     (dict(work_rate=16000, frame_ms=4000.0),
+                      dict(TM=8, R=9, lag_block=288, sample_chunk=4096)),
+                     (dict(work_rate=16000, frame_ms=4000.0),
+                      dict(TM=2, R=3, lag_block=384, sample_chunk=4096)),
+                     (dict(work_rate=16000, frame_ms=2000.0, min_f0=0.5),
+                      dict(TM=1, R=5, lag_block=1280, sample_chunk=4096))):
+        c = PitchConfig(**kw).validate()
+        counts = ablate_pitch.nccf_lag_bank_wavefronts(
+            c.frame_len_w, c.hop_len_w, c.min_lag, c.n_lags, **tile)
+        for loads, wavefronts in counts.values():
+            assert loads == wavefronts > 0, (kw, counts)
+
+
+@pytest.fixture(scope="module")
+def nccf_planner(tmp_path_factory):
+    """``csrc/fused_nccf.cu``'s planner (``plan`` and what it calls, from
+    the source text) built for the host with g++: (w, hop, min_lag,
+    n_lags, B, T, max_smem, sms) -> the Plan's fields and the grid."""
+    import shutil
+    import subprocess
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a C++ compiler (the port's native WAV decoder needs one)"
+    src = (Path(fused_nccf.__file__).parent / "csrc" / "fused_nccf.cu"
+           ).read_text()
+    consts = src[src.index("constexpr int kThreads"):
+                 src.index("struct Params")]
+    planner = src[src.index("struct Plan {"):
+                  src.index("cudaError_t device_plan(")]
+    d = tmp_path_factory.mktemp("nccf_planner")
+    (d / "plan.cpp").write_text(
+        "#include <algorithm>\n#include <cstdio>\n#include <cstdlib>\n"
+        "#include <cstddef>\ntypedef int cudaError_t;\n"
+        "const int cudaSuccess = 0, cudaErrorInvalidConfiguration = 9;\n"
+        "namespace {\n" + consts + planner + "}\n"
+        "int main(int argc, char** argv) {\n"
+        "  int a[8];\n  for (int i = 0; i < 8; ++i) a[i] = atoi(argv[i + 1]);\n"
+        "  Plan p{};\n"
+        "  int err = plan(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], &p);\n"
+        "  long long blocks = 1LL * a[4] * ((a[5] + p.TM - 1) / p.TM) *\n"
+        "                     std::max(p.lag_blocks, 1);\n"
+        "  printf(\"%d %d %d %d %d %d %d %d %zu %lld\\n\", err, p.TM, p.R,\n"
+        "         p.passes, p.shared_energy, p.lag_block, p.chunk,\n"
+        "         p.lag_blocks, p.smem, blocks);\n}\n")
+    subprocess.run([cxx, "-std=c++17", "-O1", "-o", str(d / "plan"),
+                    str(d / "plan.cpp")], check=True)
+    keys = ("err", "TM", "R", "passes", "shared_energy", "lag_block",
+            "sample_chunk", "lag_blocks", "smem", "blocks")
+
+    def run(pcfg, B, T, max_smem=232_448, sms=132):
+        out = subprocess.run(
+            [str(d / "plan"), *map(str, (pcfg.frame_len_w, pcfg.hop_len_w,
+                                         pcfg.min_lag, pcfg.n_lags, B, T,
+                                         max_smem, sms))],
+            check=True, capture_output=True, text=True).stdout
+        return dict(zip(keys, map(int, out.split())))
+    return run
+
+
+# (PitchConfig keywords, B, T, the H100's SMs) -> the tile the planner
+# takes there with the H100's 227 KB of shared memory a block
+PLANS = [
+    (dict(), 64, 996, 132, dict(TM=32, R=9, lag_block=0)),
+    (dict(work_rate=16000, min_f0=15.0), 4, 291, 132,
+     dict(TM=32, R=15, passes=9, lag_block=0)),
+    # a short grid: fewer lags a thread than the widest, more blocks
+    (dict(work_rate=16000, min_f0=0.4), 1, 3, 132,
+     dict(TM=1, R=5, lag_block=1280, blocks=96)),
+    (dict(work_rate=16000, frame_ms=4000.0), 2, 6, 132,
+     dict(TM=1, R=1, lag_block=256, blocks=24)),
+    (dict(work_rate=16000, frame_ms=4000.0), 2, 99, 132,
+     dict(TM=2, R=3, lag_block=384, blocks=100)),
+    (dict(work_rate=16000, frame_ms=2000.0, min_f0=0.5), 1, 4, 132,
+     dict(TM=1, R=5, lag_block=1280, blocks=100)),
+    # a full grid, or one SM: the widest R
+    (dict(work_rate=16000, min_f0=0.25), 1, 5598, 132,
+     dict(TM=1, R=15, lag_block=3840, sample_chunk=400)),
+    (dict(work_rate=16000, frame_ms=4000.0), 8, 199, 132,
+     dict(TM=8, R=9, lag_block=288, sample_chunk=4096)),
+    (dict(work_rate=16000, frame_ms=4000.0), 2, 99, 1,
+     dict(TM=8, R=9, lag_block=288, blocks=26)),
+]
+
+
+@pytest.mark.parametrize("kw,B,T,sms,want", PLANS)
+def test_nccf_planner_tiles(nccf_planner, kw, B, T, sms, want):
+    """The C entry's planner, built for the host: the whole-window tiles
+    where they fit, else the lag-blocked tiling at the R that gives the
+    busiest SM the fewest instructions (the widest on a full grid, a
+    narrower one on a short grid), within shared memory, the lag groups
+    of a block 8 warps of 32."""
+    pcfg = PitchConfig(**kw).validate()
+    got = nccf_planner(pcfg, B, T, sms=sms)
+    assert got["err"] == 0 and got["smem"] <= 232_448, got
+    assert {k: got[k] for k in want} == want, got
+    if got["lag_block"]:
+        assert got["shared_energy"] == 0 and got["R"] % 2 == 1
+        assert got["TM"] * got["lag_block"] // (32 * got["R"]) == 8, got
+        assert got["sample_chunk"] == min(pcfg.frame_len_w, 4096), got
+        assert got["lag_blocks"] == -(-pcfg.n_lags // got["lag_block"])
+    else:
+        assert got["shared_energy"] == 1 and got["sample_chunk"] == 0
 
 
 def test_pitch_ablation_edits_still_apply():

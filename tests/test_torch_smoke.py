@@ -28,7 +28,7 @@ from mfcc_tpu_torch.ops import framing
 from mfcc_tpu_torch.ops.kernels import (_build, _spectral, fused_dit,
                                         fused_mfcc, fused_nccf, fused_raw,
                                         fused_raw_dit, fused_viterbi, routes)
-from mfcc_tpu_torch.tools import roofline
+from mfcc_tpu_torch.tools import ablate_pitch, roofline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WRAPPERS = ((fused_raw_dit, "fused_features_raw_dit"),
@@ -58,9 +58,59 @@ ORACLES = {"mel": oracle.log_mel, "bark": oracle.log_bark,
 # the launch shapes the pitch kernels' C entries report at the default
 # config (a stand-in: no C entry runs here)
 SHAPES = {fused_nccf: {"TM": 32, "R": 9, "passes": 1, "shared_energy": 1,
-                       "stage_out": 1},
+                       "stage_out": 1, "lag_block": 0, "sample_chunk": 0},
           fused_viterbi: {"K": 1, "J": 72, "threads": 96, "register_path": 1,
                           "TB": 996, "score_chunk": 32}}
+# the NCCF tile the C entry plans where no whole window fits in shared
+# memory (beyond ~29,000 samples), and in the planner's A/B builds (a
+# stand-in too)
+LAG_BLOCKED = {"TM": 1, "R": 15, "passes": 1, "shared_energy": 0,
+               "stage_out": 1, "lag_block": 3840, "sample_chunk": 400}
+# extended windows past the plain version's dense DFT matrices on the CPU
+DIRECT_WINDOW = 4096
+
+
+def _nccf_tile(pcfg):
+    return (LAG_BLOCKED if pcfg.frame_len_w + pcfg.max_lag > 29_000
+            else SHAPES[fused_nccf])
+
+
+def _direct_nccf(plain):
+    """plain_nccf's stand-in: itself up to DIRECT_WINDOW samples of
+    extended window, beyond it the direct correlation in float64 rounded
+    to float32 (the plain version's DFT matrices would take gigabytes)."""
+    def nccf(xw, ball, pcfg, T):
+        w, hop, lo, nl = (pcfg.frame_len_w, pcfg.hop_len_w, pcfg.min_lag,
+                          pcfg.n_lags)
+        n = w + pcfg.max_lag
+        if n <= DIRECT_WINDOW:
+            return plain(xw, ball, pcfg, T)
+        x = xw.double().numpy()
+        z = np.zeros((x.shape[0], (T - 1) * hop + n))
+        m = min(z.shape[1], x.shape[1])
+        z[:, :m] = x[:, :m]
+        num = np.empty((x.shape[0], T, nl))
+        prod = np.empty_like(num)
+        for b in range(x.shape[0]):
+            for t in range(T):
+                E = z[b, t * hop: t * hop + n]
+                cs = np.concatenate([[0.0], np.cumsum(E * E)])
+                num[b, t] = np.lib.stride_tricks.sliding_window_view(
+                    E[lo:], w)[:nl] @ E[:w]
+                prod[b, t] = np.maximum(
+                    cs[w] * (cs[lo + w: lo + w + nl] - cs[lo: lo + nl]),
+                    1e-30)
+        bl = ball.double().numpy()[:, None, None]
+        return (torch.from_numpy((num / np.sqrt(prod + bl)).astype(np.float32)),
+                torch.from_numpy((num / np.sqrt(prod)).astype(np.float32)))
+    return nccf
+
+
+def _launch_nccf(lib, xw, ball, pcfg, T):
+    """fused_nccf.launch's stand-in for the A/B builds of phase 22 (both
+    plan the lag-blocked tiling)."""
+    assert lib in ("nccf_lag_blocked", "nccf_lag_widest"), lib
+    return (*fused_nccf.plain_nccf(xw, ball, pcfg, T), LAG_BLOCKED)
 
 
 def _counting(mod, name):
@@ -73,7 +123,8 @@ def _counting(mod, name):
     def launch(*args, **kwargs):
         mod.LAUNCHES += 1
         if mod in SHAPES:
-            mod.LAST_SHAPE = SHAPES[mod]
+            mod.LAST_SHAPE = (_nccf_tile(args[2]) if mod is fused_nccf
+                              else SHAPES[mod])
         x, cfg = args[:2]
         if hasattr(mod, "TILE_LAUNCHES"):   # the kernels read no compute_dtype
             cfg = cfg.replace(compute_dtype="float32")
@@ -156,7 +207,12 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                         ("PRECISION_CALLS", 2), ("PITCH_LONG_SECONDS", 3.0),
                         ("CHUNK_STREAM_SECONDS", 14.0),
                         ("CHUNK_HOUR_REPEATS", 2),
-                        ("CHUNK_VOICED_SECONDS", 4.0), ("CHUNK_CALLS", 2)):
+                        ("CHUNK_VOICED_SECONDS", 4.0), ("CHUNK_CALLS", 2),
+                        ("BEYOND_SECONDS", 4.1), ("BEYOND_EDGE_FRAMES", 1),
+                        ("WIDE_SECONDS", 4.1), ("BOTH_FRAMES", 1),
+                        ("WIDE_PITCH_SECONDS", (4.1, 4.05)),
+                        ("WIDE_SPREAD_SECONDS", 4.1),
+                        ("BEYOND_CALLS", 2)):
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "_smi", lambda: "Fake GPU, 700.00 W")
     monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
@@ -170,6 +226,11 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     for name in ("build", "launch", "launched_plan"):
         monkeypatch.setattr(roofline, name, getattr(rungs, name))
     monkeypatch.setattr(roofline, "LAUNCHES", dict(roofline.LAUNCHES))
+    monkeypatch.setattr(ablate_pitch, "build",
+                        lambda names: {n: n for n in names})
+    monkeypatch.setattr(fused_nccf, "launch", _launch_nccf)
+    monkeypatch.setattr(fused_nccf, "plain_nccf",
+                        _direct_nccf(fused_nccf.plain_nccf))
     resolve = backend.resolve
     monkeypatch.setattr(backend, "resolve", lambda name, x, cfg: (
         "cuda" if name in ("auto", "cuda") and (
@@ -187,8 +248,52 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 22)), "3b", "3c", "3d", "4b", "4c"]:
+    for phase in [*map(str, range(1, 23)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
+    # phase 22: the lag-blocked build equal to the planner's on six configs
+    # (the 40,400-sample window, lag-blocked by the planner itself, also to
+    # the widest R), three windows beyond the old limit one launch each
+    # against the oracle (the wide frame and both also to the widest R),
+    # the wide frame's spread over six more rows, pitch_batch at the wide
+    # frame, each timed beside its own bound
+    tag = "[22 NCCF beyond shared memory]"
+    lines = [ln for ln in out.splitlines() if ln.startswith(f"{tag} (a) ")]
+    assert len(lines) == 6, lines
+    assert all("equal in every bit to the planner's: {'planner': True, "
+               "'nccf_lag_blocked': True" in ln for ln in lines), lines
+    assert "'nccf_lag_widest': True}" in lines[3] and \
+        "(a) 40,400-sample window (T=3, 39960 lags)" in lines[3]
+    assert "(a) bench 8 x 1 s (T=96, 71 lags)" in lines[0]
+    assert "(a) one row, zero row stride" in lines[5]
+    for case, T in (("many lags (w=400, 63961 lags, window 64400; B=1, T=8)",
+                     8), ("wide frame (w=64000, 281 lags, window 64320; "
+                          "B=2, T=9)", 9),
+                    ("both (w=32000, 31961 lags, window 64000; B=1, T=1)", 1)):
+        line = next(ln for ln in out.splitlines()
+                    if ln.startswith(f"{tag} (b) {case}: one launch, "))
+        assert "'lag_block': 3840" in line and "finite: True" in line, line
+        assert ("nccf_lag_widest tile" in line) == (T != 8), line
+        assert ("equal in every bit: True" in line) == (T != 8), line
+        assert f"{tag} (d) {case.split(' (')[0]}: ms a call planner " \
+            "(lag-blocked, TM 1, R 15) " in out
+    assert f"{tag} (b) wide frame" in out and "14 valid frames vs the " \
+        "float64 oracle" in out
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith(f"{tag} (b) wide frame, six more rows "))
+    assert "9 valid frames each" in line and line.count("/") >= 7, line
+    assert "rows over the 2e-05 bound: " in line, line
+    for row in (0, 1):
+        assert f"{tag} (c) pitch_batch at the wide frame, int16 row {row} " \
+            in out
+    assert "launched fused_nccf/fused_viterbi (1, 1); vs oracle.pitch" in out
+    for case, build in (("bench 8 x 1 s", "nccf_lag_blocked"),
+                        ("40,400-sample window", "nccf_lag_widest")):
+        line = next(ln for ln in out.splitlines()
+                    if ln.startswith(f"{tag} (d) {case}: ms a call "))
+        assert f"{build} (lag-blocked, TM 1, R 15) " in line and \
+            "bound " in line, line
+    assert f"{tag} (d) pitch_batch at the wide frame: " in out
+    assert f"{tag} phase 22 passed in " in out
     # phase 21: each path's rungs held to their twins and the kernel's
     # plan, the ladder timed with its launches counted from 0
     for path, tm in (("fused_raw_dit", 16), ("fused_raw", 32),
