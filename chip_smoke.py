@@ -118,7 +118,7 @@ Phases, one status line each; any failure raises and exits non-zero:
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
    ``fused_viterbi``'s time per step of its chain beside the chain bound;
    ``pitch_batch``'s ATen ops and host enqueue time beside its own.
-9. the script's elapsed time (phases 1-8 and 10-22), one JSON line
+9. the script's elapsed time (phases 1-8 and 10-23), one JSON line
    describing the kernels of phases 1-8 and row 7, the roofline probe, of
    phase 21 (with
    each one's bound: the larger of its input and output bytes over 3.35
@@ -312,6 +312,26 @@ Phases, one status line each; any failure raises and exits non-zero:
    (c) path with its ATen ops and host enqueue, each beside the bound of
    its own config (``_nccf_work``) and, for (b), the kernel's own work;
    the phase's time and its float64 oracles' share.
+23. ``accum_dtype`` bfloat16, float16 and float64 on the card, the bench
+   batch (64 x 10 s int16 ragged) through ``mfcc_batch`` (MFCC-13),
+   ``log_mel_batch`` (log-mel-80, unbounded and 50 dB), ``plp_batch`` and
+   ``log_spectrogram_batch``: (a) the kernel route ("auto"), every
+   spectral counter reset just before and read just after: the float32
+   config's launches, kernel and tile, and its output in every bit (no
+   kernel reads the field, as no Pallas kernel of the reference does);
+   (b) the plain route ("torch", the reference's XLA casts) on the card
+   against the same route on the CPU on 3 rows' first 5 s, within the
+   port-vs-JAX bounds of ``tests/test_torch_accum.py`` (``ACCUM_TOL``:
+   log-mel and the spectrogram 6 ulps of their energies in the dtype, the
+   spectrogram inside each frame's 50 dB window; float64 is float32 in
+   every bit), and each dtype's error against the float64 oracle on the
+   first second of row 0 beside JAX's on the CPU (``ACCUM_JAX_CPU``,
+   which that file measures); float16 on those rows at int16 scale (as
+   floats, unnormalized), whose power spectrum overflows: the overflowed
+   positions on both devices, not gated (a card's NaN has other bits);
+   (c) one ``train_step`` and one streaming scan dispatch
+   (``process_chunks_batch``) under bfloat16 on the card against the CPU;
+   (d) the plain route's CUDA-event ms under each dtype beside float32's.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -453,6 +473,37 @@ BOTH_FRAMES = 4              # frames of the config beyond on both counts
 WIDE_PITCH_SECONDS = (4.5, 4.25)  # pitch_batch's int16 rows, wide frame
 WIDE_SPREAD_SECONDS = 4.2    # the wide frame's six more rows, one seed each
 BEYOND_CALLS = 10            # timed calls a case
+# phase 23: accum_dtype on the card
+ACCUM_DTYPES = ("bfloat16", "float16", "float64")
+ACCUM_ROWS = 3               # rows of the plain route held to the CPU's
+ACCUM_ROW_SECONDS = 5.0      # their first seconds
+ACCUM_CALLS = 10             # timed calls of the plain route a setting
+ACCUM_STREAMS, ACCUM_CHUNKS = 4, 4   # the bfloat16 scan dispatch
+# the card's plain route against the CPU's: the port-vs-JAX bounds of
+# tests/test_torch_accum.py (one flipped rounding of a DFT part: cuBLAS
+# and MKL sum the float32 DFT in other orders, as JAX's chain does).  Log-
+# mel and the spectrogram: ACCUM_ULPS units in the last place of their
+# energies (exp of the features) in the accumulation dtype (float16: at
+# least 2^-24); cepstra and PLP max abs, float16 at bfloat16's (a
+# subnormal band keeps fewer bits).  float64 is float32 in every bit.
+ACCUM_ULPS = 6
+ACCUM_TOL = {"mfcc": 2e-2, "plp": 1e-3, "logmel": ACCUM_ULPS,
+             "logmel50": ACCUM_ULPS, "spec": ACCUM_ULPS}
+# JAX's XLA route on the CPU against the float64 oracle, max abs, on the
+# first second of the bench batch's row 0 as int16 (the reference's own
+# figures; tests/test_torch_accum.py::test_chip_smoke_jax_cpu_figures
+# measures them)
+ACCUM_JAX_CPU = {
+    "mfcc": {"float32": 3.230e-06, "bfloat16": 1.655e-02,
+             "float16": 2.002e-03},
+    "logmel": {"float32": 1.010e-03, "bfloat16": 1.386e-02,
+               "float16": 1.739e-01},
+    "logmel50": {"float32": 2.958e-05, "bfloat16": 1.386e-02,
+                 "float16": 2.258e-03},
+    "plp": {"float32": 8.768e-07, "bfloat16": 7.204e-04,
+            "float16": 7.466e-04},
+    "spec": {"float32": 3.640e-03, "bfloat16": 1.329e-02,
+             "float16": 5.280e+00}}
 
 
 def _log(msg: str) -> None:
@@ -3669,8 +3720,202 @@ def _beyond_smem_phase(torch, dev, smi, bench, libs) -> None:
          f"the float64 oracles on the host {t_oracle:.1f} s of it")
 
 
+def _accum_families():
+    """Phase 23's families: name -> (batch entry, config, oracle)."""
+    from mfcc_tpu_torch import FeatureConfig, oracle
+    from mfcc_tpu_torch.models import logmel as logmel_model
+    from mfcc_tpu_torch.models import mfcc as mfcc_model, plp as plp_model
+    from mfcc_tpu_torch.models import spectrogram as spec_model
+    lm = dict(n_mels=80, n_mfcc=80)
+    return {
+        "mfcc": (mfcc_model.mfcc_batch, FeatureConfig(), oracle.mfcc),
+        "logmel": (logmel_model.log_mel_batch, FeatureConfig(**lm),
+                   oracle.log_mel),
+        "logmel50": (logmel_model.log_mel_batch,
+                     FeatureConfig(**lm, dynamic_range_db=50.0),
+                     oracle.log_mel),
+        "plp": (plp_model.plp_batch, FeatureConfig(), oracle.plp),
+        "spec": (spec_model.log_spectrogram_batch, FeatureConfig(),
+                 oracle.log_spectrogram)}
+
+
+def _accum_err(family: str, acc: str, got: np.ndarray,
+               want: np.ndarray) -> float:
+    """How far got is from want: for log-mel and the spectrogram in
+    bfloat16 or float16 the most units in the last place of that dtype by
+    which their energies (exp of the features) differ (float16: at least
+    2^-24), else max |got - want|; the spectrogram inside the 50 dB window
+    of want's frames."""
+    keep = np.ones(want.shape, bool)
+    if family == "spec":
+        keep = want > want.max(axis=-1, keepdims=True) - math.log(
+            10.0 ** (SPEC_WINDOW_DB / 10.0))
+    got, want = got[keep].astype(np.float64), want[keep].astype(np.float64)
+    if not got.size:
+        return 0.0
+    if acc in ("float32", "float64") or family in ("mfcc", "plp"):
+        return float(np.abs(got - want).max())
+    eg, ew = np.exp(got), np.exp(want)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(eg, ew)))
+                  - (7 if acc == "bfloat16" else 10))
+    if acc == "float16":
+        ulp = np.maximum(ulp, 2.0 ** -24)
+    return float((np.abs(eg - ew) / ulp).max())
+
+
+def _accum_phase(torch, dev, smi) -> None:
+    """Phase 23: accum_dtype on the card (module docstring)."""
+    import warnings
+    from mfcc_tpu_torch.models import streaming, trainable
+    tag = "[23 accum_dtype]"
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    modules = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
+    bench = _bench_audio(BATCH, SECONDS, 16000)
+    B, N = bench.shape
+    lens = np.maximum(N - np.arange(B) * (N // (B + 6)), 0).astype(np.int32)
+    lens[-2:] = (400, 399)                   # 1 frame, 0 frames
+    audio = bench.copy()
+    for i, n in enumerate(lens):
+        audio[i, n:] = 0.0
+    x16 = _int16(audio)
+    xd, ld = torch.from_numpy(x16).to(dev), torch.from_numpy(lens).to(dev)
+    rows = sorted({0, B // 2, max(B - 2, 0)})[:ACCUM_ROWS]
+    n = min(N, int(ACCUM_ROW_SECONDS * 16000))
+    xc = torch.from_numpy(np.ascontiguousarray(x16[rows, :n]))
+    lc = torch.from_numpy(np.minimum(lens[rows], n))
+    # the first second of row 0, where JAX's CPU figures were taken
+    one = torch.from_numpy(x16[:1, :16000])
+    one64 = x16[0, :16000].astype(np.float64) / 32768.0
+    loud = xc.to(torch.float32)                            # int16 scale
+    for fam, (entry, base, ref_fn) in _accum_families().items():
+        base = base.validate()
+        ref1 = ref_fn(one64, base)
+        kern, plain, ms = {}, {}, {}
+        for acc in ("float32", *ACCUM_DTYPES):
+            cfg = base.replace(accum_dtype=acc)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                # (a) the kernel route
+                _reset_counts(modules.values())
+                feat = entry(xd, ld, cfg, "auto")[0]
+                torch.cuda.synchronize()
+                ran = {k: (m.LAUNCHES, _tiles(m)) for k, m in modules.items()
+                       if m.LAUNCHES}
+                kern[acc] = (feat, ran)
+                # (b) the plain route on the card and on the CPU
+                card = entry(xd, ld, cfg, "torch")[0]
+                near = entry(xc.to(dev), lc.to(dev), cfg, "torch")[0]
+                host = entry(xc, lc, cfg, "torch")[0].numpy()
+                e1 = entry(one.to(dev), torch.tensor([16000], device=dev),
+                           cfg, "torch")[0][0].cpu().numpy()
+                # (d) the plain route's time
+                ms[acc] = statistics.median(_time_ms(
+                    torch, lambda: entry(xd, ld, cfg, "torch"), warmup=1,
+                    calls=ACCUM_CALLS))
+            assert (acc == "float64") == any(
+                "float64" in str(w.message) for w in caught), acc
+            assert bool(torch.isfinite(card).all()), (fam, acc)
+            plain[acc] = card
+            f = near.cpu().numpy()
+            vs_cpu = max(_accum_err(fam, acc, f[k], host[k])
+                         for k in range(len(rows)))
+            narrow = acc in ("bfloat16", "float16")
+            unit = (" ulps of the energy" if narrow and fam not in
+                    ("mfcc", "plp") else "")
+            err1 = float(np.abs(e1[: ref1.shape[0]] - ref1).max())
+            kerr1 = float(np.abs(feat[0, : ref1.shape[0]].cpu().numpy()
+                                 - ref1).max())
+            jax_err = ACCUM_JAX_CPU[fam].get(acc)
+            launched = {k: v[0] for k, v in ran.items()}
+            tile = "+".join(t for v in ran.values()
+                            for t, c in v[1].items() if c)
+            _log(f"{tag} {fam} {acc}: kernel route launched {launched} "
+                 f"({tile} tile); plain route card vs CPU on rows {rows} "
+                 f"({n / 16000:g} s) max "
+                 f"{vs_cpu:.3e}{unit}"
+                 + (f" (bound {ACCUM_TOL[fam]:g})" if narrow else "")
+                 + f"; vs the float64 oracle on row 0's first second: "
+                 f"kernel route {kerr1:.3e}, plain route {err1:.3e} on the "
+                 f"card"
+                 + ("" if jax_err is None else
+                    f", JAX on the CPU {jax_err:.3e}")
+                 + f"; plain route {ms[acc]:.4f} ms a {B} x {N / 16000:g} s "
+                 f"batch ({smi})")
+            if narrow:
+                assert vs_cpu <= ACCUM_TOL[fam], (fam, acc, vs_cpu)
+        for acc in ACCUM_DTYPES:
+            assert kern[acc][1] == kern["float32"][1], (fam, acc)
+            assert torch.equal(kern[acc][0], kern["float32"][0]), (fam, acc)
+        assert len(kern["float32"][1]) == 1, kern["float32"][1]
+        assert torch.equal(plain["float64"], plain["float32"]), fam
+        _log(f"{tag} {fam}: the kernel route under bfloat16, float16 and "
+             f"float64 launched what float32 launched, and its output equals "
+             f"float32's in every bit; float64's plain route equals "
+             f"float32's in every bit")
+        # float16 at int16 scale: the power spectrum overflows
+        if fam in ("logmel", "spec"):
+            cfg = base.replace(accum_dtype="float16")
+            card = entry(loud.to(dev), lc.to(dev), cfg, "torch")[0].cpu()
+            host = entry(loud, lc, cfg, "torch")[0]
+            over_c, over_h = card.numpy() > 80.0, host.numpy() > 80.0
+            vals = sorted({round(float(v), 2) for v in card.numpy()[over_c]})
+            hvals = sorted({round(float(v), 2) for v in host.numpy()[over_h]})
+            assert torch.isfinite(card).all()
+            _log(f"{tag} {fam} float16 on rows {rows} ({n / 16000:g} s) at "
+                 f"int16 scale: "
+                 f"{int(over_c.sum())} elements from an inf or NaN energy on "
+                 f"the card, {int(over_h.sum())} on the CPU, at the same "
+                 f"positions: {bool(np.array_equal(over_c, over_h))}; they "
+                 f"read {vals[:4]} on the card, {hvals[:4]} on the CPU (not "
+                 f"gated: a NaN's bits are the device's)")
+        _log(f"{tag} {fam}: plain route ms float32 {ms['float32']:.4f}, "
+             + ", ".join(f"{a} {ms[a]:.4f}" for a in ACCUM_DTYPES)
+             + f" ({smi})")
+    # (c) one train_step and one scan dispatch under bfloat16
+    cfg = _accum_families()["mfcc"][1].replace(accum_dtype="bfloat16")
+    x = torch.from_numpy(audio[:8, :32000].copy())
+    steps = {}
+    for d in (dev, cpu):
+        params = trainable.init_params(cfg, d)
+        tgt = trainable.init_params(cfg, d)
+        with torch.no_grad():
+            tgt.mel_w.mul_(1.5)
+        target = trainable.forward(tgt, x.to(d), cfg).detach()
+        opt = trainable.make_optimizer(params, 1e-3)
+        loss = float(trainable.train_step(params, opt, x.to(d), target, cfg))
+        steps[d.type] = (loss, params.mel_w.grad.cpu(),
+                         params.log_floor.grad.cpu())
+    (lc_, *gc), (lh, *gh) = steps[dev.type], steps["cpu"]
+    assert math.isfinite(lc_) and abs(lc_ / lh - 1.0) < 1e-3, (lc_, lh)
+    gerr = [float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+            for a, b in zip(gc, gh)]
+    assert max(gerr) < 1e-3, gerr
+    C = STREAM_CHUNK_FRAMES * cfg.hop_len
+    chunks = torch.from_numpy(audio[:ACCUM_STREAMS, : ACCUM_CHUNKS * C]
+                              .reshape(ACCUM_STREAMS, ACCUM_CHUNKS, C).copy())
+    outs = {}
+    for d in (dev, cpu):
+        _reset_counts(modules.values())
+        _, feats, nv = streaming.process_chunks_batch(
+            streaming.init_state_batch(ACCUM_STREAMS, cfg, d), chunks.to(d),
+            cfg)
+        outs[d.type] = (feats.cpu().numpy(), nv.cpu().numpy(),
+                        sum(m.LAUNCHES for m in modules.values()))
+    serr = float(np.abs(outs[dev.type][0] - outs["cpu"][0]).max())
+    assert np.array_equal(outs[dev.type][1], outs["cpu"][1])
+    assert outs[dev.type][2] == 0 and serr <= ACCUM_TOL["mfcc"]
+    _log(f"{tag} bfloat16 train_step on {tuple(x.shape)}: loss card "
+         f"{lc_:.6f} CPU {lh:.6f}, gradients (mel_w, log_floor) card vs CPU "
+         f"{gerr[0]:.3e}/{gerr[1]:.3e} of their largest; scan dispatch "
+         f"{ACCUM_STREAMS} sessions x {ACCUM_CHUNKS} chunks of "
+         f"{STREAM_CHUNK_FRAMES} frames: no spectral launch, card vs CPU max "
+         f"{serr:.3e} (bound {ACCUM_TOL['mfcc']:g})")
+    _log(f"{tag} phase 23 passed in {time.perf_counter() - t_phase:.1f} s")
+
+
 def run(torch, dev) -> list[dict]:
-    """Phases 1-8 and 10-22 on device ``dev``; -> the kernels' JSON records
+    """Phases 1-8 and 10-23 on device ``dev``; -> the kernels' JSON records
     (of phases 1-8, and row 7's of phase 21: the other phases report their
     own counters)."""
     from mfcc_tpu_torch import PitchConfig
@@ -3719,6 +3964,7 @@ def run(torch, dev) -> list[dict]:
     _chunked_nccf_phase(torch, dev, smi)                    # 20
     roofline = _roofline_phase(torch, dev, smi, rung_libs)  # 21
     _beyond_smem_phase(torch, dev, smi, bench, nccf_libs)   # 22
+    _accum_phase(torch, dev, smi)                           # 23
 
     src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
     launches = {**logmel_launches, **pitch_launches, **proj_launches}
@@ -3780,7 +4026,7 @@ def main() -> int:
     kernels = run(torch, torch.device("cuda", 0))
     # ---- 9. summary ----
     assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
-    _log(f"[9 summary] phases 1-8 and 10-22 passed in "
+    _log(f"[9 summary] phases 1-8 and 10-23 passed in "
          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

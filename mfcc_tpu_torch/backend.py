@@ -40,19 +40,33 @@ which restores the caller's flags; nothing sets them for the process.  The
 spectral kernels have no matrix product for a mode to change; "high" is
 routed away from them (:func:`resolve`), as the reference routes it away
 from Mosaic.  ``compute_dtype="bfloat16"`` rounds the DFT's operands
-(``ops/spectrum``); only ``accum_dtype`` other than float32 raises, naming
-its ROADMAP item.
+(``ops/spectrum``).
+
+The accumulation dtype (``FeatureConfig.accum_dtype``, :data:`ACCUM_DTYPES`)
+is the dtype the plain route casts the DFT's real and imaginary parts to,
+squares and adds them in, and rounds the filterbank and DCT matrices to
+(``ops/spectrum``, ``ops/mel``, ``ops/dct``, ``ops/plp``): the reference's
+XLA casts at its sites.  The kernels never read it, as the reference's
+Pallas kernels do not: on the card "auto" and "cuda" give the float32
+features whatever it says.  "float64" is float32, as JAX computes it
+without its x64 mode (which the reference never enables), with a warning.
+Any other name raises ValueError, where the reference passes it to
+``jnp.dtype``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import warnings
 
+import numpy as np
 import torch
 
 BACKENDS = ("auto", "torch", "cuda")
 PRECISIONS = ("highest", "high", "default")
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16, "float64": torch.float32}
 # the reference's default for the ``precision=`` keywords of the pitch,
 # resampling and augmentation functions, which take no FeatureConfig
 KEYWORD_PRECISION = "highest"
@@ -66,18 +80,39 @@ def check_precision(precision: str) -> str:
 
 
 def check_config(cfg) -> None:
-    """Raise for a numerics setting the port does not compute: an unknown
-    mode or compute dtype (ValueError), accum_dtype other than float32
-    (NotImplementedError)."""
+    """Raise ValueError for a numerics setting the port does not compute:
+    an unknown mode, compute dtype or accumulation dtype.  Warns that
+    accum_dtype "float64" computes in float32."""
     check_precision(cfg.matmul_precision)
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of "
                          f"{tuple(COMPUTE_DTYPES)}, got {cfg.compute_dtype!r}")
-    if cfg.accum_dtype != "float32":
-        raise NotImplementedError(
-            f"accum_dtype={cfg.accum_dtype!r} is not ported: only float32, "
-            "which the reference says to keep (ROADMAP.md, modules to port, "
-            "item 2.4: accum_dtype)")
+    if cfg.accum_dtype not in ACCUM_DTYPES:
+        raise ValueError(f"accum_dtype must be one of "
+                         f"{tuple(ACCUM_DTYPES)}, got {cfg.accum_dtype!r}")
+    if cfg.accum_dtype == "float64":
+        warnings.warn("accum_dtype='float64' computes in float32, as the "
+                      "reference does (JAX without x64 mode)", UserWarning,
+                      stacklevel=2)
+
+
+def accum_dtype(cfg) -> torch.dtype:
+    """The torch dtype the plain route accumulates in for cfg."""
+    return ACCUM_DTYPES[cfg.accum_dtype]
+
+
+def constant(a: np.ndarray, dtype: torch.dtype,
+             device=None) -> torch.Tensor:
+    """A float64 constant rounded once to ``dtype``, as JAX's
+    ``jnp.asarray(a, dtype)`` rounds it (torch's own float64 -> float16
+    cast goes through float32 and can round twice)."""
+    if dtype == torch.float16:
+        t = torch.from_numpy(np.asarray(a, np.float16))
+    elif dtype == torch.float32:
+        t = torch.from_numpy(np.asarray(a, np.float32))
+    else:
+        t = torch.from_numpy(np.asarray(a, np.float64)).to(dtype)
+    return t.to(device)
 
 
 def resolve(name: str, x: torch.Tensor, cfg) -> str:
@@ -112,23 +147,28 @@ def require_device(name) -> torch.device:
 
 def matmul_flags() -> tuple:
     """(float32 matmul precision, allow_tf32,
-    allow_bf16_reduced_precision_reduction): the flags a form sets."""
+    allow_bf16_reduced_precision_reduction,
+    allow_fp16_reduced_precision_reduction): the flags a form sets."""
     m = torch.backends.cuda.matmul
     return (torch.get_float32_matmul_precision(), m.allow_tf32,
-            m.allow_bf16_reduced_precision_reduction)
+            m.allow_bf16_reduced_precision_reduction,
+            m.allow_fp16_reduced_precision_reduction)
 
 
 @contextlib.contextmanager
 def matmul_form(precision: str):
     """Float32 matmuls inside run on TF32 tensor cores ("default") or in
-    IEEE fp32 ("highest", "high"); bf16 products keep float32 reductions.
-    The caller's flags are restored after."""
+    IEEE fp32 ("highest", "high"); bf16 and fp16 products keep float32
+    reductions, as XLA accumulates them.  The caller's flags are restored
+    after."""
     tf32 = check_precision(precision) == "default"
-    want = ("high" if tf32 else "highest", tf32, False)
+    want = ("high" if tf32 else "highest", tf32, False, False)
     saved = matmul_flags()
+    m = torch.backends.cuda.matmul
     torch.set_float32_matmul_precision(want[0])
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    m.allow_tf32 = tf32
+    m.allow_bf16_reduced_precision_reduction = False
+    m.allow_fp16_reduced_precision_reduction = False
     try:
         if matmul_flags() != want:
             raise RuntimeError(f"matmul flags could not be set for "
@@ -136,9 +176,9 @@ def matmul_form(precision: str):
         yield
     finally:
         torch.set_float32_matmul_precision(saved[0])
-        torch.backends.cuda.matmul.allow_tf32 = saved[1]
-        (torch.backends.cuda.matmul
-         .allow_bf16_reduced_precision_reduction) = saved[2]
+        m.allow_tf32 = saved[1]
+        m.allow_bf16_reduced_precision_reduction = saved[2]
+        m.allow_fp16_reduced_precision_reduction = saved[3]
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor,

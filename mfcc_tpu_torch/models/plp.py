@@ -54,7 +54,8 @@ def _plp_from_audio(x: torch.Tensor, cfg: FeatureConfig,
         feat = plp_op.plp_from_log_bark(log_bark, cfg)
     else:
         fr = framing.frames(y, cfg)
-        feat = plp_op.plp_from_power(spectrum.power_spectrum(fr, cfg), cfg)
+        feat = plp_op.plp_from_power(
+            spectrum.power_form(cfg)(fr, cfg), cfg)
     if cfg.append_energy:
         e = spectrum.log_energy_blocked(y, cfg)
         feat = torch.cat([e[..., None], feat[..., 1:]], dim=-1)

@@ -136,7 +136,8 @@ def _scan_features(y: torch.Tensor, cfg: FeatureConfig,
     """The batch plain chain on pre-emphasized spans (B, span)."""
     if variant == "plp":
         fr = framing.frames(y, cfg)
-        feat = plp_op.plp_from_power(spectrum.power_spectrum(fr, cfg), cfg)
+        feat = plp_op.plp_from_power(
+            spectrum.power_form(cfg)(fr, cfg), cfg)
         if cfg.append_energy:
             e = spectrum.log_energy_blocked(y, cfg)
             feat = torch.cat([e[..., None], feat[..., 1:]], dim=-1)

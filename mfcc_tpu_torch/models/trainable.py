@@ -6,9 +6,12 @@ initialized at the classic HTK values, so the front end can be fine-tuned
 against a downstream loss; the built-in objective is the MSE to target
 features.  The forward pass is plain PyTorch on the parameters' device:
 framing, pre-emphasis and the power spectrum (``ops/framing``,
-``ops/spectrum``, at the config's precision mode and compute dtype), the
-learnable mel product through ``backend.matmul`` (IEEE fp32 whatever the
-mode, as the reference fixes HIGHEST there), the softplus floor,
+``ops/spectrum``, at the config's precision mode and compute dtype, in its
+accumulation dtype), the learnable mel product through ``backend.matmul``
+on that power promoted to float32 (IEEE fp32 whatever the mode, as the
+reference fixes HIGHEST there), the softplus floor (a NaN-keeping max,
+``xmath.xla_max``: at a tie its gradient goes to the energy, where JAX
+splits it; an energy equal to its floor is not met in practice),
 ``xmath.accurate_log`` (its autograd Function carries the analytic 1/x)
 and the DCT (at the config's mode).  The backward's products run in IEEE
 fp32 under every mode (:func:`loss_and_grad`), at least as accurate as
@@ -135,10 +138,12 @@ def forward(params: FrontendParams, audio: torch.Tensor,
     fr = framing.frames(y, cfg)
     if mesh is not None:
         fr = fr[:, mesh.block(fr.shape[1], TIME_AXIS)]
-    power = spectrum.power_spectrum(fr, cfg)
+    # the power in the accumulation dtype, promoted to float32 against the
+    # float32 filterbank as JAX promotes it
+    power = spectrum.power_spectrum(fr, cfg, cast=True)
     floor = F.softplus(params.log_floor)
     energies = backend.matmul(power, params.mel_w)
-    logmel = xmath.accurate_log(torch.maximum(energies, floor))
+    logmel = xmath.accurate_log(xmath.xla_max(energies, floor))
     if mesh is not None:
         logmel = dist.all_gather_cat(logmel, -1, mesh.group(FEAT_AXIS))
     return dct_op.cepstra(logmel, cfg)

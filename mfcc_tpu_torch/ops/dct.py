@@ -26,8 +26,11 @@ def dct_matrix(cfg: FeatureConfig) -> np.ndarray:
 
 def cepstra(logmel: torch.Tensor, cfg: FeatureConfig, *,
             precision=None) -> torch.Tensor:
-    """(..., T, n_mels) log-mel -> (..., T, n_mfcc) liftered cepstra, a
-    float32 product at ``precision`` (None: the config's mode)."""
-    mat = torch.from_numpy(dct_matrix(cfg).astype(np.float32)).to(
-        logmel.device)
+    """(..., T, n_mels) float32 log-mel -> (..., T, n_mfcc) liftered
+    cepstra, a float32 product at ``precision`` (None: the config's mode)
+    with the matrix rounded to the accumulation dtype, as the reference
+    builds it (``mfcc_tpu/ops/dct.py:43``) and JAX promotes float32 @
+    bfloat16 or float16 to float32."""
+    mat = backend.constant(dct_matrix(cfg), backend.accum_dtype(cfg),
+                           logmel.device).to(torch.float32)
     return backend.matmul(logmel, mat, precision or cfg.matmul_precision)

@@ -83,12 +83,15 @@ def projection_matrix(cfg: FeatureConfig, projection: str = "mel"):
 
 
 def plain_features(y: torch.Tensor, cfg: FeatureConfig, apply_dct: bool,
-                   power=spectrum.power_spectrum,
-                   projection: str = "mel") -> torch.Tensor:
+                   power=None, projection: str = "mel") -> torch.Tensor:
     """(B, N) pre-emphasized audio -> (B, T, n_out), plain PyTorch;
-    ``power`` maps frames to |X|^2 in natural bin order.  Every product
+    ``power`` maps frames to |X|^2 in natural bin order (None: the
+    config's form, ``spectrum.power_form``).  Every product
     runs at the config's precision mode, the DFT's at its compute dtype
-    (``ops/spectrum``)."""
+    (``ops/spectrum``); the power, the band energies and the DCT matrix
+    follow the accumulation dtype as the reference's XLA route does
+    (``backend.accum_dtype``).  The kernels compute at float32 whatever
+    it says: their twin is this function at :func:`kernel_config`."""
     backend.check_config(cfg)
     check_projection(projection, apply_dct)
     B, N = y.shape
@@ -97,15 +100,13 @@ def plain_features(y: torch.Tensor, cfg: FeatureConfig, apply_dct: bool,
         return y.new_zeros((B, 0, n_out(cfg, apply_dct, projection)),
                            dtype=torch.float32)
     fr = framing.frames(y.to(torch.float32), cfg)
-    p = power(fr, cfg)
+    p = (power or spectrum.power_form(cfg))(fr, cfg)
     if projection == "spec":
         return xmath.floored_log(p, cfg.log_floor)
     if projection == "bark":
-        bark = torch.from_numpy(projection_matrix(cfg, "bark")
-                                .astype(np.float32)).to(p.device)
-        return xmath.floored_log(backend.matmul(p, bark,
-                                                cfg.matmul_precision),
-                                 cfg.log_floor)
+        return xmath.floored_log(mel_op.band_energies(
+            p, projection_matrix(cfg, "bark"), cfg, cast=True),
+            cfg.log_floor)
     logmel = mel_op.log_mel_energies(p, cfg)
     if not apply_dct:
         return logmel
@@ -287,14 +288,26 @@ def _pinned_direct_matrices(cfg: FeatureConfig, projection: str):
     return pinned(direct_matrices(cfg, projection))
 
 
-def check_input(x: torch.Tensor, cfg: FeatureConfig) -> None:
-    """The checks every spectral wrapper makes before it picks a path."""
+def kernel_config(cfg: FeatureConfig) -> FeatureConfig:
+    """cfg as the kernels compute it: accum_dtype float32, which no kernel
+    reads, as the reference's Pallas kernels read none
+    (``mfcc_tpu/ops/kernels/``).  So every accumulation dtype reaches the
+    float32 config's kernel, tile and bits."""
+    return (cfg if cfg.accum_dtype == "float32"
+            else cfg.replace(accum_dtype="float32"))
+
+
+def check_input(x: torch.Tensor, cfg: FeatureConfig) -> FeatureConfig:
+    """The checks every spectral wrapper makes before it picks a path;
+    -> the config the kernel computes (:func:`kernel_config`), which its
+    plain version runs on a CPU tensor."""
     backend.check_config(cfg)
     if x.dim() != 2:
         raise ValueError(f"batch input (B, N) expected, got {tuple(x.shape)}")
     if cfg.frame_mode != "valid":
         raise ValueError("resolve frame_mode='center' to 'valid' first "
                          "(ops.framing.resolve_frame_mode)")
+    return kernel_config(cfg)
 
 
 def check_cuda_input(x: torch.Tensor) -> None:

@@ -119,10 +119,12 @@ def fused_features_dit(y: torch.Tensor, cfg: FeatureConfig, *,
     """(B, N) pre-emphasized float32 audio -> (B, T, n_mfcc or n_mels).
 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor goes
-    through :func:`plain_features`.  cfg must be in "valid" frame mode and
+    through :func:`plain_features`, both at the float32
+    accumulation whatever ``cfg.accum_dtype`` says
+    (``_spectral.kernel_config``).  cfg must be in "valid" frame mode and
     have n_fft % 4 == 0.
     """
-    _spectral.check_input(y, cfg)
+    cfg = _spectral.check_input(y, cfg)
     if not spectrum.dit_supported(cfg):
         raise ValueError("the radix-2 DIT needs n_fft % 4 == 0 and "
                          "frame_len >= 2")

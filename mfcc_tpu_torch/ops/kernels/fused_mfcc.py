@@ -56,9 +56,11 @@ def fused_features(y: torch.Tensor, cfg: FeatureConfig, *,
     """(B, N) pre-emphasized float32 audio -> (B, T, n_mfcc or n_mels).
 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor goes
-    through :func:`plain_features`.  cfg must be in "valid" frame mode.
+    through :func:`plain_features`, both at the float32
+    accumulation whatever ``cfg.accum_dtype`` says
+    (``_spectral.kernel_config``).  cfg must be in "valid" frame mode.
     """
-    _spectral.check_input(y, cfg)
+    cfg = _spectral.check_input(y, cfg)
     if not y.is_cuda:
         return plain_features(y, cfg, apply_dct)
     _spectral.check_cuda_input(y)

@@ -51,9 +51,11 @@ def fused_features_raw(x: torch.Tensor, cfg: FeatureConfig, *,
     """(B, N) raw float32 audio -> (B, T, n_mfcc or n_mels) features.
 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor goes
-    through :func:`plain_features`.  cfg must be in "valid" frame mode.
+    through :func:`plain_features`, both at the float32
+    accumulation whatever ``cfg.accum_dtype`` says
+    (``_spectral.kernel_config``).  cfg must be in "valid" frame mode.
     """
-    _spectral.check_input(x, cfg)
+    cfg = _spectral.check_input(x, cfg)
     if not x.is_cuda:
         return plain_features(x, cfg, apply_dct)
     _spectral.check_cuda_input(x)

@@ -71,11 +71,13 @@ def fused_features_raw_dit(x: torch.Tensor, cfg: FeatureConfig, *,
     order ("spec", with apply_dct=False).
 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor goes
-    through :func:`plain_features`.  cfg must be in "valid" frame mode
+    through :func:`plain_features`, both at the float32
+    accumulation whatever ``cfg.accum_dtype`` says
+    (``_spectral.kernel_config``).  cfg must be in "valid" frame mode
     (the model layer resolves centre mode first).
     """
     _spectral.check_projection(projection, apply_dct)
-    _spectral.check_input(x, cfg)
+    cfg = _spectral.check_input(x, cfg)
     if not x.is_cuda:
         return plain_features(x, cfg, apply_dct, projection)
     _spectral.check_cuda_input(x)

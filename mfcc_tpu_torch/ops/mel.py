@@ -1,10 +1,12 @@
 """Mel filterbank projection (twin of ``mfcc_tpu/ops/mel.py``).
 
 The (n_bins, n_mels) triangular filterbank is built in float64 by the
-oracle and applied as one float32 product at the precision mode
-(``backend.matmul``; float32 operands whatever the compute dtype, as the
-reference's ``accum_dtype`` filterbank), then floored (optional per-frame
-relative floor, then the absolute floor) and logged with the accurate log.
+oracle and applied at the precision mode (``backend.matmul``) to the power
+in the accumulation dtype (:func:`band_energies`: in float32 one product),
+then floored (optional per-frame relative floor, then the absolute floor)
+and logged with the accurate log.  Every max keeps a NaN's bits, as XLA's
+does (``xmath.xla_max``): a float16 power that overflowed reads as the
+reference's value.
 """
 
 from __future__ import annotations
@@ -38,14 +40,41 @@ def relative_floor(cfg: FeatureConfig) -> float:
     return 10.0 ** (-cfg.dynamic_range_db / 10.0)
 
 
+def band_energies(power: torch.Tensor, mat: np.ndarray, cfg: FeatureConfig,
+                  precision=None, cast: bool = False) -> torch.Tensor:
+    """(..., n_bins) power in the accumulation dtype @ a (n_bins, W)
+    float64 band matrix (mel, or PLP's bark) -> (..., W) band energies in
+    that dtype, or with ``cast`` in float32 as the floored log reads them,
+    at ``precision`` (None: the config's mode).
+
+    In float32 one product over every bin.  In bfloat16 and float16 the
+    reference's split-bin form (``mfcc_tpu/ops/mel.py:57-79``,
+    ``ops/plp.py:58-67``): the matrix rounded to the accumulation dtype,
+    the product over the first n_bins - 1 bins in float32 rounded to it
+    (XLA computes a bfloat16 or float16 dot in float32 and rounds its
+    result), then the top bin's term added as ``xmath.mul_add`` rounds
+    it."""
+    acc = power.dtype
+    precision = precision or cfg.matmul_precision
+    w = backend.constant(mat, acc, power.device)
+    if acc == torch.float32:
+        return backend.matmul(power, w, precision)
+    e = backend.matmul(power[..., :-1].to(torch.float32),
+                       w[:-1].to(torch.float32), precision).to(acc)
+    return xmath.mul_add(power[..., -1:], w[-1], e, cast)
+
+
 def log_mel_energies(power: torch.Tensor, cfg: FeatureConfig, *,
                      precision=None) -> torch.Tensor:
-    """(..., T, n_bins) power -> (..., T, n_mels) floored log mel energies;
-    ``precision`` None is the config's mode."""
-    fb = torch.from_numpy(mel_matrix(cfg).astype(np.float32)).to(power.device)
-    e = backend.matmul(power, fb, precision or cfg.matmul_precision)
-    if cfg.dynamic_range_db is not None:
-        rel = torch.amax(e, dim=-1, keepdim=True) * torch.tensor(
-            relative_floor(cfg), dtype=torch.float32, device=e.device)
-        e = torch.maximum(e, rel)
+    """(..., T, n_bins) power (in the accumulation dtype) -> (..., T,
+    n_mels) floored log mel energies, float32; ``precision`` None is the
+    config's mode.  The relative floor is the frame's maximum times the
+    factor rounded to the accumulation dtype, the product in it, as the
+    reference's weak Python float keeps it there."""
+    rel = cfg.dynamic_range_db is not None
+    # without the relative floor the energies go to the float32 floor
+    e = band_energies(power, mel_matrix(cfg), cfg, precision, cast=not rel)
+    if rel:
+        e = xmath.xla_max(e, xmath.xla_amax(e) * backend.constant(
+            np.float64(relative_floor(cfg)), e.dtype, e.device))
     return xmath.floored_log(e, cfg.log_floor)

@@ -8,9 +8,10 @@ edge-band duplication folded in.  The two short recursions (Levinson-Durbin
 and LPC -> cepstra) unroll to ``lpc_order`` / ``n_mfcc`` steps of
 elementwise ops over every (B, T) frame at once.
 
-- :func:`bark_loudness` — natural-order power -> cube-root loudness
-  (the reference splits the last bin off; the port's
-  ``spectrum.power_spectrum`` does not, so one product takes all bins).
+- :func:`bark_loudness` — natural-order power (in the accumulation
+  dtype) -> cube-root loudness: the band energies as ``mel.band_energies``
+  computes them (in float32 one product over all bins; otherwise the
+  reference's split-bin form), the rest float32.
 - :func:`autocorrelation`, :func:`levinson`, :func:`lpc_to_cepstra`.
 - :func:`plp_from_log_bark` — the tail after the kernel's
   ``projection="bark"`` output: loudness as exp(0.33 * log), then
@@ -32,7 +33,7 @@ import torch
 
 from ..config import FeatureConfig
 from .. import backend, oracle
-from . import xmath
+from . import mel, xmath
 
 _CUBE_ROOT = 0.33   # Hermansky's intensity-to-loudness power
 
@@ -72,10 +73,9 @@ def _f32(a: np.ndarray, device) -> torch.Tensor:
 
 def bark_loudness(power: torch.Tensor, cfg: FeatureConfig, *,
                   precision=None) -> torch.Tensor:
-    """(..., T, n_bins) natural-order power -> (..., T, n_bark) cube-root
-    loudness."""
-    e = backend.matmul(power, _f32(bark_matrix(cfg), power.device),
-                       precision or cfg.matmul_precision)
+    """(..., T, n_bins) natural-order power (in the accumulation dtype)
+    -> (..., T, n_bark) float32 cube-root loudness."""
+    e = mel.band_energies(power, bark_matrix(cfg), cfg, precision, cast=True)
     return _loudness(xmath.floored_log(e, cfg.log_floor))
 
 

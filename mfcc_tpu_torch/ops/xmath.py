@@ -65,7 +65,56 @@ def accurate_log(x: torch.Tensor) -> torch.Tensor:
     return _AccurateLog.apply(x)
 
 
+def mul_add(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+            cast: bool = False) -> torch.Tensor:
+    """a * b + c in a's dtype, rounded as the reference's XLA rounds it on
+    the CPU, or with ``cast`` as the float32 op that takes it next reads
+    it (the float32 result):
+
+    - float16: once (its LLVM contracts a half product into the add that
+      takes it, in float32, where a product of two halves is exact:
+      measured on ``_dit_combine``, this form misses JAX on 1e-5 of the
+      elements where a rounding after each op misses 27 %);
+    - bfloat16: after each op (XLA's float normalization converts after
+      every bfloat16 op), but where a cast to float32 follows, the sum is
+      not rounded: XLA's excess precision drops the rounding between an
+      op and the cast that takes it (measured: 100 % of a x b + c read
+      unrounded by a float32 maximum, 46 % had it been rounded);
+    - float32: after each op."""
+    f = torch.float32
+    if a.dtype == torch.float16:
+        out = (a.to(f) * b.to(f) + c.to(f)).to(torch.float16)
+    elif a.dtype == torch.bfloat16 and cast:
+        out = (a * b).to(f) + c.to(f)
+    else:
+        out = a * b + c
+    return out.to(f) if cast else out
+
+
+def xla_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """max(a, b) as XLA computes its maximum: ``a`` where a >= b or a is
+    NaN, else ``b``, so that a NaN keeps its bits.  torch.maximum and
+    torch.amax return a NaN of their own (0xFFFFFFFF on the CPU's vector
+    lanes), which the accurate log reads as ~89.42 where the reference's
+    x86 NaN (0xFFC00000) reads ~89.13."""
+    return torch.where((a >= b) | torch.isnan(a), a, b)
+
+
+def xla_amax(x: torch.Tensor) -> torch.Tensor:
+    """torch.amax(x, -1, keepdim=True) as XLA's reduce computes it: a row
+    holding a NaN gives a NaN of that row, with its bits (its first)."""
+    nan = torch.isnan(x)
+    first = torch.gather(x, -1, nan.to(torch.uint8).argmax(-1, keepdim=True))
+    return torch.where(nan.any(-1, keepdim=True), first,
+                       torch.amax(x, dim=-1, keepdim=True))
+
+
 def floored_log(x: torch.Tensor, floor: float) -> torch.Tensor:
-    """log(max(x, floor)) with the accurate log."""
-    return accurate_log(torch.maximum(
-        x, torch.tensor(floor, dtype=torch.float32, device=x.device)))
+    """log(max(x, floor)) with the accurate log.  x is cast to float32
+    first, as the reference's ``jnp.maximum(x, float32 floor)`` promotes
+    it: a bfloat16 or float16 x against the floor in its own dtype would
+    floor at 1.0004e-10 or at 0 (1e-10 underflows float16, so a floored
+    element would read log(0) = -88.03 instead of -23.03)."""
+    return accurate_log(xla_max(
+        x.to(torch.float32),
+        torch.tensor(floor, dtype=torch.float32, device=x.device)))

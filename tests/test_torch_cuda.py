@@ -14,8 +14,9 @@ CMVN pair at window 300, the distributed dry run on two ranks, the
 roofline ladder's ``stage`` and ``fftlog`` rungs, and ``fused_nccf``
 beyond shared memory (the lag-blocked tiling equal to the planner's
 tiles, windows past the old limit against the float64 oracle,
-``pitch_batch`` at a 4 s frame).  All are marked ``cuda`` and skip
-without a card.
+``pitch_batch`` at a 4 s frame), and ``accum_dtype`` on both routes
+and the float16 reduction flag of ``backend.matmul_form``.  All are marked
+``cuda`` and skip without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
 there without the repository's conftest:
@@ -1391,6 +1392,103 @@ def test_precision_modes_route_as_the_reference(cuda, gen, mode):
     want = oracle.mfcc(x[0].astype(np.float64), FeatureConfig())
     err = float(np.abs(feat[0].cpu().numpy() - want).max())
     assert err <= (2.8e-4 if mode == "high" else 1e-4), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caller", [True, False])
+def test_matmul_form_reduces_float16_in_float32_on_the_card(cuda, gen,
+                                                            caller):
+    """A float16 product under every form runs with
+    allow_fp16_reduced_precision_reduction off (cuBLAS reduces in float32,
+    as XLA accumulates a float16 dot), and the caller's flag comes back:
+    the product is the float32 product of the same values rounded
+    once to float16 (within half a float16 ulp plus the float32 sums'
+    K 2^-24 of |a| @ |b|)."""
+    from mfcc_tpu_torch import backend
+    m = torch.backends.cuda.matmul
+    saved = m.allow_fp16_reduced_precision_reduction
+    K = 2048
+    a = torch.from_numpy(gen.standard_normal((256, K)).astype(
+        np.float16)).to(cuda)
+    b = torch.from_numpy(gen.standard_normal((K, 64)).astype(
+        np.float16)).to(cuda)
+    exact = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    try:
+        m.allow_fp16_reduced_precision_reduction = caller
+        for mode in backend.PRECISIONS:
+            with backend.matmul_form(mode):
+                assert not m.allow_fp16_reduced_precision_reduction
+                got = a @ b
+            assert m.allow_fp16_reduced_precision_reduction == caller
+            err = (got.double() - exact).abs()
+            assert bool((err <= 2.0 ** -11 * exact.abs()
+                         + K * 2.0 ** -24 * scale).all()), mode
+    finally:
+        m.allow_fp16_reduced_precision_reduction = saved
+
+
+ACCUM_FAMILIES = {
+    "mfcc": (mfcc_model.mfcc_batch, dict()),
+    "logmel": (logmel_model.log_mel_batch, dict(n_mels=80, n_mfcc=80)),
+    "logmel50": (logmel_model.log_mel_batch,
+                 dict(n_mels=80, n_mfcc=80, dynamic_range_db=50.0)),
+    "plp": (plp_model.plp_batch, dict()),
+    "spec": (spec_model.log_spectrogram_batch, dict()),
+}
+# the card's plain route against the CPU's (chip_smoke.py ACCUM_TOL):
+# cepstra and PLP max abs; log-mel and the spectrogram ulps of their
+# energies in the accumulation dtype
+ACCUM_TOL = {"mfcc": 2e-2, "plp": 1e-3, "logmel": 6, "logmel50": 6,
+             "spec": 6}
+
+
+def _energy_ulps(got, want, accum):
+    eg, ew = np.exp(got.astype(np.float64)), np.exp(want.astype(np.float64))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(eg, ew)))
+                  - (7 if accum == "bfloat16" else 10))
+    if accum == "float16":
+        ulp = np.maximum(ulp, 2.0 ** -24)
+    return np.abs(eg - ew) / ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ["bfloat16", "float16"])
+@pytest.mark.parametrize("family", list(ACCUM_FAMILIES))
+def test_accum_dtype_on_the_card(cuda, gen, family, accum):
+    """chip_smoke.py phase 23 (a) and (b) at a small size: the kernel route
+    launches what float32 launches and gives its bits; the plain route on
+    the card is within the port-vs-JAX bound of the CPU's plain route
+    (log-mel and the spectrogram in ulps of their energies, the
+    spectrogram inside each frame's 50 dB window)."""
+    entry, kw = ACCUM_FAMILIES[family]
+    cfg32 = FeatureConfig(**kw).validate()
+    cfg = cfg32.replace(accum_dtype=accum)
+    x = np.round(gen.standard_normal((3, 16000)) * 3000).astype(np.int16)
+    lens = np.asarray([16000, 12000, 400], np.int32)
+    x[1, 12000:] = 0
+    x[2, 400:] = 0
+    xd, ld = torch.from_numpy(x).to(cuda), torch.from_numpy(lens).to(cuda)
+    counters = (fused_raw_dit, fused_raw, fused_dit, fused_mfcc)
+    out = {}
+    for c in (cfg32, cfg):
+        before = [m.LAUNCHES for m in counters]
+        feat = entry(xd, ld, c, "auto")[0]
+        torch.cuda.synchronize()
+        out[c.accum_dtype] = (feat, [m.LAUNCHES - b for m, b in
+                                     zip(counters, before)])
+    assert sum(out["float32"][1]) == 1
+    assert out[accum][1] == out["float32"][1]
+    assert torch.equal(out[accum][0], out["float32"][0])
+    card = entry(xd, ld, cfg, "torch")[0].cpu().numpy()
+    host = entry(torch.from_numpy(x), torch.from_numpy(lens), cfg,
+                 "torch")[0].numpy()
+    assert np.isfinite(card).all()
+    keep = (host > host.max(axis=-1, keepdims=True) - np.log(1e5)
+            if family == "spec" else np.ones(host.shape, bool))
+    d = (np.abs(card - host)[keep] if family in ("mfcc", "plp")
+         else _energy_ulps(card[keep], host[keep], accum))
+    assert d.max() <= ACCUM_TOL[family], d.max()
 
 
 @pytest.mark.cuda

@@ -73,9 +73,9 @@ def test_wrapper_rejects_bad_input():
     with pytest.raises(ValueError, match="center"):
         fused_raw_dit.fused_features_raw_dit(
             torch.zeros((1, 4000)), cfg.replace(frame_mode="center"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="accum_dtype"):
         fused_raw_dit.fused_features_raw_dit(
-            torch.zeros((1, 4000)), cfg.replace(accum_dtype="bfloat16"))
+            torch.zeros((1, 4000)), cfg.replace(accum_dtype="int32"))
     # every precision mode is taken (the route alone sends "high" away
     # from the kernels); a CPU tensor runs the plain version at the mode
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
@@ -86,6 +86,10 @@ def test_wrapper_rejects_bad_input():
         c = cfg.replace(**kw)
         assert torch.equal(fused_raw_dit.fused_features_raw_dit(x, c),
                            fused_raw_dit.plain_features(x, c))
+    # no kernel reads accum_dtype: the plain version runs at float32
+    assert torch.equal(fused_raw_dit.fused_features_raw_dit(
+        x, cfg.replace(accum_dtype="bfloat16")),
+        fused_raw_dit.plain_features(x, cfg))
     assert fused_raw_dit.LAUNCHES == before
 
 

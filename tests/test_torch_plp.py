@@ -294,22 +294,25 @@ def test_plp_route_per_config(on_card, rng, kw, kernel):
 
 
 def test_plp_unported_options_raise(rng):
-    """Only accum_dtype other than float32 still raises (ROADMAP modules
-    item 2.4); bf16 compute and the precision modes compute, equal to the
-    reference's XLA path (``tests/test_torch_precision.py``)."""
+    """Only an accum_dtype JAX could not name raises; bf16 compute, the
+    precision modes and bf16 accumulation (ROADMAP modules item 2.4)
+    compute, equal to the reference's XLA path
+    (``tests/test_torch_precision.py``, ``tests/test_torch_accum.py``)."""
     x = torch.zeros(4000)
-    with pytest.raises(NotImplementedError, match="accum_dtype"):
-        plp_model.plp(x, FeatureConfig(accum_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="accum_dtype"):
+    with pytest.raises(ValueError, match="accum_dtype"):
+        plp_model.plp(x, FeatureConfig(accum_dtype="int32"))
+    with pytest.raises(ValueError, match="accum_dtype"):
         plp_model.plp_batch(x[None], torch.tensor([4000]),
-                            FeatureConfig(accum_dtype="bfloat16"))
+                            FeatureConfig(accum_dtype="int32"))
     sig = (rng.standard_normal(8000) * 0.3).astype(np.float32)
-    for kw in (dict(compute_dtype="bfloat16"), dict(matmul_precision="high")):
+    for kw in (dict(compute_dtype="bfloat16"), dict(matmul_precision="high"),
+               dict(accum_dtype="bfloat16")):
         jc = JaxConfig(**kw).validate()
+        # bf16 accumulation: PLP's bound there (tests/test_torch_accum.py)
+        tol = 1e-3 if "accum_dtype" in kw else PATHS_TOL
         want = np.asarray(jax_plp.plp_jit(jnp.asarray(sig), jc))
         got = plp_model.plp(torch.from_numpy(sig), from_jax(jc)).numpy()
-        np.testing.assert_allclose(got, want, rtol=0, atol=PATHS_TOL)
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
         got, _, _ = plp_model.plp_batch(torch.from_numpy(sig)[None],
                                         torch.tensor([8000]), from_jax(jc))
-        np.testing.assert_allclose(got[0].numpy(), want, rtol=0,
-                                   atol=PATHS_TOL)
+        np.testing.assert_allclose(got[0].numpy(), want, rtol=0, atol=tol)

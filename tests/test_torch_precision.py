@@ -277,7 +277,7 @@ def test_flags_restored_after_every_form(caller):
             with backend.matmul_form(mode):
                 assert backend.matmul_flags() == (
                     "high" if mode == "default" else "highest",
-                    mode == "default", False)
+                    mode == "default", False, False)
             assert backend.matmul_flags() == before
             assert torch.equal(backend.matmul(a, a, mode), a)
             assert backend.matmul_flags() == before
@@ -324,17 +324,19 @@ def test_resolve_needs_the_config():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(accum_dtype="bfloat16"), NotImplementedError),
+    (dict(accum_dtype="int32"), ValueError),
     (dict(matmul_precision="fast"), ValueError),
     (dict(compute_dtype="float16"), ValueError)])
 def test_check_config_refuses_only_what_is_not_computed(kw, err):
     cfg = from_jax(JaxConfig())
     for mode in backend.PRECISIONS:
         for dt in backend.COMPUTE_DTYPES:
-            backend.check_config(cfg.replace(matmul_precision=mode,
-                                             compute_dtype=dt))
-    with pytest.raises(err, match="ROADMAP" if err is NotImplementedError
-                       else "must be one of"):
+            for acc in ("float32", "bfloat16", "float16"):
+                backend.check_config(cfg.replace(
+                    matmul_precision=mode, compute_dtype=dt, accum_dtype=acc))
+    with pytest.warns(UserWarning, match="float64"):
+        backend.check_config(cfg.replace(accum_dtype="float64"))
+    with pytest.raises(err, match="must be one of"):
         backend.check_config(cfg.replace(**kw))
 
 

@@ -212,7 +212,7 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                         ("WIDE_SECONDS", 4.1), ("BOTH_FRAMES", 1),
                         ("WIDE_PITCH_SECONDS", (4.1, 4.05)),
                         ("WIDE_SPREAD_SECONDS", 4.1),
-                        ("BEYOND_CALLS", 2)):
+                        ("BEYOND_CALLS", 2), ("ACCUM_CALLS", 2)):
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "_smi", lambda: "Fake GPU, 700.00 W")
     monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
@@ -248,8 +248,38 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 23)), "3b", "3c", "3d", "4b", "4c"]:
+    for phase in [*map(str, range(1, 24)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
+    # phase 23: every accum_dtype of every family on both routes, the
+    # kernel route's launches and bits float32's (the phase's own
+    # assertions), the overflowing float16 rows, the step and the scan
+    tag = "[23 accum_dtype]"
+    for fam, kernel, tile in (("mfcc", "fused_raw_dit", "fft"),
+                              ("logmel", "fused_raw", "fft64"),
+                              ("logmel50", "fused_raw_dit", "fft"),
+                              ("plp", "fused_raw_dit", "fft64"),
+                              ("spec", "fused_raw_dit", "fft64")):
+        for acc in ("float32", "bfloat16", "float16", "float64"):
+            line = next(ln for ln in out.splitlines()
+                        if ln.startswith(f"{tag} {fam} {acc}: "))
+            assert f"kernel route launched {{'{kernel}': 1}} ({tile} " \
+                "tile); plain route card vs CPU on rows [0, 4, 6] (1 s) max " \
+                "0.000e+00" in line, line
+            assert "vs the float64 oracle on row 0's first second: kernel " \
+                "route " in line, line
+            assert ("JAX on the CPU" in line) == (acc != "float64"), line
+            assert "Fake GPU, 700.00 W" in line, line
+        assert f"{tag} {fam}: the kernel route under bfloat16, float16 and " \
+            "float64 launched what float32 launched" in out
+        assert f"{tag} {fam}: plain route ms float32 " in out
+    for fam in ("logmel", "spec"):
+        line = next(ln for ln in out.splitlines() if ln.startswith(
+            f"{tag} {fam} float16 on rows [0, 4, 6] (1 s) at int16 scale: "))
+        assert "at the same positions: True" in line, line
+    assert f"{tag} bfloat16 train_step on (8, 16000): loss card " in out
+    assert "scan dispatch 4 sessions x 4 chunks of 8 frames: no spectral " \
+        "launch, card vs CPU max 0.000e+00" in out
+    assert f"{tag} phase 23 passed in " in out
     # phase 22: the lag-blocked build equal to the planner's on six configs
     # (the 40,400-sample window, lag-blocked by the planner itself, also to
     # the widest R), three windows beyond the old limit one launch each

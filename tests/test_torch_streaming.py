@@ -345,7 +345,8 @@ def test_streaming_refusals(call):
         fn(st, torch.zeros((1, 160)), cfg.replace(frame_mode="center"))
     # "high" has no kernel route: the fused path refuses it as the
     # reference does (models/streaming.py:264-267), the scan path
-    # computes it; accum_dtype other than float32 is not ported
+    # computes it; accum_dtype bfloat16 computes on both (the fused path
+    # at float32, as the reference's kernel), an unknown one raises
     high = cfg.replace(matmul_precision="high")
     if call == "fused":
         with pytest.raises(ValueError, match="high"):
@@ -354,8 +355,14 @@ def test_streaming_refusals(call):
         _, got, _ = fn(st, torch.zeros((1, 160)), high)
         _, want, _ = fn(st, torch.zeros((1, 160)), cfg)
         assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(st, torch.zeros((1, 160)), cfg.replace(accum_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="accum_dtype"):
+        fn(st, torch.zeros((1, 160)), cfg.replace(accum_dtype="int32"))
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (1, 1600)).astype(np.float32))
+    _, got, _ = fn(st, x, cfg.replace(accum_dtype="bfloat16"))
+    _, want, _ = fn(st, x, cfg)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want) == (call == "fused")
 
 
 def test_stream_signal_matches_stepwise(speechlike):
