@@ -26,19 +26,24 @@ summed over the mesh, the trainable front end's filterbank columns split
 over "feat".  Entry points run on the card unless given ``device="cpu"``.
 """
 
-from .config import (FeatureConfig, PitchConfig, MFCC13,  # noqa: F401
-                     LOGMEL80, from_jax, logmel_config)
-from . import oracle  # noqa: F401
-from .models import plp, spectrogram, streaming  # noqa: F401
-from .models.mfcc import (mfcc, mfcc_batch, mfcc_batch_packed,  # noqa: F401
-                          mfcc_long)
-from .models.streaming import (init_online_cmvn, init_state,  # noqa: F401
-                               init_state_batch, online_cmvn_step,
-                               process_chunk, process_chunk_batch,
-                               process_chunks, process_chunks_batch,
-                               process_chunks_batch_fused, state_from_jax,
-                               stream_signal)
-from .ops import dither, post  # noqa: F401
-from .parallel import cmvn  # noqa: F401
+from .utils import report as _report
+
+# counter import_s: the package's own modules; torch, which report
+# imports, is not in it
+with _report.timed("import_s"):
+    from .config import (FeatureConfig, PitchConfig, MFCC13,  # noqa: F401
+                         LOGMEL80, from_jax, logmel_config)
+    from . import oracle  # noqa: F401
+    from .models import plp, spectrogram, streaming  # noqa: F401
+    from .models.mfcc import (mfcc, mfcc_batch, mfcc_batch_packed,  # noqa: F401
+                              mfcc_long)
+    from .models.streaming import (init_online_cmvn, init_state,  # noqa: F401
+                                   init_state_batch, online_cmvn_step,
+                                   process_chunk, process_chunk_batch,
+                                   process_chunks, process_chunks_batch,
+                                   process_chunks_batch_fused, state_from_jax,
+                                   stream_signal)
+    from .ops import dither, post  # noqa: F401
+    from .parallel import cmvn  # noqa: F401
 
 __version__ = "0.1.0"

@@ -31,6 +31,7 @@ from .. import backend as backend_lib
 from ..ops import deltas as deltas_op, dither as dither_op, framing
 from ..ops.kernels import (fused_dit, fused_mfcc, fused_raw, fused_raw_dit,
                            routes)
+from ..utils import report
 
 
 def _spectral_features(xb: torch.Tensor, cfg: FeatureConfig,
@@ -62,13 +63,16 @@ def _features_from_audio(x: torch.Tensor, cfg: FeatureConfig,
     before its reflect pad and turned dither off, as the reference does
     (``mfcc_tpu/ops/framing.py:106-130``)."""
     squeeze = x.dim() == 1
-    xb = (x[None, :] if squeeze else x).to(torch.float32).contiguous()
-    xb = dither_op.apply(xb, cfg)
-    feat = _spectral_features(xb, cfg, apply_dct, backend)
+    with report.span("feat.spectral"):
+        xb = (x[None, :] if squeeze else x).to(torch.float32).contiguous()
+        xb = dither_op.apply(xb, cfg)
+        feat = _spectral_features(xb, cfg, apply_dct, backend)
+        report.count("frames_computed", feat.shape[0] * feat.shape[1])
     if squeeze:
         feat = feat[0]
     if cfg.deltas:
-        feat = deltas_op.append_deltas(feat, cfg, lengths)
+        with report.span("feat.deltas"):
+            feat = deltas_op.append_deltas(feat, cfg, lengths)
     return feat
 
 
@@ -99,22 +103,36 @@ def frame_mask(T: int, flens: torch.Tensor) -> torch.Tensor:
     return t[None, :] < flens[:, None]
 
 
+def _to_float(x: torch.Tensor) -> torch.Tensor:
+    """int16 PCM -> float32 in [-1, 1) on x's device (span ``feat.cast``);
+    float input as it is."""
+    if x.dtype != torch.int16:
+        return x
+    with report.span("feat.cast"):
+        return x.to(torch.float32) * (1.0 / 32768.0)
+
+
 def run_batch(x: torch.Tensor, sample_lengths: torch.Tensor,
               cfg: FeatureConfig, features):
     """The batch entry of every model (MFCC, log-mel, PLP, spectrogram):
     int16 cast, centre mode, frame counts, then ``features(x, cfg,
-    flens)`` on the valid-mode batch, mask and zeroing."""
-    backend_lib.check_config(cfg)
-    if x.dtype == torch.int16:
-        x = x.to(torch.float32) * (1.0 / 32768.0)
-    sample_lengths = torch.as_tensor(sample_lengths, device=x.device)
-    x, sample_lengths, cfg = framing.resolve_frame_mode(
-        x, sample_lengths, cfg)
-    flens = frame_lengths(sample_lengths, cfg)
-    feat = features(x, cfg, flens)
-    mask = frame_mask(feat.shape[-2], flens)
-    feat = torch.where(mask[..., None], feat, torch.zeros((), dtype=feat.dtype,
-                                                          device=feat.device))
+    flens)`` on the valid-mode batch, mask and zeroing.  Under a profiler
+    the call is span ``feat.batch`` over ``feat.cast``, ``feat.frames``,
+    the features' own spans (``feat.spectral``, ``feat.deltas``) and
+    ``feat.mask``."""
+    with report.span("feat.batch"):
+        backend_lib.check_config(cfg)
+        x = _to_float(x)
+        with report.span("feat.frames"):
+            sample_lengths = torch.as_tensor(sample_lengths, device=x.device)
+            x, sample_lengths, cfg = framing.resolve_frame_mode(
+                x, sample_lengths, cfg)
+            flens = frame_lengths(sample_lengths, cfg)
+        feat = features(x, cfg, flens)
+        with report.span("feat.mask"):
+            mask = frame_mask(feat.shape[-2], flens)
+            feat = torch.where(mask[..., None], feat, torch.zeros(
+                (), dtype=feat.dtype, device=feat.device))
     return feat, flens, mask
 
 
@@ -189,29 +207,32 @@ def mfcc_batch_packed(x: torch.Tensor, seg_starts: torch.Tensor,
                          "across segment boundaries)")
     if cfg.frame_mode != "valid":
         raise ValueError("packed batches support frame_mode='valid' only")
-    backend_lib.check_config(cfg)
-    if x.dtype == torch.int16:
-        x = x.to(torch.float32) * (1.0 / 32768.0)
-    if family == "spec":
-        from . import spectrogram
-        feat = spectrogram.log_spectrogram(x, cfg, backend)
-    elif family == "plp":
-        from . import plp
-        feat = plp._plp_from_audio(x, cfg, backend=backend)
-    else:
-        feat = _features_from_audio(x, cfg, backend=backend,
-                                    apply_dct=family == "mfcc")
-    T = feat.shape[-2]
-    seg_starts = torch.as_tensor(seg_starts, device=x.device)
-    seg_lens = torch.as_tensor(seg_lens, device=x.device)
-    f0 = torch.div(seg_starts.to(torch.int64), cfg.hop_len,
-                   rounding_mode="floor").to(torch.int32)
-    fc = frame_lengths(seg_lens, cfg) * (seg_lens > 0)
-    t = torch.arange(T, dtype=torch.int32, device=x.device)
-    inside = (t >= f0[..., None]) & (t < (f0 + fc)[..., None])  # (B, S, T)
-    mask = inside.any(dim=1)
-    feat = torch.where(mask[..., None], feat,
-                       torch.zeros((), dtype=feat.dtype, device=feat.device))
+    with report.span("feat.batch"):
+        backend_lib.check_config(cfg)
+        x = _to_float(x)
+        if family == "spec":
+            from . import spectrogram
+            feat = spectrogram.log_spectrogram(x, cfg, backend)
+        elif family == "plp":
+            from . import plp
+            feat = plp._plp_from_audio(x, cfg, backend=backend)
+        else:
+            feat = _features_from_audio(x, cfg, backend=backend,
+                                        apply_dct=family == "mfcc")
+        T = feat.shape[-2]
+        with report.span("feat.frames"):
+            seg_starts = torch.as_tensor(seg_starts, device=x.device)
+            seg_lens = torch.as_tensor(seg_lens, device=x.device)
+            f0 = torch.div(seg_starts.to(torch.int64), cfg.hop_len,
+                           rounding_mode="floor").to(torch.int32)
+            fc = frame_lengths(seg_lens, cfg) * (seg_lens > 0)
+        with report.span("feat.mask"):
+            t = torch.arange(T, dtype=torch.int32, device=x.device)
+            inside = ((t >= f0[..., None])
+                      & (t < (f0 + fc)[..., None]))  # (B, S, T)
+            mask = inside.any(dim=1)
+            feat = torch.where(mask[..., None], feat, torch.zeros(
+                (), dtype=feat.dtype, device=feat.device))
     return feat, f0, fc, mask
 
 
@@ -236,7 +257,5 @@ def mfcc_long(x: torch.Tensor, cfg: FeatureConfig, backend: str = "auto",
     if x.dim() != 1:
         raise ValueError(f"one signal (N,) expected, got {tuple(x.shape)}")
     backend_lib.check_config(cfg)
-    if x.dtype == torch.int16:
-        x = x.to(torch.float32) * (1.0 / 32768.0)
-    x, cfg = framing.resolve_frame_mode_static(x, cfg)
+    x, cfg = framing.resolve_frame_mode_static(_to_float(x), cfg)
     return _features_from_audio(x, cfg, backend=backend, apply_dct=apply_dct)

@@ -33,6 +33,7 @@ from .. import backend as backend_lib
 from ..ops import (deltas as deltas_op, dither as dither_op, framing,
                    plp as plp_op, spectrum)
 from ..ops.kernels import fused_raw_dit, routes
+from ..utils import report
 from .mfcc import frame_lengths, frame_mask, run_batch  # noqa: F401
 
 
@@ -42,27 +43,30 @@ def _plp_from_audio(x: torch.Tensor, cfg: FeatureConfig,
     """(B, N) or (N,) valid-mode audio -> PLP features (deltas
     appended)."""
     squeeze = x.dim() == 1
-    xb = (x[None, :] if squeeze else x).to(torch.float32).contiguous()
-    xb = dither_op.apply(xb, cfg)
-    use_kernel = (backend_lib.resolve(backend, xb, cfg) == "cuda"
-                  and routes.raw_dit_kernel_eligible(cfg))
-    y = (framing.preemphasize(xb, cfg)
-         if cfg.append_energy or not use_kernel else None)
-    if use_kernel:
-        log_bark = fused_raw_dit.fused_features_raw_dit(
-            xb, cfg, apply_dct=False, projection="bark")
-        feat = plp_op.plp_from_log_bark(log_bark, cfg)
-    else:
-        fr = framing.frames(y, cfg)
-        feat = plp_op.plp_from_power(
-            spectrum.power_form(cfg)(fr, cfg), cfg)
-    if cfg.append_energy:
-        e = spectrum.log_energy_blocked(y, cfg)
-        feat = torch.cat([e[..., None], feat[..., 1:]], dim=-1)
+    with report.span("feat.spectral"):
+        xb = (x[None, :] if squeeze else x).to(torch.float32).contiguous()
+        xb = dither_op.apply(xb, cfg)
+        use_kernel = (backend_lib.resolve(backend, xb, cfg) == "cuda"
+                      and routes.raw_dit_kernel_eligible(cfg))
+        y = (framing.preemphasize(xb, cfg)
+             if cfg.append_energy or not use_kernel else None)
+        if use_kernel:
+            log_bark = fused_raw_dit.fused_features_raw_dit(
+                xb, cfg, apply_dct=False, projection="bark")
+            feat = plp_op.plp_from_log_bark(log_bark, cfg)
+        else:
+            fr = framing.frames(y, cfg)
+            feat = plp_op.plp_from_power(
+                spectrum.power_form(cfg)(fr, cfg), cfg)
+        if cfg.append_energy:
+            e = spectrum.log_energy_blocked(y, cfg)
+            feat = torch.cat([e[..., None], feat[..., 1:]], dim=-1)
+        report.count("frames_computed", feat.shape[0] * feat.shape[1])
     if squeeze:
         feat = feat[0]
     if cfg.deltas:
-        feat = deltas_op.append_deltas(feat, cfg, lengths)
+        with report.span("feat.deltas"):
+            feat = deltas_op.append_deltas(feat, cfg, lengths)
     return feat
 
 

@@ -36,17 +36,22 @@ from ..config import FeatureConfig
 from .. import backend as backend_lib
 from ..ops import framing
 from ..ops.kernels import fused_raw_dit, routes
+from ..utils import report
 from .mfcc import frame_lengths, frame_mask, run_batch  # noqa: F401
 
 
 def _spectrogram(xb: torch.Tensor, cfg: FeatureConfig,
                  backend: str) -> torch.Tensor:
     """(B, N) valid-mode float32 audio -> (B, T, n_bins)."""
-    if (backend_lib.resolve(backend, xb, cfg) == "cuda"
-            and routes.spec_kernel_eligible(cfg)):
-        return fused_raw_dit.fused_features_raw_dit(
-            xb, cfg, apply_dct=False, projection="spec")
-    return fused_raw_dit.plain_features(xb, cfg, False, "spec")
+    with report.span("feat.spectral"):
+        if (backend_lib.resolve(backend, xb, cfg) == "cuda"
+                and routes.spec_kernel_eligible(cfg)):
+            feat = fused_raw_dit.fused_features_raw_dit(
+                xb, cfg, apply_dct=False, projection="spec")
+        else:
+            feat = fused_raw_dit.plain_features(xb, cfg, False, "spec")
+        report.count("frames_computed", feat.shape[0] * feat.shape[1])
+    return feat
 
 
 def log_spectrogram(x: torch.Tensor, cfg: FeatureConfig,

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ...utils import report
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "mfcc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -47,9 +49,11 @@ def library_path(name: str) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
+@report.timed("build_s")
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it.
-    The compiler's report is kept beside the library as ``.log``."""
+    The compiler's report is kept beside the library as ``.log``.  The
+    host seconds of both go to ``utils/report``'s counter ``build_s``."""
     lib = library_path(name)
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

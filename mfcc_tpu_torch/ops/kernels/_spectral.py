@@ -17,7 +17,10 @@
   config takes: the f32 FFT tile "fft", its float64-front flavour "fft64",
   or the entry's other tile), and the FFT tile's constants.
 - :func:`pinned` — constants in page-locked memory, so that each call's
-  upload is an asynchronous copy on the launch stream.
+  upload is an asynchronous copy on the launch stream.  The host seconds
+  of each miss of the launch path's constant caches
+  (:func:`_device_fft_matrices`, the pinned direct constants), the
+  float64 build included, go to ``utils/report``'s counter ``consts_s``.
 - :func:`check_input`, :func:`epilogue_args`, :func:`raise_on_error` — the
   wrappers' common checks and launch arguments.
 - :func:`entry_argtypes`, :func:`launch_spectral` — the C types of a
@@ -33,10 +36,10 @@ import functools
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ... import backend, oracle
 from ...config import FeatureConfig
+from ...utils import report
 from .. import (dct as dct_op, framing, mel as mel_op, plp as plp_op,
                 spectrum, xmath)
 from . import _build, routes
@@ -267,6 +270,7 @@ def fft_matrices(cfg: FeatureConfig, tile: str = "fft",
 
 
 @functools.lru_cache(maxsize=16)
+@report.timed("consts_s")
 def _device_fft_matrices(cfg: FeatureConfig, tile: str, projection: str,
                          device: torch.device):
     """The constants of FFT flavour ``tile`` on one device, uploaded once
@@ -284,6 +288,7 @@ def pinned(arrays) -> tuple:
 
 
 @functools.lru_cache(maxsize=16)
+@report.timed("consts_s")
 def _pinned_direct_matrices(cfg: FeatureConfig, projection: str):
     return pinned(direct_matrices(cfg, projection))
 
@@ -443,7 +448,7 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
     tile = tile or fft_tile(cfg, apply_dct, proj)
     if tile == "direct":
         tile = other_name
-    with torch.cuda.device(x.device), record_function(name):
+    with torch.cuda.device(x.device), report.span(name):
         if tile in TILE_CODES:
             *fft, dctm = _device_fft_matrices(cfg, tile, proj, x.device)
             n_chunks = 0 if fft[3] is None else fft[3].shape[0]

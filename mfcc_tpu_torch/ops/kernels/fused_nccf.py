@@ -30,9 +30,9 @@ import ctypes
 import functools
 
 import torch
-from torch.profiler import record_function
 
 from ...config import PitchConfig
+from ...utils import report
 from .. import pitch as pitch_op
 from . import _build
 
@@ -111,7 +111,7 @@ def launch(lib: ctypes.CDLL, xw: torch.Tensor, ball: torch.Tensor,
     # one row may carry any stride (a numpy x[None] view has 0)
     ldx = xw.stride(0) if B > 1 else Nw
     shape = (ctypes.c_int * len(SHAPE_KEYS))()
-    with torch.cuda.device(xw.device), record_function("fused_nccf"):
+    with torch.cuda.device(xw.device), report.span("fused_nccf"):
         err = lib.mfcc_fused_nccf(
             xw.data_ptr(), ldx, Nw, ball.data_ptr(),
             out_b.data_ptr(), out_p.data_ptr(), B, T, pcfg.frame_len_w,

@@ -21,9 +21,9 @@ import ctypes
 import functools
 
 import torch
-from torch.profiler import record_function
 
 from ...config import PitchConfig
+from ...utils import report
 from .. import pitch as pitch_op
 from . import _build
 
@@ -75,7 +75,7 @@ def fused_viterbi(nccf_b: torch.Tensor, pcfg: PitchConfig) -> torch.Tensor:
         return path
     lib = _lib()
     shape = (ctypes.c_int * len(SHAPE_KEYS))()
-    with torch.cuda.device(nccf_b.device), record_function("fused_viterbi"):
+    with torch.cuda.device(nccf_b.device), report.span("fused_viterbi"):
         spill_bytes = lib.mfcc_viterbi_plan(B, T, n, shape)
         if spill_bytes < 0:
             err = -spill_bytes

@@ -7,6 +7,15 @@ against the oracle where measured, per-stage timings, device and host
 counts.  ``n_devices`` is the one device this process computes on (the
 port runs one process per GPU); ``n_hosts`` is the ``torch.distributed``
 world size, or 1.
+
+The program's tracing lives here too.  :func:`span` names a stage of the
+program in a ``torch.profiler`` trace, on the clock the profiler gives
+the card's operations, and costs one flag read when no profiler records.
+:func:`counters` holds what the program counts where the work happens:
+per batch (kept only while a profiler records) the frames the spectral
+stage computed; once per process (always kept) the host seconds of the
+package's import, the kernels' builds and loads, and the constants
+built.
 """
 
 from __future__ import annotations
@@ -16,6 +25,67 @@ import json
 import os
 import time
 from dataclasses import dataclass, field, asdict
+
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
+
+# Counted only while a profiler records: spectral frames computed (B x T of
+# every call, padded frames included).
+PER_BATCH = ("frames_computed",)
+# Counted once per process, always: host seconds of importing the package's
+# modules (torch excluded); of the kernels' nvcc builds and loads
+# (``ops/kernels/_build.load``); of the spectral constants built and
+# uploaded (the misses of the launch path's constant caches).
+SETUP = ("import_s", "build_s", "consts_s")
+_COUNTERS = dict.fromkeys(PER_BATCH + SETUP, 0)
+_OFF = contextlib.nullcontext()
+_SPANS = set()   # the names of the spans entered while a profiler recorded
+
+
+def span(name: str):
+    """A context manager: a host range ``name`` in the trace while a
+    profiler records (the flag ``torch.profiler.profile`` sets on entry
+    and clears on exit), else a shared no-op.  The range is torch's
+    ``_RecordFunctionFast``, a ninth of ``record_function``'s host cost:
+    an operator range, not a user annotation, so the trace has no copy of
+    it on the device's timeline."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    _SPANS.add(name)
+    return _RecordFunctionFast(name)
+
+
+def span_names() -> frozenset:
+    """The names of every span entered while a profiler recorded: what
+    tells the program's ranges from torch's own operators in a trace."""
+    return frozenset(_SPANS)
+
+
+def count(name: str, n: int) -> None:
+    """Add n to a per-batch counter while a profiler records."""
+    if _profiler._is_profiler_enabled:
+        _COUNTERS[name] += n
+
+
+@contextlib.contextmanager
+def timed(seconds: str):
+    """Add the block's host seconds to counter ``seconds``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _COUNTERS[seconds] += time.perf_counter() - t0
+
+
+def counters() -> dict:
+    """A copy of every counter."""
+    return dict(_COUNTERS)
+
+
+def reset() -> None:
+    """Zero the per-batch counters (the set-up ones are the process's)."""
+    for k in PER_BATCH:
+        _COUNTERS[k] = 0
 
 
 @dataclass
@@ -58,9 +128,12 @@ class RunReport:
 
 @contextlib.contextmanager
 def stage_timer(report: RunReport, name: str):
+    """Add the block's host seconds to ``report.stage_seconds[name]``; a
+    :func:`span` of the stage's name covers it."""
     t0 = time.perf_counter()
     try:
-        yield
+        with span(name):
+            yield
     finally:
         report.stage_seconds[name] = (
             report.stage_seconds.get(name, 0.0) + time.perf_counter() - t0)

@@ -1,0 +1,9 @@
+"""Device ms a batch of the operations launched inside the program's
+``feat.deltas`` span (delta and delta-delta), innermost, in the program
+spans' traced pass (``perfbench/spans.py``)."""
+
+from perfbench import spans
+
+
+def read(run):
+    return spans.span_ms(run, "feat.deltas")
