@@ -9,9 +9,10 @@ Phases, one status line each; any failure raises and exits non-zero:
 
 1. device: torch / CUDA versions, the card, and its name and power limit
    as nvidia-smi reports them.  No card: exit 1, no CPU fallback.
-2. build: compile the six kernel sources (``fused_raw_dit.cu``,
+2. build: compile the seven kernel sources (``fused_raw_dit.cu``,
    ``fused_raw.cu``, ``fused_mfcc.cu``, ``fused_dit.cu``, ``fused_nccf.cu``,
-   ``fused_viterbi.cu`` in ``mfcc_tpu_torch/ops/kernels/csrc/``) from this
+   ``fused_viterbi.cu``, ``fused_deltas.cu`` in
+   ``mfcc_tpu_torch/ops/kernels/csrc/``) from this
    checkout with nvcc, the roofline ladder's rungs (phase 21: three edited
    copies of ``fft_tile.cuh`` x ``fused_raw_dit.cu``, ``fused_raw.cu``,
    ``fused_mfcc.cu``, under ``build/roofline/``), the NCCF planner's two
@@ -118,7 +119,7 @@ Phases, one status line each; any failure raises and exits non-zero:
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
    ``fused_viterbi``'s time per step of its chain beside the chain bound;
    ``pitch_batch``'s ATen ops and host enqueue time beside its own.
-9. the script's elapsed time (phases 1-8 and 10-23), one JSON line
+9. the script's elapsed time (phases 1-8 and 10-24), one JSON line
    describing the kernels of phases 1-8 and row 7, the roofline probe, of
    phase 21 (with
    each one's bound: the larger of its input and output bytes over 3.35
@@ -332,6 +333,21 @@ Phases, one status line each; any failure raises and exits non-zero:
    (c) one ``train_step`` and one streaming scan dispatch
    (``process_chunks_batch``) under bfloat16 on the card against the CPU;
    (d) the plain route's CUDA-event ms under each dtype beside float32's.
+24. ``fused_deltas`` (``[static, delta, delta-delta]`` in one launch; it
+   replaces no Pallas kernel) against ``ops/deltas.plain_append_deltas`` on
+   the card, ``torch.equal``: (a) W = 1, 2, 3 on a ragged batch whose
+   frame counts are 0-5, 2W, 2W + 1 and T, F = 13 (scalar loads), T = 1, a
+   (T, F) utterance and a batch without frame counts, each one launch (the
+   counter read just before and after); (b) the
+   benchmark's sorted batch, 256 rows x 80 columns at its mean and longest
+   padded frame counts (1,350 and 2,500; frame counts spread from 0.885 T
+   to T, fill ~0.94), CUDA-event ms of the kernel beside its bound (the
+   static read once and the output written once, over 3.35 TB/s) and the
+   plain chain's ms; (c) ``log_mel_batch`` at log-mel-80 + deltas on the
+   bench batch: one ``fused_deltas`` launch a call, its output equal in
+   every bit to the same batch with the plain chain in the kernel's place;
+   (d) a Python float divisor on the card against a 0-d tensor's (why the
+   plain chain divides by the latter), the values that differ counted.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -489,6 +505,19 @@ ACCUM_STREAMS, ACCUM_CHUNKS = 4, 4   # the bfloat16 scan dispatch
 ACCUM_ULPS = 6
 ACCUM_TOL = {"mfcc": 2e-2, "plp": 1e-3, "logmel": ACCUM_ULPS,
              "logmel50": ACCUM_ULPS, "spec": ACCUM_ULPS}
+
+# phase 24: fused_deltas
+DELTAS_BATCH = 256           # the benchmark's sorted batches: 256 rows ...
+DELTAS_FRAMES = (1350, 2500)  # ... of ~1,350 padded frames, the longest ~2,500
+DELTAS_FILL = 0.885          # the shortest row's share of T (fill ~0.94)
+DELTAS_CASES = (             # (shape, W, frame counts or None)
+    ((9, 70, 80), 1, (0, 1, 2, 3, 4, 5, 2, 3, 70)),
+    ((9, 70, 80), 2, (0, 1, 2, 3, 4, 5, 4, 5, 70)),
+    ((9, 70, 80), 3, (0, 1, 2, 3, 4, 5, 6, 7, 70)),
+    ((9, 70, 13), 2, (0, 1, 2, 3, 4, 5, 4, 5, 70)),
+    ((3, 1, 80), 2, (1, 0, 1)),
+    ((37, 80), 2, None),
+    ((4, 45, 26), 3, None))
 # JAX's XLA route on the CPU against the float64 oracle, max abs, on the
 # first second of the bench batch's row 0 as int16 (the reference's own
 # figures; tests/test_torch_accum.py::test_chip_smoke_jax_cpu_figures
@@ -621,15 +650,16 @@ def _build_all(_build) -> tuple:
         wavio = pool.submit(native.load)
         rungs = pool.submit(roofline.build, roofline.PATHS)
         tilings = pool.submit(ablate_pitch.build, ablate_pitch.TILINGS)
-        list(pool.map(_build.load, KERNELS))
+        list(pool.map(_build.load, (*KERNELS, "fused_deltas")))
         wavio.result()
         libs, nccf_libs = rungs.result(), tilings.result()
     _log(f"[2 build] {', '.join(k + '.cu' for k in KERNELS)}, "
+         f"fused_deltas.cu, "
          f"native/wavio.cpp, the roofline rungs "
          f"{', '.join(f'{r}/{s}.cu' for r, s in sorted(libs))} and the NCCF "
          f"A/B builds {', '.join(nccf_libs)} built and loaded in "
          f"{time.perf_counter() - t0:.2f} s")
-    for name in KERNELS:
+    for name in (*KERNELS, "fused_deltas"):
         log = _build.library_path(name).with_suffix(".log")
         for ln in (log.read_text().splitlines() if log.exists() else []):
             if "Compiling entry" in ln:
@@ -3914,8 +3944,95 @@ def _accum_phase(torch, dev, smi) -> None:
     _log(f"{tag} phase 23 passed in {time.perf_counter() - t_phase:.1f} s")
 
 
+def _deltas_phase(torch, dev, smi) -> None:
+    """Phase 24: ``fused_deltas`` against the plain chain, bit for bit, on
+    its edge cases and the benchmark's batches; its time beside its bound
+    and the plain chain's; ``log_mel_batch`` through it; the divisor."""
+    from mfcc_tpu_torch import FeatureConfig
+    from mfcc_tpu_torch.models import logmel as logmel_model
+    from mfcc_tpu_torch.models import mfcc as mfcc_model
+    from mfcc_tpu_torch.ops import deltas
+    from mfcc_tpu_torch.ops.kernels import fused_deltas, fused_raw
+    t_phase = time.perf_counter()
+    tag = "[24 fused deltas]"
+    rng = np.random.default_rng(24)
+
+    def tensors(shape, lens):
+        f = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return f.to(dev), (None if lens is None else torch.tensor(
+            lens, dtype=torch.int32, device=dev))
+
+    def launch_once(f, W, lens):
+        before = fused_deltas.LAUNCHES
+        got = fused_deltas.fused_append_deltas(f, W, lens)
+        torch.cuda.synchronize()
+        assert fused_deltas.LAUNCHES == before + 1
+        return got
+
+    for shape, W, lens in DELTAS_CASES:                     # (a)
+        f, L = tensors(shape, lens)
+        got = launch_once(f, W, L)
+        same = torch.equal(got, deltas.plain_append_deltas(f, W, L))
+        _log(f"{tag} (a) {shape} W={W}, frame counts "
+             f"{'none' if lens is None else list(lens)}: one launch; equal "
+             f"in every bit to the plain chain: {same}")
+        assert same, (shape, W, lens)
+    for T in DELTAS_FRAMES:                                 # (b)
+        B, F = DELTAS_BATCH, 80
+        lens = np.round(np.linspace(DELTAS_FILL * T, T, B)).astype(np.int32)
+        f, L = tensors((B, T, F), lens)
+        got = launch_once(f, 2, L)
+        same = torch.equal(got, deltas.plain_append_deltas(f, 2, L))
+        assert same, T
+        kernel = statistics.median(_time_ms(
+            torch, lambda: fused_deltas.fused_append_deltas(f, 2, L),
+            calls=TIMING_CALLS))
+        plain = statistics.median(_time_ms(
+            torch, lambda: deltas.plain_append_deltas(f, 2, L),
+            calls=TIMING_CALLS))
+        nbytes = 4 * B * T * F * (1 + 3)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        _log(f"{tag} (b) {B} x {T} x {F}, W=2, frame counts "
+             f"{lens.min()}-{lens.max()} (fill {lens.mean() / T:.3f}): equal "
+             f"in every bit: {same}; ms a call (CUDA events) kernel "
+             f"{kernel:.4f}, plain chain {plain:.4f} ({plain / kernel:.1f}x); "
+             f"bound {bound:.4f} ({nbytes / 1e6:.1f} MB at 3.35 TB/s), the "
+             f"kernel at "
+             f"{100 * bound / kernel:.1f} % of it; {smi}")
+    cfg = FeatureConfig(n_mels=80, n_mfcc=80, deltas=True).validate()  # (c)
+    bench = _bench_audio(BATCH, SECONDS, cfg.sample_rate)
+    B, N = bench.shape
+    lens = np.maximum(N - np.arange(B) * (N // (B + 6)), 0).astype(np.int32)
+    x = torch.from_numpy(_int16(bench)).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    before = fused_deltas.LAUNCHES
+    feat, flens, _ = logmel_model.log_mel_batch(x, n, cfg)
+    torch.cuda.synchronize()
+    launches = fused_deltas.LAUNCHES - before
+    assert launches == 1, launches
+    want, _, _ = mfcc_model.run_batch(x, n, cfg, lambda xv, c, fl: (
+        deltas.plain_append_deltas(fused_raw.fused_features_raw(
+            xv.to(torch.float32).contiguous(), c, apply_dct=False),
+            c.delta_window, fl)))
+    same = torch.equal(feat, want)
+    _log(f"{tag} (c) log_mel_batch on the {B} x {N / 16000:g} s int16 ragged "
+         f"batch {tuple(feat.shape)}: fused_deltas launched {launches} time; "
+         f"equal in every bit to the plain chain in its place: {same}")
+    assert same
+    v = torch.from_numpy(rng.standard_normal(1 << 20).astype(np.float32))
+    differ = {}                                             # (d)
+    for d in (dev, torch.device("cpu")):
+        vd = v.to(d)
+        true = vd / torch.full((), 10.0, device=d)
+        differ[d.type] = int((vd / 10.0 != true).sum())
+    _log(f"{tag} (d) x / 10.0 (a Python float) against x / torch.full((), "
+         f"10.0) (a 0-d tensor on the device) on {v.numel()} floats: "
+         f"{differ} differ")
+    _log(f"{tag} phase 24 passed in {time.perf_counter() - t_phase:.1f} s")
+
+
 def run(torch, dev) -> list[dict]:
-    """Phases 1-8 and 10-23 on device ``dev``; -> the kernels' JSON records
+    """Phases 1-8 and 10-24 on device ``dev``; -> the kernels' JSON records
     (of phases 1-8, and row 7's of phase 21: the other phases report their
     own counters)."""
     from mfcc_tpu_torch import PitchConfig
@@ -3965,6 +4082,7 @@ def run(torch, dev) -> list[dict]:
     roofline = _roofline_phase(torch, dev, smi, rung_libs)  # 21
     _beyond_smem_phase(torch, dev, smi, bench, nccf_libs)   # 22
     _accum_phase(torch, dev, smi)                           # 23
+    _deltas_phase(torch, dev, smi)                          # 24
 
     src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
     launches = {**logmel_launches, **pitch_launches, **proj_launches}
@@ -4026,7 +4144,7 @@ def main() -> int:
     kernels = run(torch, torch.device("cuda", 0))
     # ---- 9. summary ----
     assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
-    _log(f"[9 summary] phases 1-8 and 10-23 passed in "
+    _log(f"[9 summary] phases 1-8 and 10-24 passed in "
          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -66,7 +66,7 @@ def _plp_from_audio(x: torch.Tensor, cfg: FeatureConfig,
         feat = feat[0]
     if cfg.deltas:
         with report.span("feat.deltas"):
-            feat = deltas_op.append_deltas(feat, cfg, lengths)
+            feat = deltas_op.append_deltas(feat, cfg, lengths, backend)
     return feat
 
 

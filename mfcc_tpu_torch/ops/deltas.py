@@ -7,8 +7,11 @@ with edge replication at the true utterance boundary: for a ragged batch
 the forward neighbour is clipped to each utterance's last valid frame, so
 padded frames never leak into the derivatives of real frames.
 
-:class:`DeltaStream` is the streaming twin: it runs on the host in numpy
-float64, over ``oracle.deltas``.
+:func:`append_deltas` on the card is one launch of ``kernels/fused_deltas``
+(``backend.resolve``, as the spectral kernels are routed); elsewhere, and
+under "high" on the card, it is :func:`plain_append_deltas`, the kernel's
+twin, equal to it in every bit.  :class:`DeltaStream` is the streaming
+twin: it runs on the host in numpy float64, over ``oracle.deltas``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import backend as backend_lib
 from ..config import FeatureConfig
+from .kernels import fused_deltas
 
 
 def deltas(feat: torch.Tensor, window: int = 2,
@@ -29,7 +34,6 @@ def deltas(feat: torch.Tensor, window: int = 2,
     T = feat.shape[-2]
     if T == 0:
         return torch.zeros_like(feat)
-    denom = 2.0 * sum(n * n for n in range(1, window + 1))
     t = torch.arange(T, device=feat.device)
     if lengths is not None:
         hi_cap = torch.clamp(lengths.to(feat.device, torch.int64), min=1) - 1
@@ -49,15 +53,33 @@ def deltas(feat: torch.Tensor, window: int = 2,
             ragged_edge = (t + n)[:, None] > hi_cap[..., None, None]
             plus = torch.where(ragged_edge, last, plus)
         out = out + n * (plus - minus)
-    return out / torch.tensor(denom, dtype=feat.dtype, device=feat.device)
+    # a 0-d tensor made on the device: a true division, and no copy from
+    # the host (which syncs the stream); a Python float would have ATen's
+    # CUDA kernel multiply by its float32 reciprocal instead
+    return out / torch.full((), fused_deltas.denominator(window),
+                            dtype=feat.dtype, device=feat.device)
+
+
+def plain_append_deltas(feat: torch.Tensor, window: int = 2,
+                        lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., T, F) -> (..., T, 3F): [static, delta, delta-delta] in plain
+    PyTorch, the twin of ``kernels/fused_deltas``."""
+    d1 = deltas(feat, window, lengths)
+    d2 = deltas(d1, window, lengths)
+    return torch.cat([feat, d1, d2], dim=-1)
 
 
 def append_deltas(feat: torch.Tensor, cfg: FeatureConfig,
-                  lengths: torch.Tensor | None = None) -> torch.Tensor:
-    """(..., T, F) -> (..., T, 3F): [static, delta, delta-delta]."""
-    d1 = deltas(feat, cfg.delta_window, lengths)
-    d2 = deltas(d1, cfg.delta_window, lengths)
-    return torch.cat([feat, d1, d2], dim=-1)
+                  lengths: torch.Tensor | None = None,
+                  backend: str = "auto") -> torch.Tensor:
+    """(..., T, F) -> (..., T, 3F): [static, delta, delta-delta], through
+    ``kernels/fused_deltas`` where ``backend`` resolves to "cuda" for
+    ``feat`` and ``cfg`` (float32 features; other dtypes raise), else
+    through :func:`plain_append_deltas`."""
+    if backend_lib.resolve(backend, feat, cfg) == "cuda":
+        return fused_deltas.fused_append_deltas(feat, cfg.delta_window,
+                                                lengths)
+    return plain_append_deltas(feat, cfg.delta_window, lengths)
 
 
 class DeltaStream:

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels, one module per Pallas kernel of
-mfcc_tpu.ops.kernels (same file name).  CUDA sources live in ``csrc/`` and
-are built at first use (``_build.py``); importing a module builds nothing.
+mfcc_tpu.ops.kernels (same file name), and one of the port's own.  CUDA
+sources live in ``csrc/`` and are built at first use (``_build.py``);
+importing a module builds nothing.
 
 - :mod:`fused_raw_dit` — raw audio -> MFCC, or log-mel bounded to <= 50 dB.
 - :mod:`fused_raw` — raw audio -> unbounded-range log-mel.
@@ -12,6 +13,8 @@ are built at first use (``_build.py``); importing a module builds nothing.
   route, ``mfcc_tpu/models/mfcc.py:78-95``).
 - :mod:`fused_nccf` — work-rate audio -> ballasted and plain NCCF (pitch).
 - :mod:`fused_viterbi` — NCCF scores -> Viterbi lag path (pitch).
+- :mod:`fused_deltas` — features -> [static, delta, delta-delta] in one
+  pass; no Pallas twin (the reference's deltas are plain ``jnp``).
 
 The four spectral kernels share ``csrc/spectral.cuh`` (accurate log,
 direct DFT tile, epilogue), the shared-memory FFT tile of
@@ -20,5 +23,5 @@ and log-mel bounded to <= 50 dB, a float64 front for other log-mel) and
 ``_spectral.py`` (plain chain, constants, tile rule, launch).
 """
 
-from . import (fused_dit, fused_mfcc, fused_nccf, fused_raw,  # noqa: F401
-               fused_raw_dit, fused_viterbi, routes)
+from . import (fused_deltas, fused_dit, fused_mfcc,  # noqa: F401
+               fused_nccf, fused_raw, fused_raw_dit, fused_viterbi, routes)

@@ -14,9 +14,11 @@ CMVN pair at window 300, the distributed dry run on two ranks, the
 roofline ladder's ``stage`` and ``fftlog`` rungs, and ``fused_nccf``
 beyond shared memory (the lag-blocked tiling equal to the planner's
 tiles, windows past the old limit against the float64 oracle,
-``pitch_batch`` at a 4 s frame), and ``accum_dtype`` on both routes
-and the float16 reduction flag of ``backend.matmul_form``.  All are marked
-``cuda`` and skip without a card.
+``pitch_batch`` at a 4 s frame), ``accum_dtype`` on both routes
+and the float16 reduction flag of ``backend.matmul_form``, and
+``fused_deltas`` against its plain chain bit for bit (the cases of
+``tests/test_torch_deltas.py``) and through the log-mel main path.  All are
+marked ``cuda`` and skip without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
 there without the repository's conftest:
@@ -34,12 +36,13 @@ from mfcc_tpu_torch import FeatureConfig, PitchConfig, oracle
 from mfcc_tpu_torch.models import (logmel as logmel_model, mfcc as mfcc_model,
                                    pitch as pitch_model, plp as plp_model,
                                    spectrogram as spec_model, streaming)
-from mfcc_tpu_torch.ops import (dither, framing, pitch as pitch_op, resample,
-                                xmath)
-from mfcc_tpu_torch.ops.kernels import (_spectral, fused_dit, fused_mfcc,
-                                        fused_nccf, fused_raw, fused_raw_dit,
-                                        fused_viterbi)
+from mfcc_tpu_torch.ops import (deltas, dither, framing, pitch as pitch_op,
+                                resample, xmath)
+from mfcc_tpu_torch.ops.kernels import (_spectral, fused_deltas, fused_dit,
+                                        fused_mfcc, fused_nccf, fused_raw,
+                                        fused_raw_dit, fused_viterbi)
 from mfcc_tpu_torch.utils import batch as batch_lib, wav
+from test_torch_deltas import CASES as DELTA_CASES, case as delta_case
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 TOL = 2e-5   # kernel vs XLA bound of tests/test_kernels.py
@@ -1512,3 +1515,81 @@ def test_roofline_stage_and_fftlog_rungs_on_the_card(cuda):
         launched = roofline.launched_plan(libs[rung, src])
         assert launched == {k: plan[k] for k in roofline.PLAN_KEYS}, rung
         assert torch.equal(got, w), rung
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,T,F,W", DELTA_CASES)
+def test_fused_deltas_equal_the_plain_chain(cuda, layout, T, F, W):
+    """One launch, equal in every bit to ``plain_append_deltas`` on the
+    card, which equals the CPU's in every bit."""
+    f, lens = delta_case(layout, T, F, W)
+    x = torch.from_numpy(f).to(cuda)
+    n = None if lens is None else torch.from_numpy(lens).to(cuda)
+    before = fused_deltas.LAUNCHES
+    got = fused_deltas.fused_append_deltas(x, W, n)
+    torch.cuda.synchronize()
+    assert fused_deltas.LAUNCHES == before + 1
+    want = deltas.plain_append_deltas(x, W, n)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    host = deltas.plain_append_deltas(
+        torch.from_numpy(f), W,
+        None if lens is None else torch.from_numpy(lens))
+    assert torch.equal(want.cpu().view(torch.int32), host.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fused_deltas_wrapper_checks(cuda):
+    """float64, a non-contiguous layout and a wrong number of frame counts
+    raise; an empty batch launches nothing; int64 frame counts read as
+    int32; under "high" ``append_deltas`` takes the plain chain."""
+    with pytest.raises(TypeError):
+        fused_deltas.fused_append_deltas(
+            torch.zeros((2, 5, 3), dtype=torch.float64, device=cuda), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_deltas.fused_append_deltas(
+            torch.zeros((2, 3, 5), device=cuda).transpose(1, 2), 2)
+    with pytest.raises(ValueError, match="frame counts"):
+        fused_deltas.fused_append_deltas(
+            torch.zeros((2, 5, 3), device=cuda), 2,
+            torch.ones(3, dtype=torch.int32, device=cuda))
+    before = fused_deltas.LAUNCHES
+    for shape in ((0, 5, 3), (2, 0, 3)):
+        out = fused_deltas.fused_append_deltas(torch.zeros(shape, device=cuda),
+                                               2)
+        assert tuple(out.shape) == (*shape[:2], 9)
+    assert fused_deltas.LAUNCHES == before
+    f, lens = delta_case("ragged", 70, 80, 2)
+    x = torch.from_numpy(f).to(cuda)
+    n32 = torch.from_numpy(lens).to(cuda)
+    assert torch.equal(fused_deltas.fused_append_deltas(x, 2, n32),
+                       fused_deltas.fused_append_deltas(x, 2, n32.long()))
+    before = fused_deltas.LAUNCHES
+    high = deltas.append_deltas(
+        x, FeatureConfig(deltas=True, matmul_precision="high"), n32)
+    assert fused_deltas.LAUNCHES == before
+    assert torch.equal(high, fused_deltas.fused_append_deltas(x, 2, n32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,kw", [
+    (logmel_model.log_mel_batch, dict(n_mels=80, n_mfcc=80)),
+    (mfcc_model.mfcc_batch, dict(delta_window=3)),
+    (plp_model.plp_batch, dict())])
+def test_main_paths_append_deltas_through_the_kernel(cuda, gen, monkeypatch,
+                                                     entry, kw):
+    """A batch with deltas launches ``fused_deltas`` once, and its output
+    equals the same batch with the plain chain in the kernel's place."""
+    cfg = FeatureConfig(deltas=True, **kw).validate()
+    lens = np.array([16000, 9000, 400, 0], np.int32)
+    x = torch.from_numpy((gen.standard_normal((4, 16000)) * 0.3)
+                         .astype(np.float32)).to(cuda)
+    n = torch.from_numpy(lens).to(cuda)
+    before = fused_deltas.LAUNCHES
+    got = entry(x, n, cfg)
+    torch.cuda.synchronize()
+    assert fused_deltas.LAUNCHES == before + 1
+    monkeypatch.setattr(fused_deltas, "fused_append_deltas",
+                        deltas.plain_append_deltas)
+    want = entry(x, n, cfg)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -184,7 +184,7 @@ def test_plain_power_spectrum_matches_oracle(rng):
 
 @pytest.mark.parametrize("name", ["fused_raw_dit", "fused_nccf",
                                   "fused_viterbi", "fused_raw", "fused_dit",
-                                  "fused_mfcc"])
+                                  "fused_mfcc", "fused_deltas"])
 def test_build_failure_raises(monkeypatch, tmp_path, name):
     """A kernel whose nvcc build fails raises (nothing falls back), and a
     missing toolkit is named."""

@@ -15,8 +15,9 @@ from mfcc_tpu import FeatureConfig as JaxConfig, oracle as jax_oracle
 from mfcc_tpu.models import logmel as jax_logmel
 from mfcc_tpu_torch import FeatureConfig, backend, from_jax, oracle
 from mfcc_tpu_torch.models import logmel as logmel_model, mfcc as mfcc_model
-from mfcc_tpu_torch.ops.kernels import (fused_dit, fused_mfcc, fused_raw,
-                                        fused_raw_dit, routes)
+from mfcc_tpu_torch.ops import deltas as deltas_op
+from mfcc_tpu_torch.ops.kernels import (fused_deltas, fused_dit, fused_mfcc,
+                                        fused_raw, fused_raw_dit, routes)
 from mfcc_tpu_torch.utils import wav
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -121,8 +122,10 @@ def test_oracle_log_mel_matches_reference(rng, kw):
 
 @pytest.fixture()
 def on_card(monkeypatch):
-    """backend "auto" resolves to "cuda" (CPU tensors), and every spectral
-    wrapper records its name and input before running its plain version."""
+    """backend "auto" resolves to "cuda" (CPU tensors), every spectral
+    wrapper records its name and input before running its plain version,
+    and the deltas kernel its name and window before running its plain
+    twin."""
     resolve = backend.resolve
     monkeypatch.setattr(backend, "resolve", lambda name, x, cfg: (
         "cuda" if name in ("auto", "cuda") and (
@@ -137,6 +140,12 @@ def on_card(monkeypatch):
             return _fn(x, cfg, apply_dct=apply_dct)
 
         monkeypatch.setattr(module, fn, record)
+
+    def deltas_kernel(feat, window, lengths=None):
+        calls.append(("fused_deltas", feat.clone(), window))
+        return deltas_op.plain_append_deltas(feat, window, lengths)
+
+    monkeypatch.setattr(fused_deltas, "fused_append_deltas", deltas_kernel)
     return calls
 
 
@@ -160,7 +169,8 @@ def test_route_reaches_the_kernel_the_reference_gives(on_card, rng, kw,
     x, lens = _ragged(rng, cfg, "int16", seconds=0.5)
     entry = mfcc_model.mfcc_batch if cepstra else logmel_model.log_mel_batch
     got, flens, mask = entry(torch.from_numpy(x), torch.from_numpy(lens), cfg)
-    assert [(c[0], c[2]) for c in on_card] == [(route, cepstra)]
+    assert [(c[0], c[2]) for c in on_card] == [(route, cepstra)] + (
+        [("fused_deltas", cfg.delta_window)] if cfg.deltas else [])
     # raw kernels take the audio; the others audio pre-emphasized on the host
     xin = on_card[0][1]
     xf = torch.from_numpy(x).to(torch.float32) / 32768.0

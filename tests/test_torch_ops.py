@@ -172,6 +172,35 @@ def test_deltas_padding_aware(rng, window, with_lengths):
     np.testing.assert_allclose(got3.numpy(), want3, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("on_card,precision", [
+    (False, "highest"), (False, "high"), (True, "high")])
+@pytest.mark.parametrize("window", [1, 2, 3])
+def test_append_deltas_plain_route_matches_jax(monkeypatch, rng, on_card,
+                                               precision, window):
+    """On a CPU tensor, and under "high" on a card (``backend.resolve``
+    faked as it routes there), ``append_deltas`` takes the plain chain,
+    never the kernel, and matches the JAX reference."""
+    from mfcc_tpu_torch import backend
+    from mfcc_tpu_torch.ops.kernels import fused_deltas, routes
+
+    def kernel(*args, **kwargs):
+        raise AssertionError("the kernel route was taken")
+    monkeypatch.setattr(fused_deltas, "fused_append_deltas", kernel)
+    if on_card:
+        monkeypatch.setattr(backend, "resolve", lambda name, x, cfg: (
+            "cuda" if name != "torch" and routes.kernel_precision_supported(
+                cfg) else "torch"))
+    feat = rng.standard_normal((3, 40, 5)).astype(np.float32)
+    lens = np.asarray([40, 23, 1], np.int32)
+    cfg = JaxConfig(deltas=True, delta_window=window,
+                    matmul_precision=precision)
+    want = np.asarray(jax_deltas.append_deltas(
+        jnp.asarray(feat), cfg, jnp.asarray(lens)))
+    got = deltas.append_deltas(torch.from_numpy(feat), from_jax(cfg),
+                               torch.from_numpy(lens))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
 def test_stages_match_reference(rng):
     """Power spectrum, log-mel (with the relative floor), cepstra and frame
     energy of the plain path against the JAX stages, same frames."""

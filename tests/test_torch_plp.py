@@ -21,8 +21,8 @@ from mfcc_tpu.ops import plp as jax_plp_op
 from mfcc_tpu.ops.kernels import fused_raw_dit as jax_raw_dit
 from mfcc_tpu_torch import FeatureConfig, backend, from_jax, oracle
 from mfcc_tpu_torch.models import plp as plp_model
-from mfcc_tpu_torch.ops import plp as plp_op
-from mfcc_tpu_torch.ops.kernels import fused_raw_dit, routes
+from mfcc_tpu_torch.ops import deltas as deltas_op, plp as plp_op
+from mfcc_tpu_torch.ops.kernels import fused_deltas, fused_raw_dit, routes
 from mfcc_tpu_torch.utils import wav
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -252,7 +252,8 @@ def test_plp_golden():
 def on_card(monkeypatch):
     """backend "auto" resolves to "cuda" (CPU tensors), and the
     fused_raw_dit wrapper records each call before running its plain
-    version."""
+    version, the deltas kernel its window before running its plain
+    twin."""
     resolve = backend.resolve
     monkeypatch.setattr(backend, "resolve", lambda name, x, cfg: (
         "cuda" if name in ("auto", "cuda") and (
@@ -266,6 +267,12 @@ def on_card(monkeypatch):
         return wrapped(x, cfg, apply_dct=apply_dct, projection=projection)
 
     monkeypatch.setattr(fused_raw_dit, "fused_features_raw_dit", record)
+
+    def deltas_kernel(feat, window, lengths=None):
+        calls.append(("fused_deltas", window))
+        return deltas_op.plain_append_deltas(feat, window, lengths)
+
+    monkeypatch.setattr(fused_deltas, "fused_append_deltas", deltas_kernel)
     return calls
 
 
@@ -286,7 +293,8 @@ def test_plp_route_per_config(on_card, rng, kw, kernel):
     x, lens = _ragged(rng, cfg, "float32")
     got, flens, mask = plp_model.plp_batch(torch.from_numpy(x),
                                            torch.from_numpy(lens), cfg)
-    assert on_card == ([(False, "bark")] if kernel else [])
+    assert on_card == ([(False, "bark")] if kernel else []) + (
+        [("fused_deltas", cfg.delta_window)] if cfg.deltas else [])
     plain, pfl, pm = plp_model.plp_batch(torch.from_numpy(x),
                                          torch.from_numpy(lens), cfg, "torch")
     assert torch.equal(flens, pfl) and torch.equal(mask, pm)

@@ -24,10 +24,11 @@ import torch
 import numpy as np
 
 from mfcc_tpu_torch import backend, oracle
-from mfcc_tpu_torch.ops import framing
-from mfcc_tpu_torch.ops.kernels import (_build, _spectral, fused_dit,
-                                        fused_mfcc, fused_nccf, fused_raw,
-                                        fused_raw_dit, fused_viterbi, routes)
+from mfcc_tpu_torch.ops import deltas, framing
+from mfcc_tpu_torch.ops.kernels import (_build, _spectral, fused_deltas,
+                                        fused_dit, fused_mfcc, fused_nccf,
+                                        fused_raw, fused_raw_dit,
+                                        fused_viterbi, routes)
 from mfcc_tpu_torch.tools import ablate_pitch, roofline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,7 +37,8 @@ WRAPPERS = ((fused_raw_dit, "fused_features_raw_dit"),
             (fused_dit, "fused_features_dit"),
             (fused_mfcc, "fused_features"),
             (fused_nccf, "fused_nccf"),
-            (fused_viterbi, "fused_viterbi"))
+            (fused_viterbi, "fused_viterbi"),
+            (fused_deltas, "fused_append_deltas"))
 
 
 class _Event:
@@ -117,11 +119,15 @@ def _counting(mod, name):
     fn = getattr(mod, name)
 
     def wrapper(*args, **kwargs):
+        if mod is fused_deltas:    # it opens no span of its own
+            return launch(*args, **kwargs)
         with torch.profiler.record_function(mod.__name__.split(".")[-1]):
             return launch(*args, **kwargs)
 
     def launch(*args, **kwargs):
         mod.LAUNCHES += 1
+        if mod is fused_deltas:    # the kernel's twin, on the CPU tensor
+            return deltas.plain_append_deltas(*args, **kwargs)
         if mod in SHAPES:
             mod.LAST_SHAPE = (_nccf_tile(args[2]) if mod is fused_nccf
                               else SHAPES[mod])
@@ -212,7 +218,8 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                         ("WIDE_SECONDS", 4.1), ("BOTH_FRAMES", 1),
                         ("WIDE_PITCH_SECONDS", (4.1, 4.05)),
                         ("WIDE_SPREAD_SECONDS", 4.1),
-                        ("BEYOND_CALLS", 2), ("ACCUM_CALLS", 2)):
+                        ("BEYOND_CALLS", 2), ("ACCUM_CALLS", 2),
+                        ("DELTAS_BATCH", 8), ("DELTAS_FRAMES", (40, 75))):
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "_smi", lambda: "Fake GPU, 700.00 W")
     monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
@@ -248,8 +255,31 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 24)), "3b", "3c", "3d", "4b", "4c"]:
+    for phase in [*map(str, range(1, 25)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
+    # phase 24: fused_deltas one launch a call (the phase's own assertion),
+    # equal to its plain twin on each case, timed beside its bound; the
+    # log-mel main path through it
+    tag = "[24 fused deltas]"
+    lines = [ln for ln in out.splitlines() if ln.startswith(f"{tag} (a) ")]
+    assert len(lines) == 7, lines
+    assert all("one launch; equal in every bit to the plain chain: True" in ln
+               for ln in lines)
+    assert "(a) (9, 70, 80) W=3, frame counts [0, 1, 2, 3, 4, 5, 6, 7, 70]" \
+        in lines[2]
+    for T in (40, 75):
+        line = next(ln for ln in out.splitlines()
+                    if ln.startswith(f"{tag} (b) 8 x {T} x 80, W=2, "))
+        assert "equal in every bit: True" in line and "plain chain " in line
+        assert "MB at 3.35 TB/s), the kernel at " in line, line
+        assert "Fake GPU, 700.00 W" in line, line
+    assert f"{tag} (c) log_mel_batch on the 8 x 1 s int16 ragged batch " \
+        "(8, 98, 240): fused_deltas launched 1 time; equal in every bit to " \
+        "the plain chain in its place: True" in out
+    assert f"{tag} (d) x / 10.0 (a Python float) against x / torch.full((), " \
+        "10.0) (a 0-d tensor on the device) on 1048576 floats: {'cpu': 0} " \
+        "differ" in out
+    assert f"{tag} phase 24 passed in " in out
     # phase 23: every accum_dtype of every family on both routes, the
     # kernel route's launches and bits float32's (the phase's own
     # assertions), the overflowing float16 rows, the step and the scan
