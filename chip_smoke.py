@@ -119,7 +119,7 @@ Phases, one status line each; any failure raises and exits non-zero:
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
    ``fused_viterbi``'s time per step of its chain beside the chain bound;
    ``pitch_batch``'s ATen ops and host enqueue time beside its own.
-9. the script's elapsed time (phases 1-8 and 10-24), one JSON line
+9. the script's elapsed time (phases 1-8 and 10-25), one JSON line
    describing the kernels of phases 1-8 and row 7, the roofline probe, of
    phase 21 (with
    each one's bound: the larger of its input and output bytes over 3.35
@@ -348,6 +348,23 @@ Phases, one status line each; any failure raises and exits non-zero:
    every bit to the same batch with the plain chain in the kernel's place;
    (d) a Python float divisor on the card against a 0-d tensor's (why the
    plain chain divides by the latter), the values that differ counted.
+25. Whisper's log-mel (``models/whisper.whisper_log_mel_batch``) at the
+   benchmark cell's batch: 256 int16 rows of one sorted batch's lengths
+   (13.0-13.6 s), each padded to the 30 s window, 3,000 frames x 128
+   mels a row.  (a) "auto" on the card, every launch counter reset just
+   before the run and read just after it: one ``fused_raw`` launch, on its
+   direct tile; frame counts and mask exact; the features within 1e-5
+   of the plain route on the card (``backend="torch"``, the same inputs)
+   and, as that route's, within ``WHISPER_TOL`` (the cell's
+   ``static_err`` limit, 7e-4) of the benchmark's float64 reference
+   (``perfbench/reference/whisper.py``), each error printed; the plain chain on a wrong window (the symmetric
+   Hann) and on a wrong bank (triangles linear in mel) each over that
+   bound against the reference, so the bound tells Whisper's constants
+   from others; (b) CUDA-event ms of the direct tile alone on the padded
+   rows beside its bound (the transform of the frames that read a sample,
+   the bank and the log at 67 TFLOP/s fp32, or the rows read and the
+   features written at 3.35 TB/s, the larger); (c) the entry's ms a batch
+   and audio-seconds a second.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -518,6 +535,16 @@ DELTAS_CASES = (             # (shape, W, frame counts or None)
     ((3, 1, 80), 2, (1, 0, 1)),
     ((37, 80), 2, None),
     ((4, 45, 26), 3, None))
+# phase 25: Whisper's log-mel (models/whisper), the whisper128 cell's batch
+WHISPER_BATCH = 256          # the cell's sorted batches: 256 rows ...
+WHISPER_SECONDS = (13.0, 13.6)  # ... of one batch's lengths, near the mode
+WHISPER_CHUNK_S = 30.0       # every row padded to Whisper's window
+# the cell's static_err limit against the float64 reference (calibrate.py
+# on the card: the program 1.10e-4 to 2.74e-4, the TF32 control 0.087)
+WHISPER_TOL = 7e-4
+# the direct tile against the plain route on the card: the same float32
+# products summed in other orders (1.2e-7 at this batch on the H100)
+WHISPER_PLAIN_TOL = 1e-5
 # JAX's XLA route on the CPU against the float64 oracle, max abs, on the
 # first second of the bench batch's row 0 as int16 (the reference's own
 # figures; tests/test_torch_accum.py::test_chip_smoke_jax_cpu_figures
@@ -4031,8 +4058,112 @@ def _deltas_phase(torch, dev, smi) -> None:
     _log(f"{tag} phase 24 passed in {time.perf_counter() - t_phase:.1f} s")
 
 
+def _whisper_phase(torch, dev, smi) -> None:
+    """Phase 25: ``whisper_log_mel_batch`` through ``fused_raw``'s direct
+    tile at the whisper128 cell's batch, against the plain route and the
+    float64 reference; a wrong window and a wrong bank over the bound; the
+    tile's time beside its bound, and the entry's."""
+    import dataclasses
+    from mfcc_tpu_torch import backend
+    from mfcc_tpu_torch.config import WhisperConfig
+    from mfcc_tpu_torch.models import whisper
+    from mfcc_tpu_torch.ops import framing, mel, xmath
+    from mfcc_tpu_torch.ops.kernels import fused_deltas, fused_raw
+    from mfcc_tpu_torch.oracle import window_fn
+    from mfcc_tpu_torch.ops.spectrum import folded_dft
+    from perfbench.reference import whisper as reference
+    t_phase = time.perf_counter()
+    tag = "[25 whisper]"
+    cfg = WhisperConfig(chunk_s=WHISPER_CHUNK_S).validate()
+    kcfg = cfg.feature_config()
+    B, T, M, nb = WHISPER_BATCH, cfg.num_frames(), cfg.n_mels, cfg.n_bins
+    lo, hi = (int(s * cfg.sample_rate) for s in WHISPER_SECONDS)
+    lens = np.round(np.linspace(lo, hi, B)).astype(np.int64)
+    x = torch.from_numpy(_int16(_bench_audio(B, WHISPER_SECONDS[1],
+                                             cfg.sample_rate, seed=25))).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    whisper.whisper_log_mel_batch(x, n, cfg)     # builds and constants
+    torch.cuda.synchronize()
+    kernels = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
+    kernels["fused_deltas"] = fused_deltas
+    _reset_counts(kernels.values())
+    feat, flens, mask = whisper.whisper_log_mel_batch(x, n, cfg)
+    torch.cuda.synchronize()
+    launched = {k: m.LAUNCHES for k, m in kernels.items() if m.LAUNCHES}
+    tiles = {k: v for k, v in fused_raw.TILE_LAUNCHES.items() if v}
+    assert launched == {"fused_raw": 1} and tiles == {"direct": 1}, (
+        launched, tiles)
+    assert feat.shape == (B, T, M) and feat.dtype == torch.float32
+    assert torch.equal(flens.cpu(), torch.full((B,), T, dtype=torch.int32))
+    assert bool(mask.all()) and mask.shape == (B, T)
+    plain, _, _ = whisper.whisper_log_mel_batch(x, n, cfg, backend="torch")
+    want, _, _ = reference.features(x, lens.tolist(),
+                                    dataclasses.asdict(cfg), False)
+
+    xp = framing.stft_center_batch(x.to(torch.float32) / 32768.0, n, cfg)
+
+    def err(got):
+        return float((got.double() - want).abs().max())
+
+    def chain(window, bank):
+        """The plain chain on other constants: float32 IEEE products."""
+        basis = torch.from_numpy(np.concatenate(
+            folded_dft(window, cfg.n_fft), axis=1).astype(np.float32)).to(dev)
+        melw = torch.from_numpy(bank.astype(np.float32)).to(dev)
+        fr = framing.frames(xp, kcfg)
+        spec = backend.matmul(fr, basis, "highest")
+        power = spec[..., :nb] ** 2 + spec[..., nb:] ** 2
+        return whisper.normalize(xmath.floored_log(
+            backend.matmul(power, melw, "highest"), cfg.log_floor))
+
+    periodic, bank = whisper.periodic_hann(cfg.n_fft), whisper.constants(cfg)[2]
+    errs = {"kernel": err(feat), "plain": err(plain),
+            "kernel vs plain": float((feat - plain).abs().max()),
+            "symmetric Hann": err(chain(window_fn("hann", cfg.n_fft), bank)),
+            "mel-linear bank": err(chain(periodic, mel.mel_matrix(kcfg)))}
+    sr = cfg.sample_rate
+    _log(f"{tag} (a) whisper_log_mel_batch on {B} x {lo / sr:g}-"
+         f"{hi / sr:g} s int16 rows in the {cfg.chunk_s:g} s window "
+         f"{tuple(feat.shape)}: launched {launched} ({tiles}); frame counts "
+         f"{T} and mask exact; max abs vs the float64 reference: kernel "
+         f"{errs['kernel']:.3e}, plain route {errs['plain']:.3e}; kernel vs "
+         f"plain route {errs['kernel vs plain']:.3e} (bound "
+         f"{WHISPER_PLAIN_TOL:g}, against the reference {WHISPER_TOL:g}); "
+         f"wrong constants vs the reference: symmetric Hann "
+         f"{errs['symmetric Hann']:.3e}, mel-linear bank "
+         f"{errs['mel-linear bank']:.3e} (each over the bound)")
+    assert max(errs["kernel"], errs["plain"]) <= WHISPER_TOL, errs
+    assert errs["kernel vs plain"] <= WHISPER_PLAIN_TOL, errs
+    assert min(errs["symmetric Hann"], errs["mel-linear bank"]) > \
+        WHISPER_TOL, errs
+    direct = whisper._direct_consts(cfg)
+    tile = statistics.median(_time_ms(
+        torch, lambda: fused_raw.fused_features_raw(
+            xp, kcfg, apply_dct=False, direct=direct), calls=TIMING_CALLS))
+    entry = statistics.median(_time_ms(
+        torch, lambda: whisper.whisper_log_mel_batch(x, n, cfg),
+        calls=TIMING_CALLS))
+    per_frame = (2.5 * cfg.n_fft * math.log2(cfg.n_fft) + cfg.n_fft + 3 * nb
+                 + 2 * int(np.count_nonzero(bank)) + M * (ACC_LOG_OPS + 1))
+    P = cfg.n_fft // 2
+    read = int(np.minimum(T, (np.minimum(lens, cfg.chunk_samples) - 1 + P)
+                          // cfg.hop_len + 1).sum())
+    nbytes = 4 * xp.numel() + 4 * B * T * M
+    bound = max(read * per_frame / FP32_FLOPS,
+                nbytes / HBM_BYTES_PER_S) * 1e3
+    _log(f"{tag} (b) the direct tile alone on the {tuple(xp.shape)} padded "
+         f"rows: {tile:.4f} ms a call (CUDA events); bound {bound:.4f} ms "
+         f"({read} of {B * T} frames read a sample, {per_frame:.0f} "
+         f"operations each at 67 TFLOP/s; {nbytes / 1e6:.1f} MB at 3.35 "
+         f"TB/s), the tile at {100 * bound / tile:.2f} % of it; {smi}")
+    audio_s = float(lens.sum()) / cfg.sample_rate
+    _log(f"{tag} (c) whisper_log_mel_batch whole: {entry:.4f} ms a batch "
+         f"(CUDA events), {audio_s / (entry / 1e3):.0f} audio-s/s")
+    _log(f"{tag} phase 25 passed in {time.perf_counter() - t_phase:.1f} s")
+
+
 def run(torch, dev) -> list[dict]:
-    """Phases 1-8 and 10-24 on device ``dev``; -> the kernels' JSON records
+    """Phases 1-8 and 10-25 on device ``dev``; -> the kernels' JSON records
     (of phases 1-8, and row 7's of phase 21: the other phases report their
     own counters)."""
     from mfcc_tpu_torch import PitchConfig
@@ -4083,6 +4214,7 @@ def run(torch, dev) -> list[dict]:
     _beyond_smem_phase(torch, dev, smi, bench, nccf_libs)   # 22
     _accum_phase(torch, dev, smi)                           # 23
     _deltas_phase(torch, dev, smi)                          # 24
+    _whisper_phase(torch, dev, smi)                         # 25
 
     src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
     launches = {**logmel_launches, **pitch_launches, **proj_launches}
@@ -4144,7 +4276,7 @@ def main() -> int:
     kernels = run(torch, torch.device("cuda", 0))
     # ---- 9. summary ----
     assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
-    _log(f"[9 summary] phases 1-8 and 10-24 passed in "
+    _log(f"[9 summary] phases 1-8 and 10-25 passed in "
          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

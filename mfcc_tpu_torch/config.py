@@ -7,6 +7,8 @@ fields, their order and their defaults are the reference's, so ``to_json``
 and ``config_hash`` give the same string and the same hash for the same
 contract; ``tests/test_torch_config.py`` and ``tests/test_torch_pitch.py``
 hold the two equal.  Field notes live on the reference classes.
+:class:`WhisperConfig` is the port's own (Whisper's log-mel front end) and
+has no twin.
 """
 
 from __future__ import annotations
@@ -284,9 +286,122 @@ class PitchConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class WhisperConfig:
+    """Whisper's log-mel front end (``models/whisper``), the port's own:
+    the JAX package has no twin.  Defaults: large-v3's, 128 mels
+    (openai ``whisper/audio.py``: ``N_FFT`` 400, ``HOP_LENGTH`` 160,
+    ``CHUNK_LENGTH`` 30; Hugging Face ``WhisperFeatureExtractor``).
+
+    A row is cut or zero-padded to ``chunk_s`` seconds, reflect-padded by
+    n_fft // 2 on each side without repeating the edge sample
+    (``torch.stft(center=True)``), framed with the periodic Hann window
+    of n_fft points at hop_ms, the last frame dropped; then |X|^2 of the
+    n_bins bins, Slaney-scale mel filters whose triangles are linear in
+    Hz with Slaney's area normalisation, log10 of the energies floored at
+    ``log_floor``, a floor 80 dB (``models/whisper.ROW_FLOOR_DB``) under
+    the row's largest value over all its frames and bands, and (x + 4) /
+    4.  Those steps are Whisper's alone and have no field.
+
+    The other fields are FeatureConfig's, so that readers of a
+    FeatureConfig's settings read this one too; those Whisper has no step
+    for must hold the value that turns the step off
+    (:data:`WHISPER_FIXED`).  ``frame_mode="valid"`` names the frames
+    that lie wholly inside an utterance's own samples; Whisper's own are
+    the centred frames of the whole window, ``num_frames`` of them a row
+    whatever its length.
+    """
+
+    sample_rate: int = 16_000
+    frame_ms: float = 25.0
+    hop_ms: float = 10.0
+    frame_mode: str = "valid"
+    n_fft: int = 400
+    window: str = "hann"
+    preemph: float = 0.0
+    dither: float = 0.0
+    n_mels: int = 128
+    fmin: float = 0.0
+    fmax: Optional[float] = 8000.0
+    mel_scale: str = "slaney"
+    vtln_warp: float = 1.0
+    n_mfcc: int = 128
+    log_floor: float = 1e-10
+    dynamic_range_db: Optional[float] = None
+    lifter: int = 0
+    append_energy: bool = False
+    deltas: bool = False
+    delta_window: int = 2
+    cmvn: bool = False
+    chunk_s: float = 30.0            # Whisper's input window (pad_or_trim)
+
+    @property
+    def frame_len(self) -> int:
+        return int(round(self.sample_rate * self.frame_ms / 1000.0))
+
+    @property
+    def hop_len(self) -> int:
+        return int(round(self.sample_rate * self.hop_ms / 1000.0))
+
+    @property
+    def n_bins(self) -> int:
+        return self.n_fft // 2 + 1
+
+    @property
+    def chunk_samples(self) -> int:
+        return int(round(self.sample_rate * self.chunk_s))
+
+    def num_frames(self) -> int:
+        """Frames of every row, whatever its length: the centred STFT's 1 +
+        chunk // hop, less the last."""
+        return self.chunk_samples // self.hop_len
+
+    def feature_config(self) -> FeatureConfig:
+        """The FeatureConfig of the spectral stage's sizes and numerics:
+        valid-mode frames of n_fft samples over the padded rows, no
+        pre-emphasis, the mel floor and accurate log, no relative floor.
+        Its window and mel bank are not Whisper's; ``models/whisper``
+        supplies those."""
+        return FeatureConfig(
+            sample_rate=self.sample_rate, frame_ms=self.frame_ms,
+            hop_ms=self.hop_ms, n_fft=self.n_fft, window="hann", preemph=0.0,
+            n_mels=self.n_mels, fmin=self.fmin, fmax=self.fmax,
+            mel_scale="slaney", n_mfcc=self.n_mels,
+            log_floor=self.log_floor).validate()
+
+    def validate(self) -> "WhisperConfig":
+        fixed = {k: getattr(self, k) for k, v in WHISPER_FIXED.items()
+                 if getattr(self, k) != v}
+        if fixed:
+            raise ValueError(f"Whisper's front end has no such step: {fixed}")
+        if self.frame_len != self.n_fft:
+            raise ValueError(f"frame_len ({self.frame_len}) must equal n_fft "
+                             f"({self.n_fft}): Whisper's window is n_fft long")
+        if self.n_fft % 2 or self.hop_len < 1:
+            raise ValueError("n_fft must be even and hop_len >= 1")
+        if self.n_mfcc != self.n_mels:
+            raise ValueError("n_mfcc must equal n_mels (no cepstra)")
+        if self.chunk_samples <= self.n_fft or self.num_frames() < 2:
+            raise ValueError("chunk_s must hold more than n_fft samples and "
+                             "two hops")
+        if self.log_floor <= 0.0:
+            raise ValueError("log_floor must be > 0")
+        self.feature_config()
+        return self
+
+
+# The fields of WhisperConfig that name steps of the port's other front
+# ends, at the values that turn them off, and Whisper's own scale.
+WHISPER_FIXED = dict(
+    frame_mode="valid", window="hann", preemph=0.0, dither=0.0,
+    mel_scale="slaney", vtln_warp=1.0, dynamic_range_db=None, lifter=0,
+    append_energy=False, deltas=False, cmvn=False)
+
+
 # Named presets of the baseline's configs (BASELINE.md), the reference's.
 MFCC13 = FeatureConfig().validate()
 LOGMEL80 = FeatureConfig(n_mels=80, n_mfcc=80, deltas=True).validate()
+WHISPER128 = WhisperConfig().validate()
 
 
 def logmel_config(n_mels: int = 80, deltas: bool = True) -> FeatureConfig:

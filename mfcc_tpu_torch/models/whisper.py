@@ -1,0 +1,152 @@
+"""Whisper's log-mel front end (openai ``whisper/audio.py``
+``log_mel_spectrogram``; Hugging Face ``WhisperFeatureExtractor``), batched.
+
+:func:`whisper_log_mel_batch` takes a padded ragged batch and gives every
+row ``cfg.num_frames()`` frames (3,000 for 30 s): the window's padding is
+Whisper's input, not the batch's.  The stages, each a span under
+``feat.batch``:
+
+- ``feat.cast``: int16 to float32 in [-1, 1) (``models/mfcc``'s cast);
+- ``feat.frames``: each row cut or zero-padded to the window and reflect
+  padded for the STFT's centring (``framing.stft_center_batch``);
+- ``feat.spectral``: |X|^2 of the periodic Hann window's DFT, the Hz
+  triangle mel bank, the floored natural log.  On the card one launch of
+  ``fused_raw``'s direct tile on Whisper's constants (the window folded
+  into the DFT basis, the bank as its projection; no relative floor); on
+  a CPU tensor the same chain in plain torch, float32 IEEE products;
+- ``feat.whisper_norm``: the row's largest value over all its frames and
+  bands, the floor :data:`ROW_FLOOR_DB` under it, and the affine that takes
+  the natural log to Whisper's (log10 + 4) / 4, in three passes on the
+  device with no host sync;
+- ``feat.mask``: the frame counts' mask (every frame is valid).
+
+The constants are built once a config in float64 (:func:`constants`) and
+kept, in page-locked memory for the card (:func:`_pinned_direct`) and on
+the device for the plain chain (:func:`_plain_constants`); their first
+build is counted in ``consts_s``.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from .. import backend as backend_lib
+from ..config import WhisperConfig
+from ..ops import framing, mel as mel_op, spectrum, xmath
+from ..ops.kernels import _spectral, fused_raw
+from ..utils import report
+from .mfcc import _to_float, frame_mask
+
+# Whisper's floor under a row's largest value: 8 in log10 (audio.py's
+# ``log_spec.max() - 8.0``)
+ROW_FLOOR_DB = 80.0
+
+
+def periodic_hann(n: int) -> np.ndarray:
+    """``torch.hann_window(n)`` (periodic) in float64."""
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n, dtype=np.float64) / n)
+
+
+@functools.lru_cache(maxsize=8)
+def constants(cfg: WhisperConfig) -> tuple:
+    """(cos, sin, mel): the (n_fft, n_bins) window-folded DFT bases and
+    the (n_bins, n_mels) Hz triangle bank, float64."""
+    return (*spectrum.folded_dft(periodic_hann(cfg.n_fft), cfg.n_fft),
+            mel_op.hz_triangle_matrix(cfg))
+
+
+@functools.lru_cache(maxsize=8)
+@report.timed("consts_s")
+def _pinned_direct(cfg: WhisperConfig) -> tuple:
+    """The direct tile's float32 constants (``_spectral.direct_blocks``)
+    in page-locked memory."""
+    return _spectral.pinned(_spectral.direct_blocks(*constants(cfg), None))
+
+
+@functools.lru_cache(maxsize=8)
+@report.timed("consts_s")
+def _plain_constants(cfg: WhisperConfig, device: torch.device) -> tuple:
+    """([cos | sin] (n_fft, 2 n_bins), mel (n_bins, n_mels)) float32 on
+    ``device``."""
+    cos_m, sin_m, melw = constants(cfg)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device)
+                 for a in (np.concatenate([cos_m, sin_m], axis=1), melw))
+
+
+def _direct_consts(cfg: WhisperConfig):
+    """``fused_raw``'s ``direct`` for cfg: the pinned constants uploaded
+    on the current stream."""
+    def consts(_, device):
+        basis, last, melw, _ = (None if t is None
+                                else t.to(device, non_blocking=True)
+                                for t in _pinned_direct(cfg))
+        return [basis, basis.shape[0], last, melw], None
+    return consts
+
+
+def _plain_log_mel(xp: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
+    """(B, L) padded rows -> (B, T, n_mels) floored natural log of the mel
+    energies, plain torch, float32 IEEE products."""
+    kcfg = cfg.feature_config()
+    basis, melw = _plain_constants(cfg, xp.device)
+    fr = framing.frames(xp.to(torch.float32), kcfg)
+    spec = backend_lib.matmul(fr, basis, "highest")
+    re, im = spec[..., :cfg.n_bins], spec[..., cfg.n_bins:]
+    power = xmath.mul_add(re, re, im * im, True)
+    return xmath.floored_log(backend_lib.matmul(power, melw, "highest"),
+                             cfg.log_floor)
+
+
+def log_mel(xp: torch.Tensor, cfg: WhisperConfig,
+            backend: str = "auto") -> torch.Tensor:
+    """(B, L) padded rows (``framing.stft_center_batch``) -> (B, T, n_mels)
+    floored natural log of the mel energies: ``fused_raw``'s direct tile
+    on a CUDA tensor, else the plain chain."""
+    kcfg = cfg.feature_config()
+    if backend_lib.resolve(backend, xp, kcfg) == "cuda":
+        return fused_raw.fused_features_raw(
+            xp.to(torch.float32).contiguous(), kcfg, apply_dct=False,
+            direct=_direct_consts(cfg))
+    return _plain_log_mel(xp, cfg)
+
+
+def normalize(feat: torch.Tensor) -> torch.Tensor:
+    """(B, T, n_mels) natural logs -> Whisper's features, in place:
+    max(log10 e, row max - ROW_FLOOR_DB / 10), then (x + 4) / 4, computed
+    on the natural logs as max(y, m - ROW_FLOOR_DB ln(10) / 10) / (4 ln 10)
+    + 1 (m the row's largest y).  The constants go to the kernels as
+    arguments: no host value is copied to the device."""
+    ln10 = math.log(10.0)
+    floor = feat.amax(dim=(1, 2), keepdim=True) - ROW_FLOOR_DB * ln10 / 10.0
+    feat.clamp_(min=floor)
+    return torch.add(feat.new_ones(()), feat, alpha=1.0 / (4.0 * ln10),
+                     out=feat)
+
+
+def whisper_log_mel_batch(x: torch.Tensor, sample_lengths: torch.Tensor,
+                          cfg: WhisperConfig, backend: str = "auto"):
+    """(B, N_pad) int16 PCM or float in [-1, 1], (B,) sample lengths ->
+    (features (B, T, n_mels) float32, frame counts (B,) int32, mask (B, T)
+    bool), T = cfg.num_frames() for every row.  Samples past a row's
+    length read as zeros; a row longer than the window is cut to it.
+    Whisper's encoder reads the features' transpose, (B, n_mels, T)."""
+    with report.span("feat.batch"):
+        x = _to_float(x)
+        with report.span("feat.frames"):
+            lengths = torch.as_tensor(sample_lengths, device=x.device)
+            xp = framing.stft_center_batch(x, lengths, cfg)
+            T = cfg.num_frames()
+            flens = torch.full((x.shape[0],), T, dtype=torch.int32,
+                               device=x.device)
+        with report.span("feat.spectral"):
+            feat = log_mel(xp, cfg, backend)
+            report.count("frames_computed", feat.shape[0] * feat.shape[1])
+        with report.span("feat.whisper_norm"):
+            feat = normalize(feat)
+        with report.span("feat.mask"):
+            mask = frame_mask(T, flens)
+    return feat, flens, mask

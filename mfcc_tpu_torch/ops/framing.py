@@ -69,6 +69,37 @@ def center_pad_batch(x: torch.Tensor, lengths: torch.Tensor,
     return padded, L.to(torch.int32)
 
 
+def stft_center_batch(x: torch.Tensor, lengths: torch.Tensor,
+                      cfg) -> torch.Tensor:
+    """Whisper's input window and STFT centring for a ``WhisperConfig``:
+    (B, N) float rows with true ``lengths`` -> (B, L) rows whose "valid"
+    frames of n_fft samples at hop_len are ``torch.stft(center=True)``'s
+    frames of each row cut or zero-padded to chunk_samples, the last one
+    dropped: L = (num_frames - 1) * hop_len + n_fft.
+
+    The pad is n_fft // 2 samples reflected on each side without the edge
+    sample (``pad_mode="reflect"``), where Kaldi's centre mode
+    (:func:`center_pad_batch`) repeats it and pads frame_len // 2 -
+    hop_len // 2; only the first L - n_fft // 2 - chunk_samples samples of
+    the right pad are framed.  Samples at or past a row's length read as
+    zeros, whatever the caller's padding holds."""
+    B, N = x.shape
+    P, W = cfg.n_fft // 2, cfg.chunk_samples
+    L = (cfg.num_frames() - 1) * cfg.hop_len + cfg.n_fft
+    n = min(N, W, L - P)
+    out = x.new_empty((B, L))
+    t = torch.arange(n, device=x.device)
+    lengths = lengths.to(device=x.device)
+    torch.where(t < lengths[:, None], x[:, :n], x.new_zeros(()),
+                out=out[:, P:P + n])
+    out[:, P + n:].zero_()
+    out[:, :P] = out[:, P + 1:2 * P + 1].flip(-1)
+    R = L - P - W
+    if R > 0:
+        out[:, P + W:] = out[:, P + W - 1 - R:P + W - 1].flip(-1)
+    return out
+
+
 def resolve_frame_mode(x: torch.Tensor, sample_lengths: torch.Tensor,
                        cfg: FeatureConfig):
     """Batch entry hook: (x', sample_lengths', cfg') with cfg' in "valid"

@@ -136,8 +136,16 @@ def direct_matrices(cfg: FeatureConfig, projection: str = "mel"):
     the projection (n_bins, n_mels or n_bark; None for "spec");
     dct (n_mels, n_mfcc), lifter folded in ("mel" only, else None).
     """
-    cos_m, sin_m = spectrum.dft_matrices(cfg)
-    fl, nb = cfg.frame_len, cfg.n_bins - 1
+    return direct_blocks(
+        *spectrum.dft_matrices(cfg), projection_matrix(cfg, projection),
+        dct_op.dct_matrix(cfg) if projection == "mel" else None)
+
+
+def direct_blocks(cos_m: np.ndarray, sin_m: np.ndarray, proj, dct) -> tuple:
+    """:func:`direct_matrices`' float32 constants from float64 window-folded
+    (frame_len, n_bins) cos and sin bases, a (n_bins, width) projection
+    (or None) and a DCT (or None)."""
+    fl, nb = cos_m.shape[0], cos_m.shape[1] - 1
     nbb = -(-nb // BINS_PER_BLOCK)
     basis = np.zeros((nbb, fl, 2 * BINS_PER_BLOCK), np.float32)
     for k in range(nbb):
@@ -145,9 +153,7 @@ def direct_matrices(cfg: FeatureConfig, projection: str = "mel"):
         basis[k, :, : hi - lo] = cos_m[:, lo:hi]
         basis[k, :, BINS_PER_BLOCK: BINS_PER_BLOCK + hi - lo] = sin_m[:, lo:hi]
     last = np.stack([cos_m[:, nb], sin_m[:, nb]], axis=1).astype(np.float32)
-    return (basis, np.ascontiguousarray(last),
-            _f32(projection_matrix(cfg, projection)),
-            _f32(dct_op.dct_matrix(cfg)) if projection == "mel" else None)
+    return basis, np.ascontiguousarray(last), _f32(proj), _f32(dct)
 
 
 # Per FFT tile flavour: bytes per scalar, complex points per wave, pad

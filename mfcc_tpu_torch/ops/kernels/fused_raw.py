@@ -47,20 +47,32 @@ def _lib() -> ctypes.CDLL:
 
 
 def fused_features_raw(x: torch.Tensor, cfg: FeatureConfig, *,
-                       apply_dct: bool = True) -> torch.Tensor:
+                       apply_dct: bool = True, direct=None) -> torch.Tensor:
     """(B, N) raw float32 audio -> (B, T, n_mfcc or n_mels) features.
 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor goes
     through :func:`plain_features`, both at the float32
     accumulation whatever ``cfg.accum_dtype`` says
     (``_spectral.kernel_config``).  cfg must be in "valid" frame mode.
+
+    ``direct``, a consts(cfg, device) -> ([basis, nbb, last, melw], dctm)
+    as ``_spectral.direct_consts`` returns them, runs the direct tile on
+    those constants, whatever the n_fft: a front end whose window or
+    filterbank the config cannot state (``models/whisper``).  The card
+    only: the plain version knows the config's constants alone.
     """
     cfg = _spectral.check_input(x, cfg)
     if not x.is_cuda:
+        if direct is not None:
+            raise ValueError("direct constants run on a CUDA tensor only")
         return plain_features(x, cfg, apply_dct)
     _spectral.check_cuda_input(x)
+    other = _spectral.DIRECT_TILE
+    if direct is not None:
+        other = ("direct", direct, other[2])
     out, tile = _spectral.launch_spectral(
-        _lib, "mfcc_fused_raw", "fused_raw", x, cfg, apply_dct, cfg.preemph)
+        _lib, "mfcc_fused_raw", "fused_raw", x, cfg, apply_dct, cfg.preemph,
+        other=other, tile="direct" if direct is not None else None)
     if tile is not None:
         global LAUNCHES
         LAUNCHES += 1

@@ -6,7 +6,8 @@ in the accumulation dtype (:func:`band_energies`: in float32 one product),
 then floored (optional per-frame relative floor, then the absolute floor)
 and logged with the accurate log.  Every max keeps a NaN's bits, as XLA's
 does (``xmath.xla_max``): a float16 power that overflowed reads as the
-reference's value.
+reference's value.  Whisper's filterbank, whose triangles are linear in
+Hz, is :func:`hz_triangle_matrix`.
 """
 
 from __future__ import annotations
@@ -31,6 +32,24 @@ def _mel_matrix_cached(key) -> np.ndarray:
 def mel_matrix(cfg: FeatureConfig) -> np.ndarray:
     """(n_bins, n_mels) float64 filterbank, cached per config."""
     return _mel_matrix_cached(tuple(sorted(dataclasses.asdict(cfg).items())))
+
+
+@functools.lru_cache(maxsize=8)
+def hz_triangle_matrix(cfg) -> np.ndarray:
+    """(n_bins, n_mels) float64 filterbank of a ``WhisperConfig``: edges
+    equally spaced on cfg's mel scale from fmin to fmax, triangles linear
+    in Hz between them (librosa's and Hugging Face's ``mel_filter_bank``),
+    Slaney's area normalisation 2 / (f[m+2] - f[m]).  The oracle's
+    triangles are linear in mel instead."""
+    hz = oracle.mel_to_hz(np.linspace(
+        oracle.hz_to_mel(cfg.fmin, cfg.mel_scale),
+        oracle.hz_to_mel(cfg.fmax, cfg.mel_scale), cfg.n_mels + 2),
+        cfg.mel_scale)
+    bin_hz = np.arange(cfg.n_bins, dtype=np.float64) * cfg.sample_rate / cfg.n_fft
+    lo, ctr, hi = hz[None, :-2], hz[None, 1:-1], hz[None, 2:]
+    fb = np.maximum(0.0, np.minimum((bin_hz[:, None] - lo) / (ctr - lo),
+                                    (hi - bin_hz[:, None]) / (hi - ctr)))
+    return fb * (2.0 / (hz[2:] - hz[:-2]))[None, :]
 
 
 def relative_floor(cfg: FeatureConfig) -> float:

@@ -33,14 +33,20 @@ from .. import backend, oracle
 from . import framing, xmath
 
 
+def folded_dft(window: np.ndarray, n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """(len(window), n_fft // 2 + 1) float64 cos and sin DFT bases with
+    the window folded in."""
+    n = np.arange(len(window), dtype=np.float64)[:, None]
+    k = np.arange(n_fft // 2 + 1, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * n * k / n_fft
+    w = np.asarray(window, np.float64)[:, None]
+    return w * np.cos(ang), w * np.sin(ang)
+
+
 @functools.lru_cache(maxsize=32)
 def _dft_matrices_cached(key) -> tuple[np.ndarray, np.ndarray]:
     frame_len, n_fft, window = key
-    n = np.arange(frame_len, dtype=np.float64)[:, None]
-    k = np.arange(n_fft // 2 + 1, dtype=np.float64)[None, :]
-    ang = 2.0 * np.pi * n * k / n_fft
-    w = oracle.window_fn(window, frame_len)[:, None]
-    return w * np.cos(ang), w * np.sin(ang)
+    return folded_dft(oracle.window_fn(window, frame_len), n_fft)
 
 
 def dft_matrices(cfg: FeatureConfig) -> tuple[np.ndarray, np.ndarray]:

@@ -1593,3 +1593,40 @@ def test_main_paths_append_deltas_through_the_kernel(cuda, gen, monkeypatch,
     want = entry(x, n, cfg)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_s,N,lens", [
+    (30.0, 500_000, [480_000, 320_000, 16_000, 0, 500_000]),
+    (1.003, 17_000, [16_048, 9_000, 17_000])])
+def test_whisper_through_the_direct_tile(cuda, gen, chunk_s, N, lens):
+    """``whisper_log_mel_batch`` with "auto" on the card: one launch of
+    ``fused_raw``'s direct tile a batch, no host sync once its constants
+    are built, and the features within 1e-4 of the float64 reference and
+    of the plain route on the host (the float32 chain's bound,
+    ``tests/test_torch_whisper.py``)."""
+    import dataclasses
+    from mfcc_tpu_torch.config import WhisperConfig
+    from mfcc_tpu_torch.models import whisper
+    from perfbench.reference import whisper as whisper_ref
+    cfg = WhisperConfig(chunk_s=chunk_s).validate()
+    x = torch.from_numpy(np.clip(gen.standard_normal((len(lens), N)) * 3000,
+                                 -32768, 32767).astype(np.int16))
+    n = torch.tensor(lens)
+    xd, nd = x.to(cuda), n.to(cuda)
+    whisper.whisper_log_mel_batch(xd, nd, cfg)
+    before = dict(fused_raw.TILE_LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        feat, flens, mask = whisper.whisper_log_mel_batch(xd, nd, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert fused_raw.TILE_LAUNCHES["direct"] == before["direct"] + 1
+    assert feat.shape == (len(lens), cfg.num_frames(), cfg.n_mels)
+    assert bool(mask.all()) and int(flens.min()) == cfg.num_frames()
+    want, _, _ = whisper_ref.features(x, lens, dataclasses.asdict(cfg), False)
+    plain, _, _ = whisper.whisper_log_mel_batch(x, n, cfg)
+    assert float((feat.cpu().double() - want).abs().max()) < 1e-4
+    assert float((feat.cpu() - plain).abs().max()) < 1e-4

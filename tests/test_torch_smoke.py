@@ -24,6 +24,7 @@ import torch
 import numpy as np
 
 from mfcc_tpu_torch import backend, oracle
+from mfcc_tpu_torch.models import whisper
 from mfcc_tpu_torch.ops import deltas, framing
 from mfcc_tpu_torch.ops.kernels import (_build, _spectral, fused_deltas,
                                         fused_dit, fused_mfcc, fused_nccf,
@@ -151,9 +152,17 @@ def _counting(mod, name):
                 return torch.from_numpy(np.stack([
                     ORACLES[projection](r, c) for r in x.double().numpy()
                 ]).astype(np.float32))
+        if kwargs.get("direct") is not None:   # Whisper's: its plain chain
+            return whisper._plain_log_mel(x, kwargs["direct"][1])
         return fn(*args, **kwargs)
 
     return wrapper
+
+
+def _whisper_direct(cfg):
+    """models/whisper._direct_consts' stand-in: no page-locked upload on
+    the CPU; the launch's stand-in runs the config's plain chain."""
+    return ("whisper", cfg)
 
 
 def _launch_plain(lib_fn, entry, name, x, cfg, apply_dct, preemph,
@@ -219,7 +228,9 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                         ("WIDE_PITCH_SECONDS", (4.1, 4.05)),
                         ("WIDE_SPREAD_SECONDS", 4.1),
                         ("BEYOND_CALLS", 2), ("ACCUM_CALLS", 2),
-                        ("DELTAS_BATCH", 8), ("DELTAS_FRAMES", (40, 75))):
+                        ("DELTAS_BATCH", 8), ("DELTAS_FRAMES", (40, 75)),
+                        ("WHISPER_BATCH", 8), ("WHISPER_CHUNK_S", 2.0),
+                        ("WHISPER_SECONDS", (1.0, 1.2))):
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "_smi", lambda: "Fake GPU, 700.00 W")
     monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
@@ -236,6 +247,7 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(ablate_pitch, "build",
                         lambda names: {n: n for n in names})
     monkeypatch.setattr(fused_nccf, "launch", _launch_nccf)
+    monkeypatch.setattr(whisper, "_direct_consts", _whisper_direct)
     monkeypatch.setattr(fused_nccf, "plain_nccf",
                         _direct_nccf(fused_nccf.plain_nccf))
     resolve = backend.resolve
@@ -255,8 +267,24 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 25)), "3b", "3c", "3d", "4b", "4c"]:
+    for phase in [*map(str, range(1, 26)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
+    # phase 25: Whisper's entry, one fused_raw launch on its direct tile
+    # (the phase's own assertion), within the bound of the plain route and
+    # of the float64 reference, a wrong window and a wrong bank over it
+    tag = "[25 whisper]"
+    line = next(ln for ln in out.splitlines() if ln.startswith(f"{tag} (a) "))
+    assert "on 8 x 1-1.2 s int16 rows in the 2 s window (8, 200, 128): " \
+        "launched {'fused_raw': 1} ({'direct': 1}); frame counts 200 and " \
+        "mask exact;" in line, line
+    assert "kernel vs plain route 0.000e+00 (bound 1e-05, against the " \
+        "reference 0.0007)" in line, line
+    line = next(ln for ln in out.splitlines() if ln.startswith(f"{tag} (b) "))
+    assert "the direct tile alone on the (8, 32240) padded rows: " in line
+    assert "(894 of 1600 frames read a sample, " in line, line
+    assert "Fake GPU, 700.00 W" in line, line
+    assert f"{tag} (c) whisper_log_mel_batch whole: " in out
+    assert f"{tag} phase 25 passed in " in out
     # phase 24: fused_deltas one launch a call (the phase's own assertion),
     # equal to its plain twin on each case, timed beside its bound; the
     # log-mel main path through it

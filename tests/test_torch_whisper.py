@@ -1,0 +1,301 @@
+"""Whisper's log-mel front end (``models/whisper``) on the CPU: the entry
+against the benchmark's float64 reference (``perfbench/reference/whisper``) with
+short windows and one whole 30 s row, the STFT centring frame for frame
+against ``torch.stft(center=True)``, the filterbank and the features
+against Hugging Face's ``WhisperFeatureExtractor`` where transformers
+imports, each row's own floor, the spans and the frame counter under a
+profiler, the constants' caches, the route to ``fused_raw``'s direct tile,
+and the config's checks.
+
+Tolerances: the port computes Whisper's float32 chain, the reference in
+float64.  A float32 DFT rounds ~1e-7 of a frame's largest bin; in a band
+60-70 dB under it (the frames at a row's end, the valleys of a frame) that
+is ~2e-4 of the band's log10, ~5e-5 after the /4: hence 1e-4 against the
+reference (2.6e-5 measured).  Hugging Face computes in float32 too (its
+own FFT, 3.7e-5 off the reference here), so against it the two roundings
+add: 2e-4 (6.3e-5 measured).
+"""
+
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import profile
+
+from mfcc_tpu import config as jax_config
+from mfcc_tpu_torch import config as torch_config
+from mfcc_tpu_torch.config import WHISPER128, WhisperConfig
+from mfcc_tpu_torch.models import whisper
+from mfcc_tpu_torch.ops import framing
+from mfcc_tpu_torch.ops.kernels import _spectral, fused_raw
+from mfcc_tpu_torch.utils import report
+from perfbench.reference import whisper as ref
+
+REF_TOL = 1e-4   # the port's float32 chain against float64 (module note)
+HF_TOL = 2e-4    # two float32 chains (module note)
+SHORT = WhisperConfig(chunk_s=1.0).validate()
+STAGES = {"feat.cast", "feat.frames", "feat.spectral", "feat.whisper_norm",
+          "feat.mask"}
+
+
+def _audio(B, N, scale=3000.0, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, N, generator=g) * scale).clamp(
+        -32768, 32767).to(torch.int16)
+
+
+def _reference(x, lengths, cfg):
+    """The float64 features of int16 rows, or of float rows in [-1, 1]."""
+    if x.dtype != torch.int16:
+        x = x.double() * 32768.0
+    return ref.features(x, lengths, dataclasses.asdict(cfg), False)[0]
+
+
+def _hf_extractor(chunk_s):
+    fe = pytest.importorskip(
+        "transformers.models.whisper.feature_extraction_whisper")
+    return fe.WhisperFeatureExtractor(feature_size=128, chunk_length=chunk_s)
+
+
+@pytest.mark.parametrize("cfg,N,lengths,dtype", [
+    (SHORT, 20000, [16000, 9000, 0], torch.int16),      # window, shorter, none
+    (SHORT, 20000, [20000, 16001, 400], torch.int16),   # cut to the window
+    (SHORT, 12000, [12000, 5000, 11999], torch.float32),  # float input
+    # a window that is no whole number of hops: no right reflection framed
+    (WhisperConfig(chunk_s=1.003).validate(), 17000, [17000, 3000, 16048],
+     torch.int16),
+])
+def test_entry_matches_the_plain_reference(cfg, N, lengths, dtype):
+    x = _audio(len(lengths), N)
+    if dtype == torch.float32:
+        x = x.to(torch.float32) / 32768.0
+    n = torch.tensor(lengths)
+    feat, flens, mask = whisper.whisper_log_mel_batch(x, n, cfg)
+    T = cfg.num_frames()
+    assert feat.shape == (len(lengths), T, cfg.n_mels)
+    assert feat.dtype == torch.float32
+    assert torch.equal(flens, torch.full((len(lengths),), T, dtype=torch.int32))
+    assert bool(mask.all()) and mask.shape == (len(lengths), T)
+    want = _reference(x, n, cfg)
+    np.testing.assert_allclose(feat.double().numpy(), want.numpy(), rtol=0,
+                               atol=REF_TOL)
+
+
+def test_a_whole_30_second_window():
+    x = _audio(2, 500_000, seed=3)
+    n = torch.tensor([320_000, 500_000])     # 20 s, and 31.25 s cut to 30
+    feat, flens, _ = whisper.whisper_log_mel_batch(x, n, WHISPER128)
+    assert feat.shape == (2, 3000, 128) and int(flens[0]) == 3000
+    np.testing.assert_allclose(feat.double().numpy(),
+                               _reference(x, n, WHISPER128).numpy(),
+                               rtol=0, atol=REF_TOL)
+
+
+@pytest.mark.parametrize("chunk_s,N,lengths", [
+    (1.0, 20000, [16000, 7000, 20000]),
+    (1.003, 9000, [9000, 1]),
+    (0.5, 8000, [8000, 8000]),
+])
+def test_frames_are_torch_stft_centred_frames(chunk_s, N, lengths):
+    """The padded rows' valid frames, transformed, are torch.stft's
+    frames of the rows cut or zero-padded to the window, the last one
+    dropped: frame for frame, bin for bin, in float64."""
+    cfg = WhisperConfig(chunk_s=chunk_s).validate()
+    x = torch.randn(len(lengths), N, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(1))
+    n = torch.tensor(lengths)
+    xp = framing.stft_center_batch(x, n, cfg)
+    T = cfg.num_frames()
+    assert xp.shape == (len(lengths), (T - 1) * cfg.hop_len + cfg.n_fft)
+    window = torch.hann_window(cfg.n_fft, dtype=torch.float64)
+    got = torch.fft.rfft(xp.unfold(-1, cfg.n_fft, cfg.hop_len) * window)
+    W = cfg.chunk_samples
+    x30 = torch.zeros(len(lengths), W, dtype=torch.float64)
+    for i, m in enumerate(lengths):
+        m = min(m, W, N)
+        x30[i, :m] = x[i, :m]
+    want = torch.stft(x30, cfg.n_fft, cfg.hop_len, window=window, center=True,
+                      pad_mode="reflect", return_complex=True)[..., :-1]
+    assert got.shape[1] == want.shape[2] == T
+    torch.testing.assert_close(got, want.transpose(1, 2), rtol=0, atol=1e-12)
+
+
+def test_mel_bank_matches_hugging_face():
+    fe = _hf_extractor(30)
+    np.testing.assert_allclose(whisper.constants(WHISPER128)[2],
+                               fe.mel_filters, rtol=0, atol=1e-15)
+    np.testing.assert_allclose(
+        ref.mel_filters(ref.Settings(dataclasses.asdict(WHISPER128))).T,
+        fe.mel_filters, rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("chunk_s,N,lengths", [
+    (1, 20000, [20000, 9000, 16000, 0]),
+    (30, 400000, [400000, 123457]),
+])
+def test_features_match_hugging_face(chunk_s, N, lengths):
+    fe = _hf_extractor(chunk_s)
+    cfg = WhisperConfig(chunk_s=float(chunk_s)).validate()
+    x = _audio(len(lengths), N, seed=chunk_s)
+    feat, _, _ = whisper.whisper_log_mel_batch(x, torch.tensor(lengths), cfg)
+    rows = [x[i, :m].double().numpy() / 32768.0 for i, m in enumerate(lengths)]
+    hf = fe(rows, sampling_rate=16000, return_tensors="np")["input_features"]
+    np.testing.assert_allclose(feat.numpy(), hf.transpose(0, 2, 1), rtol=0,
+                               atol=HF_TOL)
+
+
+def test_each_row_is_floored_at_its_own_maximum():
+    """A silent, a quiet (-60 dBFS) and a loud row in one batch: each
+    equals its own row computed alone; the silent row is log10(1e-10)'s
+    (-10 + 4) / 4 everywhere (to float32's rounding of the natural log's
+    affine); the loud row's zero frames sit on its floor, 2 under its
+    maximum (80 dB: 8 in log10, over 4), and the quiet row's lie under
+    that floor, at -1.5: the loud row's maximum does not floor them."""
+    x = torch.cat([torch.zeros(1, 20000, dtype=torch.int16), _audio(1, 20000, 33),
+                   _audio(1, 20000, 20000)])
+    n = torch.tensor([20000, 10000, 10000])
+    feat, _, _ = whisper.whisper_log_mel_batch(x, n, SHORT)
+    assert torch.all(feat[0] == feat[0, 0, 0])
+    assert float(feat[0, 0, 0]) == pytest.approx(-1.5, abs=1e-6)
+    for i in (1, 2):
+        alone, _, _ = whisper.whisper_log_mel_batch(x[i:i + 1], n[i:i + 1],
+                                                    SHORT)
+        torch.testing.assert_close(feat[i:i + 1], alone, rtol=0, atol=1e-6)
+    loud = feat[2]
+    assert float(loud.min()) == pytest.approx(float(loud.max()) - 2.0, abs=1e-6)
+    assert float(loud[-1].max()) == float(loud.min())      # a zero frame
+    assert float(feat[1].min()) == pytest.approx(-1.5, abs=1e-6)
+    assert float(feat[1].min()) < float(loud.min())
+
+
+def _stages_of_each_batch(prof):
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if e.device_type != DeviceType.CUDA and e.name.startswith("feat.")]
+    batches = [s for s in spans if s[0] == "feat.batch"]
+    inside = {b[1]: set() for b in batches}
+    for name, s, e in spans:
+        if name != "feat.batch":
+            (owner,) = [b for b in batches if b[1] <= s and e <= b[2]]
+            inside[owner[1]].add(name)
+    return inside
+
+
+def test_spans_and_frame_counter_under_a_profiler():
+    x, n = _audio(3, 12000), torch.tensor([12000, 5000, 0])
+    report.reset()
+    with profile() as prof:
+        whisper.whisper_log_mel_batch(x, n, SHORT)
+        whisper.whisper_log_mel_batch(x[:2], n[:2], SHORT)
+    inside = _stages_of_each_batch(prof)
+    assert len(inside) == 2 and all(s == STAGES for s in inside.values())
+    assert report.counters()["frames_computed"] == 5 * SHORT.num_frames()
+    assert "feat.whisper_norm" in report.span_names()
+
+
+def test_no_profiler_no_range_and_no_count(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a range entered without a profiler")
+    monkeypatch.setattr(report, "_RecordFunctionFast", refuse)
+    report.reset()
+    whisper.whisper_log_mel_batch(_audio(2, 8000), torch.tensor([8000, 10]),
+                                  SHORT)
+    assert report.counters()["frames_computed"] == 0
+
+
+def test_constants_are_built_once_and_counted_in_consts_s():
+    cfg = WhisperConfig(chunk_s=0.75, n_mels=40, n_mfcc=40).validate()
+    before = report.counters()["consts_s"]
+    x, n = _audio(1, 8000), torch.tensor([8000])
+    whisper.whisper_log_mel_batch(x, n, cfg)
+    after = report.counters()["consts_s"]
+    misses = whisper._plain_constants.cache_info().misses
+    whisper.whisper_log_mel_batch(x, n, cfg)
+    assert after > before
+    assert report.counters()["consts_s"] == after
+    assert whisper._plain_constants.cache_info().misses == misses
+
+
+def test_direct_tile_tables_hold_whispers_window_and_bank():
+    """The direct tile's float32 tables for Whisper: the basis folds the
+    periodic Hann window (``torch.hann_window``) into the 400-point DFT,
+    bins 0..199 in its one block and the Nyquist bin apart; the projection
+    is the Hz triangle bank."""
+    basis, last, melw, dctm = _spectral.direct_blocks(
+        *whisper.constants(WHISPER128), None)
+    assert basis.shape == (1, 400, 512) and dctm is None
+    w = torch.hann_window(400, dtype=torch.float64).numpy()
+    t = np.arange(400)[:, None]
+    k = np.arange(200)[None, :]
+    np.testing.assert_allclose(basis[0, :, :200],
+                               w[:, None] * np.cos(2 * np.pi * t * k / 400),
+                               rtol=0, atol=1e-7)
+    np.testing.assert_allclose(basis[0, :, 256:456],
+                               w[:, None] * np.sin(2 * np.pi * t * k / 400),
+                               rtol=0, atol=1e-7)
+    assert not basis[0, :, 200:256].any() and not basis[0, :, 456:].any()
+    np.testing.assert_allclose(last[:, 0], w * np.cos(np.pi * np.arange(400)),
+                               rtol=0, atol=1e-7)
+    np.testing.assert_array_equal(
+        melw, whisper.constants(WHISPER128)[2].astype(np.float32))
+
+
+def test_auto_on_a_card_reaches_fused_raw_with_whispers_constants(monkeypatch):
+    """With a CUDA tensor "auto" resolves to the kernels: the spectral stage
+    is one ``fused_raw`` call on the config's sizes (n_fft 400, no
+    pre-emphasis, no DCT) with Whisper's direct-tile constants."""
+    calls = []
+
+    def fake(xp, kcfg, *, apply_dct, direct):
+        calls.append((kcfg, apply_dct, direct))
+        return whisper._plain_log_mel(xp, SHORT)
+
+    monkeypatch.setattr(whisper.backend_lib, "resolve", lambda *a: "cuda")
+    monkeypatch.setattr(fused_raw, "fused_features_raw", fake)
+    got, _, _ = whisper.whisper_log_mel_batch(_audio(2, 9000),
+                                              torch.tensor([9000, 4000]), SHORT)
+    ((kcfg, apply_dct, direct),) = calls
+    assert (kcfg.n_fft, kcfg.frame_len, kcfg.hop_len, kcfg.preemph,
+            kcfg.n_mels, kcfg.dynamic_range_db) == (400, 400, 160, 0.0, 128,
+                                                    None)
+    assert apply_dct is False and callable(direct)
+    assert _spectral.fft_tile(kcfg, False) == "direct"
+    assert got.shape == (2, 100, 128)
+
+
+def test_fused_raw_refuses_direct_constants_on_the_cpu():
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_raw.fused_features_raw(
+            torch.zeros(1, 1000), SHORT.feature_config(), apply_dct=False,
+            direct=whisper._direct_consts(SHORT))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(preemph=0.97), "no such step"),
+    (dict(deltas=True), "no such step"),
+    (dict(frame_ms=20.0), "n_fft"),
+    (dict(n_mfcc=13), "n_mfcc"),
+    (dict(chunk_s=0.02), "chunk_s"),
+])
+def test_validate_refuses(bad, match):
+    with pytest.raises(ValueError, match=match):
+        WhisperConfig(**bad).validate()
+
+
+def test_feature_config_is_still_the_jax_twin():
+    """Whisper's fields live in a config of their own: FeatureConfig keeps
+    the JAX package's fields and defaults, and the Whisper defaults are
+    large-v3's (N_FFT 400, HOP_LENGTH 160, 30 s, 128 mels, 3,000 frames)."""
+    jf = [(f.name, f.default)
+          for f in dataclasses.fields(jax_config.FeatureConfig)]
+    tf = [(f.name, f.default)
+          for f in dataclasses.fields(torch_config.FeatureConfig)]
+    assert tf == jf
+    assert not issubclass(WhisperConfig, torch_config.FeatureConfig)
+    assert (WHISPER128.n_fft, WHISPER128.hop_len, WHISPER128.chunk_samples,
+            WHISPER128.n_mels, WHISPER128.num_frames()) == (
+                400, 160, 480_000, 128, 3000)
+    assert math.isclose(whisper.ROW_FLOOR_DB, 80.0)
