@@ -353,18 +353,25 @@ Phases, one status line each; any failure raises and exits non-zero:
    (13.0-13.6 s), each padded to the 30 s window, 3,000 frames x 128
    mels a row.  (a) "auto" on the card, every launch counter reset just
    before the run and read just after it: one ``fused_raw`` launch, on its
-   direct tile; frame counts and mask exact; the features within 1e-5
-   of the plain route on the card (``backend="torch"``, the same inputs)
-   and, as that route's, within ``WHISPER_TOL`` (the cell's
-   ``static_err`` limit, 7e-4) of the benchmark's float64 reference
-   (``perfbench/reference/whisper.py``), each error printed; the plain chain on a wrong window (the symmetric
-   Hann) and on a wrong bank (triangles linear in mel) each over that
-   bound against the reference, so the bound tells Whisper's constants
-   from others; (b) CUDA-event ms of the direct tile alone on the padded
-   rows beside its bound (the transform of the frames that read a sample,
-   the bank and the log at 67 TFLOP/s fp32, or the rows read and the
-   features written at 3.35 TB/s, the larger); (c) the entry's ms a batch
-   and audio-seconds a second.
+   mixed-radix FFT tile ("fft64_mixed"); frame counts and mask exact; the
+   features (``static_err``) within ``WHISPER_FFT64_TOL`` of the
+   benchmark's float64 reference (``perfbench/reference/whisper.py``),
+   the plain route on the card (``backend="torch"``, the same inputs)
+   within ``WHISPER_TOL`` (the cell's ``static_err`` limit, 7e-4), each
+   error printed; the plain chain on a wrong window (the symmetric Hann)
+   and on a wrong bank (triangles linear in mel) each over that bound
+   against the reference, so the bound tells Whisper's constants from
+   others; (b) CUDA-event ms of the mixed tile alone on the padded rows
+   beside three yardsticks: the direct tile it replaced on the same
+   constants (its features within 1e-5 of the plain route's: the same
+   float32 products), the bound (the transform of the frames that read a
+   sample, the bank and the log at 67 TFLOP/s fp32, or the bytes at 3.35
+   TB/s: the kernel's own, the padded float32 rows read and the features
+   written, and the benchmark's least, the valid int16 samples and the
+   features, the larger of operations and bytes each), and
+   ``torch.stft`` of the same rows at n = 400 (cuFFT; the port never
+   calls it) as ``library_ms``; (c) the entry's ms a batch and
+   audio-seconds a second.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -545,6 +552,10 @@ WHISPER_TOL = 7e-4
 # the direct tile against the plain route on the card: the same float32
 # products summed in other orders (1.2e-7 at this batch on the H100)
 WHISPER_PLAIN_TOL = 1e-5
+# the mixed-radix tile (float64 through |X|^2) against the float64
+# reference: its numpy twin reads 1.8e-7 on the benchmark's speech-like
+# rows (tests/test_torch_kernels.py), the direct tile 1.1-2.7e-4
+WHISPER_FFT64_TOL = 2e-5
 # JAX's XLA route on the CPU against the float64 oracle, max abs, on the
 # first second of the bench batch's row 0 as int16 (the reference's own
 # figures; tests/test_torch_accum.py::test_chip_smoke_jax_cpu_figures
@@ -4059,16 +4070,17 @@ def _deltas_phase(torch, dev, smi) -> None:
 
 
 def _whisper_phase(torch, dev, smi) -> None:
-    """Phase 25: ``whisper_log_mel_batch`` through ``fused_raw``'s direct
-    tile at the whisper128 cell's batch, against the plain route and the
-    float64 reference; a wrong window and a wrong bank over the bound; the
-    tile's time beside its bound, and the entry's."""
+    """Phase 25: ``whisper_log_mel_batch`` through ``fused_raw``'s
+    mixed-radix FFT tile at the whisper128 cell's batch, against the
+    float64 reference and the plain route; a wrong window and a wrong bank
+    over the bound; the tile's time beside the direct tile's, its bound
+    and ``torch.stft``'s, and the entry's."""
     import dataclasses
     from mfcc_tpu_torch import backend
     from mfcc_tpu_torch.config import WhisperConfig
     from mfcc_tpu_torch.models import whisper
     from mfcc_tpu_torch.ops import framing, mel, xmath
-    from mfcc_tpu_torch.ops.kernels import fused_deltas, fused_raw
+    from mfcc_tpu_torch.ops.kernels import _spectral, fused_deltas, fused_raw
     from mfcc_tpu_torch.oracle import window_fn
     from mfcc_tpu_torch.ops.spectrum import folded_dft
     from perfbench.reference import whisper as reference
@@ -4091,7 +4103,7 @@ def _whisper_phase(torch, dev, smi) -> None:
     torch.cuda.synchronize()
     launched = {k: m.LAUNCHES for k, m in kernels.items() if m.LAUNCHES}
     tiles = {k: v for k, v in fused_raw.TILE_LAUNCHES.items() if v}
-    assert launched == {"fused_raw": 1} and tiles == {"direct": 1}, (
+    assert launched == {"fused_raw": 1} and tiles == {"fft64_mixed": 1}, (
         launched, tiles)
     assert feat.shape == (B, T, M) and feat.dtype == torch.float32
     assert torch.equal(flens.cpu(), torch.full((B,), T, dtype=torch.int32))
@@ -4116,9 +4128,21 @@ def _whisper_phase(torch, dev, smi) -> None:
         return whisper.normalize(xmath.floored_log(
             backend.matmul(power, melw, "highest"), cfg.log_floor))
 
-    periodic, bank = whisper.periodic_hann(cfg.n_fft), whisper.constants(cfg)[2]
+    front = whisper.front(cfg)
+    periodic, bank = front.window, front.bank
+
+    def tile_call(tile):
+        """One fused_raw launch on the padded rows, Whisper's front, the
+        tile named (None: the rule's pick) -> the natural logs."""
+        return _spectral.launch_spectral(
+            fused_raw._lib, "mfcc_fused_raw", "fused_raw", xp, kcfg, False,
+            kcfg.preemph, other=_spectral.direct_tile("mel", front),
+            tile=tile, front=front, mixed=True)[0]
+
+    direct = whisper.normalize(tile_call("direct"))
     errs = {"kernel": err(feat), "plain": err(plain),
             "kernel vs plain": float((feat - plain).abs().max()),
+            "direct vs plain": float((direct - plain).abs().max()),
             "symmetric Hann": err(chain(window_fn("hann", cfg.n_fft), bank)),
             "mel-linear bank": err(chain(periodic, mel.mel_matrix(kcfg)))}
     sr = cfg.sample_rate
@@ -4126,20 +4150,27 @@ def _whisper_phase(torch, dev, smi) -> None:
          f"{hi / sr:g} s int16 rows in the {cfg.chunk_s:g} s window "
          f"{tuple(feat.shape)}: launched {launched} ({tiles}); frame counts "
          f"{T} and mask exact; max abs vs the float64 reference: kernel "
-         f"{errs['kernel']:.3e}, plain route {errs['plain']:.3e}; kernel vs "
-         f"plain route {errs['kernel vs plain']:.3e} (bound "
-         f"{WHISPER_PLAIN_TOL:g}, against the reference {WHISPER_TOL:g}); "
+         f"(static_err) {errs['kernel']:.3e} (bound {WHISPER_FFT64_TOL:g}), "
+         f"plain route {errs['plain']:.3e} (bound {WHISPER_TOL:g}); kernel "
+         f"vs plain route {errs['kernel vs plain']:.3e}; the direct tile on "
+         f"the same constants vs the plain route "
+         f"{errs['direct vs plain']:.3e} (bound {WHISPER_PLAIN_TOL:g}); "
          f"wrong constants vs the reference: symmetric Hann "
          f"{errs['symmetric Hann']:.3e}, mel-linear bank "
-         f"{errs['mel-linear bank']:.3e} (each over the bound)")
-    assert max(errs["kernel"], errs["plain"]) <= WHISPER_TOL, errs
-    assert errs["kernel vs plain"] <= WHISPER_PLAIN_TOL, errs
+         f"{errs['mel-linear bank']:.3e} (each over {WHISPER_TOL:g})")
+    assert errs["kernel"] <= WHISPER_FFT64_TOL, errs
+    assert errs["plain"] <= WHISPER_TOL, errs
+    assert errs["direct vs plain"] <= WHISPER_PLAIN_TOL, errs
     assert min(errs["symmetric Hann"], errs["mel-linear bank"]) > \
         WHISPER_TOL, errs
-    direct = whisper._direct_consts(cfg)
-    tile = statistics.median(_time_ms(
-        torch, lambda: fused_raw.fused_features_raw(
-            xp, kcfg, apply_dct=False, direct=direct), calls=TIMING_CALLS))
+    ms = {t: statistics.median(_time_ms(torch, lambda t=t: tile_call(t),
+                                        calls=TIMING_CALLS))
+          for t in (None, "direct")}
+    hann = torch.hann_window(cfg.n_fft, device=dev)
+    library = statistics.median(_time_ms(
+        torch, lambda: torch.stft(xp, cfg.n_fft, cfg.hop_len, window=hann,
+                                  center=False, return_complex=True),
+        calls=TIMING_CALLS))
     entry = statistics.median(_time_ms(
         torch, lambda: whisper.whisper_log_mel_batch(x, n, cfg),
         calls=TIMING_CALLS))
@@ -4148,14 +4179,23 @@ def _whisper_phase(torch, dev, smi) -> None:
     P = cfg.n_fft // 2
     read = int(np.minimum(T, (np.minimum(lens, cfg.chunk_samples) - 1 + P)
                           // cfg.hop_len + 1).sum())
-    nbytes = 4 * xp.numel() + 4 * B * T * M
-    bound = max(read * per_frame / FP32_FLOPS,
-                nbytes / HBM_BYTES_PER_S) * 1e3
-    _log(f"{tag} (b) the direct tile alone on the {tuple(xp.shape)} padded "
-         f"rows: {tile:.4f} ms a call (CUDA events); bound {bound:.4f} ms "
-         f"({read} of {B * T} frames read a sample, {per_frame:.0f} "
-         f"operations each at 67 TFLOP/s; {nbytes / 1e6:.1f} MB at 3.35 "
-         f"TB/s), the tile at {100 * bound / tile:.2f} % of it; {smi}")
+    ops_ms = read * per_frame / FP32_FLOPS * 1e3
+    own = 4 * xp.numel() + 4 * B * T * M
+    least = 2 * int(np.minimum(lens, cfg.chunk_samples).sum()) + 4 * B * T * M
+    bound = {k: max(ops_ms, v / HBM_BYTES_PER_S * 1e3)
+             for k, v in (("own", own), ("least", least))}
+    _log(f"{tag} (b) the mixed-radix tile alone on the {tuple(xp.shape)} "
+         f"padded rows: {ms[None]:.4f} ms a call (CUDA events); the direct "
+         f"tile on the same constants {ms['direct']:.4f} ms "
+         f"({ms['direct'] / ms[None]:.2f}x); bound {bound['own']:.4f} ms on "
+         f"the kernel's own bytes ({own / 1e6:.1f} MB at 3.35 TB/s), "
+         f"{bound['least']:.4f} ms on the least ({least / 1e6:.1f} MB: the "
+         f"valid int16 samples and the features; {read} of {B * T} frames "
+         f"read a sample, {per_frame:.0f} operations each at 67 TFLOP/s: "
+         f"{ops_ms:.4f} ms), the tile at {100 * bound['own'] / ms[None]:.2f}"
+         f" % and {100 * bound['least'] / ms[None]:.2f} % of them; "
+         f"library_ms (torch.stft, n = {cfg.n_fft}, the DFT alone) "
+         f"{library:.4f} ms; {smi}")
     audio_s = float(lens.sum()) / cfg.sample_rate
     _log(f"{tag} (c) whisper_log_mel_batch whole: {entry:.4f} ms a batch "
          f"(CUDA events), {audio_s / (entry / 1e3):.0f} audio-s/s")

@@ -11,9 +11,10 @@ Whisper's input, not the batch's.  The stages, each a span under
   padded for the STFT's centring (``framing.stft_center_batch``);
 - ``feat.spectral``: |X|^2 of the periodic Hann window's DFT, the Hz
   triangle mel bank, the floored natural log.  On the card one launch of
-  ``fused_raw``'s direct tile on Whisper's constants (the window folded
-  into the DFT basis, the bank as its projection; no relative floor); on
-  a CPU tensor the same chain in plain torch, float32 IEEE products;
+  ``fused_raw`` on Whisper's window and bank (:func:`front`), whose n_fft
+  of 400 = 2^4 5^2 takes the float64-front mixed-radix FFT tile (no
+  pre-emphasis, no relative floor); on a CPU tensor the same chain in
+  plain torch, float32 IEEE products;
 - ``feat.whisper_norm``: the row's largest value over all its frames and
   bands, the floor :data:`ROW_FLOOR_DB` under it, and the affine that takes
   the natural log to Whisper's (log10 + 4) / 4, in three passes on the
@@ -21,9 +22,10 @@ Whisper's input, not the batch's.  The stages, each a span under
 - ``feat.mask``: the frame counts' mask (every frame is valid).
 
 The constants are built once a config in float64 (:func:`constants`) and
-kept, in page-locked memory for the card (:func:`_pinned_direct`) and on
-the device for the plain chain (:func:`_plain_constants`); their first
-build is counted in ``consts_s``.
+kept: for the card as the tile's tables, which ``ops/kernels/_spectral``
+builds from :func:`front` and keeps on the device, and on the device for
+the plain chain (:func:`_plain_constants`); their first build is counted
+in ``consts_s``.
 """
 
 from __future__ import annotations
@@ -61,10 +63,11 @@ def constants(cfg: WhisperConfig) -> tuple:
 
 @functools.lru_cache(maxsize=8)
 @report.timed("consts_s")
-def _pinned_direct(cfg: WhisperConfig) -> tuple:
-    """The direct tile's float32 constants (``_spectral.direct_blocks``)
-    in page-locked memory."""
-    return _spectral.pinned(_spectral.direct_blocks(*constants(cfg), None))
+def front(cfg: WhisperConfig) -> _spectral.Front:
+    """Whisper's window (the periodic Hann) and bank (the Hz triangles) in
+    float64, as ``fused_raw`` takes them; one a config, which the
+    kernels' constant caches key on."""
+    return _spectral.Front(periodic_hann(cfg.n_fft), constants(cfg)[2])
 
 
 @functools.lru_cache(maxsize=8)
@@ -75,17 +78,6 @@ def _plain_constants(cfg: WhisperConfig, device: torch.device) -> tuple:
     cos_m, sin_m, melw = constants(cfg)
     return tuple(torch.from_numpy(a.astype(np.float32)).to(device)
                  for a in (np.concatenate([cos_m, sin_m], axis=1), melw))
-
-
-def _direct_consts(cfg: WhisperConfig):
-    """``fused_raw``'s ``direct`` for cfg: the pinned constants uploaded
-    on the current stream."""
-    def consts(_, device):
-        basis, last, melw, _ = (None if t is None
-                                else t.to(device, non_blocking=True)
-                                for t in _pinned_direct(cfg))
-        return [basis, basis.shape[0], last, melw], None
-    return consts
 
 
 def _plain_log_mel(xp: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
@@ -104,13 +96,13 @@ def _plain_log_mel(xp: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
 def log_mel(xp: torch.Tensor, cfg: WhisperConfig,
             backend: str = "auto") -> torch.Tensor:
     """(B, L) padded rows (``framing.stft_center_batch``) -> (B, T, n_mels)
-    floored natural log of the mel energies: ``fused_raw``'s direct tile
-    on a CUDA tensor, else the plain chain."""
+    floored natural log of the mel energies: ``fused_raw`` on Whisper's
+    :func:`front` on a CUDA tensor, else the plain chain."""
     kcfg = cfg.feature_config()
     if backend_lib.resolve(backend, xp, kcfg) == "cuda":
         return fused_raw.fused_features_raw(
             xp.to(torch.float32).contiguous(), kcfg, apply_dct=False,
-            direct=_direct_consts(cfg))
+            front=front(cfg))
     return _plain_log_mel(xp, cfg)
 
 

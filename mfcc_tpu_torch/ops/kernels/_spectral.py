@@ -12,15 +12,22 @@
   projection's output width, its (n_bins, width) matrix, and the floats a
   tile stages per frame for it.
 - :func:`direct_matrices` — the direct tile's float32 constants.
-- :func:`fft_tile`, :func:`fft_smem_bytes`, :func:`fft_matrices`,
-  :func:`mel_bands`, :func:`mel_chunks` — the tile rule (which tile a
-  config takes: the f32 FFT tile "fft", its float64-front flavour "fft64",
-  or the entry's other tile), and the FFT tile's constants.
+- :func:`fft_tile`, :func:`fft_radices`, :func:`fft_smem_bytes`,
+  :func:`fft_matrices`, :func:`fft_tables`, :func:`mel_bands`,
+  :func:`mel_chunks` — the tile rule (which tile a config takes: the f32
+  FFT tile "fft", its float64-front flavour "fft64" or, at an n_fft of
+  2^a 5^b, that flavour's mixed-radix tile "fft64_mixed", or the entry's
+  other tile), the tile's passes, and its constants.
+- :class:`Front` — a front end's own window and filterbank, which a
+  config's fields cannot state (``models/whisper``): the entries build
+  whichever tile's tables from them.
 - :func:`pinned` — constants in page-locked memory, so that each call's
   upload is an asynchronous copy on the launch stream.  The host seconds
   of each miss of the launch path's constant caches
   (:func:`_device_fft_matrices`, the pinned direct constants), the
-  float64 build included, go to ``utils/report``'s counter ``consts_s``.
+  float64 build included, go to ``utils/report``'s counter ``consts_s``;
+  the frames of each call that runs a direct tile go to its per-batch
+  counter ``frames_direct``.
 - :func:`check_input`, :func:`epilogue_args`, :func:`raise_on_error` — the
   wrappers' common checks and launch arguments.
 - :func:`entry_argtypes`, :func:`launch_spectral` — the C types of a
@@ -32,6 +39,7 @@
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -157,25 +165,52 @@ def direct_blocks(cos_m: np.ndarray, sin_m: np.ndarray, proj, dct) -> tuple:
 
 
 # Per FFT tile flavour: bytes per scalar, complex points per wave, pad
-# shift, samples staged before the span (spectral::FftFlavour).
-FFT_FLAVOURS = {"fft": (4, 2048, 5, 0), "fft64": (8, 1024, 4, 1)}
+# shift, samples staged before the span (spectral::FftFlavour; the mixed
+# tile is the float64 flavour's with spectral::kMixedWavePoints).
+FFT_FLAVOURS = {"fft": (4, 2048, 5, 0), "fft64": (8, 1024, 4, 1),
+                "fft64_mixed": (8, 2048, 4, 1)}
+# the mixed tile's plan (must match spectral::kMixedPow2Radix and
+# spectral::kMixedFivesFirst)
+MIXED_POW2_RADIX, MIXED_FIVES_FIRST = 4, False
 MAX_SMEM = 232448   # the H100's shared memory per block (opt-in), bytes
 
 
 def fft_smem_bytes(cfg: FeatureConfig, tile: str, tm: int,
                    projection: str = "mel") -> int:
     """Shared-memory bytes of an FFT tile of tm frames for cfg
-    (``spectral::fft_smem_bytes`` with ``launch_fft``'s pairs and span)."""
+    (``spectral::fft_smem_bytes`` with ``launch_fft``'s pairs, a power of
+    two, and span)."""
     size, wave, shift, lead = FFT_FLAVOURS[tile]
     n = cfg.n_fft
-    pairs = max(1, min(wave // n, tm // 2))
+    pairs = min(1 << max(0, (wave // n).bit_length() - 1), tm // 2)
     span = ((tm - 1) * cfg.hop_len + cfg.frame_len + 3) // 4 * 4
     return (size * 4 * pairs * (n + (n >> shift))
             + 4 * (span + lead + tm * staged_width(cfg, projection) + 2 * tm))
 
 
+def fft_radices(n: int) -> list | None:
+    """The FFT tile's radix passes over n points, in order, the first
+    reading the span: a power of two in radix-8 passes, then one radix-2
+    or radix-4 pass where log2 n is no multiple of 3 (``fft_features``);
+    n = 2^a 5^b with b >= 1 as ``spectral::mixed_plan`` plans it (the
+    power-of-two part in radix-``MIXED_POW2_RADIX`` passes and one radix-2
+    or radix-4 pass for the rest, the radix-5 passes after them, or before
+    with ``MIXED_FIVES_FIRST``); None for any other n."""
+    a = (n & -n).bit_length() - 1 if n > 0 else 0
+    m, b = n >> a, 0
+    while m > 1 and m % 5 == 0:
+        m, b = m // 5, b + 1
+    if n < 1 or m != 1:
+        return None
+    if b == 0:
+        return [8] * (a // 3) + ([1 << a % 3] if a % 3 else [])
+    lr = MIXED_POW2_RADIX.bit_length() - 1
+    pow2 = [MIXED_POW2_RADIX] * (a // lr) + ([1 << a % lr] if a % lr else [])
+    return [5] * b + pow2 if MIXED_FIVES_FIRST else pow2 + [5] * b
+
+
 def fft_tile(cfg: FeatureConfig, apply_dct: bool,
-             projection: str = "mel") -> str:
+             projection: str = "mel", mixed: bool = False) -> str:
     """The tile the spectral entries run for cfg, decided from the config
     alone:
 
@@ -204,13 +239,24 @@ def fft_tile(cfg: FeatureConfig, apply_dct: bool,
 
     Both flavours need a power-of-two n_fft from 64 to 4096 that holds the
     frame (``spectral::fft_tile_ok``) and a frame tile of 8 whose shared
-    memory fits a block (:func:`fft_smem_bytes`)."""
+    memory fits a block (:func:`fft_smem_bytes`).  In an entry with the
+    mixed-radix tile (``mixed``: ``fused_raw`` alone), an n_fft from 64 to
+    4096 of the form 2^a 5^b (b >= 1; Whisper's 400) that would take
+    "fft64" takes "fft64_mixed", the same flavour with radix-5 passes
+    beside the radix-2/4/8 ones (:func:`fft_radices`), on the band
+    projections; the "fft" flavour and the other entries keep the direct
+    tile there.  The factors of n_fft decide, no setting."""
     n = cfg.n_fft
-    if not (FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0
+    radices = fft_radices(n)
+    if not (FFT_MIN <= n <= FFT_MAX and radices is not None
             and 1 <= cfg.frame_len <= n):
         return "direct"
     tile = ("fft" if projection == "mel" and routes.use_dit(cfg, apply_dct)
             else "fft64")
+    if 5 in radices:
+        if not (mixed and tile == "fft64" and projection != "spec"):
+            return "direct"
+        tile = "fft64_mixed"
     return (tile if fft_smem_bytes(cfg, tile, 8, projection) <= MAX_SMEM
             else "direct")
 
@@ -238,11 +284,24 @@ def mel_chunks(bands: np.ndarray, size: int = MEL_CHUNK):
     return np.array(chunks, np.int32).reshape(-1, 2), band_chunks
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Front:
+    """A front end's own analysis window (frame_len,) and filterbank
+    (n_bins, n_bands), float64, which a config's fields cannot state
+    (``models/whisper``): the spectral entries build whichever tile's
+    tables from these in place of the config's window and mel matrix, with
+    no DCT.  Hashed by identity, so that the constant caches key on it:
+    keep one per config."""
+    window: np.ndarray
+    bank: np.ndarray
+
+
 @functools.lru_cache(maxsize=16)
 def fft_matrices(cfg: FeatureConfig, tile: str = "fft",
                  projection: str = "mel"):
     """Constants of the FFT tile's flavour ``tile`` for ``projection``,
-    from the float64 twins.
+    from the float64 twins (:func:`fft_tables` of the config's window,
+    projection and DCT).
 
     window (frame_len,): the analysis window (``spectrum.dft_matrices``'
       window, unfolded);
@@ -257,14 +316,24 @@ def fft_matrices(cfg: FeatureConfig, tile: str = "fft",
     dct (n_mels, n_mfcc) f32, lifter folded in ("mel" only).
     "spec" has no projection: chunk_w, chunks, band_chunks and dct are None.
     """
-    ang = 2.0 * np.pi * np.arange(cfg.n_fft, dtype=np.float64) / cfg.n_fft
+    return fft_tables(oracle.window_fn(cfg.window, cfg.frame_len),
+                      cfg.n_fft, projection_matrix(cfg, projection),
+                      dct_op.dct_matrix(cfg) if projection == "mel" else None,
+                      tile)
+
+
+def fft_tables(window: np.ndarray, n_fft: int, proj, dct, tile: str):
+    """:func:`fft_matrices`' constants from a float64 window, n_fft, a
+    (n_bins, width) float64 projection (None: the spectrogram's) and a
+    DCT (or None), for flavour ``tile``."""
+    ang = 2.0 * np.pi * np.arange(n_fft, dtype=np.float64) / n_fft
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=1)
-    win = oracle.window_fn(cfg.window, cfg.frame_len)
+    win = np.asarray(window, np.float64)
     if tile == "fft":
         tw, win = tw.astype(np.float32), win.astype(np.float32)
-    if projection == "spec":
+    if proj is None:
         return np.ascontiguousarray(win), tw, None, None, None, None
-    melw = projection_matrix(cfg, projection).astype(np.float32)
+    melw = proj.astype(np.float32)
     chunks, band_chunks = mel_chunks(mel_bands(melw))
     chunk_w = np.zeros((chunks.shape[0], MEL_CHUNK), np.float32)
     for j, (c0, c1) in enumerate(band_chunks):
@@ -272,17 +341,20 @@ def fft_matrices(cfg: FeatureConfig, tile: str = "fft",
             k0, k1 = chunks[c]
             chunk_w[c, : k1 - k0] = melw[k0:k1, j]
     return (np.ascontiguousarray(win), tw, chunk_w, chunks, band_chunks,
-            _f32(dct_op.dct_matrix(cfg)) if projection == "mel" else None)
+            _f32(dct))
 
 
 @functools.lru_cache(maxsize=16)
 @report.timed("consts_s")
 def _device_fft_matrices(cfg: FeatureConfig, tile: str, projection: str,
-                         device: torch.device):
+                         device: torch.device, front: Front | None = None):
     """The constants of FFT flavour ``tile`` on one device, uploaded once
-    per (config, flavour, projection, device) and kept."""
+    per (config, flavour, projection, device, front) and kept: the
+    config's, or the front end's (``front``)."""
+    arrays = (fft_matrices(cfg, tile, projection) if front is None else
+              fft_tables(front.window, cfg.n_fft, front.bank, None, tile))
     return tuple(None if a is None else torch.from_numpy(a).to(device)
-                 for a in fft_matrices(cfg, tile, projection))
+                 for a in arrays)
 
 
 def pinned(arrays) -> tuple:
@@ -295,8 +367,12 @@ def pinned(arrays) -> tuple:
 
 @functools.lru_cache(maxsize=16)
 @report.timed("consts_s")
-def _pinned_direct_matrices(cfg: FeatureConfig, projection: str):
-    return pinned(direct_matrices(cfg, projection))
+def _pinned_direct_matrices(cfg: FeatureConfig, projection: str,
+                            front: Front | None = None):
+    if front is None:
+        return pinned(direct_matrices(cfg, projection))
+    return pinned(direct_blocks(*spectrum.folded_dft(front.window, cfg.n_fft),
+                                front.bank, None))
 
 
 def kernel_config(cfg: FeatureConfig) -> FeatureConfig:
@@ -351,7 +427,7 @@ EPILOGUE_ARGTYPES = [_I, _I, _F, _F, _I, _I]
 # the direct tile's constants: (basis, nbb, last, melw)
 DIRECT_ARGTYPES = [_P, _I, _P, _P]
 # the tile codes of the C entries (spectral::Tile; the other tile is 0)
-TILE_CODES = {"fft": 1, "fft64": 2}
+TILE_CODES = {"fft": 1, "fft64": 2, "fft64_mixed": 3}
 
 
 def entry_argtypes(other, preemph: bool, projection: bool = False) -> list:
@@ -397,14 +473,14 @@ def _empty_out(x: torch.Tensor, cfg: FeatureConfig, apply_dct: bool,
 
 
 def direct_consts(cfg: FeatureConfig, device: torch.device,
-                  projection: str = "mel"):
+                  projection: str = "mel", front: Front | None = None):
     """The direct tile's constants as the entries take them, uploaded from
     pinned memory on the current stream: -> ([basis, nbb, last, melw],
-    dctm); melw is the projection (None for "spec"), dctm None but for
-    "mel"."""
+    dctm); melw is the projection (None for "spec"; the bank of a
+    ``front``), dctm None but for "mel" without a front."""
     basis, last, melw, dctm = (
         None if t is None else t.to(device, non_blocking=True)
-        for t in _pinned_direct_matrices(cfg, projection))
+        for t in _pinned_direct_matrices(cfg, projection, front))
     return [basis, basis.shape[0], last, melw], dctm
 
 
@@ -412,12 +488,12 @@ def direct_consts(cfg: FeatureConfig, device: torch.device,
 DIRECT_TILE = ("direct", direct_consts, [None, 0, None, None])
 
 
-def direct_tile(projection: str):
-    """The direct tile with the projection's constants."""
-    if projection == "mel":
+def direct_tile(projection: str, front: Front | None = None):
+    """The direct tile with the projection's constants, or a front end's."""
+    if projection == "mel" and front is None:
         return DIRECT_TILE
-    return ("direct", functools.partial(direct_consts, projection=projection),
-            DIRECT_TILE[2])
+    return ("direct", functools.partial(direct_consts, projection=projection,
+                                        front=front), DIRECT_TILE[2])
 
 
 def _arg(a):
@@ -427,16 +503,20 @@ def _arg(a):
 def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
                     cfg: FeatureConfig, apply_dct: bool,
                     preemph: float | None, other=DIRECT_TILE,
-                    tile: str | None = None, projection: str | None = None):
+                    tile: str | None = None, projection: str | None = None,
+                    front: Front | None = None, mixed: bool = False):
     """Launch a spectral entry on x's device and current stream.
 
-    The tile is :func:`fft_tile`'s pick for the config, or ``tile`` where
-    the caller names one (to time the tile a kernel replaced on the same
-    work; the C entry refuses one the shape does not allow).  An FFT
-    flavour reads its constants from the device (:func:`_device_fft_matrices`);
-    the entry's other tile, ``other`` = (name, consts(cfg, device) ->
-    (its constants, dctm), their nulls), uploads its constants per call;
-    the tile not run gets nulls.  preemph goes to the entries that
+    The tile is :func:`fft_tile`'s pick for the config (``mixed``: the
+    entry has the mixed-radix tile), or ``tile`` where the caller names
+    one (to time the tile a kernel replaced on the same work; the C entry
+    refuses one the shape does not allow).  An FFT flavour reads its
+    constants from the device (:func:`_device_fft_matrices`, of the
+    ``front`` where one is given); the entry's other tile, ``other`` =
+    (name, consts(cfg, device) -> (its constants, dctm), their nulls),
+    uploads its constants per call (a front's through
+    :func:`direct_tile`); the tile not run gets nulls.  A call that runs
+    the direct tile counts its B x T frames in ``frames_direct``.  preemph goes to the entries that
     pre-emphasize in the kernel (None for ``fused_mfcc`` and
     ``fused_dit``).  ``projection`` goes to the entry that takes one
     (``fused_raw_dit``; None for the others, which project on mel); the
@@ -451,12 +531,15 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
         return out, None
     lib = lib_fn()
     other_name, other_consts, other_nulls = other
-    tile = tile or fft_tile(cfg, apply_dct, proj)
+    tile = tile or fft_tile(cfg, apply_dct, proj, mixed)
     if tile == "direct":
         tile = other_name
+    if tile == "direct":
+        report.count("frames_direct", out.shape[0] * out.shape[1])
     with torch.cuda.device(x.device), report.span(name):
         if tile in TILE_CODES:
-            *fft, dctm = _device_fft_matrices(cfg, tile, proj, x.device)
+            *fft, dctm = _device_fft_matrices(cfg, tile, proj, x.device,
+                                              front)
             n_chunks = 0 if fft[3] is None else fft[3].shape[0]
             consts = other_nulls + fft[:5] + [n_chunks]
         else:

@@ -2,7 +2,9 @@
 // fused_raw.cu, fused_mfcc.cu, fused_dit.cu), and the launch of it or of
 // the direct tile of spectral.cuh.  One tile in two flavours, by its scalar
 // type S; the host picks one from the config (_spectral.fft_tile) for a
-// power-of-two n_fft from 64 to 4096 that holds the frame:
+// power-of-two n_fft from 64 to 4096 that holds the frame (fused_raw.cu
+// also runs the float64 flavour at n_fft = 2^a 5^b: the mixed-radix tile,
+// fft_mixed_features below):
 // - float ("fft"), for cepstra and log-mel bounded to <= 50 dB, where the
 //   floors bound the spectral valleys;
 // - double ("fft64", the float64 front), for unbounded log-mel, PLP's bark
@@ -113,8 +115,9 @@ constexpr int kMelChunk = 16;                // bins per mel chunk
 
 // The tile a C entry runs (the host passes it as an int): the entry's other
 // tile (the direct tile; fused_dit.cu's DIT tile), or a flavour of the FFT
-// tile.
-enum Tile { kOtherTile = 0, kFftTile = 1, kFft64Tile = 2 };
+// tile (kFft64MixedTile: the float64 front at n_fft = 2^a 5^b, b >= 1, in
+// fused_raw.cu alone).
+enum Tile { kOtherTile = 0, kFftTile = 1, kFft64Tile = 2, kFft64MixedTile = 3 };
 
 // Each flavour's layout.  kWavePoints: complex points per wave;
 // kPadShift: one pad element after every 2^kPadShift; kRadix: the radix of
@@ -179,6 +182,20 @@ struct FftParams {
   S preemph;           // 0: the host pre-emphasized (or the config has none)
 };
 
+// The mixed tile's parameters: the float64 flavour's (log2n unused) and
+// its plan, the radix of each pass over n points in order (mixed_plan).
+constexpr int kMixedMaxPasses = 8;
+struct FftMixedParams {
+  FftParams<double> f;
+  int n, passes;
+  int radix[kMixedMaxPasses];
+};
+
+// The FFT tile's own parameters inside a kernel's.
+inline FftParams<float>& fft_params(FftParams<float>& p) { return p; }
+inline FftParams<double>& fft_params(FftParams<double>& p) { return p; }
+inline FftParams<double>& fft_params(FftMixedParams& q) { return q.f; }
+
 __device__ __forceinline__ float fma_s(float a, float b, float c) {
   return fmaf(a, b, c);
 }
@@ -224,6 +241,11 @@ __device__ __forceinline__ void dft4(S& r0, S& i0, S& r1, S& i1, S& r2, S& i2,
   i3 = t1i + t3r;
 }
 
+// cos and sin of 2 pi / 5 and 4 pi / 5, correctly rounded to float64 (the
+// mixed tile's 5-point DFT)
+constexpr double kCos5a = 0x1.3c6ef372fe950p-2, kCos5b = -0x1.9e3779b97f4a8p-1;
+constexpr double kSin5a = 0x1.e6f0e134454ffp-1, kSin5b = 0x1.2cf2304755a5ep-1;
+
 template <int R, typename S>
 __device__ __forceinline__ void dft(S (&re)[R], S (&im)[R]) {
   if constexpr (R == 2) {
@@ -234,6 +256,28 @@ __device__ __forceinline__ void dft(S (&re)[R], S (&im)[R]) {
     im[0] = ai;
   } else if constexpr (R == 4) {
     dft4(re[0], im[0], re[1], im[1], re[2], im[2], re[3], im[3]);
+  } else if constexpr (R == 5) {
+    // the pairs (1, 4) and (2, 3): a = x_p + x_5-p, b = x_p - x_5-p;
+    // X1, X4 = m1 -+ i t1 and X2, X3 = m2 -+ i t2
+    const S c1 = kCos5a, c2 = kCos5b, s1 = kSin5a, s2 = kSin5b;
+    const S a1r = re[1] + re[4], a1i = im[1] + im[4];
+    const S b1r = re[1] - re[4], b1i = im[1] - im[4];
+    const S a2r = re[2] + re[3], a2i = im[2] + im[3];
+    const S b2r = re[2] - re[3], b2i = im[2] - im[3];
+    const S m1r = re[0] + c1 * a1r + c2 * a2r, m1i = im[0] + c1 * a1i + c2 * a2i;
+    const S m2r = re[0] + c2 * a1r + c1 * a2r, m2i = im[0] + c2 * a1i + c1 * a2i;
+    const S t1r = s1 * b1r + s2 * b2r, t1i = s1 * b1i + s2 * b2i;
+    const S t2r = s2 * b1r - s1 * b2r, t2i = s2 * b1i - s1 * b2i;
+    re[0] = re[0] + a1r + a2r;
+    im[0] = im[0] + a1i + a2i;
+    re[1] = m1r + t1i;  // m - i t
+    im[1] = m1i - t1r;
+    re[4] = m1r - t1i;  // m + i t
+    im[4] = m1i + t1r;
+    re[2] = m2r + t2i;
+    im[2] = m2i - t2r;
+    re[3] = m2r - t2i;
+    im[3] = m2i + t2r;
   } else {
     static_assert(R == 8, "radix");
     const S h = FftFlavour<S>::kSqrtHalf;
@@ -267,6 +311,35 @@ __device__ __forceinline__ void dft(S (&re)[R], S (&im)[R]) {
 
 __host__ __device__ constexpr int log2_radix(int R) {
   return R == 8 ? 3 : R == 4 ? 2 : 1;
+}
+
+// The mixed tile's plan of n = 2^a 5^b (b >= 1): the power-of-two part in
+// radix-kMixedPow2Radix passes, then one radix-2 or radix-4 pass for what
+// is left of it, and the b radix-5 passes after those (before them with
+// kMixedFivesFirst); the first pass reads the span.  false for any other
+// n.  _spectral.fft_radices is its mirror.
+constexpr int kMixedPow2Radix = 4;
+constexpr bool kMixedFivesFirst = false;
+// complex points a wave of the mixed tile (the float64 flavour's
+// FftFlavour::kWavePoints is 1024): at 400 points four FFTs, TM 16
+constexpr int kMixedWavePoints = 2048;
+
+inline bool mixed_plan(int n, FftMixedParams& q) {
+  int a = 0, b = 0, m = n;
+  for (; m > 1 && m % 2 == 0; m /= 2) ++a;
+  for (; m > 1 && m % 5 == 0; m /= 5) ++b;
+  if (m != 1 || b == 0) return false;
+  int pow2[kMixedMaxPasses], np2 = 0;
+  constexpr int lr = log2_radix(kMixedPow2Radix);
+  for (; a >= lr; a -= lr) pow2[np2++] = kMixedPow2Radix;
+  if (a > 0) pow2[np2++] = 1 << a;
+  if (np2 + b > kMixedMaxPasses) return false;
+  q.n = n;
+  q.passes = 0;
+  for (int i = 0; kMixedFivesFirst && i < b; ++i) q.radix[q.passes++] = 5;
+  for (int i = 0; i < np2; ++i) q.radix[q.passes++] = pow2[i];
+  for (int i = 0; !kMixedFivesFirst && i < b; ++i) q.radix[q.passes++] = 5;
+  return true;
 }
 
 // One Stockham radix-R pass over `pairs` FFTs of 2^log2n points, from
@@ -507,26 +580,276 @@ __device__ __forceinline__ void fft_features(const FftParams<S>& p) {
   finish<TM>(p.e, mel, rowv, en, b, t0);
 }
 
-// The FFT launch: the largest frame tile (TM = 64, 32, 16, 8) whose shared
+// ---------------------------------------------------------------------------
+// The mixed-radix tile: the float64-front flavour at n_fft = 2^a 5^b (b >=
+// 1), which only fused_raw.cu instantiates (raw_fft_kernel<TM> on
+// FftMixedParams; every power-of-two instantiation above is untouched).
+// It replaces the direct tile for Whisper's n_fft of 400 = 2^4 5^2
+// (models/whisper: the periodic Hann window, the Hz-triangle bank, no
+// pre-emphasis), where the direct tile did 400 x 512 FMAs a frame, 31x the
+// front end's least operations.
+//
+// What bounds it on the card: at Whisper's cell batch (256 rows x 3,000
+// frames, 128 mels) the least work is the int16 samples and the features,
+// 0.50 GB: 0.1485 ms at 3.35 TB/s; the operations of the frames that read
+// a sample, 4.3 GFLOP, are 0.065 ms at 67 TFLOP/s.  Bytes.  The kernel
+// itself reads the float32 rows the host padded (its 884 MB are 0.264 ms).
+//
+// What the design does about it: the data flow of fft_features, with the
+// passes a plan of radix-5 and radix-2/4/8 Stockham passes (mixed_plan):
+// each span is read once into shared memory and each feature written
+// once, and between them the transform stays on chip, ~3 blocks an SM.
+// - The pass over n points that are no power of two indexes by division:
+//   butterfly j of an FFT is j = u mod n/R, k = j mod ns; the twiddle of
+//   point r is table entry k r n / (ns R), below n since k < ns and r < R
+//   (no shift, no mask); the 5-point DFT holds its points in registers.
+// - The split's partner of bin k is bin n - k, and bin 0 its own.
+// - The frame energy, which only a cepstral c0 reads, is computed only
+//   where the epilogue appends it (Whisper's log-mel never does).
+// - The plan and the wave: 4 4 5 5 at 400 points (the first pass reads
+//   the span), 2-4 % ahead of 8 2 5 5 and 7 % of 5 5 4 4 on the H100; a
+//   wave of kMixedWavePoints, four FFTs of 400 points, so that every pass
+//   has work for the block's threads (320-400 butterflies), at TM 16
+//   (~72 KB, three blocks an SM): 6 % ahead of two FFTs at TM 32, and 13-
+//   19 % of two blocks an SM at TM 64 (tools/ablate_fft_tile.py).  The
+//   pairs are a power of two, as launch_fft takes them.
+// ---------------------------------------------------------------------------
+
+// One Stockham radix-R pass of the mixed tile over `pairs` FFTs of n
+// points, ns the length of the sub-transforms done (fft_pass's data flow
+// with n = R nq any multiple of R).
+template <int R>
+__device__ __forceinline__ void mixed_pass(const double* sr, const double* si,
+                                           double* dr, double* di,
+                                           const double2* tw, int n, int ns,
+                                           int pairs, int nfp) {
+  const int nq = n / R, step = n / (ns * R);
+  for (int u = threadIdx.x; u < pairs * nq; u += kThreads) {
+    const int f = u / nq, j = u - f * nq, k = j % ns;
+    const double* xr = sr + f * nfp;
+    const double* xi = si + f * nfp;
+    double vr[R], vi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int idx = fft_pad<double>(j + r * nq);
+      vr[r] = xr[idx];
+      vi[r] = xi[idx];
+    }
+    if (k != 0) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        const double2 w = __ldg(tw + k * r * step);  // (cos, sin)
+        const double a = vr[r], c = vi[r];
+        vr[r] = a * w.x + c * w.y;  // (a + i c)(cos - i sin)
+        vi[r] = c * w.x - a * w.y;
+      }
+    }
+    dft<R>(vr, vi);
+    double* yr = dr + f * nfp;
+    double* yi = di + f * nfp;
+    const int base = (j - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int idx = fft_pad<double>(base + r * ns);
+      yr[idx] = vr[r];
+      yi[idx] = vi[r];
+    }
+  }
+}
+
+// The mixed tile's first pass (ns = 1, no twiddles) from the span:
+// fft_first_pass's data flow over n = R nq points.
+template <int R>
+__device__ __forceinline__ void mixed_first_pass(const float* z,
+                                                 const double* win,
+                                                 int frame_len, int hop,
+                                                 int q0, double preemph,
+                                                 double* dr, double* di,
+                                                 int n, int pairs, int nfp) {
+  const int nq = n / R;
+  for (int u = threadIdx.x; u < pairs * nq; u += kThreads) {
+    const int f = u / nq, j = u - f * nq;
+    const float* za = z + 2 * (q0 + f) * hop;
+    double vr[R], vi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int s = j + r * nq;
+      double a = 0, c = 0;
+      if (s < frame_len) {
+        const double w = __ldg(win + s);
+        a = w * span_sample(za, s, preemph);
+        c = w * span_sample(za + hop, s, preemph);
+      }
+      vr[r] = a;
+      vi[r] = c;
+    }
+    dft<R>(vr, vi);
+    double* yr = dr + f * nfp;
+    double* yi = di + f * nfp;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int idx = fft_pad<double>(R * j + r);
+      yr[idx] = vr[r];
+      yi[idx] = vi[r];
+    }
+  }
+}
+
+template <int TM>
+__device__ __forceinline__ void fft_mixed_features(const FftMixedParams& q) {
+  static_assert(TM >= 8 && kThreads % TM == 0, "frame tile");
+  const FftParams<double>& p = q.f;
+  extern __shared__ __align__(16) float smem[];
+  const int n = q.n, nfp = fft_pad<double>(n), wave = p.pairs * nfp;
+  double* const re0 = reinterpret_cast<double*>(smem);  // as fft_features
+  double* const im0 = re0 + wave;
+  double* const re1 = re0 + 2 * wave;
+  double* const im1 = re0 + 3 * wave;
+  float* z = reinterpret_cast<float*>(re0 + 4 * wave) + 1;  // raw, lead 1
+  float* bands = z + p.span;                  // (TM, n_mels) energies, logs
+  float* rowv = bands + TM * p.e.n_mels;      // (TM) floors (epilogue)
+  float* en = rowv + TM;                      // (TM) frame energy
+
+  const int tid = threadIdx.x, b = blockIdx.x / p.tiles;
+  const int t0 = (blockIdx.x % p.tiles) * TM;
+  const float* xb = p.x + static_cast<long long>(b) * p.N;
+  stage_raw_span(xb, p.N, static_cast<long long>(t0) * p.hop, p.span, z);
+  __syncthreads();
+
+  // ---- the unwindowed frame energy, where c0 reads it ----
+  if (p.e.append_energy) {
+    constexpr int G = kThreads / TM;
+    const int m = tid / G, l = tid % G;
+    double sum = 0;
+    for (int k = l; k < p.frame_len; k += G) {
+      const double v = span_sample(z + m * p.hop, k, p.preemph);
+      sum = fma(v, v, sum);
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (l == 0) en[m] = static_cast<float>(sum);
+  }
+
+  const int half = n >> 1, nm = p.e.n_mels, nch = p.n_chunks;
+  for (int w0 = 0; w0 < TM / 2; w0 += p.pairs) {
+    // ---- the FFT of frames 2q + i 2q+1 (q = w0 + f, windowed): the plan's
+    // passes in order, the first from the span into (re0, im0); `odd`
+    // says whether the spectrum ended in (re1, im1) ----
+    bool odd = false;
+    for (int s = 0, ns = 1; s < q.passes; ns *= q.radix[s], ++s) {
+      double* sr = odd ? re1 : re0;
+      double* si = odd ? im1 : im0;
+      double* dr = odd ? re0 : re1;
+      double* di = odd ? im0 : im1;
+      if (s == 0) {
+        switch (q.radix[0]) {
+          case 2: mixed_first_pass<2>(z, p.win, p.frame_len, p.hop, w0,
+                                      p.preemph, re0, im0, n, p.pairs, nfp);
+            break;
+          case 4: mixed_first_pass<4>(z, p.win, p.frame_len, p.hop, w0,
+                                      p.preemph, re0, im0, n, p.pairs, nfp);
+            break;
+          case 5: mixed_first_pass<5>(z, p.win, p.frame_len, p.hop, w0,
+                                      p.preemph, re0, im0, n, p.pairs, nfp);
+            break;
+          default: mixed_first_pass<8>(z, p.win, p.frame_len, p.hop, w0,
+                                       p.preemph, re0, im0, n, p.pairs, nfp);
+        }
+      } else {
+        switch (q.radix[s]) {
+          case 2: mixed_pass<2>(sr, si, dr, di, p.tw, n, ns, p.pairs, nfp);
+            break;
+          case 4: mixed_pass<4>(sr, si, dr, di, p.tw, n, ns, p.pairs, nfp);
+            break;
+          case 5: mixed_pass<5>(sr, si, dr, di, p.tw, n, ns, p.pairs, nfp);
+            break;
+          default: mixed_pass<8>(sr, si, dr, di, p.tw, n, ns, p.pairs, nfp);
+        }
+        odd = !odd;
+      }
+      __syncthreads();
+    }
+
+    // ---- split the two real spectra: |X_a[k]|^2 -> re[k], |X_b[k]|^2 ->
+    // im[k], k = 0..n/2, rounded to f32; bin k's partner is n - k, bin
+    // 0's itself ----
+    double* zr = odd ? re1 : re0;
+    double* zi = odd ? im1 : im0;
+    for (int o = tid; o < p.pairs * (half + 1); o += kThreads) {
+      const int f = o / (half + 1), k = o - f * (half + 1);
+      const int pk = f * nfp + fft_pad<double>(k);
+      const int pn = f * nfp + fft_pad<double>(k == 0 ? 0 : n - k);
+      const double a = zr[pk], bi = zi[pk], c = zr[pn], d = zi[pn];
+      const double xr = 0.5 * (a + c), xi = 0.5 * (bi - d);
+      const double yr = 0.5 * (bi + d), yi = 0.5 * (c - a);
+      zr[pk] = static_cast<float>(xr * xr + xi * xi);
+      zi[pk] = static_cast<float>(yr * yr + yi * yi);
+    }
+    __syncthreads();
+
+    // ---- sparse bands in f32, as fft_features sums them ----
+    float* part = reinterpret_cast<float*>(odd ? re0 : re1);
+    for (int o = tid; o < 2 * p.pairs * nch; o += kThreads) {
+      const int mm = o / nch, c = o - mm * nch;
+      const double* pw = ((mm & 1) ? zi : zr) + (mm >> 1) * nfp;
+      const int2 ch = __ldg(p.chunks + c);
+      float w[kMelChunk];
+#pragma unroll
+      for (int v = 0; v < kMelChunk / 4; ++v) {
+        const float4 w4 = __ldg(p.chunk_w + c * (kMelChunk / 4) + v);
+        w[4 * v] = w4.x;
+        w[4 * v + 1] = w4.y;
+        w[4 * v + 2] = w4.z;
+        w[4 * v + 3] = w4.w;
+      }
+      float sum = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kMelChunk; ++i)
+        if (ch.x + i < ch.y)
+          sum = fmaf(static_cast<float>(pw[fft_pad<double>(ch.x + i)]), w[i],
+                     sum);
+      part[o] = sum;
+    }
+    __syncthreads();
+    for (int o = tid; o < 2 * p.pairs * nm; o += kThreads) {
+      const int mm = o / nm, j = o - mm * nm;
+      const int2 bc = __ldg(p.band_chunks + j);
+      float sum = 0.0f;
+      for (int c = bc.x; c < bc.y; ++c) sum += part[mm * nch + c];
+      bands[(2 * w0 + mm) * nm + j] = sum;
+    }
+    __syncthreads();
+  }
+  finish<TM>(p.e, bands, rowv, en, b, t0);
+}
+
+// The FFT launch over n-point transforms, waves of at most wave_points
+// complex points: the largest frame tile (TM = 64, 32, 16, 8) whose shared
 // memory lets kBlocks blocks share an SM, else TM = 8 if it fits at all.
-// `kernels[i]` is the kernel instantiated at TM = 64 >> i.
-template <typename S>
-inline cudaError_t launch_fft(FftParams<S> p, int B,
-                              const KernelFn<FftParams<S>> kernels[4],
+// `kernels[i]` is the kernel instantiated at TM = 64 >> i, on parameters P
+// (FftParams<S>, or FftMixedParams).
+template <typename S, typename P>
+inline cudaError_t launch_fft(P params, int n, int wave_points, int B,
+                              const KernelFn<P> kernels[4],
                               cudaStream_t stream) {
+  FftParams<S>& p = fft_params(params);
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const int nfp = fft_pad<S>(1 << p.log2n);
+  const int nfp = fft_pad<S>(n);
   int pick = -1;
   size_t bytes = 0;
+  // FFTs a wave: the most whose points fit wave_points, a power of two so
+  // that the waves tile the TM / 2 pairs of a frame tile
+  int wave_pairs = 1;
+  while (4 * wave_pairs * n <= 2 * wave_points) wave_pairs *= 2;
   for (int i = 0; i < 4 && pick < 0; ++i) {
     const int TM = 64 >> i;
-    int pairs = FftFlavour<S>::kWavePoints >> p.log2n;
-    pairs = pairs < 1 ? 1 : (pairs > TM / 2 ? TM / 2 : pairs);
+    const int pairs = wave_pairs > TM / 2 ? TM / 2 : wave_pairs;
     const int span = ((TM - 1) * p.hop + p.frame_len + 3) / 4 * 4;
     bytes = fft_smem_bytes<S>(TM, pairs, nfp, span, staged_width(p.e));
     if (bytes <= fft_smem_target<S>() ||
@@ -544,7 +867,7 @@ inline cudaError_t launch_fft(FftParams<S> p, int B,
   if (err != cudaSuccess) return err;
   const long long blocks = static_cast<long long>(p.tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidConfiguration;
-  void* args[] = {&p};
+  void* args[] = {&params};
   err = cudaLaunchKernel(fn, dim3(static_cast<unsigned>(blocks)),
                          dim3(kThreads), args, bytes, stream);
   if (err != cudaSuccess) return err;
@@ -578,12 +901,24 @@ inline bool projection_ok(const SpectralArgs& a) {
   return a.e.projection != kSpecProjection || a.e.n_out == a.n_bins;
 }
 
+// The checks of every FFT tile on the arguments: the shape (n_fft's own
+// rule aside), the constants (the band chunks, but for the spectrogram) and
+// a chunk count whose sums fit in the free exchange buffers.
+inline bool fft_args_ok(const SpectralArgs& a) {
+  const bool bands = a.e.projection != kSpecProjection;
+  return a.B > 0 && a.frame_len > 0 && a.hop > 0 &&
+         a.n_bins == a.n_fft / 2 + 1 && epilogue_ok(a.e) && projection_ok(a) &&
+         a.win != nullptr && a.tw != nullptr &&
+         (!bands || (a.chunk_w != nullptr && a.chunks != nullptr &&
+                     a.band_chunks != nullptr)) &&
+         a.n_chunks >= 0 && a.n_chunks <= fft_pad<float>(a.n_fft);
+}
+
 // An FFT tile (kFftTile or kFft64Tile), refused on a shape it does not take
-// or without its constants (the band chunks, but for the spectrogram).
-// fft32[i] and fft64[i] are the entry's kernels of each flavour at TM =
-// 64 >> i, spec32 and spec64 its spectrogram kernels (fft_features<TM, S,
-// true>; null in an entry without the spec projection, which then refuses
-// it).
+// or without its constants.  fft32[i] and fft64[i] are the entry's kernels
+// of each flavour at TM = 64 >> i, spec32 and spec64 its spectrogram
+// kernels (fft_features<TM, S, true>; null in an entry without the spec
+// projection, which then refuses it).
 inline cudaError_t launch_fft_tile(
     const SpectralArgs& a, const KernelFn<FftParams<float>> fft32[4],
     const KernelFn<FftParams<double>> fft64[4], cudaStream_t stream,
@@ -592,15 +927,8 @@ inline cudaError_t launch_fft_tile(
   const bool bands = a.e.projection != kSpecProjection;
   if (!bands && (spec32 == nullptr || spec64 == nullptr))
     return cudaErrorInvalidValue;
-  // the chunk sums of a wave must fit in the free exchange buffers
-  if (a.B <= 0 || a.frame_len <= 0 || a.hop <= 0 ||
-      a.n_bins != a.n_fft / 2 + 1 || !epilogue_ok(a.e) ||
-      !projection_ok(a) || (a.tile != kFftTile && a.tile != kFft64Tile) ||
-      !fft_tile_ok(a.n_fft, a.frame_len) || a.win == nullptr ||
-      a.tw == nullptr ||
-      (bands && (a.chunk_w == nullptr || a.chunks == nullptr ||
-                 a.band_chunks == nullptr)) ||
-      a.n_chunks < 0 || a.n_chunks > fft_pad<float>(a.n_fft))
+  if (!fft_args_ok(a) || (a.tile != kFftTile && a.tile != kFft64Tile) ||
+      !fft_tile_ok(a.n_fft, a.frame_len))
     return cudaErrorInvalidValue;
   int log2n = 0;
   while ((1 << log2n) < a.n_fft) ++log2n;
@@ -613,13 +941,37 @@ inline cudaError_t launch_fft_tile(
                              chunks, band_chunks, a.e, a.N, 0, a.frame_len,
                              a.hop, log2n, 0, 0, a.n_chunks,
                              static_cast<float>(a.preemph)};
-    return launch_fft<float>(p, a.B, bands ? fft32 : spec32, stream);
+    return launch_fft<float>(p, a.n_fft, FftFlavour<float>::kWavePoints, a.B,
+                             bands ? fft32 : spec32, stream);
   }
   const FftParams<double> p{a.x, static_cast<const double*>(a.win),
                             static_cast<const double2*>(a.tw), chunk_w,
                             chunks, band_chunks, a.e, a.N, 0, a.frame_len,
                             a.hop, log2n, 0, 0, a.n_chunks, a.preemph};
-  return launch_fft<double>(p, a.B, bands ? fft64 : spec64, stream);
+  return launch_fft<double>(p, a.n_fft, FftFlavour<double>::kWavePoints, a.B,
+                            bands ? fft64 : spec64, stream);
+}
+
+// The mixed tile (kFft64MixedTile) of an entry whose kernels at TM = 64 >> i
+// are mixed[i] (null: the entry has none, and refuses it), on the band
+// projections at an n_fft from kFftMin to kFftMax that mixed_plan takes.
+inline cudaError_t launch_fft_mixed(const SpectralArgs& a,
+                                    const KernelFn<FftMixedParams>* mixed,
+                                    cudaStream_t stream) {
+  FftMixedParams q{};
+  if (mixed == nullptr || !fft_args_ok(a) ||
+      a.e.projection == kSpecProjection || a.n_fft < kFftMin ||
+      a.n_fft > kFftMax || a.frame_len > a.n_fft || !mixed_plan(a.n_fft, q))
+    return cudaErrorInvalidValue;
+  q.f = FftParams<double>{
+      a.x, static_cast<const double*>(a.win),
+      static_cast<const double2*>(a.tw),
+      reinterpret_cast<const float4*>(a.chunk_w),
+      reinterpret_cast<const int2*>(a.chunks),
+      reinterpret_cast<const int2*>(a.band_chunks), a.e, a.N, 0, a.frame_len,
+      a.hop, 0, 0, 0, a.n_chunks, a.preemph};
+  return launch_fft<double>(q, a.n_fft, kMixedWavePoints, a.B, mixed,
+                            stream);
 }
 
 // The tile the host picked: a flavour of the FFT tile, or the direct tile
@@ -629,7 +981,9 @@ inline cudaError_t launch_spectral(
     const KernelFn<FftParams<double>> fft64[4],
     const KernelFn<DirectParams> direct[4], cudaStream_t stream,
     const KernelFn<FftParams<float>>* spec32 = nullptr,
-    const KernelFn<FftParams<double>>* spec64 = nullptr) {
+    const KernelFn<FftParams<double>>* spec64 = nullptr,
+    const KernelFn<FftMixedParams>* mixed = nullptr) {
+  if (a.tile == kFft64MixedTile) return launch_fft_mixed(a, mixed, stream);
   if (a.tile != kOtherTile)
     return launch_fft_tile(a, fft32, fft64, stream, spec32, spec64);
   if (a.B <= 0 || a.frame_len <= 0 || a.hop <= 0 ||

@@ -17,9 +17,11 @@
 // 67 TFLOP/s fp32 peak): bytes.  The direct tile did 28.8 GFLOP of fp32
 // FMAs (frame_len x 512 a frame), 28x the function.
 //
-// What the design does about it: at a power-of-two n_fft from 64 to 4096
-// the kernel runs the shared-memory FFT tile of fft_tile.cuh, for
-// unbounded log-mel in its float64-front flavour: pre-emphasis (with the
+// What the design does about it: at an n_fft from 64 to 4096 that is a
+// power of two, the kernel runs the shared-memory FFT tile of fft_tile.cuh,
+// for unbounded log-mel in its float64-front flavour, and at one of the
+// form 2^a 5^b (Whisper's 400) that flavour's mixed-radix tile, radix-5
+// passes beside the radix-2/4/8 ones: pre-emphasis (with the
 // config's coefficient as a double), window, twiddles, radix passes, split
 // and |X|^2 in float64 on the FP64 units (half the FP32 rate, ~34 TFLOP/s
 // on the H100 SXM; 16-byte complex points, so twice the f32 tile's
@@ -29,8 +31,8 @@
 // where the direct f32 form is ~1e-2 off.  Cepstra and log-mel <= 50 dB
 // run the f32 flavour, with pre-emphasis in f32 as the plain version
 // rounds it.  Any other n_fft runs the direct window-folded DFT tile of
-// spectral.cuh; the host picks the tile from the config, in the same C
-// entry.
+// spectral.cuh; the host picks the tile from the config and n_fft's
+// factors, in the same C entry.
 
 #include "fft_tile.cuh"
 
@@ -43,6 +45,16 @@ __global__ void __launch_bounds__(spectral::kThreads,
   spectral::fft_features<TM, S>(p);
 }
 
+// The mixed-radix tile (n_fft = 2^a 5^b): raw_fft_kernel on its own
+// parameters, so that each power-of-two instantiation above stays as it
+// was and a trace names this one raw_fft_kernel too.
+template <int TM>
+__global__ void __launch_bounds__(spectral::kThreads,
+                                  spectral::FftFlavour<double>::kBlocks)
+    raw_fft_kernel(const spectral::FftMixedParams p) {
+  spectral::fft_mixed_features<TM>(p);
+}
+
 template <int FR>
 __global__ void __launch_bounds__(spectral::kThreads, 1)
     raw_kernel(const spectral::DirectParams p) {
@@ -53,9 +65,10 @@ __global__ void __launch_bounds__(spectral::kThreads, 1)
 
 // Plain C interface (loaded with ctypes).  Returns a cudaError_t; 0 is
 // success.  Launches on `stream` and does not synchronize.  tile is a
-// spectral::Tile: kFftTile or kFft64Tile run that flavour of the FFT tile
-// (win, tw, chunk_w, chunks, band_chunks given, win and tw in float or in
-// double; basis, last and melw may be null), kOtherTile the direct tile
+// spectral::Tile: kFftTile, kFft64Tile or kFft64MixedTile run that flavour
+// of the FFT tile (win, tw, chunk_w, chunks, band_chunks given, win and tw
+// in float or in double; basis, last and melw may be null), kOtherTile the
+// direct tile
 // (basis, last, melw given; the FFT tile's constants may be null).
 extern "C" int mfcc_fused_raw(
     const float* x, int B, long long N, int T, const float* basis, int nbb,
@@ -76,8 +89,12 @@ extern "C" int mfcc_fused_raw(
   const spectral::KernelFn<spectral::FftParams<double>> fft64[4] = {
       raw_fft_kernel<64, double>, raw_fft_kernel<32, double>,
       raw_fft_kernel<16, double>, raw_fft_kernel<8, double>};
+  const spectral::KernelFn<spectral::FftMixedParams> mixed[4] = {
+      raw_fft_kernel<64>, raw_fft_kernel<32>, raw_fft_kernel<16>,
+      raw_fft_kernel<8>};
   const spectral::KernelFn<spectral::DirectParams> direct_tiles[4] = {
       raw_kernel<8>, raw_kernel<4>, raw_kernel<2>, raw_kernel<1>};
   return spectral::launch_spectral(a, fft32, fft64, direct_tiles,
-                                   static_cast<cudaStream_t>(stream));
+                                   static_cast<cudaStream_t>(stream), nullptr,
+                                   nullptr, mixed);
 }

@@ -15,7 +15,8 @@
 //   separate per-frame dot product), mel accumulation, then the epilogue.
 //   fused_raw_dit.cu, fused_raw.cu and fused_mfcc.cu run it where the FFT
 //   tile does not apply (an n_fft that is no power of two from 64 to 4096,
-//   or a frame tile whose shared memory does not fit).
+//   and in fused_raw.cu no 2^a 5^b either, or a frame tile whose shared
+//   memory does not fit).
 // - finish: the epilogue every spectral kernel shares: absolute and
 //   relative floors, accurate log, then the lifter-folded DCT (cepstra,
 //   optional log energy in c0) or the log-mel energies, written to (B, T,

@@ -9,7 +9,8 @@ Hopper twin of ``mfcc_tpu/ops/kernels/fused_raw.py``).
   for a CUDA tensor (a build or launch failure raises), or runs
   :func:`plain_features` for a CPU tensor.
 - ``LAUNCHES`` — how many times the wrapper launched the kernel, and
-  ``TILE_LAUNCHES`` — those launches by tile ("fft", "fft64", "direct").
+  ``TILE_LAUNCHES`` — those launches by tile ("fft", "fft64",
+  "fft64_mixed", "direct").
 
 The model layer sends this kernel unbounded-range log-mel
 (``routes.spectral_route``), the route the reference keeps on the direct
@@ -17,9 +18,12 @@ form for deep spectral valleys.  On the card, at a power-of-two n_fft from
 64 to 4096, it runs the shared-memory FFT tile of ``csrc/fft_tile.cuh``
 with a float64 front (pre-emphasis through |X|^2 in float64, which holds
 the float64 oracle in those valleys where an f32 FFT does not), or the
-tile's f32 flavour for cepstra and log-mel bounded to <= 50 dB; any other
-n_fft runs the direct window-folded DFT tile of ``csrc/spectral.cuh``.
-The config decides (``_spectral.fft_tile``), never a failure.
+tile's f32 flavour for cepstra and log-mel bounded to <= 50 dB; at an
+n_fft of 2^a 5^b (Whisper's 400) the float64-front flavour runs as the
+mixed-radix tile ("fft64_mixed", radix-5 passes beside the radix-2/4/8
+ones; this entry alone has it); any other n_fft runs the direct
+window-folded DFT tile of ``csrc/spectral.cuh``.  The config and n_fft's
+factors decide (``_spectral.fft_tile``), never a failure.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from . import _spectral, fused_raw_dit
 # kernel launches by fused_features_raw, in all and by tile (reset by
 # callers that count)
 LAUNCHES = 0
-TILE_LAUNCHES = {"fft": 0, "fft64": 0, "direct": 0}
+TILE_LAUNCHES = {"fft": 0, "fft64": 0, "fft64_mixed": 0, "direct": 0}
 
 plain_features = fused_raw_dit.plain_features
 _matrices = _spectral.direct_matrices
@@ -47,7 +51,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def fused_features_raw(x: torch.Tensor, cfg: FeatureConfig, *,
-                       apply_dct: bool = True, direct=None) -> torch.Tensor:
+                       apply_dct: bool = True,
+                       front: _spectral.Front | None = None) -> torch.Tensor:
     """(B, N) raw float32 audio -> (B, T, n_mfcc or n_mels) features.
 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor goes
@@ -55,24 +60,23 @@ def fused_features_raw(x: torch.Tensor, cfg: FeatureConfig, *,
     accumulation whatever ``cfg.accum_dtype`` says
     (``_spectral.kernel_config``).  cfg must be in "valid" frame mode.
 
-    ``direct``, a consts(cfg, device) -> ([basis, nbb, last, melw], dctm)
-    as ``_spectral.direct_consts`` returns them, runs the direct tile on
-    those constants, whatever the n_fft: a front end whose window or
-    filterbank the config cannot state (``models/whisper``).  The card
-    only: the plain version knows the config's constants alone.
+    ``front`` (a ``_spectral.Front``: the window and the filterbank of a
+    front end whose config cannot state them, ``models/whisper``) takes
+    their place in whichever tile the config picks, with no DCT
+    (``apply_dct`` must be False).  The card only: the plain version
+    knows the config's constants alone.
     """
     cfg = _spectral.check_input(x, cfg)
+    if front is not None and apply_dct:
+        raise ValueError("a front's filterbank has no DCT: apply_dct=False")
     if not x.is_cuda:
-        if direct is not None:
-            raise ValueError("direct constants run on a CUDA tensor only")
+        if front is not None:
+            raise ValueError("a front's constants run on a CUDA tensor only")
         return plain_features(x, cfg, apply_dct)
     _spectral.check_cuda_input(x)
-    other = _spectral.DIRECT_TILE
-    if direct is not None:
-        other = ("direct", direct, other[2])
     out, tile = _spectral.launch_spectral(
         _lib, "mfcc_fused_raw", "fused_raw", x, cfg, apply_dct, cfg.preemph,
-        other=other, tile="direct" if direct is not None else None)
+        other=_spectral.direct_tile("mel", front), front=front, mixed=True)
     if tile is not None:
         global LAUNCHES
         LAUNCHES += 1

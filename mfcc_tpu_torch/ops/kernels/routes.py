@@ -17,9 +17,11 @@ at a power-of-two n_fft from 64 to 4096, the shared-memory FFT tile of
 ``csrc/fft_tile.cuh``, in f32 for cepstra and log-mel bounded to <= 50 dB
 (``use_dit``: the floors bound the valleys) and with a float64 front for
 other log-mel (in valleys ~120-140 dB deep an f32 FFT rounds worse than the
-direct form; float64 through |X|^2 holds the float64 oracle there); at any
-other n_fft the direct window-folded DFT tile (``csrc/spectral.cuh``), or
-in ``fused_dit`` its radix-2 DIT tile.  So on the card:
+direct form; float64 through |X|^2 holds the float64 oracle there); in
+``fused_raw`` also at an n_fft of 2^a 5^b (Whisper's 400), that float64
+flavour as a mixed-radix tile; at any other n_fft the direct window-folded
+DFT tile (``csrc/spectral.cuh``), or in ``fused_dit`` its radix-2 DIT
+tile.  So on the card:
 
 - ``fused_raw_dit`` (cepstra and log-mel <= 50 dB, pre-emphasis in the
   kernel) runs the f32 FFT tile, ``fused_raw`` (unbounded log-mel) the

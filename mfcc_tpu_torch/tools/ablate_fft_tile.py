@@ -17,7 +17,15 @@ from the split) for the other one (a (TM, n_bins) buffer staged, then
 ``finish``), and times the spectrogram path only; ``mel_split`` takes the
 ``mel_runtime_branch`` decides the spectrogram's branches in the tile at
 run time, not at compile time (``fft_features<TM, S, Spec>``), an A/B of
-what that costs the mel paths, which it times.  The batches are the
+what that costs the mel paths, which it times.  A variant named
+``mixed_*`` changes the mixed-radix tile's plan (``spectral::mixed_plan``:
+``mixed_radix8`` takes the power-of-two part in radix-8 passes, 8 2 5 5 at
+400 points, ``mixed_fives_first`` has the radix-5 passes read the span, 5
+5 4 4, ``mixed_radix8_fives_first`` 5 5 8 2; ``mixed_wave1024`` the
+float64 flavour's wave, two FFTs of 400 points at TM 32) and times Whisper's path
+alone (the ``f64_*`` variants time it too): ``fused_raw`` on Whisper's front (``models/whisper.front``) at the
+whisper128 cell's batch shape, 256 rows of the 30 s window reflect-padded
+to 480,400 samples, 3,000 frames of 400 points and 128 mels a row.  The batches are the
 main paths' (64 x 10 s of seeded noise), one per path: ``fused_raw_dit``
 at MFCC-13, 16 kHz, and ``fused_mfcc`` at MFCC-13, 44.1 kHz (n_fft 2048,
 host pre-emphasis), on the f32 flavour; ``fused_raw`` at unbounded
@@ -42,7 +50,9 @@ import numpy as np
 import torch
 
 from .. import FeatureConfig
+from ..config import WHISPER128
 from . import _ablate
+from ..models import whisper
 from ..ops import framing
 from ..ops.kernels import (_spectral, fused_dit, fused_mfcc,
                            fused_raw, fused_raw_dit)
@@ -93,6 +103,17 @@ VARIANTS = {
     "mel_runtime_branch": [
         (TILE, "  constexpr bool spec = Spec;  // the spectrogram: no band stage",
          "  const bool spec = p.e.projection == kSpecProjection;")],
+    "mixed_radix8": [(TILE, "constexpr int kMixedPow2Radix = 4;",
+                      "constexpr int kMixedPow2Radix = 8;")],
+    "mixed_fives_first": [(TILE, "constexpr bool kMixedFivesFirst = false;",
+                           "constexpr bool kMixedFivesFirst = true;")],
+    "mixed_wave1024": [(TILE, "constexpr int kMixedWavePoints = 2048;",
+                        "constexpr int kMixedWavePoints = 1024;")],
+    "mixed_radix8_fives_first": [
+        (TILE, "constexpr int kMixedPow2Radix = 4;",
+         "constexpr int kMixedPow2Radix = 8;"),
+        (TILE, "constexpr bool kMixedFivesFirst = false;",
+         "constexpr bool kMixedFivesFirst = true;")],
 }
 # source -> (entry, takes preemph, C types of the other tile's constants,
 # the other tile, takes a projection)
@@ -118,10 +139,18 @@ PATHS = {
                   False, "mel"),
     "fused_raw_dit/bark": ("fused_raw_dit", FeatureConfig(), False, "bark"),
     "fused_raw_dit/spec": ("fused_raw_dit", FeatureConfig(), False, "spec"),
+    "fused_raw/whisper": ("fused_raw", WHISPER128.feature_config(), False,
+                          "mel"),
 }
 F32_PATHS = ("fused_raw_dit", "fused_mfcc")
 F64_PATHS = ("fused_raw", "fused_dit", "fused_raw_dit/bark",
              "fused_raw_dit/spec")
+MIXED_PATHS = ("fused_raw/whisper",)
+# a path's front end (its own window and bank), and its batch shape where
+# it is not 64 x 10 s
+FRONTS = {"fused_raw/whisper": whisper.front(WHISPER128)}
+SHAPES = {"fused_raw/whisper": (256, WHISPER128.chunk_samples
+                                + WHISPER128.n_fft)}
 CALLS = 20
 
 
@@ -133,13 +162,17 @@ def variant_sources(name: str) -> dict:
 def paths_of(name: str) -> tuple:
     """The timed paths a variant changes the time of."""
     if name.startswith("f64_"):
-        return F64_PATHS
+        return F64_PATHS + MIXED_PATHS
     if name.startswith("wave"):
         return F32_PATHS
     if name.startswith("spec_"):
         return ("fused_raw_dit/spec",)
     if name.startswith("mel_"):
         return F32_PATHS + ("fused_raw", "fused_dit")
+    if name.startswith("mixed_"):
+        return MIXED_PATHS
+    if name == "base":
+        return F32_PATHS + F64_PATHS + MIXED_PATHS
     return F32_PATHS + F64_PATHS
 
 
@@ -192,8 +225,8 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     inputs = {}
     for path, (src, cfg, dct, projection) in PATHS.items():
-        x = torch.from_numpy((0.3 * rng.standard_normal(
-            (64, 10 * cfg.sample_rate))).astype(np.float32)).to(dev)
+        x = torch.from_numpy((0.3 * rng.standard_normal(SHAPES.get(
+            path, (64, 10 * cfg.sample_rate)))).astype(np.float32)).to(dev)
         raw = SOURCES[src][1]
         inputs[path] = (x if raw else framing.preemphasize(x, cfg).contiguous(),
                         cfg.preemph if raw else None)
@@ -201,11 +234,13 @@ def main(argv=None) -> int:
     def call(lib_of, path, tile=None):
         src, cfg, dct, projection = PATHS[path]
         (x, pre), takes = inputs[path], SOURCES[src][4]
-        other = (_spectral.direct_tile(projection) if takes
-                 else SOURCES[src][3])
+        front = FRONTS.get(path)
+        other = (_spectral.direct_tile(projection, front)
+                 if takes or front is not None else SOURCES[src][3])
         return lambda: _spectral.launch_spectral(
             lib_of, SOURCES[src][0], src, x, cfg, dct, pre, other=other,
-            tile=tile, projection=projection if takes else None)
+            tile=tile, projection=projection if takes else None,
+            front=front, mixed=src == "fused_raw")
 
     times = {j: [] for j in jobs}
     for i in range(args.passes):
@@ -226,6 +261,8 @@ def main(argv=None) -> int:
         module, fn = modules[src]
         x = inputs[path][0]
         kw = {"projection": projection} if SOURCES[src][4] else {}
+        if path in FRONTS:
+            kw = {"front": FRONTS[path]}
         wrapper = (lambda m=module, f=fn, x=x, cfg=cfg, dct=dct, kw=kw:
                    getattr(m, f)(x, cfg, apply_dct=dct, **kw))
         b2b = _ablate.ms(wrapper, CALLS)

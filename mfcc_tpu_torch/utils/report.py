@@ -13,7 +13,7 @@ program in a ``torch.profiler`` trace, on the clock the profiler gives
 the card's operations, and costs one flag read when no profiler records.
 :func:`counters` holds what the program counts where the work happens:
 per batch (kept only while a profiler records) the frames the spectral
-stage computed; once per process (always kept) the host seconds of the
+stage computed, and those a direct DFT tile computed; once per process (always kept) the host seconds of the
 package's import, the kernels' builds and loads, and the constants
 built.
 """
@@ -30,8 +30,9 @@ from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _profiler
 
 # Counted only while a profiler records: spectral frames computed (B x T of
-# every call, padded frames included).
-PER_BATCH = ("frames_computed",)
+# every call, padded frames included), and those of the calls that ran a
+# direct DFT tile (``ops/kernels/_spectral.launch_spectral``).
+PER_BATCH = ("frames_computed", "frames_direct")
 # Counted once per process, always: host seconds of importing the package's
 # modules (torch excluded); of the kernels' nvcc builds and loads
 # (``ops/kernels/_build.load``); of the spectral constants built and

@@ -1601,10 +1601,11 @@ def test_main_paths_append_deltas_through_the_kernel(cuda, gen, monkeypatch,
     (1.003, 17_000, [16_048, 9_000, 17_000])])
 def test_whisper_through_the_direct_tile(cuda, gen, chunk_s, N, lens):
     """``whisper_log_mel_batch`` with "auto" on the card: one launch of
-    ``fused_raw``'s direct tile a batch, no host sync once its constants
-    are built, and the features within 1e-4 of the float64 reference and
-    of the plain route on the host (the float32 chain's bound,
-    ``tests/test_torch_whisper.py``)."""
+    ``fused_raw``'s mixed-radix FFT tile ("fft64_mixed", which took over
+    Whisper's n_fft of 400 from the direct tile) a batch, no host sync once
+    its constants are built, the features within 2e-5 of the float64
+    reference (the float64 front) and within 1e-4 of the plain route on
+    the host (the float32 chain's bound, ``tests/test_torch_whisper.py``)."""
     import dataclasses
     from mfcc_tpu_torch.config import WhisperConfig
     from mfcc_tpu_torch.models import whisper
@@ -1623,10 +1624,64 @@ def test_whisper_through_the_direct_tile(cuda, gen, chunk_s, N, lens):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert fused_raw.TILE_LAUNCHES["direct"] == before["direct"] + 1
+    assert {k: v - before[k] for k, v in fused_raw.TILE_LAUNCHES.items()
+            } == {"fft": 0, "fft64": 0, "fft64_mixed": 1, "direct": 0}
     assert feat.shape == (len(lens), cfg.num_frames(), cfg.n_mels)
     assert bool(mask.all()) and int(flens.min()) == cfg.num_frames()
     want, _, _ = whisper_ref.features(x, lens, dataclasses.asdict(cfg), False)
     plain, _, _ = whisper.whisper_log_mel_batch(x, n, cfg)
-    assert float((feat.cpu().double() - want).abs().max()) < 1e-4
+    assert float((feat.cpu().double() - want).abs().max()) < 2e-5
     assert float((feat.cpu() - plain).abs().max()) < 1e-4
+
+
+def _front_oracle(xp: np.ndarray, kcfg, front) -> np.ndarray:
+    """The floored natural log of a front's band energies, float64: frames
+    of the (B, N) rows, the window-folded DFT, |X|^2, the bank."""
+    from mfcc_tpu_torch.ops.spectrum import folded_dft
+    cos_m, sin_m = folded_dft(front.window, kcfg.n_fft)
+    T = kcfg.num_frames(xp.shape[1])
+    idx = np.arange(T)[:, None] * kcfg.hop_len + np.arange(kcfg.frame_len)
+    fr = xp.astype(np.float64)[:, idx]
+    power = (fr @ cos_m) ** 2 + (fr @ sin_m) ** 2
+    return np.log(np.maximum(power @ front.bank, kcfg.log_floor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,B,N", [
+    (400, 3, 400 + 160 * 70),      # Whisper's; T = 71, an odd count
+    (200, 2, 200 + 100 * 64),      # 2^3 5^2
+    (320, 2, 320 + 160 * 40),      # 2^6 5
+    (800, 2, 800 + 320 * 33),      # 2^5 5^2
+    (1000, 2, 1000 + 400 * 20),    # 2^3 5^3
+    (2000, 1, 2000 + 800 * 9),     # 2^4 5^3
+])
+def test_mixed_tile_against_the_direct_tile(cuda, gen, n_fft, B, N):
+    """``fused_raw``'s mixed-radix tile and its direct tile on the same
+    Whisper-style constants (a periodic Hann window of n_fft points, Hz
+    triangles) at n_fft = 2^a 5^b, one launch each: the mixed tile within
+    1e-5 of the float64 oracle, the two tiles within the log-mel bound
+    (rtol 1e-4 + atol 2e-5) of each other; a row that ends early gives the
+    floored frames past it."""
+    from mfcc_tpu_torch.config import WhisperConfig
+    from mfcc_tpu_torch.models import whisper
+    cfg = WhisperConfig(n_fft=n_fft, frame_ms=n_fft / 16.0,
+                        hop_ms=n_fft / 40.0).validate()
+    kcfg, front = cfg.feature_config(), whisper.front(cfg)
+    x = (gen.standard_normal((B, N)) * 0.1).astype(np.float32)
+    x[-1, N // 2:] = 0.0
+    xd = torch.from_numpy(x).to(cuda)
+    outs = {}
+    for tile in ("fft64_mixed", "direct"):
+        before = dict(fused_raw.TILE_LAUNCHES)
+        outs[tile], ran = _spectral.launch_spectral(
+            fused_raw._lib, "mfcc_fused_raw", "fused_raw", xd, kcfg, False,
+            0.0, other=_spectral.direct_tile("mel", front),
+            tile=None if tile != "direct" else "direct", front=front,
+            mixed=True)
+        torch.cuda.synchronize()
+        assert ran == tile and fused_raw.TILE_LAUNCHES == before
+    want = _front_oracle(x, kcfg, front)
+    mixed, direct = (outs[t].cpu().numpy() for t in ("fft64_mixed", "direct"))
+    assert mixed.shape == want.shape
+    assert np.abs(mixed - want).max() <= 1e-5
+    assert (np.abs(mixed - direct) <= 2e-5 + 1e-4 * np.abs(direct)).all()

@@ -633,6 +633,33 @@ def test_fft_tile_rule(kw, apply_dct, tile):
         assert _spectral.fft_smem_bytes(cfg, tile, 8) <= _spectral.MAX_SMEM
 
 
+@pytest.mark.parametrize("kw,apply_dct,projection,tile", [
+    (dict(LOGMEL80, frame_ms=25.0, n_fft=400), False, "mel", "fft64_mixed"),
+    (dict(LOGMEL80, n_fft=800), False, "mel", "fft64_mixed"),
+    (dict(LOGMEL80, sample_rate=4000, n_fft=100), False, "mel",
+     "fft64_mixed"),
+    (dict(LOGMEL80, sample_rate=8000, n_fft=2000), False, "bark",
+     "fft64_mixed"),
+    (dict(n_fft=400), True, "mel", "direct"),        # the f32 flavour
+    (dict(LOGMEL80, dynamic_range_db=50.0, n_fft=400), False, "mel",
+     "direct"),
+    (dict(LOGMEL80, n_fft=400), False, "spec", "direct"),
+    (dict(LOGMEL80, n_fft=768), False, "mel", "direct"),   # a factor 3
+    (dict(LOGMEL80, n_fft=401), False, "mel", "direct"),
+    (dict(LOGMEL80, n_fft=5000), False, "mel", "direct"),  # past 4096
+    (LOGMEL80, False, "mel", "fft64"),                     # power of two
+])
+def test_mixed_tile_rule(kw, apply_dct, projection, tile):
+    """In the entry that has it, the mixed-radix tile takes the float64
+    flavour's configs at an n_fft of 2^a 5^b from 64 to 4096 (band
+    projections); everywhere else the rule is as before, and an entry
+    without it keeps its other tile there."""
+    cfg = FeatureConfig(**kw).validate()
+    assert _spectral.fft_tile(cfg, apply_dct, projection, mixed=True) == tile
+    without = _spectral.fft_tile(cfg, apply_dct, projection)
+    assert without == ("direct" if tile == "fft64_mixed" else tile)
+
+
 @pytest.mark.parametrize("kw,tile,tm,want", [
     # the flavours' frame tiles at the main paths (spectral::launch_fft
     # picks the largest within 55 KB for fft, 74 KB for fft64)
@@ -643,6 +670,15 @@ def test_fft_tile_rule(kw, apply_dct, tile):
     # pairs 1 (a 4096-point FFT is past the 1024-point wave), span 1520
     (dict(n_fft=4096), "fft64", 8, 4 * 8 * (4096 + 256)
      + 4 * (1520 + 1 + 8 * 26 + 16)),
+    # the mixed tile at Whisper's 400 points, 128 mels: four FFTs of its
+    # 2048-point wave, TM 16 within 74 KB (TM 32: 92,484)
+    (dict(n_fft=400, n_mels=128, n_mfcc=128), "fft64_mixed", 16, 73924),
+    # 1000 points: 2 would fit the wave, and are taken; 320: 6 would, 4
+    # (a power of two) are taken
+    (dict(n_fft=1000, n_mels=128, n_mfcc=128), "fft64_mixed", 8,
+     4 * 8 * 2 * (1000 + 62) + 4 * (7 * 160 + 400 + 1 + 8 * 128 + 16)),
+    (dict(sample_rate=12800, n_fft=320), "fft64_mixed", 16,
+     4 * 8 * 4 * (320 + 20) + 4 * (15 * 128 + 320 + 1 + 16 * 26 + 32)),
 ])
 def test_fft_smem_bytes(kw, tile, tm, want):
     """The host's mirror of spectral::fft_smem_bytes: four exchange planes
@@ -653,9 +689,16 @@ def test_fft_smem_bytes(kw, tile, tm, want):
                                     tm) == want
 
 
+# cos and sin of 2 pi / 5 and 4 pi / 5 as fft_tile.cuh rounds them
+COS5 = (float.fromhex("0x1.3c6ef372fe950p-2"),
+        float.fromhex("-0x1.9e3779b97f4a8p-1"))
+SIN5 = (float.fromhex("0x1.e6f0e134454ffp-1"),
+        float.fromhex("0x1.2cf2304755a5ep-1"))
+
+
 def _dft_small(vr, vi, R, h):
-    """The kernel's 2-, 4- and 8-point DFTs (fft_tile.cuh), lists of
-    arrays in natural order."""
+    """The kernel's 2-, 4-, 5- and 8-point DFTs (fft_tile.cuh), lists of
+    arrays in natural order; the 5-point DFT's constants in h's type."""
     def dft4(r, i):
         t0r, t0i, t1r, t1i = r[0] + r[2], i[0] + i[2], r[0] - r[2], i[0] - i[2]
         t2r, t2i, t3r, t3i = r[1] + r[3], i[1] + i[3], r[1] - r[3], i[1] - i[3]
@@ -665,6 +708,21 @@ def _dft_small(vr, vi, R, h):
         return [vr[0] + vr[1], vr[0] - vr[1]], [vi[0] + vi[1], vi[0] - vi[1]]
     if R == 4:
         return dft4(vr, vi)
+    if R == 5:
+        t = type(h)
+        c1, c2, s1, s2 = t(COS5[0]), t(COS5[1]), t(SIN5[0]), t(SIN5[1])
+        a1r, a1i, b1r, b1i = (vr[1] + vr[4], vi[1] + vi[4], vr[1] - vr[4],
+                              vi[1] - vi[4])
+        a2r, a2i, b2r, b2i = (vr[2] + vr[3], vi[2] + vi[3], vr[2] - vr[3],
+                              vi[2] - vi[3])
+        m1r, m1i = vr[0] + c1 * a1r + c2 * a2r, vi[0] + c1 * a1i + c2 * a2i
+        m2r, m2i = vr[0] + c2 * a1r + c1 * a2r, vi[0] + c2 * a1i + c1 * a2i
+        t1r, t1i = s1 * b1r + s2 * b2r, s1 * b1i + s2 * b2i
+        t2r, t2i = s2 * b1r - s1 * b2r, s2 * b1i - s1 * b2i
+        return ([vr[0] + a1r + a2r, m1r + t1i, m2r + t2i, m2r - t2i,
+                 m1r - t1i],
+                [vi[0] + a1i + a2i, m1i - t1r, m2i - t2r, m2i + t2r,
+                 m1i + t1r])
     er, ei = dft4(vr[0::2], vi[0::2])
     o_r, oi = dft4(vr[1::2], vi[1::2])
     o_r, oi = ([o_r[0], h * (o_r[1] + oi[1]), oi[2], h * (oi[3] - o_r[3])],
@@ -673,14 +731,14 @@ def _dft_small(vr, vi, R, h):
             [ei[q] + oi[q] for q in range(4)] + [ei[q] - oi[q] for q in range(4)])
 
 
-def _fft_pass(sr, si, tw, log2n, log2ns, R, h):
-    """One Stockham radix-R pass of the kernel over (pairs, n) arrays:
-    butterfly j reads points j + r n/R, twiddles point r by table entry
-    k r n/(ns R) (k = j mod ns), and writes point q to (j-k) R + k + q ns."""
-    n, ns = 1 << log2n, 1 << log2ns
+def _fft_pass(sr, si, tw, n, ns, R, h):
+    """One Stockham radix-R pass of the kernel over (pairs, n) arrays, ns
+    the length of the sub-transforms done: butterfly j reads points j + r
+    n/R, twiddles point r by table entry k r n/(ns R) (k = j mod ns), and
+    writes point q to (j-k) R + k + q ns."""
     nq = n // R
     j = np.arange(nq)
-    k = j & (ns - 1)
+    k = j % ns
     vr = [sr[:, j + r * nq] for r in range(R)]
     vi = [si[:, j + r * nq] for r in range(R)]
     for r in range(1, R):
@@ -695,9 +753,30 @@ def _fft_pass(sr, si, tw, log2n, log2ns, R, h):
     return dr, di
 
 
+def _fft_power(re, im, tw, n, h, f):
+    """The tile's FFT of the (pairs, n) windowed inputs re + i im (frames 2q
+    and 2q+1 of a pair): the radix passes in the kernel's order
+    (``_spectral.fft_radices``) with the table's twiddles, then the split
+    into both frames' |X|^2 at bins 0..n/2 (bin k's partner n - k, bin 0's
+    itself), rounded to f -> (2 pairs, n/2 + 1)."""
+    ns = 1
+    for R in _spectral.fft_radices(n):
+        re, im = _fft_pass(re, im, tw, n, ns, R, h)
+        ns *= R
+    half = type(h)(0.5)
+    k = np.arange(n // 2 + 1)
+    k2 = np.where(k == 0, 0, n - k)
+    a, bi, c, d = re[:, k], im[:, k], re[:, k2], im[:, k2]
+    xr, xi = half * (a + c), half * (bi - d)
+    yr, yi = half * (bi + d), half * (c - a)
+    power = np.empty((2 * re.shape[0], n // 2 + 1), f)
+    power[0::2], power[1::2] = xr * xr + xi * xi, yr * yr + yi * yi
+    return power
+
+
 def _emulate_fft_tile(x: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
                       tm: int = 32, dtype=np.float64, front=None,
-                      projection: str = "mel"):
+                      projection: str = "mel", tables=None):
     """The FFT tile's data flow in numpy, in ``dtype``: per (row, tile of
     tm frames) the span is staged and pre-emphasized with each sample's
     true predecessor (cfg.preemph 0: audio the host pre-emphasized),
@@ -716,21 +795,23 @@ def _emulate_fft_tile(x: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
 
     ``projection`` "bark" sums the chunks of the bark matrix with no
     relative floor (PLP's log band energies); "spec" floors and logs each
-    bin's |X|^2 (n_bins columns)."""
+    bin's |X|^2 (n_bins columns).  ``tables`` (default: the config's
+    ``_spectral.fft_matrices``) are the tile's constants, e.g. a front
+    end's (``_spectral.fft_tables``)."""
     f, g = dtype, front or dtype
-    win, tw, chunk_w, chunks, band_chunks, dctm = _spectral.fft_matrices(
-        cfg, "fft64" if g is np.float64 and f is np.float32 else "fft",
-        projection)
+    win, tw, chunk_w, chunks, band_chunks, dctm = tables or \
+        _spectral.fft_matrices(
+            cfg, "fft64" if g is np.float64 and f is np.float32 else "fft",
+            projection)
     win, tw = win.astype(g), tw.astype(g)
-    if projection == "mel":
-        chunk_w, dctm = chunk_w.astype(f), dctm.astype(f)
-    elif projection == "bark":
+    if projection != "spec":
         chunk_w = chunk_w.astype(f)
+    if dctm is not None:
+        dctm = dctm.astype(f)
     B, N = x.shape
     T, hop, fl, n = cfg.num_frames(N), cfg.hop_len, cfg.frame_len, cfg.n_fft
-    log2n = n.bit_length() - 1
-    h, half = g(np.sqrt(0.5) if g is np.float64 and f is np.float32
-                else np.float32(np.sqrt(0.5))), g(0.5)
+    h = g(np.sqrt(0.5) if g is np.float64 and f is np.float32
+          else np.float32(np.sqrt(0.5)))
     rel = mel.relative_floor(cfg) if projection == "mel" else 0.0
     log = (np.log if f is np.float64 else
            lambda v: xmath.accurate_log(torch.from_numpy(v)).numpy())
@@ -745,20 +826,7 @@ def _emulate_fft_tile(x: np.ndarray, cfg: FeatureConfig, apply_dct: bool,
             fr = np.stack([z[m * hop: m * hop + fl] for m in range(tm)])
             zin = np.zeros((tm, n), g)
             zin[:, :fl] = win * fr
-            re, im = zin[0::2], zin[1::2]
-            rest = log2n % 3
-            for s in range(0, log2n - rest, 3):
-                re, im = _fft_pass(re, im, tw, log2n, s, 8, h)
-            if rest:
-                re, im = _fft_pass(re, im, tw, log2n, log2n - rest,
-                                   1 << rest, h)
-            k = np.arange(n // 2 + 1)
-            k2 = (n - k) & (n - 1)
-            a, bi, c, d = re[:, k], im[:, k], re[:, k2], im[:, k2]
-            xr, xi = half * (a + c), half * (bi - d)
-            yr, yi = half * (bi + d), half * (c - a)
-            power = np.empty((tm, n // 2 + 1), f)
-            power[0::2], power[1::2] = xr * xr + xi * xi, yr * yr + yi * yi
+            power = _fft_power(zin[0::2], zin[1::2], tw, n, h, f)
             m = min(tm, T - t0)
             if projection == "spec":
                 out[b, t0: t0 + m] = log(np.maximum(
@@ -982,6 +1050,121 @@ def test_fft64_emulation_matches_plain(rng, module, cfg):
     got = _emulate_fft_tile(inp, c, False, tm=8, dtype=np.float32,
                             front=np.float64)
     _assert_features(got, want, cfg, False)
+
+
+# n_fft = 2^a 5^b: Whisper's 400 and its neighbours
+MIXED_N = [80, 200, 320, 400, 640, 800, 1000, 1600, 2000]
+
+
+@pytest.mark.parametrize("n", MIXED_N)
+def test_mixed_fft_twin_matches_rfft(rng, n):
+    """The mixed-radix tile's data flow (radix-5 passes beside radix 2/4,
+    the split's partner n - k) in float64 against numpy's real FFT, for
+    two frames a complex FFT, one of them with a zero tail."""
+    radices = _spectral.fft_radices(n)
+    assert 5 in radices and int(np.prod(radices)) == n
+    fr = rng.standard_normal((4, n))
+    fr[3, n // 3:] = 0.0
+    ang = 2.0 * np.pi * np.arange(n) / n
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1)
+    got = _fft_power(fr[0::2], fr[1::2], tw, n, np.sqrt(0.5), np.float64)
+    want = np.abs(np.fft.rfft(fr, axis=1)) ** 2
+    assert np.abs(got - want).max() <= 1e-12 * want.max()
+
+
+def _mixed_planner(tmp_path):
+    """spectral::mixed_plan, from csrc/fft_tile.cuh's text, built for the
+    host with g++: n -> the radices of its passes, or None where refused."""
+    import re
+    import shutil
+    import subprocess
+    from mfcc_tpu_torch.ops.kernels import _build
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a C++ compiler (the port's native WAV decoder needs one)"
+    src = (_build.CSRC / "fft_tile.cuh").read_text()
+    head = "__host__ __device__ constexpr int log2_radix(int R) {"
+    plan = src[src.index(head):src.index("\n}\n", src.index(
+        "inline bool mixed_plan(")) + 3]
+    cap = re.search(r"constexpr int kMixedMaxPasses = \d+;", src).group(0)
+    prog = ("#include <cstdio>\n#include <cstdlib>\n#define __host__\n"
+            "#define __device__\n" + cap + "\nstruct FftMixedParams { int n, "
+            "passes; int radix[kMixedMaxPasses]; };\n" + plan +
+            "int main(int argc, char** argv) {\n  for (int i = 1; i < argc; "
+            "++i) {\n    FftMixedParams q{};\n    if (!mixed_plan(atoi(argv[i]"
+            "), q)) { printf(\"-\\n\"); continue; }\n    for (int s = 0; s < "
+            "q.passes; ++s) printf(\"%d \", q.radix[s]);\n    printf(\"\\n\");"
+            "\n  }\n}\n")
+    (tmp_path / "plan.cpp").write_text(prog)
+    subprocess.run([cxx, "-std=c++17", "-o", str(tmp_path / "plan"),
+                    str(tmp_path / "plan.cpp")], check=True)
+
+    def run(ns):
+        out = subprocess.run([str(tmp_path / "plan"), *map(str, ns)],
+                             check=True, capture_output=True, text=True)
+        return [None if ln.strip() == "-" else list(map(int, ln.split()))
+                for ln in out.stdout.splitlines()]
+    return run
+
+
+def test_mixed_plan_is_the_kernels(tmp_path):
+    """``_spectral.fft_radices`` mirrors the C planner ``mixed_plan`` on
+    every n = 2^a 5^b (b >= 1) of the tile's range, and both refuse a
+    power of two, a factor 3 (768) and an odd prime (401)."""
+    ns = sorted({2 ** a * 5 ** b for a in range(13) for b in range(1, 6)
+                 if _spectral.FFT_MIN <= 2 ** a * 5 ** b <= _spectral.FFT_MAX})
+    got = _mixed_planner(tmp_path)(ns + [512, 768, 401])
+    assert got[:len(ns)] == [_spectral.fft_radices(n) for n in ns]
+    assert got[len(ns):] == [None] * 3
+    assert _spectral.fft_radices(400) == [4, 4, 5, 5]
+
+
+def _speech_rows(B, seconds, seed):
+    """B rows of the benchmark's speech-like int16 audio (``perfbench/
+    corpus.py``, the libri traffic's signal) of seconds[i] each, padded."""
+    import json
+    from pathlib import Path
+    from perfbench import corpus
+    sig = json.loads((Path(corpus.__file__).parent / "traffic" /
+                      "libri_sorted.json").read_text())["signal"]
+    gen = torch.Generator().manual_seed(seed)
+    n = torch.tensor([int(s * sig["sample_rate"]) for s in seconds])
+    return corpus.synth(corpus._params(B, sig, gen, "cpu"), n,
+                        int(n.max()), sig, gen), n
+
+
+def test_mixed_tile_twin_at_whispers_geometry():
+    """Whisper's front end (400 points, periodic Hann, 128 Hz-triangle
+    mels, the 80 dB row floor) through the fft64 twin of the mixed tile,
+    on the speech-like rows of the benchmark's traffic, against the
+    float64 reference (``perfbench/reference/whisper.py``): within 2e-5
+    (its float64 front through |X|^2; the direct tile's f32 sums read
+    1.1-2.7e-4 on the card).  The f32 twin's figure is printed beside it:
+    the flavour rule gives Whisper fft64 (an 80 dB floor is past the 50
+    dB that ``routes.use_dit`` allows the f32 tile), whatever it reads."""
+    import dataclasses
+    from mfcc_tpu_torch.config import WhisperConfig
+    from mfcc_tpu_torch.models import whisper
+    from perfbench.reference import whisper as ref
+    cfg = WhisperConfig(chunk_s=2.0).validate()
+    kcfg = cfg.feature_config()
+    assert _spectral.fft_tile(kcfg, False, mixed=True) == "fft64_mixed"
+    x, n = _speech_rows(3, [2.0, 1.3, 0.6], seed=24)
+    xp = framing.stft_center_batch(x.to(torch.float32) / 32768.0, n, cfg)
+    want = ref.features(x, n.tolist(), dataclasses.asdict(cfg), False)[0]
+    front = whisper.front(cfg)
+    errs = {}
+    for name, g in (("fft64", np.float64), ("f32", np.float32)):
+        tables = _spectral.fft_tables(
+            front.window, cfg.n_fft, front.bank, None,
+            "fft64_mixed" if g is np.float64 else "fft")
+        logs = _emulate_fft_tile(xp.numpy(), kcfg, False, dtype=np.float32,
+                                 front=g, tables=tables)
+        feat = whisper.normalize(torch.from_numpy(logs))
+        assert feat.shape == want.shape
+        errs[name] = float((feat.double() - want).abs().max())
+    print(f"Whisper's geometry against the float64 reference: fft64 twin "
+          f"{errs['fft64']:.3e}, f32 twin {errs['f32']:.3e}")
+    assert errs["fft64"] <= 2e-5, errs
 
 
 def test_fft_tile_ablation_edits_still_apply():

@@ -24,8 +24,7 @@ import torch
 import numpy as np
 
 from mfcc_tpu_torch import backend, oracle
-from mfcc_tpu_torch.models import whisper
-from mfcc_tpu_torch.ops import deltas, framing
+from mfcc_tpu_torch.ops import deltas, framing, spectrum, xmath
 from mfcc_tpu_torch.ops.kernels import (_build, _spectral, fused_deltas,
                                         fused_dit, fused_mfcc, fused_nccf,
                                         fused_raw, fused_raw_dit,
@@ -140,7 +139,7 @@ def _counting(mod, name):
         if hasattr(mod, "TILE_LAUNCHES") and x.shape[0] and \
                 cfg.num_frames(x.shape[1]):
             tile = _spectral.fft_tile(cfg, kwargs.get("apply_dct", True),
-                                      projection)
+                                      projection, mixed=mod is fused_raw)
             mod.TILE_LAUNCHES[tile if tile in mod.TILE_LAUNCHES
                               else "dit"] += 1
             if hasattr(mod, "PROJECTION_LAUNCHES"):
@@ -152,22 +151,41 @@ def _counting(mod, name):
                 return torch.from_numpy(np.stack([
                     ORACLES[projection](r, c) for r in x.double().numpy()
                 ]).astype(np.float32))
-        if kwargs.get("direct") is not None:   # Whisper's: its plain chain
-            return whisper._plain_log_mel(x, kwargs["direct"][1])
+        if kwargs.get("front") is not None:   # Whisper's: its own chain
+            return _front_chain(x, cfg, kwargs["front"], tile != "direct")
         return fn(*args, **kwargs)
 
     return wrapper
 
 
-def _whisper_direct(cfg):
-    """models/whisper._direct_consts' stand-in: no page-locked upload on
-    the CPU; the launch's stand-in runs the config's plain chain."""
-    return ("whisper", cfg)
+def _front_chain(x, cfg, front, fft64: bool):
+    """A front end's spectral chain on its own window and bank (Whisper's:
+    the natural logs ``fused_raw`` gives it): the float64 oracle where the
+    config picks the fft64 flavour, else the plain route's float32 chain
+    (``models/whisper._plain_log_mel``'s products)."""
+    dt = torch.float64 if fft64 else torch.float32
+    basis = torch.from_numpy(np.concatenate(
+        spectrum.folded_dft(front.window, cfg.n_fft), axis=1)).to(dt)
+    melw = torch.from_numpy(front.bank).to(dt)
+    fr = framing.frames(x.to(dt), cfg)
+    nb = cfg.n_bins
+    if fft64:
+        spec = fr @ basis
+        power = spec[..., :nb] ** 2 + spec[..., nb:] ** 2
+        return torch.log(torch.clamp(power @ melw, min=cfg.log_floor)).float()
+    spec = backend.matmul(fr, basis, "highest")
+    re, im = spec[..., :nb], spec[..., nb:]
+    return xmath.floored_log(backend.matmul(
+        xmath.mul_add(re, re, im * im, True), melw, "highest"), cfg.log_floor)
 
 
 def _launch_plain(lib_fn, entry, name, x, cfg, apply_dct, preemph,
-                  other=None, tile=None, projection=None):
+                  other=None, tile=None, projection=None, front=None,
+                  mixed=False):
     """launch_spectral's stand-in: the plain chain, on the tile named."""
+    if front is not None:
+        tile = tile or _spectral.fft_tile(cfg, apply_dct, "mel", mixed)
+        return _front_chain(x, cfg, front, tile != "direct"), tile
     y = framing.preemphasize(x, cfg) if preemph is not None else x
     return _spectral.plain_features(y, cfg, apply_dct,
                                     projection=projection or "mel"), tile
@@ -247,7 +265,6 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     monkeypatch.setattr(ablate_pitch, "build",
                         lambda names: {n: n for n in names})
     monkeypatch.setattr(fused_nccf, "launch", _launch_nccf)
-    monkeypatch.setattr(whisper, "_direct_consts", _whisper_direct)
     monkeypatch.setattr(fused_nccf, "plain_nccf",
                         _direct_nccf(fused_nccf.plain_nccf))
     resolve = backend.resolve
@@ -269,19 +286,23 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     for phase in [*map(str, range(1, 26)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
-    # phase 25: Whisper's entry, one fused_raw launch on its direct tile
-    # (the phase's own assertion), within the bound of the plain route and
-    # of the float64 reference, a wrong window and a wrong bank over it
+    # phase 25: Whisper's entry, one fused_raw launch on its mixed-radix
+    # tile (the phase's own assertion), within the float64 front's bound of
+    # the reference, the plain route within the cell's, the direct tile on
+    # the same constants equal to the plain route, a wrong window and a
+    # wrong bank over the bound; the tile timed beside its yardsticks
     tag = "[25 whisper]"
     line = next(ln for ln in out.splitlines() if ln.startswith(f"{tag} (a) "))
     assert "on 8 x 1-1.2 s int16 rows in the 2 s window (8, 200, 128): " \
-        "launched {'fused_raw': 1} ({'direct': 1}); frame counts 200 and " \
-        "mask exact;" in line, line
-    assert "kernel vs plain route 0.000e+00 (bound 1e-05, against the " \
-        "reference 0.0007)" in line, line
+        "launched {'fused_raw': 1} ({'fft64_mixed': 1}); frame counts 200 " \
+        "and mask exact;" in line, line
+    assert "(bound 2e-05), plain route " in line, line
+    assert "the direct tile on the same constants vs the plain route " \
+        "0.000e+00 (bound 1e-05)" in line, line
     line = next(ln for ln in out.splitlines() if ln.startswith(f"{tag} (b) "))
-    assert "the direct tile alone on the (8, 32240) padded rows: " in line
-    assert "(894 of 1600 frames read a sample, " in line, line
+    assert "the mixed-radix tile alone on the (8, 32240) padded rows: " in line
+    assert "; 894 of 1600 frames read a sample, " in line, line
+    assert "library_ms (torch.stft, n = 400, the DFT alone) " in line, line
     assert "Fake GPU, 700.00 W" in line, line
     assert f"{tag} (c) whisper_log_mel_batch whole: " in out
     assert f"{tag} phase 25 passed in " in out

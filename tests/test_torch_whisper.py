@@ -4,8 +4,10 @@ short windows and one whole 30 s row, the STFT centring frame for frame
 against ``torch.stft(center=True)``, the filterbank and the features
 against Hugging Face's ``WhisperFeatureExtractor`` where transformers
 imports, each row's own floor, the spans and the frame counter under a
-profiler, the constants' caches, the route to ``fused_raw``'s direct tile,
-and the config's checks.
+profiler, the constants' caches, the route to ``fused_raw``'s mixed-radix
+FFT tile and its tables, the direct tile's tables (which other n_fft still
+take), the tile rule of every power-of-two config, and the config's
+checks.
 
 Tolerances: the port computes Whisper's float32 chain, the reference in
 float64.  A float32 DFT rounds ~1e-7 of a frame's largest bin; in a band
@@ -206,6 +208,52 @@ def test_no_profiler_no_range_and_no_count(monkeypatch):
     assert report.counters()["frames_computed"] == 0
 
 
+def test_frames_direct_counts_the_calls_that_run_a_direct_tile(monkeypatch):
+    """``_spectral.launch_spectral`` counts B x T in ``frames_direct`` for a
+    call that runs a direct tile (n_fft 401; Whisper's front on the direct
+    tile named), and nothing for an FFT tile (Whisper's own pick, the
+    mixed-radix tile), for another entry's other tile (the DIT tile) or
+    with no profiler recording.  The launch itself is a stand-in here."""
+    import contextlib
+    import types
+    from mfcc_tpu_torch import FeatureConfig
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=None))
+    monkeypatch.setattr(_spectral, "_device_fft_matrices",
+                        lambda *a: (None,) * 6)
+    consts = ("direct", lambda cfg, dev: ([None, 0, None, None], None),
+              [None, 0, None, None])
+    dit = ("dit",) + consts[1:]
+    x = torch.zeros(3, 16000)
+    odd = FeatureConfig(n_fft=401, n_mels=80, n_mfcc=80).validate()
+    kcfg, front = SHORT.feature_config(), whisper.front(SHORT)
+    T = odd.num_frames(16000)
+
+    def launch(cfg, tile=None, other=consts, front=None):
+        return _spectral.launch_spectral(
+            Lib, "entry", "fused_raw", x, cfg, False, 0.0, other=other,
+            tile=tile, front=front, mixed=True)[1]
+
+    report.reset()
+    assert launch(odd) == "direct"
+    assert report.counters()["frames_direct"] == 0      # no profiler
+    with profile():
+        assert launch(odd) == "direct"
+        assert launch(kcfg, front=front) == "fft64_mixed"
+        assert launch(kcfg, tile="direct", front=front) == "direct"
+        assert launch(odd, other=dit) == "dit"
+        assert launch(FeatureConfig(n_mels=80, n_mfcc=80)) == "fft64"
+    assert report.counters()["frames_direct"] == 3 * T + 3 * kcfg.num_frames(
+        16000)
+
+
 def test_constants_are_built_once_and_counted_in_consts_s():
     cfg = WhisperConfig(chunk_s=0.75, n_mels=40, n_mfcc=40).validate()
     before = report.counters()["consts_s"]
@@ -246,31 +294,94 @@ def test_direct_tile_tables_hold_whispers_window_and_bank():
 def test_auto_on_a_card_reaches_fused_raw_with_whispers_constants(monkeypatch):
     """With a CUDA tensor "auto" resolves to the kernels: the spectral stage
     is one ``fused_raw`` call on the config's sizes (n_fft 400, no
-    pre-emphasis, no DCT) with Whisper's direct-tile constants."""
+    pre-emphasis, no DCT) with Whisper's front (its window and bank), which
+    the tile rule sends to the float64-front mixed-radix FFT tile (400 =
+    2^4 5^2; an 80 dB row floor is past the f32 tile's 50 dB).  That
+    tile's tables: the periodic Hann window, the 400 twiddles of n = 400
+    in float64, and bank chunks that cover every nonzero of the bank."""
     calls = []
 
-    def fake(xp, kcfg, *, apply_dct, direct):
-        calls.append((kcfg, apply_dct, direct))
+    def fake(xp, kcfg, *, apply_dct, front):
+        calls.append((kcfg, apply_dct, front))
         return whisper._plain_log_mel(xp, SHORT)
 
     monkeypatch.setattr(whisper.backend_lib, "resolve", lambda *a: "cuda")
     monkeypatch.setattr(fused_raw, "fused_features_raw", fake)
     got, _, _ = whisper.whisper_log_mel_batch(_audio(2, 9000),
                                               torch.tensor([9000, 4000]), SHORT)
-    ((kcfg, apply_dct, direct),) = calls
+    ((kcfg, apply_dct, front),) = calls
     assert (kcfg.n_fft, kcfg.frame_len, kcfg.hop_len, kcfg.preemph,
             kcfg.n_mels, kcfg.dynamic_range_db) == (400, 400, 160, 0.0, 128,
                                                     None)
-    assert apply_dct is False and callable(direct)
-    assert _spectral.fft_tile(kcfg, False) == "direct"
+    assert apply_dct is False and front is whisper.front(SHORT)
+    assert _spectral.fft_tile(kcfg, False, mixed=True) == "fft64_mixed"
     assert got.shape == (2, 100, 128)
+    win, tw, chunk_w, chunks, band_chunks, dctm = _spectral.fft_tables(
+        front.window, kcfg.n_fft, front.bank, None, "fft64_mixed")
+    np.testing.assert_allclose(
+        win, torch.hann_window(400, dtype=torch.float64).numpy(), rtol=0,
+        atol=1e-15)
+    ang = 2 * np.pi * np.arange(400) / 400
+    assert win.dtype == tw.dtype == np.float64 and tw.shape == (400, 2)
+    np.testing.assert_array_equal(tw, np.stack([np.cos(ang), np.sin(ang)], 1))
+    bank = whisper.constants(SHORT)[2].astype(np.float32)
+    assert dctm is None and band_chunks.shape == (128, 2)
+    sums = np.zeros_like(bank)
+    for j, (c0, c1) in enumerate(band_chunks):
+        for c in range(c0, c1):
+            k0, k1 = chunks[c]
+            assert k1 - k0 <= _spectral.MEL_CHUNK
+            sums[k0:k1, j] += chunk_w[c, : k1 - k0]
+    np.testing.assert_array_equal(sums, bank)
 
 
 def test_fused_raw_refuses_direct_constants_on_the_cpu():
+    """A front's constants run on the card only, and have no DCT."""
     with pytest.raises(ValueError, match="CUDA"):
         fused_raw.fused_features_raw(
             torch.zeros(1, 1000), SHORT.feature_config(), apply_dct=False,
-            direct=whisper._direct_consts(SHORT))
+            front=whisper.front(SHORT))
+    with pytest.raises(ValueError, match="DCT"):
+        fused_raw.fused_features_raw(
+            torch.zeros(1, 1000), SHORT.feature_config(), apply_dct=True,
+            front=whisper.front(SHORT))
+
+
+def _tile_before(cfg, apply_dct, projection):
+    """The tile rule as it stood before the mixed-radix tile: a power of
+    two from 64 to 4096 that holds the frame and whose 8-frame tile fits,
+    the f32 tile under ``routes.use_dit``, else fft64; else direct."""
+    from mfcc_tpu_torch.ops.kernels import routes
+    n = cfg.n_fft
+    if not (64 <= n <= 4096 and n & (n - 1) == 0 and cfg.frame_len <= n):
+        return "direct"
+    tile = ("fft" if projection == "mel" and routes.use_dit(cfg, apply_dct)
+            else "fft64")
+    return (tile if _spectral.fft_smem_bytes(cfg, tile, 8, projection)
+            <= _spectral.MAX_SMEM else "direct")
+
+
+@pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024, 2048, 4096, 8192])
+def test_power_of_two_configs_keep_their_tile(n_fft):
+    """Every power-of-two config gets the tile it got before the mixed
+    tile, in an entry with it and without, for cepstra and every log-mel
+    range and projection: the mixed tile takes only n_fft = 2^a 5^b."""
+    from mfcc_tpu_torch import FeatureConfig
+    sr, m = n_fft * 125 // 4, min(80, n_fft // 8)   # 25 ms frames fit
+    seen = set()
+    for kw in (dict(n_mels=min(26, m), n_mfcc=min(13, m)),
+               dict(n_mels=m, n_mfcc=m),
+               dict(n_mels=m, n_mfcc=m, dynamic_range_db=50.0),
+               dict(n_mels=m, n_mfcc=m, frame_ms=n_fft * 1000.0 / sr)):
+        cfg = FeatureConfig(sample_rate=sr, n_fft=n_fft, **kw).validate()
+        for apply_dct in (True, False):
+            for projection in ("mel", "bark", "spec"):
+                want = _tile_before(cfg, apply_dct, projection)
+                for mixed in (False, True):
+                    assert _spectral.fft_tile(cfg, apply_dct, projection,
+                                              mixed) == want
+                seen.add(want)
+    assert seen >= ({"direct"} if n_fft > 4096 else {"fft", "fft64"})
 
 
 @pytest.mark.parametrize("bad,match", [
