@@ -422,6 +422,13 @@ SPECTRAL = ("fused_raw_dit", "fused_raw", "fused_mfcc", "fused_dit")
 # the tile each spectral kernel's main path runs (phase 4b)
 MAIN_TILES = {"fused_raw_dit": "fft", "fused_raw": "fft64",
               "fused_mfcc": "fft", "fused_dit": "fft64"}
+# each spectral kernel's tiles and fused_raw_dit's projections, in the
+# order their launch counts print
+KERNEL_TILES = {"fused_raw_dit": ("fft", "fft64", "direct"),
+                "fused_raw": ("fft", "fft64", "fft64_mixed", "direct"),
+                "fused_mfcc": ("fft", "fft64", "direct"),
+                "fused_dit": ("fft", "fft64", "dit")}
+RAW_DIT_PROJECTIONS = ("mel", "bark", "spec")
 # fused_raw_dit's other projections: record name -> projection (phase 4c)
 PROJECTIONS = {"fused_raw_dit/bark": "bark", "fused_raw_dit/spec": "spec"}
 REPLACES = {"fused_raw_dit": "mfcc_tpu/ops/kernels/fused_raw_dit.py:555",
@@ -578,10 +585,8 @@ def _log(msg: str) -> None:
 
 
 def _smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    from mfcc_tpu_torch.tools import _ablate
+    return _ablate.smi()
 
 
 def _bench_audio(batch: int, seconds: float, sr: int,
@@ -622,25 +627,12 @@ def _int16(audio: np.ndarray) -> np.ndarray:
     return np.round(np.clip(audio, -1.0, 32767 / 32768) * 32768).astype(np.int16)
 
 
-def _time_ms(torch, fn, warmup: int = 3, calls: int = 30,
+def _time_ms(fn, warmup: int = 3, calls: int = 30,
              group: int = 5) -> list[float]:
     """ms per call: calls // group samples, each the mean over ``group``
-    back-to-back calls between two CUDA events, so that the host enqueues
-    ahead of the device as a corpus run does."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(max(1, calls // group)):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(group):
-            fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end) / group)
-    return out
+    back-to-back calls between two CUDA events (``report.cuda_ms``)."""
+    from mfcc_tpu_torch.utils import report
+    return report.cuda_ms(fn, warmup, calls, group)
 
 
 def _columns_err(got: np.ndarray, want: np.ndarray, tols) -> list[float]:
@@ -655,25 +647,41 @@ def _fmt(errs) -> str:
     return "/".join(f"{e:.2e}" for e in errs)
 
 
-def _tile_ran(module, before: dict) -> str:
+def _launches():
+    """Every kernel launch since the last :func:`_reset_counts`, by kernel,
+    (kernel, tile) and (kernel, projection) (``report.launches``)."""
+    from mfcc_tpu_torch.utils import report
+    return report.launches()
+
+
+def _counts(kernels) -> dict:
+    """{kernel: launches since the last reset} of the kernels named."""
+    n = _launches()
+    return {k: n[k] for k in kernels}
+
+
+def _shape(kernel: str) -> dict:
+    """The launch shape the kernel's C entry planned for its last launch."""
+    from mfcc_tpu_torch.utils import report
+    return report.last_shape(kernel)
+
+
+def _tile_ran(kernel: str, before: dict) -> str:
     """The tile a spectral wrapper's last call launched, as "<tile> tile, "
     ("" for a kernel with one tile or a call that launched nothing)."""
-    ran = [k for k, v in getattr(module, "TILE_LAUNCHES", {}).items()
-           if v != before.get(k)]
+    ran = [k for k, v in _tiles(kernel).items() if v != before.get(k)]
     return f"{ran[0]} tile, " if len(ran) == 1 else ""
 
 
-def _tiles(module) -> dict:
-    return dict(getattr(module, "TILE_LAUNCHES", {}))
+def _tiles(kernel: str) -> dict:
+    """{tile: launches since the last reset} of a spectral kernel."""
+    n = _launches()
+    return {t: n[kernel, t] for t in KERNEL_TILES.get(kernel, ())}
 
 
-def _reset_counts(modules) -> None:
-    for m in modules:
-        m.LAUNCHES = 0
-        for counts in (getattr(m, "TILE_LAUNCHES", {}),
-                       getattr(m, "PROJECTION_LAUNCHES", {})):
-            for k in counts:
-                counts[k] = 0
+def _reset_counts() -> None:
+    from mfcc_tpu_torch.utils import report
+    report.reset_launches()
 
 
 def _build_all(_build) -> tuple:
@@ -735,10 +743,10 @@ def _mfcc_kernel_vs_plain(torch, dev, bench) -> float:
     kernel_err = 0.0
     for name, c, audio in cases:
         x = torch.from_numpy(np.ascontiguousarray(audio)).to(dev)
-        before = _tiles(fused_raw_dit)
+        before = _tiles("fused_raw_dit")
         got = fused_raw_dit.fused_features_raw_dit(x, c)
         torch.cuda.synchronize()
-        tile = _tile_ran(fused_raw_dit, before)
+        tile = _tile_ran("fused_raw_dit", before)
         want = fused_raw_dit.plain_features(x, c)
         torch.cuda.synchronize()
         assert got.shape == want.shape == (x.shape[0], c.num_frames(x.shape[1]),
@@ -768,7 +776,6 @@ def _mfcc_kernel_vs_plain(torch, dev, bench) -> float:
 def _mfcc_main_path(torch, dev, bench) -> int:
     from mfcc_tpu_torch import FeatureConfig, oracle
     from mfcc_tpu_torch.models import mfcc as mfcc_model
-    from mfcc_tpu_torch.ops.kernels import fused_raw_dit
     from mfcc_tpu_torch.utils import wav
     cfg = FeatureConfig().validate()
     sr = cfg.sample_rate
@@ -787,14 +794,14 @@ def _mfcc_main_path(torch, dev, bench) -> int:
          oracle.lifter_coeffs(13, 22)),
     ]
 
-    _reset_counts([fused_raw_dit])
+    _reset_counts()
     outs = {}
     for tag, arr in (("int16", x16), ("float32", audio)):
         outs[tag] = mfcc_model.mfcc_batch(
             torch.from_numpy(arr).to(dev), torch.from_numpy(lens).to(dev), cfg)
     torch.cuda.synchronize()
-    launches = fused_raw_dit.LAUNCHES
-    tiles = _tiles(fused_raw_dit)
+    launches = _launches()["fused_raw_dit"]
+    tiles = _tiles("fused_raw_dit")
     _log(f"[4 MFCC main path] mfcc_batch on the two ragged batches launched "
          f"the kernel {launches} times, by tile {tiles}")
     assert launches > 0, "the MFCC main path did not go through the kernel"
@@ -865,8 +872,8 @@ def _other_tile(name: str) -> str:
 
 def _on_tile(name: str, x, c, dct: bool, tile: str, projection: str = "mel"):
     """A call of kernel ``name``'s C entry on ``tile`` (the tile it
-    replaced, or the f32 FFT tile, on the same work), outside its
-    wrapper's launch counts; -> (out, tile)."""
+    replaced, or the f32 FFT tile, on the same work), not through its
+    wrapper; -> out."""
     from mfcc_tpu_torch.ops.kernels import _spectral, fused_dit
     module, _, raw = _spectral_wrappers()[name]
     return _spectral.launch_spectral(
@@ -1059,10 +1066,10 @@ def _fft_tile_vs_plain(torch, dev) -> dict:
             x = torch.from_numpy(np.ascontiguousarray(audio)).to(dev)
             if not raw:
                 x = framing.preemphasize(x, c).contiguous()
-            before = _tiles(module)
+            before = _tiles(name)
             got = getattr(module, fn)(x, c, apply_dct=dct)
             torch.cuda.synchronize()
-            ran = _tile_ran(module, before)
+            ran = _tile_ran(name, before)
             want = module.plain_features(x, c, dct)
             torch.cuda.synchronize()
             assert ran == f"{tile} tile, ", (name, case, ran, tile)
@@ -1104,10 +1111,10 @@ def _spectral_kernels_vs_plain(torch, dev) -> dict:
             x = torch.from_numpy(np.ascontiguousarray(audio)).to(dev)
             if not raw:
                 x = framing.preemphasize(x, c).contiguous()
-            before = _tiles(module)
+            before = _tiles(name)
             got = getattr(module, fn)(x, c, apply_dct=dct)
             torch.cuda.synchronize()
-            ran = _tile_ran(module, before)
+            ran = _tile_ran(name, before)
             want = module.plain_features(x, c, dct)
             torch.cuda.synchronize()
             assert got.shape == (x.shape[0], c.num_frames(x.shape[1]),
@@ -1147,7 +1154,6 @@ def _logmel_main_paths(torch, dev):
     from mfcc_tpu_torch.models import logmel as logmel_model
     from mfcc_tpu_torch.models import mfcc as mfcc_model
     from mfcc_tpu_torch.utils import wav
-    modules = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
     speech, _ = wav.read_wav(os.path.join(GOLDEN, "speech2s.wav"))
     launches, tiles = {}, {}
     for name, cfg in _slice3_configs().items():
@@ -1163,12 +1169,12 @@ def _logmel_main_paths(torch, dev):
             audio[i, n:] = 0.0
         x16 = _int16(audio)
 
-        _reset_counts(modules.values())
+        _reset_counts()
         feat, flens, mask = entry(torch.from_numpy(x16).to(dev),
                                   torch.from_numpy(lens).to(dev), cfg)
         torch.cuda.synchronize()
-        counts = {k: m.LAUNCHES for k, m in modules.items()}
-        tiles[name] = _tiles(modules[name])
+        counts = _counts(SPECTRAL)
+        tiles[name] = _tiles(name)
         _log(f"[4b log-mel and fallback main paths] "
              f"{entry.__name__} ({name} route) launched {counts}, by tile "
              f"{tiles[name]}")
@@ -1179,10 +1185,10 @@ def _logmel_main_paths(torch, dev):
         launches[name] = counts[name]
         gold = None
         if name == "fused_raw":      # the golden WAV, counted on its own
-            _reset_counts(modules.values())
+            _reset_counts()
             gold = logmel_model.log_mel(torch.from_numpy(speech).to(dev), cfg)
             torch.cuda.synchronize()
-            assert modules[name].LAUNCHES > 0, \
+            assert _launches()[name] > 0, \
                 "log_mel on speech2s.wav did not go through fused_raw"
 
         T = cfg.num_frames(N)
@@ -1261,11 +1267,11 @@ def _projections_vs_plain(torch, dev, bench) -> dict:
             if tile == "direct":
                 c = c.replace(n_fft=401 if projection == "bark" else 768)
             x = torch.from_numpy(np.ascontiguousarray(audio)).to(dev)
-            before = _tiles(fused_raw_dit)
+            before = _tiles("fused_raw_dit")
             got = fused_raw_dit.fused_features_raw_dit(
                 x, c, apply_dct=False, projection=projection)
             torch.cuda.synchronize()
-            ran = _tile_ran(fused_raw_dit, before)
+            ran = _tile_ran("fused_raw_dit", before)
             want = fused_raw_dit.plain_features(x, c, False, projection)
             torch.cuda.synchronize()
             assert ran == f"{tile} tile, ", (rec, case, ran, tile)
@@ -1286,8 +1292,6 @@ def _plp_spectrogram_main_paths(torch, dev):
     from mfcc_tpu_torch.models import plp as plp_model
     from mfcc_tpu_torch.models import spectrogram as spec_model
     from mfcc_tpu_torch.utils import wav
-    modules = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
-    raw_dit = modules["fused_raw_dit"]
     speech, _ = wav.read_wav(os.path.join(GOLDEN, "speech2s.wav"))
     cfg = FeatureConfig().validate()
     bench = _bench_audio(BATCH, SECONDS, cfg.sample_rate)
@@ -1305,25 +1309,26 @@ def _plp_spectrogram_main_paths(torch, dev):
     launches, tiles = {}, {}
     for rec, projection in PROJECTIONS.items():
         entry, ref_fn, golden = entries[projection]
-        _reset_counts(modules.values())
+        _reset_counts()
         feat, flens, mask = entry(torch.from_numpy(x16).to(dev),
                                   torch.from_numpy(lens).to(dev), cfg)
         torch.cuda.synchronize()
-        counts = {k: m.LAUNCHES for k, m in modules.items()}
-        by_tile = _tiles(raw_dit)
-        by_proj = dict(raw_dit.PROJECTION_LAUNCHES)
+        counts = _counts(SPECTRAL)
+        by_tile = _tiles("fused_raw_dit")
+        n = _launches()
+        by_proj = {p: n["fused_raw_dit", p] for p in RAW_DIT_PROJECTIONS}
         _log(f"[4c PLP and spectrogram main paths] {entry.__name__} launched "
              f"{counts}, by tile {by_tile}, by projection {by_proj}")
-        assert counts == {k: int(k == "fused_raw_dit") for k in modules}, \
+        assert counts == {k: int(k == "fused_raw_dit") for k in SPECTRAL}, \
             f"{entry.__name__} did not launch fused_raw_dit once, alone"
         assert by_proj[projection] == 1 == by_tile["fft64"], \
             f"{entry.__name__} did not run the {projection} projection on fft64"
         launches[rec], tiles[rec] = by_proj[projection], "fft64"
-        _reset_counts(modules.values())   # the golden WAV, counted apart
+        _reset_counts()   # the golden WAV, counted apart
         gold, gold_fl, _ = entry(torch.from_numpy(speech[None]).to(dev),
                                  torch.tensor([len(speech)], device=dev), cfg)
         torch.cuda.synchronize()
-        assert raw_dit.PROJECTION_LAUNCHES[projection] == 1, \
+        assert _launches()["fused_raw_dit", projection] == 1, \
             f"{entry.__name__} on speech2s.wav did not go through the kernel"
 
         T = cfg.num_frames(N)
@@ -1361,11 +1366,11 @@ def _plp_spectrogram_main_paths(torch, dev):
             (plp_model.plp_batch, oracle.plp,
              FeatureConfig(sample_rate=44100, n_fft=2048))):
         x = _noise(rng, (4, c.sample_rate))
-        _reset_counts(modules.values())
+        _reset_counts()
         feat, _, _ = entry(torch.from_numpy(x).to(dev),
                            torch.full((4,), c.sample_rate, device=dev), c)
         torch.cuda.synchronize()
-        counts = {k: m.LAUNCHES for k, m in modules.items()}
+        counts = _counts(SPECTRAL)
         want = ref_fn(x[0].astype(np.float64), c)
         got = feat[0].cpu().numpy()
         if entry is plp_model.plp_batch:
@@ -1425,7 +1430,7 @@ def _nccf_kernel_vs_plain(torch, dev, bench) -> tuple:
         xw, ball, T, flens = _nccf_inputs(torch, dev, c.validate(), audio, lens)
         got = fused_nccf.fused_nccf(xw, ball, c, T=T)
         torch.cuda.synchronize()
-        shape = fused_nccf.LAST_SHAPE
+        shape = _shape("fused_nccf")
         want = fused_nccf.plain_nccf(xw, ball, c, T)
         torch.cuda.synchronize()
         err = 0.0
@@ -1470,7 +1475,7 @@ def _viterbi_kernel_vs_plain(torch, dev) -> int:
             bad += differ(scores(B, T), pcfg)
     _log(f"[6 Viterbi kernel vs plain] B in {VITERBI_BATCHES} x T in "
          f"{VITERBI_STEPS}: {bad} path entries differ (the main path's "
-         f"launch shape {fused_viterbi.LAST_SHAPE})")
+         f"launch shape {_shape('fused_viterbi')})")
     # min_f0 15.09 / 15.0 Hz at the 4 kHz work rate: 256 / 257 lags
     cases = [("tie-heavy (penalty=0, scores in {-1, 0, 1})",
               pcfg.replace(penalty=0.0), scores(64, VITERBI_WIDE, ties=True)),
@@ -1484,7 +1489,7 @@ def _viterbi_kernel_vs_plain(torch, dev) -> int:
         case_bad = differ(s, c.validate())
         _log(f"[6 Viterbi kernel vs plain] {name}, (B, T, n) "
              f"{tuple(s.shape)}: {case_bad} path entries differ (launch shape "
-             f"{fused_viterbi.LAST_SHAPE})")
+             f"{_shape('fused_viterbi')})")
         bad += case_bad
     got = pitch_op.viterbi_blocked(s, pcfg, backend="cuda")
     torch.cuda.synchronize()
@@ -1522,8 +1527,6 @@ def _mfcc_plus_pitch(torch, x, lens, cfg):
 def _pitch_main_path(torch, dev, bench) -> dict:
     from mfcc_tpu_torch import FeatureConfig, PitchConfig, oracle
     from mfcc_tpu_torch.models import pitch as pitch_model
-    from mfcc_tpu_torch.ops.kernels import (fused_nccf, fused_raw_dit,
-                                            fused_viterbi)
     from mfcc_tpu_torch.utils import wav
     pcfg = PitchConfig().validate()
     cfg = FeatureConfig().validate()
@@ -1538,21 +1541,18 @@ def _pitch_main_path(torch, dev, bench) -> dict:
     xd = torch.from_numpy(x16).to(dev)
     ld = torch.from_numpy(lens).to(dev)
 
-    fused_nccf.LAUNCHES = fused_viterbi.LAUNCHES = 0
+    _reset_counts()
     feat, flens, mask = pitch_model.pitch_batch(xd, ld, pcfg)
     torch.cuda.synchronize()
-    launches = {"fused_nccf": fused_nccf.LAUNCHES,
-                "fused_viterbi": fused_viterbi.LAUNCHES}
+    launches = _counts(("fused_nccf", "fused_viterbi"))
     _log(f"[7 pitch main path] pitch_batch launched {launches}")
     assert all(v > 0 for v in launches.values()), \
         "the pitch main path did not go through both kernels"
 
-    fused_nccf.LAUNCHES = fused_viterbi.LAUNCHES = fused_raw_dit.LAUNCHES = 0
+    _reset_counts()
     comb, cfl, cmask = _mfcc_plus_pitch(torch, xd, ld, cfg)
     torch.cuda.synchronize()
-    comb_launches = {"fused_raw_dit": fused_raw_dit.LAUNCHES,
-                     "fused_nccf": fused_nccf.LAUNCHES,
-                     "fused_viterbi": fused_viterbi.LAUNCHES}
+    comb_launches = _counts(("fused_raw_dit", "fused_nccf", "fused_viterbi"))
     _log(f"[7 pitch main path] the MFCC + pitch composition launched "
          f"{comb_launches}")
     assert all(v > 0 for v in comb_launches.values()), \
@@ -1733,7 +1733,7 @@ def _timing(torch, dev, bench, smi, sm_mhz) -> dict:
     for order in (list(runs), list(runs)[::-1]):
         for k in order:
             fn, calls = runs[k]
-            times[k] += _time_ms(torch, fn, calls=calls)
+            times[k] += _time_ms(fn, calls=calls)
     med = {k: statistics.median(v) for k, v in times.items()}
     audio_s = B * SECONDS
     for k, ms in med.items():
@@ -1847,7 +1847,7 @@ def _nccf_work(B: int, T: int, nw: int, p) -> tuple:
 
 def _nccf_kernel_ops(B: int, T: int, tile: dict, p) -> float:
     """The operations fused_nccf itself does at PitchConfig ``p`` in the
-    tile the C entry planned (``fused_nccf.LAST_SHAPE``): the numerators'
+    tile the C entry planned (``report.last_shape("fused_nccf")``): the numerators'
     w x L MACs and the epilogue, and the energies as the tile sums them
     (no running sum: its rounding would differ): with shared energies a
     direct w-MAC energy for every window position of each TM-frame tile;
@@ -1864,12 +1864,13 @@ def _nccf_kernel_ops(B: int, T: int, tile: dict, p) -> float:
 
 # ---- phases 10-13: packed corpus, dither, post chain and CMVN, streaming --
 
-def _spectral_counts(modules) -> dict:
+def _spectral_counts() -> dict:
     """Every spectral launch counter: {kernel: launches}, with
     fused_raw_dit's by projection."""
-    out = {k: m.LAUNCHES for k, m in modules.items()}
-    out.update({f"fused_raw_dit/{p}": v for p, v in
-                modules["fused_raw_dit"].PROJECTION_LAUNCHES.items()})
+    out = _counts(SPECTRAL)
+    n = _launches()
+    out.update({f"fused_raw_dit/{p}": n["fused_raw_dit", p]
+                for p in RAW_DIT_PROJECTIONS})
     return out
 
 
@@ -1933,7 +1934,6 @@ def _packed_corpus(torch, dev, smi) -> None:
     from mfcc_tpu_torch import FeatureConfig
     from mfcc_tpu_torch.models import mfcc as mfcc_model
     from mfcc_tpu_torch.utils import batch as batch_lib
-    modules = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
     sr, hop = 16000, FeatureConfig().hop_len
     lo, hi = PACK_SECONDS
     rng = np.random.default_rng(0)
@@ -1961,11 +1961,11 @@ def _packed_corpus(torch, dev, smi) -> None:
     picks = _pick_segments(rows, hop, PACK_CHECKS)
     for name, family, cfg, (dct, proj), ref_fn, ref_tol, counter in \
             _packed_families():
-        _reset_counts(modules.values())
+        _reset_counts()
         feat, f0, fc, mask = mfcc_model.mfcc_batch_packed(x, st_d, ln_d, cfg,
                                                           family=family)
         torch.cuda.synchronize()
-        counts = _spectral_counts(modules)
+        counts = _spectral_counts()
         _log(f"[10 packed corpus] {name}: mfcc_batch_packed on {len(rows)} "
              f"rows launched {counts}")
         assert counts[counter] == 1 and sum(
@@ -2018,14 +2018,14 @@ def _packed_corpus(torch, dev, smi) -> None:
                            for a, n in padded_calls]}
     launches = {}
     for k, fn in runs.items():
-        _reset_counts(modules.values())
+        _reset_counts()
         fn()
         torch.cuda.synchronize()
-        launches[k] = modules["fused_raw_dit"].LAUNCHES
+        launches[k] = _launches()["fused_raw_dit"]
     times = {k: [] for k in runs}
     for order in (list(runs), list(runs)[::-1]):
         for k in order:
-            times[k] += _time_ms(torch, runs[k], warmup=1, calls=PACK_TIMING,
+            times[k] += _time_ms(runs[k], warmup=1, calls=PACK_TIMING,
                                  group=1)
     fill = {"packed": real / xp.size, "padded": real / padded_samples}
     ms = {k: statistics.median(v) for k, v in times.items()}
@@ -2054,7 +2054,6 @@ def _dither_phase(torch, dev, bench) -> None:
     from mfcc_tpu_torch import FeatureConfig, oracle
     from mfcc_tpu_torch.models import mfcc as mfcc_model
     from mfcc_tpu_torch.ops import dither
-    from mfcc_tpu_torch.ops.kernels import fused_raw_dit
     n = 1 << 20
     for seed, start in ((0, 0), (7, 2**32 - n // 2)):
         h1, h2 = dither.bits(seed, start, n, device=dev)
@@ -2070,12 +2069,12 @@ def _dither_phase(torch, dev, bench) -> None:
         assert bad == 0 and rel <= 1e-6, (seed, bad, rel)
     cfg = FeatureConfig(dither=dither.KALDI_ONE_LSB)
     B, N = bench.shape
-    _reset_counts([fused_raw_dit])
+    _reset_counts()
     feat, _, _ = mfcc_model.mfcc_batch(
         torch.from_numpy(bench).to(dev),
         torch.full((B,), N, dtype=torch.int32, device=dev), cfg)
     torch.cuda.synchronize()
-    launches = fused_raw_dit.LAUNCHES
+    launches = _launches()["fused_raw_dit"]
     f = feat.cpu().numpy()
     err = max(float(np.abs(f[i] - oracle.mfcc(bench[i].astype(np.float64),
                                               cfg)).max()) for i in range(B))
@@ -2196,7 +2195,7 @@ def _post_phase(torch, dev, bench, smi) -> None:
         "cmvn.apply": lambda: cmvn.apply(feat, host),
         "cmvn.host_batch_stats": lambda: cmvn.host_batch_stats(feat, flens)}
     for k, fn in runs.items():
-        ms = statistics.median(_time_ms(torch, fn, calls=TIMING_CALLS))
+        ms = statistics.median(_time_ms(fn, calls=TIMING_CALLS))
         _log(f"[12 post chain] {k}: {ms:.4f} ms per ({B}, {feat.shape[1]}, "
              f"{feat.shape[2]}) batch ({smi})")
 
@@ -2209,7 +2208,6 @@ def _streaming_phase(torch, dev, bench, smi) -> None:
     from mfcc_tpu_torch import FeatureConfig, oracle
     from mfcc_tpu_torch.models import streaming
     from mfcc_tpu_torch.ops import post
-    modules = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
     cf, K, D = STREAM_CHUNK_FRAMES, STREAM_K, STREAM_DISPATCHES
     base = FeatureConfig()
     B = bench.shape[0]
@@ -2234,11 +2232,11 @@ def _streaming_phase(torch, dev, bench, smi) -> None:
         outs, worst = [[] for _ in range(B)], 0.0
         launches = {}
         for d in range(D):
-            _reset_counts(modules.values())
+            _reset_counts()
             st_f, ff, n_new = streaming.process_chunks_batch_fused(
                 st_f, chunks[d], cfg, v)
             torch.cuda.synchronize()
-            for k, n in _spectral_counts(modules).items():
+            for k, n in _spectral_counts().items():
                 launches[k] = launches.get(k, 0) + n
             st_s, fs, nvs = streaming.process_chunks_batch(st_s, chunks[d],
                                                            cfg, v)
@@ -2339,7 +2337,7 @@ def _streaming_phase(torch, dev, bench, smi) -> None:
                                           st0["mfcc"], chunks[0], base)
     audio_s = B * K * C / base.sample_rate
     for k, fn in runs.items():
-        ms = statistics.median(_time_ms(torch, fn, calls=TIMING_CALLS))
+        ms = statistics.median(_time_ms(fn, calls=TIMING_CALLS))
         n_ops, host_ms = _ops_and_host_ms(torch, fn)
         _log(f"[13 streaming] {k}: {ms:.4f} ms a dispatch of {B} x {K} "
              f"chunks ({audio_s:g} s of audio) = {audio_s / (ms / 1e3):,.0f}"
@@ -2372,28 +2370,20 @@ def _write_runner_corpus(d: str, n: int, lo: float, hi: float,
     return out
 
 
-def _runner_counters():
-    from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_viterbi
-    mods = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
-    mods.update(fused_nccf=fused_nccf, fused_viterbi=fused_viterbi)
-    return mods
-
-
 def _runner_cli(torch, argv: list) -> tuple:
     """One ``cli.main`` run in-process, every launch counter reset just
     before and read just after -> (exit code, launches, wall s, stdout)."""
     import contextlib
     import io
     from mfcc_tpu_torch import cli
-    mods = _runner_counters()
-    _reset_counts(mods.values())
+    _reset_counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main([str(a) for a in argv])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return rc, {k: m.LAUNCHES for k, m in mods.items()}, wall, buf.getvalue()
+    return rc, _counts(KERNELS), wall, buf.getvalue()
 
 
 def _runner_batches(infos: list) -> list:
@@ -2512,7 +2502,7 @@ def _corpus_runner_phase(torch, dev, smi, root, cdir, corpus) -> str:
     packed_batches = -(-len(rows) // RUNNER_BATCH)
     padded_samples = sum(len(pb.paths) * pb.bucket
                          for pb in padded[len(corpus)])
-    none = dict.fromkeys(_runner_counters(), 0)
+    none = dict.fromkeys(KERNELS, 0)
     runs = [  # name, input, args, cfg, launches expected
         ("a mfcc npy", cdir, [], cfg,
          {**none, "fused_raw_dit": len(padded[len(corpus)])}),
@@ -2702,7 +2692,6 @@ def _online_pitch_phase(torch, dev, smi) -> None:
     the card; ms a chunk and the real-time factor."""
     from mfcc_tpu_torch import PitchConfig
     from mfcc_tpu_torch.models import pitch as pitch_model, pitch_online
-    from mfcc_tpu_torch.ops.kernels import fused_nccf
     from mfcc_tpu_torch.ops.resample import resample_poly_numpy
     pcfg = PitchConfig().validate()
     sr, F = pcfg.sample_rate, ONLINE_CHUNK
@@ -2711,12 +2700,12 @@ def _online_pitch_phase(torch, dev, smi) -> None:
     chunks = -(-T // F)
     _online_stream(pitch_online, pcfg, x[: sr], ONLINE_DELAY, dev)  # warm
     torch.cuda.synchronize()
-    _reset_counts([fused_nccf])
+    _reset_counts()
     t0 = time.perf_counter()
     got, op = _online_stream(pitch_online, pcfg, x, ONLINE_DELAY, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_nccf.LAUNCHES
+    launches = _launches()["fused_nccf"]
     _log(f"[15 online pitch] {ONLINE_SECONDS:g} s stream fed in "
          f"{ONLINE_FEED}-sample pieces, delay {ONLINE_DELAY}, chunk_frames "
          f"{F}: {got.shape[0]} rows of {T} frames in {op.chunks} chunks; "
@@ -2819,26 +2808,25 @@ def _training_phase(torch, dev, bench, smi, cdir, corpus, cmvn_path) -> None:
     from mfcc_tpu_torch.models import mfcc as mfcc_model, trainable
     from mfcc_tpu_torch.ops import augment
     cfg = FeatureConfig()
-    mods = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
     seconds = sum(n for _, n in corpus) / cfg.sample_rate
     runs = {}
     for name, kw in (("plain", {}),
                      ("cmvn + augment", dict(cmvn_stats=cmvn_path,
                                              augment_seed=0))):
-        _reset_counts(mods.values())
+        _reset_counts()
         t0 = time.perf_counter()
         batches = list(dataset.feature_batches(
             cdir, cfg, batch_size=RUNNER_BATCH, device=dev, **kw))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: m.LAUNCHES for k, m in mods.items()}
+        launches = _counts(SPECTRAL)
         n_utt = sum(u is not None for b in batches for u in b.uids)
         _log(f"[16 training feed] feature_batches ({name}): {len(batches)} "
              f"batches, {n_utt} utterances, {seconds:.1f} s of audio in "
              f"{wall:.3f} s = {seconds / wall:,.0f} audio-sec/s; launched "
              f"{launches} ({smi})")
         assert n_utt == len(corpus), n_utt
-        assert launches == {**dict.fromkeys(mods, 0),
+        assert launches == {**dict.fromkeys(SPECTRAL, 0),
                             "fused_raw_dit": len(batches)}, launches
         for b in batches:
             assert b.features.is_cuda == (dev.type == "cuda")
@@ -2889,8 +2877,7 @@ def _training_phase(torch, dev, bench, smi, cdir, corpus, cmvn_path) -> None:
                                               factor)
         err = float((y.cpu() - y_cpu).abs().max())
         ms = statistics.median(_time_ms(
-            torch, lambda: augment.speed_perturb(x_dev, lens.to(dev),
-                                                 factor),
+            lambda: augment.speed_perturb(x_dev, lens.to(dev), factor),
             calls=TIMING_CALLS // 3))
         _log(f"[16 training feed] speed_perturb {factor:g} on {B} x "
              f"{N / cfg.sample_rate:g} s: {tuple(y.shape)}, card vs CPU "
@@ -2898,9 +2885,9 @@ def _training_phase(torch, dev, bench, smi, cdir, corpus, cmvn_path) -> None:
         assert torch.equal(yl.cpu(), yl_cpu) and err <= 1e-6, (factor, err)
     # the trainable front end on the bench batch
     params = trainable.init_params(cfg, dev)
-    _reset_counts(mods.values())
+    _reset_counts()
     want = mfcc_model.mfcc_batch(x_dev, lens.to(dev), cfg)[0]
-    assert mods["fused_raw_dit"].LAUNCHES == 1
+    assert _launches()["fused_raw_dit"] == 1
     got = trainable.forward(params, x_dev, cfg).detach()
     err = float((got - want).abs().max())
     _log(f"[16 trainable] forward at init vs mfcc_batch through "
@@ -2919,7 +2906,7 @@ def _training_phase(torch, dev, bench, smi, cdir, corpus, cmvn_path) -> None:
     wall = time.perf_counter() - t0
     opt = trainable.make_optimizer(params, 1e-6)
     step = lambda: trainable.train_step(params, opt, x_dev, target, cfg)
-    step_ms = statistics.median(_time_ms(torch, step,
+    step_ms = statistics.median(_time_ms(step,
                                          calls=TIMING_CALLS // 3))
     ops, host_ms = _ops_and_host_ms(torch, step)
     _log(f"[16 trainable] fit, {TRAIN_STEPS} steps at lr 3e-3 recovering a "
@@ -3001,7 +2988,6 @@ def _precision_families(torch, dev, smi) -> None:
     from mfcc_tpu_torch import FeatureConfig, backend, oracle
     from mfcc_tpu_torch.models import logmel as logmel_model
     from mfcc_tpu_torch.models import mfcc as mfcc_model, plp as plp_model
-    modules = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
     bench = _bench_audio(BATCH, SECONDS, 16000)
     B, N = bench.shape
     lens = np.maximum(N - np.arange(B) * (N // (B + 6)), 0).astype(np.int32)
@@ -3028,10 +3014,10 @@ def _precision_families(torch, dev, smi) -> None:
             cfg = base.replace(**kw)
             for route in ("auto", "torch"):
                 flags = backend.matmul_flags()
-                _reset_counts(modules.values())
+                _reset_counts()
                 feat = entry(xd, ld, cfg, route)[0]
                 torch.cuda.synchronize()
-                ran = {k: m.LAUNCHES for k, m in modules.items() if m.LAUNCHES}
+                ran = {k: v for k, v in _counts(SPECTRAL).items() if v}
                 assert backend.matmul_flags() == flags, (fam, name, route)
                 f = feat.cpu().numpy()
                 assert np.isfinite(f).all(), (fam, name, route)
@@ -3039,7 +3025,7 @@ def _precision_families(torch, dev, smi) -> None:
                     np.abs(f[i, : refs[i].shape[0]] - refs[i]).ravel()
                     for i in rows])
                 ms = statistics.median(_time_ms(
-                    torch, lambda: entry(xd, ld, cfg, route), warmup=1,
+                    lambda: entry(xd, ld, cfg, route), warmup=1,
                     calls=PRECISION_CALLS))
                 out[name, route] = (feat, ran, float(err.max()),
                                     float(err.mean()), ms)
@@ -3174,7 +3160,7 @@ def _precision_forms(torch, dev, smi) -> None:
         err = (got.double() - exact).abs()
         assert backend.matmul_flags() == flags, name
         rel[name] = float((err[live] / scale[live]).max())
-        ms[name] = statistics.median(_time_ms(torch, fn, calls=TIMING_CALLS))
+        ms[name] = statistics.median(_time_ms(fn, calls=TIMING_CALLS))
         within = ""
         if name in FORM_UNIT:
             bound = FORM_UNIT[name] + K * 2.0 ** -23
@@ -3209,7 +3195,7 @@ def _precision_forms(torch, dev, smi) -> None:
         assert backend.matmul_flags() == flags
     assert all(math.isfinite(v) for v in losses.values()), losses
     step_ms = statistics.median(_time_ms(
-        torch, lambda: trainable.train_step(params, opt, x, target, tcfg),
+        lambda: trainable.train_step(params, opt, x, target, tcfg),
         calls=TIMING_CALLS // 3))
     rel_loss = abs(losses["default"] / losses["highest"] - 1.0)
     _log(f"[18 precision forms] train_step at 'default' on {tuple(x.shape)}: "
@@ -3313,7 +3299,7 @@ def _chunked_nccf_phase(torch, dev, smi) -> None:
     chunked and unchunked (host clock)."""
     from mfcc_tpu_torch import PitchConfig, oracle
     from mfcc_tpu_torch.ops import pitch as pitch_op, resample
-    from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_viterbi
+    from mfcc_tpu_torch.ops.kernels import fused_nccf
     pcfg = PitchConfig().validate()
     sr = pcfg.sample_rate
     stream = _bench_audio(1, CHUNK_STREAM_SECONDS, sr)
@@ -3324,12 +3310,12 @@ def _chunked_nccf_phase(torch, dev, smi) -> None:
         batch[i, n:] = 0.0
 
     def stage(x, ln, k):
-        fused_nccf.LAUNCHES = 0
+        _reset_counts()
         out = pitch_op._track(x, ln, pcfg, nccf_chunk=k, backend="auto",
                               precision="highest")
         torch.cuda.synchronize()
-        assert fused_nccf.LAUNCHES == 1 and out[4] == "cuda", (
-            k, fused_nccf.LAUNCHES, out[4])
+        n = _launches()["fused_nccf"]
+        assert n == 1 and out[4] == "cuda", (k, n, out[4])
         return out
 
     def unchunked(xw, mask, backend="cuda"):
@@ -3342,7 +3328,7 @@ def _chunked_nccf_phase(torch, dev, smi) -> None:
                      for o in fused_nccf.fused_nccf(xc, ball, pcfg, T=K))
 
     def ms(fn, *args):
-        return statistics.median(_time_ms(torch, lambda: fn(*args),
+        return statistics.median(_time_ms(lambda: fn(*args),
                                           calls=CHUNK_CALLS))
 
     def timed(fn, *args):
@@ -3413,10 +3399,10 @@ def _chunked_nccf_phase(torch, dev, smi) -> None:
     blocked = dict(viterbi_block=320, viterbi_warm=64)
     tracks = {}
     for k in (None, 128):
-        _reset_counts([fused_nccf, fused_viterbi])
+        _reset_counts()
         tracks[k] = pitch_op.pitch_track(x, ln, pcfg, nccf_chunk=k, **blocked)
         torch.cuda.synchronize()
-        counts = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+        counts = tuple(_counts(("fused_nccf", "fused_viterbi")).values())
         assert counts == (1, 1), (k, counts)
     _log(f"[20 chunked NCCF] pitch_track 1 x {CHUNK_STREAM_SECONDS:g} s, "
          f"viterbi_block 320, warm 64: one fused_nccf and one fused_viterbi "
@@ -3425,12 +3411,12 @@ def _chunked_nccf_phase(torch, dev, smi) -> None:
     assert same(tracks[None], tracks[128])
 
     xv = _vibrato(int(CHUNK_VOICED_SECONDS * sr), sr)
-    _reset_counts([fused_nccf, fused_viterbi])
+    _reset_counts()
     feat, fl, _ = pitch_op.pitch_features(
         torch.from_numpy(xv[None]).to(dev), torch.tensor([xv.size], device=dev),
         pcfg, nccf_chunk=128)
     torch.cuda.synchronize()
-    counts = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+    counts = tuple(_counts(("fused_nccf", "fused_viterbi")).values())
     want = oracle.pitch(xv.astype(np.float64), pcfg)
     assert int(fl[0]) == want.shape[0] and counts == (1, 1), (fl, counts)
     errs = _columns_err(feat[0].cpu().numpy(), want, PITCH_TOL)
@@ -3482,10 +3468,10 @@ def _roofline_phase(torch, dev, smi, libs) -> dict:
              f"fftlog to the kernel; fft {c['fft_max_abs_err']:.3e} off the "
              f"plain chain ({c['fft_rel_err']:.2e} of its max, bound "
              f"{roofline.FFT_RTOL:g})")
-    for rung in roofline.LAUNCHES:
-        roofline.LAUNCHES[rung] = 0
+    _reset_counts()
     results = roofline.ladder(libs, inputs, passes=2)
-    launches = dict(roofline.LAUNCHES)
+    n = _launches()
+    launches = {rung: n[f"roofline/{rung}"] for rung in roofline.BUILT}
     doc = roofline.report(results, inputs, smi, 2, checks)
     for path in inputs:
         for rung, r in doc["results"][path].items():
@@ -3504,7 +3490,7 @@ def _roofline_phase(torch, dev, smi, libs) -> dict:
     path = "fused_raw_dit"
     _, cfg, dct = roofline.PATHS[path]
     x = inputs[path]
-    plain_ms = statistics.median(_time_ms(torch, lambda: roofline.plain_rung(
+    plain_ms = statistics.median(_time_ms(lambda: roofline.plain_rung(
         "fft", x, cfg, dct), calls=TIMING_CALLS))
     ops, nbytes = _spectral_work(cfg, dct, True, *x.shape, log=False)
     times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / FP32_FLOPS}
@@ -3589,7 +3575,7 @@ def _beyond_smem_phase(torch, dev, smi, bench, libs) -> None:
     ``oracle.pitch``; (d) CUDA-event ms of each beside its own bound."""
     from mfcc_tpu_torch import PitchConfig, oracle
     from mfcc_tpu_torch.models import pitch as pitch_model
-    from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_viterbi
+    from mfcc_tpu_torch.ops.kernels import fused_nccf
     tag = "[22 NCCF beyond shared memory]"
     t_phase, t_oracle = time.perf_counter(), 0.0
     pcfg = PitchConfig().validate()
@@ -3623,7 +3609,7 @@ def _beyond_smem_phase(torch, dev, smi, bench, libs) -> None:
         return f"bound {1e3 * times[by]:.4f} ms by {by}"
 
     def ms(fn):
-        return statistics.median(_time_ms(torch, fn, calls=BEYOND_CALLS))
+        return statistics.median(_time_ms(fn, calls=BEYOND_CALLS))
 
     def tiling(tile):
         if tile["lag_block"]:
@@ -3634,7 +3620,7 @@ def _beyond_smem_phase(torch, dev, smi, bench, libs) -> None:
         """{"planner" or build: (out_b, out_p, tile)}, and each build's
         outputs equal in every bit to the planner's: {name: bool}."""
         runs = {"planner": (*fused_nccf.fused_nccf(xw, ball, c, T=T),
-                            fused_nccf.LAST_SHAPE)}
+                            _shape("fused_nccf"))}
         for v in builds:
             runs[v] = fused_nccf.launch(libs[v], xw, ball, c, T)
         torch.cuda.synchronize()
@@ -3690,12 +3676,12 @@ def _beyond_smem_phase(torch, dev, smi, bench, libs) -> None:
             ("both", both, _vibrato(n_b, sr)[None], [n_b])):
         xw, ball, T, flens = _nccf_inputs(torch, dev, c.validate(), audio,
                                           lens)
-        before = fused_nccf.LAUNCHES
+        before = _launches()["fused_nccf"]
         builds = () if name == "many lags" else ("nccf_lag_widest",)
         runs, same = runs_of(xw, ball, c, T, builds)
         got, tile = runs["planner"][:2], runs["planner"][2]
-        assert fused_nccf.LAUNCHES == before + 1 and tile["lag_block"] > 0, (
-            name, tile)
+        assert _launches()["fused_nccf"] == before + 1 and \
+            tile["lag_block"] > 0, (name, tile)
         assert all(same.values()), (name, same)
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         if name == "many lags":
@@ -3758,10 +3744,10 @@ def _beyond_smem_phase(torch, dev, smi, bench, libs) -> None:
         0, : lens[1]]
     x16 = _int16(audio)
     xd, ld = torch.from_numpy(x16).to(dev), torch.from_numpy(lens).to(dev)
-    _reset_counts([fused_nccf, fused_viterbi])
+    _reset_counts()
     feat, fl, mask = pitch_model.pitch_batch(xd, ld, wide)
     torch.cuda.synchronize()
-    counts = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+    counts = tuple(_counts(("fused_nccf", "fused_viterbi")).values())
     assert counts == (1, 1), counts
     want_fl = [wide.num_frames(int(n)) for n in lens]
     f, m = feat.cpu().numpy(), mask.cpu().numpy()
@@ -3838,7 +3824,6 @@ def _accum_phase(torch, dev, smi) -> None:
     tag = "[23 accum_dtype]"
     t_phase = time.perf_counter()
     cpu = torch.device("cpu")
-    modules = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
     bench = _bench_audio(BATCH, SECONDS, 16000)
     B, N = bench.shape
     lens = np.maximum(N - np.arange(B) * (N // (B + 6)), 0).astype(np.int32)
@@ -3865,11 +3850,11 @@ def _accum_phase(torch, dev, smi) -> None:
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 # (a) the kernel route
-                _reset_counts(modules.values())
+                _reset_counts()
                 feat = entry(xd, ld, cfg, "auto")[0]
                 torch.cuda.synchronize()
-                ran = {k: (m.LAUNCHES, _tiles(m)) for k, m in modules.items()
-                       if m.LAUNCHES}
+                ran = {k: (v, _tiles(k)) for k, v in _counts(SPECTRAL).items()
+                       if v}
                 kern[acc] = (feat, ran)
                 # (b) the plain route on the card and on the CPU
                 card = entry(xd, ld, cfg, "torch")[0]
@@ -3879,7 +3864,7 @@ def _accum_phase(torch, dev, smi) -> None:
                            cfg, "torch")[0][0].cpu().numpy()
                 # (d) the plain route's time
                 ms[acc] = statistics.median(_time_ms(
-                    torch, lambda: entry(xd, ld, cfg, "torch"), warmup=1,
+                    lambda: entry(xd, ld, cfg, "torch"), warmup=1,
                     calls=ACCUM_CALLS))
             assert (acc == "float64") == any(
                 "float64" in str(w.message) for w in caught), acc
@@ -3964,12 +3949,12 @@ def _accum_phase(torch, dev, smi) -> None:
                               .reshape(ACCUM_STREAMS, ACCUM_CHUNKS, C).copy())
     outs = {}
     for d in (dev, cpu):
-        _reset_counts(modules.values())
+        _reset_counts()
         _, feats, nv = streaming.process_chunks_batch(
             streaming.init_state_batch(ACCUM_STREAMS, cfg, d), chunks.to(d),
             cfg)
         outs[d.type] = (feats.cpu().numpy(), nv.cpu().numpy(),
-                        sum(m.LAUNCHES for m in modules.values()))
+                        sum(_counts(SPECTRAL).values()))
     serr = float(np.abs(outs[dev.type][0] - outs["cpu"][0]).max())
     assert np.array_equal(outs[dev.type][1], outs["cpu"][1])
     assert outs[dev.type][2] == 0 and serr <= ACCUM_TOL["mfcc"]
@@ -4001,10 +3986,10 @@ def _deltas_phase(torch, dev, smi) -> None:
             lens, dtype=torch.int32, device=dev))
 
     def launch_once(f, W, lens):
-        before = fused_deltas.LAUNCHES
+        before = _launches()["fused_deltas"]
         got = fused_deltas.fused_append_deltas(f, W, lens)
         torch.cuda.synchronize()
-        assert fused_deltas.LAUNCHES == before + 1
+        assert _launches()["fused_deltas"] == before + 1
         return got
 
     for shape, W, lens in DELTAS_CASES:                     # (a)
@@ -4023,10 +4008,10 @@ def _deltas_phase(torch, dev, smi) -> None:
         same = torch.equal(got, deltas.plain_append_deltas(f, 2, L))
         assert same, T
         kernel = statistics.median(_time_ms(
-            torch, lambda: fused_deltas.fused_append_deltas(f, 2, L),
+            lambda: fused_deltas.fused_append_deltas(f, 2, L),
             calls=TIMING_CALLS))
         plain = statistics.median(_time_ms(
-            torch, lambda: deltas.plain_append_deltas(f, 2, L),
+            lambda: deltas.plain_append_deltas(f, 2, L),
             calls=TIMING_CALLS))
         nbytes = 4 * B * T * F * (1 + 3)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4043,10 +4028,10 @@ def _deltas_phase(torch, dev, smi) -> None:
     lens = np.maximum(N - np.arange(B) * (N // (B + 6)), 0).astype(np.int32)
     x = torch.from_numpy(_int16(bench)).to(dev)
     n = torch.from_numpy(lens).to(dev)
-    before = fused_deltas.LAUNCHES
+    before = _launches()["fused_deltas"]
     feat, flens, _ = logmel_model.log_mel_batch(x, n, cfg)
     torch.cuda.synchronize()
-    launches = fused_deltas.LAUNCHES - before
+    launches = _launches()["fused_deltas"] - before
     assert launches == 1, launches
     want, _, _ = mfcc_model.run_batch(x, n, cfg, lambda xv, c, fl: (
         deltas.plain_append_deltas(fused_raw.fused_features_raw(
@@ -4080,7 +4065,7 @@ def _whisper_phase(torch, dev, smi) -> None:
     from mfcc_tpu_torch.config import WhisperConfig
     from mfcc_tpu_torch.models import whisper
     from mfcc_tpu_torch.ops import framing, mel, xmath
-    from mfcc_tpu_torch.ops.kernels import _spectral, fused_deltas, fused_raw
+    from mfcc_tpu_torch.ops.kernels import _spectral, fused_raw
     from mfcc_tpu_torch.oracle import window_fn
     from mfcc_tpu_torch.ops.spectrum import folded_dft
     from perfbench.reference import whisper as reference
@@ -4096,13 +4081,12 @@ def _whisper_phase(torch, dev, smi) -> None:
     n = torch.from_numpy(lens).to(dev)
     whisper.whisper_log_mel_batch(x, n, cfg)     # builds and constants
     torch.cuda.synchronize()
-    kernels = {k: m for k, (m, _, _) in _spectral_wrappers().items()}
-    kernels["fused_deltas"] = fused_deltas
-    _reset_counts(kernels.values())
+    _reset_counts()
     feat, flens, mask = whisper.whisper_log_mel_batch(x, n, cfg)
     torch.cuda.synchronize()
-    launched = {k: m.LAUNCHES for k, m in kernels.items() if m.LAUNCHES}
-    tiles = {k: v for k, v in fused_raw.TILE_LAUNCHES.items() if v}
+    launched = {k: v for k, v in _counts((*SPECTRAL, "fused_deltas")).items()
+                if v}
+    tiles = {k: v for k, v in _tiles("fused_raw").items() if v}
     assert launched == {"fused_raw": 1} and tiles == {"fft64_mixed": 1}, (
         launched, tiles)
     assert feat.shape == (B, T, M) and feat.dtype == torch.float32
@@ -4137,7 +4121,7 @@ def _whisper_phase(torch, dev, smi) -> None:
         return _spectral.launch_spectral(
             fused_raw._lib, "mfcc_fused_raw", "fused_raw", xp, kcfg, False,
             kcfg.preemph, other=_spectral.direct_tile("mel", front),
-            tile=tile, front=front, mixed=True)[0]
+            tile=tile, front=front, mixed=True)
 
     direct = whisper.normalize(tile_call("direct"))
     errs = {"kernel": err(feat), "plain": err(plain),
@@ -4163,16 +4147,16 @@ def _whisper_phase(torch, dev, smi) -> None:
     assert errs["direct vs plain"] <= WHISPER_PLAIN_TOL, errs
     assert min(errs["symmetric Hann"], errs["mel-linear bank"]) > \
         WHISPER_TOL, errs
-    ms = {t: statistics.median(_time_ms(torch, lambda t=t: tile_call(t),
+    ms = {t: statistics.median(_time_ms(lambda t=t: tile_call(t),
                                         calls=TIMING_CALLS))
           for t in (None, "direct")}
     hann = torch.hann_window(cfg.n_fft, device=dev)
     library = statistics.median(_time_ms(
-        torch, lambda: torch.stft(xp, cfg.n_fft, cfg.hop_len, window=hann,
-                                  center=False, return_complex=True),
+        lambda: torch.stft(xp, cfg.n_fft, cfg.hop_len, window=hann,
+                           center=False, return_complex=True),
         calls=TIMING_CALLS))
     entry = statistics.median(_time_ms(
-        torch, lambda: whisper.whisper_log_mel_batch(x, n, cfg),
+        lambda: whisper.whisper_log_mel_batch(x, n, cfg),
         calls=TIMING_CALLS))
     per_frame = (2.5 * cfg.n_fft * math.log2(cfg.n_fft) + cfg.n_fft + 3 * nb
                  + 2 * int(np.count_nonzero(bank)) + M * (ACC_LOG_OPS + 1))

@@ -169,9 +169,8 @@ def direct_blocks(cos_m: np.ndarray, sin_m: np.ndarray, proj, dct) -> tuple:
 # tile is the float64 flavour's with spectral::kMixedWavePoints).
 FFT_FLAVOURS = {"fft": (4, 2048, 5, 0), "fft64": (8, 1024, 4, 1),
                 "fft64_mixed": (8, 2048, 4, 1)}
-# the mixed tile's plan (must match spectral::kMixedPow2Radix and
-# spectral::kMixedFivesFirst)
-MIXED_POW2_RADIX, MIXED_FIVES_FIRST = 4, False
+# the mixed tile's plan (must match spectral::kMixedPow2Radix)
+MIXED_POW2_RADIX = 4
 MAX_SMEM = 232448   # the H100's shared memory per block (opt-in), bytes
 
 
@@ -194,8 +193,8 @@ def fft_radices(n: int) -> list | None:
     or radix-4 pass where log2 n is no multiple of 3 (``fft_features``);
     n = 2^a 5^b with b >= 1 as ``spectral::mixed_plan`` plans it (the
     power-of-two part in radix-``MIXED_POW2_RADIX`` passes and one radix-2
-    or radix-4 pass for the rest, the radix-5 passes after them, or before
-    with ``MIXED_FIVES_FIRST``); None for any other n."""
+    or radix-4 pass for the rest, the radix-5 passes after them); None
+    for any other n."""
     a = (n & -n).bit_length() - 1 if n > 0 else 0
     m, b = n >> a, 0
     while m > 1 and m % 5 == 0:
@@ -206,7 +205,7 @@ def fft_radices(n: int) -> list | None:
         return [8] * (a // 3) + ([1 << a % 3] if a % 3 else [])
     lr = MIXED_POW2_RADIX.bit_length() - 1
     pow2 = [MIXED_POW2_RADIX] * (a // lr) + ([1 << a % lr] if a % lr else [])
-    return [5] * b + pow2 if MIXED_FIVES_FIRST else pow2 + [5] * b
+    return pow2 + [5] * b
 
 
 def fft_tile(cfg: FeatureConfig, apply_dct: bool,
@@ -522,13 +521,14 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
     (``fused_raw_dit``; None for the others, which project on mel); the
     other tile's constants must be that projection's
     (:func:`direct_tile`).  lib_fn() loads the library (not called for an
-    empty output).  -> (out, the tile's name, or None if nothing was
-    launched).  A profiler trace shows the launch under ``name``.
+    empty output).  -> out.  The launch is recorded under ``name``, its
+    tile and its projection (``report.launched``; an empty output
+    launches nothing), and a profiler trace shows it under ``name``.
     """
     proj = projection or "mel"
     out = _empty_out(x, cfg, apply_dct, proj)
     if out.numel() == 0:
-        return out, None
+        return out
     lib = lib_fn()
     other_name, other_consts, other_nulls = other
     tile = tile or fft_tile(cfg, apply_dct, proj, mixed)
@@ -555,4 +555,5 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
             *map(_arg, args), *epilogue_args(cfg, apply_dct, proj),
             torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error(err, lib, name)
-    return out, tile
+    report.launched(name, tile, projection)
+    return out

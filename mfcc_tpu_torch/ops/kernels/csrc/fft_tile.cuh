@@ -315,11 +315,10 @@ __host__ __device__ constexpr int log2_radix(int R) {
 
 // The mixed tile's plan of n = 2^a 5^b (b >= 1): the power-of-two part in
 // radix-kMixedPow2Radix passes, then one radix-2 or radix-4 pass for what
-// is left of it, and the b radix-5 passes after those (before them with
-// kMixedFivesFirst); the first pass reads the span.  false for any other
-// n.  _spectral.fft_radices is its mirror.
+// is left of it, and the b radix-5 passes after those; the first pass
+// reads the span.  false for any other n.  _spectral.fft_radices is its
+// mirror.
 constexpr int kMixedPow2Radix = 4;
-constexpr bool kMixedFivesFirst = false;
 // complex points a wave of the mixed tile (the float64 flavour's
 // FftFlavour::kWavePoints is 1024): at 400 points four FFTs, TM 16
 constexpr int kMixedWavePoints = 2048;
@@ -336,9 +335,8 @@ inline bool mixed_plan(int n, FftMixedParams& q) {
   if (np2 + b > kMixedMaxPasses) return false;
   q.n = n;
   q.passes = 0;
-  for (int i = 0; kMixedFivesFirst && i < b; ++i) q.radix[q.passes++] = 5;
   for (int i = 0; i < np2; ++i) q.radix[q.passes++] = pow2[i];
-  for (int i = 0; !kMixedFivesFirst && i < b; ++i) q.radix[q.passes++] = 5;
+  for (int i = 0; i < b; ++i) q.radix[q.passes++] = 5;
   return true;
 }
 

@@ -8,8 +8,8 @@ which the kernel equals in every bit on the card.
 - :func:`fused_append_deltas` — the wrapper: checks its input and launches
   ``csrc/fused_deltas.cu`` (a build or launch failure raises).  It takes
   CUDA float32 features only; ``ops.deltas.append_deltas`` sends it what
-  ``backend.resolve`` routes to "cuda".
-- ``LAUNCHES`` — how many times the wrapper launched the kernel.
+  ``backend.resolve`` routes to "cuda", and records each launch in
+  ``utils/report``.
 
 The kernel's design note heads the CUDA source.
 """
@@ -21,10 +21,8 @@ import functools
 
 import torch
 
+from ...utils import report
 from . import _build
-
-# kernel launches by fused_append_deltas (reset by callers that count)
-LAUNCHES = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,6 +83,5 @@ def fused_append_deltas(feat: torch.Tensor, window: int,
     if err != 0:
         raise RuntimeError("fused_deltas kernel launch failed: "
                            f"{lib.mfcc_error_string(err).decode()} ({err})")
-    global LAUNCHES
-    LAUNCHES += 1
+    report.launched("fused_deltas")
     return out

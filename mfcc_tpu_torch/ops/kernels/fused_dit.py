@@ -8,9 +8,8 @@
 - :func:`_matrices` — the float64 -> float32 constants of the DIT tile.
 - :func:`fused_features_dit` — the wrapper: launches ``csrc/fused_dit.cu``
   for a CUDA tensor (a build or launch failure raises), or runs
-  :func:`plain_features` for a CPU tensor.
-- ``LAUNCHES`` — how many times the wrapper launched the kernel, and
-  ``TILE_LAUNCHES`` — those launches by tile ("fft", "fft64", "dit").
+  :func:`plain_features` for a CPU tensor; ``utils/report`` records each
+  launch and its tile ("fft", "fft64", "dit").
 
 The model layer sends this kernel the configs the raw kernels do not take
 whose n_fft is a multiple of 4 and whose hop is even
@@ -36,11 +35,6 @@ import torch
 from ...config import FeatureConfig
 from .. import dct as dct_op, mel as mel_op, spectrum
 from . import _spectral
-
-# kernel launches by fused_features_dit, in all and by tile (reset by
-# callers that count)
-LAUNCHES = 0
-TILE_LAUNCHES = {"fft": 0, "fft64": 0, "dit": 0}
 
 HALF_BINS_PER_BLOCK = 128   # must match kHalf in csrc/fused_dit.cu
 ROWS_PER_CHUNK = 16         # must match spectral::kChunk
@@ -131,11 +125,6 @@ def fused_features_dit(y: torch.Tensor, cfg: FeatureConfig, *,
     if not y.is_cuda:
         return plain_features(y, cfg, apply_dct)
     _spectral.check_cuda_input(y)
-    out, tile = _spectral.launch_spectral(
+    return _spectral.launch_spectral(
         _lib, "mfcc_fused_dit", "fused_dit", y, cfg, apply_dct, None,
         other=DIT_TILE)
-    if tile is not None:
-        global LAUNCHES
-        LAUNCHES += 1
-        TILE_LAUNCHES[tile] += 1
-    return out

@@ -10,9 +10,9 @@
 - :func:`acc_log` — the kernels' accurate log (``csrc/spectral.cuh``)
   applied to a buffer on the card, as the reference keeps its in-kernel
   ``_acc_log`` here; for a bit-for-bit check against ``ops/xmath``.
-- ``LAUNCHES`` — how many times :func:`fused_features` launched the
-  kernel, and ``TILE_LAUNCHES`` — those launches by tile ("fft", "fft64",
-  "direct").
+
+``utils/report`` records each launch of :func:`fused_features` and its
+tile ("fft", "fft64", "direct").
 
 The model layer sends this kernel the configs neither raw kernel nor the
 DIT kernel takes (``routes.spectral_route``), after pre-emphasizing them on
@@ -32,11 +32,6 @@ import torch
 from ...config import FeatureConfig
 from .. import xmath
 from . import _spectral
-
-# kernel launches by fused_features, in all and by tile (reset by callers
-# that count)
-LAUNCHES = 0
-TILE_LAUNCHES = {"fft": 0, "fft64": 0, "direct": 0}
 
 
 def plain_features(y: torch.Tensor, cfg: FeatureConfig,
@@ -64,18 +59,13 @@ def fused_features(y: torch.Tensor, cfg: FeatureConfig, *,
     if not y.is_cuda:
         return plain_features(y, cfg, apply_dct)
     _spectral.check_cuda_input(y)
-    out, tile = _spectral.launch_spectral(
+    return _spectral.launch_spectral(
         _lib, "mfcc_fused_mfcc", "fused_mfcc", y, cfg, apply_dct, None)
-    if tile is not None:
-        global LAUNCHES
-        LAUNCHES += 1
-        TILE_LAUNCHES[tile] += 1
-    return out
 
 
 def acc_log(x: torch.Tensor) -> torch.Tensor:
     """Elementwise accurate log: the CUDA kernels' ``acc_log`` for a CUDA
-    tensor (the shared header's test entry; not counted in ``LAUNCHES``),
+    tensor (the shared header's test entry; no launch recorded),
     ``ops/xmath``'s function for a CPU tensor."""
     if not x.is_cuda:
         return xmath._acc_log(x)

@@ -9,14 +9,15 @@
   raises), or runs :func:`plain_nccf` for a CPU tensor.  The kernel takes
   every window the reference takes: where no tile of whole windows fits in
   shared memory, the C entry plans the lag-blocked tiling.
-- :func:`launch` — one launch through a build's C entry, uncounted (the
+- :func:`launch` — one launch through a build's C entry, unrecorded (the
   wrapper's, and the A/B builds' of ``tools/ablate_pitch.py``).
-- ``LAUNCHES`` — how many times the wrapper launched the kernel.
-- ``LAST_SHAPE`` — the tile of the last launch, as the C entry planned it
-  (:data:`SHAPE_KEYS`): frames a tile TM, lags a thread R, lag passes a
-  thread, window energies shared by the tile, outputs staged in shared
-  memory, and for the lag-blocked tiling the lags a block and the samples
-  a chunk (0 and 0 for the tiles that stage whole windows).
+
+The wrapper records each launch in ``utils/report`` with the tile the C
+entry planned (``report.last_shape("fused_nccf")``, :data:`SHAPE_KEYS`):
+frames a tile TM, lags a thread R, lag passes a thread, window energies
+shared by the tile, outputs staged in shared memory, and for the
+lag-blocked tiling the lags a block and the samples a chunk (0 and 0 for
+the tiles that stage whole windows).
 
 The kernel computes the numerators by direct time-domain correlation, not
 by the TPU kernel's DFT factorization; its design note heads the CUDA
@@ -36,9 +37,6 @@ from ...utils import report
 from .. import pitch as pitch_op
 from . import _build
 
-# kernel launches by fused_nccf (reset by callers that count)
-LAUNCHES = 0
-LAST_SHAPE: dict | None = None
 SHAPE_KEYS = ("TM", "R", "passes", "shared_energy", "stage_out",
               "lag_block", "sample_chunk")
 
@@ -92,9 +90,7 @@ def fused_nccf(xw: torch.Tensor, ball: torch.Tensor, pcfg: PitchConfig, *,
                           device=xw.device)
         return out, torch.empty_like(out)
     out_b, out_p, shape = launch(_lib(), xw, ball, pcfg, T)
-    global LAUNCHES, LAST_SHAPE
-    LAUNCHES += 1
-    LAST_SHAPE = shape
+    report.launched("fused_nccf", shape=shape)
     return out_b, out_p
 
 
@@ -102,8 +98,8 @@ def launch(lib: ctypes.CDLL, xw: torch.Tensor, ball: torch.Tensor,
            pcfg: PitchConfig, T: int):
     """One launch of a bound build of ``csrc/fused_nccf.cu`` on checked
     CUDA inputs (float32, unit sample stride, B >= 1, T >= 1), not
-    counted in ``LAUNCHES`` -> (out_b, out_p, the tile it planned).  A
-    launch the card refuses raises RuntimeError."""
+    recorded -> (out_b, out_p, the tile it planned).  A launch the card
+    refuses raises RuntimeError."""
     B, Nw = xw.shape
     out_b = torch.empty((B, T, pcfg.n_lags), dtype=torch.float32,
                         device=xw.device)

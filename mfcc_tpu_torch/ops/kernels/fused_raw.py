@@ -7,10 +7,8 @@ Hopper twin of ``mfcc_tpu/ops/kernels/fused_raw.py``).
 - :func:`_matrices` — the direct tile's float32 constants.
 - :func:`fused_features_raw` — the wrapper: launches ``csrc/fused_raw.cu``
   for a CUDA tensor (a build or launch failure raises), or runs
-  :func:`plain_features` for a CPU tensor.
-- ``LAUNCHES`` — how many times the wrapper launched the kernel, and
-  ``TILE_LAUNCHES`` — those launches by tile ("fft", "fft64",
-  "fft64_mixed", "direct").
+  :func:`plain_features` for a CPU tensor; ``utils/report`` records each
+  launch and its tile ("fft", "fft64", "fft64_mixed", "direct").
 
 The model layer sends this kernel unbounded-range log-mel
 (``routes.spectral_route``), the route the reference keeps on the direct
@@ -34,11 +32,6 @@ import torch
 
 from ...config import FeatureConfig
 from . import _spectral, fused_raw_dit
-
-# kernel launches by fused_features_raw, in all and by tile (reset by
-# callers that count)
-LAUNCHES = 0
-TILE_LAUNCHES = {"fft": 0, "fft64": 0, "fft64_mixed": 0, "direct": 0}
 
 plain_features = fused_raw_dit.plain_features
 _matrices = _spectral.direct_matrices
@@ -74,11 +67,6 @@ def fused_features_raw(x: torch.Tensor, cfg: FeatureConfig, *,
             raise ValueError("a front's constants run on a CUDA tensor only")
         return plain_features(x, cfg, apply_dct)
     _spectral.check_cuda_input(x)
-    out, tile = _spectral.launch_spectral(
+    return _spectral.launch_spectral(
         _lib, "mfcc_fused_raw", "fused_raw", x, cfg, apply_dct, cfg.preemph,
         other=_spectral.direct_tile("mel", front), front=front, mixed=True)
-    if tile is not None:
-        global LAUNCHES
-        LAUNCHES += 1
-        TILE_LAUNCHES[tile] += 1
-    return out

@@ -10,10 +10,9 @@ spectrogram in one hand-written CUDA kernel (the Hopper twin of
   CPU path and the kernel's differential twin.
 - :func:`fused_features_raw_dit` — the wrapper: checks its input and
   launches ``csrc/fused_raw_dit.cu`` for a CUDA tensor (a build or launch
-  failure raises), or runs :func:`plain_features` for a CPU tensor.
-- ``LAUNCHES`` — how many times the wrapper launched the kernel,
-  ``TILE_LAUNCHES`` — those launches by tile ("fft", "fft64", "direct"),
-  and ``PROJECTION_LAUNCHES`` — by projection ("mel", "bark", "spec").
+  failure raises), or runs :func:`plain_features` for a CPU tensor;
+  ``utils/report`` records each launch, its tile ("fft", "fft64",
+  "direct") and its projection ("mel", "bark", "spec").
 
 The model layer sends this kernel cepstra and log-mel bounded to <= 50 dB
 (``routes.spectral_route``), PLP's front half (``projection="bark"``) and
@@ -37,12 +36,6 @@ import torch
 from ...config import FeatureConfig
 from .. import framing
 from . import _spectral
-
-# kernel launches by fused_features_raw_dit, in all, by tile and by
-# projection (reset by callers that count)
-LAUNCHES = 0
-TILE_LAUNCHES = {"fft": 0, "fft64": 0, "direct": 0}
-PROJECTION_LAUNCHES = {"mel": 0, "bark": 0, "spec": 0}
 
 
 def plain_features(x: torch.Tensor, cfg: FeatureConfig,
@@ -81,13 +74,7 @@ def fused_features_raw_dit(x: torch.Tensor, cfg: FeatureConfig, *,
     if not x.is_cuda:
         return plain_features(x, cfg, apply_dct, projection)
     _spectral.check_cuda_input(x)
-    out, tile = _spectral.launch_spectral(
+    return _spectral.launch_spectral(
         _lib, "mfcc_fused_raw_dit", "fused_raw_dit", x, cfg, apply_dct,
         cfg.preemph, other=_spectral.direct_tile(projection),
         projection=projection)
-    if tile is not None:
-        global LAUNCHES
-        LAUNCHES += 1
-        TILE_LAUNCHES[tile] += 1
-        PROJECTION_LAUNCHES[projection] += 1
-    return out

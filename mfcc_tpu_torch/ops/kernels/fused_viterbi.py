@@ -6,11 +6,10 @@ kernel (the Hopper twin of ``mfcc_tpu/ops/kernels/fused_viterbi.py``).
 - :func:`fused_viterbi` — the wrapper: checks its input and launches
   ``csrc/fused_viterbi.cu`` for a CUDA tensor (a build or launch failure
   raises), or runs ``ops.pitch.viterbi`` for a CPU tensor.  It takes every
-  lag-grid size.
-- ``LAUNCHES`` — how many times the wrapper launched the kernel.
-- ``LAST_SHAPE`` — the launch shape of the last launch (lanes per state K,
-  a lane's range J, threads, register path, backpointer steps held in
-  shared memory TB, score chunk), as the C entry planned it.
+  lag-grid size.  It records each launch in ``utils/report`` with the
+  launch shape the C entry planned (``report.last_shape("fused_viterbi")``:
+  lanes per state K, a lane's range J, threads, register path,
+  backpointer steps held in shared memory TB, score chunk).
 
 The kernel's design note heads the CUDA source.
 """
@@ -27,9 +26,6 @@ from ...utils import report
 from .. import pitch as pitch_op
 from . import _build
 
-# kernel launches by fused_viterbi (reset by callers that count)
-LAUNCHES = 0
-LAST_SHAPE: dict | None = None
 SHAPE_KEYS = ("K", "J", "threads", "register_path", "TB", "score_chunk")
 
 
@@ -92,7 +88,5 @@ def fused_viterbi(nccf_b: torch.Tensor, pcfg: PitchConfig) -> torch.Tensor:
     if err != 0:
         raise RuntimeError("fused_viterbi kernel launch failed: "
                            f"{lib.mfcc_error_string(err).decode()} ({err})")
-    global LAUNCHES, LAST_SHAPE
-    LAUNCHES += 1
-    LAST_SHAPE = dict(zip(SHAPE_KEYS, shape))
+    report.launched("fused_viterbi", shape=dict(zip(SHAPE_KEYS, shape)))
     return path

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from ..utils import report
 from . import cmvn, dist, mesh as mesh_lib
 from .mesh import DATA_AXIS, FEAT_AXIS, TIME_AXIS
 
@@ -97,14 +98,6 @@ def adam_step_bound(g_a: torch.Tensor, g_b: torch.Tensor, p: torch.Tensor,
     return lr * (torch.clamp(d, max=2.0) + rel) + p.abs() * 2.0 ** -22
 
 
-def _kernel_modules() -> dict:
-    from ..ops.kernels import (fused_dit, fused_mfcc, fused_nccf, fused_raw,
-                               fused_raw_dit, fused_viterbi)
-    mods = (fused_raw_dit, fused_raw, fused_mfcc, fused_dit, fused_nccf,
-            fused_viterbi)
-    return dict(zip(KERNELS, mods))
-
-
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -113,17 +106,9 @@ def _sync(dev) -> None:
 def _time_ms(fn, dev, reps: int = TIMED) -> float:
     """ms a call of fn: CUDA events around reps calls on the card, the host
     clock on the CPU; one call first, untimed."""
-    fn()
-    _sync(dev)
     if dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
+        return report.cuda_ms(fn, 1, reps, reps)[0]
+    fn()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
@@ -165,15 +150,14 @@ def run_rank(rank: int, world: int, port: int, device: str = "cuda",
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    mods = _kernel_modules()
     launches = {}
 
     def counted(step, fn):
-        for m in mods.values():
-            m.LAUNCHES = 0
+        report.reset_launches()
         out = fn()
         _sync(dev)
-        launches[step] = {k: m.LAUNCHES for k, m in mods.items()}
+        n = report.launches()
+        launches[step] = {k: n[k] for k in KERNELS}
         return out
 
     tiny = FeatureConfig(**TINY).validate()

@@ -10,6 +10,7 @@ import subprocess
 from pathlib import Path
 
 from ..ops.kernels import _build
+from ..utils import report
 
 
 def variant_sources(variants: dict, name: str) -> dict:
@@ -52,18 +53,7 @@ def nvcc(source: Path, so: Path, what: str) -> ctypes.CDLL:
 def ms(fn, calls: int) -> float:
     """Milliseconds a call of ``fn``: CUDA events around ``calls``
     back-to-back calls, after three warm-up calls."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
+    return report.cuda_ms(fn, 3, calls, calls)[0]
 
 
 def smi() -> str:

@@ -20,9 +20,8 @@ run time, not at compile time (``fft_features<TM, S, Spec>``), an A/B of
 what that costs the mel paths, which it times.  A variant named
 ``mixed_*`` changes the mixed-radix tile's plan (``spectral::mixed_plan``:
 ``mixed_radix8`` takes the power-of-two part in radix-8 passes, 8 2 5 5 at
-400 points, ``mixed_fives_first`` has the radix-5 passes read the span, 5
-5 4 4, ``mixed_radix8_fives_first`` 5 5 8 2; ``mixed_wave1024`` the
-float64 flavour's wave, two FFTs of 400 points at TM 32) and times Whisper's path
+400 points; ``mixed_wave1024`` the float64 flavour's wave, two FFTs of 400
+points at TM 32) and times Whisper's path
 alone (the ``f64_*`` variants time it too): ``fused_raw`` on Whisper's front (``models/whisper.front``) at the
 whisper128 cell's batch shape, 256 rows of the 30 s window reflect-padded
 to 480,400 samples, 3,000 frames of 400 points and 128 mels a row.  The batches are the
@@ -56,6 +55,7 @@ from ..models import whisper
 from ..ops import framing
 from ..ops.kernels import (_spectral, fused_dit, fused_mfcc,
                            fused_raw, fused_raw_dit)
+from ..utils import report
 
 TILE = "fft_tile.cuh"
 # name -> [(file in csrc/, text, replacement)]
@@ -105,15 +105,8 @@ VARIANTS = {
          "  const bool spec = p.e.projection == kSpecProjection;")],
     "mixed_radix8": [(TILE, "constexpr int kMixedPow2Radix = 4;",
                       "constexpr int kMixedPow2Radix = 8;")],
-    "mixed_fives_first": [(TILE, "constexpr bool kMixedFivesFirst = false;",
-                           "constexpr bool kMixedFivesFirst = true;")],
     "mixed_wave1024": [(TILE, "constexpr int kMixedWavePoints = 2048;",
                         "constexpr int kMixedWavePoints = 1024;")],
-    "mixed_radix8_fives_first": [
-        (TILE, "constexpr int kMixedPow2Radix = 4;",
-         "constexpr int kMixedPow2Radix = 8;"),
-        (TILE, "constexpr bool kMixedFivesFirst = false;",
-         "constexpr bool kMixedFivesFirst = true;")],
 }
 # source -> (entry, takes preemph, C types of the other tile's constants,
 # the other tile, takes a projection)
@@ -188,19 +181,6 @@ def _build_one(name: str, src: str):
     return lib
 
 
-def _single_ms(fn, calls: int = CALLS) -> float:
-    out = []
-    for _ in range(calls):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end))
-    return float(np.median(out))
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS),
@@ -273,8 +253,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         other = SOURCES[src][3][0]
         other_ms = _ablate.ms(call(module._lib, path, other), 5)
+        single = np.median(report.cuda_ms(wrapper, 0, CALLS, 1))
         print(f"{path}: back-to-back {b2b:.4f} ms, one call per event pair "
-              f"{_single_ms(wrapper):.4f} ms, host enqueue {enqueue:.4f} ms; "
+              f"{single:.4f} ms, host enqueue {enqueue:.4f} ms; "
               f"its {other} tile on the same work {other_ms:.4f} ms ({smi})")
     return 0
 

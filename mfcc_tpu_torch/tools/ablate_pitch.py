@@ -135,7 +135,7 @@ def nccf_bank_wavefronts(w: int, hop: int, min_lag: int, n_lags: int, *,
     and the numerator pass (per step A[j] and the window's new sample,
     4 frames x 8 lag groups a warp), in word addresses of the staged span.
     The tile shape (TM, R, passes) is the one the C entry planned
-    (``fused_nccf.LAST_SHAPE``)."""
+    (``report.last_shape("fused_nccf")``)."""
     out = {}
     npos = (TM - 1) * hop + min_lag + n_lags
     chunks = -(-npos // R)
@@ -176,7 +176,8 @@ def nccf_lag_bank_wavefronts(w: int, hop: int, min_lag: int, n_lags: int,
     A[j] and the window's new sample; warp k the 32 lag groups of frame
     k % TM in column k // TM), and the staged outputs (``outputs``: each
     thread's R lags, then the coalesced copy), in word addresses.  The
-    tile is the one the C entry planned (``fused_nccf.LAST_SHAPE``)."""
+    tile is the one the C entry planned
+    (``report.last_shape("fused_nccf")``)."""
     nl = min(lag_block, n_lags)
     jc = min(sample_chunk, w)
     na = (TM - 1) * hop + jc

@@ -61,6 +61,7 @@ import torch
 from .. import FeatureConfig, backend
 from ..ops import dct as dct_op, framing, mel as mel_op, spectrum
 from ..ops.kernels import _spectral, fused_mfcc, fused_raw, fused_raw_dit
+from ..utils.report import launched
 from . import _ablate, ablate_fft_tile
 
 TILE = "fft_tile.cuh"
@@ -153,9 +154,6 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 # kBlocks blocks share an SM's 228 KB, 1 KB each for the system)
 SMEM_TARGET = {"fft": (228 // 4 - 2) * 1024, "fft64": (228 // 3 - 2) * 1024}
 DEFAULT_OUT = _ablate.variant_dir(TOOL, "roofline.json")
-# rung launches of the built variants (the kernel rung counts in its
-# module's LAUNCHES); reset by callers that count
-LAUNCHES = dict.fromkeys(BUILT, 0)
 
 
 def variant_sources(rung: str) -> dict:
@@ -290,22 +288,21 @@ class _Recorder:
 def launch(lib, path: str, x: torch.Tensor, rung: str):
     """One launch of ``rung``'s build ``lib`` on the kernel input x (on the
     card): -> (out, replay), replay() launching the same C call again into
-    the same out.  Each launch counts in ``LAUNCHES[rung]``."""
+    the same out.  Each launch is recorded in ``utils/report`` as kernel
+    ``roofline/<rung>``."""
     src, cfg, dct = PATHS[path]
     entry, raw, _ = SOURCES[src]
-    rec = _Recorder(lib)
-    out, _ = _spectral.launch_spectral(
-        lambda: rec, entry, f"roofline/{rung}", x, cfg, dct,
-        cfg.preemph if raw else None,
+    rec, name = _Recorder(lib), f"roofline/{rung}"
+    out = _spectral.launch_spectral(
+        lambda: rec, entry, name, x, cfg, dct, cfg.preemph if raw else None,
         projection="mel" if src == "fused_raw_dit" else None)
-    LAUNCHES[rung] += 1
     fn, args = rec.call
 
     def replay(out=out):   # holds out, which the recorded call writes
-        LAUNCHES[rung] += 1
         err = fn(*args)
         if err:
-            _spectral.raise_on_error(err, lib, f"roofline/{rung}")
+            _spectral.raise_on_error(err, lib, name)
+        launched(name)
     return out, replay
 
 

@@ -15,17 +15,22 @@ the card's operations, and costs one flag read when no profiler records.
 per batch (kept only while a profiler records) the frames the spectral
 stage computed, and those a direct DFT tile computed; once per process (always kept) the host seconds of the
 package's import, the kernels' builds and loads, and the constants
-built.
+built.  :func:`launched` records every kernel launch, always, apart from
+the counters: :func:`launches` reads the counts by kernel and by tile and
+projection, :func:`last_shape` the launch shape a C entry planned.
+:func:`cuda_ms` times a call on the card with CUDA events.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
 import time
 from dataclasses import dataclass, field, asdict
 
+import torch
 from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import profiler as _profiler
 
@@ -41,6 +46,10 @@ SETUP = ("import_s", "build_s", "consts_s")
 _COUNTERS = dict.fromkeys(PER_BATCH + SETUP, 0)
 _OFF = contextlib.nullcontext()
 _SPANS = set()   # the names of the spans entered while a profiler recorded
+# kernel launches, always kept: (kernel, tile, projection) -> launches, and
+# kernel -> the launch shape its C entry last planned
+_LAUNCHES = collections.Counter()
+_SHAPES = {}
 
 
 def span(name: str):
@@ -87,6 +96,61 @@ def reset() -> None:
     """Zero the per-batch counters (the set-up ones are the process's)."""
     for k in PER_BATCH:
         _COUNTERS[k] = 0
+
+
+def launched(kernel: str, tile: str | None = None,
+             projection: str | None = None, shape: dict | None = None) -> None:
+    """Record one launch of ``kernel`` (on ``tile``, with ``projection``;
+    ``shape``: the launch shape its C entry planned)."""
+    _LAUNCHES[kernel, tile, projection] += 1
+    if shape is not None:
+        _SHAPES[kernel] = shape
+
+
+def launches() -> collections.Counter:
+    """The launches since :func:`reset_launches`, by kernel, by (kernel,
+    tile) and by (kernel, projection); a key never launched reads 0."""
+    out = collections.Counter()
+    for (kernel, tile, projection), n in _LAUNCHES.items():
+        out[kernel] += n
+        for k in (tile, projection):
+            if k is not None:
+                out[kernel, k] += n
+    return out
+
+
+def last_shape(kernel: str) -> dict | None:
+    """The launch shape of ``kernel``'s last launch, as its C entry planned
+    it (None before one)."""
+    return _SHAPES.get(kernel)
+
+
+def reset_launches() -> None:
+    """Forget every launch and launch shape."""
+    _LAUNCHES.clear()
+    _SHAPES.clear()
+
+
+def cuda_ms(fn, warmup: int = 3, calls: int = 30,
+            group: int = 5) -> list[float]:
+    """ms a call of fn on the card: ``calls // group`` samples (at least
+    one), each the mean over ``group`` back-to-back calls between two CUDA
+    events, so that the host enqueues ahead of the device, after
+    ``warmup`` untimed calls and a synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(max(1, calls // group)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(group):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / group)
+    return out
 
 
 @dataclass

@@ -41,7 +41,7 @@ from mfcc_tpu_torch.ops import (deltas, dither, framing, pitch as pitch_op,
 from mfcc_tpu_torch.ops.kernels import (_spectral, fused_deltas, fused_dit,
                                         fused_mfcc, fused_nccf, fused_raw,
                                         fused_raw_dit, fused_viterbi)
-from mfcc_tpu_torch.utils import batch as batch_lib, wav
+from mfcc_tpu_torch.utils import batch as batch_lib, report, wav
 from test_torch_deltas import CASES as DELTA_CASES, case as delta_case
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -61,6 +61,24 @@ def cuda():
 @pytest.fixture()
 def gen():
     return np.random.default_rng(1234)
+
+
+def _n(*key) -> int:
+    """The launches recorded under a kernel, or under (kernel, tile or
+    projection)."""
+    return report.launches()[key if len(key) > 1 else key[0]]
+
+
+def _launched(before) -> dict:
+    """{key: launches} recorded since ``report.launches()`` was ``before``:
+    by kernel and by (kernel, tile) and (kernel, projection)."""
+    return dict(report.launches() - before)
+
+
+def _tiles_ran(ran: dict, name: str) -> list:
+    """The tiles kernel ``name`` ran in ``ran`` (of :func:`_launched`)."""
+    return [k[1] for k in ran if isinstance(k, tuple) and k[0] == name
+            and k[1] not in _spectral.PROJECTION_CODES]
 
 
 def _unliftered_diff(a, b, cfg):
@@ -84,10 +102,10 @@ def test_kernel_matches_plain(cuda, gen, kw, shape):
     cfg = FeatureConfig(**kw).validate()
     x = torch.from_numpy((gen.standard_normal(shape) * 0.3)
                          .astype(np.float32)).to(cuda)
-    before = fused_raw_dit.LAUNCHES
+    before = _n("fused_raw_dit")
     got = fused_raw_dit.fused_features_raw_dit(x, cfg)
     torch.cuda.synchronize()
-    assert fused_raw_dit.LAUNCHES == before + 1
+    assert _n("fused_raw_dit") == before + 1
     want = fused_raw_dit.plain_features(x, cfg)
     assert got.shape == want.shape
     assert _unliftered_diff(got, want, cfg) <= TOL
@@ -102,16 +120,16 @@ def test_wrapper_checks_and_short_input(cuda):
     with pytest.raises(ValueError):
         fused_raw_dit.fused_features_raw_dit(
             torch.zeros((4000, 2), device=cuda).t(), cfg)
-    before = fused_raw_dit.LAUNCHES
+    before = _n("fused_raw_dit")
     out = fused_raw_dit.fused_features_raw_dit(
         torch.zeros((1, 4000), device=cuda), cfg, apply_dct=False)
     assert tuple(out.shape) == (1, 23, 26)
-    assert fused_raw_dit.LAUNCHES == before + 1
-    before = fused_raw_dit.LAUNCHES
+    assert _n("fused_raw_dit") == before + 1
+    before = _n("fused_raw_dit")
     out = fused_raw_dit.fused_features_raw_dit(
         torch.zeros((2, 399), device=cuda), cfg)
     assert tuple(out.shape) == (2, 0, 13)
-    assert fused_raw_dit.LAUNCHES == before
+    assert _n("fused_raw_dit") == before
 
 
 @pytest.mark.cuda
@@ -123,11 +141,11 @@ def test_mfcc_batch_goes_through_the_kernel(cuda, gen, kw):
     x = np.round(gen.standard_normal((3, 16000)) * 8000).astype(np.int16)
     for i, n in enumerate(lens):
         x[i, n:] = 0
-    before = fused_raw_dit.LAUNCHES
+    before = _n("fused_raw_dit")
     gf, gfl, gm = mfcc_model.mfcc_batch(torch.from_numpy(x).to(cuda),
                                         torch.from_numpy(lens).to(cuda), cfg)
     torch.cuda.synchronize()
-    assert fused_raw_dit.LAUNCHES == before + 1
+    assert _n("fused_raw_dit") == before + 1
     cf, cfl, cm = mfcc_model.mfcc_batch(torch.from_numpy(x),
                                         torch.from_numpy(lens), cfg)
     assert torch.equal(gfl.cpu(), cfl) and torch.equal(gm.cpu(), cm)
@@ -181,15 +199,15 @@ def test_nccf_kernel_matches_plain(cuda, gen, kw, shape):
     xw = resample.resample(x, pcfg.sample_rate, pcfg.work_rate)
     T = pcfg.num_frames(shape[1])
     ball = torch.rand(shape[0], device=cuda)
-    before = fused_nccf.LAUNCHES
+    before = _n("fused_nccf")
     got = fused_nccf.fused_nccf(xw, ball, pcfg, T=T)
     torch.cuda.synchronize()
-    assert fused_nccf.LAUNCHES == before + 1
+    assert _n("fused_nccf") == before + 1
     want = fused_nccf.plain_nccf(xw, ball, pcfg, T)
     for g, w in zip(got, want):
         assert g.shape == w.shape == (shape[0], T, pcfg.n_lags)
         assert float((g - w).abs().max()) <= TOL    # every frame is valid
-    shape = fused_nccf.LAST_SHAPE
+    shape = report.last_shape("fused_nccf")
     assert shape["R"] % 2 == 1 and 8 * shape["R"] * shape["passes"] >= \
         pcfg.n_lags > 8 * shape["R"] * (shape["passes"] - 1), shape
 
@@ -209,11 +227,11 @@ def test_nccf_chunk_on_the_card_is_the_unchunked_kernel_route(cuda, gen, K):
     x, ln = torch.from_numpy(x).to(cuda), torch.from_numpy(lens).to(cuda)
     out = {}
     for k in (K, None):
-        before = fused_nccf.LAUNCHES
+        before = _n("fused_nccf")
         out[k] = pitch_op._track(x, ln, pcfg, nccf_chunk=k, backend="auto",
                                  precision="highest")
         torch.cuda.synchronize()
-        assert fused_nccf.LAUNCHES == before + 1
+        assert _n("fused_nccf") == before + 1
     nb, npl, _, mask, route = out[K]
     assert route == out[None][4] == "cuda"
     assert all(torch.equal(a, b) for a, b in zip(out[K][:4], out[None][:4]))
@@ -242,8 +260,8 @@ def test_nccf_kernel_lag_energies_in_registers(cuda, gen):
     got_b, got_p = fused_nccf.fused_nccf(xw, torch.zeros(1, device=cuda),
                                          pcfg, T=T)
     torch.cuda.synchronize()
-    assert fused_nccf.LAST_SHAPE["shared_energy"] == 0
-    assert fused_nccf.LAST_SHAPE["lag_block"] > 0
+    assert report.last_shape("fused_nccf")["shared_energy"] == 0
+    assert report.last_shape("fused_nccf")["lag_block"] > 0
     _, want_p = oracle.nccf(x.astype(np.float64), pcfg)
     assert want_p.shape == tuple(got_p.shape[1:]) == (3, pcfg.n_lags)
     assert np.abs(got_p[0].cpu().numpy() - want_p).max() <= TOL
@@ -270,10 +288,10 @@ def test_viterbi_kernel_exactly_equal(cuda, gen, B, T, kw):
         s = (0.5 * gen.standard_normal((B, T, pcfg.n_lags))).astype(np.float32)
     s[1::2, T * 2 // 3:] = 0.0
     s = torch.from_numpy(s).to(cuda)
-    before = fused_viterbi.LAUNCHES
+    before = _n("fused_viterbi")
     got = fused_viterbi.fused_viterbi(s, pcfg)
     torch.cuda.synchronize()
-    assert fused_viterbi.LAUNCHES == before + 1
+    assert _n("fused_viterbi") == before + 1
     assert torch.equal(got, pitch_op.viterbi(s, pcfg))
     blocked = pitch_op.viterbi_blocked(s, pcfg, block=32, warm=16)
     assert torch.equal(blocked, pitch_op.viterbi_blocked(
@@ -297,12 +315,12 @@ def test_pitch_wrappers_raise_instead_of_falling_back(cuda):
     # no window limit: 63,961 lags, one launch on a few frames (not
     # pitch_batch, whose Viterbi transition matrix would be 16 GB here)
     big = PitchConfig(work_rate=16000, min_f0=0.25).validate()
-    before = fused_nccf.LAUNCHES
+    before = _n("fused_nccf")
     got = fused_nccf.fused_nccf(torch.ones((1, 70000), device=cuda),
                                 torch.zeros(1, device=cuda), big, T=3)
     torch.cuda.synchronize()
-    assert fused_nccf.LAUNCHES == before + 1
-    assert fused_nccf.LAST_SHAPE["lag_block"] > 0
+    assert _n("fused_nccf") == before + 1
+    assert report.last_shape("fused_nccf")["lag_block"] > 0
     assert all(g.shape == (1, 3, big.n_lags) and bool(torch.isfinite(g).all())
                for g in got)
 
@@ -317,12 +335,12 @@ def test_pitch_batch_goes_through_the_kernels(cuda, gen, dtype):
         x[i, :n] = _vibrato(gen, n, 110.0 + 40 * i)
     if dtype == "int16":
         x = np.round(x * 32767).astype(np.int16)
-    before = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+    before = (_n("fused_nccf"), _n("fused_viterbi"))
     gf, gfl, gm = pitch_model.pitch_batch(torch.from_numpy(x).to(cuda),
                                           torch.from_numpy(lens).to(cuda),
                                           pcfg)
     torch.cuda.synchronize()
-    assert (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES) == \
+    assert (_n("fused_nccf"), _n("fused_viterbi")) == \
         (before[0] + 1, before[1] + 1)
     cf, cfl, cm = pitch_model.pitch_batch(torch.from_numpy(x),
                                           torch.from_numpy(lens), pcfg)
@@ -380,7 +398,7 @@ def test_nccf_lag_blocked_tiling_equals_the_planner(cuda, gen, tiling_libs,
     T = pcfg.num_frames(shape[1])
     ball = torch.rand(shape[0], device=cuda)
     want = fused_nccf.fused_nccf(xw, ball, pcfg, T=T)
-    assert fused_nccf.LAST_SHAPE["lag_block"] == 0
+    assert report.last_shape("fused_nccf")["lag_block"] == 0
     *got, tile = fused_nccf.launch(tiling_libs["nccf_lag_blocked"], xw,
                                    ball, pcfg, T)
     torch.cuda.synchronize()
@@ -404,7 +422,7 @@ def test_nccf_short_grid_lags_a_thread_change_no_bit(cuda, gen, tiling_libs,
                                     for i in range(B)])).to(cuda)
     ball = torch.rand(B, device=cuda)
     want = fused_nccf.fused_nccf(xw, ball, pcfg, T=T)
-    tile = fused_nccf.LAST_SHAPE
+    tile = report.last_shape("fused_nccf")
     *got, widest = fused_nccf.launch(tiling_libs["nccf_lag_widest"], xw,
                                      ball, pcfg, T)
     torch.cuda.synchronize()
@@ -427,11 +445,11 @@ def test_nccf_beyond_shared_memory_matches_the_oracle(cuda, gen, name):
         x[i, :n] = _vibrato(gen, n, 140.0 + 60 * i)
     xw = torch.from_numpy(x).to(cuda)
     ball = torch.tensor([0.5, 0.25], device=cuda)
-    before = fused_nccf.LAUNCHES
+    before = _n("fused_nccf")
     got = fused_nccf.fused_nccf(xw, ball, pcfg, T=6)
     torch.cuda.synchronize()
-    assert fused_nccf.LAUNCHES == before + 1
-    assert fused_nccf.LAST_SHAPE["lag_block"] > 0
+    assert _n("fused_nccf") == before + 1
+    assert report.last_shape("fused_nccf")["lag_block"] > 0
     for i, n in enumerate(lens):
         x64 = x[i, :n].astype(np.float64)
         T = pcfg.num_frames(n)
@@ -455,12 +473,12 @@ def test_pitch_batch_at_a_wide_frame_goes_through_the_kernels(cuda, gen):
     for i, n in enumerate(lens):
         x[i, :n] = _vibrato(gen, n, 120.0 + 50 * i)
     x = np.round(x * 32767).astype(np.int16)
-    before = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+    before = (_n("fused_nccf"), _n("fused_viterbi"))
     gf, gfl, gm = pitch_model.pitch_batch(torch.from_numpy(x).to(cuda),
                                           torch.from_numpy(lens).to(cuda),
                                           pcfg)
     torch.cuda.synchronize()
-    assert (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES) == \
+    assert (_n("fused_nccf"), _n("fused_viterbi")) == \
         (before[0] + 1, before[1] + 1)
     assert gfl.cpu().tolist() == [pcfg.num_frames(int(n)) for n in lens]
     assert bool((gf[~gm] == 0).all())
@@ -486,7 +504,7 @@ def test_pitch_kernel_launch_failure_raises(cuda, monkeypatch):
     pcfg = PitchConfig()
     monkeypatch.setattr(fused_nccf, "_lib", _FailingLib)
     monkeypatch.setattr(fused_viterbi, "_lib", _FailingLib)
-    before = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+    before = (_n("fused_nccf"), _n("fused_viterbi"))
     with pytest.raises(RuntimeError, match="fused_nccf kernel launch failed"):
         fused_nccf.fused_nccf(torch.zeros((1, 4000), device=cuda),
                               torch.zeros(1, device=cuda), pcfg, T=90)
@@ -497,7 +515,7 @@ def test_pitch_kernel_launch_failure_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         pitch_model.pitch_batch(torch.zeros((1, 16000), device=cuda),
                                 torch.tensor([16000], device=cuda), pcfg)
-    assert (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES) == before
+    assert (_n("fused_nccf"), _n("fused_viterbi")) == before
 
 
 # ---------------------------------------------------------------------------
@@ -588,10 +606,10 @@ def test_spectral_kernel_matches_plain(cuda, gen, name, kw, shape,
                          .astype(np.float32)).to(cuda)
     if not raw:
         x = framing.preemphasize(x, cfg).contiguous()
-    before = module.LAUNCHES
+    before = _n(name)
     got = getattr(module, fn)(x, cfg, apply_dct=apply_dct)
     torch.cuda.synchronize()
-    assert module.LAUNCHES == before + 1
+    assert _n(name) == before + 1
     want = module.plain_features(x, cfg, apply_dct)
     assert got.shape == want.shape
     assert bool(torch.isfinite(got).all())
@@ -633,18 +651,17 @@ def test_spectral_routes_go_through_their_kernel(cuda, gen, kw, entry,
     x = np.round(gen.standard_normal((3, sr)) * 8000).astype(np.int16)
     for i, n in enumerate(lens):
         x[i, n:] = 0
-    counts = {k: m.LAUNCHES for k, (m, _, _) in SPECTRAL.items()}
-    module = SPECTRAL[route][0]
-    tiles = dict(module.TILE_LAUNCHES)
+    before = report.launches()
     gf, gfl, gm = entry(torch.from_numpy(x).to(cuda),
                         torch.from_numpy(lens).to(cuda), cfg)
     torch.cuda.synchronize()
-    launched = {k: m.LAUNCHES - counts[k] for k, (m, _, _) in SPECTRAL.items()}
+    ran = _launched(before)
+    launched = {k: ran.get(k, 0) for k in SPECTRAL}
     assert launched == {k: int(k == route) for k in SPECTRAL}, launched
     tile = _spectral.fft_tile(cfg, entry is mfcc_model.mfcc_batch)
     if tile == "direct":
         tile = "dit" if route == "fused_dit" else "direct"
-    assert module.TILE_LAUNCHES[tile] == tiles[tile] + 1
+    assert _tiles_ran(ran, route) == [tile], ran
     cf, cfl, cm = entry(torch.from_numpy(x), torch.from_numpy(lens), cfg)
     assert torch.equal(gfl.cpu(), cfl) and torch.equal(gm.cpu(), cm)
     assert bool((gf[~gm] == 0).all())
@@ -665,10 +682,10 @@ def test_spectral_routes_go_through_their_kernel(cuda, gen, kw, entry,
 def test_logmel_golden_on_the_card(cuda):
     cfg = FeatureConfig(n_mels=80, n_mfcc=80, deltas=True)
     x, _ = wav.read_wav(os.path.join(GOLDEN, "speech2s.wav"))
-    before = fused_raw.LAUNCHES
+    before = _n("fused_raw")
     feat = logmel_model.log_mel(torch.from_numpy(x).to(cuda), cfg)
     torch.cuda.synchronize()
-    assert fused_raw.LAUNCHES == before + 1
+    assert _n("fused_raw") == before + 1
     want = np.load(os.path.join(GOLDEN, "logmel80_deltas.npy"))
     assert feat.shape == want.shape
     assert np.abs(feat.cpu().numpy() - want).max() <= 1e-3
@@ -680,11 +697,11 @@ def test_logmel_golden_on_the_card(cuda):
 def test_spectral_launch_failure_raises(cuda, monkeypatch, name):
     module, fn, _ = SPECTRAL[name]
     monkeypatch.setattr(module, "_lib", _FailingLib)
-    before = module.LAUNCHES
+    before = report.launches()
     with pytest.raises(RuntimeError, match=f"{name} kernel launch failed"):
         getattr(module, fn)(torch.zeros((1, 4000), device=cuda),
                             FeatureConfig())
-    assert module.LAUNCHES == before
+    assert report.launches() == before
 
 
 # ---------------------------------------------------------------------------
@@ -710,11 +727,12 @@ def _run_spectral(cuda, gen, name, cfg, shape, apply_dct, lens=None):
     x = torch.from_numpy(x).to(cuda)
     if not raw:
         x = framing.preemphasize(x, cfg).contiguous()
-    before = dict(module.TILE_LAUNCHES), module.LAUNCHES
+    before = report.launches()
     got = getattr(module, fn)(x, cfg, apply_dct=apply_dct)
     torch.cuda.synchronize()
-    ran = [k for k, v in module.TILE_LAUNCHES.items() if v != before[0][k]]
-    assert module.LAUNCHES == before[1] + 1 and len(ran) == 1
+    launched = _launched(before)
+    ran = _tiles_ran(launched, name)
+    assert launched[name] == 1 and len(ran) == 1
     want = module.plain_features(x, cfg, apply_dct)
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     keep = torch.arange(got.shape[1], device=cuda)[None, :] < torch.tensor(
@@ -807,10 +825,10 @@ def test_fft64_tile_holds_the_oracle_in_valleys(cuda, name, window):
                          .astype(np.float32)[None]).to(cuda)
     if not raw:
         x = framing.preemphasize(x, cfg).contiguous()
-    before = module.TILE_LAUNCHES["fft64"]
+    before = _n(name, "fft64")
     got = getattr(module, fn)(x, cfg, apply_dct=False)
     torch.cuda.synchronize()
-    assert module.TILE_LAUNCHES["fft64"] == before + 1
+    assert _n(name, "fft64") == before + 1
     assert _oracle_diff(got, x, cfg, raw) <= 1e-5
 
 
@@ -912,15 +930,14 @@ def _run_projection(cuda, gen, projection, cfg, shape, lens=None,
     for i, n in enumerate(lens or ()):
         x[i, n:] = 0.0
     x = torch.from_numpy(x).to(cuda)
-    before = dict(fused_raw_dit.TILE_LAUNCHES), fused_raw_dit.LAUNCHES
-    proj_before = fused_raw_dit.PROJECTION_LAUNCHES[projection]
+    before = report.launches()
     got = fused_raw_dit.fused_features_raw_dit(x, cfg, apply_dct=False,
                                                projection=projection)
     torch.cuda.synchronize()
-    ran = [k for k, v in fused_raw_dit.TILE_LAUNCHES.items()
-           if v != before[0][k]]
-    assert fused_raw_dit.LAUNCHES == before[1] + 1 and len(ran) == 1
-    assert fused_raw_dit.PROJECTION_LAUNCHES[projection] == proj_before + 1
+    launched = _launched(before)
+    ran = _tiles_ran(launched, "fused_raw_dit")
+    assert launched["fused_raw_dit"] == 1 and len(ran) == 1
+    assert launched["fused_raw_dit", projection] == 1
     want = fused_raw_dit.plain_features(x, cfg, False, projection)
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     keep = torch.arange(got.shape[1], device=cuda)[None, :] < torch.tensor(
@@ -1033,13 +1050,13 @@ def test_plp_and_spectrogram_batch_go_through_the_kernel(cuda, gen, entry,
     x = np.round(gen.standard_normal((4, 16000)) * 8000).astype(np.int16)
     for i, n in enumerate(lens):
         x[i, n:] = 0
-    before = fused_raw_dit.LAUNCHES, dict(fused_raw_dit.PROJECTION_LAUNCHES)
+    before = report.launches()
     gf, gfl, gm = entry(torch.from_numpy(x).to(cuda),
                         torch.from_numpy(lens).to(cuda), cfg)
     torch.cuda.synchronize()
-    assert fused_raw_dit.LAUNCHES == before[0] + 1
-    assert fused_raw_dit.PROJECTION_LAUNCHES[projection] == \
-        before[1][projection] + 1
+    launched = _launched(before)
+    assert launched["fused_raw_dit"] == 1
+    assert launched["fused_raw_dit", projection] == 1
     cf, cfl, cm = entry(torch.from_numpy(x), torch.from_numpy(lens), cfg)
     assert torch.equal(gfl.cpu(), cfl) and torch.equal(gm.cpu(), cm)
     assert bool((gf[~gm] == 0).all())
@@ -1070,10 +1087,10 @@ def test_reference_xla_configs_run_plain_on_the_card(cuda, gen, entry, kw):
     cfg = FeatureConfig(**kw)
     x = (gen.standard_normal((2, cfg.sample_rate)) * 0.3).astype(np.float32)
     lens = torch.tensor([cfg.sample_rate, cfg.sample_rate // 2])
-    before = fused_raw_dit.LAUNCHES
+    before = _n("fused_raw_dit")
     gf, _, gm = entry(torch.from_numpy(x).to(cuda), lens.to(cuda), cfg)
     torch.cuda.synchronize()
-    assert fused_raw_dit.LAUNCHES == before
+    assert _n("fused_raw_dit") == before
     cf, _, _ = entry(torch.from_numpy(x), lens, cfg)
     m = gm.cpu()
     if entry is plp_model.plp_batch:
@@ -1089,10 +1106,10 @@ def test_plp_and_spectrogram_goldens_on_the_card(cuda, projection):
     x, _ = wav.read_wav(os.path.join(GOLDEN, "speech2s.wav"))
     fn, fname = ((plp_model.plp, "plp13.npy") if projection == "bark"
                  else (spec_model.log_spectrogram, "spectrogram257.npy"))
-    before = fused_raw_dit.PROJECTION_LAUNCHES[projection]
+    before = _n("fused_raw_dit", projection)
     feat = fn(torch.from_numpy(x).to(cuda), cfg)
     torch.cuda.synchronize()
-    assert fused_raw_dit.PROJECTION_LAUNCHES[projection] == before + 1
+    assert _n("fused_raw_dit", projection) == before + 1
     want = torch.from_numpy(np.load(os.path.join(GOLDEN, fname)))
     assert feat.shape == want.shape
     if projection == "bark":
@@ -1145,15 +1162,13 @@ def test_packed_segment_at_an_odd_frame_against_standalone(cuda, gen, family,
     row = rows[0]
     x, starts, lens = batch_lib.pack_audio(row, sigs.__getitem__)
     assert any((off // cfg.hop_len) % 2 for _, off, _ in row.segments)
-    before = sum(fused_raw_dit.PROJECTION_LAUNCHES.values()) + \
-        fused_raw.LAUNCHES
+    before = _n("fused_raw_dit") + _n("fused_raw")
     feat, f0, fc, _ = mfcc_model.mfcc_batch_packed(
         torch.from_numpy(x[None]).to(cuda),
         torch.from_numpy(starts[None]).to(cuda),
         torch.from_numpy(lens[None]).to(cuda), cfg, family=family)
     torch.cuda.synchronize()
-    assert sum(fused_raw_dit.PROJECTION_LAUNCHES.values()) + \
-        fused_raw.LAUNCHES == before + 1
+    assert _n("fused_raw_dit") + _n("fused_raw") == before + 1
     for j, (uid, off, n) in enumerate(row.segments):
         xs = torch.from_numpy(sigs[uid][None, :n]).to(cuda)
         ln = torch.tensor([n], device=cuda)
@@ -1189,11 +1204,11 @@ def test_fused_serving_against_the_scan_path_on_the_card(cuda, gen, variant):
                                   .reshape(B, K, C)).to(cuda)
         st_s, fs, nvs = streaming.process_chunks_batch(st_s, chunks, cfg,
                                                        variant)
-        before = fused_raw_dit.PROJECTION_LAUNCHES[projection]
+        before = _n("fused_raw_dit", projection)
         st_f, ff, n_new = streaming.process_chunks_batch_fused(st_f, chunks,
                                                                cfg, variant)
         torch.cuda.synchronize()
-        assert fused_raw_dit.PROJECTION_LAUNCHES[projection] == before + 1
+        assert _n("fused_raw_dit", projection) == before + 1
         for b in range(B):
             want = torch.cat([fs[b, k, : int(nvs[b, k])] for k in range(K)])
             assert int(n_new[b]) == want.shape[0]
@@ -1225,19 +1240,19 @@ def test_online_chunk_nccf_kernel_matches_plain(cuda, gen, n_valid):
     b = torch.from_numpy(buf).to(cuda)
     e0 = pitch_online.chunk_energies(b, F, pcfg)[:n_valid]
     ball = (pcfg.ballast * e0.mean() ** 2).reshape(1)
-    before = fused_nccf.LAUNCHES
+    before = _n("fused_nccf")
     kb, kp = pitch_online.chunk_nccf(b, F, pcfg, ball)
     torch.cuda.synchronize()
-    assert fused_nccf.LAUNCHES == before + 1
+    assert _n("fused_nccf") == before + 1
     pb, pp = pitch_online.chunk_nccf(b, F, pcfg, ball, backend="torch")
-    assert fused_nccf.LAUNCHES == before + 1
+    assert _n("fused_nccf") == before + 1
     for g, w in ((kb, pb), (kp, pp)):
         assert g.shape == w.shape == (F, pcfg.n_lags)
         assert float((g - w)[:n_valid].abs().max()) <= TOL
     state = pitch_online.init_chunk_state(pcfg, cuda)
     state, back, nccf_p = pitch_online.online_chunk_step(state, b, n_valid,
                                                          pcfg, F)
-    assert fused_nccf.LAUNCHES == before + 2
+    assert _n("fused_nccf") == before + 2
     assert back.is_cuda and back.dtype == torch.int32
     assert torch.equal(nccf_p, kp)
 
@@ -1384,13 +1399,13 @@ def test_precision_modes_route_as_the_reference(cuda, gen, mode):
           else dict(matmul_precision=mode))
     cfg = FeatureConfig(**kw).validate()
     x = (gen.standard_normal((2, 16000)) * 0.3).astype(np.float32)
-    counters = (fused_raw_dit, fused_raw, fused_dit, fused_mfcc)
-    before = [m.LAUNCHES for m in counters]
+    counters = ("fused_raw_dit", "fused_raw", "fused_dit", "fused_mfcc")
+    before = [_n(k) for k in counters]
     feat, _, _ = mfcc_model.mfcc_batch(torch.from_numpy(x).to(cuda),
                                        torch.tensor([16000, 16000],
                                                     device=cuda), cfg)
     torch.cuda.synchronize()
-    launched = [m.LAUNCHES - b for m, b in zip(counters, before)]
+    launched = [_n(k) - b for k, b in zip(counters, before)]
     assert launched == ([0, 0, 0, 0] if mode == "high" else [1, 0, 0, 0])
     want = oracle.mfcc(x[0].astype(np.float64), FeatureConfig())
     err = float(np.abs(feat[0].cpu().numpy() - want).max())
@@ -1472,13 +1487,13 @@ def test_accum_dtype_on_the_card(cuda, gen, family, accum):
     x[1, 12000:] = 0
     x[2, 400:] = 0
     xd, ld = torch.from_numpy(x).to(cuda), torch.from_numpy(lens).to(cuda)
-    counters = (fused_raw_dit, fused_raw, fused_dit, fused_mfcc)
+    counters = ("fused_raw_dit", "fused_raw", "fused_dit", "fused_mfcc")
     out = {}
     for c in (cfg32, cfg):
-        before = [m.LAUNCHES for m in counters]
+        before = [_n(k) for k in counters]
         feat = entry(xd, ld, c, "auto")[0]
         torch.cuda.synchronize()
-        out[c.accum_dtype] = (feat, [m.LAUNCHES - b for m, b in
+        out[c.accum_dtype] = (feat, [_n(k) - b for k, b in
                                      zip(counters, before)])
     assert sum(out["float32"][1]) == 1
     assert out[accum][1] == out["float32"][1]
@@ -1525,10 +1540,10 @@ def test_fused_deltas_equal_the_plain_chain(cuda, layout, T, F, W):
     f, lens = delta_case(layout, T, F, W)
     x = torch.from_numpy(f).to(cuda)
     n = None if lens is None else torch.from_numpy(lens).to(cuda)
-    before = fused_deltas.LAUNCHES
+    before = _n("fused_deltas")
     got = fused_deltas.fused_append_deltas(x, W, n)
     torch.cuda.synchronize()
-    assert fused_deltas.LAUNCHES == before + 1
+    assert _n("fused_deltas") == before + 1
     want = deltas.plain_append_deltas(x, W, n)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     host = deltas.plain_append_deltas(
@@ -1552,21 +1567,21 @@ def test_fused_deltas_wrapper_checks(cuda):
         fused_deltas.fused_append_deltas(
             torch.zeros((2, 5, 3), device=cuda), 2,
             torch.ones(3, dtype=torch.int32, device=cuda))
-    before = fused_deltas.LAUNCHES
+    before = _n("fused_deltas")
     for shape in ((0, 5, 3), (2, 0, 3)):
         out = fused_deltas.fused_append_deltas(torch.zeros(shape, device=cuda),
                                                2)
         assert tuple(out.shape) == (*shape[:2], 9)
-    assert fused_deltas.LAUNCHES == before
+    assert _n("fused_deltas") == before
     f, lens = delta_case("ragged", 70, 80, 2)
     x = torch.from_numpy(f).to(cuda)
     n32 = torch.from_numpy(lens).to(cuda)
     assert torch.equal(fused_deltas.fused_append_deltas(x, 2, n32),
                        fused_deltas.fused_append_deltas(x, 2, n32.long()))
-    before = fused_deltas.LAUNCHES
+    before = _n("fused_deltas")
     high = deltas.append_deltas(
         x, FeatureConfig(deltas=True, matmul_precision="high"), n32)
-    assert fused_deltas.LAUNCHES == before
+    assert _n("fused_deltas") == before
     assert torch.equal(high, fused_deltas.fused_append_deltas(x, 2, n32))
 
 
@@ -1584,10 +1599,10 @@ def test_main_paths_append_deltas_through_the_kernel(cuda, gen, monkeypatch,
     x = torch.from_numpy((gen.standard_normal((4, 16000)) * 0.3)
                          .astype(np.float32)).to(cuda)
     n = torch.from_numpy(lens).to(cuda)
-    before = fused_deltas.LAUNCHES
+    before = _n("fused_deltas")
     got = entry(x, n, cfg)
     torch.cuda.synchronize()
-    assert fused_deltas.LAUNCHES == before + 1
+    assert _n("fused_deltas") == before + 1
     monkeypatch.setattr(fused_deltas, "fused_append_deltas",
                         deltas.plain_append_deltas)
     want = entry(x, n, cfg)
@@ -1616,7 +1631,7 @@ def test_whisper_through_the_direct_tile(cuda, gen, chunk_s, N, lens):
     n = torch.tensor(lens)
     xd, nd = x.to(cuda), n.to(cuda)
     whisper.whisper_log_mel_batch(xd, nd, cfg)
-    before = dict(fused_raw.TILE_LAUNCHES)
+    before = report.launches()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1624,8 +1639,8 @@ def test_whisper_through_the_direct_tile(cuda, gen, chunk_s, N, lens):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert {k: v - before[k] for k, v in fused_raw.TILE_LAUNCHES.items()
-            } == {"fft": 0, "fft64": 0, "fft64_mixed": 1, "direct": 0}
+    assert _launched(before) == {"fused_raw": 1,
+                                 ("fused_raw", "fft64_mixed"): 1}
     assert feat.shape == (len(lens), cfg.num_frames(), cfg.n_mels)
     assert bool(mask.all()) and int(flens.min()) == cfg.num_frames()
     want, _, _ = whisper_ref.features(x, lens, dataclasses.asdict(cfg), False)
@@ -1672,14 +1687,14 @@ def test_mixed_tile_against_the_direct_tile(cuda, gen, n_fft, B, N):
     xd = torch.from_numpy(x).to(cuda)
     outs = {}
     for tile in ("fft64_mixed", "direct"):
-        before = dict(fused_raw.TILE_LAUNCHES)
-        outs[tile], ran = _spectral.launch_spectral(
+        before = report.launches()
+        outs[tile] = _spectral.launch_spectral(
             fused_raw._lib, "mfcc_fused_raw", "fused_raw", xd, kcfg, False,
             0.0, other=_spectral.direct_tile("mel", front),
             tile=None if tile != "direct" else "direct", front=front,
             mixed=True)
         torch.cuda.synchronize()
-        assert ran == tile and fused_raw.TILE_LAUNCHES == before
+        assert _launched(before) == {"fused_raw": 1, ("fused_raw", tile): 1}
     want = _front_oracle(x, kcfg, front)
     mixed, direct = (outs[t].cpu().numpy() for t in ("fft64_mixed", "direct"))
     assert mixed.shape == want.shape

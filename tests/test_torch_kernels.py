@@ -21,6 +21,7 @@ from mfcc_tpu_torch import FeatureConfig, from_jax, oracle
 from mfcc_tpu_torch.ops import framing, mel, spectrum, xmath
 from mfcc_tpu_torch.ops.kernels import (_spectral, fused_dit, fused_mfcc,
                                         fused_raw, fused_raw_dit, routes)
+from mfcc_tpu_torch.utils import report
 
 TOL = 2e-5   # kernel vs XLA bound of tests/test_kernels.py
 
@@ -58,10 +59,10 @@ def test_wrapper_on_cpu_runs_the_plain_version(rng):
     cfg = FeatureConfig()
     x = torch.from_numpy((rng.standard_normal((2, 4000)) * 0.3)
                          .astype(np.float32))
-    before = fused_raw_dit.LAUNCHES
+    before = report.launches()
     got = fused_raw_dit.fused_features_raw_dit(x, cfg)
     assert torch.equal(got, fused_raw_dit.plain_features(x, cfg))
-    assert fused_raw_dit.LAUNCHES == before      # nothing was launched
+    assert report.launches() == before      # nothing was launched
     empty = fused_raw_dit.fused_features_raw_dit(x[:, :399], cfg)
     assert tuple(empty.shape) == (2, 0, 13)
 
@@ -80,7 +81,7 @@ def test_wrapper_rejects_bad_input():
     # from the kernels); a CPU tensor runs the plain version at the mode
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (1, 4000)).astype(np.float32))
-    before = fused_raw_dit.LAUNCHES
+    before = report.launches()
     for kw in (dict(matmul_precision="high"), dict(matmul_precision="default"),
                dict(compute_dtype="bfloat16")):
         c = cfg.replace(**kw)
@@ -90,7 +91,7 @@ def test_wrapper_rejects_bad_input():
     assert torch.equal(fused_raw_dit.fused_features_raw_dit(
         x, cfg.replace(accum_dtype="bfloat16")),
         fused_raw_dit.plain_features(x, cfg))
-    assert fused_raw_dit.LAUNCHES == before
+    assert report.launches() == before
 
 
 @pytest.mark.parametrize("kw", [dict(), TINY, dict(n_fft=1024),
@@ -497,10 +498,10 @@ def test_new_wrappers_on_cpu_run_the_plain_version(rng, module, fn,
     cfg = FeatureConfig(**LOGMEL80, append_energy=True)
     x = torch.from_numpy((rng.standard_normal((2, 4000)) * 0.3)
                          .astype(np.float32))
-    before = module.LAUNCHES
+    before = report.launches()
     got = getattr(module, fn)(x, cfg, apply_dct=apply_dct)
     want = module.plain_features(x, cfg, apply_dct)
-    assert torch.equal(got, want) and module.LAUNCHES == before
+    assert torch.equal(got, want) and report.launches() == before
     assert got.shape == (2, 23, 80)
     if not apply_dct:     # no energy column in log-mel output
         assert torch.equal(got, module.plain_features(x, cfg.replace(
@@ -1285,12 +1286,12 @@ def test_projection_wrapper_checks_and_cpu_path(rng):
     for projection in ("bark", "spec"):
         with pytest.raises(ValueError, match="DCT"):
             fused_raw_dit.fused_features_raw_dit(x, cfg, projection=projection)
-        before = dict(fused_raw_dit.PROJECTION_LAUNCHES)
+        before = report.launches()
         got = fused_raw_dit.fused_features_raw_dit(x, cfg, apply_dct=False,
                                                    projection=projection)
         assert torch.equal(got, fused_raw_dit.plain_features(x, cfg, False,
                                                              projection))
-        assert fused_raw_dit.PROJECTION_LAUNCHES == before
+        assert report.launches() == before
         assert fused_raw_dit.fused_features_raw_dit(
             x[:, :399], cfg, apply_dct=False, projection=projection
         ).shape == (2, 0, _spectral.n_out(cfg, False, projection))

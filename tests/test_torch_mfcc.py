@@ -16,8 +16,7 @@ from mfcc_tpu.models import mfcc as jax_mfcc
 from mfcc_tpu.utils import wav as jax_wav
 from mfcc_tpu_torch import FeatureConfig, from_jax, oracle
 from mfcc_tpu_torch.models import mfcc as mfcc_model
-from mfcc_tpu_torch.ops.kernels import fused_raw_dit
-from mfcc_tpu_torch.utils import wav
+from mfcc_tpu_torch.utils import report, wav
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
@@ -144,12 +143,12 @@ def test_backend_resolution():
     with pytest.raises(ValueError, match="backend"):
         mfcc_model.mfcc_batch(x, torch.tensor([4000]), FeatureConfig(),
                               "xla")
-    before = fused_raw_dit.LAUNCHES
+    before = report.launches()
     a = mfcc_model.mfcc_batch(x, torch.tensor([4000]), FeatureConfig(),
                               "auto")[0]
     b = mfcc_model.mfcc_batch(x, torch.tensor([4000]), FeatureConfig(),
                               "torch")[0]
-    assert torch.equal(a, b) and fused_raw_dit.LAUNCHES == before
+    assert torch.equal(a, b) and report.launches() == before
 
 
 @pytest.mark.parametrize("kw", [

@@ -29,7 +29,7 @@ from mfcc_tpu_torch.models import pitch as pitch_model
 from mfcc_tpu_torch.ops import pitch as pitch_op, resample
 from mfcc_tpu_torch.ops.kernels import fused_nccf, fused_viterbi
 from mfcc_tpu_torch.tools import ablate_pitch
-from mfcc_tpu_torch.utils import wav
+from mfcc_tpu_torch.utils import report, wav
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 SR = 16000
@@ -360,11 +360,11 @@ def test_nccf_wrapper_on_cpu_runs_the_plain_version(rng):
     xw = torch.from_numpy((0.3 * rng.standard_normal((2, 4000)))
                           .astype(np.float32))
     ball = torch.tensor([0.5, 0.25])
-    before = fused_nccf.LAUNCHES
+    before = report.launches()
     got = fused_nccf.fused_nccf(xw, ball, t, T=90)
     want = fused_nccf.plain_nccf(xw, ball, t, 90)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert fused_nccf.LAUNCHES == before
+    assert report.launches() == before
     with pytest.raises(ValueError):
         fused_nccf.fused_nccf(xw, ball[:1], t, T=90)
     # no window limit: the C entry plans a tiling for every config
@@ -663,10 +663,10 @@ def test_viterbi_blocked_exactly_equal(rng, T, block, warm):
 def test_viterbi_wrapper_on_cpu_runs_the_plain_version(rng):
     t = PitchConfig(min_f0=60.0, max_f0=300.0)
     s = torch.from_numpy(_scores(rng, 2, 40, t.n_lags))
-    before = fused_viterbi.LAUNCHES
+    before = report.launches()
     assert torch.equal(fused_viterbi.fused_viterbi(s, t),
                        pitch_op.viterbi(s, t))
-    assert fused_viterbi.LAUNCHES == before
+    assert report.launches() == before
     with pytest.raises(ValueError):
         fused_viterbi.fused_viterbi(s[..., :-1], t)
     assert tuple(fused_viterbi.fused_viterbi(s[:, :0], t).shape) == (2, 0)
@@ -930,11 +930,11 @@ def test_pitch_backend_resolution_and_unported_options(rng):
         pitch_model.pitch_batch(x, lens, t, "pallas")
     with pytest.raises(ValueError, match="nccf_chunk=3"):
         pitch_op.pitch_features(x, lens, t, nccf_chunk=3)
-    counts = (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES)
+    counts = report.launches()
     a = pitch_model.pitch_batch(x, lens, t, "auto")[0]
     b = pitch_model.pitch_batch(x, lens, t, "torch")[0]
     assert torch.equal(a, b)
-    assert (fused_nccf.LAUNCHES, fused_viterbi.LAUNCHES) == counts
+    assert report.launches() == counts
     # the opt-in blocked Viterbi stays inside the contract on voiced audio
     xv = _vibrato(rng, n=5 * SR)
     want = oracle.pitch(xv.astype(np.float64), t)

@@ -23,6 +23,7 @@ from mfcc_tpu_torch.models import pitch_online
 from mfcc_tpu_torch.models.pitch_online import OnlinePitch, online_pitch_np
 from mfcc_tpu_torch.ops import resample
 from mfcc_tpu_torch.ops.kernels import fused_nccf
+from mfcc_tpu_torch.utils import report
 
 PCFG = PitchConfig().validate()
 SR = 16000
@@ -281,14 +282,14 @@ def test_chunk_energies_match_the_reference(rng):
 
 def test_chunk_nccf_on_cpu_is_the_plain_nccf(rng):
     """On a CPU tensor the chunk NCCF is the plain correlation-theorem
-    form, never the kernel, and the kernel's launch count stays put."""
+    form, never the kernel: no launch is recorded."""
     F = 16
     buf = torch.from_numpy(_chunk_buf(rng, PCFG, F))
     ball = torch.tensor([0.37])
-    before = fused_nccf.LAUNCHES
+    before = report.launches()
     got = pitch_online.chunk_nccf(buf, F, PCFG, ball)
     want = fused_nccf.plain_nccf(buf[None], ball, PCFG, F)
-    assert fused_nccf.LAUNCHES == before
+    assert report.launches() == before
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w[0].numpy())
     with pytest.raises(ValueError):

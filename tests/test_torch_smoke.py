@@ -3,8 +3,9 @@ shows here and not first on the card.
 
 ``torch.cuda`` is faked (synchronize, Event, device name and count), nvcc
 is not called, ``backend.resolve`` routes "auto" to "cuda", and each kernel
-wrapper counts a launch (and, for the four spectral kernels, the tile the
-config picks) and runs its plain version on the CPU tensor it is given,
+wrapper records a launch in ``utils/report`` (for the four spectral
+kernels with the tile the config picks) and runs its plain version on the
+CPU tensor it is given,
 or, where the config picks the float64-front tile, the float64 oracle on
 the kernel's own input in the call's projection (both at compute_dtype
 float32, which the spectral kernels do not read) (the f32 plain versions
@@ -29,7 +30,8 @@ from mfcc_tpu_torch.ops.kernels import (_build, _spectral, fused_deltas,
                                         fused_dit, fused_mfcc, fused_nccf,
                                         fused_raw, fused_raw_dit,
                                         fused_viterbi, routes)
-from mfcc_tpu_torch.tools import ablate_pitch, roofline
+from mfcc_tpu_torch.tools import _ablate, ablate_pitch, roofline
+from mfcc_tpu_torch.utils import report
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WRAPPERS = ((fused_raw_dit, "fused_features_raw_dit"),
@@ -125,25 +127,24 @@ def _counting(mod, name):
             return launch(*args, **kwargs)
 
     def launch(*args, **kwargs):
-        mod.LAUNCHES += 1
+        kernel = mod.__name__.split(".")[-1]
         if mod is fused_deltas:    # the kernel's twin, on the CPU tensor
+            report.launched(kernel)
             return deltas.plain_append_deltas(*args, **kwargs)
         if mod in SHAPES:
-            mod.LAST_SHAPE = (_nccf_tile(args[2]) if mod is fused_nccf
-                              else SHAPES[mod])
+            report.launched(kernel, shape=_nccf_tile(args[2])
+                            if mod is fused_nccf else SHAPES[mod])
+            return fn(*args, **kwargs)
         x, cfg = args[:2]
-        if hasattr(mod, "TILE_LAUNCHES"):   # the kernels read no compute_dtype
-            cfg = cfg.replace(compute_dtype="float32")
-            args = (x, cfg, *args[2:])
+        cfg = cfg.replace(compute_dtype="float32")   # the kernels read none
+        args = (x, cfg, *args[2:])
         projection = kwargs.get("projection", "mel")
-        if hasattr(mod, "TILE_LAUNCHES") and x.shape[0] and \
-                cfg.num_frames(x.shape[1]):
+        if x.shape[0] and cfg.num_frames(x.shape[1]):
             tile = _spectral.fft_tile(cfg, kwargs.get("apply_dct", True),
                                       projection, mixed=mod is fused_raw)
-            mod.TILE_LAUNCHES[tile if tile in mod.TILE_LAUNCHES
-                              else "dit"] += 1
-            if hasattr(mod, "PROJECTION_LAUNCHES"):
-                mod.PROJECTION_LAUNCHES[projection] += 1
+            report.launched(
+                kernel, "dit" if tile == "direct" and mod is fused_dit
+                else tile, projection if mod is fused_raw_dit else None)
             if tile == "fft64":
                 c = cfg.replace(deltas=False)
                 if mod in (fused_dit, fused_mfcc):
@@ -182,13 +183,20 @@ def _front_chain(x, cfg, front, fft64: bool):
 def _launch_plain(lib_fn, entry, name, x, cfg, apply_dct, preemph,
                   other=None, tile=None, projection=None, front=None,
                   mixed=False):
-    """launch_spectral's stand-in: the plain chain, on the tile named."""
+    """launch_spectral's stand-in: the plain chain, on the tile named,
+    recorded as the kernel's launch records it."""
+    tile = tile or _spectral.fft_tile(cfg, apply_dct, projection or "mel",
+                                      mixed)
     if front is not None:
-        tile = tile or _spectral.fft_tile(cfg, apply_dct, "mel", mixed)
-        return _front_chain(x, cfg, front, tile != "direct"), tile
-    y = framing.preemphasize(x, cfg) if preemph is not None else x
-    return _spectral.plain_features(y, cfg, apply_dct,
-                                    projection=projection or "mel"), tile
+        out = _front_chain(x, cfg, front, tile != "direct")
+    else:
+        y = framing.preemphasize(x, cfg) if preemph is not None else x
+        out = _spectral.plain_features(y, cfg, apply_dct,
+                                       projection=projection or "mel")
+    if out.numel():
+        report.launched(name, other[0] if tile == "direct" and other
+                        else tile, projection)
+    return out
 
 
 class _Rungs:
@@ -208,7 +216,7 @@ class _Rungs:
         self.plan = roofline.plan(path, *x.shape)
 
         def run():
-            roofline.LAUNCHES[rung] += 1
+            report.launched(f"roofline/{rung}")
             return (roofline.kernel(path, x) if rung == "fftlog"
                     else roofline.plain_rung(rung, x, cfg, dct, src))
         return run(), run
@@ -250,7 +258,7 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                         ("WHISPER_BATCH", 8), ("WHISPER_CHUNK_S", 2.0),
                         ("WHISPER_SECONDS", (1.0, 1.2))):
         monkeypatch.setattr(smoke, name, value)
-    monkeypatch.setattr(smoke, "_smi", lambda: "Fake GPU, 700.00 W")
+    monkeypatch.setattr(_ablate, "smi", lambda: "Fake GPU, 700.00 W")
     monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "Event", _Event)
@@ -261,7 +269,6 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     rungs = _Rungs()
     for name in ("build", "launch", "launched_plan"):
         monkeypatch.setattr(roofline, name, getattr(rungs, name))
-    monkeypatch.setattr(roofline, "LAUNCHES", dict(roofline.LAUNCHES))
     monkeypatch.setattr(ablate_pitch, "build",
                         lambda names: {n: n for n in names})
     monkeypatch.setattr(fused_nccf, "launch", _launch_nccf)
@@ -273,12 +280,6 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
             cfg is None or routes.kernel_precision_supported(cfg))
         else resolve(name, x, cfg)))
     for mod, fn in WRAPPERS:
-        monkeypatch.setattr(mod, "LAUNCHES", mod.LAUNCHES)   # restored after
-        if mod in SHAPES:
-            monkeypatch.setattr(mod, "LAST_SHAPE", mod.LAST_SHAPE)
-        for counts in ("TILE_LAUNCHES", "PROJECTION_LAUNCHES"):
-            if hasattr(mod, counts):
-                monkeypatch.setattr(mod, counts, dict(getattr(mod, counts)))
         monkeypatch.setattr(mod, fn, _counting(mod, fn))
 
     kernels = smoke.run(torch, torch.device("cpu"))

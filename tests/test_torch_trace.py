@@ -1,9 +1,12 @@
 """The port's tracing (``mfcc_tpu_torch/utils/report``): spans that cost a
 flag read without a profiler, the batch entry's stage spans under one,
-the per-batch counter kept only while a profiler records, and the set-up
-counters (import, kernel builds and loads, constants)."""
+the per-batch counter kept only while a profiler records, the set-up
+counters (import, kernel builds and loads, constants), the record of
+kernel launches kept apart from them, and the CUDA-event timer."""
 
+import contextlib
 import time
+import types
 from pathlib import Path
 
 import pytest
@@ -204,3 +207,135 @@ def test_build_s_counts_builds_and_loads(monkeypatch, tmp_path):
     _build.load.__wrapped__("fused_raw")
     assert report.counters()["build_s"] > built
     assert runs.read_text().split() == ["run"]
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """``_spectral.launch_spectral`` on a CPU tensor: no device, no
+    constants, a C entry that returns 0 (each launch's host path as it
+    runs, up to the C call)."""
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=None))
+    monkeypatch.setattr(_spectral, "_device_fft_matrices",
+                        lambda *a: (None,) * 6)
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    def launch(name, cfg, other="direct", apply_dct=False,
+               projection=None, N=8000):
+        consts = (other, lambda c, dev: ([None, 0, None, None], None),
+                  [None, 0, None, None])
+        return _spectral.launch_spectral(
+            Lib, "entry", name, torch.zeros(2, N), cfg, apply_dct, 0.0,
+            other=consts, projection=projection)
+    return launch
+
+
+@pytest.mark.parametrize("name,kw,other,dct,projection,tile", [
+    ("fused_raw_dit", {}, "direct", True, "mel", "fft"),
+    ("fused_raw_dit", {}, "direct", False, "bark", "fft64"),
+    ("fused_raw", dict(n_mels=80, n_mfcc=80), "direct", False, None,
+     "fft64"),
+    ("fused_mfcc", dict(n_fft=401), "direct", True, None, "direct"),
+    ("fused_dit", dict(n_fft=400), "dit", True, None, "dit")])
+def test_a_launch_is_recorded_with_no_profiler(fake_card, name, kw, other,
+                                              dct, projection, tile):
+    """``launch_spectral`` records its launch under the entry's name, the
+    tile it ran and the projection it was given, with no profiler; the
+    launch returns the features alone."""
+    from torch.autograd import profiler
+    assert profiler._is_profiler_enabled is False
+    before = report.launches()
+    out = fake_card(name, FeatureConfig(**kw).validate(), other, dct,
+                    projection)
+    assert isinstance(out, torch.Tensor) and out.shape[:2] == (2, 48)
+    want = {name: 1, (name, tile): 1}
+    if projection is not None:
+        want[name, projection] = 1
+    assert dict(report.launches() - before) == want
+
+
+def test_an_empty_output_records_no_launch(fake_card):
+    before = report.launches()
+    out = fake_card("fused_raw_dit", FeatureConfig(), N=399)
+    assert out.shape == (2, 0, 26) and report.launches() == before
+
+
+def test_reset_keeps_the_record_and_reset_launches_clears_it(fake_card):
+    """``reset()`` zeroes the per-batch counters and leaves the launches;
+    ``reset_launches()`` forgets the launches and the launch shapes."""
+    fake_card("fused_raw_dit", FeatureConfig(), apply_dct=True,
+              projection="mel")
+    report.launched("fused_nccf", shape={"TM": 32})
+    kept = report.launches()
+    report.reset()
+    assert report.launches() == kept and kept["fused_raw_dit"] >= 1
+    report.reset_launches()
+    assert report.launches() == {}
+    assert report.launches()["fused_raw_dit", "fft"] == 0
+    assert report.last_shape("fused_nccf") is None
+
+
+def test_counters_keep_their_five_keys_around_a_launch(fake_card):
+    """The launch record is not a counter: ``counters()`` has the same five
+    keys before and after a launch, and ``reset()`` clears the same two."""
+    keys = {"frames_computed", "frames_direct", "import_s", "build_s",
+            "consts_s"}
+    assert set(report.counters()) == keys
+    fake_card("fused_mfcc", FeatureConfig(n_fft=401).validate(),
+              apply_dct=True)
+    assert set(report.counters()) == keys
+    assert report.PER_BATCH == ("frames_computed", "frames_direct")
+
+
+def test_last_shape_is_the_shape_last_recorded():
+    """``last_shape`` is the shape of the kernel's last recorded launch,
+    whatever other kernels recorded since; a launch with no shape leaves
+    it."""
+    report.reset_launches()
+    assert report.last_shape("fused_viterbi") is None
+    report.launched("fused_viterbi", shape={"K": 1, "J": 72})
+    report.launched("fused_viterbi", shape={"K": 2, "J": 36})
+    report.launched("fused_nccf", shape={"TM": 32})
+    report.launched("fused_viterbi")
+    assert report.last_shape("fused_viterbi") == {"K": 2, "J": 36}
+    assert report.last_shape("fused_nccf") == {"TM": 32}
+    assert report.launches()["fused_viterbi"] == 3
+
+
+@pytest.mark.parametrize("warmup,calls,group,samples", [
+    (3, 30, 5, 6), (1, 20, 20, 1), (0, 4, 1, 4), (2, 3, 5, 1)])
+def test_cuda_ms_times_groups_of_calls(monkeypatch, warmup, calls, group,
+                                       samples):
+    """``cuda_ms``: ``warmup`` untimed calls, a synchronize, then
+    ``calls // group`` samples (at least one), each an event pair around
+    ``group`` calls, in ms a call (events on the host clock here)."""
+    log = []
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            assert enable_timing
+            self.t = None
+
+        def record(self):
+            log.append("record")
+            self.t = time.perf_counter()
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, end):
+            return (end.t - self.t) * 1e3
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: log.append("sync"))
+    ms = report.cuda_ms(lambda: log.append("call") or time.sleep(1e-3),
+                        warmup, calls, group)
+    assert len(ms) == samples and all(m >= 1.0 for m in ms)
+    assert log == ["call"] * warmup + ["sync"] + (
+        ["record"] + ["call"] * group + ["record"]) * samples

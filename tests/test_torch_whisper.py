@@ -237,9 +237,15 @@ def test_frames_direct_counts_the_calls_that_run_a_direct_tile(monkeypatch):
     T = odd.num_frames(16000)
 
     def launch(cfg, tile=None, other=consts, front=None):
-        return _spectral.launch_spectral(
+        """-> the tile the one launch recorded ran."""
+        before = report.launches()
+        _spectral.launch_spectral(
             Lib, "entry", "fused_raw", x, cfg, False, 0.0, other=other,
-            tile=tile, front=front, mixed=True)[1]
+            tile=tile, front=front, mixed=True)
+        ran = report.launches() - before
+        assert ran["fused_raw"] == 1, ran
+        (tile,) = (k[1] for k in ran if k != "fused_raw")
+        return tile
 
     report.reset()
     assert launch(odd) == "direct"
