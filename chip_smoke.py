@@ -371,7 +371,11 @@ Phases, one status line each; any failure raises and exits non-zero:
    features, the larger of operations and bytes each), and
    ``torch.stft`` of the same rows at n = 400 (cuFFT; the port never
    calls it) as ``library_ms``; (c) the entry's ms a batch and
-   audio-seconds a second.
+   audio-seconds a second; (d) the mixed tile alone without and with the
+   rows' lengths (``_spectral.RowBounds``: it skips the frame tiles wholly
+   in the window's zero padding) on the cell's shortest, median and
+   longest sorted batches, the two outputs equal in every bit, the share
+   of frame tiles computed, CUDA-event ms of each.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -553,6 +557,8 @@ DELTAS_CASES = (             # (shape, W, frame counts or None)
 WHISPER_BATCH = 256          # the cell's sorted batches: 256 rows ...
 WHISPER_SECONDS = (13.0, 13.6)  # ... of one batch's lengths, near the mode
 WHISPER_CHUNK_S = 30.0       # every row padded to Whisper's window
+# (d): the cell's shortest, median and longest of its 16 sorted batches
+WHISPER_SORTED = (0, 8, 15)
 # the cell's static_err limit against the float64 reference (calibrate.py
 # on the card: the program 1.10e-4 to 2.74e-4, the TF32 control 0.087)
 WHISPER_TOL = 7e-4
@@ -881,7 +887,8 @@ def _on_tile(name: str, x, c, dct: bool, tile: str, projection: str = "mel"):
         c.preemph if raw else None,
         other=fused_dit.DIT_TILE if name == "fused_dit"
         else _spectral.direct_tile(projection), tile=tile,
-        projection=projection if name == "fused_raw_dit" else None)
+        projection=projection if name == "fused_raw_dit" else None,
+        mixed=name == "fused_raw")
 
 
 def _oracle_out(torch, x, c, dct: bool, raw: bool, rows, lens,
@@ -4115,13 +4122,14 @@ def _whisper_phase(torch, dev, smi) -> None:
     front = whisper.front(cfg)
     periodic, bank = front.window, front.bank
 
-    def tile_call(tile):
-        """One fused_raw launch on the padded rows, Whisper's front, the
-        tile named (None: the rule's pick) -> the natural logs."""
+    def tile_call(tile, rows=xp, bounds=None):
+        """One fused_raw launch on padded rows (the phase's), Whisper's
+        front, the tile named (None: the rule's pick), with the rows'
+        bounds where given -> the natural logs."""
         return _spectral.launch_spectral(
-            fused_raw._lib, "mfcc_fused_raw", "fused_raw", xp, kcfg, False,
+            fused_raw._lib, "mfcc_fused_raw", "fused_raw", rows, kcfg, False,
             kcfg.preemph, other=_spectral.direct_tile("mel", front),
-            tile=tile, front=front, mixed=True)
+            tile=tile, front=front, mixed=True, bounds=bounds)
 
     direct = whisper.normalize(tile_call("direct"))
     errs = {"kernel": err(feat), "plain": err(plain),
@@ -4183,7 +4191,59 @@ def _whisper_phase(torch, dev, smi) -> None:
     audio_s = float(lens.sum()) / cfg.sample_rate
     _log(f"{tag} (c) whisper_log_mel_batch whole: {entry:.4f} ms a batch "
          f"(CUDA events), {audio_s / (entry / 1e3):.0f} audio-s/s")
+    _whisper_skip(torch, dev, cfg, tile_call, tag)
     _log(f"{tag} phase 25 passed in {time.perf_counter() - t_phase:.1f} s")
+
+
+def _whisper_skip(torch, dev, cfg, tile_call, tag) -> None:
+    """Phase 25 (d): the mixed tile alone with and without the rows'
+    lengths (``_spectral.RowBounds``) on the whisper128 cell's shortest,
+    median and longest sorted batches (``WHISPER_SORTED``), each padded to
+    the window: the two outputs equal in every bit, the share of frame
+    tiles the tile computes (``first_skipped_frame``) and both times."""
+    import json
+    from mfcc_tpu_torch.ops import framing
+    from mfcc_tpu_torch.ops.kernels import _spectral
+    from perfbench import corpus
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "perfbench", "traffic", "libri_sorted.json")) as f:
+        traffic = json.load(f)
+    n_all = corpus.lengths(traffic)
+    rows = corpus.batch_rows(traffic, n_all, 0)
+    kcfg, P, W = cfg.feature_config(), cfg.n_fft // 2, cfg.chunk_samples
+    L = (cfg.num_frames() - 1) * cfg.hop_len + cfg.n_fft
+    T, tm = cfg.num_frames(), _spectral.fft_frame_tile(kcfg, "fft64_mixed")
+    tiles = -(-T // tm)
+    rng = np.random.default_rng(26)
+    parts = []
+    for name, k in zip(("shortest", "median", "longest"), WHISPER_SORTED):
+        r = rows[k][np.round(np.linspace(0, len(rows[k]) - 1,
+                                         WHISPER_BATCH)).astype(int)]
+        # the cell's lengths, scaled to the window where it is not 30 s
+        lens = np.round(n_all[r] * cfg.chunk_s / 30.0).astype(np.int64)
+        x = torch.from_numpy(np.clip(rng.standard_normal(
+            (lens.size, int(lens.max()))) * 3000, -32768, 32767).astype(
+                np.int16)).to(dev)
+        n = torch.from_numpy(lens).to(dev)
+        xp = framing.stft_center_batch(x.to(torch.float32) / 32768.0, n, cfg)
+        bounds = _spectral.RowBounds(n, P, W)
+        same = torch.equal(tile_call(None, xp), tile_call(None, xp, bounds))
+        share = sum(min(_spectral.first_skipped_frame(
+            int(v), P, W, L, cfg.hop_len, tm), tiles * tm) // tm
+            for v in lens) / (lens.size * tiles)
+        ms = [statistics.median(_time_ms(lambda b=b: tile_call(None, xp, b),
+                                         calls=TIMING_CALLS))
+              for b in (None, bounds)]
+        assert same, name
+        parts.append(f"{name} (batch {k}, {lens.min() / cfg.sample_rate:g}-"
+                     f"{lens.max() / cfg.sample_rate:g} s) {ms[0]:.4f} -> "
+                     f"{ms[1]:.4f} ms ({ms[0] / ms[1]:.2f}x; {share:.3f} of "
+                     f"the TM {tm} tiles computed; equal in every bit: "
+                     f"{same})")
+        del x, xp
+    _log(f"{tag} (d) the mixed tile alone without -> with the rows' "
+         f"lengths on the cell's sorted batches ({WHISPER_BATCH} rows, "
+         f"CUDA events): " + "; ".join(parts) + f"; {_smi()}")
 
 
 def run(torch, dev) -> list[dict]:

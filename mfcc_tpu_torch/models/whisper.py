@@ -13,8 +13,10 @@ Whisper's input, not the batch's.  The stages, each a span under
   triangle mel bank, the floored natural log.  On the card one launch of
   ``fused_raw`` on Whisper's window and bank (:func:`front`), whose n_fft
   of 400 = 2^4 5^2 takes the float64-front mixed-radix FFT tile (no
-  pre-emphasis, no relative floor); on a CPU tensor the same chain in
-  plain torch, float32 IEEE products;
+  pre-emphasis, no relative floor), handed the rows' lengths on the
+  device so that it skips the frame tiles wholly in the window's zero
+  padding (the same bits); on a CPU tensor the same chain in plain torch,
+  float32 IEEE products;
 - ``feat.whisper_norm``: the row's largest value over all its frames and
   bands, the floor :data:`ROW_FLOOR_DB` under it, and the affine that takes
   the natural log to Whisper's (log10 + 4) / 4, in three passes on the
@@ -93,16 +95,22 @@ def _plain_log_mel(xp: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
                              cfg.log_floor)
 
 
-def log_mel(xp: torch.Tensor, cfg: WhisperConfig,
-            backend: str = "auto") -> torch.Tensor:
+def log_mel(xp: torch.Tensor, cfg: WhisperConfig, backend: str = "auto",
+            lengths: torch.Tensor | None = None) -> torch.Tensor:
     """(B, L) padded rows (``framing.stft_center_batch``) -> (B, T, n_mels)
     floored natural log of the mel energies: ``fused_raw`` on Whisper's
-    :func:`front` on a CUDA tensor, else the plain chain."""
+    :func:`front` on a CUDA tensor, else the plain chain.  ``lengths``:
+    the rows' (B,) sample lengths on xp's device, which let the kernel
+    skip the frames wholly in the window's zero padding
+    (``_spectral.RowBounds``)."""
     kcfg = cfg.feature_config()
     if backend_lib.resolve(backend, xp, kcfg) == "cuda":
+        bounds = None if lengths is None else _spectral.RowBounds(
+            lengths.to(torch.int64).contiguous(), cfg.n_fft // 2,
+            cfg.chunk_samples)
         return fused_raw.fused_features_raw(
             xp.to(torch.float32).contiguous(), kcfg, apply_dct=False,
-            front=front(cfg))
+            front=front(cfg), bounds=bounds)
     return _plain_log_mel(xp, cfg)
 
 
@@ -135,7 +143,7 @@ def whisper_log_mel_batch(x: torch.Tensor, sample_lengths: torch.Tensor,
             flens = torch.full((x.shape[0],), T, dtype=torch.int32,
                                device=x.device)
         with report.span("feat.spectral"):
-            feat = log_mel(xp, cfg, backend)
+            feat = log_mel(xp, cfg, backend, lengths)
             report.count("frames_computed", feat.shape[0] * feat.shape[1])
         with report.span("feat.whisper_norm"):
             feat = normalize(feat)

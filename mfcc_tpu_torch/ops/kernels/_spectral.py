@@ -13,6 +13,7 @@
   tile stages per frame for it.
 - :func:`direct_matrices` — the direct tile's float32 constants.
 - :func:`fft_tile`, :func:`fft_radices`, :func:`fft_smem_bytes`,
+  :func:`fft_frame_tile`,
   :func:`fft_matrices`, :func:`fft_tables`, :func:`mel_bands`,
   :func:`mel_chunks` — the tile rule (which tile a config takes: the f32
   FFT tile "fft", its float64-front flavour "fft64" or, at an n_fft of
@@ -21,13 +22,19 @@
 - :class:`Front` — a front end's own window and filterbank, which a
   config's fields cannot state (``models/whisper``): the entries build
   whichever tile's tables from them.
+- :class:`RowBounds`, :func:`zero_tail`, :func:`first_skipped_frame` —
+  where each row of ``framing.stft_center_batch``'s output turns to the
+  zeros it wrote, which the mixed-radix tile reads from the rows' lengths
+  on the device and skips, frame tile by frame tile (the host twins of
+  ``spectral::zero_tail`` and of its rule in ``fft_mixed_features``).
 - :func:`pinned` — constants in page-locked memory, so that each call's
   upload is an asynchronous copy on the launch stream.  The host seconds
   of each miss of the launch path's constant caches
   (:func:`_device_fft_matrices`, the pinned direct constants), the
   float64 build included, go to ``utils/report``'s counter ``consts_s``;
   the frames of each call that runs a direct tile go to its per-batch
-  counter ``frames_direct``.
+  counter ``frames_direct``, and those of each call that hands the
+  mixed-radix tile its rows' lengths to ``frames_bounded``.
 - :func:`check_input`, :func:`epilogue_args`, :func:`raise_on_error` — the
   wrappers' common checks and launch arguments.
 - :func:`entry_argtypes`, :func:`launch_spectral` — the C types of a
@@ -169,6 +176,8 @@ def direct_blocks(cos_m: np.ndarray, sin_m: np.ndarray, proj, dct) -> tuple:
 # tile is the float64 flavour's with spectral::kMixedWavePoints).
 FFT_FLAVOURS = {"fft": (4, 2048, 5, 0), "fft64": (8, 1024, 4, 1),
                 "fft64_mixed": (8, 2048, 4, 1)}
+# blocks an SM per flavour (spectral::FftFlavour::kBlocks)
+FFT_BLOCKS = {"fft": 4, "fft64": 3, "fft64_mixed": 3}
 # the mixed tile's plan (must match spectral::kMixedPow2Radix)
 MIXED_POW2_RADIX = 4
 MAX_SMEM = 232448   # the H100's shared memory per block (opt-in), bytes
@@ -185,6 +194,19 @@ def fft_smem_bytes(cfg: FeatureConfig, tile: str, tm: int,
     span = ((tm - 1) * cfg.hop_len + cfg.frame_len + 3) // 4 * 4
     return (size * 4 * pairs * (n + (n >> shift))
             + 4 * (span + lead + tm * staged_width(cfg, projection) + 2 * tm))
+
+
+def fft_frame_tile(cfg: FeatureConfig, tile: str,
+                   projection: str = "mel") -> int | None:
+    """The frame tile ``spectral::launch_fft`` picks for cfg on FFT flavour
+    ``tile``: the largest of 64, 32, 16 frames whose shared memory lets the
+    flavour's blocks share an SM (``fft_smem_target``), else 8 where it
+    fits a block at all; None where nothing fits."""
+    target = (228 // FFT_BLOCKS[tile] - 2) * 1024
+    for tm in (64, 32, 16):
+        if fft_smem_bytes(cfg, tile, tm, projection) <= target:
+            return tm
+    return 8 if fft_smem_bytes(cfg, tile, 8, projection) <= MAX_SMEM else None
 
 
 def fft_radices(n: int) -> list | None:
@@ -295,6 +317,40 @@ class Front:
     bank: np.ndarray
 
 
+@dataclasses.dataclass(frozen=True)
+class RowBounds:
+    """Where each row of a spectral entry's input holds its own samples
+    (``framing.stft_center_batch``'s layout): row b's first
+    min(lengths[b], chunk) samples begin at ``offset``, zeros the host
+    wrote follow them, and a right reflect pad ends the row
+    (:func:`zero_tail`).  ``lengths``: (B,) int64 on the input's device,
+    which the kernel reads there (no host copy)."""
+    lengths: torch.Tensor
+    offset: int
+    chunk: int
+
+
+def zero_tail(length: int, offset: int, chunk: int, n: int) -> int:
+    """``spectral::zero_tail``: the sample of a row of n from which every
+    sample is a zero the host wrote, offset + min(length, chunk); n (none)
+    where the right reflect pad of n - offset - chunk samples reflects a
+    sample of the row."""
+    pad, length = n - offset - chunk, max(int(length), 0)
+    if pad > 0 and length > chunk - 1 - pad:
+        return n
+    return offset + min(length, chunk)
+
+
+def first_skipped_frame(length: int, offset: int, chunk: int, n: int,
+                        hop: int, tm: int) -> int:
+    """The first frame of the first tile of tm frames that the mixed-radix
+    tile skips in a row of n samples (``fft_mixed_features``' rule: a tile
+    from frame t0 stages the samples from t0 hop - 1 on, and is skipped
+    where all of them are past :func:`zero_tail`); every later tile is
+    skipped too.  At least the row's frame count where none is."""
+    return (zero_tail(length, offset, chunk, n) // hop + tm) // tm * tm
+
+
 @functools.lru_cache(maxsize=16)
 def fft_matrices(cfg: FeatureConfig, tile: str = "fft",
                  projection: str = "mel"):
@@ -396,6 +452,20 @@ def check_input(x: torch.Tensor, cfg: FeatureConfig) -> FeatureConfig:
     return kernel_config(cfg)
 
 
+def check_bounds(x: torch.Tensor, bounds: RowBounds) -> None:
+    """The row bounds the C entry reads: (B,) contiguous int64 on x's
+    device, a nonnegative offset and chunk."""
+    n = bounds.lengths
+    if (n.dtype != torch.int64 or n.shape != x.shape[:1]
+            or n.device != x.device or not n.is_contiguous()):
+        raise ValueError(f"row lengths: ({x.shape[0]},) contiguous int64 on "
+                         f"{x.device} expected, got {tuple(n.shape)} "
+                         f"{n.dtype} on {n.device}")
+    if bounds.offset < 0 or bounds.chunk < 0:
+        raise ValueError(f"row bounds: offset {bounds.offset} and chunk "
+                         f"{bounds.chunk} must be >= 0")
+
+
 def check_cuda_input(x: torch.Tensor) -> None:
     if x.dtype != torch.float32:
         raise TypeError(f"float32 audio expected, got {x.dtype}")
@@ -427,17 +497,22 @@ EPILOGUE_ARGTYPES = [_I, _I, _F, _F, _I, _I]
 DIRECT_ARGTYPES = [_P, _I, _P, _P]
 # the tile codes of the C entries (spectral::Tile; the other tile is 0)
 TILE_CODES = {"fft": 1, "fft64": 2, "fft64_mixed": 3}
+# the mixed-radix tile's row bounds: (lengths, offset, chunk) (RowBounds)
+BOUNDS_ARGTYPES = [_P, ctypes.c_longlong, ctypes.c_longlong]
 
 
-def entry_argtypes(other, preemph: bool, projection: bool = False) -> list:
+def entry_argtypes(other, preemph: bool, projection: bool = False,
+                   mixed: bool = False) -> list:
     """The C types of a spectral entry: (x, B, N, T, *the other tile's
     constants (``other``), win, tw, chunk_w, chunks, band_chunks, n_chunks,
     dctm, out, frame_len, hop, n_bins, n_fft, tile[, preemph as a double]
-    [, projection code], *epilogue, stream)."""
+    [, projection code][, the row bounds of the entry with the mixed-radix
+    tile], *epilogue, stream)."""
     return ([_P, _I, ctypes.c_longlong, _I, *other, _P, _P, _P, _P, _P, _I,
              _P, _P, _I, _I, _I, _I, _I]
             + ([ctypes.c_double] if preemph else [])
             + ([_I] if projection else [])
+            + (BOUNDS_ARGTYPES if mixed else [])
             + EPILOGUE_ARGTYPES + [_P])
 
 
@@ -503,21 +578,26 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
                     cfg: FeatureConfig, apply_dct: bool,
                     preemph: float | None, other=DIRECT_TILE,
                     tile: str | None = None, projection: str | None = None,
-                    front: Front | None = None, mixed: bool = False):
+                    front: Front | None = None, mixed: bool = False,
+                    bounds: RowBounds | None = None):
     """Launch a spectral entry on x's device and current stream.
 
     The tile is :func:`fft_tile`'s pick for the config (``mixed``: the
-    entry has the mixed-radix tile), or ``tile`` where the caller names
-    one (to time the tile a kernel replaced on the same work; the C entry
-    refuses one the shape does not allow).  An FFT flavour reads its
+    entry has the mixed-radix tile and takes its row bounds), or ``tile``
+    where the caller names one (to time the tile a kernel replaced on the
+    same work; the C entry refuses one the shape does not allow).  An FFT flavour reads its
     constants from the device (:func:`_device_fft_matrices`, of the
     ``front`` where one is given); the entry's other tile, ``other`` =
     (name, consts(cfg, device) -> (its constants, dctm), their nulls),
     uploads its constants per call (a front's through
     :func:`direct_tile`); the tile not run gets nulls.  A call that runs
-    the direct tile counts its B x T frames in ``frames_direct``.  preemph goes to the entries that
-    pre-emphasize in the kernel (None for ``fused_mfcc`` and
-    ``fused_dit``).  ``projection`` goes to the entry that takes one
+    the direct tile counts its B x T frames in ``frames_direct``.
+    ``bounds`` (x must be ``framing.stft_center_batch``'s output) goes to
+    the mixed-radix tile, which skips the frame tiles wholly in the rows'
+    zero tails; a call that runs that tile with them counts its B x T
+    frames in ``frames_bounded``, and any other tile computes every frame.
+    preemph goes to the entries that pre-emphasize in the kernel (None for
+    ``fused_mfcc`` and ``fused_dit``).  ``projection`` goes to the entry that takes one
     (``fused_raw_dit``; None for the others, which project on mel); the
     other tile's constants must be that projection's
     (:func:`direct_tile`).  lib_fn() loads the library (not called for an
@@ -536,6 +616,12 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
         tile = other_name
     if tile == "direct":
         report.count("frames_direct", out.shape[0] * out.shape[1])
+    if bounds is not None:
+        if not mixed:
+            raise ValueError("row bounds go to an entry with the mixed tile")
+        check_bounds(x, bounds)
+        if tile == "fft64_mixed":
+            report.count("frames_bounded", out.shape[0] * out.shape[1])
     with torch.cuda.device(x.device), report.span(name):
         if tile in TILE_CODES:
             *fft, dctm = _device_fft_matrices(cfg, tile, proj, x.device,
@@ -551,6 +637,9 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
             args.append(preemph)
         if projection is not None:
             args.append(PROJECTION_CODES[projection])
+        if mixed:
+            args += ([None, 0, 0] if bounds is None else
+                     [bounds.lengths, bounds.offset, bounds.chunk])
         err = getattr(lib, entry)(
             *map(_arg, args), *epilogue_args(cfg, apply_dct, proj),
             torch.cuda.current_stream(x.device).cuda_stream)

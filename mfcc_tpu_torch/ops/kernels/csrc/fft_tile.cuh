@@ -182,14 +182,33 @@ struct FftParams {
   S preemph;           // 0: the host pre-emphasized (or the config has none)
 };
 
-// The mixed tile's parameters: the float64 flavour's (log2n unused) and
-// its plan, the radix of each pass over n points in order (mixed_plan).
+// The mixed tile's parameters: the float64 flavour's (log2n unused), its
+// plan, the radix of each pass over n points in order (mixed_plan), and
+// where each row turns to zeros the host wrote (zero_tail; lengths null:
+// every frame is computed).
 constexpr int kMixedMaxPasses = 8;
 struct FftMixedParams {
   FftParams<double> f;
   int n, passes;
   int radix[kMixedMaxPasses];
+  const long long* lengths;   // (B) each row's own samples, or null
+  long long len_offset, len_chunk;
 };
+
+// The sample of a row of n from which every sample is a zero the host wrote
+// (framing.stft_center_batch's layout): the row's own `length` samples,
+// cut to `chunk`, begin at `offset`, and zeros follow them up to a right
+// reflect pad of n - offset - chunk samples.  Where that pad reflects a
+// sample of the row (length past chunk - 1 - pad), no sample is known:
+// -> n.  _spectral.zero_tail is its twin.
+__host__ __device__ inline long long zero_tail(long long length,
+                                               long long offset,
+                                               long long chunk, long long n) {
+  const long long pad = n - offset - chunk;
+  if (length < 0) length = 0;
+  if (pad > 0 && length > chunk - 1 - pad) return n;
+  return offset + (length < chunk ? length : chunk);
+}
 
 // The FFT tile's own parameters inside a kernel's.
 inline FftParams<float>& fft_params(FftParams<float>& p) { return p; }
@@ -611,6 +630,13 @@ __device__ __forceinline__ void fft_features(const FftParams<S>& p) {
 //   (~72 KB, three blocks an SM): 6 % ahead of two FFTs at TM 32, and 13-
 //   19 % of two blocks an SM at TM 64 (tools/ablate_fft_tile.py).  The
 //   pairs are a power of two, as launch_fft takes them.
+// - Whisper pads every row to 30 s: in the cell 57.6 % of the frames read
+//   only the zeros past a row's end, whose transform is known.  Given the
+//   rows' lengths (FftMixedParams::lengths), a tile that stages nothing
+//   but such zeros (zero_tail) writes the floored log of zero band
+//   energies through the same epilogue, with no staging and no transform:
+//   the bits the transform gives.  A tile that straddles a row's end
+//   computes every frame, as without lengths.
 // ---------------------------------------------------------------------------
 
 // One Stockham radix-R pass of the mixed tile over `pairs` FFTs of n
@@ -710,114 +736,126 @@ __device__ __forceinline__ void fft_mixed_features(const FftMixedParams& q) {
 
   const int tid = threadIdx.x, b = blockIdx.x / p.tiles;
   const int t0 = (blockIdx.x % p.tiles) * TM;
-  const float* xb = p.x + static_cast<long long>(b) * p.N;
-  stage_raw_span(xb, p.N, static_cast<long long>(t0) * p.hop, p.span, z);
-  __syncthreads();
+  const long long s0 = static_cast<long long>(t0) * p.hop;
+  // ---- a tile whose every staged sample, from its first frame's
+  // predecessor s0 - 1 on, is a zero the host wrote: its frames' band and
+  // frame energies are exact zeros, as the transform gives them.  Both
+  // paths end in one finish: an early return with a copy of its own
+  // spilled and ran 1-2 % slower on the H100 ----
+  if (q.lengths != nullptr &&
+      s0 > zero_tail(__ldg(q.lengths + b), q.len_offset, q.len_chunk, p.N)) {
+    for (int o = tid; o < TM * p.e.n_mels; o += kThreads) bands[o] = 0.0f;
+    if (tid < TM) en[tid] = 0.0f;
+    __syncthreads();
+  } else {
+    stage_raw_span(p.x + static_cast<long long>(b) * p.N, p.N, s0, p.span, z);
+    __syncthreads();
 
-  // ---- the unwindowed frame energy, where c0 reads it ----
-  if (p.e.append_energy) {
-    constexpr int G = kThreads / TM;
-    const int m = tid / G, l = tid % G;
-    double sum = 0;
-    for (int k = l; k < p.frame_len; k += G) {
-      const double v = span_sample(z + m * p.hop, k, p.preemph);
-      sum = fma(v, v, sum);
+    // ---- the unwindowed frame energy, where c0 reads it ----
+    if (p.e.append_energy) {
+      constexpr int G = kThreads / TM;
+      const int m = tid / G, l = tid % G;
+      double sum = 0;
+      for (int k = l; k < p.frame_len; k += G) {
+        const double v = span_sample(z + m * p.hop, k, p.preemph);
+        sum = fma(v, v, sum);
+      }
+  #pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (l == 0) en[m] = static_cast<float>(sum);
     }
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (l == 0) en[m] = static_cast<float>(sum);
-  }
 
-  const int half = n >> 1, nm = p.e.n_mels, nch = p.n_chunks;
-  for (int w0 = 0; w0 < TM / 2; w0 += p.pairs) {
-    // ---- the FFT of frames 2q + i 2q+1 (q = w0 + f, windowed): the plan's
-    // passes in order, the first from the span into (re0, im0); `odd`
-    // says whether the spectrum ended in (re1, im1) ----
-    bool odd = false;
-    for (int s = 0, ns = 1; s < q.passes; ns *= q.radix[s], ++s) {
-      double* sr = odd ? re1 : re0;
-      double* si = odd ? im1 : im0;
-      double* dr = odd ? re0 : re1;
-      double* di = odd ? im0 : im1;
-      if (s == 0) {
-        switch (q.radix[0]) {
-          case 2: mixed_first_pass<2>(z, p.win, p.frame_len, p.hop, w0,
-                                      p.preemph, re0, im0, n, p.pairs, nfp);
-            break;
-          case 4: mixed_first_pass<4>(z, p.win, p.frame_len, p.hop, w0,
-                                      p.preemph, re0, im0, n, p.pairs, nfp);
-            break;
-          case 5: mixed_first_pass<5>(z, p.win, p.frame_len, p.hop, w0,
-                                      p.preemph, re0, im0, n, p.pairs, nfp);
-            break;
-          default: mixed_first_pass<8>(z, p.win, p.frame_len, p.hop, w0,
-                                       p.preemph, re0, im0, n, p.pairs, nfp);
+    const int half = n >> 1, nm = p.e.n_mels, nch = p.n_chunks;
+    for (int w0 = 0; w0 < TM / 2; w0 += p.pairs) {
+      // ---- the FFT of frames 2q + i 2q+1 (q = w0 + f, windowed): the plan's
+      // passes in order, the first from the span into (re0, im0); `odd`
+      // says whether the spectrum ended in (re1, im1) ----
+      bool odd = false;
+      for (int s = 0, ns = 1; s < q.passes; ns *= q.radix[s], ++s) {
+        double* sr = odd ? re1 : re0;
+        double* si = odd ? im1 : im0;
+        double* dr = odd ? re0 : re1;
+        double* di = odd ? im0 : im1;
+        if (s == 0) {
+          switch (q.radix[0]) {
+            case 2: mixed_first_pass<2>(z, p.win, p.frame_len, p.hop, w0,
+                                        p.preemph, re0, im0, n, p.pairs, nfp);
+              break;
+            case 4: mixed_first_pass<4>(z, p.win, p.frame_len, p.hop, w0,
+                                        p.preemph, re0, im0, n, p.pairs, nfp);
+              break;
+            case 5: mixed_first_pass<5>(z, p.win, p.frame_len, p.hop, w0,
+                                        p.preemph, re0, im0, n, p.pairs, nfp);
+              break;
+            default: mixed_first_pass<8>(z, p.win, p.frame_len, p.hop, w0,
+                                         p.preemph, re0, im0, n, p.pairs, nfp);
+          }
+        } else {
+          switch (q.radix[s]) {
+            case 2: mixed_pass<2>(sr, si, dr, di, p.tw, n, ns, p.pairs, nfp);
+              break;
+            case 4: mixed_pass<4>(sr, si, dr, di, p.tw, n, ns, p.pairs, nfp);
+              break;
+            case 5: mixed_pass<5>(sr, si, dr, di, p.tw, n, ns, p.pairs, nfp);
+              break;
+            default: mixed_pass<8>(sr, si, dr, di, p.tw, n, ns, p.pairs, nfp);
+          }
+          odd = !odd;
         }
-      } else {
-        switch (q.radix[s]) {
-          case 2: mixed_pass<2>(sr, si, dr, di, p.tw, n, ns, p.pairs, nfp);
-            break;
-          case 4: mixed_pass<4>(sr, si, dr, di, p.tw, n, ns, p.pairs, nfp);
-            break;
-          case 5: mixed_pass<5>(sr, si, dr, di, p.tw, n, ns, p.pairs, nfp);
-            break;
-          default: mixed_pass<8>(sr, si, dr, di, p.tw, n, ns, p.pairs, nfp);
+        __syncthreads();
+      }
+
+      // ---- split the two real spectra: |X_a[k]|^2 -> re[k], |X_b[k]|^2 ->
+      // im[k], k = 0..n/2, rounded to f32; bin k's partner is n - k, bin
+      // 0's itself ----
+      double* zr = odd ? re1 : re0;
+      double* zi = odd ? im1 : im0;
+      for (int o = tid; o < p.pairs * (half + 1); o += kThreads) {
+        const int f = o / (half + 1), k = o - f * (half + 1);
+        const int pk = f * nfp + fft_pad<double>(k);
+        const int pn = f * nfp + fft_pad<double>(k == 0 ? 0 : n - k);
+        const double a = zr[pk], bi = zi[pk], c = zr[pn], d = zi[pn];
+        const double xr = 0.5 * (a + c), xi = 0.5 * (bi - d);
+        const double yr = 0.5 * (bi + d), yi = 0.5 * (c - a);
+        zr[pk] = static_cast<float>(xr * xr + xi * xi);
+        zi[pk] = static_cast<float>(yr * yr + yi * yi);
+      }
+      __syncthreads();
+
+      // ---- sparse bands in f32, as fft_features sums them ----
+      float* part = reinterpret_cast<float*>(odd ? re0 : re1);
+      for (int o = tid; o < 2 * p.pairs * nch; o += kThreads) {
+        const int mm = o / nch, c = o - mm * nch;
+        const double* pw = ((mm & 1) ? zi : zr) + (mm >> 1) * nfp;
+        const int2 ch = __ldg(p.chunks + c);
+        float w[kMelChunk];
+  #pragma unroll
+        for (int v = 0; v < kMelChunk / 4; ++v) {
+          const float4 w4 = __ldg(p.chunk_w + c * (kMelChunk / 4) + v);
+          w[4 * v] = w4.x;
+          w[4 * v + 1] = w4.y;
+          w[4 * v + 2] = w4.z;
+          w[4 * v + 3] = w4.w;
         }
-        odd = !odd;
+        float sum = 0.0f;
+  #pragma unroll
+        for (int i = 0; i < kMelChunk; ++i)
+          if (ch.x + i < ch.y)
+            sum = fmaf(static_cast<float>(pw[fft_pad<double>(ch.x + i)]), w[i],
+                       sum);
+        part[o] = sum;
+      }
+      __syncthreads();
+      for (int o = tid; o < 2 * p.pairs * nm; o += kThreads) {
+        const int mm = o / nm, j = o - mm * nm;
+        const int2 bc = __ldg(p.band_chunks + j);
+        float sum = 0.0f;
+        for (int c = bc.x; c < bc.y; ++c) sum += part[mm * nch + c];
+        bands[(2 * w0 + mm) * nm + j] = sum;
       }
       __syncthreads();
     }
-
-    // ---- split the two real spectra: |X_a[k]|^2 -> re[k], |X_b[k]|^2 ->
-    // im[k], k = 0..n/2, rounded to f32; bin k's partner is n - k, bin
-    // 0's itself ----
-    double* zr = odd ? re1 : re0;
-    double* zi = odd ? im1 : im0;
-    for (int o = tid; o < p.pairs * (half + 1); o += kThreads) {
-      const int f = o / (half + 1), k = o - f * (half + 1);
-      const int pk = f * nfp + fft_pad<double>(k);
-      const int pn = f * nfp + fft_pad<double>(k == 0 ? 0 : n - k);
-      const double a = zr[pk], bi = zi[pk], c = zr[pn], d = zi[pn];
-      const double xr = 0.5 * (a + c), xi = 0.5 * (bi - d);
-      const double yr = 0.5 * (bi + d), yi = 0.5 * (c - a);
-      zr[pk] = static_cast<float>(xr * xr + xi * xi);
-      zi[pk] = static_cast<float>(yr * yr + yi * yi);
-    }
-    __syncthreads();
-
-    // ---- sparse bands in f32, as fft_features sums them ----
-    float* part = reinterpret_cast<float*>(odd ? re0 : re1);
-    for (int o = tid; o < 2 * p.pairs * nch; o += kThreads) {
-      const int mm = o / nch, c = o - mm * nch;
-      const double* pw = ((mm & 1) ? zi : zr) + (mm >> 1) * nfp;
-      const int2 ch = __ldg(p.chunks + c);
-      float w[kMelChunk];
-#pragma unroll
-      for (int v = 0; v < kMelChunk / 4; ++v) {
-        const float4 w4 = __ldg(p.chunk_w + c * (kMelChunk / 4) + v);
-        w[4 * v] = w4.x;
-        w[4 * v + 1] = w4.y;
-        w[4 * v + 2] = w4.z;
-        w[4 * v + 3] = w4.w;
-      }
-      float sum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < kMelChunk; ++i)
-        if (ch.x + i < ch.y)
-          sum = fmaf(static_cast<float>(pw[fft_pad<double>(ch.x + i)]), w[i],
-                     sum);
-      part[o] = sum;
-    }
-    __syncthreads();
-    for (int o = tid; o < 2 * p.pairs * nm; o += kThreads) {
-      const int mm = o / nm, j = o - mm * nm;
-      const int2 bc = __ldg(p.band_chunks + j);
-      float sum = 0.0f;
-      for (int c = bc.x; c < bc.y; ++c) sum += part[mm * nch + c];
-      bands[(2 * w0 + mm) * nm + j] = sum;
-    }
-    __syncthreads();
   }
   finish<TM>(p.e, bands, rowv, en, b, t0);
 }
@@ -891,6 +929,10 @@ struct SpectralArgs {
   Epilogue e;                // melw: the direct tile's (n_bins, n_mels)
   int frame_len, hop, n_bins, n_fft, tile;
   double preemph;            // 0 where the host pre-emphasized
+  // the mixed tile: each row's own samples (null: all computed), where
+  // they begin and the most of them (zero_tail)
+  const long long* lengths = nullptr;
+  long long len_offset = 0, len_chunk = 0;
 };
 
 // The checks of launch_spectral and launch_fft_tile on the projection: the
@@ -952,14 +994,16 @@ inline cudaError_t launch_fft_tile(
 
 // The mixed tile (kFft64MixedTile) of an entry whose kernels at TM = 64 >> i
 // are mixed[i] (null: the entry has none, and refuses it), on the band
-// projections at an n_fft from kFftMin to kFftMax that mixed_plan takes.
+// projections at an n_fft from kFftMin to kFftMax that mixed_plan takes;
+// with the rows' lengths where given (a.lengths).
 inline cudaError_t launch_fft_mixed(const SpectralArgs& a,
                                     const KernelFn<FftMixedParams>* mixed,
                                     cudaStream_t stream) {
   FftMixedParams q{};
   if (mixed == nullptr || !fft_args_ok(a) ||
       a.e.projection == kSpecProjection || a.n_fft < kFftMin ||
-      a.n_fft > kFftMax || a.frame_len > a.n_fft || !mixed_plan(a.n_fft, q))
+      a.n_fft > kFftMax || a.frame_len > a.n_fft || !mixed_plan(a.n_fft, q) ||
+      (a.lengths != nullptr && (a.len_offset < 0 || a.len_chunk < 0)))
     return cudaErrorInvalidValue;
   q.f = FftParams<double>{
       a.x, static_cast<const double*>(a.win),
@@ -968,6 +1012,9 @@ inline cudaError_t launch_fft_mixed(const SpectralArgs& a,
       reinterpret_cast<const int2*>(a.chunks),
       reinterpret_cast<const int2*>(a.band_chunks), a.e, a.N, 0, a.frame_len,
       a.hop, 0, 0, 0, a.n_chunks, a.preemph};
+  q.lengths = a.lengths;
+  q.len_offset = a.len_offset;
+  q.len_chunk = a.len_chunk;
   return launch_fft<double>(q, a.n_fft, kMixedWavePoints, a.B, mixed,
                             stream);
 }

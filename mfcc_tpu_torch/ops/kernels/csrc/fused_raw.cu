@@ -70,19 +70,25 @@ __global__ void __launch_bounds__(spectral::kThreads, 1)
 // in float or in double; basis, last and melw may be null), kOtherTile the
 // direct tile
 // (basis, last, melw given; the FFT tile's constants may be null).
+// lengths (B) int64 on the device, or null: each row's own samples, which
+// begin at len_offset and are cut to len_chunk (spectral::zero_tail); the
+// mixed tile then skips the frame tiles wholly in the zeros after them.
+// The other tiles compute every frame whatever it says.
 extern "C" int mfcc_fused_raw(
     const float* x, int B, long long N, int T, const float* basis, int nbb,
     const float* last, const float* melw, const void* win, const void* tw,
     const float* chunk_w, const int* chunks, const int* band_chunks,
     int n_chunks, const float* dctm, float* out, int frame_len, int hop,
-    int n_bins, int n_fft, int tile, double preemph, int n_mels, int n_out,
+    int n_bins, int n_fft, int tile, double preemph, const long long* lengths,
+    long long len_offset, long long len_chunk, int n_mels, int n_out,
     float log_floor, float rel_floor, int append_energy, int apply_dct,
     void* stream) {
   const spectral::Epilogue e{melw, dctm, out, T, n_mels, n_out, log_floor,
                              rel_floor, apply_dct, append_energy};
   const spectral::SpectralArgs a{x, B, N, basis, nbb, last, win, tw, chunk_w,
                                  chunks, band_chunks, n_chunks, e, frame_len,
-                                 hop, n_bins, n_fft, tile, preemph};
+                                 hop, n_bins, n_fft, tile, preemph, lengths,
+                                 len_offset, len_chunk};
   const spectral::KernelFn<spectral::FftParams<float>> fft32[4] = {
       raw_fft_kernel<64, float>, raw_fft_kernel<32, float>,
       raw_fft_kernel<16, float>, raw_fft_kernel<8, float>};

@@ -40,12 +40,15 @@ _matrices = _spectral.direct_matrices
 def _lib() -> ctypes.CDLL:
     return _spectral.bind(
         "fused_raw", "mfcc_fused_raw",
-        _spectral.entry_argtypes(_spectral.DIRECT_ARGTYPES, preemph=True))
+        _spectral.entry_argtypes(_spectral.DIRECT_ARGTYPES, preemph=True,
+                                 mixed=True))
 
 
 def fused_features_raw(x: torch.Tensor, cfg: FeatureConfig, *,
                        apply_dct: bool = True,
-                       front: _spectral.Front | None = None) -> torch.Tensor:
+                       front: _spectral.Front | None = None,
+                       bounds: _spectral.RowBounds | None = None
+                       ) -> torch.Tensor:
     """(B, N) raw float32 audio -> (B, T, n_mfcc or n_mels) features.
 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor goes
@@ -58,6 +61,12 @@ def fused_features_raw(x: torch.Tensor, cfg: FeatureConfig, *,
     their place in whichever tile the config picks, with no DCT
     (``apply_dct`` must be False).  The card only: the plain version
     knows the config's constants alone.
+
+    ``bounds`` (a ``_spectral.RowBounds``: x is
+    ``framing.stft_center_batch``'s output, ``models/whisper``) lets the
+    mixed-radix tile skip the frame tiles wholly in the rows' zero tails,
+    with the same bits; no other tile reads it, and the plain version
+    computes every frame.
     """
     cfg = _spectral.check_input(x, cfg)
     if front is not None and apply_dct:
@@ -69,4 +78,5 @@ def fused_features_raw(x: torch.Tensor, cfg: FeatureConfig, *,
     _spectral.check_cuda_input(x)
     return _spectral.launch_spectral(
         _lib, "mfcc_fused_raw", "fused_raw", x, cfg, apply_dct, cfg.preemph,
-        other=_spectral.direct_tile("mel", front), front=front, mixed=True)
+        other=_spectral.direct_tile("mel", front), front=front, mixed=True,
+        bounds=bounds)

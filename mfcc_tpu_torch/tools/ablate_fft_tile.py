@@ -174,7 +174,8 @@ def _build_one(name: str, src: str):
     lib = _ablate.nvcc(d / f"{src}.cu", d / f"lib{src}.so", name)
     entry, raw, other_types, _, projection = SOURCES[src]
     fn = getattr(lib, entry)
-    fn.argtypes = _spectral.entry_argtypes(other_types, raw, projection)
+    fn.argtypes = _spectral.entry_argtypes(other_types, raw, projection,
+                                           src == "fused_raw")
     fn.restype = ctypes.c_int
     lib.mfcc_error_string.argtypes = [ctypes.c_int]
     lib.mfcc_error_string.restype = ctypes.c_char_p

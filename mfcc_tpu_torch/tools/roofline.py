@@ -179,19 +179,16 @@ def kernel_input(path: str, x: torch.Tensor) -> torch.Tensor:
 
 def plan(path: str, B: int, N: int) -> dict:
     """The launch ``launch_fft`` picks for the path on a (B, N) batch: the
-    largest frame tile TM whose shared memory
-    (``_spectral.fft_smem_bytes``) meets the flavour's target, else 8; its
-    pairs a wave, span, bytes, tiles a row and blocks, and the shape."""
+    largest frame tile TM whose shared memory meets the flavour's target,
+    else 8 (``_spectral.fft_frame_tile``); its pairs a wave, span, bytes,
+    tiles a row and blocks, and the shape."""
     src, cfg, dct = PATHS[path]
     tile = _spectral.fft_tile(cfg, dct)
     T = cfg.num_frames(N)
-    for tm in (64, 32, 16, 8):
-        nbytes = _spectral.fft_smem_bytes(cfg, tile, tm)
-        if nbytes <= SMEM_TARGET[tile] or (tm == 8 and
-                                           nbytes <= _spectral.MAX_SMEM):
-            break
-    else:
+    tm = _spectral.fft_frame_tile(cfg, tile)
+    if tm is None:
         raise ValueError(f"{path}: no frame tile fits shared memory")
+    nbytes = _spectral.fft_smem_bytes(cfg, tile, tm)
     wave = _spectral.FFT_FLAVOURS[tile][1]
     tiles = -(-T // tm)
     return {"tile": tile, "n_fft": cfg.n_fft, "frame_len": cfg.frame_len,
@@ -251,7 +248,8 @@ def _build_one(rung: str, src: str) -> ctypes.CDLL:
     lib = _ablate.nvcc(d / f"{src}.cu", d / f"lib{src}.so", f"{rung} {src}")
     entry, raw, _ = SOURCES[src]
     getattr(lib, entry).argtypes = _spectral.entry_argtypes(
-        _spectral.DIRECT_ARGTYPES, raw, src == "fused_raw_dit")
+        _spectral.DIRECT_ARGTYPES, raw, src == "fused_raw_dit",
+        src == "fused_raw")
     getattr(lib, entry).restype = ctypes.c_int
     lib.mfcc_error_string.argtypes = [ctypes.c_int]
     lib.mfcc_error_string.restype = ctypes.c_char_p
@@ -295,7 +293,8 @@ def launch(lib, path: str, x: torch.Tensor, rung: str):
     rec, name = _Recorder(lib), f"roofline/{rung}"
     out = _spectral.launch_spectral(
         lambda: rec, entry, name, x, cfg, dct, cfg.preemph if raw else None,
-        projection="mel" if src == "fused_raw_dit" else None)
+        projection="mel" if src == "fused_raw_dit" else None,
+        mixed=src == "fused_raw")
     fn, args = rec.call
 
     def replay(out=out):   # holds out, which the recorded call writes

@@ -13,9 +13,10 @@ program in a ``torch.profiler`` trace, on the clock the profiler gives
 the card's operations, and costs one flag read when no profiler records.
 :func:`counters` holds what the program counts where the work happens:
 per batch (kept only while a profiler records) the frames the spectral
-stage computed, and those a direct DFT tile computed; once per process (always kept) the host seconds of the
-package's import, the kernels' builds and loads, and the constants
-built.  :func:`launched` records every kernel launch, always, apart from
+stage computed, those a direct DFT tile computed, and those of the calls
+that handed the mixed-radix tile the rows' lengths; once per process
+(always kept) the host seconds of the package's import, the kernels'
+builds and loads, and the constants built.  :func:`launched` records every kernel launch, always, apart from
 the counters: :func:`launches` reads the counts by kernel and by tile and
 projection, :func:`last_shape` the launch shape a C entry planned.
 :func:`cuda_ms` times a call on the card with CUDA events.
@@ -36,8 +37,9 @@ from torch.autograd import profiler as _profiler
 
 # Counted only while a profiler records: spectral frames computed (B x T of
 # every call, padded frames included), and those of the calls that ran a
-# direct DFT tile (``ops/kernels/_spectral.launch_spectral``).
-PER_BATCH = ("frames_computed", "frames_direct")
+# direct DFT tile, or the mixed-radix tile with the rows' lengths
+# (``ops/kernels/_spectral.launch_spectral``).
+PER_BATCH = ("frames_computed", "frames_direct", "frames_bounded")
 # Counted once per process, always: host seconds of importing the package's
 # modules (torch excluded); of the kernels' nvcc builds and loads
 # (``ops/kernels/_build.load``); of the spectral constants built and

@@ -17,7 +17,10 @@ tiles, windows past the old limit against the float64 oracle,
 ``pitch_batch`` at a 4 s frame), ``accum_dtype`` on both routes
 and the float16 reduction flag of ``backend.matmul_form``, and
 ``fused_deltas`` against its plain chain bit for bit (the cases of
-``tests/test_torch_deltas.py``) and through the log-mel main path.  All are
+``tests/test_torch_deltas.py``) and through the log-mel main path, and the
+mixed-radix tile's skip of the frames in Whisper's 30 s zero padding (the
+same bits, the tiles its host twin names, the ``frames_bounded`` count).
+All are
 marked ``cuda`` and skip without a card.
 
 This file imports no jax (the machine with the card has none), so it runs
@@ -884,7 +887,8 @@ def test_fft_tile_refused_where_the_entry_cannot_take_it(cuda, name):
                 module._lib, "mfcc_" + name, name,
                 torch.zeros((1, 4000), device=cuda), cfg, True,
                 cfg.preemph if raw else None, other=other, tile=tile,
-                projection="mel" if name == "fused_raw_dit" else None)
+                projection="mel" if name == "fused_raw_dit" else None,
+                mixed=name == "fused_raw")
 
 
 # ---------------------------------------------------------------------------
@@ -1700,3 +1704,109 @@ def test_mixed_tile_against_the_direct_tile(cuda, gen, n_fft, B, N):
     assert mixed.shape == want.shape
     assert np.abs(mixed - want).max() <= 1e-5
     assert (np.abs(mixed - direct) <= 2e-5 + 1e-4 * np.abs(direct)).all()
+
+
+# a ragged 30 s Whisper batch at the skip rule's edges (the lengths of
+# tests/test_torch_whisper.py::EDGE_LENGTHS): the left reflect pad, hop
+# multiples, a 16-frame tile's edge, 25 s, the right reflect pad's limit,
+# the window and past it
+WHISPER_EDGE_LENGTHS = [0, 1, 199, 200, 201, 15_999, 16_000, 16_001, 25_399,
+                        25_400, 25_401, 400_000, 479_959, 479_960, 479_999,
+                        480_000, 496_000]
+
+
+def _whisper_edge_batch(cuda, gen):
+    """-> (cfg, int16 rows (B, 496,000), lengths (B,) int64), on the card."""
+    from mfcc_tpu_torch.config import WHISPER128
+    lens = np.array(WHISPER_EDGE_LENGTHS, np.int64)
+    x = np.clip(gen.standard_normal((lens.size, 496_000)) * 3000, -32768,
+                32767).astype(np.int16)
+    return (WHISPER128, torch.from_numpy(x).to(cuda),
+            torch.from_numpy(lens).to(cuda))
+
+
+@pytest.mark.cuda
+def test_mixed_tile_skips_the_zero_tails_with_the_same_bits(cuda, gen):
+    """``fused_raw``'s mixed tile handed the rows' lengths (``RowBounds``)
+    on the edge batch: the features equal the same call without lengths
+    bit for bit; with every sample past each row's zero tail planted
+    nonzero, the tiles the host twin skips (``first_skipped_frame``) keep
+    the zero frames' bits and every other frame is the planted rows'
+    own: the kernel skips exactly those tiles."""
+    from mfcc_tpu_torch.models import whisper
+    cfg, x, n = _whisper_edge_batch(cuda, gen)
+    kcfg, front = cfg.feature_config(), whisper.front(cfg)
+    xp = framing.stft_center_batch(x.to(torch.float32) / 32768.0, n, cfg)
+    bounds = _spectral.RowBounds(n, cfg.n_fft // 2, cfg.chunk_samples)
+
+    def call(rows, bounds=None):
+        return fused_raw.fused_features_raw(rows, kcfg, apply_dct=False,
+                                            front=front, bounds=bounds)
+    plain, bounded = call(xp), call(xp, bounds)
+    assert torch.equal(bounded, plain)
+    L, hop, T = xp.shape[1], cfg.hop_len, cfg.num_frames()
+    tm = _spectral.fft_frame_tile(kcfg, "fft64_mixed")
+    planted = xp.clone()
+    firsts = []
+    for b, length in enumerate(WHISPER_EDGE_LENGTHS):
+        z = _spectral.zero_tail(length, cfg.n_fft // 2, cfg.chunk_samples, L)
+        planted[b, z:] = 0.25
+        firsts.append(_spectral.first_skipped_frame(
+            length, cfg.n_fft // 2, cfg.chunk_samples, L, hop, tm))
+    got, own = call(planted, bounds), call(planted)
+    torch.cuda.synchronize()
+    assert any(f < T for f in firsts) and any(f >= T for f in firsts)
+    for b, first in enumerate(firsts):
+        assert torch.equal(got[b, first:], plain[b, first:]), b
+        assert torch.equal(got[b, :first], own[b, :first]), b
+        if first < T:
+            assert not torch.equal(own[b, first:], plain[b, first:]), b
+
+
+@pytest.mark.cuda
+def test_whisper_batch_with_lengths_keeps_todays_bits(cuda, gen):
+    """``whisper_log_mel_batch`` on the edge batch, which hands the tile the
+    rows' lengths: one mixed-tile launch, the same bits as the batch sent
+    through the tile without lengths (the path before the skip), and
+    ``frames_bounded`` B x 3,000 a call under a profiler, as
+    ``frames_computed``."""
+    from torch.profiler import profile
+    from mfcc_tpu_torch.models import whisper
+    cfg, x, n = _whisper_edge_batch(cuda, gen)
+    feat, _, _ = whisper.whisper_log_mel_batch(x, n, cfg)
+    xp = framing.stft_center_batch(x.to(torch.float32) / 32768.0, n, cfg)
+    want = whisper.normalize(whisper.log_mel(xp, cfg))
+    assert torch.equal(feat, want)
+    report.reset()
+    before = report.launches()
+    with profile():
+        whisper.whisper_log_mel_batch(x, n, cfg)
+        torch.cuda.synchronize()
+    assert _launched(before) == {"fused_raw": 1,
+                                 ("fused_raw", "fft64_mixed"): 1}
+    B, T = x.shape[0], cfg.num_frames()
+    c = report.counters()
+    assert c["frames_bounded"] == c["frames_computed"] == B * T == B * 3000
+
+
+@pytest.mark.cuda
+def test_power_of_two_fused_raw_ignores_row_bounds(cuda, gen):
+    """A power-of-two ``fused_raw`` call (unbounded log-mel-80 on the fft64
+    tile) given row bounds computes every frame as without them, bit for
+    bit, and counts no bounded frame."""
+    from torch.profiler import profile
+    cfg = FeatureConfig(n_mels=80, n_mfcc=80).validate()
+    x = torch.from_numpy((gen.standard_normal((3, 16000)) * 0.1)
+                         .astype(np.float32)).to(cuda)
+    bounds = _spectral.RowBounds(
+        torch.tensor([0, 100, 16000], device=cuda), 0, 16000)
+    report.reset()
+    before = report.launches()
+    with profile():
+        got = fused_raw.fused_features_raw(x, cfg, apply_dct=False,
+                                           bounds=bounds)
+        want = fused_raw.fused_features_raw(x, cfg, apply_dct=False)
+        torch.cuda.synchronize()
+    assert _launched(before) == {"fused_raw": 2, ("fused_raw", "fft64"): 2}
+    assert torch.equal(got, want)
+    assert report.counters()["frames_bounded"] == 0

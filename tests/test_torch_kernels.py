@@ -690,6 +690,20 @@ def test_fft_smem_bytes(kw, tile, tm, want):
                                     tm) == want
 
 
+@pytest.mark.parametrize("kw,tile,tm", [
+    (dict(), "fft", 16), (LOGMEL80, "fft64", 32),
+    (dict(TTS, n_mfcc=80), "fft64", 16), (dict(n_fft=4096), "fft64", 8),
+    (dict(n_fft=400, n_mels=128, n_mfcc=128), "fft64_mixed", 16),
+    (dict(n_fft=1000, n_mels=128, n_mfcc=128), "fft64_mixed", 8),
+])
+def test_fft_frame_tile(kw, tile, tm):
+    """The host's twin of spectral::launch_fft's frame tile: the largest
+    whose shared memory meets the flavour's target (55 KB for four blocks
+    an SM, 74 KB for three), else 8 (the rows of test_fft_smem_bytes)."""
+    assert _spectral.fft_frame_tile(FeatureConfig(**kw).validate(),
+                                    tile) == tm
+
+
 # cos and sin of 2 pi / 5 and 4 pi / 5 as fft_tile.cuh rounds them
 COS5 = (float.fromhex("0x1.3c6ef372fe950p-2"),
         float.fromhex("-0x1.9e3779b97f4a8p-1"))

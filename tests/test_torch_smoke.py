@@ -182,7 +182,7 @@ def _front_chain(x, cfg, front, fft64: bool):
 
 def _launch_plain(lib_fn, entry, name, x, cfg, apply_dct, preemph,
                   other=None, tile=None, projection=None, front=None,
-                  mixed=False):
+                  mixed=False, bounds=None):
     """launch_spectral's stand-in: the plain chain, on the tile named,
     recorded as the kernel's launch records it."""
     tile = tile or _spectral.fft_tile(cfg, apply_dct, projection or "mel",
@@ -306,6 +306,14 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert "library_ms (torch.stft, n = 400, the DFT alone) " in line, line
     assert "Fake GPU, 700.00 W" in line, line
     assert f"{tag} (c) whisper_log_mel_batch whole: " in out
+    # (d): the mixed tile without and with the rows' lengths on the cell's
+    # shortest, median and longest sorted batches, each equal in every bit
+    line = next(ln for ln in out.splitlines() if ln.startswith(f"{tag} (d) "))
+    assert "lengths on the cell's sorted batches (8 rows, CUDA events): " \
+        "shortest (batch 0, " in line, line
+    assert "; median (batch 8, " in line and "; longest (batch 15, " in line
+    assert line.count("of the TM 16 tiles computed; equal in every bit: "
+                      "True)") == 3, line
     assert f"{tag} phase 25 passed in " in out
     # phase 24: fused_deltas one launch a call (the phase's own assertion),
     # equal to its plain twin on each case, timed beside its bound; the

@@ -260,6 +260,166 @@ def test_frames_direct_counts_the_calls_that_run_a_direct_tile(monkeypatch):
         16000)
 
 
+# Edge lengths of a 30 s row: the left reflect pad (n_fft / 2 = 200), hop
+# multiples, a 16-frame tile's edge (frame 160 starts at 25,600 = 200 +
+# 25,400), 25 s, the right reflect pad's limit (it reflects samples
+# 479,959-479,998 of the row), the window and past it.
+EDGE_LENGTHS = [0, 1, 199, 200, 201, 15_999, 16_000, 16_001, 25_399, 25_400,
+                25_401, 400_000, 479_959, 479_960, 479_999, 480_000, 496_000]
+
+
+def _skip_args(cfg, n):
+    """(offset, chunk, row samples) of ``framing.stft_center_batch``'s rows
+    for a config, as ``models/whisper`` hands them to the kernel."""
+    return cfg.n_fft // 2, cfg.chunk_samples, n
+
+
+@pytest.mark.parametrize("length", EDGE_LENGTHS)
+def test_skip_rule_reads_only_the_zeros_the_centring_wrote(length):
+    """The mixed tile's skip rule (``_spectral.zero_tail``, the twin of
+    ``spectral::zero_tail``, and ``first_skipped_frame``) against
+    ``framing.stft_center_batch``'s output: every sample from the zero tail
+    on is exactly zero, the one before it is the row's last sample, and
+    every frame of a skipped tile of any width reads (its predecessor
+    included) exact zeros alone; a row whose right reflect pad reflects a
+    sample of its own skips nothing."""
+    cfg = WHISPER128
+    x = torch.randn(1, 496_000, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(length))
+    xp = framing.stft_center_batch(x, torch.tensor([length]), cfg)[0]
+    L, hop, T = xp.shape[0], cfg.hop_len, cfg.num_frames()
+    offset, chunk, n = _skip_args(cfg, L)
+    z = _spectral.zero_tail(length, offset, chunk, n)
+    assert not xp[z:].any()
+    pad = n - offset - chunk
+    if length > chunk - 1 - pad:                 # the reflect limit, or past
+        assert z == n and length >= 479_960
+    else:
+        assert z == offset + length
+        if length:
+            assert xp[z - 1] == x[0, length - 1] != 0
+    for tm in (8, 16, 32, 64):
+        first = _spectral.first_skipped_frame(length, offset, chunk, n, hop,
+                                              tm)
+        assert first % tm == 0 and first * hop > z
+        assert first - tm < 0 or (first - tm) * hop <= z   # the first one
+        for t in range(first, T):
+            assert not xp[t * hop - 1:t * hop + cfg.n_fft].any(), (tm, t)
+        if z == n:
+            assert first >= T
+
+
+@pytest.fixture(scope="module")
+def kernel_zero_tail(tmp_path_factory):
+    """``spectral::zero_tail`` from ``csrc/fft_tile.cuh``, built for the host
+    with g++: zero_tail(length, offset, chunk, n) -> int."""
+    import re
+    import shutil
+    import subprocess
+    from mfcc_tpu_torch.ops.kernels import _build
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    text = (_build.CSRC / "fft_tile.cuh").read_text()
+    fn = re.search(r"__host__ __device__ inline long long zero_tail\(.*?\n}\n",
+                   text, re.S).group(0)
+    d = tmp_path_factory.mktemp("zero_tail")
+    (d / "main.cc").write_text(
+        "#include <cstdio>\n#include <cstdlib>\n#define __host__\n"
+        "#define __device__\n" + fn +
+        "int main(int c, char** v) {\n  for (int i = 1; i + 3 < c; i += 4)\n"
+        "    std::printf(\"%lld\\n\", zero_tail(std::atoll(v[i]), "
+        "std::atoll(v[i + 1]), std::atoll(v[i + 2]), std::atoll(v[i + 3])));"
+        "\n}\n")
+    subprocess.run(["g++", "-O1", "-o", str(d / "zt"), str(d / "main.cc")],
+                   check=True)
+
+    def call(cases):
+        out = subprocess.run([str(d / "zt"), *map(str, np.ravel(cases))],
+                             check=True, capture_output=True, text=True)
+        return [int(v) for v in out.stdout.split()]
+    return call, text
+
+
+def test_host_twin_is_the_kernels_skip_rule(kernel_zero_tail):
+    """``_spectral.zero_tail`` gives ``spectral::zero_tail``'s value on every
+    edge length, at the 30 s window (a right reflect pad of 40 samples), a
+    window of a whole number of hops (1 s) and one that frames no right
+    pad (1.003 s); the kernel skips a tile from frame t0 where t0 hop is
+    past it, as ``first_skipped_frame`` reads it."""
+    call, text = kernel_zero_tail
+    assert "s0 > zero_tail(__ldg(q.lengths + b)" in text
+    cases = []
+    for chunk_s in (30.0, 1.0, 1.003):
+        cfg = WhisperConfig(chunk_s=chunk_s).validate()
+        n = (cfg.num_frames() - 1) * cfg.hop_len + cfg.n_fft
+        W = cfg.chunk_samples
+        for length in EDGE_LENGTHS + [-3, W - 41, W - 40, W - 1, W, W + 1]:
+            cases.append((length, cfg.n_fft // 2, W, n))
+    want = [_spectral.zero_tail(*c) for c in cases]
+    assert call(cases) == want
+    assert {w == c[3] for w, c in zip(want, cases)} == {True, False}
+
+
+def test_launch_hands_the_mixed_tile_the_row_bounds(monkeypatch):
+    """``_spectral.launch_spectral`` with ``mixed``: the entry's arguments
+    after preemph are the lengths' pointer, the offset and the chunk (nulls
+    without bounds), as many as ``entry_argtypes(mixed=True)`` declares;
+    ``frames_bounded`` counts B x T for a call that runs the mixed tile
+    with bounds while a profiler records, and nothing for the direct tile,
+    for a call without bounds or with no profiler.  Bounds go only to an
+    entry with the mixed tile, as (B,) contiguous int64 on x's device.  The
+    launch itself is a stand-in here."""
+    import contextlib
+    import types
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append(args) or 0
+
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=None))
+    monkeypatch.setattr(_spectral, "_device_fft_matrices",
+                        lambda *a: (None,) * 6)
+    consts = ("direct", lambda cfg, dev: ([None, 0, None, None], None),
+              [None, 0, None, None])
+    kcfg, front = SHORT.feature_config(), whisper.front(SHORT)
+    x = torch.zeros(3, 16000)
+    lengths = torch.tensor([16000, 900, 0])
+    bounds = _spectral.RowBounds(lengths, 200, SHORT.chunk_samples)
+    T = kcfg.num_frames(16000)
+    n_args = len(_spectral.entry_argtypes(_spectral.DIRECT_ARGTYPES, True,
+                                          mixed=True))
+
+    def launch(tile=None, bounds=bounds, mixed=True):
+        _spectral.launch_spectral(
+            Lib, "entry", "fused_raw", x, kcfg, False, 0.0, other=consts,
+            tile=tile, front=front, mixed=mixed, bounds=bounds)
+        args = calls[-1]
+        assert len(args) == n_args
+        return args[-10:-7]
+
+    report.reset()
+    assert launch() == (lengths.data_ptr(), 200, SHORT.chunk_samples)
+    assert report.counters()["frames_bounded"] == 0      # no profiler
+    with profile():
+        launch()
+        assert launch(bounds=None) == (None, 0, 0)
+        launch(tile="direct")
+        launch()
+    assert report.counters()["frames_bounded"] == 2 * 3 * T
+    with pytest.raises(ValueError, match="mixed tile"):
+        launch(mixed=False)
+    for bad in (lengths.to(torch.int32), lengths[:2], lengths.repeat(2)[::2]):
+        with pytest.raises(ValueError, match="row lengths"):
+            launch(bounds=_spectral.RowBounds(bad, 200, 16000))
+    with pytest.raises(ValueError, match="offset"):
+        launch(bounds=_spectral.RowBounds(lengths, -1, 16000))
+
+
 def test_constants_are_built_once_and_counted_in_consts_s():
     cfg = WhisperConfig(chunk_s=0.75, n_mels=40, n_mfcc=40).validate()
     before = report.counters()["consts_s"]
@@ -300,26 +460,31 @@ def test_direct_tile_tables_hold_whispers_window_and_bank():
 def test_auto_on_a_card_reaches_fused_raw_with_whispers_constants(monkeypatch):
     """With a CUDA tensor "auto" resolves to the kernels: the spectral stage
     is one ``fused_raw`` call on the config's sizes (n_fft 400, no
-    pre-emphasis, no DCT) with Whisper's front (its window and bank), which
-    the tile rule sends to the float64-front mixed-radix FFT tile (400 =
-    2^4 5^2; an 80 dB row floor is past the f32 tile's 50 dB).  That
-    tile's tables: the periodic Hann window, the 400 twiddles of n = 400
-    in float64, and bank chunks that cover every nonzero of the bank."""
+    pre-emphasis, no DCT) with Whisper's front (its window and bank) and
+    the rows' lengths as int64 row bounds (offset n_fft / 2, the window's
+    samples), which the tile rule sends to the float64-front mixed-radix
+    FFT tile (400 = 2^4 5^2; an 80 dB row floor is past the f32 tile's 50
+    dB).  That tile's tables: the periodic Hann window, the 400 twiddles
+    of n = 400 in float64, and bank chunks that cover every nonzero of the
+    bank."""
     calls = []
 
-    def fake(xp, kcfg, *, apply_dct, front):
-        calls.append((kcfg, apply_dct, front))
+    def fake(xp, kcfg, *, apply_dct, front, bounds):
+        calls.append((kcfg, apply_dct, front, bounds))
         return whisper._plain_log_mel(xp, SHORT)
 
     monkeypatch.setattr(whisper.backend_lib, "resolve", lambda *a: "cuda")
     monkeypatch.setattr(fused_raw, "fused_features_raw", fake)
-    got, _, _ = whisper.whisper_log_mel_batch(_audio(2, 9000),
-                                              torch.tensor([9000, 4000]), SHORT)
-    ((kcfg, apply_dct, front),) = calls
+    got, _, _ = whisper.whisper_log_mel_batch(
+        _audio(2, 9000), torch.tensor([9000, 4000], dtype=torch.int32), SHORT)
+    ((kcfg, apply_dct, front, bounds),) = calls
     assert (kcfg.n_fft, kcfg.frame_len, kcfg.hop_len, kcfg.preemph,
             kcfg.n_mels, kcfg.dynamic_range_db) == (400, 400, 160, 0.0, 128,
                                                     None)
     assert apply_dct is False and front is whisper.front(SHORT)
+    assert torch.equal(bounds.lengths, torch.tensor([9000, 4000]))
+    assert bounds.lengths.dtype == torch.int64
+    assert (bounds.offset, bounds.chunk) == (200, SHORT.chunk_samples)
     assert _spectral.fft_tile(kcfg, False, mixed=True) == "fft64_mixed"
     assert got.shape == (2, 100, 128)
     win, tw, chunk_w, chunks, band_chunks, dctm = _spectral.fft_tables(
