@@ -119,7 +119,7 @@ Phases, one status line each; any failure raises and exits non-zero:
    and the PLP tail alone (its ATen ops counted, its host enqueue time).
    ``fused_viterbi``'s time per step of its chain beside the chain bound;
    ``pitch_batch``'s ATen ops and host enqueue time beside its own.
-9. the script's elapsed time (phases 1-8 and 10-25), one JSON line
+9. the script's elapsed time (phases 1-8 and 10-26), one JSON line
    describing the kernels of phases 1-8 and row 7, the roofline probe, of
    phase 21 (with
    each one's bound: the larger of its input and output bytes over 3.35
@@ -376,6 +376,30 @@ Phases, one status line each; any failure raises and exits non-zero:
    in the window's zero padding) on the cell's shortest, median and
    longest sorted batches, the two outputs equal in every bit, the share
    of frame tiles computed, CUDA-event ms of each.
+26. NeMo's log-mel (``models/nemo.nemo_log_mel_batch``) at the benchmark
+   cell's batch: the 128 lengths of ``libri_shuffled``'s longest batch
+   (2.9-25 s, padded to its longest), int16 rows of the bench signal with
+   one row of near-silence (``NEMO_QUIET_LSB``), where the band energies
+   sit near the guard 2^-24.  (a) "auto" on the card, the launch record
+   reset just before the run and read just after it, under a profiler:
+   one ``fused_raw`` launch, on its fft64 tile in the guard's mode, and
+   ``frames_guarded`` = ``frames_computed`` = B x T; frame counts, mask
+   and padded zeros exact; the features (``static_err``) and the plain
+   route's (``backend="torch"``) within ``NEMO_TOL`` (the cell's limit,
+   3e-4) of the benchmark's float64 reference
+   (``perfbench/reference/nemo.py``); the spectral stage alone (the
+   guarded tile on the centred rows) within ``FFT64_ORACLE_TOL`` of its
+   float64 oracle, ``_spectral.plain_front_features``' error printed; a
+   periodic Hann window, a mel-linear bank and a clamp log(max(e, g)) in
+   the guard's place each over ``NEMO_TOL`` against the reference, so
+   the bound tells NeMo's stages from others; (b) CUDA-event ms of the
+   guarded tile alone on the centred rows beside its bound (the least
+   work of ``perfbench/work_nemo.py``, which ``roofline_pct.fused_raw.nemo``
+   reads, and the kernel's own: every frame, the float32 rows read and
+   the features written), the plain chain on the card (``plain_ms``) and
+   ``torch.stft`` of the pre-emphasized rows as NeMo calls it
+   (``library_ms``; the port never calls it); (c) the entry's ms a batch
+   and audio-seconds a second.
 
 Run alone (without the ``mfcc_tpu_torch`` package beside it) or without a
 card, it exits 1 and prints no result.
@@ -569,6 +593,13 @@ WHISPER_PLAIN_TOL = 1e-5
 # reference: its numpy twin reads 1.8e-7 on the benchmark's speech-like
 # rows (tests/test_torch_kernels.py), the direct tile 1.1-2.7e-4
 WHISPER_FFT64_TOL = 2e-5
+# phase 26: NeMo's log-mel (models/nemo), the nemo128 cell's batch
+NEMO_BATCH = 128             # the cell's batches: 128 rows ...
+NEMO_MAX_S = 25.0            # ... of its longest batch's lengths, the longest
+NEMO_QUIET_LSB = 2           # one row of near-silence: ints in [-2, 2]
+# the cell's static_err limit against the float64 reference (calibrate.py
+# on the card: the program 1.93e-5 to 3.27e-5, the TF32 control 0.210)
+NEMO_TOL = 3e-4
 # JAX's XLA route on the CPU against the float64 oracle, max abs, on the
 # first second of the bench batch's row 0 as int16 (the reference's own
 # figures; tests/test_torch_accum.py::test_chip_smoke_jax_cpu_figures
@@ -4246,8 +4277,182 @@ def _whisper_skip(torch, dev, cfg, tile_call, tag) -> None:
          f"CUDA events): " + "; ".join(parts) + f"; {_smi()}")
 
 
+def _nemo_phase(torch, dev, smi) -> None:
+    """Phase 26: ``nemo_log_mel_batch`` through ``fused_raw``'s fft64 tile
+    in its epilogue's guard mode at the nemo128 cell's longest batch,
+    against the float64 reference, the float64 oracle of the spectral
+    stage and the plain route; a wrong window, a wrong bank and a clamp in
+    the guard's place over the bound; the tile's time beside its bound,
+    the plain chain's and ``torch.stft``'s, and the entry's."""
+    import dataclasses
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from mfcc_tpu_torch.config import NemoConfig
+    from mfcc_tpu_torch.models import nemo, whisper
+    from mfcc_tpu_torch.ops import framing, mel
+    from mfcc_tpu_torch.ops.kernels import _spectral
+    from mfcc_tpu_torch.ops.spectrum import folded_dft
+    from mfcc_tpu_torch.utils import report
+    from perfbench import corpus, work_nemo
+    from perfbench.reference import nemo as reference
+    t_phase = time.perf_counter()
+    tag = "[26 nemo]"
+    cfg = NemoConfig().validate()
+    kcfg, front = cfg.feature_config(), nemo.front(cfg)
+    sr, M = cfg.sample_rate, cfg.n_mels
+    with open(os.path.join(REPO, "perfbench", "traffic",
+                           "libri_shuffled.json")) as f:
+        traffic = json.load(f)
+    n_all = corpus.lengths(traffic)
+    rows = corpus.batch_rows(traffic, n_all, 0)
+    k = max(range(len(rows)), key=lambda i: int(n_all[rows[i]].max()))
+    r = np.sort(n_all[rows[k]])
+    r = r[np.round(np.linspace(0, r.size - 1, NEMO_BATCH)).astype(int)]
+    # the cell's lengths, scaled to NEMO_MAX_S where it is not the longest
+    lens = np.round(r * NEMO_MAX_S * sr / n_all.max()).astype(np.int64)
+    B, N = lens.size, int(lens.max())
+    T = cfg.num_frames(N)
+    audio = _int16(_bench_audio(B, (N + 1) / sr, sr, seed=27))[:, :N]
+    quiet = B // 2
+    audio[quiet] = np.random.default_rng(27).integers(
+        -NEMO_QUIET_LSB, NEMO_QUIET_LSB + 1, N)
+    audio[np.arange(N)[None, :] >= lens[:, None]] = 0
+    x = torch.from_numpy(audio).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    nemo.nemo_log_mel_batch(x, n, cfg)           # builds and constants
+    torch.cuda.synchronize()
+    _reset_counts()
+    report.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        feat, flens, mask = nemo.nemo_log_mel_batch(x, n, cfg)
+        torch.cuda.synchronize()
+    counted = report.counters()
+    launched = {k: v for k, v in _counts((*SPECTRAL, "fused_deltas")).items()
+                if v}
+    tiles = {k: v for k, v in _tiles("fused_raw").items() if v}
+    assert launched == {"fused_raw": 1} and tiles == {"fft64": 1}, (
+        launched, tiles)
+    assert counted["frames_guarded"] == counted["frames_computed"] == B * T, \
+        counted
+    assert feat.shape == (B, T, M) and feat.dtype == torch.float32
+    assert torch.equal(flens.cpu(), torch.from_numpy(
+        lens // cfg.hop_len).to(torch.int32))
+    assert torch.equal(mask.cpu(), torch.arange(T)[None, :]
+                       < torch.from_numpy(lens // cfg.hop_len)[:, None])
+    assert not bool(feat[~mask].any()) and bool(torch.isfinite(feat).all())
+    settings = dataclasses.asdict(cfg)
+    want, _, _ = reference.features(x, lens.tolist(), settings, False)
+    plain, _, _ = nemo.nemo_log_mel_batch(x, n, cfg, backend="torch")
+    xp = framing.nemo_center_batch(x.to(torch.float32) / 32768.0, n, cfg)
+    loud = torch.arange(B, device=dev) != quiet
+
+    def err(got, rows=loud):
+        return float((got[rows].double() - want[rows]).abs().max())
+
+    def logs64(window, bank, guard=True):
+        """The spectral stage in float64 on the centred rows, 8 rows at a
+        time: log(e + log_floor), or log(max(e, log_floor))."""
+        cos_m, sin_m = folded_dft(window, cfg.n_fft)
+        basis = torch.from_numpy(np.concatenate([cos_m, sin_m], 1)).to(dev)
+        fb = torch.from_numpy(bank).to(dev)
+        out = torch.empty((B, T, M), dtype=torch.float64, device=dev)
+        for b0 in range(0, B, 8):
+            fr = xp[b0:b0 + 8].double().unfold(1, cfg.frame_len, cfg.hop_len)
+            spec = fr @ basis
+            e = (spec[..., :cfg.n_bins] ** 2 + spec[..., cfg.n_bins:] ** 2) @ fb
+            out[b0:b0 + 8] = (torch.log(e + cfg.log_floor) if guard else
+                              torch.log(e.clamp(min=cfg.log_floor)))
+        return out
+
+    def normed(logs):
+        return nemo.normalize(logs.clone(), mask, flens, cfg.norm_eps)
+
+    logs = nemo.log_mel(xp, cfg)
+    oracle = logs64(front.window, front.bank)
+    plain_logs = _spectral.plain_front_features(xp, kcfg, front)
+    clamp = logs64(front.window, front.bank, False)
+    near = (plain_logs - logs).abs() <= (KERNEL_TOL + LOGMEL_RTOL
+                                         * plain_logs.abs())
+    nq = int(lens[quiet]) // cfg.hop_len
+    q = oracle[quiet, :nq]
+    sigma = q.std(dim=0).min()
+    errs = {"kernel": err(feat), "plain": err(plain),
+            "kernel vs plain": float((feat - plain)[loud].abs().max()),
+            "quiet": err(feat, quiet),
+            "tile": float((logs.double() - oracle).abs().max()),
+            "plain tile": float((plain_logs.double() - oracle).abs().max()),
+            "periodic Hann": err(normed(logs64(
+                whisper.periodic_hann(cfg.frame_len), front.bank))),
+            "mel-linear bank": err(normed(logs64(
+                front.window, mel.mel_matrix(kcfg)))),
+            "clamp": float((clamp - oracle).abs().max())}
+    _log(f"{tag} (a) nemo_log_mel_batch on {B} x {lens.min() / sr:g}-"
+         f"{N / sr:g} s int16 rows (the cell's longest batch) "
+         f"{tuple(feat.shape)}: launched {launched} ({tiles}); "
+         f"frames_guarded {counted['frames_guarded']} of frames_computed "
+         f"{counted['frames_computed']}; frame counts, mask and padded zeros "
+         f"exact; max abs vs the float64 reference over the rows of the "
+         f"bench signal: kernel (static_err) {errs['kernel']:.3e}, plain "
+         f"route {errs['plain']:.3e} (bound {NEMO_TOL:g}); kernel vs plain "
+         f"route {errs['kernel vs plain']:.3e}; a periodic Hann window "
+         f"{errs['periodic Hann']:.3e}, a mel-linear bank "
+         f"{errs['mel-linear bank']:.3e} (each over {NEMO_TOL:g})")
+    _log(f"{tag} (a) row {quiet}, near-silence of +-{NEMO_QUIET_LSB} LSB: "
+         f"its logs {float(q.min()):.2f} to {float(q.max()):.2f} against the "
+         f"guard's {math.log(cfg.log_floor):.2f}, a band's standard deviation "
+         f"over its frames down to {float(sigma):.2e}, which the per-feature "
+         f"norm divides by: the kernel's features {errs['quiet']:.3e} from "
+         f"the reference there; the spectral stage alone vs its float64 "
+         f"oracle over every row: the guarded tile {errs['tile']:.3e} (bound "
+         f"{FFT64_ORACLE_TOL:g}), plain_front_features "
+         f"{errs['plain tile']:.3e}, the tile within rtol {LOGMEL_RTOL:g} + "
+         f"atol {KERNEL_TOL:g} of it: {bool(near.all())}; a clamp log(max(e,"
+         f" g)) for the guard {errs['clamp']:.3e} (over {FFT64_ORACLE_TOL:g})")
+    assert errs["kernel"] <= NEMO_TOL and errs["plain"] <= NEMO_TOL, errs
+    assert errs["tile"] <= FFT64_ORACLE_TOL and bool(near.all()), errs
+    assert min(errs["periodic Hann"], errs["mel-linear bank"]) > NEMO_TOL, \
+        errs
+    assert errs["clamp"] > FFT64_ORACLE_TOL, errs
+    del want, plain, oracle, plain_logs, clamp
+    ms = statistics.median(_time_ms(lambda: nemo.log_mel(xp, cfg),
+                                    calls=TIMING_CALLS))
+    plain_ms = statistics.median(_time_ms(
+        lambda: _spectral.plain_front_features(xp, kcfg, front),
+        calls=TIMING_CALLS))
+    y = xp[:, cfg.center_offset:cfg.center_offset + N].contiguous()
+    hann = torch.hann_window(cfg.frame_len, periodic=False, device=dev)
+    library = statistics.median(_time_ms(
+        lambda: torch.stft(y, cfg.n_fft, cfg.hop_len, cfg.frame_len,
+                           window=hann, center=True, pad_mode="constant",
+                           return_complex=True), calls=TIMING_CALLS))
+    entry = statistics.median(_time_ms(
+        lambda: nemo.nemo_log_mel_batch(x, n, cfg), calls=TIMING_CALLS))
+    ops, least = work_nemo.nemo_work(settings, lens)
+    own_ops = B * T * work_nemo.per_frame(settings)
+    own = 4 * xp.numel() + 4 * B * T * M
+    bound = {"least": max(ops / FP32_FLOPS, least / HBM_BYTES_PER_S) * 1e3,
+             "own": max(own_ops / FP32_FLOPS, own / HBM_BYTES_PER_S) * 1e3}
+    _log(f"{tag} (b) the guarded fft64 tile alone on the {tuple(xp.shape)} "
+         f"centred rows: {ms:.4f} ms a call (CUDA events); bound "
+         f"{bound['least']:.4f} ms on the least work "
+         f"(perfbench/work_nemo: {work_nemo.valid_frames(settings, lens)} "
+         f"valid frames, {ops / 1e9:.3f} GFLOP at 67 TFLOP/s, "
+         f"{least / 1e6:.1f} MB at 3.35 TB/s), {bound['own']:.4f} ms on the "
+         f"kernel's own ({B * T} frames, {own / 1e6:.1f} MB: the float32 rows "
+         f"and the features), the tile at "
+         f"{100 * bound['least'] / ms:.2f} % and "
+         f"{100 * bound['own'] / ms:.2f} % of them; plain_ms "
+         f"(plain_front_features on the card) {plain_ms:.4f} ms; library_ms "
+         f"(torch.stft, n = {cfg.n_fft}, win {cfg.frame_len}, the DFT alone) "
+         f"{library:.4f} ms; {smi}")
+    audio_s = float(lens.sum()) / sr
+    _log(f"{tag} (c) nemo_log_mel_batch whole: {entry:.4f} ms a batch "
+         f"(CUDA events), {audio_s / (entry / 1e3):.0f} audio-s/s")
+    _log(f"{tag} phase 26 passed in {time.perf_counter() - t_phase:.1f} s")
+
+
 def run(torch, dev) -> list[dict]:
-    """Phases 1-8 and 10-25 on device ``dev``; -> the kernels' JSON records
+    """Phases 1-8 and 10-26 on device ``dev``; -> the kernels' JSON records
     (of phases 1-8, and row 7's of phase 21: the other phases report their
     own counters)."""
     from mfcc_tpu_torch import PitchConfig
@@ -4299,6 +4504,7 @@ def run(torch, dev) -> list[dict]:
     _accum_phase(torch, dev, smi)                           # 23
     _deltas_phase(torch, dev, smi)                          # 24
     _whisper_phase(torch, dev, smi)                         # 25
+    _nemo_phase(torch, dev, smi)                            # 26
 
     src = lambda k: f"mfcc_tpu_torch/ops/kernels/csrc/{k.split('/')[0]}.cu"
     launches = {**logmel_launches, **pitch_launches, **proj_launches}
@@ -4360,7 +4566,7 @@ def main() -> int:
     kernels = run(torch, torch.device("cuda", 0))
     # ---- 9. summary ----
     assert "jax" not in sys.modules and "mfcc_tpu" not in sys.modules
-    _log(f"[9 summary] phases 1-8 and 10-25 passed in "
+    _log(f"[9 summary] phases 1-8 and 10-26 passed in "
          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 The JAX package ``mfcc_tpu`` stays the reference; this package imports
 torch and numpy only.  It computes batched MFCC (``models/mfcc``: padded,
 packed and long), log-mel (``models/logmel``), Whisper's log-mel over 30 s
-windows (``models/whisper``), PLP (``models/plp``), the
+windows (``models/whisper``), NeMo's per-feature normalized log-mel
+(``models/nemo``), PLP (``models/plp``), the
 log spectrogram (``models/spectrogram``), Kaldi-style pitch
 (``models/pitch``) and streamed features (``models/streaming``) on the card
 through six hand-written CUDA kernels, one per Pallas kernel of the
@@ -33,13 +34,14 @@ from .utils import report as _report
 # imports, is not in it
 with _report.timed("import_s"):
     from .config import (FeatureConfig, PitchConfig, MFCC13,  # noqa: F401
-                         LOGMEL80, WHISPER128, WhisperConfig, from_jax,
-                         logmel_config)
+                         LOGMEL80, NEMO128, NemoConfig, WHISPER128,
+                         WhisperConfig, from_jax, logmel_config)
     from . import oracle  # noqa: F401
     from .models import plp, spectrogram, streaming  # noqa: F401
     from .models.mfcc import (mfcc, mfcc_batch, mfcc_batch_packed,  # noqa: F401
                               mfcc_long)
     from .models.whisper import whisper_log_mel_batch  # noqa: F401
+    from .models.nemo import nemo_log_mel_batch  # noqa: F401
     from .models.streaming import (init_online_cmvn, init_state,  # noqa: F401
                                    init_state_batch, online_cmvn_step,
                                    process_chunk, process_chunk_batch,

@@ -7,8 +7,8 @@ fields, their order and their defaults are the reference's, so ``to_json``
 and ``config_hash`` give the same string and the same hash for the same
 contract; ``tests/test_torch_config.py`` and ``tests/test_torch_pitch.py``
 hold the two equal.  Field notes live on the reference classes.
-:class:`WhisperConfig` is the port's own (Whisper's log-mel front end) and
-has no twin.
+:class:`WhisperConfig` (Whisper's log-mel front end) and :class:`NemoConfig`
+(NeMo's ASR preprocessor) are the port's own and have no twin.
 """
 
 from __future__ import annotations
@@ -286,8 +286,48 @@ class PitchConfig:
         return dataclasses.replace(self, **kw)
 
 
+class _OwnFront:
+    """What the port's own front-end configs (:class:`WhisperConfig`,
+    :class:`NemoConfig`) share: their sizes, the FeatureConfig of their
+    spectral stage, and the refusal of the steps they do not have."""
+
+    @property
+    def frame_len(self) -> int:
+        return int(round(self.sample_rate * self.frame_ms / 1000.0))
+
+    @property
+    def hop_len(self) -> int:
+        return int(round(self.sample_rate * self.hop_ms / 1000.0))
+
+    @property
+    def n_bins(self) -> int:
+        return self.n_fft // 2 + 1
+
+    def feature_config(self) -> FeatureConfig:
+        """The FeatureConfig of the spectral stage's sizes and numerics:
+        valid-mode frames of frame_len samples over the rows the entry's
+        framing step writes, no pre-emphasis, an n_fft-point DFT, the mel
+        floor and accurate log, no relative floor.  Its window, its mel
+        bank and its log's guard are not the front end's own; the entry's
+        model (``models/whisper``, ``models/nemo``) supplies those."""
+        return FeatureConfig(
+            sample_rate=self.sample_rate, frame_ms=self.frame_ms,
+            hop_ms=self.hop_ms, n_fft=self.n_fft, window="hann", preemph=0.0,
+            n_mels=self.n_mels, fmin=self.fmin, fmax=self.fmax,
+            mel_scale="slaney", n_mfcc=self.n_mels,
+            log_floor=self.log_floor).validate()
+
+    def _refuse_steps(self, fixed: dict, name: str) -> None:
+        """ValueError where a field of ``fixed`` (the steps of other front
+        ends, and the front end's own fixed ones) is not at its value."""
+        off = {k: getattr(self, k) for k, v in fixed.items()
+               if getattr(self, k) != v}
+        if off:
+            raise ValueError(f"{name}'s front end has no such step: {off}")
+
+
 @dataclasses.dataclass(frozen=True)
-class WhisperConfig:
+class WhisperConfig(_OwnFront):
     """Whisper's log-mel front end (``models/whisper``), the port's own:
     the JAX package has no twin.  Defaults: large-v3's, 128 mels
     (openai ``whisper/audio.py``: ``N_FFT`` 400, ``HOP_LENGTH`` 160,
@@ -336,18 +376,6 @@ class WhisperConfig:
     chunk_s: float = 30.0            # Whisper's input window (pad_or_trim)
 
     @property
-    def frame_len(self) -> int:
-        return int(round(self.sample_rate * self.frame_ms / 1000.0))
-
-    @property
-    def hop_len(self) -> int:
-        return int(round(self.sample_rate * self.hop_ms / 1000.0))
-
-    @property
-    def n_bins(self) -> int:
-        return self.n_fft // 2 + 1
-
-    @property
     def chunk_samples(self) -> int:
         return int(round(self.sample_rate * self.chunk_s))
 
@@ -356,24 +384,8 @@ class WhisperConfig:
         chunk // hop, less the last."""
         return self.chunk_samples // self.hop_len
 
-    def feature_config(self) -> FeatureConfig:
-        """The FeatureConfig of the spectral stage's sizes and numerics:
-        valid-mode frames of n_fft samples over the padded rows, no
-        pre-emphasis, the mel floor and accurate log, no relative floor.
-        Its window and mel bank are not Whisper's; ``models/whisper``
-        supplies those."""
-        return FeatureConfig(
-            sample_rate=self.sample_rate, frame_ms=self.frame_ms,
-            hop_ms=self.hop_ms, n_fft=self.n_fft, window="hann", preemph=0.0,
-            n_mels=self.n_mels, fmin=self.fmin, fmax=self.fmax,
-            mel_scale="slaney", n_mfcc=self.n_mels,
-            log_floor=self.log_floor).validate()
-
     def validate(self) -> "WhisperConfig":
-        fixed = {k: getattr(self, k) for k, v in WHISPER_FIXED.items()
-                 if getattr(self, k) != v}
-        if fixed:
-            raise ValueError(f"Whisper's front end has no such step: {fixed}")
+        self._refuse_steps(WHISPER_FIXED, "Whisper")
         if self.frame_len != self.n_fft:
             raise ValueError(f"frame_len ({self.frame_len}) must equal n_fft "
                              f"({self.n_fft}): Whisper's window is n_fft long")
@@ -398,10 +410,111 @@ WHISPER_FIXED = dict(
     append_energy=False, deltas=False, cmvn=False)
 
 
+@dataclasses.dataclass(frozen=True)
+class NemoConfig(_OwnFront):
+    """NVIDIA NeMo's ASR preprocessor (``models/nemo``), the port's own:
+    the JAX package has no twin.  Defaults: the log-mel-128 front end of
+    the Parakeet (FastConformer) and Canary models (NeMo
+    ``AudioToMelSpectrogramPreprocessor`` -> ``FilterbankFeatures`` with
+    ``normalize="per_feature"``; Hugging Face ``ParakeetFeatureExtractor``).
+
+    Per row of length L in a (B, N) batch: pre-emphasis by NeMo's rule,
+    y[0] = x[0] and y[n] = x[n] - preemph x[n - 1], then y[n] = 0 for n >= L
+    (not the HTK rule x[-1] := x[0] of :class:`FeatureConfig`; 0 turns it
+    off); ``torch.stft(center=True, pad_mode="constant")`` at n_fft with
+    the symmetric Hann window of frame_len points centred in n_fft, so
+    1 + N // hop frames a row, frame t's window covering samples [t hop -
+    P, t hop - P + frame_len), P = :attr:`center_offset` (200 at 400 in
+    512), zeros outside the row; |X|^2; Slaney-scale mel filters whose
+    triangles are linear in Hz with Slaney's area normalisation; the
+    natural log guarded by ``log_floor``: log(e + log_floor)
+    (``log_guard="add"``, NeMo's default); then ``normalize="per_feature"``:
+    each band of each row less its mean over the row's L // hop valid
+    frames, over its Bessel-corrected standard deviation plus
+    ``norm_eps``, and the frames past them written as zeros.  A row with fewer than two valid frames,
+    where NeMo raises and Hugging Face writes NaN, is written as zeros
+    (``models/nemo.normalize``).
+
+    The other fields are FeatureConfig's, so that readers of a
+    FeatureConfig's settings read this one too; those NeMo has no step for
+    must hold the value that turns the step off, and ``log_guard`` and
+    ``normalize`` NeMo's own (:data:`NEMO_FIXED`).
+    ``frame_mode="valid"`` names the frames that lie wholly inside an
+    utterance's own samples; NeMo's own are the centred frames above.
+    """
+
+    sample_rate: int = 16_000
+    frame_ms: float = 25.0
+    hop_ms: float = 10.0
+    frame_mode: str = "valid"
+    n_fft: int = 512
+    window: str = "hann"
+    preemph: float = 0.97
+    dither: float = 0.0
+    n_mels: int = 128
+    fmin: float = 0.0
+    fmax: Optional[float] = 8000.0
+    mel_scale: str = "slaney"
+    vtln_warp: float = 1.0
+    n_mfcc: int = 128
+    log_floor: float = 2.0 ** -24    # NeMo's log_zero_guard_value
+    dynamic_range_db: Optional[float] = None
+    lifter: int = 0
+    append_energy: bool = False
+    deltas: bool = False
+    delta_window: int = 2
+    cmvn: bool = False
+    log_guard: str = "add"
+    normalize: str = "per_feature"
+    norm_eps: float = 1e-5
+
+    @property
+    def center_offset(self) -> int:
+        """Where a row's own samples begin in the rows that
+        ``framing.nemo_center_batch`` writes: n_fft // 2 less the window's
+        offset (n_fft - frame_len) // 2 inside the n_fft points."""
+        return self.n_fft // 2 - (self.n_fft - self.frame_len) // 2
+
+    def num_frames(self, n_samples: int) -> int:
+        """Frames of every row of a batch padded to n_samples:
+        ``torch.stft(center=True)``'s 1 + n_samples // hop."""
+        return 1 + n_samples // self.hop_len
+
+    def validate(self) -> "NemoConfig":
+        self._refuse_steps(NEMO_FIXED, "NeMo")
+        n = self.n_fft
+        if not (64 <= n <= 4096 and n & (n - 1) == 0):
+            raise ValueError(f"n_fft ({n}) must be a power of two from 64 to "
+                             "4096 (the FFT tile's)")
+        if not (2 <= self.frame_len <= n) or self.hop_len < 1:
+            raise ValueError(f"frame_len ({self.frame_len}) must be in [2, "
+                             f"n_fft] and hop_len ({self.hop_len}) >= 1")
+        if self.n_mfcc != self.n_mels:
+            raise ValueError("n_mfcc must equal n_mels (no cepstra)")
+        if not (0.0 <= self.preemph < 1.0):
+            raise ValueError("preemph must be in [0, 1)")
+        if self.log_floor <= 0.0 or self.norm_eps <= 0.0:
+            raise ValueError("log_floor and norm_eps must be > 0")
+        if self.fmax is None or self.fmax > self.sample_rate / 2.0:
+            raise ValueError("fmax must be given and at most sample_rate / 2")
+        self.feature_config()
+        return self
+
+
+# The fields of NemoConfig that name steps of the port's other front ends,
+# at the values that turn them off, and NeMo's own scale, guard and
+# normalization.
+NEMO_FIXED = dict(
+    frame_mode="valid", window="hann", dither=0.0, mel_scale="slaney",
+    vtln_warp=1.0, dynamic_range_db=None, lifter=0, append_energy=False,
+    deltas=False, cmvn=False, log_guard="add", normalize="per_feature")
+
+
 # Named presets of the baseline's configs (BASELINE.md), the reference's.
 MFCC13 = FeatureConfig().validate()
 LOGMEL80 = FeatureConfig(n_mels=80, n_mfcc=80, deltas=True).validate()
 WHISPER128 = WhisperConfig().validate()
+NEMO128 = NemoConfig().validate()
 
 
 def logmel_config(n_mels: int = 80, deltas: bool = True) -> FeatureConfig:

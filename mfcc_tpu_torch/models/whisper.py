@@ -23,11 +23,11 @@ Whisper's input, not the batch's.  The stages, each a span under
   device with no host sync;
 - ``feat.mask``: the frame counts' mask (every frame is valid).
 
-The constants are built once a config in float64 (:func:`constants`) and
+The constants are built once a config in float64 (:func:`front`) and
 kept: for the card as the tile's tables, which ``ops/kernels/_spectral``
 builds from :func:`front` and keeps on the device, and on the device for
-the plain chain (:func:`_plain_constants`); their first build is counted
-in ``consts_s``.
+the plain chain (``_spectral.plain_front_features``, which NeMo's front
+end shares); their first build is counted in ``consts_s``.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ import torch
 
 from .. import backend as backend_lib
 from ..config import WhisperConfig
-from ..ops import framing, mel as mel_op, spectrum, xmath
+from ..ops import framing, mel as mel_op
 from ..ops.kernels import _spectral, fused_raw
 from ..utils import report
 from .mfcc import _to_float, frame_mask
@@ -56,43 +56,13 @@ def periodic_hann(n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def constants(cfg: WhisperConfig) -> tuple:
-    """(cos, sin, mel): the (n_fft, n_bins) window-folded DFT bases and
-    the (n_bins, n_mels) Hz triangle bank, float64."""
-    return (*spectrum.folded_dft(periodic_hann(cfg.n_fft), cfg.n_fft),
-            mel_op.hz_triangle_matrix(cfg))
-
-
-@functools.lru_cache(maxsize=8)
 @report.timed("consts_s")
 def front(cfg: WhisperConfig) -> _spectral.Front:
-    """Whisper's window (the periodic Hann) and bank (the Hz triangles) in
-    float64, as ``fused_raw`` takes them; one a config, which the
-    kernels' constant caches key on."""
-    return _spectral.Front(periodic_hann(cfg.n_fft), constants(cfg)[2])
-
-
-@functools.lru_cache(maxsize=8)
-@report.timed("consts_s")
-def _plain_constants(cfg: WhisperConfig, device: torch.device) -> tuple:
-    """([cos | sin] (n_fft, 2 n_bins), mel (n_bins, n_mels)) float32 on
-    ``device``."""
-    cos_m, sin_m, melw = constants(cfg)
-    return tuple(torch.from_numpy(a.astype(np.float32)).to(device)
-                 for a in (np.concatenate([cos_m, sin_m], axis=1), melw))
-
-
-def _plain_log_mel(xp: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
-    """(B, L) padded rows -> (B, T, n_mels) floored natural log of the mel
-    energies, plain torch, float32 IEEE products."""
-    kcfg = cfg.feature_config()
-    basis, melw = _plain_constants(cfg, xp.device)
-    fr = framing.frames(xp.to(torch.float32), kcfg)
-    spec = backend_lib.matmul(fr, basis, "highest")
-    re, im = spec[..., :cfg.n_bins], spec[..., cfg.n_bins:]
-    power = xmath.mul_add(re, re, im * im, True)
-    return xmath.floored_log(backend_lib.matmul(power, melw, "highest"),
-                             cfg.log_floor)
+    """Whisper's window (the periodic Hann) and bank (the (n_bins, n_mels)
+    Hz triangles) in float64, as ``fused_raw`` takes them; one a config,
+    which the kernels' constant caches key on."""
+    return _spectral.Front(periodic_hann(cfg.n_fft),
+                           mel_op.hz_triangle_matrix(cfg))
 
 
 def log_mel(xp: torch.Tensor, cfg: WhisperConfig, backend: str = "auto",
@@ -111,7 +81,7 @@ def log_mel(xp: torch.Tensor, cfg: WhisperConfig, backend: str = "auto",
         return fused_raw.fused_features_raw(
             xp.to(torch.float32).contiguous(), kcfg, apply_dct=False,
             front=front(cfg), bounds=bounds)
-    return _plain_log_mel(xp, cfg)
+    return _spectral.plain_front_features(xp, kcfg, front(cfg))
 
 
 def normalize(feat: torch.Tensor) -> torch.Tensor:

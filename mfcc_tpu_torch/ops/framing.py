@@ -100,6 +100,40 @@ def stft_center_batch(x: torch.Tensor, lengths: torch.Tensor,
     return out
 
 
+def nemo_center_batch(x: torch.Tensor, lengths: torch.Tensor,
+                      cfg) -> torch.Tensor:
+    """NeMo's pre-emphasis and STFT centring for a ``NemoConfig``: (B, N)
+    float rows with true ``lengths`` -> (B, W) rows of x's dtype whose
+    "valid" frames of frame_len samples at hop_len are the windowed part
+    of ``torch.stft(center=True, pad_mode="constant")``'s frames of the
+    pre-emphasized rows, W = (T - 1) * hop_len + frame_len, T = 1 + N //
+    hop_len (``cfg.num_frames``).
+
+    Row b holds y at [P, P + N) (P = ``cfg.center_offset``) and zeros
+    elsewhere: y[0] = x[0], y[n] = x[n] - preemph x[n - 1] in x's dtype
+    (float32 from the batch entry, as NeMo and Hugging Face compute it;
+    one ``add`` with alpha, which may round once where they round the
+    product first), then y[n] = 0 for n >= lengths[b], which also zeroes
+    whatever the caller's padding holds.  Frame t of the result starts at
+    row sample t hop_len - P, the first sample its window covers.  On x's
+    device, with no host sync."""
+    B, N = x.shape
+    P, T = cfg.center_offset, cfg.num_frames(N)
+    W = (T - 1) * cfg.hop_len + cfg.frame_len
+    n = min(N, W - P)
+    out = x.new_empty((B, W))
+    out[:, :P].zero_()
+    out[:, P + n:].zero_()
+    body = out[:, P:P + n]
+    body[:, :1] = x[:, :1]
+    if n > 1:
+        torch.add(x[:, 1:n], x[:, :n - 1], alpha=-cfg.preemph,
+                  out=body[:, 1:])
+    t = torch.arange(n, device=x.device)
+    body.masked_fill_(t[None, :] >= lengths.to(device=x.device)[:, None], 0.0)
+    return out
+
+
 def resolve_frame_mode(x: torch.Tensor, sample_lengths: torch.Tensor,
                        cfg: FeatureConfig):
     """Batch entry hook: (x', sample_lengths', cfg') with cfg' in "valid"

@@ -20,8 +20,10 @@
   2^a 5^b, that flavour's mixed-radix tile "fft64_mixed", or the entry's
   other tile), the tile's passes, and its constants.
 - :class:`Front` — a front end's own window and filterbank, which a
-  config's fields cannot state (``models/whisper``): the entries build
-  whichever tile's tables from them.
+  config's fields cannot state (``models/whisper``, ``models/nemo``), and
+  its log (floored, or NeMo's additive guard): the entries build
+  whichever tile's tables from them; :func:`plain_front_features` is
+  their plain chain.
 - :class:`RowBounds`, :func:`zero_tail`, :func:`first_skipped_frame` —
   where each row of ``framing.stft_center_batch``'s output turns to the
   zeros it wrote, which the mixed-radix tile reads from the rows' lengths
@@ -309,12 +311,46 @@ def mel_chunks(bands: np.ndarray, size: int = MEL_CHUNK):
 class Front:
     """A front end's own analysis window (frame_len,) and filterbank
     (n_bins, n_bands), float64, which a config's fields cannot state
-    (``models/whisper``): the spectral entries build whichever tile's
-    tables from these in place of the config's window and mel matrix, with
-    no DCT.  Hashed by identity, so that the constant caches key on it:
-    keep one per config."""
+    (``models/whisper``, ``models/nemo``): the spectral entries build
+    whichever tile's tables from these in place of the config's window and
+    mel matrix, with no DCT.  ``guard``: the log is log(e + log_floor),
+    NeMo's additive guard, in place of log(max(e, log_floor)); only
+    ``fused_raw``'s "fft64" tile takes it.  Hashed by identity, so that
+    the constant caches key on it: keep one per config."""
     window: np.ndarray
     bank: np.ndarray
+    guard: bool = False
+
+
+@functools.lru_cache(maxsize=8)
+@report.timed("consts_s")
+def plain_front_constants(front: Front, n_fft: int,
+                          device: torch.device) -> tuple:
+    """([cos | sin] (frame_len, 2 n_bins), bank (n_bins, n_bands)) float32
+    on ``device``: the front's window folded into the n_fft-point DFT, and
+    its bank."""
+    cos_m, sin_m = spectrum.folded_dft(front.window, n_fft)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device)
+                 for a in (np.concatenate([cos_m, sin_m], axis=1),
+                           front.bank))
+
+
+def plain_front_features(xp: torch.Tensor, cfg: FeatureConfig,
+                         front: Front) -> torch.Tensor:
+    """(B, L) rows -> (B, T, n_bands) natural logs of the front's band
+    energies over cfg's "valid" frames, plain torch, float32 IEEE
+    products: log(max(e, log_floor)), or log(e + log_floor) with the
+    front's ``guard`` (the sum rounded to float32, as the kernel's
+    epilogue rounds it).  The plain twin of ``fused_raw`` on a front."""
+    basis, bank = plain_front_constants(front, cfg.n_fft, xp.device)
+    fr = framing.frames(xp.to(torch.float32), cfg)
+    spec = backend.matmul(fr, basis, "highest")
+    re, im = spec[..., :cfg.n_bins], spec[..., cfg.n_bins:]
+    power = xmath.mul_add(re, re, im * im, True)
+    e = backend.matmul(power, bank, "highest")
+    if front.guard:   # the float32 guard goes with the kernel: no upload
+        return xmath.accurate_log(e + cfg.log_floor)
+    return xmath.floored_log(e, cfg.log_floor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -497,8 +533,9 @@ EPILOGUE_ARGTYPES = [_I, _I, _F, _F, _I, _I]
 DIRECT_ARGTYPES = [_P, _I, _P, _P]
 # the tile codes of the C entries (spectral::Tile; the other tile is 0)
 TILE_CODES = {"fft": 1, "fft64": 2, "fft64_mixed": 3}
-# the mixed-radix tile's row bounds: (lengths, offset, chunk) (RowBounds)
-BOUNDS_ARGTYPES = [_P, ctypes.c_longlong, ctypes.c_longlong]
+# the entry with the mixed-radix tile: the log guard (Front.guard, 0 or 1),
+# then the row bounds (lengths, offset, chunk) (RowBounds)
+BOUNDS_ARGTYPES = [_I, _P, ctypes.c_longlong, ctypes.c_longlong]
 
 
 def entry_argtypes(other, preemph: bool, projection: bool = False,
@@ -506,8 +543,8 @@ def entry_argtypes(other, preemph: bool, projection: bool = False,
     """The C types of a spectral entry: (x, B, N, T, *the other tile's
     constants (``other``), win, tw, chunk_w, chunks, band_chunks, n_chunks,
     dctm, out, frame_len, hop, n_bins, n_fft, tile[, preemph as a double]
-    [, projection code][, the row bounds of the entry with the mixed-radix
-    tile], *epilogue, stream)."""
+    [, projection code][, the log guard and the row bounds of the entry
+    with the mixed-radix tile], *epilogue, stream)."""
     return ([_P, _I, ctypes.c_longlong, _I, *other, _P, _P, _P, _P, _P, _I,
              _P, _P, _I, _I, _I, _I, _I]
             + ([ctypes.c_double] if preemph else [])
@@ -583,8 +620,8 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
     """Launch a spectral entry on x's device and current stream.
 
     The tile is :func:`fft_tile`'s pick for the config (``mixed``: the
-    entry has the mixed-radix tile and takes its row bounds), or ``tile``
-    where the caller names one (to time the tile a kernel replaced on the
+    entry has the mixed-radix tile and takes the log guard and the row
+    bounds), or ``tile`` where the caller names one (to time the tile a kernel replaced on the
     same work; the C entry refuses one the shape does not allow).  An FFT flavour reads its
     constants from the device (:func:`_device_fft_matrices`, of the
     ``front`` where one is given); the entry's other tile, ``other`` =
@@ -596,6 +633,9 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
     the mixed-radix tile, which skips the frame tiles wholly in the rows'
     zero tails; a call that runs that tile with them counts its B x T
     frames in ``frames_bounded``, and any other tile computes every frame.
+    A front with ``guard`` runs on the "fft64" tile of an entry with the
+    mixed tile alone (else ValueError), and its call counts B x T in
+    ``frames_guarded``.
     preemph goes to the entries that pre-emphasize in the kernel (None for
     ``fused_mfcc`` and ``fused_dit``).  ``projection`` goes to the entry that takes one
     (``fused_raw_dit``; None for the others, which project on mel); the
@@ -622,6 +662,12 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
         check_bounds(x, bounds)
         if tile == "fft64_mixed":
             report.count("frames_bounded", out.shape[0] * out.shape[1])
+    guard = front is not None and front.guard
+    if guard:
+        if not (mixed and tile == "fft64"):
+            raise ValueError(f"the additive log guard runs on fused_raw's "
+                             f"fft64 tile alone, not {name}'s {tile!r}")
+        report.count("frames_guarded", out.shape[0] * out.shape[1])
     with torch.cuda.device(x.device), report.span(name):
         if tile in TILE_CODES:
             *fft, dctm = _device_fft_matrices(cfg, tile, proj, x.device,
@@ -638,8 +684,9 @@ def launch_spectral(lib_fn, entry: str, name: str, x: torch.Tensor,
         if projection is not None:
             args.append(PROJECTION_CODES[projection])
         if mixed:
-            args += ([None, 0, 0] if bounds is None else
-                     [bounds.lengths, bounds.offset, bounds.chunk])
+            args += [int(guard)] + ([None, 0, 0] if bounds is None else
+                                    [bounds.lengths, bounds.offset,
+                                     bounds.chunk])
         err = getattr(lib, entry)(
             *map(_arg, args), *epilogue_args(cfg, apply_dct, proj),
             torch.cuda.current_stream(x.device).cuda_stream)

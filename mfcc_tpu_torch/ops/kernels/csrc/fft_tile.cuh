@@ -210,10 +210,19 @@ __host__ __device__ inline long long zero_tail(long long length,
   return offset + (length < chunk ? length : chunk);
 }
 
+// The float64 flavour's parameters for its kernels in the Guard mode of
+// finish (fused_raw.cu's, for NeMo's log(e + guard)): a type of their own,
+// so that those kernels are overloads beside the others, which stay as
+// they were.
+struct FftGuardParams {
+  FftParams<double> f;
+};
+
 // The FFT tile's own parameters inside a kernel's.
 inline FftParams<float>& fft_params(FftParams<float>& p) { return p; }
 inline FftParams<double>& fft_params(FftParams<double>& p) { return p; }
 inline FftParams<double>& fft_params(FftMixedParams& q) { return q.f; }
+inline FftParams<double>& fft_params(FftGuardParams& q) { return q.f; }
 
 __device__ __forceinline__ float fma_s(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -456,7 +465,7 @@ inline size_t fft_smem_bytes(int TM, int pairs, int nfp, int span,
                           static_cast<size_t>(TM) * staged + 2 * TM);
 }
 
-template <int TM, typename S, bool Spec = false>
+template <int TM, typename S, bool Spec = false, bool Guard = false>
 __device__ __forceinline__ void fft_features(const FftParams<S>& p) {
   static_assert(TM >= 8 && kThreads % TM == 0, "frame tile");
   constexpr int R = FftFlavour<S>::kRadix, LR = log2_radix(R);
@@ -485,8 +494,9 @@ __device__ __forceinline__ void fft_features(const FftParams<S>& p) {
     stage_span(xb, p.N, s0, p.span, p.preemph, z);
   __syncthreads();
 
-  // ---- unwindowed frame energy: G threads per frame, shuffle sum ----
-  if (!spec) {
+  // ---- unwindowed frame energy: G threads per frame, shuffle sum (not
+  // in the Guard mode, whose log-mel never reads it) ----
+  if (!spec && !Guard) {
     constexpr int G = kThreads / TM;
     const int m = tid / G, l = tid % G;
     const float* zm = z + m * p.hop;
@@ -594,7 +604,7 @@ __device__ __forceinline__ void fft_features(const FftParams<S>& p) {
     __syncthreads();
   }
   if (spec) return;  // the split wrote the spectrogram
-  finish<TM>(p.e, mel, rowv, en, b, t0);
+  finish<TM, Guard>(p.e, mel, rowv, en, b, t0);
 }
 
 // ---------------------------------------------------------------------------
@@ -933,6 +943,9 @@ struct SpectralArgs {
   // they begin and the most of them (zero_tail)
   const long long* lengths = nullptr;
   long long len_offset = 0, len_chunk = 0;
+  // 1: the additive log guard, log(e + log_floor) (finish's Guard mode),
+  // on the float64 flavour's power-of-two tile alone; 0: the floors
+  int log_guard = 0;
 };
 
 // The checks of launch_spectral and launch_fft_tile on the projection: the
@@ -1019,15 +1032,43 @@ inline cudaError_t launch_fft_mixed(const SpectralArgs& a,
                             stream);
 }
 
+// The float64 flavour's power-of-two tile in finish's Guard mode, on an
+// entry whose kernels at TM = 64 >> i are guarded[i] (null: the entry has
+// none, and refuses it): log-mel on the mel projection, no relative floor,
+// a positive guard.
+inline cudaError_t launch_fft_guarded(const SpectralArgs& a,
+                                      const KernelFn<FftGuardParams>* guarded,
+                                      cudaStream_t stream) {
+  if (guarded == nullptr || a.tile != kFft64Tile || !fft_args_ok(a) ||
+      !fft_tile_ok(a.n_fft, a.frame_len) ||
+      a.e.projection != kMelProjection || a.e.apply_dct ||
+      a.e.rel_floor != 0.0f || !(a.e.log_floor > 0.0f))
+    return cudaErrorInvalidValue;
+  int log2n = 0;
+  while ((1 << log2n) < a.n_fft) ++log2n;
+  const FftGuardParams q{FftParams<double>{
+      a.x, static_cast<const double*>(a.win),
+      static_cast<const double2*>(a.tw),
+      reinterpret_cast<const float4*>(a.chunk_w),
+      reinterpret_cast<const int2*>(a.chunks),
+      reinterpret_cast<const int2*>(a.band_chunks), a.e, a.N, 0, a.frame_len,
+      a.hop, log2n, 0, 0, a.n_chunks, a.preemph}};
+  return launch_fft<double>(q, a.n_fft, FftFlavour<double>::kWavePoints, a.B,
+                            guarded, stream);
+}
+
 // The tile the host picked: a flavour of the FFT tile, or the direct tile
-// (its constants must be given).
+// (its constants must be given); with a.log_guard, the guarded float64
+// tile (launch_fft_guarded).
 inline cudaError_t launch_spectral(
     const SpectralArgs& a, const KernelFn<FftParams<float>> fft32[4],
     const KernelFn<FftParams<double>> fft64[4],
     const KernelFn<DirectParams> direct[4], cudaStream_t stream,
     const KernelFn<FftParams<float>>* spec32 = nullptr,
     const KernelFn<FftParams<double>>* spec64 = nullptr,
-    const KernelFn<FftMixedParams>* mixed = nullptr) {
+    const KernelFn<FftMixedParams>* mixed = nullptr,
+    const KernelFn<FftGuardParams>* guarded = nullptr) {
+  if (a.log_guard != 0) return launch_fft_guarded(a, guarded, stream);
   if (a.tile == kFft64MixedTile) return launch_fft_mixed(a, mixed, stream);
   if (a.tile != kOtherTile)
     return launch_fft_tile(a, fft32, fft64, stream, spec32, spec64);

@@ -30,7 +30,9 @@
 // form's error; the f64 front is within 2e-6 of the float64 oracle there,
 // where the direct f32 form is ~1e-2 off.  Cepstra and log-mel <= 50 dB
 // run the f32 flavour, with pre-emphasis in f32 as the plain version
-// rounds it.  Any other n_fft runs the direct window-folded DFT tile of
+// rounds it.  NeMo's log-mel (log(e + guard), pre-emphasized and centred
+// on the host) runs the float64 flavour's power-of-two tile in finish's
+// Guard mode, kernels of their own.  Any other n_fft runs the direct window-folded DFT tile of
 // spectral.cuh; the host picks the tile from the config and n_fft's
 // factors, in the same C entry.
 
@@ -55,6 +57,17 @@ __global__ void __launch_bounds__(spectral::kThreads,
   spectral::fft_mixed_features<TM>(p);
 }
 
+// The float64 flavour's power-of-two tile with NeMo's additive log guard
+// (finish's Guard mode): raw_fft_kernel on its own parameters, so that
+// every instantiation above stays as it was and a trace names this one
+// raw_fft_kernel too.
+template <int TM>
+__global__ void __launch_bounds__(spectral::kThreads,
+                                  spectral::FftFlavour<double>::kBlocks)
+    raw_fft_kernel(const spectral::FftGuardParams p) {
+  spectral::fft_features<TM, double, false, true>(p.f);
+}
+
 template <int FR>
 __global__ void __launch_bounds__(spectral::kThreads, 1)
     raw_kernel(const spectral::DirectParams p) {
@@ -73,22 +86,24 @@ __global__ void __launch_bounds__(spectral::kThreads, 1)
 // lengths (B) int64 on the device, or null: each row's own samples, which
 // begin at len_offset and are cut to len_chunk (spectral::zero_tail); the
 // mixed tile then skips the frame tiles wholly in the zeros after them.
-// The other tiles compute every frame whatever it says.
+// The other tiles compute every frame whatever it says.  log_guard 1: the
+// log is log(e + log_floor) (NeMo's additive guard) in place of the
+// floors, on kFft64Tile alone (any other tile is refused); 0: the floors.
 extern "C" int mfcc_fused_raw(
     const float* x, int B, long long N, int T, const float* basis, int nbb,
     const float* last, const float* melw, const void* win, const void* tw,
     const float* chunk_w, const int* chunks, const int* band_chunks,
     int n_chunks, const float* dctm, float* out, int frame_len, int hop,
-    int n_bins, int n_fft, int tile, double preemph, const long long* lengths,
-    long long len_offset, long long len_chunk, int n_mels, int n_out,
-    float log_floor, float rel_floor, int append_energy, int apply_dct,
-    void* stream) {
+    int n_bins, int n_fft, int tile, double preemph, int log_guard,
+    const long long* lengths, long long len_offset, long long len_chunk,
+    int n_mels, int n_out, float log_floor, float rel_floor,
+    int append_energy, int apply_dct, void* stream) {
   const spectral::Epilogue e{melw, dctm, out, T, n_mels, n_out, log_floor,
                              rel_floor, apply_dct, append_energy};
   const spectral::SpectralArgs a{x, B, N, basis, nbb, last, win, tw, chunk_w,
                                  chunks, band_chunks, n_chunks, e, frame_len,
                                  hop, n_bins, n_fft, tile, preemph, lengths,
-                                 len_offset, len_chunk};
+                                 len_offset, len_chunk, log_guard};
   const spectral::KernelFn<spectral::FftParams<float>> fft32[4] = {
       raw_fft_kernel<64, float>, raw_fft_kernel<32, float>,
       raw_fft_kernel<16, float>, raw_fft_kernel<8, float>};
@@ -98,9 +113,12 @@ extern "C" int mfcc_fused_raw(
   const spectral::KernelFn<spectral::FftMixedParams> mixed[4] = {
       raw_fft_kernel<64>, raw_fft_kernel<32>, raw_fft_kernel<16>,
       raw_fft_kernel<8>};
+  const spectral::KernelFn<spectral::FftGuardParams> guarded[4] = {
+      raw_fft_kernel<64>, raw_fft_kernel<32>, raw_fft_kernel<16>,
+      raw_fft_kernel<8>};
   const spectral::KernelFn<spectral::DirectParams> direct_tiles[4] = {
       raw_kernel<8>, raw_kernel<4>, raw_kernel<2>, raw_kernel<1>};
   return spectral::launch_spectral(a, fft32, fft64, direct_tiles,
                                    static_cast<cudaStream_t>(stream), nullptr,
-                                   nullptr, mixed);
+                                   nullptr, mixed, guarded);
 }

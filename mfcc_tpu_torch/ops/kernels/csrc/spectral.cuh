@@ -20,7 +20,8 @@
 // - finish: the epilogue every spectral kernel shares: absolute and
 //   relative floors, accurate log, then the lifter-folded DCT (cepstra,
 //   optional log energy in c0) or the log-mel energies, written to (B, T,
-//   n_out).
+//   n_out); in its Guard mode (fused_raw.cu's NeMo kernels only) the
+//   additive log guard in place of the floors.
 // - Projection: what the band stage projects |X|^2 on.  "mel" and "bark"
 //   (fused_raw_dit.cu's PLP front half: the bark + equal-loudness
 //   filterbank, no relative floor, no DCT) differ only in the host's
@@ -127,26 +128,36 @@ __device__ __forceinline__ void stage_span(const float* xb, long long N,
 // Floors, log, then DCT (+ energy) or log-mel, for the tile's frames.
 // mel: (TM, n_mels) energies, overwritten with their logs; rowv: (TM)
 // work space; en: (TM) unwindowed frame energies.  Ends the kernel's work.
-template <int TM>
+// Guard: the additive log guard of NeMo's preprocessor, log(e +
+// log_floor) with the sum rounded to f32, in place of the floors (no
+// relative floor, no DCT: the host refuses them); a compile-time mode, so
+// that every instantiation without it is as it was.
+template <int TM, bool Guard = false>
 __device__ __forceinline__ void finish(const Epilogue& p, float* mel,
                                        float* rowv, const float* en, int b,
                                        int t0) {
   const int tid = threadIdx.x;
-  // the reference takes e = max(e, rel) with rel = max_j(e) * rel_floor,
-  // then log(max(e, log_floor)); max is exact, so one per-frame floor
-  // max(log_floor, rel) gives the same bits
-  for (int m = tid; m < TM; m += kThreads) {
-    float f = p.log_floor;
-    if (p.rel_floor > 0.0f) {
-      float mx = mel[m * p.n_mels];
-      for (int j = 1; j < p.n_mels; ++j) mx = fmaxf(mx, mel[m * p.n_mels + j]);
-      f = fmaxf(f, __fmul_rn(mx, p.rel_floor));
+  if constexpr (Guard) {
+    for (int o = tid; o < TM * p.n_mels; o += kThreads)
+      mel[o] = acc_log(__fadd_rn(mel[o], p.log_floor));
+  } else {
+    // the reference takes e = max(e, rel) with rel = max_j(e) * rel_floor,
+    // then log(max(e, log_floor)); max is exact, so one per-frame floor
+    // max(log_floor, rel) gives the same bits
+    for (int m = tid; m < TM; m += kThreads) {
+      float f = p.log_floor;
+      if (p.rel_floor > 0.0f) {
+        float mx = mel[m * p.n_mels];
+        for (int j = 1; j < p.n_mels; ++j)
+          mx = fmaxf(mx, mel[m * p.n_mels + j]);
+        f = fmaxf(f, __fmul_rn(mx, p.rel_floor));
+      }
+      rowv[m] = f;
     }
-    rowv[m] = f;
+    __syncthreads();
+    for (int o = tid; o < TM * p.n_mels; o += kThreads)
+      mel[o] = acc_log(fmaxf(mel[o], rowv[o / p.n_mels]));
   }
-  __syncthreads();
-  for (int o = tid; o < TM * p.n_mels; o += kThreads)
-    mel[o] = acc_log(fmaxf(mel[o], rowv[o / p.n_mels]));
   __syncthreads();
   for (int o = tid; o < TM * p.n_out; o += kThreads) {
     const int m = o / p.n_out, c = o - m * p.n_out;

@@ -21,7 +21,10 @@ n_fft of 2^a 5^b (Whisper's 400) the float64-front flavour runs as the
 mixed-radix tile ("fft64_mixed", radix-5 passes beside the radix-2/4/8
 ones; this entry alone has it); any other n_fft runs the direct
 window-folded DFT tile of ``csrc/spectral.cuh``.  The config and n_fft's
-factors decide (``_spectral.fft_tile``), never a failure.
+factors decide (``_spectral.fft_tile``), never a failure.  NeMo's front
+end takes the "fft64" tile in its epilogue's guard mode
+(``raw_fft_kernel<TM>(spectral::FftGuardParams)``: log(e + log_floor) in
+place of the floors).
 """
 
 from __future__ import annotations
@@ -57,10 +60,12 @@ def fused_features_raw(x: torch.Tensor, cfg: FeatureConfig, *,
     (``_spectral.kernel_config``).  cfg must be in "valid" frame mode.
 
     ``front`` (a ``_spectral.Front``: the window and the filterbank of a
-    front end whose config cannot state them, ``models/whisper``) takes
-    their place in whichever tile the config picks, with no DCT
-    (``apply_dct`` must be False).  The card only: the plain version
-    knows the config's constants alone.
+    front end whose config cannot state them, ``models/whisper``,
+    ``models/nemo``) takes their place in whichever tile the config picks,
+    with no DCT (``apply_dct`` must be False); a front with ``guard``
+    (NeMo's log(e + log_floor)) runs on the "fft64" tile alone.  The card
+    only: the plain version knows the config's constants alone, and
+    ``_spectral.plain_front_features`` is a front's plain chain.
 
     ``bounds`` (a ``_spectral.RowBounds``: x is
     ``framing.stft_center_batch``'s output, ``models/whisper``) lets the

@@ -74,7 +74,7 @@ VARIANTS = {
     "no_mel": [(TILE, "          acc = fmaf(static_cast<float>(pw[fft_pad<S>("
                       "ch.x + i)]), w[i], acc);",
                 "          acc += w[i];")],
-    "no_finish": [(TILE, "  finish<TM>(p.e, mel, rowv, en, b, t0);\n}",
+    "no_finish": [(TILE, "  finish<TM, Guard>(p.e, mel, rowv, en, b, t0);\n}",
                    "  if (tid < TM && mel[tid] == 12345.0f) "
                    "p.e.out[tid] = en[0];\n}")],
     "wave4096": [(TILE, "  static constexpr int kWavePoints = 2048;",

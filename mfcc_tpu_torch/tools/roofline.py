@@ -70,7 +70,8 @@ TOOL = "roofline"
 # dynamic shared-memory bytes, blocks, tiles), read by mfcc_roofline_plan
 PLAN_KEYS = ("TM", "pairs", "span", "smem_bytes", "blocks", "tiles")
 _PLAN = [
-    (TILE, "template <int TM, typename S, bool Spec = false>\n"
+    (TILE, "template <int TM, typename S, bool Spec = false,"
+           " bool Guard = false>\n"
            "__device__ __forceinline__ void fft_features(",
      "__device__ int roofline_plan[6];  // the launch a rung ran\n\n"
      "template <typename S>\n"
@@ -89,7 +90,8 @@ _PLAN = [
      "  return static_cast<int>(cudaMemcpyFromSymbol(\n"
      "      out, roofline_plan, sizeof(roofline_plan)));\n"
      "}\n\n"
-     "template <int TM, typename S, bool Spec = false>\n"
+     "template <int TM, typename S, bool Spec = false,"
+     " bool Guard = false>\n"
      "__device__ __forceinline__ void fft_features("),
     (TILE, "  const int tid = threadIdx.x;\n"
            "  const int b = blockIdx.x / p.tiles;\n",
@@ -113,7 +115,7 @@ VARIANTS = {
          "  }\n"
          "  return;\n")],
     "fft": _PLAN + _NO_ENERGY + [
-        (TILE, "  finish<TM>(p.e, mel, rowv, en, b, t0);\n}",
+        (TILE, "  finish<TM, Guard>(p.e, mel, rowv, en, b, t0);\n}",
          "  // rung \"fft\": the epilogue without floors and log\n"
          "  for (int o = tid; o < TM * p.e.n_out; o += kThreads) {\n"
          "    const int m = o / p.e.n_out, c = o - m * p.e.n_out;\n"

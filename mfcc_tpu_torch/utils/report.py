@@ -13,8 +13,9 @@ program in a ``torch.profiler`` trace, on the clock the profiler gives
 the card's operations, and costs one flag read when no profiler records.
 :func:`counters` holds what the program counts where the work happens:
 per batch (kept only while a profiler records) the frames the spectral
-stage computed, those a direct DFT tile computed, and those of the calls
-that handed the mixed-radix tile the rows' lengths; once per process
+stage computed, those a direct DFT tile computed, those of the calls
+that handed the mixed-radix tile the rows' lengths, and those of the calls
+whose log took the additive guard; once per process
 (always kept) the host seconds of the package's import, the kernels'
 builds and loads, and the constants built.  :func:`launched` records every kernel launch, always, apart from
 the counters: :func:`launches` reads the counts by kernel and by tile and
@@ -37,9 +38,10 @@ from torch.autograd import profiler as _profiler
 
 # Counted only while a profiler records: spectral frames computed (B x T of
 # every call, padded frames included), and those of the calls that ran a
-# direct DFT tile, or the mixed-radix tile with the rows' lengths
-# (``ops/kernels/_spectral.launch_spectral``).
-PER_BATCH = ("frames_computed", "frames_direct", "frames_bounded")
+# direct DFT tile, the mixed-radix tile with the rows' lengths, or the
+# additive log guard (``ops/kernels/_spectral.launch_spectral``).
+PER_BATCH = ("frames_computed", "frames_direct", "frames_bounded",
+             "frames_guarded")
 # Counted once per process, always: host seconds of importing the package's
 # modules (torch excluded); of the kernels' nvcc builds and loads
 # (``ops/kernels/_build.load``); of the spectral constants built and

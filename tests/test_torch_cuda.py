@@ -19,7 +19,11 @@ and the float16 reduction flag of ``backend.matmul_form``, and
 ``fused_deltas`` against its plain chain bit for bit (the cases of
 ``tests/test_torch_deltas.py``) and through the log-mel main path, and the
 mixed-radix tile's skip of the frames in Whisper's 30 s zero padding (the
-same bits, the tiles its host twin names, the ``frames_bounded`` count).
+same bits, the tiles its host twin names, the ``frames_bounded`` count),
+and NeMo's additive log guard on the fft64 tile (against the float64
+oracle, through the batch entry against the benchmark's reference and the
+plain route, the floors' bits with the guard off, the ``frames_guarded``
+count).
 All are
 marked ``cuda`` and skip without a card.
 
@@ -1810,3 +1814,163 @@ def test_power_of_two_fused_raw_ignores_row_bounds(cuda, gen):
     assert _launched(before) == {"fused_raw": 2, ("fused_raw", "fft64"): 2}
     assert torch.equal(got, want)
     assert report.counters()["frames_bounded"] == 0
+
+
+def _guard_oracle(xp: np.ndarray, kcfg, front) -> np.ndarray:
+    """The natural log of a front's band energies under NeMo's additive
+    guard, float64: log(e + log_floor)."""
+    from mfcc_tpu_torch.ops.spectrum import folded_dft
+    cos_m, sin_m = folded_dft(front.window, kcfg.n_fft)
+    T = kcfg.num_frames(xp.shape[1])
+    idx = np.arange(T)[:, None] * kcfg.hop_len + np.arange(kcfg.frame_len)
+    fr = xp.astype(np.float64)[:, idx]
+    power = (fr @ cos_m) ** 2 + (fr @ sin_m) ** 2
+    return np.log(power @ front.bank + kcfg.log_floor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame_ms,n_fft,n_mels", [
+    (25.0, 512, 128),     # NeMo's: 400 points in 512
+    (25.0, 512, 80),      # parakeet-ctc-1.1b's 80 bands
+    (32.0, 512, 64),      # a frame of the whole n_fft
+    (12.5, 256, 40),      # 200 points in 256
+    (50.0, 1024, 128),    # 800 points in 1024
+])
+def test_guarded_fft64_tile_against_the_oracle(cuda, gen, frame_ms, n_fft,
+                                              n_mels):
+    """``fused_raw``'s fft64 tile in the guard's mode on NeMo-style fronts
+    (the symmetric Hann window of frame_len points, Hz triangles), one
+    launch: within 1e-5 of the float64 oracle of log(e + 2^-24), within
+    the log-mel bound (rtol 1e-4 + atol 2e-5) of the plain chain on the
+    card, and a row that ends early gives the guard's log(2^-24) on the
+    frames past it; ``frames_guarded`` counts the call's B x T."""
+    from torch.profiler import profile
+    from mfcc_tpu_torch.config import NemoConfig
+    from mfcc_tpu_torch.models import nemo
+    cfg = NemoConfig(frame_ms=frame_ms, n_fft=n_fft, n_mels=n_mels,
+                     n_mfcc=n_mels).validate()
+    kcfg, front = cfg.feature_config(), nemo.front(cfg)
+    x = (gen.standard_normal((3, 16000)) * 0.05).astype(np.float32)
+    x[-1, 8000:] = 0.0
+    xd = torch.from_numpy(x).to(cuda)
+    report.reset()
+    before = report.launches()
+    with profile():
+        got = fused_raw.fused_features_raw(xd, kcfg, apply_dct=False,
+                                           front=front)
+        torch.cuda.synchronize()
+    assert _launched(before) == {"fused_raw": 1, ("fused_raw", "fft64"): 1}
+    assert report.counters()["frames_guarded"] == got.shape[0] * got.shape[1]
+    got = got.cpu().numpy()
+    want = _guard_oracle(x, kcfg, front)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5
+    plain = _spectral.plain_front_features(xd, kcfg, front).cpu().numpy()
+    assert (np.abs(got - plain) <= 2e-5 + 1e-4 * np.abs(plain)).all()
+    silent = -(-8000 // kcfg.hop_len)    # the first frame past the row
+    np.testing.assert_allclose(got[-1, silent:], np.log(2.0 ** -24), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_nemo_batch_through_the_kernel(cuda, gen):
+    """``nemo_log_mel_batch`` on a ragged int16 batch on the card: one
+    ``fused_raw`` launch on "fft64" with the guard, the frame counts and
+    mask exact, the padded frames zero, the values within 1e-4 of the
+    benchmark's float64 reference and of the plain route on the card
+    (``backend="torch"``), and no host sync inside the batch."""
+    from torch.profiler import ProfilerActivity, profile
+    from mfcc_tpu_torch.config import NEMO128
+    from mfcc_tpu_torch.models import nemo
+    from perfbench.reference import nemo as nemo_ref
+    import dataclasses
+    lens = np.array([160_000, 96_001, 16_000, 4_321, 320, 159], np.int64)
+    x = np.clip(gen.standard_normal((lens.size, 160_000)) * 3000, -32768,
+                32767).astype(np.int16)
+    for b, m in enumerate(lens):
+        x[b, m:] = 0
+    xd, nd = torch.from_numpy(x).to(cuda), torch.from_numpy(lens).to(cuda)
+    before = report.launches()
+    feat, flens, mask = nemo.nemo_log_mel_batch(xd, nd, NEMO128)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"fused_raw": 1, ("fused_raw", "fft64"): 1}
+    plain, pflens, pmask = nemo.nemo_log_mel_batch(xd, nd, NEMO128,
+                                                   backend="torch")
+    want, wflens, wmask = nemo_ref.features(
+        xd, lens.tolist(), dataclasses.asdict(NEMO128), False)
+    assert flens.tolist() == (lens // 160).tolist() == wflens.tolist()
+    assert torch.equal(mask, wmask) and torch.equal(pmask, mask)
+    assert not feat[~mask].any() and bool(torch.isfinite(feat).all())
+    assert float((feat.double() - want).abs().max()) <= 1e-4
+    assert float((feat - plain).abs().max()) <= 1e-4
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        nemo.nemo_log_mel_batch(xd, nd, NEMO128)
+    events = list(prof.events())
+    batch = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "feat.batch"]
+    blocking = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D")
+    syncs = [e.name for e in events if e.name in blocking
+             and any(s <= e.time_range.start <= t for s, t in batch)]
+    assert len(batch) == 1 and syncs == []
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_guard_off_keeps_the_floors_bits(cuda, gen):
+    """The guard's plumbing at its off value: ``fused_raw`` on log-mel-80
+    through a ``Front`` of the config's own window and mel matrix (guard
+    False) equals the config's own call bit for bit, as Whisper's front
+    equals a copy of it that states guard False; neither counts a guarded
+    frame, and a guard front on Whisper's mixed-radix tile is refused."""
+    from torch.profiler import profile
+    from mfcc_tpu_torch.config import LOGMEL80, WhisperConfig
+    from mfcc_tpu_torch.models import whisper
+    from mfcc_tpu_torch.ops import mel as mel_op
+    cfg = LOGMEL80.replace(deltas=False)
+    x = torch.from_numpy((gen.standard_normal((3, 24000)) * 0.1)
+                         .astype(np.float32)).to(cuda)
+    own = _spectral.Front(oracle.window_fn(cfg.window, cfg.frame_len),
+                          mel_op.mel_matrix(cfg), guard=False)
+    wcfg = WhisperConfig(chunk_s=1.0).validate()
+    wk, wf = wcfg.feature_config(), whisper.front(wcfg)
+    copy = _spectral.Front(wf.window.copy(), wf.bank.copy(), guard=False)
+    xw = framing.stft_center_batch(x[:, :16000], torch.tensor(
+        [16000, 9000, 100], device=cuda), wcfg)
+    report.reset()
+    with profile():
+        assert torch.equal(
+            fused_raw.fused_features_raw(x, cfg, apply_dct=False, front=own),
+            fused_raw.fused_features_raw(x, cfg, apply_dct=False))
+        assert torch.equal(
+            fused_raw.fused_features_raw(xw, wk, apply_dct=False, front=copy),
+            fused_raw.fused_features_raw(xw, wk, apply_dct=False, front=wf))
+        torch.cuda.synchronize()
+    assert report.counters()["frames_guarded"] == 0
+    guarded = _spectral.Front(wf.window, wf.bank, guard=True)
+    with pytest.raises(ValueError, match="guard"):
+        fused_raw.fused_features_raw(xw, wk, apply_dct=False, front=guarded)
+
+
+@pytest.mark.cuda
+def test_frames_guarded_counts_nemos_calls_alone(cuda, gen):
+    """Under a profiler, NeMo's batch counts its B x T in
+    ``frames_guarded``; log-mel-80 and Whisper's batches, run beside it,
+    count none."""
+    from torch.profiler import profile
+    from mfcc_tpu_torch.config import LOGMEL80, NEMO128, WhisperConfig
+    from mfcc_tpu_torch.models import logmel, nemo, whisper
+    x = torch.from_numpy(np.clip(gen.standard_normal((4, 32000)) * 3000,
+                                 -32768, 32767).astype(np.int16)).to(cuda)
+    n = torch.tensor([32000, 20000, 9000, 400], device=cuda)
+    report.reset()
+    with profile():
+        logmel.log_mel_batch(x, n, LOGMEL80)
+        whisper.whisper_log_mel_batch(x, n, WhisperConfig(chunk_s=2.0)
+                                      .validate())
+        feat, _, _ = nemo.nemo_log_mel_batch(x, n, NEMO128)
+        torch.cuda.synchronize()
+    c = report.counters()
+    assert c["frames_guarded"] == feat.shape[0] * feat.shape[1] == 4 * 201
+    assert c["frames_computed"] > c["frames_guarded"]

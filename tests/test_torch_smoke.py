@@ -25,7 +25,7 @@ import torch
 import numpy as np
 
 from mfcc_tpu_torch import backend, oracle
-from mfcc_tpu_torch.ops import deltas, framing, spectrum, xmath
+from mfcc_tpu_torch.ops import deltas, framing, spectrum
 from mfcc_tpu_torch.ops.kernels import (_build, _spectral, fused_deltas,
                                         fused_dit, fused_mfcc, fused_nccf,
                                         fused_raw, fused_raw_dit,
@@ -139,45 +139,48 @@ def _counting(mod, name):
         cfg = cfg.replace(compute_dtype="float32")   # the kernels read none
         args = (x, cfg, *args[2:])
         projection = kwargs.get("projection", "mel")
+        front = kwargs.get("front")
         if x.shape[0] and cfg.num_frames(x.shape[1]):
             tile = _spectral.fft_tile(cfg, kwargs.get("apply_dct", True),
                                       projection, mixed=mod is fused_raw)
             report.launched(
                 kernel, "dit" if tile == "direct" and mod is fused_dit
                 else tile, projection if mod is fused_raw_dit else None)
-            if tile == "fft64":
+            if tile == "fft64" and front is None:
                 c = cfg.replace(deltas=False)
                 if mod in (fused_dit, fused_mfcc):
                     c = c.replace(preemph=0.0)
                 return torch.from_numpy(np.stack([
                     ORACLES[projection](r, c) for r in x.double().numpy()
                 ]).astype(np.float32))
-        if kwargs.get("front") is not None:   # Whisper's: its own chain
-            return _front_chain(x, cfg, kwargs["front"], tile != "direct")
+        if front is not None:   # Whisper's and NeMo's: their own chain
+            out = _front_chain(x, cfg, front, tile != "direct")
+            if front.guard:     # as launch_spectral counts it
+                report.count("frames_guarded", out.shape[0] * out.shape[1])
+            return out
         return fn(*args, **kwargs)
 
     return wrapper
 
 
 def _front_chain(x, cfg, front, fft64: bool):
-    """A front end's spectral chain on its own window and bank (Whisper's:
-    the natural logs ``fused_raw`` gives it): the float64 oracle where the
-    config picks the fft64 flavour, else the plain route's float32 chain
-    (``models/whisper._plain_log_mel``'s products)."""
-    dt = torch.float64 if fft64 else torch.float32
+    """A front end's spectral chain on its own window and bank (Whisper's
+    and NeMo's: the natural logs ``fused_raw`` gives them, floored or with
+    the front's additive guard): the float64 oracle where the config picks
+    the fft64 flavour, else the plain route's float32 chain
+    (``_spectral.plain_front_features``)."""
+    if not fft64:
+        return _spectral.plain_front_features(x, cfg, front)
     basis = torch.from_numpy(np.concatenate(
-        spectrum.folded_dft(front.window, cfg.n_fft), axis=1)).to(dt)
-    melw = torch.from_numpy(front.bank).to(dt)
-    fr = framing.frames(x.to(dt), cfg)
+        spectrum.folded_dft(front.window, cfg.n_fft), axis=1))
+    melw = torch.from_numpy(front.bank)
+    fr = framing.frames(x.double(), cfg)
     nb = cfg.n_bins
-    if fft64:
-        spec = fr @ basis
-        power = spec[..., :nb] ** 2 + spec[..., nb:] ** 2
-        return torch.log(torch.clamp(power @ melw, min=cfg.log_floor)).float()
-    spec = backend.matmul(fr, basis, "highest")
-    re, im = spec[..., :nb], spec[..., nb:]
-    return xmath.floored_log(backend.matmul(
-        xmath.mul_add(re, re, im * im, True), melw, "highest"), cfg.log_floor)
+    spec = fr @ basis
+    e = (spec[..., :nb] ** 2 + spec[..., nb:] ** 2) @ melw
+    if front.guard:
+        return torch.log(e + cfg.log_floor).float()
+    return torch.log(torch.clamp(e, min=cfg.log_floor)).float()
 
 
 def _launch_plain(lib_fn, entry, name, x, cfg, apply_dct, preemph,
@@ -256,7 +259,8 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
                         ("BEYOND_CALLS", 2), ("ACCUM_CALLS", 2),
                         ("DELTAS_BATCH", 8), ("DELTAS_FRAMES", (40, 75)),
                         ("WHISPER_BATCH", 8), ("WHISPER_CHUNK_S", 2.0),
-                        ("WHISPER_SECONDS", (1.0, 1.2))):
+                        ("WHISPER_SECONDS", (1.0, 1.2)),
+                        ("NEMO_BATCH", 8), ("NEMO_MAX_S", 2.0)):
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(_ablate, "smi", lambda: "Fake GPU, 700.00 W")
     monkeypatch.setattr(smoke, "_sm_clock_mhz", lambda: 1980.0)
@@ -285,7 +289,7 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     kernels = smoke.run(torch, torch.device("cpu"))
 
     out = capsys.readouterr().out
-    for phase in [*map(str, range(1, 26)), "3b", "3c", "3d", "4b", "4c"]:
+    for phase in [*map(str, range(1, 27)), "3b", "3c", "3d", "4b", "4c"]:
         assert f"[{phase} " in out, phase
     # phase 25: Whisper's entry, one fused_raw launch on its mixed-radix
     # tile (the phase's own assertion), within the float64 front's bound of
@@ -315,6 +319,31 @@ def test_chip_smoke_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert line.count("of the TM 16 tiles computed; equal in every bit: "
                       "True)") == 3, line
     assert f"{tag} phase 25 passed in " in out
+    # phase 26: NeMo's entry, one fused_raw launch on its fft64 tile in the
+    # guard's mode and every frame counted guarded (the phase's own
+    # assertions), within the cell's bound of the reference, the spectral
+    # stage within the fft64 tile's of its oracle, a wrong window, a wrong
+    # bank and a clamp over the bound; the tile timed beside its yardsticks
+    tag = "[26 nemo]"
+    lines = [ln for ln in out.splitlines() if ln.startswith(f"{tag} (a) ")]
+    assert len(lines) == 2, lines
+    assert "int16 rows (the cell's longest batch) (8, 201, 128): launched " \
+        "{'fused_raw': 1} ({'fft64': 1}); frames_guarded 1608 of " \
+        "frames_computed 1608; frame counts, mask and padded zeros exact;" \
+        in lines[0], lines[0]
+    assert "(bound 0.0003); kernel vs plain route " in lines[0], lines[0]
+    assert "(each over 0.0003)" in lines[0], lines[0]
+    assert lines[1].startswith(f"{tag} (a) row 4, near-silence of +-2 LSB: ")
+    assert "(bound 1e-05), plain_front_features " in lines[1], lines[1]
+    assert "atol 2e-05 of it: True; a clamp log(max(e, g)) for the guard " \
+        in lines[1] and lines[1].endswith(" (over 1e-05)"), lines[1]
+    line = next(ln for ln in out.splitlines() if ln.startswith(f"{tag} (b) "))
+    assert "the guarded fft64 tile alone on the (8, 32400) centred rows: " \
+        in line, line
+    assert "library_ms (torch.stft, n = 512, win 400, the DFT alone) " in line
+    assert "Fake GPU, 700.00 W" in line, line
+    assert f"{tag} (c) nemo_log_mel_batch whole: " in out
+    assert f"{tag} phase 26 passed in " in out
     # phase 24: fused_deltas one launch a call (the phase's own assertion),
     # equal to its plain twin on each case, timed beside its bound; the
     # log-mel main path through it

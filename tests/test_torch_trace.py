@@ -281,16 +281,16 @@ def test_reset_keeps_the_record_and_reset_launches_clears_it(fake_card):
 
 
 def test_counters_keep_their_five_keys_around_a_launch(fake_card):
-    """The launch record is not a counter: ``counters()`` has the same six
-    keys before and after a launch, and ``reset()`` clears the same three."""
-    keys = {"frames_computed", "frames_direct", "frames_bounded", "import_s",
-            "build_s", "consts_s"}
+    """The launch record is not a counter: ``counters()`` has the same seven
+    keys before and after a launch, and ``reset()`` clears the same four."""
+    keys = {"frames_computed", "frames_direct", "frames_bounded",
+            "frames_guarded", "import_s", "build_s", "consts_s"}
     assert set(report.counters()) == keys
     fake_card("fused_mfcc", FeatureConfig(n_fft=401).validate(),
               apply_dct=True)
     assert set(report.counters()) == keys
     assert report.PER_BATCH == ("frames_computed", "frames_direct",
-                                "frames_bounded")
+                                "frames_bounded", "frames_guarded")
 
 
 def test_last_shape_is_the_shape_last_recorded():

@@ -31,7 +31,7 @@ from mfcc_tpu import config as jax_config
 from mfcc_tpu_torch import config as torch_config
 from mfcc_tpu_torch.config import WHISPER128, WhisperConfig
 from mfcc_tpu_torch.models import whisper
-from mfcc_tpu_torch.ops import framing
+from mfcc_tpu_torch.ops import framing, spectrum
 from mfcc_tpu_torch.ops.kernels import _spectral, fused_raw
 from mfcc_tpu_torch.utils import report
 from perfbench.reference import whisper as ref
@@ -127,7 +127,7 @@ def test_frames_are_torch_stft_centred_frames(chunk_s, N, lengths):
 
 def test_mel_bank_matches_hugging_face():
     fe = _hf_extractor(30)
-    np.testing.assert_allclose(whisper.constants(WHISPER128)[2],
+    np.testing.assert_allclose(whisper.front(WHISPER128).bank,
                                fe.mel_filters, rtol=0, atol=1e-15)
     np.testing.assert_allclose(
         ref.mel_filters(ref.Settings(dataclasses.asdict(WHISPER128))).T,
@@ -426,11 +426,11 @@ def test_constants_are_built_once_and_counted_in_consts_s():
     x, n = _audio(1, 8000), torch.tensor([8000])
     whisper.whisper_log_mel_batch(x, n, cfg)
     after = report.counters()["consts_s"]
-    misses = whisper._plain_constants.cache_info().misses
+    misses = _spectral.plain_front_constants.cache_info().misses
     whisper.whisper_log_mel_batch(x, n, cfg)
     assert after > before
     assert report.counters()["consts_s"] == after
-    assert whisper._plain_constants.cache_info().misses == misses
+    assert _spectral.plain_front_constants.cache_info().misses == misses
 
 
 def test_direct_tile_tables_hold_whispers_window_and_bank():
@@ -439,7 +439,8 @@ def test_direct_tile_tables_hold_whispers_window_and_bank():
     bins 0..199 in its one block and the Nyquist bin apart; the projection
     is the Hz triangle bank."""
     basis, last, melw, dctm = _spectral.direct_blocks(
-        *whisper.constants(WHISPER128), None)
+        *spectrum.folded_dft(whisper.periodic_hann(400), 400),
+        whisper.front(WHISPER128).bank, None)
     assert basis.shape == (1, 400, 512) and dctm is None
     w = torch.hann_window(400, dtype=torch.float64).numpy()
     t = np.arange(400)[:, None]
@@ -454,7 +455,7 @@ def test_direct_tile_tables_hold_whispers_window_and_bank():
     np.testing.assert_allclose(last[:, 0], w * np.cos(np.pi * np.arange(400)),
                                rtol=0, atol=1e-7)
     np.testing.assert_array_equal(
-        melw, whisper.constants(WHISPER128)[2].astype(np.float32))
+        melw, whisper.front(WHISPER128).bank.astype(np.float32))
 
 
 def test_auto_on_a_card_reaches_fused_raw_with_whispers_constants(monkeypatch):
@@ -471,7 +472,7 @@ def test_auto_on_a_card_reaches_fused_raw_with_whispers_constants(monkeypatch):
 
     def fake(xp, kcfg, *, apply_dct, front, bounds):
         calls.append((kcfg, apply_dct, front, bounds))
-        return whisper._plain_log_mel(xp, SHORT)
+        return _spectral.plain_front_features(xp, kcfg, front)
 
     monkeypatch.setattr(whisper.backend_lib, "resolve", lambda *a: "cuda")
     monkeypatch.setattr(fused_raw, "fused_features_raw", fake)
@@ -495,7 +496,7 @@ def test_auto_on_a_card_reaches_fused_raw_with_whispers_constants(monkeypatch):
     ang = 2 * np.pi * np.arange(400) / 400
     assert win.dtype == tw.dtype == np.float64 and tw.shape == (400, 2)
     np.testing.assert_array_equal(tw, np.stack([np.cos(ang), np.sin(ang)], 1))
-    bank = whisper.constants(SHORT)[2].astype(np.float32)
+    bank = whisper.front(SHORT).bank.astype(np.float32)
     assert dctm is None and band_chunks.shape == (128, 2)
     sums = np.zeros_like(bank)
     for j, (c0, c1) in enumerate(band_chunks):
